@@ -1,0 +1,472 @@
+"""RetrievalEngine: owns the device-resident corpus and runs searches
+(port of ``svs_tpu.engine.index`` — the single-device int8 main path).
+
+- **freshness** — the pack is keyed by the store's ``matrix_version`` plus
+  SQLite's ``data_version`` (an O(1) token per query) and, when the token
+  moves, the ``(version, count, max id, generation)`` fingerprint of the
+  embeddings table; a pack is reused while it matches and rebuilt from a
+  full BLOB scan otherwise;
+- **search dispatch** — the int8 prescore ladder of the reference: guarded
+  v3, keyed v2, v1, then the plain exact scan, each proposing C
+  candidates plus a boundary bound;
+- **final selection** — gather the candidates' exact f32 rows from the
+  device mirror, f32 dots, and the reference tie rule, emitting one
+  ``[B, 2n + 1]`` int32 wire per batch;
+- **candidate sizing** — the width hints of the widen-and-retry loop.
+
+Not ported yet (``ROADMAP.md``): the host route and two-pass host search,
+hedged fetches and RPC-floor probes, incremental append/delete, sidecars,
+calibration, meshes and replicas, the bf16/f32 precisions, and the
+host-finalised ``topk_with_rescore``.
+"""
+
+from __future__ import annotations
+
+import logging
+import threading
+from typing import Dict, Optional, Tuple, Union
+
+import numpy as np
+import torch
+
+from ..store.db import Database
+from ..ops.topk import exact_f32, final_select_wire, unpack_rows_tail
+from .packing import (
+    DIM_MULTIPLE,
+    LARGE_ROW_MULTIPLE,
+    ROW_MULTIPLE,
+    PackedCorpus,
+    pack_host,
+    pad_queries,
+)
+
+log = logging.getLogger(__name__)
+
+#: Initial candidate over-provisioning for the rescore stage (a starting
+#: point: the margin check widens it whenever it cannot prove coverage).
+CANDIDATE_MULTIPLIER = 4
+CANDIDATE_MIN_EXTRA = 32
+
+#: Corpora with at least this many padded rows switch the prescore wire
+#: from indices-as-f32-values to the int32 layout.
+WIDE_INDEX_MIN_ROWS = 1 << 24
+
+#: Ceiling on the [b, C, d] f32 candidate gather of one rescore step; a
+#: batch whose gather exceeds it is rescored in query slices.
+_DEVICE_GATHER_MAX_BYTES = 4_000_000_000
+
+#: Default ceiling on the f32 rescore mirror (bytes); env override
+#: ``SVS_TPU_DEVICE_RESCORE_MAX_BYTES`` as in the reference.
+_DEVICE_RESCORE_MAX_BYTES = 8_000_000_000
+
+
+def _final_from_packed(
+    packed: torch.Tensor,
+    dev_f32: torch.Tensor,
+    dev_map: Optional[torch.Tensor],
+    dev_emb: torch.Tensor,
+    queries: torch.Tensor,
+    k: int,
+    wide: bool,
+    dim: Optional[int] = None,
+) -> torch.Tensor:
+    """Exact rescore AND final top-k selection chained onto the packed
+    prescore wire (C candidates): gather the candidates' f32 rows from
+    the mirror, take true-f32 dots (one ``bmm``, TF32 off), and order them
+    with the reference tie rule.  Returns the int32 wire ``[B, 2k + 1]``:
+    top-k emb ids ++ top-k exact score bits ++ boundary-prescore bits.
+
+    Candidate rows are clamped into the mirror, as the reference's gathers
+    clamp: a starved guarded pool may name padding rows, and its bound is
+    +inf then, so those rows never pass the margin check."""
+    if dim is not None and dim != queries.shape[1]:
+        queries = queries[:, :dim]
+    rows, tail_bits = unpack_rows_tail(packed, packed.shape[1] // 2, wide)
+    rows = rows.to(torch.int64).clamp(0, dev_emb.shape[0] - 1)
+    gr = rows if dev_map is None else dev_map[rows]
+    cand = dev_f32[gr]  # [B, C, d]
+    with exact_f32():
+        exact = torch.bmm(cand, queries[:, :, None].to(torch.float32))[:, :, 0]
+    emb_of = dev_emb[rows]
+    return final_select_wire(exact, emb_of, tail_bits, k)
+
+
+class RetrievalEngine:
+    """Packs the corpus onto one CUDA device (or the CPU, for tests) and
+    runs verified-exact cosine top-k."""
+
+    #: First-try successes at a hinted width before probing one ladder
+    #: step narrower (see :meth:`initial_candidates`).
+    HINT_PROBE_STREAK = 64
+
+    def __init__(
+        self,
+        precision: str = "auto",
+        rescore: Optional[bool] = None,
+        device: Union[str, torch.device, None] = None,
+        kernel: str = "auto",
+        device_rescore: str = "auto",
+    ) -> None:
+        if precision not in ("auto", "f32", "bf16", "int8"):
+            raise ValueError(f"unknown precision: {precision!r}")
+        if device_rescore not in ("auto", "host"):
+            raise ValueError(
+                "device_rescore must be 'auto' or 'host'"
+            )
+        if kernel not in ("auto", "xla", "pallas"):
+            raise ValueError(f"unknown kernel: {kernel!r}")
+        if rescore is False:
+            raise NotImplementedError(
+                "rescore=False (raw device prescore order) is not ported to "
+                "svs_tpu_torch yet"
+            )
+        if precision in ("f32", "bf16"):
+            raise NotImplementedError(
+                f"precision {precision!r} is not ported to svs_tpu_torch yet "
+                "(its bf16/f32 kernels are still to come); use 'auto'/'int8'"
+            )
+        if device_rescore == "host":
+            raise NotImplementedError(
+                "device_rescore='host' (host-finalised rescore) is not "
+                "ported to svs_tpu_torch yet"
+            )
+        if kernel != "auto":
+            raise NotImplementedError(
+                f"kernel={kernel!r} is not ported to svs_tpu_torch yet; the "
+                "int8 path runs with kernel='auto'"
+            )
+        self.kernel = kernel
+        self.device_rescore = device_rescore
+        self.requested_precision = precision
+        #: 'auto' resolves to int8 under the verified rescore, as in the
+        #: reference (the other conditions of that rule are refused above).
+        self.precision = "int8"
+        self.rescore = True
+        self.device = torch.device("cuda" if device is None else device)
+        self._cand_hint: Dict[int, Tuple[int, int]] = {}
+        self._corpus: Optional[PackedCorpus] = None
+        self._fingerprint: Optional[Tuple[int, int, int, int]] = None
+        self._quick_token: Optional[Tuple[int, int]] = None
+        #: How each :meth:`ensure_fresh` call was satisfied: ``reuse`` =
+        #: token/fingerprint hit, ``scan`` = full BLOB rescan.
+        self.pack_events: Dict[str, int] = {"reuse": 0, "scan": 0}
+        #: Margin-check failures that widened the candidate set.
+        self.widen_retries = 0
+        self._lock = threading.Lock()
+
+    def shutdown(self) -> None:
+        """Release engine-owned resources (no background threads exist in
+        this port yet, so nothing to join)."""
+
+    def invalidate(self) -> None:
+        with self._lock:
+            self._corpus = None
+            self._fingerprint = None
+            self._quick_token = None
+
+    @property
+    def corpus(self) -> Optional[PackedCorpus]:
+        return self._corpus
+
+    def _row_multiple(self, n_rows: int) -> int:
+        """Large corpora align to the fused kernels' block multiple."""
+        return LARGE_ROW_MULTIPLE if n_rows >= LARGE_ROW_MULTIPLE else ROW_MULTIPLE
+
+    @staticmethod
+    def _store_fingerprint(db: Database) -> Tuple[int, int, int, int]:
+        with db.transaction() as tx:
+            version = tx.matrix_version()
+            count, max_id, generation = tx.embeddings_fingerprint()
+        return (version, count, max_id, generation)
+
+    def ensure_fresh(
+        self,
+        db: Database,
+        sidecar_path: object = None,
+    ) -> PackedCorpus:
+        """Return a corpus reflecting the store's current embeddings,
+        re-packing from the BLOBs if stale.  ``sidecar_path`` is accepted
+        for signature parity; sidecars are not ported yet."""
+        del sidecar_path
+        with db.transaction() as tx:
+            quick = (tx.matrix_version(), tx.data_version())
+        with self._lock:
+            if self._corpus is not None and self._quick_token == quick:
+                self.pack_events["reuse"] += 1
+                return self._corpus
+        fingerprint = self._store_fingerprint(db)
+        with self._lock:
+            if self._corpus is not None and self._fingerprint == fingerprint:
+                self._quick_token = quick
+                self.pack_events["reuse"] += 1
+                return self._corpus
+            self.pack_events["scan"] += 1
+            log.info("packing corpus from store (fingerprint %s)", fingerprint)
+            with db.transaction() as tx:
+                matrix, emb_ids = tx.build_embeddings_matrix()
+            corpus = self._pack(matrix, emb_ids, fingerprint[0])
+            self._corpus = corpus
+            self._fingerprint = fingerprint
+            self._quick_token = quick
+            return corpus
+
+    def _pack(
+        self, matrix: np.ndarray, emb_ids: np.ndarray, version: int
+    ) -> PackedCorpus:
+        from ..convert import packed_from_numpy
+        from ..utils.env import env_int
+
+        data, scales, ids, cache, row_map, n, d = pack_host(
+            matrix,
+            emb_ids,
+            self.precision,
+            row_multiple=self._row_multiple(matrix.shape[0]),
+            dim_multiple=DIM_MULTIPLE,
+        )
+        budget = env_int(
+            "SVS_TPU_DEVICE_RESCORE_MAX_BYTES", _DEVICE_RESCORE_MAX_BYTES
+        )
+        mirror = cache if 0 < cache.nbytes <= budget or n == 0 else None
+        return packed_from_numpy(
+            data,
+            scales,
+            ids,
+            n,
+            d,
+            version,
+            self.precision,
+            float(scales[:n].max()) if n > 0 else 0.0,
+            mirror,
+            row_map,
+            self.device,
+        )
+
+    # -- search ---------------------------------------------------------------
+
+    def dispatch_stats(self) -> Dict[str, float]:
+        """Dispatch counters surfaced through ``kb.stats()['dispatch']``."""
+        return {"widen_retries": float(self.widen_retries)}
+
+    def topk_final(
+        self, corpus: PackedCorpus, queries: np.ndarray, n: int, c: int
+    ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """The on-device batch pipeline: prescore (``c`` candidates) ->
+        exact f32 rescore -> final top-``n`` with the reference tie rule;
+        one query upload, one compact ``[B, 2n+1]`` fetch.
+
+        Returns ``(emb_ids int64 [B, n'], scores f32 [B, n'], boundary f32
+        [B])`` with ``n' = min(n, c, n_valid)``.  The caller proves
+        exactness via ``scores[:, -1] >= boundary + prescore_eps`` and
+        widens ``c`` on failure.
+        """
+        dev = corpus.dev_rescore
+        if dev is None or corpus.dev_emb is None:
+            raise NotImplementedError(
+                "this corpus has no device f32 mirror (over "
+                "SVS_TPU_DEVICE_RESCORE_MAX_BYTES, or emb ids past int32); "
+                "the host-finalised rescore is not ported to svs_tpu_torch yet"
+            )
+        queries = np.atleast_2d(np.asarray(queries, dtype=np.float32))
+        b = queries.shape[0]
+        c_eff = min(int(c), corpus.n_valid)
+        n_eff = min(int(n), c_eff)
+        if n_eff <= 0:
+            return (
+                np.zeros((b, 0), dtype=np.int64),
+                np.zeros((b, 0), dtype=np.float32),
+                np.full((b,), -np.inf, dtype=np.float32),
+            )
+        q_dev = torch.from_numpy(pad_queries(queries, corpus.dim_padded)).to(
+            corpus.device
+        )
+        packed_dev, wide = self._prescore_packed(corpus, q_dev, c_eff)
+        dim = corpus.dim if int(dev[0].shape[1]) == corpus.dim else None
+        step = max(1, _DEVICE_GATHER_MAX_BYTES // (c_eff * int(dev[0].shape[1]) * 4))
+        wires = [
+            _final_from_packed(
+                packed_dev[lo : lo + step],
+                dev[0],
+                dev[1],
+                corpus.dev_emb,
+                q_dev[lo : lo + step],
+                n_eff,
+                wide,
+                dim=dim,
+            )
+            for lo in range(0, b, step)
+        ]
+        arr = torch.cat(wires, dim=0).cpu().numpy()
+        emb = arr[:, :n_eff].astype(np.int64)
+        scores = np.ascontiguousarray(arr[:, n_eff : 2 * n_eff]).view(np.float32)
+        boundary = np.ascontiguousarray(arr[:, 2 * n_eff]).view(np.float32)
+        return emb, scores, boundary
+
+    def candidate_count(self, k: int) -> int:
+        """How many candidates the device should return for a final top-k."""
+        return max(k * CANDIDATE_MULTIPLIER, k + CANDIDATE_MIN_EXTRA)
+
+    def initial_candidates(self, k: int, n_valid: int) -> int:
+        """:meth:`candidate_count` with the learned per-``k`` width hint
+        applied: hints live on the widen ladder (base x 4^j) and step down
+        one rung after ``HINT_PROBE_STREAK`` first-try successes, so a
+        corpus that fails the margin at the base width pays one search per
+        batch in steady state."""
+        c = self._hinted_width(self._cand_hint, self.candidate_count(k), k)
+        return min(c, n_valid) if n_valid > 0 else c
+
+    def record_candidates(self, k: int, c_final: int, widened: bool) -> None:
+        """Feed the widen loop's outcome back into the width hint."""
+        self._record_width(
+            self._cand_hint, self.candidate_count(k), k, c_final, widened
+        )
+
+    @staticmethod
+    def _hinted_width(
+        hints: Dict[int, Tuple[int, int]], base: int, k: int
+    ) -> int:
+        hint = hints.get(k)
+        return base if hint is None else max(base, hint[0])
+
+    def _record_width(
+        self,
+        hints: Dict[int, Tuple[int, int]],
+        base: int,
+        k: int,
+        c_final: int,
+        widened: bool,
+    ) -> None:
+        if widened:
+            hints[k] = (c_final, 0)
+            return
+        hint = hints.get(k)
+        if hint is None:
+            return
+        c_hint, streak = hint
+        if streak + 1 >= self.HINT_PROBE_STREAK:
+            narrower = max(base, c_hint // 4)
+            if narrower <= base:
+                hints.pop(k, None)
+            else:
+                hints[k] = (narrower, 0)
+        else:
+            hints[k] = (c_hint, streak + 1)
+
+    def _keyed_selection_possible(
+        self, corpus: PackedCorpus, b: int, k: int
+    ) -> bool:
+        """THE dispatch condition for the keyed (v2) kernel: ``_prescore_packed``
+        consults it for dispatch and ``prescore_eps`` for the KEY_EPS term,
+        so the two never drift."""
+        from ..ops.pallas_extract import fused2_supported
+
+        return fused2_supported(
+            corpus.n_padded, corpus.dim_padded, b, min(k, corpus.n_valid)
+        )
+
+    def _guarded_selection_possible(
+        self, corpus: PackedCorpus, b: int, k: int
+    ) -> bool:
+        """Dispatch condition for the guarded (v3) kernel, on the static
+        ``GUARD_MIN_BATCH`` prior (the reference's calibration, which may
+        move the v2/v3 crossover per chip, is not ported yet).  Growing
+        ``k`` past ``GUARD_MAX_C`` turns it off, so the widen ladder
+        escalates v3 -> v2/v1 -> exact."""
+        from ..ops.pallas_extract import fused3_supported
+
+        return fused3_supported(
+            corpus.n_padded, corpus.dim_padded, b, min(k, corpus.n_valid)
+        )
+
+    def _scores_over_budget(self, corpus: PackedCorpus, b: int) -> bool:
+        """Whether a materializing exact path's ``[B, N]`` f32 score
+        matrix would exceed ``FALLBACK_SCORES_BUDGET``."""
+        from ..ops.topk import FALLBACK_SCORES_BUDGET
+
+        return b * corpus.n_padded * 4 > FALLBACK_SCORES_BUDGET
+
+    def prescore_eps(
+        self, corpus: PackedCorpus, queries: np.ndarray, k: int
+    ) -> np.ndarray:
+        """Per-query bound on ``|device prescore - exact f32 score|`` —
+        the reference's formula unchanged (see its docstring for the
+        derivation): for int8 a Hoeffding-style concentration term at
+        delta = 1e-15, a deterministic residual x residual term, a 3e-5
+        f32-accumulation cushion, plus the key grid's term when a keyed
+        (KEY_EPS) or guarded (GUARD_KEY_EPS) kernel can dispatch.
+        Callers recompute it at the CURRENT candidate count on every
+        widen retry."""
+        from ..ops.pallas_extract import GUARD_KEY_EPS, KEY_EPS
+
+        b = queries.shape[0]
+        if self._guarded_selection_possible(corpus, b, k):
+            key_eps = GUARD_KEY_EPS
+        elif self._keyed_selection_possible(corpus, b, k):
+            key_eps = KEY_EPS
+        else:
+            key_eps = 0.0
+        d = corpus.dim
+        s_d = corpus.scale_max
+        s_q = np.max(np.abs(queries), axis=1).astype(np.float64) / 127.0
+        t = np.sqrt(2.0 * np.log(2.0 / 1e-15))  # ~8.3
+        return (
+            0.5 * t * (s_q + s_d) * 1.001  # concentration terms
+            + 0.25 * d * s_q * s_d  # residual x residual (deterministic)
+            + 3e-5
+            + key_eps
+        )
+
+    def _prescore_packed(
+        self, corpus: PackedCorpus, q: torch.Tensor, k_eff: int
+    ) -> Tuple[torch.Tensor, bool]:
+        """Dispatch the int8 prescore ladder on the padded on-device
+        queries; returns the ON-DEVICE packed wire (scores ++ indices)
+        and its wire format."""
+        from ..ops.pallas_extract import (
+            FUSED_MAX_BATCH,
+            extract_supported,
+            fused_supported,
+            score_topk_fused2_int8_packed,
+            score_topk_fused3_int8_packed,
+            score_topk_fused_int8_packed,
+        )
+        from ..ops.quant import score_topk_int8_packed
+        from ..ops.topk import streaming_score_topk_packed
+
+        b = q.shape[0]
+        if b > FUSED_MAX_BATCH:
+            raise NotImplementedError(
+                f"batches above {FUSED_MAX_BATCH} queries need the two-pass "
+                "_extract kernel, which is not ported to svs_tpu_torch yet; "
+                "split the batch"
+            )
+        n_valid = corpus.n_valid
+        wide = corpus.n_padded >= WIDE_INDEX_MIN_ROWS
+        data, scales = corpus.data, corpus.row_scales
+        if self._guarded_selection_possible(corpus, b, k_eff):
+            return score_topk_fused3_int8_packed(
+                data, scales, q, n_valid, k_eff, wide=wide
+            ), wide
+        if self._keyed_selection_possible(corpus, b, k_eff):
+            return score_topk_fused2_int8_packed(
+                data, scales, q, n_valid, k_eff, wide=wide
+            ), wide
+        if not wide and fused_supported(
+            corpus.n_padded, corpus.dim_padded, b, k_eff
+        ):
+            return score_topk_fused_int8_packed(
+                data, scales, q, n_valid, k_eff
+            ), wide
+        if not wide and extract_supported(corpus.n_padded, b, k_eff):
+            # unreachable at b <= FUSED_MAX_BATCH (fused_supported covers
+            # every shape extract_supported does); kept as the reference's
+            # ladder step so a change to either predicate fails loudly
+            raise NotImplementedError(
+                "the two-pass _extract kernel is not ported to svs_tpu_torch"
+            )
+        if self._scores_over_budget(corpus, b):
+            return streaming_score_topk_packed(
+                data, q, n_valid, k_eff, row_scales=scales, wide=wide
+            ), wide
+        return score_topk_int8_packed(
+            data, scales, q, n_valid, k_eff, wide=wide
+        ), wide

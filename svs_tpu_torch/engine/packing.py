@@ -1,0 +1,231 @@
+"""Corpus packing: host float32 matrix -> device-resident int8 search
+layout (port of ``svs_tpu.engine.packing``).
+
+Padding rules are the reference's, so every kernel sees the same
+tile-aligned shapes and the pack's bytes are identical to the reference's:
+
+- rows padded up to ``row_multiple`` (256, or 16384 for large corpora)
+  with zero vectors, masked out of every search by ``n_valid``;
+- the embedding dim padded up to a multiple of 128 with zero columns;
+- corpora of 16384 rows and more are permuted by the same seeded
+  permutation, so per-subtile top-k occupancy stays binomial whatever the
+  insertion order.
+
+Only the int8 precision (what ``precision='auto'`` resolves to) is ported;
+the upload is synchronous.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+ROW_MULTIPLE = 256
+DIM_MULTIPLE = 128
+#: Large corpora pad (and the engine aligns) to the fused kernels' block
+#: multiple so the fused selection path applies.
+LARGE_ROW_MULTIPLE = 16384
+#: At this size rows are shuffled at pack time (see the module docstring).
+PERMUTE_MIN_ROWS = LARGE_ROW_MULTIPLE
+_PERMUTE_SEED = 0xC0FFEE
+
+#: Rows quantized per step of :func:`quantize_int8` (bounds the f32
+#: temporaries at ~400 MB for d = 1536).
+_QUANT_CHUNK_ROWS = 1 << 16
+
+
+def _round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+def pad_matrix(
+    matrix: np.ndarray,
+    row_multiple: int = ROW_MULTIPLE,
+    dim_multiple: int = DIM_MULTIPLE,
+) -> np.ndarray:
+    """Zero-pad an ``[n, d]`` f32 matrix to tile-aligned shape."""
+    n, d = matrix.shape
+    n_pad = max(_round_up(n, row_multiple), row_multiple)
+    d_pad = max(_round_up(d, dim_multiple), dim_multiple)
+    if (n_pad, d_pad) == (n, d):
+        return np.ascontiguousarray(matrix, dtype=np.float32)
+    out = np.zeros((n_pad, d_pad), dtype=np.float32)
+    out[:n, :d] = matrix
+    return out
+
+
+def pad_queries(queries: np.ndarray, dim_padded: int) -> np.ndarray:
+    """Zero-pad query vectors ``[B, d]`` to the corpus's padded dim."""
+    b, d = queries.shape
+    if d == dim_padded:
+        return np.ascontiguousarray(queries, dtype=np.float32)
+    out = np.zeros((b, dim_padded), dtype=np.float32)
+    out[:, :d] = queries
+    return out
+
+
+def quantize_int8(
+    matrix: np.ndarray, n_pad: int, d_pad: int
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Per-row symmetric int8 quantization on the host into a zero-padded
+    ``[n_pad, d_pad]`` array — bit-identical to ``svs_tpu``'s host
+    quantizer (``native.quantize_int8`` / its NumPy fallback) on the
+    padded matrix: zero padding never changes a row's max and quantizes to
+    0, and zero rows get the scale ``1e-30 / 127``."""
+    n, d = matrix.shape
+    q = np.zeros((n_pad, d_pad), dtype=np.int8)
+    scales = np.full(
+        (n_pad,), np.float32(1e-30) / np.float32(127.0), dtype=np.float32
+    )
+    for lo in range(0, n, _QUANT_CHUNK_ROWS):
+        rows = np.ascontiguousarray(
+            matrix[lo : lo + _QUANT_CHUNK_ROWS], dtype=np.float32
+        )
+        absmax = np.abs(rows).max(axis=1) if d else np.zeros(len(rows), np.float32)
+        s = np.maximum(absmax, np.float32(1e-30)) / np.float32(127.0)
+        scaled = rows / s[:, None]
+        np.rint(scaled, out=scaled)
+        np.clip(scaled, -127, 127, out=scaled)
+        q[lo : lo + len(rows), :d] = scaled.astype(np.int8)
+        scales[lo : lo + len(rows)] = s
+    return q, scales
+
+
+def pack_host(
+    matrix: np.ndarray,
+    emb_ids: np.ndarray,
+    precision: str,
+    row_multiple: int = ROW_MULTIPLE,
+    dim_multiple: int = DIM_MULTIPLE,
+) -> Tuple[
+    np.ndarray,
+    np.ndarray,
+    np.ndarray,
+    np.ndarray,
+    Optional[np.ndarray],
+    int,
+    int,
+]:
+    """Permute + pad + quantize on the HOST only, in NumPy.
+
+    Same contract as ``svs_tpu.engine.packing.pack_host`` and the same
+    bytes for int8: returns ``(host_data, host_scales, emb_ids,
+    cache_f32, host_row_map, n, d)``.  ``cache_f32`` is the f32 matrix in
+    its ORIGINAL (scan) order and ``host_row_map`` the pack-row -> cache
+    row map (``None`` = identity), so no permuted copy of the f32 matrix
+    is ever made.
+    """
+    assert matrix.ndim == 2
+    n, d = matrix.shape
+    if precision != "int8":
+        raise NotImplementedError(
+            f"precision {precision!r} is not ported to svs_tpu_torch yet "
+            "(only int8, what precision='auto' resolves to)"
+        )
+    emb_ids = np.asarray(emb_ids, dtype=np.int64)
+    perm = None
+    if n >= PERMUTE_MIN_ROWS:
+        perm = np.random.default_rng(_PERMUTE_SEED).permutation(n)
+        emb_ids = emb_ids[perm]
+    n_pad = max(_round_up(n, row_multiple), row_multiple)
+    d_pad = max(_round_up(d, dim_multiple), dim_multiple)
+    host_data, host_scales = quantize_int8(
+        matrix if perm is None else _PermutedRows(matrix, perm), n_pad, d_pad
+    )
+    return host_data, host_scales, emb_ids, matrix, perm, n, d
+
+
+class _PermutedRows:
+    """Row-sliceable view ``matrix[perm]`` that gathers one slice at a
+    time (the full permuted copy would double the f32 footprint)."""
+
+    def __init__(self, matrix: np.ndarray, perm: np.ndarray) -> None:
+        self._m = matrix
+        self._perm = perm
+        self.shape = matrix.shape
+
+    def __getitem__(self, sl: slice) -> np.ndarray:
+        return self._m[self._perm[sl]]
+
+
+@dataclasses.dataclass(frozen=True)
+class PackedCorpus:
+    """Device-resident packed corpus plus host-side id mapping."""
+
+    data: torch.Tensor  # [n_padded, dim_padded] int8
+    row_scales: torch.Tensor  # [n_padded] f32
+    emb_ids: np.ndarray  # [n_valid] int64: pack row -> embeddings.id
+    n_valid: int
+    dim: int  # true (unpadded) embedding dim
+    version: int  # store matrix_version this pack reflects
+    precision: str
+    #: Largest per-row quantization scale — input to the engine's sound
+    #: prescore-error bound.
+    scale_max: float = 0.0
+    #: Host f32 rows (``[n_valid, dim]``) and the pack-row -> row map
+    #: (``None`` = identity), published as one tuple.
+    host_cache: Optional[Tuple[np.ndarray, Optional[np.ndarray]]] = (
+        dataclasses.field(default=None, repr=False, compare=False)
+    )
+    #: Device mirror of the f32 rows, ``(dev_f32 [n_valid, dim], dev_row_map
+    #: int64 [n_valid] | None)``: the exact-rescore gather source.
+    dev_rescore: Optional[Tuple[torch.Tensor, Optional[torch.Tensor]]] = (
+        dataclasses.field(default=None, repr=False, compare=False)
+    )
+    #: Device mirror of ``emb_ids`` as int32 in pack-row order (the final
+    #: selection's tie-rule input).
+    dev_emb: Optional[torch.Tensor] = dataclasses.field(
+        default=None, repr=False, compare=False
+    )
+    _emb_sort: Optional[Tuple[np.ndarray, np.ndarray]] = dataclasses.field(
+        default=None, repr=False, compare=False
+    )
+
+    @property
+    def host_f32(self) -> Optional[np.ndarray]:
+        cache = self.host_cache
+        return cache[0] if cache is not None else None
+
+    @property
+    def host_row_map(self) -> Optional[np.ndarray]:
+        cache = self.host_cache
+        return cache[1] if cache is not None else None
+
+    @property
+    def device(self) -> torch.device:
+        return self.data.device
+
+    def rows_for_emb_ids(
+        self, ids: np.ndarray
+    ) -> Tuple[np.ndarray, np.ndarray]:
+        """Inverse of ``emb_ids``: ``(rows int64, present bool)`` aligned
+        with ``ids`` (absent ids map to row 0, masked off)."""
+        if self._emb_sort is None:
+            order = np.argsort(self.emb_ids, kind="stable")
+            object.__setattr__(
+                self, "_emb_sort", (self.emb_ids[order], order)
+            )
+        sorted_ids, order = self._emb_sort  # type: ignore[misc]
+        ids = np.asarray(ids, dtype=np.int64)
+        if not len(sorted_ids):
+            return np.zeros(len(ids), np.int64), np.zeros(len(ids), bool)
+        pos = np.searchsorted(sorted_ids, ids)
+        pos_c = np.minimum(pos, len(sorted_ids) - 1)
+        present = sorted_ids[pos_c] == ids
+        rows = np.where(present, order[pos_c], 0).astype(np.int64)
+        return rows, present
+
+    def emb_ids_fit_int32(self) -> bool:
+        """Whether every emb id fits the int32 device mirror."""
+        return self.n_valid == 0 or int(self.emb_ids.max()) < 2**31
+
+    @property
+    def n_padded(self) -> int:
+        return int(self.data.shape[0])
+
+    @property
+    def dim_padded(self) -> int:
+        return int(self.data.shape[1])

@@ -1,0 +1,509 @@
+"""The synchronous knowledge-base facade :class:`KB` (port of
+``svs_tpu.kb.KB``, the retrieval main path).
+
+Same constructor keywords and the same SQLite file as the reference:
+a database written by ``svs_tpu.KB`` opens here, and the reverse.
+Retrieval runs the reference pipeline on one CUDA device:
+
+1. the engine keeps the corpus packed on the device as int8 and proposes
+   an over-provisioned candidate set per query (fused int8 kernels);
+2. the candidates are rescored in exact f32 from a device mirror of the
+   stored vectors and selected with the reference tie rule;
+3. the margin check against ``prescore_eps`` proves the candidate set
+   covered the true top-n — otherwise the candidates widen 4x and the
+   search retries — and the winners are hydrated from SQLite.
+
+Not ported yet: ``AsyncKB``, metadata filters (``where=``), the graph,
+key/value and pairwise interfaces, deletes, sidecars, meshes, replicas,
+the host search route and the bf16/f32 precisions.  Where a call needs one
+of them it raises ``NotImplementedError`` naming what is missing.
+"""
+
+from __future__ import annotations
+
+import json
+import logging
+import threading
+from contextlib import contextmanager
+from pathlib import Path
+from typing import Any, Dict, Iterator, List, Optional, Tuple, Union
+
+import numpy as np
+import torch
+
+from .embeddings import make_embeddings_func
+from .embeddings.base import (
+    MAGNITUDE_TOLERANCE,
+    wrap_embeddings_func_check_magnitude,
+)
+from .engine.index import RetrievalEngine
+from .engine.packing import PackedCorpus
+from .store.blob import embedding_to_bytes
+from .store.db import Database
+from .store.tx import Tx
+from .types import DocumentAdder, DocumentId, DocumentRecord, EmbeddingFunc, Retrieval
+from .utils import (
+    EventLoopThread,
+    atomic_gzip_file,
+    chunkify,
+    delete_file_if_exists,
+    resolve_to_local_uncompressed_file,
+)
+from .utils.trace import QueryStats, phase, profiler_trace
+from .utils.typecheck import typeguard_exempt
+
+log = logging.getLogger(__name__)
+
+#: How many texts go to the embedding provider per request during bulk-add.
+BULK_EMBEDDING_CHUNK_SIZE = 200
+
+_OUT_OF_CONTEXT = "You may not call this function outside of the context manager!"
+
+
+def _sidecar_path_for(db_path: Union[str, Path]) -> Path:
+    """The reference's sidecar file next to a database (``<db>.svsx``)."""
+    return Path(f"{db_path}.svsx")
+
+
+def _reconcile_embedding_func(
+    db: Database, embedding_func: Optional[EmbeddingFunc]
+) -> EmbeddingFunc:
+    """The open-time handshake that makes a KB self-describing (the
+    reference's four cases over constructor func x params stored in the
+    DB): both known -> warn if they differ (constructor wins); only DB ->
+    rebuild from stored params; only constructor -> persist its params;
+    neither -> error (a brand-new DB needs a function)."""
+    db.check_or_set_schema_version()
+    with db.transaction() as tx:
+        try:
+            db_params = json.loads(tx.get_key("embedding_func_params"))
+        except KeyError:
+            db_params = None
+    ctor_params = getattr(embedding_func, "__embedding_func_params__", None)
+
+    if db_params is not None and ctor_params is not None:
+        if db_params != ctor_params:
+            log.warning(
+                "You are overriding the embedding function stored in the "
+                "database! Your function: %s, database function: %s",
+                ctor_params,
+                db_params,
+            )
+        assert embedding_func is not None
+    elif db_params is not None:
+        if embedding_func is not None:
+            log.warning(
+                "You are overriding the embedding function stored in the "
+                "database! Your function: *unknown params*, database "
+                "function: %s",
+                db_params,
+            )
+        else:
+            embedding_func = make_embeddings_func(db_params, trusted=False)
+    elif ctor_params is not None:
+        with db.transaction() as tx:
+            tx.set_key("embedding_func_params", json.dumps(ctor_params))
+        assert embedding_func is not None
+    else:
+        if embedding_func is not None:
+            log.warning(
+                "Cannot store this non-standard embeddings function to the "
+                "database. You'll have to pass it explicitly to all future "
+                "instantiations of this database."
+            )
+        else:
+            raise RuntimeError(
+                "No embedding function. You did not pass one to the "
+                "constructor and there is not one in the database. Pass the "
+                "embedding function on the *first* usage of a new database; "
+                "it will be stored there for later use."
+            )
+    return embedding_func
+
+
+def _open_database(
+    local_path: Union[str, Path],
+    force_fresh_db: bool,
+    embedding_func: Optional[EmbeddingFunc],
+) -> Tuple[Database, EmbeddingFunc]:
+    if force_fresh_db:
+        delete_file_if_exists(local_path)
+        delete_file_if_exists(_sidecar_path_for(local_path))
+    db = Database(local_path)
+    try:
+        return db, _reconcile_embedding_func(db, embedding_func)
+    except BaseException:
+        db.close()
+        raise
+
+
+def _prebuilt_record(
+    rec_id: Any, parent_id: Any, level: Any, text: Any, meta_str: Any
+) -> Tuple[DocumentRecord, Optional[str]]:
+    """Cacheable (record, meta_json) pair: the record's values are all
+    immutable, so hits shallow-copy it and patch meta from the JSON."""
+    return (
+        {
+            "id": rec_id,
+            "parent_id": parent_id,
+            "level": level,
+            "text": text,
+            "embedding": True,
+            "meta": None,
+        },
+        meta_str,
+    )
+
+
+class DocRowCache:
+    """Host cache of raw doc rows keyed by embedding id — hydration reads
+    through it, so repeated batches do not re-read SQLite.  Emptied
+    whenever ``Tx.change_token()`` moves (any write to the file)."""
+
+    def __init__(
+        self,
+        max_rows: Optional[int] = None,
+        max_bytes: Optional[int] = None,
+    ) -> None:
+        from .utils.env import env_int
+
+        if max_rows is None:
+            max_rows = env_int("SVS_TPU_DOC_CACHE_MAX_ROWS", 4_000_000)
+        if max_bytes is None:
+            max_bytes = env_int("SVS_TPU_DOC_CACHE_MAX_BYTES", 2_000_000_000)
+        self.max_rows = max_rows
+        self.max_bytes = max_bytes
+        self._rows: Dict[int, Tuple[DocumentRecord, Optional[str]]] = {}
+        self._token: Optional[Tuple[int, int]] = None
+        self._warm = False
+
+    def is_warm_for(self, tx: Tx) -> bool:
+        """True when the cache is prewarmed AND current."""
+        return self._warm and tx.change_token() == self._token
+
+    def prewarm(self, tx: Tx) -> int:
+        """Load every embedded document's raw row up front (one full
+        scan), within ``max_rows`` / ``max_bytes``.  Returns the number of
+        cached rows (0 = over budget, demand-filled behavior kept)."""
+        token = tx.change_token()
+        rows: Dict[int, Tuple[DocumentRecord, Optional[str]]] = {}
+        approx_bytes = 0
+        for emb_id, rec_id, parent_id, level, text, meta_str in (
+            tx.iter_doc_rows_with_emb()
+        ):
+            rows[int(emb_id)] = _prebuilt_record(
+                rec_id, parent_id, level, text, meta_str
+            )
+            approx_bytes += len(text) + (len(meta_str) if meta_str else 0)
+            if len(rows) > self.max_rows or approx_bytes > self.max_bytes:
+                return 0
+        self._rows = rows
+        self._token = token
+        self._warm = True
+        return len(rows)
+
+    def rows_for(
+        self, tx: Tx, emb_ids: List[int]
+    ) -> Dict[int, Tuple[DocumentRecord, Optional[str]]]:
+        """Prebuilt doc records for ``emb_ids``, reading through the
+        cache."""
+        token = tx.change_token()
+        if token != self._token:
+            self._rows.clear()
+            self._warm = False
+            self._token = token
+        rows = self._rows
+        if self._warm:
+            return rows
+        missing = [e for e in emb_ids if e not in rows]
+        if missing:
+            fetched = {
+                emb_id: _prebuilt_record(*raw)
+                for emb_id, raw in tx.fetch_doc_rows_by_emb_ids(
+                    missing
+                ).items()
+            }
+            if len(rows) + len(fetched) > self.max_rows:
+                out = {e: rows[e] for e in emb_ids if e in rows}
+                out.update(fetched)
+                self._rows = fetched if len(fetched) <= self.max_rows else {}
+                return out
+            rows.update(fetched)
+        return rows
+
+
+def _hydrate_and_mint(
+    tx: Tx,
+    top_emb: np.ndarray,
+    top_scores: np.ndarray,
+    doc_cache: Optional[DocRowCache],
+) -> List[List[Retrieval]]:
+    """One batched hydration for the whole batch's unique docs, then
+    fresh, never-aliasing hit dicts."""
+    emb_list: List[List[int]] = top_emb.tolist()
+    score_list: List[List[float]] = np.asarray(
+        top_scores, dtype=np.float32
+    ).tolist()
+    if doc_cache is not None and doc_cache.is_warm_for(tx):
+        row_by_emb = doc_cache.rows_for(tx, [])
+    else:
+        unique_emb = [int(e) for e in np.unique(top_emb)]
+        if doc_cache is not None:
+            row_by_emb = doc_cache.rows_for(tx, unique_emb)
+        else:
+            row_by_emb = {
+                emb_id: _prebuilt_record(*raw)
+                for emb_id, raw in tx.fetch_doc_rows_by_emb_ids(
+                    unique_emb
+                ).items()
+            }
+    loads = json.loads
+    results: List[List[Retrieval]] = []
+    for scores_b, embs_b in zip(score_list, emb_list):
+        hits: List[Retrieval] = []
+        for score, emb_id in zip(scores_b, embs_b):
+            rec, meta_str = row_by_emb[emb_id]
+            doc = dict(rec)
+            if meta_str is not None:
+                doc["meta"] = loads(meta_str)
+            hits.append({"score": score, "doc": doc})  # type: ignore[typeddict-item]
+        results.append(hits)
+    return results
+
+
+def _finalize_device_final(
+    tx: Tx,
+    corpus: PackedCorpus,
+    emb: np.ndarray,
+    scores: np.ndarray,
+    boundary: np.ndarray,
+    c_count: int,
+    pre_eps: Optional[np.ndarray],
+    doc_cache: Optional[DocRowCache] = None,
+) -> Optional[List[List[Retrieval]]]:
+    """Finalize the on-device pipeline's result: the device already
+    rescored in exact f32 and selected with the reference tie rule, so the
+    host's only math is the margin proof — if any query's weakest returned
+    score does not clear the boundary prescore by its error bound, return
+    ``None`` so the caller widens the candidates."""
+    if emb.size == 0:
+        return [[] for _ in range(emb.shape[0])]
+    verify = pre_eps is not None and c_count < corpus.n_valid
+    if verify:
+        v_k = scores[:, -1]
+        if np.any(v_k < boundary + np.asarray(pre_eps)):
+            return None
+    return _hydrate_and_mint(tx, emb, scores, doc_cache)
+
+
+def _resolve_device(device: Any) -> torch.device:
+    """``device=None`` means the CUDA device — never a silent CPU run."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "svs_tpu_torch.KB runs on a CUDA device and none is "
+                "available; pass device='cpu' explicitly for a CPU run"
+            )
+        return torch.device("cuda")
+    return torch.device(device)
+
+
+class KB:
+    """Synchronous knowledge base: same constructor and retrieval surface
+    as ``svs_tpu.KB``, on one CUDA device (``device='cpu'`` runs the
+    kernels' plain versions, for tests)."""
+
+    def __init__(
+        self,
+        local_path_or_remote_url: Union[Path, str],
+        embedding_func: Optional[EmbeddingFunc] = None,
+        force_fresh_db: bool = False,
+        *,
+        precision: str = "auto",
+        rescore: Optional[bool] = None,
+        mesh: Optional[Any] = None,
+        device: Optional[Any] = None,
+        sidecar: Union[bool, str] = "auto",
+        kernel: str = "auto",
+        device_rescore: str = "auto",
+        replicas: Optional[Any] = None,
+    ) -> None:
+        if mesh is not None:
+            raise NotImplementedError(
+                "mesh= (sharded corpora) is not ported to svs_tpu_torch yet"
+            )
+        if replicas is not None:
+            raise NotImplementedError(
+                "replicas= is not ported to svs_tpu_torch yet"
+            )
+        if sidecar is True:
+            raise NotImplementedError(
+                "sidecar files are not ported to svs_tpu_torch yet; pass "
+                "sidecar='auto' or False"
+            )
+        self.local_path_or_remote_url = local_path_or_remote_url
+        self.embedding_func = embedding_func
+        self.embedding_func_orig = embedding_func
+        self.engine = RetrievalEngine(
+            precision=precision,
+            rescore=rescore,
+            device=_resolve_device(device),
+            kernel=kernel,
+            device_rescore=device_rescore,
+        )
+        self.sidecar = sidecar
+        self._stats = QueryStats()
+        self._doc_cache = DocRowCache()
+        self._lock = threading.Lock()
+        self._loop = EventLoopThread()
+        self.db: Optional[Database] = None
+        try:
+            local_path = self._loop.run(
+                resolve_to_local_uncompressed_file(local_path_or_remote_url)
+            )
+            self.db, self.embedding_func = _open_database(
+                local_path, force_fresh_db, embedding_func
+            )
+        except BaseException:
+            self._loop.stop()
+            raise
+
+    def stats(self) -> Dict[str, Dict[str, float]]:
+        """Rolling per-phase timing stats plus ``pack_events`` (how each
+        freshness check was satisfied) and ``dispatch`` counters."""
+        out = self._stats.snapshot()
+        out["pack_events"] = {
+            k: float(v) for k, v in self.engine.pack_events.items()
+        }
+        out["dispatch"] = self.engine.dispatch_stats()
+        return out
+
+    def _require_db(self) -> Database:
+        if self.db is None:
+            raise RuntimeError("KB is closed")
+        return self.db
+
+    def _ensure_engine_fresh(self) -> PackedCorpus:
+        return self.engine.ensure_fresh(self._require_db())
+
+    def close(self, vacuum: bool = False, also_gzip: bool = False) -> None:
+        """Close the database (optionally VACUUM it and publish a ``.gz``
+        copy) and drop the device corpus."""
+        self._loop.stop()
+        with self._lock:
+            if self.db is None:
+                return
+            db = self.db
+            if vacuum:
+                db.vacuum()
+            db.close()
+            path = db.path
+            self.db = None
+            self.embedding_func = self.embedding_func_orig
+            self.engine.invalidate()
+            self.engine.shutdown()
+            if also_gzip:
+                atomic_gzip_file(path, f"{path}.gz")
+
+    def _checked_embedding_func(self) -> EmbeddingFunc:
+        assert self.embedding_func  # true unless closed
+        return wrap_embeddings_func_check_magnitude(
+            self.embedding_func, MAGNITUDE_TOLERANCE
+        )
+
+    def _embed(self, texts: List[str]) -> List[List[float]]:
+        return self._loop.run(self._checked_embedding_func()(texts))
+
+    def _embed_to_bytes(self, texts: List[str]) -> List[bytes]:
+        return [embedding_to_bytes(v) for v in self._embed(texts)]
+
+    @typeguard_exempt
+    @contextmanager
+    def bulk_add_docs(self) -> Iterator[DocumentAdder]:
+        with self._lock:
+            db = self._require_db()
+            with db.transaction() as tx:
+                in_context = True
+                pending: List[Tuple[DocumentId, str]] = []
+
+                def add_doc(
+                    text: str,
+                    parent_id: Optional[DocumentId] = None,
+                    meta: Optional[Dict[str, Any]] = None,
+                    no_embedding: bool = False,
+                ) -> DocumentId:
+                    assert in_context, _OUT_OF_CONTEXT
+                    doc_id = tx.add_doc(text, parent_id, meta, None)
+                    if not no_embedding:
+                        pending.append((doc_id, text))
+                    return doc_id
+
+                try:
+                    yield add_doc
+                finally:
+                    in_context = False
+                for chunk in chunkify(pending, BULK_EMBEDDING_CHUNK_SIZE):
+                    blobs = self._embed_to_bytes([t for _, t in chunk])
+                    for (doc_id, _), blob in zip(chunk, blobs):
+                        tx.set_doc_embedding(doc_id, blob, skip_check_old=True)
+                if pending:
+                    tx.bump_matrix_version()
+
+    def retrieve(self, query: str, n: int, where: None = None) -> List[Retrieval]:
+        return self.retrieve_batch([query], n, where=where)[0]
+
+    def retrieve_batch(
+        self, queries: List[str], n: int, where: None = None
+    ) -> List[List[Retrieval]]:
+        """Top-``n`` documents for every query, exact: scores are f32 dots
+        of the stored vectors, ties break to the larger embedding id."""
+        if where is not None:
+            raise NotImplementedError(
+                "where= (filtered retrieval) is not ported to svs_tpu_torch yet"
+            )
+        if not queries:
+            return []
+        log.info("retrieving top %d for %d queries", n, len(queries))
+        with phase("pack", self._stats), self._lock:
+            corpus = self._ensure_engine_fresh()
+        if corpus.n_valid == 0 or n <= 0:
+            return [[] for _ in queries]
+        with phase("embed", self._stats):
+            vectors = np.asarray(self._embed(queries), dtype=np.float32)
+        return self._search_hydrated(corpus, vectors, n)
+
+    def _search_hydrated(
+        self, corpus: PackedCorpus, vectors: np.ndarray, n: int
+    ) -> List[List[Retrieval]]:
+        c = c0 = self.engine.initial_candidates(n, corpus.n_valid)
+        while True:
+            # recomputed each retry: the v2/v3 dispatch (and its key-eps
+            # term) depends on the current c
+            pre_eps = self.engine.prescore_eps(corpus, vectors, c)
+            with phase("device_search", self._stats), profiler_trace("retrieve"):
+                emb, scores, boundary = self.engine.topk_final(
+                    corpus, vectors, n, c
+                )
+            with phase("finalize", self._stats), self._lock:
+                db = self._require_db()
+                with db.transaction() as tx:
+                    results = _finalize_device_final(
+                        tx, corpus, emb, scores, boundary,
+                        min(c, corpus.n_valid), pre_eps,
+                        doc_cache=self._doc_cache,
+                    )
+            if results is not None:
+                self.engine.record_candidates(n, c, widened=(c != c0))
+                return results
+            self.engine.widen_retries += 1
+            c = min(corpus.n_valid, c * 4)
+            log.info(
+                "rescore margin insufficient at the candidate boundary; "
+                "widening device candidates to %d and retrying", c,
+            )
+
+    def __len__(self) -> int:
+        with self._lock:
+            db = self._require_db()
+            with db.transaction() as tx:
+                return tx.count_docs()

@@ -1,0 +1,116 @@
+"""Build and load the port's hand-written CUDA kernels (``csrc/*.cu``).
+
+The sources compile with ``nvcc`` for Hopper (``sm_90a``) into one shared
+library with a plain C interface, loaded through ``ctypes``.  The build
+happens at first use, from the sources in the package and nothing else,
+into ``build/svs_tpu_torch/<hash>/`` beside the package (keyed by a hash of
+the sources and flags, so an edited kernel never loads a stale build).
+Nothing here runs at import: the CPU never builds or loads the library.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+import time
+from pathlib import Path
+from typing import Optional
+
+_CSRC = Path(__file__).resolve().parent.parent / "csrc"
+_BUILD_ROOT = Path(__file__).resolve().parent.parent.parent / "build" / "svs_tpu_torch"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+)
+
+_lib: Optional[ctypes.CDLL] = None
+_lock = threading.Lock()
+#: Seconds the last build took (0.0 when the library came from the cache).
+build_seconds = 0.0
+
+
+def _sources() -> list[Path]:
+    return sorted(
+        p for p in _CSRC.iterdir() if p.suffix in (".cu", ".cuh")
+    )
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    for home in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if home and (Path(home) / "bin" / "nvcc").exists():
+            return str(Path(home) / "bin" / "nvcc")
+    raise RuntimeError(
+        "nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin): the "
+        "svs_tpu_torch CUDA kernels are built from source at first use"
+    )
+
+
+def library_path() -> Path:
+    """Where the library for the current sources lives (built or not)."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return _BUILD_ROOT / h.hexdigest()[:16] / "libsvs_kernels.so"
+
+
+def _build(target: Path) -> None:
+    global build_seconds
+    target.parent.mkdir(parents=True, exist_ok=True)
+    cu = [str(p) for p in _sources() if p.suffix == ".cu"]
+    fd, tmp = tempfile.mkstemp(
+        suffix=".so", prefix=".build-", dir=str(target.parent)
+    )
+    os.close(fd)
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run(
+            [_nvcc(), *NVCC_FLAGS, "-I", str(_CSRC), "-o", tmp, *cu],
+            capture_output=True,
+            text=True,
+        )
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
+            )
+        os.replace(tmp, target)  # atomic: a concurrent build never sees half a file
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    build_seconds = time.perf_counter() - t0
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, building it first if needed."""
+    global _lib
+    if _lib is not None:
+        return _lib
+    with _lock:
+        if _lib is None:
+            path = library_path()
+            if not path.exists():
+                _build(path)
+            lib = ctypes.CDLL(str(path))
+            vp, i = ctypes.c_void_p, ctypes.c_int
+            lib.svs_fused_int8.argtypes = [
+                i, vp, vp, vp, vp, i, i, i, i, vp, vp, vp
+            ]
+            lib.svs_fused_int8.restype = i
+            lib.svs_reduce_keys.argtypes = [vp, i, i, i, vp, vp]
+            lib.svs_reduce_keys.restype = i
+            _lib = lib
+    return _lib
+
+
+def check(rc: int, what: str) -> None:
+    """Raise on a nonzero ``cudaError_t`` returned by a launcher."""
+    if rc != 0:
+        raise RuntimeError(f"{what}: CUDA launch failed (cudaError_t {rc})")

@@ -1,0 +1,792 @@
+"""Fused int8 scoring + tile extraction: the retrieval main path's
+selection kernels (port of ``svs_tpu.ops.pallas_extract``).
+
+The module keeps the reference's name so every constant, key encoding and
+finish sits where a reader of ``svs_tpu`` expects it.  The four kernels of
+the int8 main path are CUDA C++ (``svs_tpu_torch/csrc``):
+
+- ``_fused3_extract_int8`` — guarded v3 (``_fused3_int8_kernel``);
+- ``_fused2_extract_int8`` — keyed v2 (``_fused2_int8_kernel``);
+- ``_fused_extract_int8`` — v1 values + indices (``_fused_int8_kernel``);
+- ``_reduce_keys`` — pass-2 reduction (``_make_reduce_kernel``).
+
+Each wrapper launches its kernel for CUDA tensors (or raises) and takes
+its plain-torch twin (``*_plain``, one torch op per JAX op, so nothing is
+contracted) only for CPU tensors.  Each wrapper counts its launches in a
+plain int attribute, ``<wrapper>.launches``.  The finishes around the
+kernels (merge, decode, coverage proof, bound) are plain torch, as the
+reference leaves them to XLA.
+
+Every key encoding, bias, grid, subtile width, H value and dead marker is
+the reference's, so ``KEY_EPS``, ``GUARD_KEY_EPS`` and the engine's
+``prescore_eps`` carry over unchanged, and so do their soundness proofs
+(see the comments in ``svs_tpu/ops/pallas_extract.py``).
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Tuple
+
+import torch
+
+from .quant import quantize_rows_int8, score_topk_int8
+from .topk import (
+    FALLBACK_SCORES_BUDGET,
+    NEG_INF,
+    int8_dot,
+    pack_vals_idx,
+    score_topk,
+    streaming_score_topk,
+    top_k,
+)
+
+
+def _exact_fallback(
+    docs: torch.Tensor,
+    queries: torch.Tensor,
+    n_valid: int,
+    k: int,
+    row_scales: "torch.Tensor | None" = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The exact path behind the keyed kernels' coverage check:
+    materializing while the ``[B, N]`` f32 score matrix fits
+    ``FALLBACK_SCORES_BUDGET``, streaming past it."""
+    if queries.shape[0] * docs.shape[0] * 4 > FALLBACK_SCORES_BUDGET:
+        return streaming_score_topk(
+            docs, queries, n_valid, k, row_scales=row_scales
+        )
+    if row_scales is not None:
+        return score_topk_int8(docs, row_scales, queries, n_valid, k)
+    return score_topk(docs, queries, n_valid, k)
+
+
+#: Docs per extraction subtile of the two-pass ``_extract`` (not ported).
+SUBTILE = 1024
+#: Winners extracted per subtile.
+EXTRACT_H = 8
+#: Docs per two-pass grid step.
+BLOCK_N = 16 * SUBTILE
+#: Query rows per grid step: batches pad to a multiple of this.
+QBLOCK = 8
+
+
+def extract_supported(n: int, b: int, k: int) -> bool:
+    """Shapes of the two-pass ``_extract`` kernel (reference predicate;
+    the kernel itself is not ported yet — the engine raises where it
+    would dispatch)."""
+    del b
+    t = n // SUBTILE
+    return n % BLOCK_N == 0 and n < (1 << 24) and t >= 2 and k <= t * EXTRACT_H
+
+
+def _verified_merge(
+    ev: torch.Tensor,
+    ei: torch.Tensor,
+    k: int,
+    fallback: "Callable[[], Tuple[torch.Tensor, torch.Tensor]]",
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Merge the per-subtile winners with one ~k-wide top-k and prove
+    coverage: a subtile can hide a true top-k element only if its H-th
+    value still beats the merged k-th value; any such subtile routes the
+    whole batch through ``fallback``.  Returns ``(vals f32, idx int32)``."""
+    vals, pos = top_k(ev, k)
+    idx = torch.gather(ei, 1, pos).to(torch.int32)
+    v_k = vals[:, k - 1 : k]
+    tails = ev[:, EXTRACT_H - 1 :: EXTRACT_H]
+    if bool(torch.any(tails > v_k)):
+        fv, fi = fallback()
+        return fv.to(torch.float32), fi
+    return vals, idx
+
+
+# --- fused matmul + extraction ---------------------------------------------
+
+#: Fused-kernel subtile (v1/v2): 16 subtiles x H=8 winners = 128 lanes.
+FUSED_SUBTILE = 512
+#: Docs per fused block.
+FUSED_BLOCK_N = 16 * FUSED_SUBTILE
+#: Contraction chunk (the pack pads the dim to a multiple).
+DIM_CHUNK = 128
+#: int8 contraction chunk of the reference kernels (a TPU grid detail;
+#: the CUDA kernel stages 64-byte slices of every row instead).
+DIM_CHUNK_INT8 = 256
+#: Batch ceiling of the fused kernels.
+FUSED_MAX_BATCH = 256
+
+_FUSED_OUT_LANES = (FUSED_BLOCK_N // FUSED_SUBTILE) * EXTRACT_H  # 128
+
+
+def fused_supported(n: int, d: int, b: int, k: int) -> bool:
+    t = n // FUSED_SUBTILE
+    return (
+        n % FUSED_BLOCK_N == 0
+        and n < (1 << 24)
+        and d % DIM_CHUNK == 0
+        and t >= 2
+        and k <= t * EXTRACT_H
+        and b <= FUSED_MAX_BATCH
+    )
+
+
+def _check_fused_args(
+    q_docs: torch.Tensor,
+    row_scales: torch.Tensor,
+    q_int8: torch.Tensor,
+    q_scales: torch.Tensor,
+    n_valid: int,
+) -> Tuple[int, int, int]:
+    """Validate a fused kernel's operands (the kernel trusts them)."""
+    n, d = q_docs.shape
+    b = q_int8.shape[0]
+    dev = q_docs.device
+    for name, t, dtype, shape in (
+        ("q_docs", q_docs, torch.int8, (n, d)),
+        ("row_scales", row_scales, torch.float32, (n,)),
+        ("q_int8", q_int8, torch.int8, (b, d)),
+        ("q_scales", q_scales, torch.float32, (b,)),
+    ):
+        if t.device != dev or t.dtype != dtype or tuple(t.shape) != shape:
+            raise ValueError(
+                f"{name}: expected {dtype} {shape} on {dev}, got "
+                f"{t.dtype} {tuple(t.shape)} on {t.device}"
+            )
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if q_docs.data_ptr() % 16 or q_int8.data_ptr() % 16:
+        raise ValueError("q_docs and q_int8 must be 16-byte aligned")
+    if n % FUSED_BLOCK_N or d % DIM_CHUNK or not 0 < b <= FUSED_MAX_BATCH:
+        raise ValueError(
+            f"fused int8 kernels need n % {FUSED_BLOCK_N} == 0, d % "
+            f"{DIM_CHUNK} == 0 and 0 < b <= {FUSED_MAX_BATCH}; got "
+            f"n={n}, d={d}, b={b}"
+        )
+    if not 0 <= n_valid <= n:
+        raise ValueError(f"n_valid={n_valid} outside [0, {n}]")
+    return n, d, b
+
+
+def _launch_fused(
+    mode: int,
+    q_docs: torch.Tensor,
+    row_scales: torch.Tensor,
+    q_int8: torch.Tensor,
+    q_scales: torch.Tensor,
+    n_valid: int,
+    out0: torch.Tensor,
+    out1: "torch.Tensor | None",
+) -> None:
+    from . import kernels
+
+    n, d, b = _check_fused_args(q_docs, row_scales, q_int8, q_scales, n_valid)
+    stream = torch.cuda.current_stream(q_docs.device).cuda_stream
+    rc = kernels.library().svs_fused_int8(
+        mode,
+        q_int8.data_ptr(),
+        q_scales.data_ptr(),
+        q_docs.data_ptr(),
+        row_scales.data_ptr(),
+        b,
+        n,
+        d,
+        int(n_valid),
+        out0.data_ptr(),
+        None if out1 is None else out1.data_ptr(),
+        stream,
+    )
+    kernels.check(rc, f"fused int8 kernel (mode {mode})")
+
+
+def _scores_int8(
+    q_docs: torch.Tensor,
+    row_scales: torch.Tensor,
+    q_int8: torch.Tensor,
+    q_scales: torch.Tensor,
+) -> torch.Tensor:
+    """``acc.astype(f32) * rs * qs`` over the whole corpus, in the
+    reference's order (two separately rounded products)."""
+    acc = int8_dot(q_int8, q_docs)
+    return acc.to(torch.float32) * row_scales[None, :] * q_scales[:, None]
+
+
+def _fused_extract_int8_plain(
+    q_docs: torch.Tensor,
+    row_scales: torch.Tensor,
+    q_int8: torch.Tensor,
+    q_scales: torch.Tensor,
+    n_valid: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain-torch twin of ``_fused_int8_kernel``: per 512-doc subtile,
+    the top-8 scores and their global row (as f32), ties to the highest
+    row, rows >= ``n_valid`` masked to -inf."""
+    n = q_docs.shape[0]
+    b = q_int8.shape[0]
+    t = n // FUSED_SUBTILE
+    sub = _scores_int8(q_docs, row_scales, q_int8, q_scales).view(
+        b, t, FUSED_SUBTILE
+    )
+    gidx = torch.arange(n, device=q_docs.device).to(torch.float32).view(
+        1, t, FUSED_SUBTILE
+    )
+    sub = torch.where(gidx < float(n_valid), sub, NEG_INF)
+    vals, idxs = [], []
+    for _ in range(EXTRACT_H):
+        mval = sub.amax(dim=2, keepdim=True)
+        midx = torch.where(sub == mval, gidx, -1.0).amax(dim=2, keepdim=True)
+        vals.append(mval)
+        idxs.append(midx)
+        sub = torch.where(gidx == midx, NEG_INF, sub)
+    return (
+        torch.cat(vals, dim=2).reshape(b, t * EXTRACT_H),
+        torch.cat(idxs, dim=2).reshape(b, t * EXTRACT_H),
+    )
+
+
+def _fused_extract_int8(
+    q_docs: torch.Tensor,
+    row_scales: torch.Tensor,
+    q_int8: torch.Tensor,
+    q_scales: torch.Tensor,
+    n_valid: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """v1 int8 matmul + per-subtile top-8 values and f32 indices
+    ``[B, (N/512)*8]`` each (CUDA kernel mode 1)."""
+    if not q_docs.is_cuda:
+        return _fused_extract_int8_plain(
+            q_docs, row_scales, q_int8, q_scales, n_valid
+        )
+    n, b = q_docs.shape[0], q_int8.shape[0]
+    shape = (b, (n // FUSED_SUBTILE) * EXTRACT_H)
+    vals = torch.empty(shape, dtype=torch.float32, device=q_docs.device)
+    idx = torch.empty(shape, dtype=torch.float32, device=q_docs.device)
+    _launch_fused(1, q_docs, row_scales, q_int8, q_scales, n_valid, vals, idx)
+    _fused_extract_int8.launches += 1  # type: ignore[attr-defined]
+    return vals, idx
+
+
+_fused_extract_int8.launches = 0  # type: ignore[attr-defined]
+
+
+def score_topk_fused_int8_packed(
+    q_docs: torch.Tensor,
+    row_scales: torch.Tensor,
+    queries: torch.Tensor,
+    n_valid: int,
+    k: int,
+    wide: bool = False,
+) -> torch.Tensor:
+    """int8 v1: scoring + selection + verified merge + packing.
+    Requires ``fused_supported``."""
+    _, d = q_docs.shape
+    b = queries.shape[0]
+    b_pad = max(QBLOCK, ((b + QBLOCK - 1) // QBLOCK) * QBLOCK)
+    if b_pad != b:
+        queries = torch.cat(
+            [queries, queries.new_zeros((b_pad - b, d))], dim=0
+        )
+    q_int8, q_scales = quantize_rows_int8(queries)
+    ev, ei = _fused_extract_int8(q_docs, row_scales, q_int8, q_scales, n_valid)
+    vals, idx = _verified_merge(
+        ev,
+        ei,
+        k,
+        lambda: _exact_fallback(
+            q_docs, queries, n_valid, k, row_scales=row_scales
+        ),
+    )
+    return pack_vals_idx(vals[:b], idx[:b], wide=wide)
+
+
+# --- keyed fused kernels (v2): packed-key extraction + staged merge --------
+
+#: Score quantization grid for packed keys.
+KEY_QSCALE = float(1 << 13)
+#: Bias making cosine scores strictly positive pre-quantization.
+KEY_BIAS = 1.0625
+#: Sound bound on (true score - decoded key value): one 2^-13 grid step
+#: plus pack rounding.  Also the coverage-check slack.
+KEY_EPS = 2.0**-12
+_KEY_LANES = float(FUSED_SUBTILE)  # lane-field width in pass-1 keys
+#: Dead-lane / cleared-lane marker: exactly -2^24.
+KEY_DEAD = -float(1 << 24)
+#: Rounding horizon for the range guards: a LIVE key at or past this
+#: value has lost lane bits and must route to the exact fallback.
+KEY_HORIZON = float((1 << 24) - 512)
+
+#: Pass-2 reduction: lanes per input group and lanes per grid step.
+REDUCE_GROUP = 128
+REDUCE_BLOCK = 2048
+
+
+def _key_vals(keys: torch.Tensor) -> torch.Tensor:
+    """Decode packed keys to quantized scores (within KEY_EPS below the
+    true score); works for pass-1 and pass-2 keys alike."""
+    vq = torch.div(keys.to(torch.int32), 512, rounding_mode="floor")
+    return vq.to(torch.float32) / KEY_QSCALE - KEY_BIAS
+
+
+def _extract_keys(
+    keys: torch.Tensor, h: int, dead: float = KEY_DEAD
+) -> torch.Tensor:
+    """``h`` rounds of max-and-clear over the last axis — every entry
+    equal to the round's max is cleared to ``dead``, exactly as the
+    reference kernels do."""
+    out = []
+    for _ in range(h):
+        mkey = keys.amax(dim=-1, keepdim=True)
+        out.append(mkey)
+        keys = torch.where(keys == mkey, dead, keys)
+    return torch.cat(out, dim=-1)
+
+
+def _live_lanes(n: int, sub: int, n_valid: int, device: torch.device) -> torch.Tensor:
+    """Per-subtile live-lane count ``clip(n_valid - start, 0, sub)`` as
+    f32, computed on int64 starts (exact at any corpus size)."""
+    start = torch.arange(0, n, sub, device=device)
+    return (n_valid - start).clamp(0, sub).to(torch.float32)
+
+
+def _fused2_extract_int8_plain(
+    q_docs: torch.Tensor,
+    row_scales: torch.Tensor,
+    q_int8: torch.Tensor,
+    q_scales: torch.Tensor,
+    n_valid: int,
+) -> torch.Tensor:
+    """Plain-torch twin of ``_fused2_int8_kernel``: per 512-doc subtile,
+    the top-8 keys ``floor((s + KEY_BIAS) * KEY_QSCALE) * 512 + lane``,
+    dead lanes at ``KEY_DEAD``."""
+    n = q_docs.shape[0]
+    b = q_int8.shape[0]
+    t = n // FUSED_SUBTILE
+    sub = _scores_int8(q_docs, row_scales, q_int8, q_scales).view(
+        b, t, FUSED_SUBTILE
+    )
+    lane = torch.arange(FUSED_SUBTILE, device=q_docs.device).to(torch.float32)
+    keys = torch.floor((sub + KEY_BIAS) * KEY_QSCALE) * _KEY_LANES + lane
+    live = _live_lanes(n, FUSED_SUBTILE, n_valid, q_docs.device)
+    keys = torch.where(lane < live[:, None], keys, KEY_DEAD)
+    return _extract_keys(keys, EXTRACT_H).reshape(b, t * EXTRACT_H)
+
+
+def _fused2_extract_int8(
+    q_docs: torch.Tensor,
+    row_scales: torch.Tensor,
+    q_int8: torch.Tensor,
+    q_scales: torch.Tensor,
+    n_valid: int,
+) -> torch.Tensor:
+    """v2 int8 matmul + keyed per-subtile top-8: raw packed keys
+    ``[B, (N/512)*8]`` (CUDA kernel mode 2)."""
+    if not q_docs.is_cuda:
+        return _fused2_extract_int8_plain(
+            q_docs, row_scales, q_int8, q_scales, n_valid
+        )
+    n, b = q_docs.shape[0], q_int8.shape[0]
+    out = torch.empty(
+        (b, (n // FUSED_SUBTILE) * EXTRACT_H),
+        dtype=torch.float32,
+        device=q_docs.device,
+    )
+    _launch_fused(2, q_docs, row_scales, q_int8, q_scales, n_valid, out, None)
+    _fused2_extract_int8.launches += 1  # type: ignore[attr-defined]
+    return out
+
+
+_fused2_extract_int8.launches = 0  # type: ignore[attr-defined]
+
+
+def _reduce_keys_plain(keys: torch.Tensor, h2: int) -> torch.Tensor:
+    """Plain-torch twin of ``_make_reduce_kernel(h2)``: re-key every
+    128-lane group by position, ``floor(k / 128) * 128 + pos``, and take
+    its top-``h2`` by iterated max-and-clear (clear value -2^24)."""
+    b, l1 = keys.shape
+    groups = l1 // REDUCE_GROUP
+    lane = torch.arange(REDUCE_GROUP, device=keys.device).to(torch.float32)
+    grp = keys.view(b, groups, REDUCE_GROUP)
+    k2 = torch.floor(grp * (1.0 / float(REDUCE_GROUP))) * float(REDUCE_GROUP) + lane
+    return _extract_keys(k2, h2, dead=-(2.0**24)).reshape(b, groups * h2)
+
+
+def _reduce_keys(keys: torch.Tensor, h2: int) -> torch.Tensor:
+    """Top-``h2`` (as re-packed keys) of every 128-lane group of ``keys``.
+    Requires ``keys.shape[1] % REDUCE_BLOCK == 0`` and ``h2 % 8 == 0``."""
+    b, l1 = keys.shape
+    if l1 % REDUCE_BLOCK or h2 % 8 or h2 <= 0:
+        raise ValueError(f"_reduce_keys: bad shape l1={l1}, h2={h2}")
+    if not keys.is_cuda:
+        return _reduce_keys_plain(keys, h2)
+    from . import kernels
+
+    if keys.dtype != torch.float32 or not keys.is_contiguous():
+        raise ValueError("_reduce_keys needs contiguous f32 keys")
+    out = torch.empty(
+        (b, (l1 // REDUCE_GROUP) * h2), dtype=torch.float32, device=keys.device
+    )
+    stream = torch.cuda.current_stream(keys.device).cuda_stream
+    rc = kernels.library().svs_reduce_keys(
+        keys.data_ptr(), b, l1, h2, out.data_ptr(), stream
+    )
+    kernels.check(rc, "reduce_keys kernel")
+    _reduce_keys.launches += 1  # type: ignore[attr-defined]
+    return out
+
+
+_reduce_keys.launches = 0  # type: ignore[attr-defined]
+
+
+def _reduce_h2(n: int, k: int) -> int:
+    """Pass-2 winners kept per 128-lane group: Poisson mean ``k`` over the
+    ``n/FUSED_BLOCK_N`` groups plus four sigma plus slack, rounded up to a
+    multiple of 8."""
+    nb = max(1, n // FUSED_BLOCK_N)
+    lam = k / nb
+    h2 = lam + 4.0 * lam**0.5 + 8.0
+    return int(-(-h2 // 8) * 8)
+
+
+def fused2_supported(n: int, d: int, b: int, k: int) -> bool:
+    """Keyed-kernel shape support (the reference predicate): v1's
+    alignment/batch rules plus a sane pass-2 width, and no ``n < 2^24``
+    ceiling (rows are rebuilt in int32 outside the kernel)."""
+    t = n // FUSED_SUBTILE
+    nb = n // FUSED_BLOCK_N
+    h2 = _reduce_h2(n, k)
+    return (
+        n % FUSED_BLOCK_N == 0
+        and d % DIM_CHUNK == 0
+        and t >= 2
+        and k <= t * EXTRACT_H
+        and b <= FUSED_MAX_BATCH
+        and nb >= 2
+        and h2 <= 48
+        and k <= nb * h2
+    )
+
+
+def _fused2_finish(
+    keys1: torch.Tensor, k: int, h2: int, b_real: int
+) -> Tuple[torch.Tensor, torch.Tensor, bool]:
+    """Pass-2 + merge + decode + coverage for the keyed kernels.  Returns
+    ``(vals, idx, covered)`` over the padded batch; coverage is judged on
+    the first ``b_real`` rows only (zero-padded query rows tie)."""
+    b_pad, l1 = keys1.shape
+    l1p = ((l1 + REDUCE_BLOCK - 1) // REDUCE_BLOCK) * REDUCE_BLOCK
+    keys1p = keys1 if l1p == l1 else torch.cat(
+        [keys1, keys1.new_zeros((b_pad, l1p - l1))], dim=1
+    )
+    keys2 = _reduce_keys(keys1p, h2)
+    sel_keys, sel_cols = top_k(keys2, k)
+    k2i = sel_keys.to(torch.int32)
+    vals = _key_vals(sel_keys)
+    lane2 = k2i - torch.div(k2i, REDUCE_GROUP, rounding_mode="floor") * REDUCE_GROUP
+    pos = torch.div(sel_cols, h2, rounding_mode="floor") * REDUCE_GROUP + lane2
+    k1i = torch.gather(keys1p, 1, pos).to(torch.int32)
+    lanes = int(_KEY_LANES)
+    lane1 = k1i - torch.div(k1i, lanes, rounding_mode="floor") * lanes
+    jb = torch.div(pos, _FUSED_OUT_LANES, rounding_mode="floor")
+    cb = pos - jb * _FUSED_OUT_LANES
+    s = torch.div(cb, EXTRACT_H, rounding_mode="floor")
+    idx = (jb * FUSED_BLOCK_N + s * FUSED_SUBTILE + lane1).to(torch.int32)
+    v_k = vals[:b_real, k - 1 : k]
+    tails1 = _key_vals(keys1[:b_real, EXTRACT_H - 1 :: EXTRACT_H])
+    tails2 = _key_vals(keys2[:b_real, h2 - 1 :: h2])
+    hidden = torch.logical_or(
+        torch.any(tails1 > v_k - KEY_EPS), torch.any(tails2 > v_k - KEY_EPS)
+    )
+    # Domain guard: a LIVE key at the rounding horizon has lost lane bits
+    # (KEY_DEAD markers from tail-padding subtiles are expected and pass).
+    live_min = torch.min(torch.where(keys1 == KEY_DEAD, 0.0, keys1))
+    in_range = torch.logical_and(
+        torch.max(keys1) < KEY_HORIZON, live_min > -KEY_HORIZON
+    )
+    covered = torch.logical_and(torch.logical_not(hidden), in_range)
+    return vals, idx, bool(covered)
+
+
+def _pad_batch(queries: torch.Tensor) -> torch.Tensor:
+    b, d = queries.shape
+    b_pad = max(QBLOCK, ((b + QBLOCK - 1) // QBLOCK) * QBLOCK)
+    if b_pad == b:
+        return queries
+    return torch.cat([queries, queries.new_zeros((b_pad - b, d))], dim=0)
+
+
+def fused2_topk_int8(
+    q_docs: torch.Tensor,
+    row_scales: torch.Tensor,
+    queries: torch.Tensor,
+    n_valid: int,
+    k: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """int8 keyed path, unpacked: ``(quantized vals f32 [B, k], int32
+    rows [B, k])``; the exact fallback runs when coverage fails.
+    Requires ``fused2_supported``."""
+    n = q_docs.shape[0]
+    b = queries.shape[0]
+    queries = _pad_batch(queries)
+    q_int8, q_scales = quantize_rows_int8(queries)
+    keys1 = _fused2_extract_int8(q_docs, row_scales, q_int8, q_scales, n_valid)
+    vals, idx, covered = _fused2_finish(keys1, k, _reduce_h2(n, k), b)
+    if not covered:
+        fv, idx = _exact_fallback(
+            q_docs, queries, n_valid, k, row_scales=row_scales
+        )
+        vals = fv.to(torch.float32)
+    return vals[:b], idx[:b]
+
+
+def score_topk_fused2_int8_packed(
+    q_docs: torch.Tensor,
+    row_scales: torch.Tensor,
+    queries: torch.Tensor,
+    n_valid: int,
+    k: int,
+    wide: bool = False,
+) -> torch.Tensor:
+    """int8 keyed single-kernel path, packed.  Requires
+    ``fused2_supported``."""
+    vals, idx = fused2_topk_int8(q_docs, row_scales, queries, n_valid, k)
+    return pack_vals_idx(vals, idx, wide=wide)
+
+
+# --- guarded fused kernels (v3): bound-carrying extraction -----------------
+
+#: v3 subtile: 1024 lanes, 4 winners — 32 reduces per 8192-doc block.
+GUARD_SUBTILE = 1024
+GUARD_H = 4
+#: Score grid for v3 keys.
+GUARD_QSCALE = float(1 << 12)
+#: Sound bound on (true score - decoded key value) for the v3 grid.
+GUARD_KEY_EPS = 2.0**-11
+GUARD_NSUB = FUSED_BLOCK_N // GUARD_SUBTILE  # 8 subtiles per block
+GUARD_KEYS = GUARD_NSUB * GUARD_H  # 32 key lanes per block
+#: Out block: 32 keys + 1 guard lane, padded to one 128-lane tile.
+_GUARD_OUT_LANES = 128
+#: v3 dispatch ceiling on the candidate count.
+GUARD_MAX_C = 1024
+#: v3 dispatch floor on the batch (the reference's static prior).
+GUARD_MIN_BATCH = 16
+#: Keys at/above this decode from scores > ~2.5: the bound saturates.
+_GUARD_SAT_KEY = float(int((2.5 + KEY_BIAS) * GUARD_QSCALE) * GUARD_SUBTILE)
+
+
+def _fused3_extract_int8_plain(
+    q_docs: torch.Tensor,
+    row_scales: torch.Tensor,
+    q_int8: torch.Tensor,
+    q_scales: torch.Tensor,
+    n_valid: int,
+) -> torch.Tensor:
+    """Plain-torch twin of ``_fused3_int8_kernel``: per 1024-doc subtile
+    the top-4 keys ``floor((clip(s, -3, 3) + KEY_BIAS) * GUARD_QSCALE) *
+    1024 + lane``; per 8192-doc block 32 keys, the guard lane (max of the
+    subtile tails), then 95 ``KEY_DEAD`` lanes."""
+    n = q_docs.shape[0]
+    b = q_int8.shape[0]
+    nb = n // FUSED_BLOCK_N
+    t = n // GUARD_SUBTILE
+    sub = _scores_int8(q_docs, row_scales, q_int8, q_scales).view(
+        b, t, GUARD_SUBTILE
+    )
+    lane = torch.arange(GUARD_SUBTILE, device=q_docs.device).to(torch.float32)
+    keys = (
+        torch.floor((torch.clamp(sub, -3.0, 3.0) + KEY_BIAS) * GUARD_QSCALE)
+        * float(GUARD_SUBTILE)
+        + lane
+    )
+    live = _live_lanes(n, GUARD_SUBTILE, n_valid, q_docs.device)
+    keys = torch.where(lane < live[:, None], keys, KEY_DEAD)
+    ext = _extract_keys(keys, GUARD_H).view(b, nb, GUARD_NSUB, GUARD_H)
+    guard = torch.clamp_min(ext[..., GUARD_H - 1].amax(dim=2), KEY_DEAD)
+    out = torch.full(
+        (b, nb, _GUARD_OUT_LANES), KEY_DEAD, dtype=torch.float32,
+        device=q_docs.device,
+    )
+    out[:, :, :GUARD_KEYS] = ext.reshape(b, nb, GUARD_KEYS)
+    out[:, :, GUARD_KEYS] = guard
+    return out.view(b, nb * _GUARD_OUT_LANES)
+
+
+def _fused3_extract_int8(
+    q_docs: torch.Tensor,
+    row_scales: torch.Tensor,
+    q_int8: torch.Tensor,
+    q_scales: torch.Tensor,
+    n_valid: int,
+) -> torch.Tensor:
+    """v3 int8 matmul + guarded per-subtile top-4: raw per-block out tiles
+    ``[B, (N/8192)*128]`` (CUDA kernel mode 3)."""
+    if not q_docs.is_cuda:
+        return _fused3_extract_int8_plain(
+            q_docs, row_scales, q_int8, q_scales, n_valid
+        )
+    n, b = q_docs.shape[0], q_int8.shape[0]
+    # the kernel writes the key lanes and folds each subtile tail into the
+    # guard lane with an atomic max: every other lane stays KEY_DEAD
+    out = torch.full(
+        (b, (n // FUSED_BLOCK_N) * _GUARD_OUT_LANES),
+        KEY_DEAD,
+        dtype=torch.float32,
+        device=q_docs.device,
+    )
+    _launch_fused(3, q_docs, row_scales, q_int8, q_scales, n_valid, out, None)
+    _fused3_extract_int8.launches += 1  # type: ignore[attr-defined]
+    return out
+
+
+_fused3_extract_int8.launches = 0  # type: ignore[attr-defined]
+
+
+def fused3_supported(n: int, d: int, b: int, c: int) -> bool:
+    """Guarded-kernel dispatch predicate: the structural envelope plus the
+    ``GUARD_MIN_BATCH`` batch floor.  ``c`` is the candidate count."""
+    return fused3_shape_ok(n, d, b, c) and b >= GUARD_MIN_BATCH
+
+
+def fused3_shape_ok(n: int, d: int, b: int, c: int) -> bool:
+    """STRUCTURAL v3 support: block-aligned corpus, at least 16 blocks,
+    and ``c`` within ``GUARD_MAX_C`` and the live key pool."""
+    nb = n // FUSED_BLOCK_N
+    return (
+        n % FUSED_BLOCK_N == 0
+        and d % DIM_CHUNK == 0
+        and 0 < b <= FUSED_MAX_BATCH
+        and nb >= 16
+        and 0 < c <= min(GUARD_MAX_C, (nb - 2) * GUARD_KEYS)
+    )
+
+
+def _guard_key_vals(keys: torch.Tensor) -> torch.Tensor:
+    """Decode v3 packed keys to quantized scores (within GUARD_KEY_EPS
+    below the true score)."""
+    vq = torch.div(keys.to(torch.int32), GUARD_SUBTILE, rounding_mode="floor")
+    return vq.to(torch.float32) / GUARD_QSCALE - KEY_BIAS
+
+
+#: Finish-stage strategy floor: at/above this block count the v3 finish
+#: runs v2's pass-2 staged reduce instead of one top-k over nb*32 lanes.
+GUARD_STAGE_MIN_BLOCKS = 96
+
+
+def _guard_reduce_h2(nb: int, c: int) -> int:
+    """Staged-finish winners kept per 128-lane key group (= 4 blocks'
+    keys), sized like v2's ``_reduce_h2``."""
+    groups = max(1, (nb * GUARD_KEYS) // REDUCE_GROUP)
+    lam = c / groups
+    h2 = lam + 4.0 * lam**0.5 + 8.0
+    return int(-(-h2 // 8) * 8)
+
+
+def _fused3_finish(
+    out: torch.Tensor, c: int, b_real: int
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Merge + decode + bound for the guarded kernels (see the reference's
+    docstring for the soundness argument).  Returns ``(vals f32 [B, c],
+    rows int32 [B, c], bound f32 [B])`` over the padded batch; ``bound``
+    is +inf when key saturation or a starved pool makes it untrustworthy.
+    ``b_real`` is unused, as in the reference (the bound is per row)."""
+    del b_real
+    b_pad = out.shape[0]
+    nb = out.shape[1] // _GUARD_OUT_LANES
+    o3 = out.view(b_pad, nb, _GUARD_OUT_LANES)
+    keys = o3[:, :, :GUARD_KEYS].reshape(b_pad, nb * GUARD_KEYS)
+    h2 = _guard_reduce_h2(nb, c)
+    staged = nb >= GUARD_STAGE_MIN_BLOCKS and h2 <= 48
+
+    if staged:
+        l1 = nb * GUARD_KEYS
+        l1p = ((l1 + REDUCE_BLOCK - 1) // REDUCE_BLOCK) * REDUCE_BLOCK
+        # pad with KEY_DEAD (not zeros): see the reference's comment
+        keys1p = keys if l1p == l1 else torch.cat(
+            [keys, keys.new_full((b_pad, l1p - l1), KEY_DEAD)], dim=1
+        )
+        keys2 = _reduce_keys(keys1p, h2)
+        sel, cols2 = top_k(keys2, c)
+        k2i = sel.to(torch.int32)
+        lane2 = k2i - torch.div(k2i, REDUCE_GROUP, rounding_mode="floor") * REDUCE_GROUP
+        pos = torch.div(cols2, h2, rounding_mode="floor") * REDUCE_GROUP + lane2
+        k1i = torch.gather(keys1p, 1, pos).to(torch.int32)
+        vals = _guard_key_vals(sel)
+        lane = k1i - torch.div(k1i, GUARD_SUBTILE, rounding_mode="floor") * GUARD_SUBTILE
+        cols = pos
+        sat_key = torch.amax(keys, dim=1)
+        dead_sel = torch.amin(k1i, dim=1).to(torch.float32) <= KEY_DEAD
+        stage_tail = torch.amax(keys2[:, h2 - 1 :: h2], dim=1)
+    else:
+        sel, cols = top_k(keys, c)
+        ki = sel.to(torch.int32)
+        lane = ki - torch.div(ki, GUARD_SUBTILE, rounding_mode="floor") * GUARD_SUBTILE
+        vals = _guard_key_vals(sel)
+        sat_key = sel[:, 0]
+        dead_sel = sel[:, -1] <= KEY_DEAD
+        stage_tail = None
+
+    jb = torch.div(cols, GUARD_KEYS, rounding_mode="floor")
+    s = torch.div(cols - jb * GUARD_KEYS, GUARD_H, rounding_mode="floor")
+    rows = jb * FUSED_BLOCK_N + s * GUARD_SUBTILE + lane
+    rows = torch.clamp_max(rows, nb * FUSED_BLOCK_N - 1).to(torch.int32)
+    guard_keys = torch.amax(o3[:, :, GUARD_KEYS], dim=1)
+    bound = torch.maximum(_guard_key_vals(guard_keys), vals[:, -1])
+    if stage_tail is not None:
+        bound = torch.maximum(bound, _guard_key_vals(stage_tail))
+    inf = torch.full_like(bound, float("inf"))
+    bound = torch.where(sat_key >= _GUARD_SAT_KEY, inf, bound)
+    bound = torch.where(dead_sel, inf, bound)
+    return vals, rows, bound
+
+
+def fused3_candidates_int8(
+    q_docs: torch.Tensor,
+    row_scales: torch.Tensor,
+    queries: torch.Tensor,
+    n_valid: int,
+    c: int,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """int8 guarded candidate selection: ``(quantized prescores f32
+    [B, c], rows int32 [B, c], hidden-score bound f32 [B])``.  No exact
+    fallback: exactness rides on the caller's rescore margin and widen
+    loop.  Requires ``fused3_supported``."""
+    b = queries.shape[0]
+    queries = _pad_batch(queries)
+    q_int8, q_scales = quantize_rows_int8(queries)
+    out = _fused3_extract_int8(q_docs, row_scales, q_int8, q_scales, n_valid)
+    vals, rows, bound = _fused3_finish(out, c, b)
+    return vals[:b], rows[:b], bound[:b]
+
+
+def score_topk_fused3_int8_packed(
+    q_docs: torch.Tensor,
+    row_scales: torch.Tensor,
+    queries: torch.Tensor,
+    n_valid: int,
+    k: int,
+    wide: bool = False,
+) -> torch.Tensor:
+    """int8 guarded packed path: the wire's boundary slot carries
+    ``max(weakest candidate prescore, hidden-score bound)``.  Requires
+    ``fused3_supported``."""
+    vals, rows, bound = fused3_candidates_int8(
+        q_docs, row_scales, queries, n_valid, k
+    )
+    vals = torch.cat(
+        [vals[:, :-1], torch.maximum(vals[:, -1:], bound[:, None])], dim=1
+    )
+    return pack_vals_idx(vals, rows, wide=wide)
+
+
+#: The kernel wrappers of this module, for launch accounting.
+KERNEL_WRAPPERS = (
+    _fused3_extract_int8,
+    _fused2_extract_int8,
+    _fused_extract_int8,
+    _reduce_keys,
+)
+
+
+def reset_launch_counts() -> None:
+    for fn in KERNEL_WRAPPERS:
+        fn.launches = 0  # type: ignore[attr-defined]
+
+
+def launch_counts() -> dict:
+    return {fn.__name__: fn.launches for fn in KERNEL_WRAPPERS}  # type: ignore[attr-defined]

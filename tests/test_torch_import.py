@@ -1,0 +1,76 @@
+"""The PyTorch port stands alone: it imports with JAX and the JAX
+package's optional dependencies blocked, never imports ``svs_tpu``, and
+refuses to fall back to the CPU when no device was named."""
+
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+import pytest
+import torch
+
+import svs_tpu_torch
+
+_BLOCKED_ROUND_TRIP = textwrap.dedent(
+    """
+    import sys
+
+    BLOCKED = ("jax", "jaxlib", "networkx", "ml_dtypes", "aiohttp", "dotenv")
+
+    class Blocker:
+        def find_spec(self, name, path=None, target=None):
+            if name.split(".")[0] in BLOCKED:
+                raise ImportError(f"{name} is blocked in this test")
+            return None
+
+    sys.meta_path.insert(0, Blocker())
+
+    import svs_tpu_torch
+    from svs_tpu_torch import KB, make_mock_embeddings_func
+
+    path = sys.argv[1]
+    kb = KB(path, make_mock_embeddings_func(), force_fresh_db=True, device="cpu")
+    with kb.bulk_add_docs() as add:
+        ids = [add(f"doc {i}") for i in range(5)]
+    hits = kb.retrieve("anything", 3)
+    assert len(hits) == 3, hits
+    # the mock embeds every text alike: all scores tie at 1.0 and the
+    # reference tie rule returns the largest embedding ids first
+    assert [h["doc"]["id"] for h in hits] == ids[::-1][:3], hits
+    assert all(abs(h["score"] - 1.0) < 1e-6 for h in hits)
+    kb.close()
+    # reopen: the embedding function is restored from the database
+    kb = KB(path, device="cpu")
+    assert len(kb) == 5
+    kb.close()
+    loaded = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED + ("svs_tpu",))
+    assert not loaded, loaded
+    print("ROUND_TRIP_OK")
+    """
+)
+
+
+def test_imports_and_round_trips_without_jax(tmp_path):
+    repo = Path(svs_tpu_torch.__file__).resolve().parent.parent
+    proc = subprocess.run(
+        [sys.executable, "-c", _BLOCKED_ROUND_TRIP, str(tmp_path / "kb.sqlite")],
+        cwd=repo,
+        capture_output=True,
+        text=True,
+        timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert "ROUND_TRIP_OK" in proc.stdout
+
+
+def test_kb_without_device_refuses_cpu(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: KB() legitimately uses it")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        svs_tpu_torch.KB(
+            tmp_path / "kb.sqlite",
+            svs_tpu_torch.make_mock_embeddings_func(),
+            force_fresh_db=True,
+        )
+    assert not (tmp_path / "kb.sqlite").exists()
