@@ -1,19 +1,28 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (``svs_tpu_torch``) on one CUDA device.
 
-Drives the port's retrieval main path once at the size its users run (the
+Drives the port's retrieval paths once at the size its users run (the
 ``headline`` preset of ``bench.py``: 1,000,000 docs x 1536 dims, top-100),
 with random unit vectors made from a seed:
 
-1. builds the hand-written CUDA kernels from the sources in the checkout;
-2. kernel phase: runs each kernel on a synthetic 1M x 1536 int8 pack at
-   the shapes the main path gives it, holds its output against its plain
-   PyTorch version (bit-identical), and times both;
+1. builds the hand-written CUDA kernels from the sources in the checkout
+   (one ``nvcc`` per source, in parallel);
+2. kernel phase: runs each kernel on synthetic 1M x 1536 packs (int8, bf16,
+   f32) at the shapes the main paths give it, holds its output against its
+   plain PyTorch version (bit-identical on int8 and on lattice data;
+   within ``SCORE_TOL`` and one key-grid step at a grid edge on random
+   float data), and times the kernel, its plain version, and one library
+   call where one computes the same function;
 3. end-to-end phase: writes a 1M-doc SQLite store through the port's
-   ``Tx``, opens ``svs_tpu_torch.KB(..., device="cuda")`` and calls
-   ``retrieve_batch`` at B=64/n=100, B=8/n=100 and B=8/n=1000, checking
-   every result against a brute-force f32 scan on the card and counting
-   the kernels' launches in that run (each must be > 0).
+   ``Tx`` and drives four paths, each with the launch counts set to 0
+   just before it and read just after:
+   - int8 ``KB`` (``precision='auto'``): ``retrieve_batch`` at B=64/n=100,
+     B=8/n=100, B=8/n=1000 and B=512/n=100;
+   - bf16 ``KB``: B=64/n=100, B=8/n=100, B=8/n=1000;
+   - f32 ``KB``: the same three shapes;
+   - ``rescore=False`` ``KB`` (bf16 storage): B=8/n=100;
+   checking every result against a brute-force scan on the card (for
+   ``rescore=False``, of the bf16-rounded corpus and queries).
 
 Prints the card's name and power limit, a JSON line describing every
 kernel, and, last, ``{"ok": true, "device": {...}}``.  Exits non-zero, with
@@ -39,20 +48,34 @@ import numpy as np
 SEED = 20261016
 DIM = 1536
 #: Scores closer than this are ties for the id check; also the score
-#: tolerance (f32 dots accumulate in another order than the reference scan).
+#: tolerance (f32 dots accumulate in another order than the reference scan),
+#: and the tolerance of a float kernel against its plain version.
 SCORE_TOL = 2e-6
+#: One H100 SXM's published peaks (NVIDIA data sheet, dense, 700 W): the
+#: least time a kernel could take is max(bytes / HBM, ops / peak[type]).
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"int8": 1979e12, "bf16": 989e12, "f32": 67e12}
 REPLACES = {
     "_fused3_extract_int8": "svs_tpu/ops/pallas_extract.py:1160",
     "_fused2_extract_int8": "svs_tpu/ops/pallas_extract.py:685",
     "_fused_extract_int8": "svs_tpu/ops/pallas_extract.py:399",
     "_reduce_keys": "svs_tpu/ops/pallas_extract.py:772",
+    "_fused3_extract": "svs_tpu/ops/pallas_extract.py:1111",
+    "_fused2_extract": "svs_tpu/ops/pallas_extract.py:611",
+    "_fused_extract": "svs_tpu/ops/pallas_extract.py:270",
+    "_extract": "svs_tpu/ops/pallas_extract.py:113",
 }
 SOURCES = {
     "_fused3_extract_int8": "svs_tpu_torch/csrc/fused_int8.cu",
     "_fused2_extract_int8": "svs_tpu_torch/csrc/fused_int8.cu",
     "_fused_extract_int8": "svs_tpu_torch/csrc/fused_int8.cu",
     "_reduce_keys": "svs_tpu_torch/csrc/reduce_keys.cu",
+    "_fused3_extract": "svs_tpu_torch/csrc/fused_float.cu",
+    "_fused2_extract": "svs_tpu_torch/csrc/fused_float.cu",
+    "_fused_extract": "svs_tpu_torch/csrc/fused_float.cu",
+    "_extract": "svs_tpu_torch/csrc/extract.cu",
 }
+SHAPES = (("B64_n100", 64, 100), ("B8_n100", 8, 100), ("B8_n1000", 8, 1000))
 
 
 def log(msg: str) -> None:
@@ -85,11 +108,39 @@ def time_ms(fn, reps: int) -> float:
     return statistics.median(times)
 
 
+def bound(nbytes: float, ops: float, op_type: str) -> tuple:
+    """``(bound_ms, bound_by)``: the least time one H100 could take."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS_PER_S[op_type] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
 def unit_rows_torch(n: int, d: int, gen, device) -> "torch.Tensor":
     import torch
 
     m = torch.randn((n, d), generator=gen, device=device, dtype=torch.float32)
     return m / torch.linalg.vector_norm(m, dim=1, keepdim=True)
+
+
+def lattice_rows_torch(n: int, d: int, gen, device) -> "torch.Tensor":
+    """Entries m * 2^-7, m in [-4, 4]: exact in bf16, and every partial sum
+    of a dot at d <= 1536 is an exact f32 number (|sum| <= 24,576 * 2^-14),
+    so a kernel and its plain version agree bit for bit in any order."""
+    import torch
+
+    m = torch.randint(-4, 5, (n, d), generator=gen, device=device, dtype=torch.int8)
+    return m.to(torch.float32) / 128.0
+
+
+def fill_rows(out, n_rows: int, make) -> None:
+    """``out[:n_rows] = make(rows)`` in blocks, cast to ``out``'s dtype."""
+    for lo in range(0, n_rows, 1 << 17):
+        rows = make(min(1 << 17, n_rows - lo))
+        out[lo : lo + len(rows)] = rows.to(out.dtype)
 
 
 def max_abs_err(a, b) -> float:
@@ -104,13 +155,96 @@ def max_abs_err(a, b) -> float:
     return err
 
 
+def check_exact(name, got_t, ref_t) -> float:
+    import torch
+
+    errs = []
+    for g, r in zip(got_t, ref_t):
+        if g.shape != r.shape:
+            raise AssertionError(f"{name}: shape {tuple(g.shape)} != {tuple(r.shape)}")
+        errs.append(max_abs_err(g, r))
+        if not torch.equal(g.view(torch.int32), r.view(torch.int32)):
+            bad = int((g.view(torch.int32) != r.view(torch.int32)).sum())
+            raise AssertionError(
+                f"{name}: {bad} of {g.numel()} outputs differ from the plain "
+                f"version (max |err| {errs[-1]})"
+            )
+    return max(errs)
+
+
+def check_v1_close(name, got_t, ref_t, scores, n_valid) -> float:
+    """v1 on random float data, position by position: the kernel's value
+    within SCORE_TOL of the plain one, and the row the kernel names scoring
+    (in the plain version) within SCORE_TOL of it.  Returns max |value err|."""
+    import torch
+
+    (gv, gi), (rv, _) = got_t, ref_t
+    live = torch.arange(scores.shape[1], device=scores.device) < n_valid
+    masked = torch.where(live, scores, float("-inf"))
+    fin = torch.isfinite(rv)
+    if not torch.equal(fin, torch.isfinite(gv)):
+        raise AssertionError(f"{name}: -inf slots differ from the plain version")
+    at = masked.gather(1, gi.long())
+    err = float((gv[fin].double() - rv[fin].double()).abs().max())
+    err_at = float((at[fin].double() - gv[fin].double()).abs().max())
+    if err > SCORE_TOL or err_at > SCORE_TOL:
+        raise AssertionError(f"{name}: values off by {err}, named rows off by {err_at}")
+    return err
+
+
+def check_keys_close(name, got, ref, scores, v3) -> float:
+    """Keys on random float data, position by position: within one grid
+    step of the plain key, and the kernel's key level within SCORE_TOL of
+    the plain score of the doc it names (so a key moves only at a grid
+    edge).  v3's dead lanes must match and its guard lane must be the max
+    of its own subtile tails.  Returns the max level gap in score units."""
+    import torch
+
+    dev = got.device
+    b = got.shape[0]
+    if v3:
+        nb = got.shape[1] // 128
+        g3, r3 = got.view(b, nb, 128), ref.view(b, nb, 128)
+        if not torch.equal(g3[:, :, 33:], r3[:, :, 33:]):
+            raise AssertionError(f"{name}: dead lanes differ")
+        if not torch.equal(g3[:, :, 32], g3[:, :, 3:32:4].amax(dim=2)):
+            raise AssertionError(f"{name}: guard lane is not the max of its tails")
+        got, ref = g3[:, :, :32].reshape(b, -1), r3[:, :, :32].reshape(b, -1)
+        col = torch.arange(nb * 32, device=dev)
+        base = (col // 32) * 8192 + ((col % 32) // 4) * 1024
+        w, qscale = 1024, 4096.0
+    else:
+        col = torch.arange(got.shape[1], device=dev)
+        base = (col // 8) * 512
+        w, qscale = 512, 8192.0
+    dead = got == -(2.0**24)
+    if not torch.equal(dead, ref == -(2.0**24)):
+        raise AssertionError(f"{name}: dead keys differ")
+    gi, ri = got.long(), ref.long()
+    lg = torch.div(gi, w, rounding_mode="floor")
+    lr = torch.div(ri, w, rounding_mode="floor")
+    doc = (base[None, :] + gi - lg * w).clamp(0, scores.shape[1] - 1)
+    s = scores.gather(1, doc).double()
+    if v3:
+        s = s.clamp(-3.0, 3.0)
+    x = (s + 1.0625) * qscale
+    lo = torch.floor(x - SCORE_TOL * qscale)
+    hi = torch.floor(x + SCORE_TOL * qscale)
+    ok = ((lg - lr).abs() <= 1) & (lg.double() >= lo) & (lg.double() <= hi)
+    if not bool(ok[~dead].all()):
+        bad = int((~ok & ~dead).sum())
+        raise AssertionError(f"{name}: {bad} keys outside one grid step at an edge")
+    return float((lg - lr).abs().max()) / qscale
+
+
 def kernel_phase(n_docs: int, reps: int) -> dict:
-    """Each kernel against its plain version on a synthetic full-size
-    pack, at the main path's shapes; returns per-kernel records."""
+    """Each kernel against its plain version on synthetic full-size packs,
+    at the main paths' shapes; returns per-kernel records."""
     import torch
 
     from svs_tpu_torch.ops import pallas_extract as P
-    from svs_tpu_torch.ops.quant import quantize_rows_int8
+    from svs_tpu_torch.ops.quant import _int8_scores, quantize_rows_int8
+    from svs_tpu_torch.ops.topk import mask_cols, scores_matmul
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
@@ -135,30 +269,32 @@ def kernel_phase(n_docs: int, reps: int) -> dict:
 
     records = {}
 
-    def compare(name, kernel_fn, plain_fn, what):
+    def record(name, what, err, kernel_fn, plain_fn, bnd, library_fn=None):
+        ms = time_ms(kernel_fn, reps)
+        plain_ms = time_ms(plain_fn, max(3, reps // 4))
+        lib_ms = None if library_fn is None else time_ms(library_fn, reps)
+        log(f"  {name} {what}: max |err| {err}; kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, library {lib_ms}, bound {bnd[0]:.4f} ms ({bnd[1]})")
+        records.setdefault(name, []).append({
+            "what": what, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": lib_ms,
+        })
+
+    def compare(name, kernel_fn, plain_fn, what, bnd, library_fn=None):
         got = kernel_fn()
         torch.cuda.synchronize()
         ref = plain_fn()
         got_t = got if isinstance(got, tuple) else (got,)
         ref_t = ref if isinstance(ref, tuple) else (ref,)
-        errs = []
-        for g, r in zip(got_t, ref_t):
-            if g.shape != r.shape:
-                raise AssertionError(f"{name}: shape {tuple(g.shape)} != {tuple(r.shape)}")
-            errs.append(max_abs_err(g, r))
-            if not torch.equal(g.view(torch.int32), r.view(torch.int32)):
-                bad = int((g.view(torch.int32) != r.view(torch.int32)).sum())
-                raise AssertionError(
-                    f"{name} ({what}): {bad} of {g.numel()} outputs differ "
-                    f"from the plain version (max |err| {errs[-1]})"
-                )
-        ms = time_ms(kernel_fn, reps)
-        plain_ms = time_ms(plain_fn, max(3, reps // 4))
-        log(f"  {name} {what}: bit-identical; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-        records.setdefault(name, []).append(
-            {"what": what, "max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms}
-        )
+        err = check_exact(f"{name} ({what})", got_t, ref_t)
+        record(name, what, err, kernel_fn, plain_fn, bnd, library_fn)
         return got_t[0]
+
+    def fused_int8_bound(b, out_cols):
+        return bound(
+            nbytes(docs, scales) + b * (DIM + 4) + b * out_cols * 4,
+            2.0 * b * n_pad * DIM, "int8",
+        )
 
     # #1 guarded v3 at B = 64, C = 400
     q8, qs = queries(64)
@@ -168,6 +304,7 @@ def kernel_phase(n_docs: int, reps: int) -> dict:
         lambda: P._fused3_extract_int8(*args),
         lambda: P._fused3_extract_int8_plain(*args),
         "B=64 (v3, C=400)",
+        fused_int8_bound(64, nb * 128),
     )
     # #2 on #1's keys: the staged v3 finish's pass-2 input
     keys3 = out3.view(64, nb, 128)[:, :, : P.GUARD_KEYS].reshape(64, -1)
@@ -176,11 +313,17 @@ def kernel_phase(n_docs: int, reps: int) -> dict:
         [keys3, keys3.new_full((64, l1p - keys3.shape[1]), P.KEY_DEAD)], dim=1
     ).contiguous()
     h2_3 = P._guard_reduce_h2(nb, 400)
+
+    def reduce_bound(keys, h2):
+        return bound(nbytes(keys) * (1 + h2 / 128), 0.0, "f32")
+
     compare(
         "_reduce_keys",
         lambda: P._reduce_keys(keys3, h2_3),
         lambda: P._reduce_keys_plain(keys3, h2_3),
         f"v3 keys [64, {l1p}], h2={h2_3}",
+        reduce_bound(keys3, h2_3),
+        lambda: torch.topk(keys3.view(64, -1, 128), min(h2_3, 128), dim=2),
     )
     # #3 keyed v2 at B = 8, k = 400
     q8, qs = queries(8)
@@ -190,6 +333,7 @@ def kernel_phase(n_docs: int, reps: int) -> dict:
         lambda: P._fused2_extract_int8(*args),
         lambda: P._fused2_extract_int8_plain(*args),
         "B=8 (v2, k=400)",
+        fused_int8_bound(8, n_pad // 64),
     )
     l1p = -(-keys2.shape[1] // P.REDUCE_BLOCK) * P.REDUCE_BLOCK
     keys2 = torch.cat(
@@ -201,6 +345,8 @@ def kernel_phase(n_docs: int, reps: int) -> dict:
         lambda: P._reduce_keys(keys2, h2_2),
         lambda: P._reduce_keys_plain(keys2, h2_2),
         f"v2 keys [8, {l1p}], h2={h2_2}",
+        reduce_bound(keys2, h2_2),
+        lambda: torch.topk(keys2.view(8, -1, 128), min(h2_2, 128), dim=2),
     )
     # #4 v1 at B = 8, k = 4000
     compare(
@@ -208,9 +354,76 @@ def kernel_phase(n_docs: int, reps: int) -> dict:
         lambda: P._fused_extract_int8(*args),
         lambda: P._fused_extract_int8_plain(*args),
         "B=8 (v1, k=4000)",
+        fused_int8_bound(8, 2 * n_pad // 64),
     )
+    # #8 on the [512, n_pad] f32 score matrix of the int8 pack at B = 512,
+    # as score_topk_int8_extract_packed hands it over; then on the same
+    # matrix rounded to a 2^-7 grid (thousands of exact ties)
+    q512 = unit_rows_torch(512, DIM, gen, dev)
+    scores = mask_cols(_int8_scores(docs, scales, q512), n_docs).contiguous()
     del docs, scales
     torch.cuda.empty_cache()
+    out_cols = (n_pad // P.SUBTILE) * P.EXTRACT_H
+    ext_bound = bound(nbytes(scores) + 2 * 512 * out_cols * 4, 0.0, "f32")
+    compare(
+        "_extract",
+        lambda: P._extract(scores),
+        lambda: P._extract_plain(scores),
+        f"scores [512, {n_pad}] (int8 pack, B=512)",
+        ext_bound,
+        lambda: torch.topk(scores.view(512, -1, P.SUBTILE), P.EXTRACT_H, dim=2),
+    )
+    ties = torch.round(scores * 128.0) / 128.0
+    del scores
+    check_exact("_extract (2^-7 grid ties)", P._extract(ties), P._extract_plain(ties))
+    log("  _extract on a 2^-7 grid of the same scores: bit-identical")
+    del ties
+    torch.cuda.empty_cache()
+
+    # #5-#7 on bf16 and f32 packs: lattice data bit-identical, then random
+    # unit data within tolerance (timed)
+    float_cases = (
+        ("_fused3_extract", 64, "v3, C=400", nb * 128, 1),
+        ("_fused2_extract", 8, "v2, k=400", n_pad // 64, 1),
+        ("_fused_extract", 8, "v1, k=4000", n_pad // 64, 2),
+    )
+    for dt_name, dt in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        fdocs = torch.zeros((n_pad, DIM), dtype=dt, device=dev)
+        fill_rows(fdocs, n_docs, lambda r: lattice_rows_torch(r, DIM, gen, dev))
+        for name, b, what, cols, outs in float_cases:
+            q = lattice_rows_torch(b, DIM, gen, dev).to(dt)
+            got = getattr(P, name)(fdocs, q, n_docs)
+            torch.cuda.synchronize()
+            ref = getattr(P, name + "_plain")(fdocs, q, n_docs)
+            got_t = got if isinstance(got, tuple) else (got,)
+            ref_t = ref if isinstance(ref, tuple) else (ref,)
+            check_exact(f"{name} {dt_name} lattice", got_t, ref_t)
+            log(f"  {name} {dt_name} B={b} ({what}) on lattice data: bit-identical")
+        fill_rows(fdocs, n_docs, lambda r: unit_rows_torch(r, DIM, gen, dev))
+        for name, b, what, cols, outs in float_cases:
+            q = unit_rows_torch(b, DIM, gen, dev).to(dt).contiguous()
+            got = getattr(P, name)(fdocs, q, n_docs)
+            torch.cuda.synchronize()
+            ref = getattr(P, name + "_plain")(fdocs, q, n_docs)
+            s = scores_matmul(fdocs, q)
+            label = f"{name} {dt_name} B={b}"
+            if name == "_fused_extract":
+                err = check_v1_close(label, got, ref, s, n_docs)
+            else:
+                err = check_keys_close(label, got, ref, s, v3=name == "_fused3_extract")
+            del s
+            bnd = bound(
+                nbytes(fdocs, q) + outs * b * cols * 4,
+                2.0 * b * n_pad * DIM, dt_name,
+            )
+            record(
+                name, f"{dt_name} B={b} ({what})", err,
+                lambda: getattr(P, name)(fdocs, q, n_docs),
+                lambda: getattr(P, name + "_plain")(fdocs, q, n_docs),
+                bnd,
+            )
+        del fdocs
+        torch.cuda.empty_cache()
     return records
 
 
@@ -241,49 +454,109 @@ def write_store(path: Path, n_docs: int) -> np.ndarray:
     return matrix
 
 
-def check_results(results, qvecs, ref_matrix, n) -> None:
-    """Every hit list is the brute-force f32 top-n (reference tie rule):
-    ids identical except between scores closer than SCORE_TOL, and every
-    score within SCORE_TOL of the true f32 dot."""
+def hits_to_arrays(results) -> tuple:
+    """Doc rows (doc ``i`` holds row ``i``) and scores of a hit list."""
+    rows = np.asarray(
+        [[int(h["doc"]["text"].rsplit("#", 1)[1]) for h in hits] for hits in results]
+    )
+    scores = np.asarray([[h["score"] for h in hits] for hits in results], dtype=np.float64)
+    return rows, scores
+
+
+def check_results(rows, scores, qvecs, ref_matrix, n) -> None:
+    """Every result row is the brute-force top-n of ``ref_matrix`` (f32
+    dots, TF32 off): ids identical except between scores closer than
+    SCORE_TOL (the reference tie rule, larger row first, orders the scan),
+    and every score within SCORE_TOL of the true dot."""
     import torch
 
     from svs_tpu_torch.ops.topk import exact_f32
 
-    q = torch.from_numpy(qvecs).cuda()
+    q = torch.from_numpy(np.ascontiguousarray(qvecs, dtype=np.float32)).cuda()
     with exact_f32():
         exact = q @ ref_matrix.t()  # [B, N]
     cand_v, cand_i = torch.topk(exact, n + 64, dim=1)
-    for b, hits in enumerate(results):
-        if len(hits) != n:
-            raise AssertionError(f"query {b}: {len(hits)} hits, want {n}")
-        rows = np.asarray(
-            [int(h["doc"]["text"].rsplit("#", 1)[1]) for h in hits]
-        )
-        scores = np.asarray([h["score"] for h in hits], dtype=np.float64)
-        if not np.isfinite(scores).all():
+    for b in range(len(rows)):
+        if len(rows[b]) != n:
+            raise AssertionError(f"query {b}: {len(rows[b])} hits, want {n}")
+        if not np.isfinite(scores[b]).all():
             raise AssertionError(f"query {b}: non-finite scores")
-        true_of_rows = exact[b, torch.from_numpy(rows).cuda()].double().cpu().numpy()
-        if np.abs(scores - true_of_rows).max() > SCORE_TOL:
-            raise AssertionError(f"query {b}: scores off by {np.abs(scores - true_of_rows).max()}")
-        # reference order: descending score, ties to the larger row (emb id)
+        true_of_rows = exact[b, torch.from_numpy(rows[b]).cuda()].double().cpu().numpy()
+        if np.abs(scores[b] - true_of_rows).max() > SCORE_TOL:
+            raise AssertionError(f"query {b}: scores off by {np.abs(scores[b] - true_of_rows).max()}")
         cv = cand_v[b].cpu().numpy()
         ci = cand_i[b].cpu().numpy()
         order = np.lexsort((-ci, -cv))[:n]
         ref_rows, ref_scores = ci[order], cv[order].astype(np.float64)
         for j in range(n):
-            if rows[j] != ref_rows[j] and abs(true_of_rows[j] - ref_scores[j]) >= SCORE_TOL:
+            if rows[b][j] != ref_rows[j] and abs(true_of_rows[j] - ref_scores[j]) >= SCORE_TOL:
                 raise AssertionError(
-                    f"query {b} rank {j}: row {rows[j]} (score "
+                    f"query {b} rank {j}: row {rows[b][j]} (score "
                     f"{true_of_rows[j]:.9f}) where the scan has row "
                     f"{ref_rows[j]} ({ref_scores[j]:.9f})"
                 )
+
+
+def unit_queries(rng, b: int) -> np.ndarray:
+    v = rng.standard_normal((b, DIM)).astype(np.float32)
+    return v / np.linalg.norm(v, axis=1, keepdims=True)
+
+
+def drive_path(label, expected, fn, out) -> None:
+    """One path with the launch counts set to 0 just before it and read
+    just after; fails if an expected kernel did not launch."""
+    from svs_tpu_torch.ops import pallas_extract as P
+
+    P.reset_launch_counts()
+    fn()
+    counts = P.launch_counts()
+    out["paths"][label] = {"launches": counts}
+    for k, v in counts.items():
+        out["launches"][k] = out["launches"].get(k, 0) + v
+    missing = [k for k in expected if counts[k] <= 0]
+    log(f"e2e {label} launches {counts}")
+    if missing:
+        raise AssertionError(f"{label}: kernels not launched: {missing}")
+
+
+def kb_shapes(kb, shapes, reps, rng, qvec, scan, out) -> None:
+    """``retrieve_batch`` at each shape, ``reps`` times, each result held
+    against the brute-force scan ``scan(queries) -> (scan queries, scan
+    matrix)``; records first and warm latencies."""
+    import torch
+
+    for label, b, n in shapes:
+        lat = []
+        kb._stats.reset()
+        for rep in range(reps):
+            v = unit_queries(rng, b)
+            texts = [f"{label}-{rep}-{i}" for i in range(b)]
+            qvec.update(zip(texts, v))
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            res = kb.retrieve_batch(texts, n)
+            torch.cuda.synchronize()
+            lat.append(time.perf_counter() - t)
+            check_results(*hits_to_arrays(res), *scan(v), n)
+        warm = lat[1:] if len(lat) > 1 else lat
+        out[label] = {
+            "first_s": lat[0],
+            "warm_p50_ms": statistics.median(warm) * 1e3,
+            "warm_ms": [x * 1e3 for x in warm],
+            # per-phase host-clock p50s over this shape's calls
+            "phase_p50_ms": {
+                k: v["p50_s"] * 1e3 for k, v in kb._stats.snapshot().items()
+            },
+            "widen_retries": kb.engine.widen_retries,
+        }
+        log(f"e2e {label}: first {lat[0]:.3f} s, warm p50 "
+            f"{out[label]['warm_p50_ms']:.2f} ms over {len(warm)}; exact vs scan")
 
 
 def e2e_phase(n_docs: int, reps: int, work: Path) -> dict:
     import torch
 
     import svs_tpu_torch
-    from svs_tpu_torch.ops import pallas_extract as P
 
     store = work / "store.sqlite"
     t0 = time.perf_counter()
@@ -299,56 +572,64 @@ def e2e_phase(n_docs: int, reps: int, work: Path) -> dict:
         return [qvec[t].tolist() for t in texts]
 
     rng = np.random.default_rng(SEED + 1)
-    kb = svs_tpu_torch.KB(store, embed, device="cuda")
-    out = {"store_write_s": t_write, "docs": n_docs}
+    out = {"store_write_s": t_write, "docs": n_docs, "paths": {}, "launches": {}}
+    fused_int8 = ["_fused3_extract_int8", "_fused2_extract_int8", "_fused_extract_int8"]
+    fused_float = ["_fused3_extract", "_fused2_extract", "_fused_extract"]
     try:
-        P.reset_launch_counts()
-        # B=64 first: the engine's per-n width hint is shared by every
-        # batch size, and a widened hint (C > GUARD_MAX_C) would keep the
-        # guarded v3 kernel off for the rest of the run
-        for label, b, n in (("B64_n100", 64, 100), ("B8_n100", 8, 100), ("B8_n1000", 8, 1000)):
-            lat = []
-            kb._stats.reset()
-            for rep in range(reps):
-                v = rng.standard_normal((b, DIM)).astype(np.float32)
-                v /= np.linalg.norm(v, axis=1, keepdims=True)
-                texts = [f"{label}-{rep}-{i}" for i in range(b)]
-                qvec.update(zip(texts, v))
-                torch.cuda.synchronize()
-                t = time.perf_counter()
-                res = kb.retrieve_batch(texts, n)
-                torch.cuda.synchronize()
-                lat.append(time.perf_counter() - t)
-                check_results(res, v, ref_matrix, n)
-            warm = lat[1:] if len(lat) > 1 else lat
-            out[label] = {
-                "first_s": lat[0],
-                "warm_p50_ms": statistics.median(warm) * 1e3,
-                "warm_ms": [x * 1e3 for x in warm],
-                # per-phase host-clock p50s over this shape's calls
-                "phase_p50_ms": {
-                    k: v["p50_s"] * 1e3 for k, v in kb._stats.snapshot().items()
-                },
-            }
-            log(f"e2e {label}: first {lat[0]:.3f} s, warm p50 "
-                f"{out[label]['warm_p50_ms']:.2f} ms over {len(warm)}; exact vs scan")
-        out["launches"] = P.launch_counts()
-        out["widen_retries"] = kb.engine.widen_retries
-        out["pack_events"] = dict(kb.engine.pack_events)
+        def f32_scan(v):
+            return v, ref_matrix
+
+        def kb_path(label, expected, shapes, scan, check=None, **options):
+            res = out[f"paths_detail_{label}"] = {}
+
+            def run():
+                kb = svs_tpu_torch.KB(store, embed, device="cuda", **options)
+                try:
+                    if check is not None:
+                        check(kb)
+                    kb_shapes(kb, shapes, reps, rng, qvec, scan, res)
+                    res["pack_events"] = dict(kb.engine.pack_events)
+                finally:
+                    kb.close()
+
+            drive_path(label, expected, run, out)
+            torch.cuda.empty_cache()
+
+        # int8 (precision='auto').  B=64 first: the engine's per-n width
+        # hint is shared by every batch size, and a widened hint
+        # (C > GUARD_MAX_C) would keep the guarded v3 kernel off for the
+        # rest of the run
+        kb_path("int8_kb", fused_int8 + ["_reduce_keys", "_extract"],
+                SHAPES + (("B512_n100", 512, 100),), f32_scan)
+        kb_path("bf16_kb", fused_float + ["_reduce_keys"], SHAPES, f32_scan,
+                precision="bf16")
+        # f32 storage: the pack is its own rescore mirror
+        kb_path("f32_kb", fused_float + ["_reduce_keys"], SHAPES, f32_scan,
+                precision="f32")
+
+        # rescore=False returns raw prescores ('auto' stores bf16): the scan
+        # is of the bf16-rounded corpus and queries (f32 dots, TF32 off)
+        ref_bf16 = ref_matrix.to(torch.bfloat16).to(torch.float32)
+
+        def bf16_scan(v):
+            vb = torch.from_numpy(v).to(torch.bfloat16).to(torch.float32).numpy()
+            return vb, ref_bf16
+
+        def is_bf16(kb):
+            assert kb.engine.precision == "bf16", kb.engine.precision
+
+        kb_path("rescore_off_kb", ["_fused_extract"], (("B8_n100", 8, 100),),
+                bf16_scan, check=is_bf16, rescore=False)
+        del ref_bf16
     finally:
-        kb.close()
         store.unlink(missing_ok=True)
-    log(f"e2e launches {out['launches']}, widen retries {out['widen_retries']}")
-    missing = [k for k, v in out["launches"].items() if v <= 0]
-    if missing:
-        raise AssertionError(f"kernels not launched by the main path: {missing}")
     return out
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--docs", type=int, default=1_000_000)
-    ap.add_argument("--reps", type=int, default=5, help="retrieve_batch calls per shape")
+    ap.add_argument("--reps", type=int, default=5, help="calls per shape and path")
     ap.add_argument("--kernel-reps", type=int, default=20)
     ap.add_argument("--skip-e2e", action="store_true", help="kernel phase only")
     args = ap.parse_args()
@@ -375,7 +656,9 @@ def main() -> int:
     log(f"kernels: built in {kernels.build_seconds:.1f} s "
         f"(load {time.perf_counter() - t0:.1f} s) -> {kernels.library_path()}")
 
+    t0 = time.perf_counter()
     records = kernel_phase(args.docs, args.kernel_reps)
+    log(f"kernel phase: {time.perf_counter() - t0:.1f} s")
     e2e = None
     if not args.skip_e2e:
         if work.exists():
@@ -398,6 +681,9 @@ def main() -> int:
                 "max_abs_err": rec["max_abs_err"],
                 "ms": rec["ms"],
                 "plain_ms": rec["plain_ms"],
+                "bound_ms": rec["bound_ms"],
+                "bound_by": rec["bound_by"],
+                "library_ms": rec["library_ms"],
                 "shape": rec["what"],
             })
     if e2e is not None:

@@ -14,9 +14,25 @@ import torch
 from .engine.packing import PackedCorpus
 
 
+def _upload_data(
+    host_data: np.ndarray, precision: str, device: torch.device
+) -> torch.Tensor:
+    """The packed matrix on ``device`` in its storage dtype.  bf16 arrives
+    as 16-bit words (``uint16`` bits, or the JAX package's ``ml_dtypes``
+    array) and is viewed as ``torch.bfloat16`` without a conversion."""
+    arr = np.asarray(host_data)
+    if precision == "bf16":
+        if arr.dtype.itemsize != 2:
+            raise ValueError(f"a bf16 pack needs 16-bit words, got {arr.dtype}")
+        words = np.ascontiguousarray(arr).view(np.int16)
+        return torch.from_numpy(words).to(device).view(torch.bfloat16)
+    dtype = np.int8 if precision == "int8" else np.float32
+    return torch.from_numpy(np.ascontiguousarray(arr, dtype)).to(device)
+
+
 def packed_from_numpy(
     host_data: np.ndarray,
-    host_scales: np.ndarray,
+    host_scales: Optional[np.ndarray],
     emb_ids: np.ndarray,
     n_valid: int,
     dim: int,
@@ -27,41 +43,51 @@ def packed_from_numpy(
     host_row_map: Optional[np.ndarray],
     device: Union[str, torch.device],
 ) -> PackedCorpus:
-    """Upload a host int8 pack and its f32 rescore mirror to ``device``.
+    """Upload a host pack and its f32 rescore mirror to ``device``.
 
-    ``host_data`` int8 ``[n_padded, dim_padded]`` and ``host_scales`` f32
-    ``[n_padded]`` are the packed arrays; ``emb_ids`` int64 ``[n_valid]``
-    maps pack rows to embedding ids; ``host_f32`` ``[n_valid, dim]`` are
-    the exact rows in cache order and ``host_row_map`` the pack-row ->
-    cache-row map (``None`` = identity).  Without ``host_f32`` the corpus
-    has no device mirror, which the engine refuses to search.
+    ``host_data`` ``[n_padded, dim_padded]`` is the packed matrix: int8
+    with f32 ``host_scales`` ``[n_padded]``, or bf16 / f32 with
+    ``host_scales=None``.  ``emb_ids`` int64 ``[n_valid]`` maps pack rows
+    to embedding ids; ``host_f32`` ``[n_valid, dim]`` are the exact rows in
+    cache order and ``host_row_map`` the pack-row -> cache-row map
+    (``None`` = identity).  With ``host_f32`` the corpus gets a device
+    mirror for the exact rescore: an upload of those rows, or, for an f32
+    pack, the pack itself.  Without it the corpus has no mirror, which
+    only a ``rescore=False`` engine searches.
     """
-    if precision != "int8":
-        raise NotImplementedError(
-            f"precision {precision!r} is not ported to svs_tpu_torch yet"
-        )
+    if precision not in ("int8", "bf16", "f32"):
+        raise ValueError(f"unknown precision: {precision!r}")
+    if (precision == "int8") != (host_scales is not None):
+        raise ValueError("row scales come with an int8 pack and only with one")
     device = torch.device(device)
     emb_ids = np.asarray(emb_ids, dtype=np.int64)
+    data = _upload_data(host_data, precision, device)
+    row_scales = None
+    if host_scales is not None:
+        row_scales = torch.from_numpy(
+            np.ascontiguousarray(host_scales, np.float32)
+        ).to(device)
     dev_rescore = None
     dev_emb = None
     host_cache = None
     if host_f32 is not None:
         host_f32 = np.asarray(host_f32, dtype=np.float32)
         host_cache = (host_f32, host_row_map)
-        dev_f32 = torch.from_numpy(np.ascontiguousarray(host_f32)).to(device)
-        dev_map = (
-            torch.from_numpy(np.asarray(host_row_map, dtype=np.int64)).to(device)
-            if host_row_map is not None
-            else None
-        )
-        dev_rescore = (dev_f32, dev_map)
+        if precision == "f32":
+            dev_rescore = (data, None)
+        else:
+            dev_f32 = torch.from_numpy(np.ascontiguousarray(host_f32)).to(device)
+            dev_map = (
+                torch.from_numpy(np.asarray(host_row_map, dtype=np.int64)).to(device)
+                if host_row_map is not None
+                else None
+            )
+            dev_rescore = (dev_f32, dev_map)
         if n_valid == 0 or int(emb_ids.max()) < 2**31:
             dev_emb = torch.from_numpy(emb_ids.astype(np.int32)).to(device)
     return PackedCorpus(
-        data=torch.from_numpy(np.ascontiguousarray(host_data, np.int8)).to(device),
-        row_scales=torch.from_numpy(
-            np.ascontiguousarray(host_scales, np.float32)
-        ).to(device),
+        data=data,
+        row_scales=row_scales,
         emb_ids=emb_ids,
         n_valid=int(n_valid),
         dim=int(dim),

@@ -1,13 +1,14 @@
 """RetrievalEngine: owns the device-resident corpus and runs searches
-(port of ``svs_tpu.engine.index`` — the single-device int8 main path).
+(port of ``svs_tpu.engine.index`` — the single-device retrieval ladder).
 
 - **freshness** — the pack is keyed by the store's ``matrix_version`` plus
   SQLite's ``data_version`` (an O(1) token per query) and, when the token
   moves, the ``(version, count, max id, generation)`` fingerprint of the
   embeddings table; a pack is reused while it matches and rebuilt from a
   full BLOB scan otherwise;
-- **search dispatch** — the int8 prescore ladder of the reference: guarded
-  v3, keyed v2, v1, then the plain exact scan, each proposing C
+- **search dispatch** — the prescore ladder of the reference for int8,
+  bf16 and f32 storage: guarded v3, keyed v2, v1, the two-pass extraction
+  (batches above 256), then the plain exact scan, each proposing C
   candidates plus a boundary bound;
 - **final selection** — gather the candidates' exact f32 rows from the
   device mirror, f32 dots, and the reference tie rule, emitting one
@@ -16,7 +17,7 @@
 
 Not ported yet (``ROADMAP.md``): the host route and two-pass host search,
 hedged fetches and RPC-floor probes, incremental append/delete, sidecars,
-calibration, meshes and replicas, the bf16/f32 precisions, and the
+calibration, meshes and replicas, ``device_rescore='host'`` and the
 host-finalised ``topk_with_rescore``.
 """
 
@@ -115,33 +116,36 @@ class RetrievalEngine:
             )
         if kernel not in ("auto", "xla", "pallas"):
             raise ValueError(f"unknown kernel: {kernel!r}")
-        if rescore is False:
-            raise NotImplementedError(
-                "rescore=False (raw device prescore order) is not ported to "
-                "svs_tpu_torch yet"
-            )
-        if precision in ("f32", "bf16"):
-            raise NotImplementedError(
-                f"precision {precision!r} is not ported to svs_tpu_torch yet "
-                "(its bf16/f32 kernels are still to come); use 'auto'/'int8'"
+        if kernel == "pallas" and precision == "int8":
+            raise ValueError(
+                "kernel='pallas' requires float storage (f32/bf16); int8 "
+                "corpora use the exact int8 path — pass kernel='auto'"
             )
         if device_rescore == "host":
             raise NotImplementedError(
                 "device_rescore='host' (host-finalised rescore) is not "
                 "ported to svs_tpu_torch yet"
             )
-        if kernel != "auto":
-            raise NotImplementedError(
-                f"kernel={kernel!r} is not ported to svs_tpu_torch yet; the "
-                "int8 path runs with kernel='auto'"
-            )
+        #: The reference's names: 'auto' takes the hand-written kernels
+        #: where the shapes allow and the exact scan otherwise; 'xla' keeps
+        #: every precision on the exact scan; 'pallas' takes the float
+        #: kernels (float storage only).
         self.kernel = kernel
         self.device_rescore = device_rescore
         self.requested_precision = precision
-        #: 'auto' resolves to int8 under the verified rescore, as in the
-        #: reference (the other conditions of that rule are refused above).
-        self.precision = "int8"
-        self.rescore = True
+        #: Exact f32 re-ranking of the candidates, on by default for every
+        #: precision; ``rescore=False`` is the opt-out (raw prescore order).
+        self.rescore = rescore if rescore is not None else True
+        if precision == "auto":
+            # the reference's rule: int8 under the verified rescore, bf16
+            # where the int8 path does not apply (rescore off, the host
+            # rescore, or kernel='pallas', whose kernels are float-only)
+            precision = (
+                "int8"
+                if self.rescore and device_rescore == "auto" and kernel != "pallas"
+                else "bf16"
+            )
+        self.precision = precision
         self.device = torch.device("cuda" if device is None else device)
         self._cand_hint: Dict[int, Tuple[int, int]] = {}
         self._corpus: Optional[PackedCorpus] = None
@@ -226,7 +230,12 @@ class RetrievalEngine:
         budget = env_int(
             "SVS_TPU_DEVICE_RESCORE_MAX_BYTES", _DEVICE_RESCORE_MAX_BYTES
         )
-        mirror = cache if 0 < cache.nbytes <= budget or n == 0 else None
+        # the rescore mirror: none without the rescore; an f32 pack is its
+        # own (no second copy, no budget); else the f32 rows within budget
+        mirror = None
+        if self.rescore and budget > 0:
+            if self.precision == "f32" or 0 < cache.nbytes <= budget or n == 0:
+                mirror = cache
         return packed_from_numpy(
             data,
             scales,
@@ -235,7 +244,7 @@ class RetrievalEngine:
             d,
             version,
             self.precision,
-            float(scales[:n].max()) if n > 0 else 0.0,
+            float(scales[:n].max()) if scales is not None and n > 0 else 0.0,
             mirror,
             row_map,
             self.device,
@@ -301,8 +310,36 @@ class RetrievalEngine:
         boundary = np.ascontiguousarray(arr[:, 2 * n_eff]).view(np.float32)
         return emb, scores, boundary
 
+    def topk(
+        self, corpus: PackedCorpus, queries: np.ndarray, k: int
+    ) -> Tuple[np.ndarray, np.ndarray]:
+        """Device prescore alone: top-``k`` per query.  Returns ``(scores
+        f32 [B, k'], rows int64 [B, k'])`` with ``k' = min(k, n_valid)``;
+        ``rows`` index ``corpus.emb_ids``.  The ``rescore=False`` path."""
+        from ..ops.topk import unpack_vals_idx
+
+        queries = np.atleast_2d(np.asarray(queries, dtype=np.float32))
+        if queries.shape[1] != corpus.dim:
+            raise ValueError(
+                f"query dim {queries.shape[1]} != corpus dim {corpus.dim}"
+            )
+        k_eff = min(int(k), corpus.n_valid)
+        if k_eff <= 0:
+            b = queries.shape[0]
+            return (
+                np.zeros((b, 0), dtype=np.float32),
+                np.zeros((b, 0), dtype=np.int64),
+            )
+        q_dev = torch.from_numpy(pad_queries(queries, corpus.dim_padded)).to(
+            corpus.device
+        )
+        packed_dev, wide = self._prescore_packed(corpus, q_dev, k_eff)
+        return unpack_vals_idx(packed_dev.cpu(), k_eff, wide=wide)
+
     def candidate_count(self, k: int) -> int:
         """How many candidates the device should return for a final top-k."""
+        if not self.rescore:
+            return k
         return max(k * CANDIDATE_MULTIPLIER, k + CANDIDATE_MIN_EXTRA)
 
     def initial_candidates(self, k: int, n_valid: int) -> int:
@@ -359,9 +396,21 @@ class RetrievalEngine:
         so the two never drift."""
         from ..ops.pallas_extract import fused2_supported
 
+        if not self._selection_kernels_on(corpus):
+            return False
         return fused2_supported(
             corpus.n_padded, corpus.dim_padded, b, min(k, corpus.n_valid)
         )
+
+    def _selection_kernels_on(self, corpus: PackedCorpus) -> bool:
+        """The reference's gate on the quantized-prescore (v2/v3) kernels:
+        only under the verified rescore, and only for ``kernel='auto'``
+        (int8) or ``'auto'``/``'pallas'`` (bf16/f32)."""
+        if not self.rescore:
+            return False
+        if corpus.precision == "int8":
+            return self.kernel == "auto"
+        return self.kernel in ("auto", "pallas")
 
     def _guarded_selection_possible(
         self, corpus: PackedCorpus, b: int, k: int
@@ -373,6 +422,8 @@ class RetrievalEngine:
         escalates v3 -> v2/v1 -> exact."""
         from ..ops.pallas_extract import fused3_supported
 
+        if not self._selection_kernels_on(corpus):
+            return False
         return fused3_supported(
             corpus.n_padded, corpus.dim_padded, b, min(k, corpus.n_valid)
         )
@@ -389,9 +440,11 @@ class RetrievalEngine:
     ) -> np.ndarray:
         """Per-query bound on ``|device prescore - exact f32 score|`` —
         the reference's formula unchanged (see its docstring for the
-        derivation): for int8 a Hoeffding-style concentration term at
-        delta = 1e-15, a deterministic residual x residual term, a 3e-5
-        f32-accumulation cushion, plus the key grid's term when a keyed
+        derivation): for bf16 the two-sided rounding term ``2^-8 (1 +
+        2^-9)`` plus a 3e-5 cushion; for int8 a Hoeffding-style
+        concentration term at delta = 1e-15, a deterministic residual x
+        residual term and a 3e-5 f32-accumulation cushion; for f32 1e-4
+        (true f32 dots, TF32 off); plus the key grid's term when a keyed
         (KEY_EPS) or guarded (GUARD_KEY_EPS) kernel can dispatch.
         Callers recompute it at the CURRENT candidate count on every
         widen retry."""
@@ -404,69 +457,65 @@ class RetrievalEngine:
             key_eps = KEY_EPS
         else:
             key_eps = 0.0
-        d = corpus.dim
-        s_d = corpus.scale_max
-        s_q = np.max(np.abs(queries), axis=1).astype(np.float64) / 127.0
-        t = np.sqrt(2.0 * np.log(2.0 / 1e-15))  # ~8.3
-        return (
-            0.5 * t * (s_q + s_d) * 1.001  # concentration terms
-            + 0.25 * d * s_q * s_d  # residual x residual (deterministic)
-            + 3e-5
-            + key_eps
-        )
+        if corpus.precision == "bf16":
+            eps = 2.0**-8 * (1.0 + 2.0**-9) + 3e-5 + key_eps
+            return np.full((b,), eps, dtype=np.float64)
+        if corpus.precision == "int8":
+            d = corpus.dim
+            s_d = corpus.scale_max
+            s_q = np.max(np.abs(queries), axis=1).astype(np.float64) / 127.0
+            t = np.sqrt(2.0 * np.log(2.0 / 1e-15))  # ~8.3
+            return (
+                0.5 * t * (s_q + s_d) * 1.001  # concentration terms
+                + 0.25 * d * s_q * s_d  # residual x residual (deterministic)
+                + 3e-5
+                + key_eps
+            )
+        return np.full((b,), 1e-4 + key_eps, dtype=np.float64)
 
     def _prescore_packed(
         self, corpus: PackedCorpus, q: torch.Tensor, k_eff: int
     ) -> Tuple[torch.Tensor, bool]:
-        """Dispatch the int8 prescore ladder on the padded on-device
-        queries; returns the ON-DEVICE packed wire (scores ++ indices)
-        and its wire format."""
-        from ..ops.pallas_extract import (
-            FUSED_MAX_BATCH,
-            extract_supported,
-            fused_supported,
-            score_topk_fused2_int8_packed,
-            score_topk_fused3_int8_packed,
-            score_topk_fused_int8_packed,
-        )
-        from ..ops.quant import score_topk_int8_packed
-        from ..ops.topk import streaming_score_topk_packed
+        """Dispatch the prescore ladder on the padded on-device queries;
+        returns the ON-DEVICE packed wire (scores ++ indices) and its wire
+        format.  The rungs are the reference's, in its order."""
+        from ..ops import pallas_extract as P
+        from ..ops.quant import score_topk_int8_extract_packed, score_topk_int8_packed
+        from ..ops.topk import score_topk_packed, streaming_score_topk_packed
 
         b = q.shape[0]
-        if b > FUSED_MAX_BATCH:
-            raise NotImplementedError(
-                f"batches above {FUSED_MAX_BATCH} queries need the two-pass "
-                "_extract kernel, which is not ported to svs_tpu_torch yet; "
-                "split the batch"
-            )
         n_valid = corpus.n_valid
         wide = corpus.n_padded >= WIDE_INDEX_MIN_ROWS
-        data, scales = corpus.data, corpus.row_scales
-        if self._guarded_selection_possible(corpus, b, k_eff):
-            return score_topk_fused3_int8_packed(
-                data, scales, q, n_valid, k_eff, wide=wide
-            ), wide
-        if self._keyed_selection_possible(corpus, b, k_eff):
-            return score_topk_fused2_int8_packed(
-                data, scales, q, n_valid, k_eff, wide=wide
-            ), wide
-        if not wide and fused_supported(
-            corpus.n_padded, corpus.dim_padded, b, k_eff
-        ):
-            return score_topk_fused_int8_packed(
-                data, scales, q, n_valid, k_eff
-            ), wide
-        if not wide and extract_supported(corpus.n_padded, b, k_eff):
-            # unreachable at b <= FUSED_MAX_BATCH (fused_supported covers
-            # every shape extract_supported does); kept as the reference's
-            # ladder step so a change to either predicate fails loudly
-            raise NotImplementedError(
-                "the two-pass _extract kernel is not ported to svs_tpu_torch"
+        n_pad, d_pad = corpus.n_padded, corpus.dim_padded
+        if corpus.precision == "int8":
+            ops = (corpus.data, corpus.row_scales)
+            v3, v2, v1 = (
+                P.score_topk_fused3_int8_packed,
+                P.score_topk_fused2_int8_packed,
+                P.score_topk_fused_int8_packed,
             )
+            two_pass, exact = score_topk_int8_extract_packed, score_topk_int8_packed
+            kernels_ok = self.kernel == "auto" and not wide
+        else:
+            ops = (corpus.data,)
+            v3, v2, v1 = (
+                P.score_topk_fused3_packed,
+                P.score_topk_fused2_packed,
+                P.score_topk_fused_packed,
+            )
+            two_pass, exact = P.score_topk_extract_packed, score_topk_packed
+            kernels_ok = self.kernel in ("auto", "pallas") and not wide
+        if self._guarded_selection_possible(corpus, b, k_eff):
+            return v3(*ops, q, n_valid, k_eff, wide=wide), wide
+        if self._keyed_selection_possible(corpus, b, k_eff):
+            return v2(*ops, q, n_valid, k_eff, wide=wide), wide
+        if kernels_ok and P.fused_supported(n_pad, d_pad, b, k_eff):
+            return v1(*ops, q, n_valid, k_eff), wide
+        if kernels_ok and P.extract_supported(n_pad, b, k_eff):
+            return two_pass(*ops, q, n_valid, k_eff), wide
         if self._scores_over_budget(corpus, b):
             return streaming_score_topk_packed(
-                data, q, n_valid, k_eff, row_scales=scales, wide=wide
+                corpus.data, q, n_valid, k_eff, row_scales=corpus.row_scales,
+                wide=wide,
             ), wide
-        return score_topk_int8_packed(
-            data, scales, q, n_valid, k_eff, wide=wide
-        ), wide
+        return exact(*ops, q, n_valid, k_eff, wide=wide), wide

@@ -1,5 +1,5 @@
-"""Corpus packing: host float32 matrix -> device-resident int8 search
-layout (port of ``svs_tpu.engine.packing``).
+"""Corpus packing: host float32 matrix -> device-resident search layout,
+int8, bf16 or f32 (port of ``svs_tpu.engine.packing``).
 
 Padding rules are the reference's, so every kernel sees the same
 tile-aligned shapes and the pack's bytes are identical to the reference's:
@@ -11,8 +11,8 @@ tile-aligned shapes and the pack's bytes are identical to the reference's:
   permutation, so per-subtile top-k occupancy stays binomial whatever the
   insertion order.
 
-Only the int8 precision (what ``precision='auto'`` resolves to) is ported;
-the upload is synchronous.
+bf16 is carried on the host as its raw ``uint16`` bits (no ``ml_dtypes``)
+and viewed as ``torch.bfloat16`` on upload; the upload is synchronous.
 """
 
 from __future__ import annotations
@@ -39,22 +39,6 @@ _QUANT_CHUNK_ROWS = 1 << 16
 
 def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
-
-
-def pad_matrix(
-    matrix: np.ndarray,
-    row_multiple: int = ROW_MULTIPLE,
-    dim_multiple: int = DIM_MULTIPLE,
-) -> np.ndarray:
-    """Zero-pad an ``[n, d]`` f32 matrix to tile-aligned shape."""
-    n, d = matrix.shape
-    n_pad = max(_round_up(n, row_multiple), row_multiple)
-    d_pad = max(_round_up(d, dim_multiple), dim_multiple)
-    if (n_pad, d_pad) == (n, d):
-        return np.ascontiguousarray(matrix, dtype=np.float32)
-    out = np.zeros((n_pad, d_pad), dtype=np.float32)
-    out[:n, :d] = matrix
-    return out
 
 
 def pad_queries(queries: np.ndarray, dim_padded: int) -> np.ndarray:
@@ -94,6 +78,53 @@ def quantize_int8(
     return q, scales
 
 
+def _bf16_rne_bits(bits: np.ndarray) -> np.ndarray:
+    """Round-to-nearest-even f32 bits -> bf16 bits, bit for bit as
+    ``svs_tpu``'s native cast: a NaN keeps its sign and top payload bits
+    and is made quiet."""
+    bits = bits.astype(np.uint32)
+    nan = (bits & np.uint32(0x7FFFFFFF)) > np.uint32(0x7F800000)
+    lsb = (bits >> np.uint32(16)) & np.uint32(1)
+    rounded = (bits + np.uint32(0x7FFF) + lsb) >> np.uint32(16)
+    quiet = (bits >> np.uint32(16)) | np.uint32(0x0040)
+    return np.where(nan, quiet, rounded).astype(np.uint16)
+
+
+def f32_to_bf16_bits(matrix: np.ndarray) -> np.ndarray:
+    """Round-to-nearest-even f32 -> bf16 as ``uint16`` bits: the same bytes
+    as ``svs_tpu.native.f32_to_bf16``.  torch's multithreaded cast does the
+    bulk; entries with an all-zero or all-one exponent (zeros, subnormals,
+    infinities, NaNs), where a vectorised cast may flush or canonicalise,
+    are redone by the exact bit formula."""
+    rows = torch.from_numpy(np.ascontiguousarray(matrix, dtype=np.float32))
+    out = rows.to(torch.bfloat16).view(torch.int16).numpy().view(np.uint16)
+    exp = rows.view(torch.int32) & 0x7F800000
+    special = torch.nonzero(
+        (exp == 0) | (exp == 0x7F800000), as_tuple=True
+    )
+    if special[0].numel():
+        at = tuple(i.numpy() for i in special)
+        bits = rows.numpy().view(np.uint32)[at]
+        out[at] = _bf16_rne_bits(bits)
+    return out
+
+
+def _cast_padded(
+    matrix: "np.ndarray | _PermutedRows", n_pad: int, d_pad: int, precision: str
+) -> np.ndarray:
+    """The zero-padded ``[n_pad, d_pad]`` f32 matrix (``precision='f32'``)
+    or its bf16 bits (``'bf16'``), filled one row chunk at a time."""
+    n, d = matrix.shape
+    dtype = np.float32 if precision == "f32" else np.uint16
+    out = np.zeros((n_pad, d_pad), dtype=dtype)
+    for lo in range(0, n, _QUANT_CHUNK_ROWS):
+        rows = np.asarray(matrix[lo : lo + _QUANT_CHUNK_ROWS], dtype=np.float32)
+        out[lo : lo + len(rows), :d] = (
+            rows if precision == "f32" else f32_to_bf16_bits(rows)
+        )
+    return out
+
+
 def pack_host(
     matrix: np.ndarray,
     emb_ids: np.ndarray,
@@ -102,29 +133,28 @@ def pack_host(
     dim_multiple: int = DIM_MULTIPLE,
 ) -> Tuple[
     np.ndarray,
-    np.ndarray,
+    Optional[np.ndarray],
     np.ndarray,
     np.ndarray,
     Optional[np.ndarray],
     int,
     int,
 ]:
-    """Permute + pad + quantize on the HOST only, in NumPy.
+    """Permute + pad + cast/quantize on the HOST only.
 
     Same contract as ``svs_tpu.engine.packing.pack_host`` and the same
-    bytes for int8: returns ``(host_data, host_scales, emb_ids,
-    cache_f32, host_row_map, n, d)``.  ``cache_f32`` is the f32 matrix in
-    its ORIGINAL (scan) order and ``host_row_map`` the pack-row -> cache
-    row map (``None`` = identity), so no permuted copy of the f32 matrix
-    is ever made.
+    bytes: returns ``(host_data, host_scales, emb_ids, cache_f32,
+    host_row_map, n, d)``.  ``host_data`` is int8 (with f32 per-row
+    ``host_scales``), bf16 as ``uint16`` bits, or f32 (both float packs
+    have ``host_scales=None``).  ``cache_f32`` is the f32 matrix in its
+    ORIGINAL (scan) order and ``host_row_map`` the pack-row -> cache row
+    map (``None`` = identity), so no permuted copy of the f32 matrix is
+    made beyond the f32 pack itself.
     """
     assert matrix.ndim == 2
     n, d = matrix.shape
-    if precision != "int8":
-        raise NotImplementedError(
-            f"precision {precision!r} is not ported to svs_tpu_torch yet "
-            "(only int8, what precision='auto' resolves to)"
-        )
+    if precision not in ("f32", "bf16", "int8"):
+        raise ValueError(f"unknown precision: {precision!r}")
     emb_ids = np.asarray(emb_ids, dtype=np.int64)
     perm = None
     if n >= PERMUTE_MIN_ROWS:
@@ -132,9 +162,11 @@ def pack_host(
         emb_ids = emb_ids[perm]
     n_pad = max(_round_up(n, row_multiple), row_multiple)
     d_pad = max(_round_up(d, dim_multiple), dim_multiple)
-    host_data, host_scales = quantize_int8(
-        matrix if perm is None else _PermutedRows(matrix, perm), n_pad, d_pad
-    )
+    rows = matrix if perm is None else _PermutedRows(matrix, perm)
+    if precision == "int8":
+        host_data, host_scales = quantize_int8(rows, n_pad, d_pad)
+    else:
+        host_data, host_scales = _cast_padded(rows, n_pad, d_pad, precision), None
     return host_data, host_scales, emb_ids, matrix, perm, n, d
 
 
@@ -155,8 +187,8 @@ class _PermutedRows:
 class PackedCorpus:
     """Device-resident packed corpus plus host-side id mapping."""
 
-    data: torch.Tensor  # [n_padded, dim_padded] int8
-    row_scales: torch.Tensor  # [n_padded] f32
+    data: torch.Tensor  # [n_padded, dim_padded] int8, bf16 or f32
+    row_scales: Optional[torch.Tensor]  # [n_padded] f32 (int8 only)
     emb_ids: np.ndarray  # [n_valid] int64: pack row -> embeddings.id
     n_valid: int
     dim: int  # true (unpadded) embedding dim
@@ -171,7 +203,8 @@ class PackedCorpus:
         dataclasses.field(default=None, repr=False, compare=False)
     )
     #: Device mirror of the f32 rows, ``(dev_f32 [n_valid, dim], dev_row_map
-    #: int64 [n_valid] | None)``: the exact-rescore gather source.
+    #: int64 [n_valid] | None)``: the exact-rescore gather source.  An f32
+    #: pack is its own mirror, ``(data, None)`` at the padded width.
     dev_rescore: Optional[Tuple[torch.Tensor, Optional[torch.Tensor]]] = (
         dataclasses.field(default=None, repr=False, compare=False)
     )

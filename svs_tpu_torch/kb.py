@@ -5,18 +5,24 @@ Same constructor keywords and the same SQLite file as the reference:
 a database written by ``svs_tpu.KB`` opens here, and the reverse.
 Retrieval runs the reference pipeline on one CUDA device:
 
-1. the engine keeps the corpus packed on the device as int8 and proposes
-   an over-provisioned candidate set per query (fused int8 kernels);
+1. the engine keeps the corpus packed on the device — int8 by default
+   (``precision='auto'``), or bf16 / f32 — and proposes an
+   over-provisioned candidate set per query (fused selection kernels);
 2. the candidates are rescored in exact f32 from a device mirror of the
    stored vectors and selected with the reference tie rule;
 3. the margin check against ``prescore_eps`` proves the candidate set
    covered the true top-n — otherwise the candidates widen 4x and the
    search retries — and the winners are hydrated from SQLite.
 
+``rescore=False`` skips steps 2-3: the top-n prescores come back in
+device order (``precision='auto'`` then stores bf16), as in the
+reference.  ``kernel='xla'`` keeps float storage on the plain exact scan;
+``kernel='pallas'`` selects the float kernels.
+
 Not ported yet: ``AsyncKB``, metadata filters (``where=``), the graph,
 key/value and pairwise interfaces, deletes, sidecars, meshes, replicas,
-the host search route and the bf16/f32 precisions.  Where a call needs one
-of them it raises ``NotImplementedError`` naming what is missing.
+the host search route and ``device_rescore='host'``.  Where a call needs
+one of them it raises ``NotImplementedError`` naming what is missing.
 """
 
 from __future__ import annotations
@@ -296,6 +302,25 @@ def _finalize_device_final(
     return _hydrate_and_mint(tx, emb, scores, doc_cache)
 
 
+def _finalize_prescores(
+    tx: Tx,
+    corpus: PackedCorpus,
+    pre_vals: np.ndarray,
+    pre_rows: np.ndarray,
+    k: int,
+    doc_cache: Optional[DocRowCache] = None,
+) -> List[List[Retrieval]]:
+    """The ``rescore=False`` branch of the reference's ``_finalize_batch``:
+    raw device prescores in device order.  Among exactly tied scores the
+    device breaks toward the SMALLER pack row and fetched only ``k``
+    candidates, so the reference tie rule does not apply here."""
+    if pre_rows.size == 0:
+        return [[] for _ in range(pre_rows.shape[0])]
+    k_eff = min(k, pre_rows.shape[1])
+    top_emb = corpus.emb_ids[pre_rows[:, :k_eff]]
+    return _hydrate_and_mint(tx, top_emb, pre_vals[:, :k_eff], doc_cache)
+
+
 def _resolve_device(device: Any) -> torch.device:
     """``device=None`` means the CUDA device — never a silent CPU run."""
     if device is None:
@@ -456,7 +481,9 @@ class KB:
         self, queries: List[str], n: int, where: None = None
     ) -> List[List[Retrieval]]:
         """Top-``n`` documents for every query, exact: scores are f32 dots
-        of the stored vectors, ties break to the larger embedding id."""
+        of the stored vectors, ties break to the larger embedding id.
+        With ``rescore=False`` they are the device prescores instead, in
+        device order."""
         if where is not None:
             raise NotImplementedError(
                 "where= (filtered retrieval) is not ported to svs_tpu_torch yet"
@@ -476,6 +503,18 @@ class KB:
         self, corpus: PackedCorpus, vectors: np.ndarray, n: int
     ) -> List[List[Retrieval]]:
         c = c0 = self.engine.initial_candidates(n, corpus.n_valid)
+        if not self.engine.rescore:
+            with phase("device_search", self._stats), profiler_trace("retrieve"):
+                pre_vals, pre_rows = self.engine.topk(corpus, vectors, c)
+            with phase("finalize", self._stats), self._lock:
+                db = self._require_db()
+                with db.transaction() as tx:
+                    results = _finalize_prescores(
+                        tx, corpus, pre_vals, pre_rows, n,
+                        doc_cache=self._doc_cache,
+                    )
+            self.engine.record_candidates(n, c, widened=False)
+            return results
         while True:
             # recomputed each retry: the v2/v3 dispatch (and its key-eps
             # term) depends on the current c

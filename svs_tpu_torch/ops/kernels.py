@@ -1,10 +1,11 @@
 """Build and load the port's hand-written CUDA kernels (``csrc/*.cu``).
 
 The sources compile with ``nvcc`` for Hopper (``sm_90a``) into one shared
-library with a plain C interface, loaded through ``ctypes``.  The build
-happens at first use, from the sources in the package and nothing else,
-into ``build/svs_tpu_torch/<hash>/`` beside the package (keyed by a hash of
-the sources and flags, so an edited kernel never loads a stale build).
+library with a plain C interface, loaded through ``ctypes``: one ``nvcc``
+per ``.cu`` file, all started together, then one link.  The build happens
+at first use, from the sources in the package and nothing else, into
+``build/svs_tpu_torch/<hash>/`` beside the package (keyed by a hash of the
+sources and flags, so an edited kernel never loads a stale build).
 Nothing here runs at import: the CPU never builds or loads the library.
 """
 
@@ -23,10 +24,8 @@ from typing import Optional
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD_ROOT = Path(__file__).resolve().parent.parent.parent / "build" / "svs_tpu_torch"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-)
+_ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 
 _lib: Optional[ctypes.CDLL] = None
 _lock = threading.Lock()
@@ -65,26 +64,40 @@ def library_path() -> Path:
 def _build(target: Path) -> None:
     global build_seconds
     target.parent.mkdir(parents=True, exist_ok=True)
-    cu = [str(p) for p in _sources() if p.suffix == ".cu"]
-    fd, tmp = tempfile.mkstemp(
-        suffix=".so", prefix=".build-", dir=str(target.parent)
-    )
-    os.close(fd)
+    nvcc = _nvcc()
+    cu = [p for p in _sources() if p.suffix == ".cu"]
     t0 = time.perf_counter()
-    try:
+    with tempfile.TemporaryDirectory(
+        prefix=".build-", dir=str(target.parent)
+    ) as tmp:
+        objs = [str(Path(tmp) / f"{p.stem}.o") for p in cu]
+        procs = [
+            subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-I", str(_CSRC), "-c", "-o", obj, str(src)],
+                stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE,
+                text=True,
+            )
+            for src, obj in zip(cu, objs)
+        ]
+        failed = []
+        for src, proc in zip(cu, procs):
+            out, err = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"== {src.name} ({proc.returncode})\n{out}{err}")
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        so = str(Path(tmp) / "libsvs_kernels.so")
         proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-I", str(_CSRC), "-o", tmp, *cu],
+            [nvcc, *_ARCH, "-shared", "-o", so, *objs],
             capture_output=True,
             text=True,
         )
         if proc.returncode != 0:
             raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
+                f"nvcc link failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
             )
-        os.replace(tmp, target)  # atomic: a concurrent build never sees half a file
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+        os.replace(so, target)  # atomic: a concurrent build never sees half a file
     build_seconds = time.perf_counter() - t0
 
 
@@ -104,8 +117,14 @@ def library() -> ctypes.CDLL:
                 i, vp, vp, vp, vp, i, i, i, i, vp, vp, vp
             ]
             lib.svs_fused_int8.restype = i
+            lib.svs_fused_float.argtypes = [
+                i, i, vp, vp, i, i, i, i, vp, vp, vp
+            ]
+            lib.svs_fused_float.restype = i
             lib.svs_reduce_keys.argtypes = [vp, i, i, i, vp, vp]
             lib.svs_reduce_keys.restype = i
+            lib.svs_extract.argtypes = [vp, i, i, vp, vp, vp]
+            lib.svs_extract.restype = i
             _lib = lib
     return _lib
 

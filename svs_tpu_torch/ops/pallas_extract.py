@@ -1,14 +1,17 @@
-"""Fused int8 scoring + tile extraction: the retrieval main path's
-selection kernels (port of ``svs_tpu.ops.pallas_extract``).
+"""Fused scoring + tile extraction: the retrieval ladder's selection
+kernels (port of ``svs_tpu.ops.pallas_extract``).
 
 The module keeps the reference's name so every constant, key encoding and
-finish sits where a reader of ``svs_tpu`` expects it.  The four kernels of
-the int8 main path are CUDA C++ (``svs_tpu_torch/csrc``):
+finish sits where a reader of ``svs_tpu`` expects it.  Eight of its nine
+Pallas kernels are CUDA C++ here (``svs_tpu_torch/csrc``):
 
-- ``_fused3_extract_int8`` — guarded v3 (``_fused3_int8_kernel``);
-- ``_fused2_extract_int8`` — keyed v2 (``_fused2_int8_kernel``);
-- ``_fused_extract_int8`` — v1 values + indices (``_fused_int8_kernel``);
-- ``_reduce_keys`` — pass-2 reduction (``_make_reduce_kernel``).
+- ``_fused3_extract_int8`` / ``_fused3_extract`` — guarded v3, int8 or
+  bf16/f32 (``_fused3_int8_kernel``, ``_fused3_kernel``);
+- ``_fused2_extract_int8`` / ``_fused2_extract`` — keyed v2;
+- ``_fused_extract_int8`` / ``_fused_extract`` — v1 values + indices;
+- ``_reduce_keys`` — pass-2 reduction (``_make_reduce_kernel``);
+- ``_extract`` — the two-pass top-8 over a precomputed score matrix
+  (``_extract_kernel``), for batches above ``FUSED_MAX_BATCH``.
 
 Each wrapper launches its kernel for CUDA tensors (or raises) and takes
 its plain-torch twin (``*_plain``, one torch op per JAX op, so nothing is
@@ -20,7 +23,8 @@ reference leaves them to XLA.
 Every key encoding, bias, grid, subtile width, H value and dead marker is
 the reference's, so ``KEY_EPS``, ``GUARD_KEY_EPS`` and the engine's
 ``prescore_eps`` carry over unchanged, and so do their soundness proofs
-(see the comments in ``svs_tpu/ops/pallas_extract.py``).
+(see the comments in ``svs_tpu/ops/pallas_extract.py``).  The pairwise
+kernel (``_pair_keys_kernel``) is not ported yet.
 """
 
 from __future__ import annotations
@@ -34,8 +38,10 @@ from .topk import (
     FALLBACK_SCORES_BUDGET,
     NEG_INF,
     int8_dot,
+    mask_cols,
     pack_vals_idx,
     score_topk,
+    scores_matmul,
     streaming_score_topk,
     top_k,
 )
@@ -60,7 +66,7 @@ def _exact_fallback(
     return score_topk(docs, queries, n_valid, k)
 
 
-#: Docs per extraction subtile of the two-pass ``_extract`` (not ported).
+#: Docs per extraction subtile of the two-pass ``_extract``.
 SUBTILE = 1024
 #: Winners extracted per subtile.
 EXTRACT_H = 8
@@ -71,12 +77,75 @@ QBLOCK = 8
 
 
 def extract_supported(n: int, b: int, k: int) -> bool:
-    """Shapes of the two-pass ``_extract`` kernel (reference predicate;
-    the kernel itself is not ported yet — the engine raises where it
-    would dispatch)."""
+    """Shapes of the two-pass ``_extract`` kernel (the reference predicate;
+    ``b`` is unconstrained)."""
     del b
     t = n // SUBTILE
     return n % BLOCK_N == 0 and n < (1 << 24) and t >= 2 and k <= t * EXTRACT_H
+
+
+def _top8_rounds(
+    sub: torch.Tensor, gidx: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``EXTRACT_H`` rounds over the last axis of ``sub`` ``[b, t, w]``
+    with f32 global indices ``gidx`` ``[1, t, w]``: the max, the HIGHEST
+    index among the entries equal to it, then that one entry cleared to
+    -inf.  Returns ``(vals, idx as f32)``, each ``[b, t * EXTRACT_H]``."""
+    b, t, _ = sub.shape
+    vals, idxs = [], []
+    for _ in range(EXTRACT_H):
+        mval = sub.amax(dim=2, keepdim=True)
+        midx = torch.where(sub == mval, gidx, -1.0).amax(dim=2, keepdim=True)
+        vals.append(mval)
+        idxs.append(midx)
+        sub = torch.where(gidx == midx, NEG_INF, sub)
+    return (
+        torch.cat(vals, dim=2).reshape(b, t * EXTRACT_H),
+        torch.cat(idxs, dim=2).reshape(b, t * EXTRACT_H),
+    )
+
+
+def _extract_plain(scores: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain-torch twin of ``_extract_kernel``: per 1024-lane subtile the
+    top-8 values and their global column (as f32), ties to the highest
+    column.  An all -inf subtile yields -inf at its highest column on
+    every round, as the reference does."""
+    b, n = scores.shape
+    t = n // SUBTILE
+    gidx = torch.arange(n, device=scores.device).to(torch.float32)
+    return _top8_rounds(scores.view(b, t, SUBTILE), gidx.view(1, t, SUBTILE))
+
+
+def _extract(scores: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-subtile top-8 of ``[B, N]`` scores (B % 8 == 0, N % BLOCK_N ==
+    0, N < 2^24): ``(vals f32 [B, (N/1024)*8], idx-as-f32 [B, ...])``,
+    each 8-group descending."""
+    b, n = scores.shape
+    if b % QBLOCK or n % BLOCK_N or n >= (1 << 24) or b == 0:
+        raise ValueError(
+            f"_extract needs B % {QBLOCK} == 0, N % {BLOCK_N} == 0 and "
+            f"N < 2^24; got B={b}, N={n}"
+        )
+    if scores.dtype != torch.float32:
+        raise ValueError(f"_extract needs f32 scores, got {scores.dtype}")
+    if not scores.is_cuda:
+        return _extract_plain(scores)
+    from . import kernels
+
+    scores = scores.contiguous()
+    shape = (b, (n // SUBTILE) * EXTRACT_H)
+    vals = torch.empty(shape, dtype=torch.float32, device=scores.device)
+    idx = torch.empty(shape, dtype=torch.float32, device=scores.device)
+    stream = torch.cuda.current_stream(scores.device).cuda_stream
+    rc = kernels.library().svs_extract(
+        scores.data_ptr(), b, n, vals.data_ptr(), idx.data_ptr(), stream
+    )
+    kernels.check(rc, "extract kernel")
+    _extract.launches += 1  # type: ignore[attr-defined]
+    return vals, idx
+
+
+_extract.launches = 0  # type: ignore[attr-defined]
 
 
 def _verified_merge(
@@ -97,6 +166,48 @@ def _verified_merge(
         fv, fi = fallback()
         return fv.to(torch.float32), fi
     return vals, idx
+
+
+def _pad_rows(x: torch.Tensor, fill: float) -> torch.Tensor:
+    """Pad the rows of ``x`` with ``fill`` up to a multiple of ``QBLOCK``
+    (at least one block)."""
+    b = x.shape[0]
+    b_pad = max(QBLOCK, ((b + QBLOCK - 1) // QBLOCK) * QBLOCK)
+    if b_pad == b:
+        return x
+    return torch.cat([x, x.new_full((b_pad - b, x.shape[1]), fill)], dim=0)
+
+
+def extract_topk(
+    scores: torch.Tensor, k: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact top-k over ``[B, N]`` scores via ``_extract`` + the verified
+    merge.  Query rows are padded with -inf to a multiple of 8; requires
+    ``extract_supported(N, B, k)``.  Returns ``(vals, idx int32)``."""
+    b = scores.shape[0]
+    scores = _pad_rows(scores, NEG_INF)
+    ev, ei = _extract(scores)
+
+    def full() -> Tuple[torch.Tensor, torch.Tensor]:
+        fv, fi = top_k(scores, k)
+        return fv, fi.to(torch.int32)
+
+    vals, idx = _verified_merge(ev, ei, k, full)
+    return vals[:b], idx[:b]
+
+
+def score_topk_extract_packed(
+    docs: torch.Tensor,
+    queries: torch.Tensor,
+    n_valid: int,
+    k: int,
+    wide: bool = False,
+) -> torch.Tensor:
+    """Float scoring + the two-pass extraction selection + packing (the
+    reference's default f32 score matrix)."""
+    scores = mask_cols(scores_matmul(docs, queries), n_valid)
+    vals, idx = extract_topk(scores, k)
+    return pack_vals_idx(vals, idx, wide=wide)
 
 
 # --- fused matmul + extraction ---------------------------------------------
@@ -208,6 +319,21 @@ def _scores_int8(
     return acc.to(torch.float32) * row_scales[None, :] * q_scales[:, None]
 
 
+def _v1_emit(scores: torch.Tensor, n_valid: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The v1 emit on an f32 score matrix ``[B, N]``: per 512-doc subtile
+    the top-8 scores and their global row (as f32), ties to the highest
+    row, rows >= ``n_valid`` masked to -inf (compared in f32)."""
+    b, n = scores.shape
+    t = n // FUSED_SUBTILE
+    gidx = torch.arange(n, device=scores.device).to(torch.float32).view(
+        1, t, FUSED_SUBTILE
+    )
+    sub = torch.where(
+        gidx < float(n_valid), scores.view(b, t, FUSED_SUBTILE), NEG_INF
+    )
+    return _top8_rounds(sub, gidx)
+
+
 def _fused_extract_int8_plain(
     q_docs: torch.Tensor,
     row_scales: torch.Tensor,
@@ -215,30 +341,9 @@ def _fused_extract_int8_plain(
     q_scales: torch.Tensor,
     n_valid: int,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain-torch twin of ``_fused_int8_kernel``: per 512-doc subtile,
-    the top-8 scores and their global row (as f32), ties to the highest
-    row, rows >= ``n_valid`` masked to -inf."""
-    n = q_docs.shape[0]
-    b = q_int8.shape[0]
-    t = n // FUSED_SUBTILE
-    sub = _scores_int8(q_docs, row_scales, q_int8, q_scales).view(
-        b, t, FUSED_SUBTILE
-    )
-    gidx = torch.arange(n, device=q_docs.device).to(torch.float32).view(
-        1, t, FUSED_SUBTILE
-    )
-    sub = torch.where(gidx < float(n_valid), sub, NEG_INF)
-    vals, idxs = [], []
-    for _ in range(EXTRACT_H):
-        mval = sub.amax(dim=2, keepdim=True)
-        midx = torch.where(sub == mval, gidx, -1.0).amax(dim=2, keepdim=True)
-        vals.append(mval)
-        idxs.append(midx)
-        sub = torch.where(gidx == midx, NEG_INF, sub)
-    return (
-        torch.cat(vals, dim=2).reshape(b, t * EXTRACT_H),
-        torch.cat(idxs, dim=2).reshape(b, t * EXTRACT_H),
-    )
+    """Plain-torch twin of ``_fused_int8_kernel``: the v1 emit on the
+    rescaled int8 scores."""
+    return _v1_emit(_scores_int8(q_docs, row_scales, q_int8, q_scales), n_valid)
 
 
 def _fused_extract_int8(
@@ -276,13 +381,8 @@ def score_topk_fused_int8_packed(
 ) -> torch.Tensor:
     """int8 v1: scoring + selection + verified merge + packing.
     Requires ``fused_supported``."""
-    _, d = q_docs.shape
     b = queries.shape[0]
-    b_pad = max(QBLOCK, ((b + QBLOCK - 1) // QBLOCK) * QBLOCK)
-    if b_pad != b:
-        queries = torch.cat(
-            [queries, queries.new_zeros((b_pad - b, d))], dim=0
-        )
+    queries = _pad_rows(queries, 0.0)
     q_int8, q_scales = quantize_rows_int8(queries)
     ev, ei = _fused_extract_int8(q_docs, row_scales, q_int8, q_scales, n_valid)
     vals, idx = _verified_merge(
@@ -291,6 +391,129 @@ def score_topk_fused_int8_packed(
         k,
         lambda: _exact_fallback(
             q_docs, queries, n_valid, k, row_scales=row_scales
+        ),
+    )
+    return pack_vals_idx(vals[:b], idx[:b], wide=wide)
+
+
+# --- float fused kernels (bf16 / f32 storage) ------------------------------
+
+#: Kernel dtype codes of ``svs_fused_float``.
+_FLOAT_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _check_float_args(
+    docs: torch.Tensor, queries: torch.Tensor, n_valid: int
+) -> Tuple[int, int, int]:
+    """Validate a float fused kernel's operands (the kernel trusts them):
+    docs and queries in one float dtype, contiguous, block-aligned."""
+    n, d = docs.shape
+    b = queries.shape[0]
+    if docs.dtype not in _FLOAT_DTYPES or queries.dtype != docs.dtype:
+        raise ValueError(
+            f"fused float kernels need bf16 or f32 docs and queries of the "
+            f"same dtype; got {docs.dtype} and {queries.dtype}"
+        )
+    if queries.device != docs.device or tuple(queries.shape) != (b, d):
+        raise ValueError(
+            f"queries: expected [{b}, {d}] on {docs.device}, got "
+            f"{tuple(queries.shape)} on {queries.device}"
+        )
+    if not docs.is_contiguous() or not queries.is_contiguous():
+        raise ValueError("docs and queries must be contiguous")
+    if docs.data_ptr() % 16:
+        raise ValueError("docs must be 16-byte aligned")
+    if n % FUSED_BLOCK_N or d % DIM_CHUNK or not 0 < b <= FUSED_MAX_BATCH:
+        raise ValueError(
+            f"fused float kernels need n % {FUSED_BLOCK_N} == 0, d % "
+            f"{DIM_CHUNK} == 0 and 0 < b <= {FUSED_MAX_BATCH}; got "
+            f"n={n}, d={d}, b={b}"
+        )
+    if not 0 <= n_valid <= n:
+        raise ValueError(f"n_valid={n_valid} outside [0, {n}]")
+    return n, d, b
+
+
+def _launch_fused_float(
+    mode: int,
+    docs: torch.Tensor,
+    queries: torch.Tensor,
+    n_valid: int,
+    out0: torch.Tensor,
+    out1: "torch.Tensor | None",
+) -> None:
+    from . import kernels
+
+    n, d, b = _check_float_args(docs, queries, n_valid)
+    stream = torch.cuda.current_stream(docs.device).cuda_stream
+    rc = kernels.library().svs_fused_float(
+        mode,
+        _FLOAT_DTYPES[docs.dtype],
+        queries.data_ptr(),
+        docs.data_ptr(),
+        b,
+        n,
+        d,
+        int(n_valid),
+        out0.data_ptr(),
+        None if out1 is None else out1.data_ptr(),
+        stream,
+    )
+    kernels.check(rc, f"fused float kernel (mode {mode})")
+
+
+def _fused_extract_plain(
+    docs: torch.Tensor, queries: torch.Tensor, n_valid: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain-torch twin of ``_fused_kernel``: the v1 emit on the f32 dot
+    of queries and docs (both in the docs' dtype)."""
+    return _v1_emit(scores_matmul(docs, queries), n_valid)
+
+
+def _fused_extract(
+    docs: torch.Tensor, queries: torch.Tensor, n_valid: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """v1 float matmul + per-subtile top-8 values and f32 indices
+    ``[B, (N/512)*8]`` each (CUDA kernel mode 1).  ``queries`` are in the
+    docs' dtype."""
+    if not docs.is_cuda:
+        return _fused_extract_plain(docs, queries, n_valid)
+    n, b = docs.shape[0], queries.shape[0]
+    shape = (b, (n // FUSED_SUBTILE) * EXTRACT_H)
+    vals = torch.empty(shape, dtype=torch.float32, device=docs.device)
+    idx = torch.empty(shape, dtype=torch.float32, device=docs.device)
+    _launch_fused_float(1, docs, queries, n_valid, vals, idx)
+    _fused_extract.launches += 1  # type: ignore[attr-defined]
+    return vals, idx
+
+
+_fused_extract.launches = 0  # type: ignore[attr-defined]
+
+
+def _queries_as_docs(docs: torch.Tensor, queries: torch.Tensor) -> torch.Tensor:
+    """``queries.astype(docs.dtype)`` (round to nearest even for bf16),
+    zero-padded to a multiple of ``QBLOCK`` rows."""
+    return _pad_rows(queries.to(docs.dtype), 0.0).contiguous()
+
+
+def score_topk_fused_packed(
+    docs: torch.Tensor,
+    queries: torch.Tensor,
+    n_valid: int,
+    k: int,
+    wide: bool = False,
+) -> torch.Tensor:
+    """Float v1: scoring + selection + verified merge + packing.  Requires
+    ``fused_supported``."""
+    b = queries.shape[0]
+    q = _queries_as_docs(docs, queries)
+    ev, ei = _fused_extract(docs, q, n_valid)
+    vals, idx = _verified_merge(
+        ev,
+        ei,
+        k,
+        lambda: _exact_fallback(
+            docs, queries if q.shape[0] == b else q, n_valid, k
         ),
     )
     return pack_vals_idx(vals[:b], idx[:b], wide=wide)
@@ -345,6 +568,20 @@ def _live_lanes(n: int, sub: int, n_valid: int, device: torch.device) -> torch.T
     return (n_valid - start).clamp(0, sub).to(torch.float32)
 
 
+def _v2_emit(scores: torch.Tensor, n_valid: int) -> torch.Tensor:
+    """The v2 emit (``_emit_keys``) on an f32 score matrix ``[B, N]``: per
+    512-doc subtile the top-8 keys ``floor((s + KEY_BIAS) * KEY_QSCALE) *
+    512 + lane``, dead lanes at ``KEY_DEAD``."""
+    b, n = scores.shape
+    t = n // FUSED_SUBTILE
+    sub = scores.view(b, t, FUSED_SUBTILE)
+    lane = torch.arange(FUSED_SUBTILE, device=scores.device).to(torch.float32)
+    keys = torch.floor((sub + KEY_BIAS) * KEY_QSCALE) * _KEY_LANES + lane
+    live = _live_lanes(n, FUSED_SUBTILE, n_valid, scores.device)
+    keys = torch.where(lane < live[:, None], keys, KEY_DEAD)
+    return _extract_keys(keys, EXTRACT_H).reshape(b, t * EXTRACT_H)
+
+
 def _fused2_extract_int8_plain(
     q_docs: torch.Tensor,
     row_scales: torch.Tensor,
@@ -352,20 +589,9 @@ def _fused2_extract_int8_plain(
     q_scales: torch.Tensor,
     n_valid: int,
 ) -> torch.Tensor:
-    """Plain-torch twin of ``_fused2_int8_kernel``: per 512-doc subtile,
-    the top-8 keys ``floor((s + KEY_BIAS) * KEY_QSCALE) * 512 + lane``,
-    dead lanes at ``KEY_DEAD``."""
-    n = q_docs.shape[0]
-    b = q_int8.shape[0]
-    t = n // FUSED_SUBTILE
-    sub = _scores_int8(q_docs, row_scales, q_int8, q_scales).view(
-        b, t, FUSED_SUBTILE
-    )
-    lane = torch.arange(FUSED_SUBTILE, device=q_docs.device).to(torch.float32)
-    keys = torch.floor((sub + KEY_BIAS) * KEY_QSCALE) * _KEY_LANES + lane
-    live = _live_lanes(n, FUSED_SUBTILE, n_valid, q_docs.device)
-    keys = torch.where(lane < live[:, None], keys, KEY_DEAD)
-    return _extract_keys(keys, EXTRACT_H).reshape(b, t * EXTRACT_H)
+    """Plain-torch twin of ``_fused2_int8_kernel``: the v2 emit on the
+    rescaled int8 scores."""
+    return _v2_emit(_scores_int8(q_docs, row_scales, q_int8, q_scales), n_valid)
 
 
 def _fused2_extract_int8(
@@ -503,14 +729,6 @@ def _fused2_finish(
     return vals, idx, bool(covered)
 
 
-def _pad_batch(queries: torch.Tensor) -> torch.Tensor:
-    b, d = queries.shape
-    b_pad = max(QBLOCK, ((b + QBLOCK - 1) // QBLOCK) * QBLOCK)
-    if b_pad == b:
-        return queries
-    return torch.cat([queries, queries.new_zeros((b_pad - b, d))], dim=0)
-
-
 def fused2_topk_int8(
     q_docs: torch.Tensor,
     row_scales: torch.Tensor,
@@ -523,7 +741,7 @@ def fused2_topk_int8(
     Requires ``fused2_supported``."""
     n = q_docs.shape[0]
     b = queries.shape[0]
-    queries = _pad_batch(queries)
+    queries = _pad_rows(queries, 0.0)
     q_int8, q_scales = quantize_rows_int8(queries)
     keys1 = _fused2_extract_int8(q_docs, row_scales, q_int8, q_scales, n_valid)
     vals, idx, covered = _fused2_finish(keys1, k, _reduce_h2(n, k), b)
@@ -549,6 +767,69 @@ def score_topk_fused2_int8_packed(
     return pack_vals_idx(vals, idx, wide=wide)
 
 
+def _fused2_extract_plain(
+    docs: torch.Tensor, queries: torch.Tensor, n_valid: int
+) -> torch.Tensor:
+    """Plain-torch twin of ``_fused2_kernel``: the v2 emit on the f32 dot
+    of queries and docs."""
+    return _v2_emit(scores_matmul(docs, queries), n_valid)
+
+
+def _fused2_extract(
+    docs: torch.Tensor, queries: torch.Tensor, n_valid: int
+) -> torch.Tensor:
+    """v2 float matmul + keyed per-subtile top-8: raw packed keys
+    ``[B, (N/512)*8]`` (CUDA kernel mode 2)."""
+    if not docs.is_cuda:
+        return _fused2_extract_plain(docs, queries, n_valid)
+    n, b = docs.shape[0], queries.shape[0]
+    out = torch.empty(
+        (b, (n // FUSED_SUBTILE) * EXTRACT_H),
+        dtype=torch.float32,
+        device=docs.device,
+    )
+    _launch_fused_float(2, docs, queries, n_valid, out, None)
+    _fused2_extract.launches += 1  # type: ignore[attr-defined]
+    return out
+
+
+_fused2_extract.launches = 0  # type: ignore[attr-defined]
+
+
+def fused2_topk(
+    docs: torch.Tensor,
+    queries: torch.Tensor,
+    n_valid: int,
+    k: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Float keyed path, unpacked: ``(quantized vals f32 [B, k], int32
+    rows [B, k])``; the exact fallback runs when coverage fails.
+    Requires ``fused2_supported``."""
+    n = docs.shape[0]
+    b = queries.shape[0]
+    q = _queries_as_docs(docs, queries)
+    keys1 = _fused2_extract(docs, q, n_valid)
+    vals, idx, covered = _fused2_finish(keys1, k, _reduce_h2(n, k), b)
+    if not covered:
+        fv, idx = _exact_fallback(docs, q, n_valid, k)
+        vals = fv.to(torch.float32)
+    return vals[:b], idx[:b]
+
+
+def score_topk_fused2_packed(
+    docs: torch.Tensor,
+    queries: torch.Tensor,
+    n_valid: int,
+    k: int,
+    wide: bool = False,
+) -> torch.Tensor:
+    """Float keyed single-kernel path, packed.  Scores are quantized
+    (within ``KEY_EPS`` below the true value) unless the fallback fires.
+    Requires ``fused2_supported``."""
+    vals, idx = fused2_topk(docs, queries, n_valid, k)
+    return pack_vals_idx(vals, idx, wide=wide)
+
+
 # --- guarded fused kernels (v3): bound-carrying extraction -----------------
 
 #: v3 subtile: 1024 lanes, 4 winners — 32 reduces per 8192-doc block.
@@ -570,6 +851,35 @@ GUARD_MIN_BATCH = 16
 _GUARD_SAT_KEY = float(int((2.5 + KEY_BIAS) * GUARD_QSCALE) * GUARD_SUBTILE)
 
 
+def _v3_emit(scores: torch.Tensor, n_valid: int) -> torch.Tensor:
+    """The v3 emit (``_guard_emit``) on an f32 score matrix ``[B, N]``:
+    per 1024-doc subtile the top-4 keys ``floor((clip(s, -3, 3) +
+    KEY_BIAS) * GUARD_QSCALE) * 1024 + lane``; per 8192-doc block 32 keys,
+    the guard lane (max of the subtile tails), then 95 ``KEY_DEAD``
+    lanes."""
+    b, n = scores.shape
+    nb = n // FUSED_BLOCK_N
+    t = n // GUARD_SUBTILE
+    sub = scores.view(b, t, GUARD_SUBTILE)
+    lane = torch.arange(GUARD_SUBTILE, device=scores.device).to(torch.float32)
+    keys = (
+        torch.floor((torch.clamp(sub, -3.0, 3.0) + KEY_BIAS) * GUARD_QSCALE)
+        * float(GUARD_SUBTILE)
+        + lane
+    )
+    live = _live_lanes(n, GUARD_SUBTILE, n_valid, scores.device)
+    keys = torch.where(lane < live[:, None], keys, KEY_DEAD)
+    ext = _extract_keys(keys, GUARD_H).view(b, nb, GUARD_NSUB, GUARD_H)
+    guard = torch.clamp_min(ext[..., GUARD_H - 1].amax(dim=2), KEY_DEAD)
+    out = torch.full(
+        (b, nb, _GUARD_OUT_LANES), KEY_DEAD, dtype=torch.float32,
+        device=scores.device,
+    )
+    out[:, :, :GUARD_KEYS] = ext.reshape(b, nb, GUARD_KEYS)
+    out[:, :, GUARD_KEYS] = guard
+    return out.view(b, nb * _GUARD_OUT_LANES)
+
+
 def _fused3_extract_int8_plain(
     q_docs: torch.Tensor,
     row_scales: torch.Tensor,
@@ -577,34 +887,9 @@ def _fused3_extract_int8_plain(
     q_scales: torch.Tensor,
     n_valid: int,
 ) -> torch.Tensor:
-    """Plain-torch twin of ``_fused3_int8_kernel``: per 1024-doc subtile
-    the top-4 keys ``floor((clip(s, -3, 3) + KEY_BIAS) * GUARD_QSCALE) *
-    1024 + lane``; per 8192-doc block 32 keys, the guard lane (max of the
-    subtile tails), then 95 ``KEY_DEAD`` lanes."""
-    n = q_docs.shape[0]
-    b = q_int8.shape[0]
-    nb = n // FUSED_BLOCK_N
-    t = n // GUARD_SUBTILE
-    sub = _scores_int8(q_docs, row_scales, q_int8, q_scales).view(
-        b, t, GUARD_SUBTILE
-    )
-    lane = torch.arange(GUARD_SUBTILE, device=q_docs.device).to(torch.float32)
-    keys = (
-        torch.floor((torch.clamp(sub, -3.0, 3.0) + KEY_BIAS) * GUARD_QSCALE)
-        * float(GUARD_SUBTILE)
-        + lane
-    )
-    live = _live_lanes(n, GUARD_SUBTILE, n_valid, q_docs.device)
-    keys = torch.where(lane < live[:, None], keys, KEY_DEAD)
-    ext = _extract_keys(keys, GUARD_H).view(b, nb, GUARD_NSUB, GUARD_H)
-    guard = torch.clamp_min(ext[..., GUARD_H - 1].amax(dim=2), KEY_DEAD)
-    out = torch.full(
-        (b, nb, _GUARD_OUT_LANES), KEY_DEAD, dtype=torch.float32,
-        device=q_docs.device,
-    )
-    out[:, :, :GUARD_KEYS] = ext.reshape(b, nb, GUARD_KEYS)
-    out[:, :, GUARD_KEYS] = guard
-    return out.view(b, nb * _GUARD_OUT_LANES)
+    """Plain-torch twin of ``_fused3_int8_kernel``: the v3 emit on the
+    rescaled int8 scores."""
+    return _v3_emit(_scores_int8(q_docs, row_scales, q_int8, q_scales), n_valid)
 
 
 def _fused3_extract_int8(
@@ -735,6 +1020,70 @@ def _fused3_finish(
     return vals, rows, bound
 
 
+def _fused3_extract_plain(
+    docs: torch.Tensor, queries: torch.Tensor, n_valid: int
+) -> torch.Tensor:
+    """Plain-torch twin of ``_fused3_kernel``: the v3 emit on the f32 dot
+    of queries and docs."""
+    return _v3_emit(scores_matmul(docs, queries), n_valid)
+
+
+def _fused3_extract(
+    docs: torch.Tensor, queries: torch.Tensor, n_valid: int
+) -> torch.Tensor:
+    """v3 float matmul + guarded per-subtile top-4: raw per-block out
+    tiles ``[B, (N/8192)*128]`` (CUDA kernel mode 3)."""
+    if not docs.is_cuda:
+        return _fused3_extract_plain(docs, queries, n_valid)
+    n, b = docs.shape[0], queries.shape[0]
+    # every lane but the keys and the atomically folded guard stays KEY_DEAD
+    out = torch.full(
+        (b, (n // FUSED_BLOCK_N) * _GUARD_OUT_LANES),
+        KEY_DEAD,
+        dtype=torch.float32,
+        device=docs.device,
+    )
+    _launch_fused_float(3, docs, queries, n_valid, out, None)
+    _fused3_extract.launches += 1  # type: ignore[attr-defined]
+    return out
+
+
+_fused3_extract.launches = 0  # type: ignore[attr-defined]
+
+
+def fused3_candidates(
+    docs: torch.Tensor,
+    queries: torch.Tensor,
+    n_valid: int,
+    c: int,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Float guarded candidate selection: ``(quantized prescores f32
+    [B, c], rows int32 [B, c], hidden-score bound f32 [B])``, no exact
+    fallback (see :func:`fused3_candidates_int8`).  Requires
+    ``fused3_supported``."""
+    b = queries.shape[0]
+    out = _fused3_extract(docs, _queries_as_docs(docs, queries), n_valid)
+    vals, rows, bound = _fused3_finish(out, c, b)
+    return vals[:b], rows[:b], bound[:b]
+
+
+def score_topk_fused3_packed(
+    docs: torch.Tensor,
+    queries: torch.Tensor,
+    n_valid: int,
+    k: int,
+    wide: bool = False,
+) -> torch.Tensor:
+    """Float guarded packed path: the wire's boundary slot carries
+    ``max(weakest candidate prescore, hidden-score bound)``.  Requires
+    ``fused3_supported``."""
+    vals, rows, bound = fused3_candidates(docs, queries, n_valid, k)
+    vals = torch.cat(
+        [vals[:, :-1], torch.maximum(vals[:, -1:], bound[:, None])], dim=1
+    )
+    return pack_vals_idx(vals, rows, wide=wide)
+
+
 def fused3_candidates_int8(
     q_docs: torch.Tensor,
     row_scales: torch.Tensor,
@@ -747,7 +1096,7 @@ def fused3_candidates_int8(
     fallback: exactness rides on the caller's rescore margin and widen
     loop.  Requires ``fused3_supported``."""
     b = queries.shape[0]
-    queries = _pad_batch(queries)
+    queries = _pad_rows(queries, 0.0)
     q_int8, q_scales = quantize_rows_int8(queries)
     out = _fused3_extract_int8(q_docs, row_scales, q_int8, q_scales, n_valid)
     vals, rows, bound = _fused3_finish(out, c, b)
@@ -780,6 +1129,10 @@ KERNEL_WRAPPERS = (
     _fused2_extract_int8,
     _fused_extract_int8,
     _reduce_keys,
+    _fused3_extract,
+    _fused2_extract,
+    _fused_extract,
+    _extract,
 )
 
 

@@ -13,7 +13,7 @@ from typing import Tuple
 
 import torch
 
-from .topk import int8_dot, masked_topk, pack_vals_idx
+from .topk import int8_dot, mask_cols, masked_topk, pack_vals_idx
 
 _EPS = 1e-30
 
@@ -69,3 +69,20 @@ def score_topk_int8_packed(
     return pack_vals_idx(
         *score_topk_int8(q_docs, row_scales, queries, n_valid, k), wide=wide
     )
+
+
+def score_topk_int8_extract_packed(
+    q_docs: torch.Tensor,
+    row_scales: torch.Tensor,
+    queries: torch.Tensor,
+    n_valid: int,
+    k: int,
+    wide: bool = False,
+) -> torch.Tensor:
+    """int8 scoring + the two-pass extraction selection + packing: the
+    int8 path for batches above ``FUSED_MAX_BATCH``."""
+    from .pallas_extract import extract_topk
+
+    scores = mask_cols(_int8_scores(q_docs, row_scales, queries), n_valid)
+    vals, idx = extract_topk(scores, k)
+    return pack_vals_idx(vals, idx, wide=wide)

@@ -75,11 +75,33 @@ def int8_dot(q_int8: torch.Tensor, docs_int8: torch.Tensor) -> torch.Tensor:
     return q_int8.to(torch.int32) @ docs_int8.to(torch.int32).t()
 
 
+#: Ceiling on the f32 bytes of one row block of a non-f32 corpus widened by
+#: :func:`scores_matmul` (the whole corpus is never copied to f32).
+_WIDEN_BLOCK_BYTES = 1 << 28
+
+
 def scores_matmul(docs: torch.Tensor, queries: torch.Tensor) -> torch.Tensor:
-    """Cosine scores of every (query, doc) pair of an f32 corpus,
-    ``[B, N]`` f32, as true f32 dots."""
+    """Cosine scores of every (query, doc) pair, ``[B, N]`` f32, as the
+    reference computes them (``svs_tpu.ops.topk.scores_matmul``): the
+    queries are first rounded to the docs' float dtype (bf16: round to
+    nearest even), then every product is accumulated in true f32 (TF32
+    off).  A bf16 corpus is widened to f32 one row block at a time
+    (exact), so no f32 copy of the whole corpus is made."""
+    if docs.dtype != queries.dtype and docs.dtype.is_floating_point:
+        queries = queries.to(docs.dtype)
+    q32 = queries.to(torch.float32)
     with exact_f32():
-        return queries.to(torch.float32) @ docs.to(torch.float32).t()
+        if docs.dtype == torch.float32:
+            return q32 @ docs.t()
+        n, d = docs.shape
+        out = torch.empty(
+            (q32.shape[0], n), dtype=torch.float32, device=docs.device
+        )
+        step = max(1, _WIDEN_BLOCK_BYTES // max(1, d * 4))
+        for lo in range(0, n, step):
+            blk = docs[lo : lo + step].to(torch.float32)
+            out[:, lo : lo + blk.shape[0]] = q32 @ blk.t()
+        return out
 
 
 def mask_cols(scores: torch.Tensor, n_valid: int) -> torch.Tensor:
@@ -231,6 +253,18 @@ def final_select_wire(
         ],
         dim=1,
     )
+
+
+def score_topk_packed(
+    docs: torch.Tensor,
+    queries: torch.Tensor,
+    n_valid: int,
+    k: int,
+    wide: bool = False,
+) -> torch.Tensor:
+    """:func:`score_topk` + result packing: the bottom rung of the float
+    prescore ladder."""
+    return pack_vals_idx(*score_topk(docs, queries, n_valid, k), wide=wide)
 
 
 def unpack_vals_idx(

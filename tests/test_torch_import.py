@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: it imports with JAX and the JAX
-package's optional dependencies blocked, never imports ``svs_tpu``, and
-refuses to fall back to the CPU when no device was named."""
+package's optional dependencies blocked (int8 and bf16 storage, batches
+above 256), never imports ``svs_tpu``, and refuses to fall back to the
+CPU when no device was named."""
 
 import subprocess
 import sys
@@ -51,10 +52,59 @@ _BLOCKED_ROUND_TRIP = textwrap.dedent(
 )
 
 
-def test_imports_and_round_trips_without_jax(tmp_path):
+_BLOCKED_BF16_WIDE_BATCH = textwrap.dedent(
+    """
+    import sys, zlib
+
+    BLOCKED = ("jax", "jaxlib", "networkx", "ml_dtypes", "aiohttp", "dotenv")
+
+    class Blocker:
+        def find_spec(self, name, path=None, target=None):
+            if name.split(".")[0] in BLOCKED:
+                raise ImportError(f"{name} is blocked in this test")
+            return None
+
+    sys.meta_path.insert(0, Blocker())
+
+    import numpy as np
+    from svs_tpu_torch import KB
+
+    def vec(text):
+        rng = np.random.default_rng(zlib.crc32(text.encode()))
+        v = rng.standard_normal(32).astype(np.float32)
+        return v / np.linalg.norm(v)
+
+    async def embed(texts):
+        return [vec(t).tolist() for t in texts]
+
+    path = sys.argv[1]
+    kb = KB(path, embed, force_fresh_db=True, precision="bf16", device="cpu")
+    with kb.bulk_add_docs() as add:
+        ids = [add(f"doc {i}") for i in range(300)]
+    queries = [f"query {i}" for i in range(300)]
+    hits = kb.retrieve_batch(queries, 5)
+    assert kb.engine.precision == "bf16"
+    kb.close()
+    # exact: the f32 top-5 of every query, ties to the larger id
+    m = np.stack([vec(f"doc {i}") for i in range(300)])
+    for q, got in zip(queries, hits):
+        s = m @ vec(q)
+        want = sorted(range(300), key=lambda j: (-s[j], -ids[j]))[:5]
+        assert [h["doc"]["id"] for h in got] == [ids[j] for j in want], got
+    kb = KB(path, embed, precision="bf16", device="cpu")
+    assert len(kb) == 300
+    kb.close()
+    loaded = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED + ("svs_tpu",))
+    assert not loaded, loaded
+    print("ROUND_TRIP_OK")
+    """
+)
+
+
+def _run_blocked(script: str, tmp_path: Path) -> None:
     repo = Path(svs_tpu_torch.__file__).resolve().parent.parent
     proc = subprocess.run(
-        [sys.executable, "-c", _BLOCKED_ROUND_TRIP, str(tmp_path / "kb.sqlite")],
+        [sys.executable, "-c", script, str(tmp_path / "kb.sqlite")],
         cwd=repo,
         capture_output=True,
         text=True,
@@ -62,6 +112,14 @@ def test_imports_and_round_trips_without_jax(tmp_path):
     )
     assert proc.returncode == 0, proc.stderr
     assert "ROUND_TRIP_OK" in proc.stdout
+
+
+def test_imports_and_round_trips_without_jax(tmp_path):
+    _run_blocked(_BLOCKED_ROUND_TRIP, tmp_path)
+
+
+def test_bf16_round_trip_and_batch_of_300_without_jax(tmp_path):
+    _run_blocked(_BLOCKED_BF16_WIDE_BATCH, tmp_path)
 
 
 def test_kb_without_device_refuses_cpu(tmp_path):
