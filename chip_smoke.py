@@ -2,8 +2,10 @@
 """Smoke run of the PyTorch port (``svs_tpu_torch``) on one CUDA device.
 
 Drives the port's retrieval paths once at the size its users run (the
-``headline`` preset of ``bench.py``: 1,000,000 docs x 1536 dims, top-100),
-with random unit vectors made from a seed:
+``headline`` preset of ``bench.py``: 1,000,000 docs x 1536 dims, top-100)
+and its pairwise paths at the size of the repo's pairwise benchmark
+(100,000 docs x 1536, top 10,000 pairs), with random unit vectors made
+from a seed:
 
 1. builds the hand-written CUDA kernels from the sources in the checkout
    (one ``nvcc`` per source, in parallel);
@@ -14,15 +16,22 @@ with random unit vectors made from a seed:
    float data), and times the kernel, its plain version, and one library
    call where one computes the same function;
 3. end-to-end phase: writes a 1M-doc SQLite store through the port's
-   ``Tx`` and drives four paths, each with the launch counts set to 0
-   just before it and read just after:
+   ``Tx`` and drives four retrieval paths, each with the launch counts set
+   to 0 just before it and read just after:
    - int8 ``KB`` (``precision='auto'``): ``retrieve_batch`` at B=64/n=100,
      B=8/n=100, B=8/n=1000 and B=512/n=100;
    - bf16 ``KB``: B=64/n=100, B=8/n=100, B=8/n=1000;
    - f32 ``KB``: the same three shapes;
    - ``rescore=False`` ``KB`` (bf16 storage): B=8/n=100;
    checking every result against a brute-force scan on the card (for
-   ``rescore=False``, of the bf16-rounded corpus and queries).
+   ``rescore=False``, of the bf16-rounded corpus and queries);
+4. pairwise phase: writes two 100k x 1536 stores (the repo's pairwise
+   benchmark: dupe-planted and flat random) and drives
+   ``document_top_pairwise_scores(10,000)`` three times on each of five
+   paths (int8, bf16 and f32 on the dupe-planted store, ``rescore=False``,
+   int8 on the flat store), each result held against a brute-force top-k
+   of the pairs on the card, plus one profiled call for the device's idle
+   share.
 
 Prints the card's name and power limit, a JSON line describing every
 kernel, and, last, ``{"ok": true, "device": {...}}``.  Exits non-zero, with
@@ -64,6 +73,7 @@ REPLACES = {
     "_fused2_extract": "svs_tpu/ops/pallas_extract.py:611",
     "_fused_extract": "svs_tpu/ops/pallas_extract.py:270",
     "_extract": "svs_tpu/ops/pallas_extract.py:113",
+    "pairwise_keys_extract": "svs_tpu/ops/pallas_extract.py:1605",
 }
 SOURCES = {
     "_fused3_extract_int8": "svs_tpu_torch/csrc/fused_int8.cu",
@@ -74,8 +84,16 @@ SOURCES = {
     "_fused2_extract": "svs_tpu_torch/csrc/fused_float.cu",
     "_fused_extract": "svs_tpu_torch/csrc/fused_float.cu",
     "_extract": "svs_tpu_torch/csrc/extract.cu",
+    "pairwise_keys_extract": "svs_tpu_torch/csrc/pair_keys.cu",
 }
 SHAPES = (("B64_n100", 64, 100), ("B8_n100", 8, 100), ("B8_n1000", 8, 1000))
+#: The repo's pairwise benchmark (benchmarks/tpu_pairwise_kb.py): 100k docs
+#: x 1536, the top 10,000 pairs; dupe-planted stores plant 12% of every
+#: 20,000-row insert chunk as perturbed copies (cos ~0.94).
+PAIR_DOCS = 100_000
+PAIR_K = 10_000
+PAIR_CHUNK = 20_000
+DUPE_FRAC = 0.12
 
 
 def log(msg: str) -> None:
@@ -244,7 +262,7 @@ def kernel_phase(n_docs: int, reps: int) -> dict:
 
     from svs_tpu_torch.ops import pallas_extract as P
     from svs_tpu_torch.ops.quant import _int8_scores, quantize_rows_int8
-    from svs_tpu_torch.ops.topk import mask_cols, scores_matmul
+    from svs_tpu_torch.ops.topk import exact_f32, mask_cols, scores_matmul
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
@@ -424,6 +442,44 @@ def kernel_phase(n_docs: int, reps: int) -> dict:
             )
         del fdocs
         torch.cuda.empty_cache()
+
+    # #9 on a [256, 114,688] block of real pair scores (rows 50,000.. of a
+    # 100k x 1536 unit corpus padded as the engine pads it), masked to the
+    # strict upper triangle with PAIR_MASKED as the keyed pass masks it;
+    # then #8 on the same block masked with -inf, as the exact pass has it
+    p_pad = -(-PAIR_DOCS // 16384) * 16384
+    pdocs = torch.zeros((p_pad, DIM), dtype=torch.float32, device=dev)
+    fill_rows(pdocs, PAIR_DOCS, lambda r: unit_rows_torch(r, DIM, gen, dev))
+    row0 = PAIR_DOCS // 2
+    with exact_f32():
+        pscores = pdocs[row0 : row0 + 256] @ pdocs.t()
+    del pdocs
+    cols = torch.arange(p_pad, device=dev)
+    rows = torch.arange(row0, row0 + 256, device=dev)
+    live = (cols[None, :] > rows[:, None]) & (cols < PAIR_DOCS)[None, :]
+    keyed_in = torch.where(live, pscores, P.PAIR_MASKED).contiguous()
+    out_cols = (p_pad // P.PAIR_BLOCK_N) * 128
+    compare(
+        "pairwise_keys_extract",
+        lambda: P.pairwise_keys_extract(keyed_in),
+        lambda: P._pair_keys_plain(keyed_in),
+        f"pair scores [256, {p_pad}] (100k x {DIM} unit corpus)",
+        bound(nbytes(keyed_in) + 256 * out_cols * 4, 5.0 * keyed_in.numel(), "f32"),
+        lambda: torch.topk(keyed_in.view(256, -1, P.FUSED_SUBTILE), P.EXTRACT_H, dim=2),
+    )
+    exact_in = torch.where(live, pscores, float("-inf")).contiguous()
+    del keyed_in, pscores
+    out_cols = (p_pad // P.SUBTILE) * P.EXTRACT_H
+    compare(
+        "_extract",
+        lambda: P._extract(exact_in),
+        lambda: P._extract_plain(exact_in),
+        f"pair scores [256, {p_pad}] (exact pairwise block)",
+        bound(nbytes(exact_in) + 2 * 256 * out_cols * 4, 0.0, "f32"),
+        lambda: torch.topk(exact_in.view(256, -1, P.SUBTILE), P.EXTRACT_H, dim=2),
+    )
+    del exact_in
+    torch.cuda.empty_cache()
     return records
 
 
@@ -623,7 +679,224 @@ def e2e_phase(n_docs: int, reps: int, work: Path) -> dict:
         del ref_bf16
     finally:
         store.unlink(missing_ok=True)
+    del ref_matrix
+    torch.cuda.empty_cache()
+    pairwise_phase(work, out)
     return out
+
+
+def write_pair_store(path: Path, seed: int, dupe_frac: float) -> np.ndarray:
+    """A 100k x 1536 store written through the port's ``Tx`` in 20,000-row
+    chunks (doc ``i`` holds row ``i``); with ``dupe_frac`` the last
+    ``dupe_frac`` of every chunk are perturbed copies of distinct earlier
+    rows of the chunk, cos ~ 1/sqrt(1 + 0.35^2), as the repo's pairwise
+    benchmark corpus plants them.  Returns the f32 rows."""
+    from svs_tpu_torch.store.blob import embedding_to_bytes
+    from svs_tpu_torch.store.db import Database
+
+    rng = np.random.default_rng(seed)
+    matrix = np.empty((PAIR_DOCS, DIM), dtype=np.float32)
+    db = Database(path)
+    try:
+        with db.transaction() as tx:
+            for lo in range(0, PAIR_DOCS, PAIR_CHUNK):
+                count = min(PAIR_CHUNK, PAIR_DOCS - lo)
+                block = rng.standard_normal((count, DIM)).astype(np.float32)
+                block /= np.linalg.norm(block, axis=1, keepdims=True)
+                n_dupes = min(int(count * dupe_frac), count // 2)
+                if n_dupes:
+                    srcs = rng.permutation(count - n_dupes)[:n_dupes]
+                    noise = rng.standard_normal((n_dupes, DIM)).astype(np.float32)
+                    noise /= np.linalg.norm(noise, axis=1, keepdims=True)
+                    dup = block[srcs] + 0.35 * noise
+                    dup /= np.linalg.norm(dup, axis=1, keepdims=True)
+                    block[count - n_dupes :] = dup
+                matrix[lo : lo + count] = block
+                tx.add_docs_bulk(
+                    [f"synthetic document #{lo + i}" for i in range(count)],
+                    [embedding_to_bytes(r) for r in block],
+                )
+            tx.bump_matrix_version()
+    finally:
+        db.close()
+    return matrix
+
+
+def pair_oracle(ref, k: int) -> tuple:
+    """Exact top-``k`` strict-upper-triangle pairs of ``ref @ ref.T`` on the
+    card (f32 products, TF32 off), 2048 rows at a time: ``(vals, rows,
+    cols)`` descending."""
+    import torch
+
+    from svs_tpu_torch.ops.topk import exact_f32
+
+    n = ref.shape[0]
+    dev = ref.device
+    best_v = torch.empty(0, device=dev)
+    best_i = torch.empty(0, dtype=torch.int64, device=dev)
+    cols = torch.arange(n, device=dev)
+    with exact_f32():
+        for lo in range(0, n, 2048):
+            s = ref[lo : lo + 2048] @ ref.t()
+            rows = torch.arange(lo, lo + s.shape[0], device=dev)
+            s = torch.where(cols[None, :] > rows[:, None], s, float("-inf"))
+            v, i = torch.topk(s.view(-1), k)
+            best_v, pos = torch.topk(torch.cat([best_v, v]), k)
+            best_i = torch.cat([best_i, i + lo * n])[pos]
+    return best_v, best_i // n, best_i % n
+
+
+def check_pairs(results, ref, oracle, k: int) -> None:
+    """A pairwise result against the brute-force oracle of ``ref``: k pairs,
+    finite scores within SCORE_TOL of the pairs' true dots, the oracle's
+    pair at every rank except where the two scores lie within SCORE_TOL,
+    and every oracle pair above the k-th score by SCORE_TOL present."""
+    import torch
+
+    if len(results) != k:
+        raise AssertionError(f"{len(results)} pairs, want {k}")
+    idx = np.asarray(
+        [[int(d["text"].rsplit("#", 1)[1]) for d in (a, b)] for _, a, b in results]
+    )
+    idx.sort(axis=1)
+    scores = np.asarray([s for s, _, _ in results], dtype=np.float64)
+    if not np.isfinite(scores).all():
+        raise AssertionError("non-finite pair scores")
+    ra = torch.from_numpy(idx[:, 0]).to(ref.device)
+    rb = torch.from_numpy(idx[:, 1]).to(ref.device)
+    true = (ref[ra].double() * ref[rb].double()).sum(dim=1).cpu().numpy()
+    if np.abs(scores - true).max() > SCORE_TOL:
+        raise AssertionError(f"pair scores off by {np.abs(scores - true).max()}")
+    ov, orow, ocol = (t.cpu().numpy() for t in oracle)
+    ov = ov.astype(np.float64)
+    differ = (orow != idx[:, 0]) | (ocol != idx[:, 1])
+    gap = np.abs(true - ov)
+    if np.any(differ & (gap >= SCORE_TOL)):
+        j = int(np.nonzero(differ & (gap >= SCORE_TOL))[0][0])
+        raise AssertionError(
+            f"rank {j}: pair {tuple(idx[j])} ({true[j]:.9f}) where the oracle "
+            f"has ({orow[j]}, {ocol[j]}) ({ov[j]:.9f})"
+        )
+    got = set(map(tuple, idx.tolist()))
+    above = ov > ov[-1] + SCORE_TOL
+    missing = [p for p in zip(orow[above].tolist(), ocol[above].tolist()) if p not in got]
+    if missing:
+        raise AssertionError(f"{len(missing)} oracle pairs missing, e.g. {missing[0]}")
+
+
+def device_idle_share(fn) -> dict:
+    """One call of ``fn`` under ``torch.profiler``: its wall time, the summed
+    CUDA kernel time, and the idle share 1 - kernel / wall (None where the
+    profiler saw no device time), with the eight largest kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    by_name: dict = {}
+    try:
+        for e in prof.events():
+            # device activities only; a record_function range also shows up
+            # on the device timeline, as a user annotation spanning kernels
+            if e.device_type == torch.autograd.DeviceType.CUDA and not getattr(
+                e, "is_user_annotation", False
+            ):
+                by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    except Exception as exc:  # a measurement, not a check: record why it is missing
+        return {"wall_ms": wall * 1e3, "idle_share": None, "error": repr(exc)}
+    busy_ms = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    return {
+        "wall_ms": wall * 1e3,
+        "kernel_ms": busy_ms,
+        "idle_share": None if busy_ms == 0 else 1.0 - busy_ms / (wall * 1e3),
+        "top_kernels_ms": {name[:80]: ms for name, ms in top},
+    }
+
+
+def pairwise_phase(work: Path, out: dict) -> None:
+    """``KB.document_top_pairwise_scores(10,000)`` on 100k x 1536 stores,
+    3 calls per path, each result held against the brute-force oracle."""
+    import torch
+
+    import svs_tpu_torch
+
+    async def embed(texts):  # pairwise embeds nothing
+        raise AssertionError("the pairwise path does not embed")
+
+    def pair_path(label, expected, store, ref, oracle, profile=False, **options):
+        res = out[f"paths_detail_{label}"] = {}
+
+        def run():
+            kb = svs_tpu_torch.KB(store, embed, device="cuda", **options)
+            try:
+                lat, widens = [], []
+                for _ in range(3):
+                    before = kb.engine.widen_retries
+                    torch.cuda.synchronize()
+                    t = time.perf_counter()
+                    pairs = kb.document_top_pairwise_scores(PAIR_K)
+                    torch.cuda.synchronize()
+                    lat.append(time.perf_counter() - t)
+                    widens.append(kb.engine.widen_retries - before)
+                    check_pairs(pairs, ref, oracle, PAIR_K)
+                res.update({
+                    "precision": kb.engine.precision,
+                    "first_s": lat[0],
+                    "warm_ms": [x * 1e3 for x in lat[1:]],
+                    "warm_p50_ms": statistics.median(lat[1:]) * 1e3,
+                    "widen_retries_per_call": widens,
+                    "pair_hint": {str(k): v for k, v in kb.engine._pair_hint.items()},
+                    "phase_p50_ms": {
+                        k: v["p50_s"] * 1e3 for k, v in kb._stats.snapshot().items()
+                    },
+                })
+                if profile:
+                    res["profiled_call"] = device_idle_share(
+                        lambda: kb.document_top_pairwise_scores(PAIR_K)
+                    )
+            finally:
+                kb.close()
+
+        drive_path(label, expected, run, out)
+        log(f"e2e {label}: first {res['first_s']:.3f} s, warm {res['warm_ms']} ms, "
+            f"widens {res['widen_retries_per_call']}; exact vs the oracle")
+        torch.cuda.empty_cache()
+
+    keyed = ["pairwise_keys_extract"]
+    for label, seed, frac in (("dupes", SEED + 2, DUPE_FRAC), ("flat", SEED + 3, 0.0)):
+        store = work / f"pairs_{label}.sqlite"
+        t0 = time.perf_counter()
+        matrix = write_pair_store(store, seed, frac)
+        out[f"pair_store_write_s_{label}"] = time.perf_counter() - t0
+        log(f"e2e: wrote {PAIR_DOCS} x {DIM} {label} store in "
+            f"{out[f'pair_store_write_s_{label}']:.1f} s")
+        ref = torch.from_numpy(matrix).cuda()
+        del matrix
+        oracle = pair_oracle(ref, PAIR_K)
+        try:
+            if label == "flat":
+                pair_path("pairwise_int8_flat", keyed, store, ref, oracle)
+                continue
+            pair_path("pairwise_int8_dupes", keyed, store, ref, oracle, profile=True)
+            pair_path("pairwise_bf16_dupes", keyed, store, ref, oracle, precision="bf16")
+            pair_path("pairwise_f32_dupes", keyed, store, ref, oracle, precision="f32")
+            # rescore=False returns raw bf16 prescores: the oracle is of the
+            # bf16-rounded matrix
+            ref_bf16 = ref.to(torch.bfloat16).to(torch.float32)
+            del oracle
+            oracle = pair_oracle(ref_bf16, PAIR_K)
+            pair_path("pairwise_rescore_off", ["_extract"], store, ref_bf16, oracle,
+                      rescore=False)
+            del ref_bf16
+        finally:
+            store.unlink(missing_ok=True)
+            del ref, oracle
+            torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -694,9 +967,10 @@ def main() -> int:
     if e2e is None:
         log("chip_smoke: kernel phase only (--skip-e2e): no result line")
         return 3
+    # the smoke drives one card, whatever the machine holds
     print(json.dumps({
         "ok": True,
-        "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()},
+        "device": {"platform": "gpu", "kind": kind, "count": 1},
     }))
     return 0
 

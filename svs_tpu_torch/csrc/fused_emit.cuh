@@ -103,11 +103,7 @@ __device__ __forceinline__ void emit(const float (&s)[QT][kDocsPerThread],
         // floor((s + KEY_BIAS) * KEY_QSCALE) * 512 + lane   (_emit_keys)
         const int lane = local & 511;
         const int live = min(max(n_valid - (row - lane), 0), 512);
-        const float key = __fadd_rn(
-            __fmul_rn(floorf(__fmul_rn(__fadd_rn(s[i][m], 1.0625f), 8192.0f)),
-                      512.0f),
-            (float)lane);
-        v = lane < live ? key : kKeyDead;
+        v = lane < live ? v2_key(s[i][m], lane) : kKeyDead;
       } else {
         // floor((clip(s, -3, 3) + KEY_BIAS) * GUARD_QSCALE) * 1024 + lane
         const int lane = local;

@@ -13,12 +13,15 @@
 - **final selection** — gather the candidates' exact f32 rows from the
   device mirror, f32 dots, and the reference tie rule, emitting one
   ``[B, 2n + 1]`` int32 wire per batch;
-- **candidate sizing** — the width hints of the widen-and-retry loop.
+- **candidate sizing** — the width hints of the widen-and-retry loops;
+- **pairwise** — the top pairs of the corpus (keyed candidates or the
+  exact blocked pass, ``ops.pairwise``), their bound ``pairwise_eps`` and
+  the f32 pair rescore from the device mirror.
 
 Not ported yet (``ROADMAP.md``): the host route and two-pass host search,
 hedged fetches and RPC-floor probes, incremental append/delete, sidecars,
-calibration, meshes and replicas, ``device_rescore='host'`` and the
-host-finalised ``topk_with_rescore``.
+calibration, meshes and replicas, the subset corpus of filtered pairwise,
+``device_rescore='host'`` and the host-finalised ``topk_with_rescore``.
 """
 
 from __future__ import annotations
@@ -92,6 +95,25 @@ def _final_from_packed(
     return final_select_wire(exact, emb_of, tail_bits, k)
 
 
+def _pairwise_rescore_from_rows(
+    dev_f32: torch.Tensor,
+    dev_map: Optional[torch.Tensor],
+    rows_a: torch.Tensor,
+    rows_b: torch.Tensor,
+) -> torch.Tensor:
+    """Exact f32 scores of candidate PAIRS from the device rescore mirror:
+    gather both rows of each pair and take true-f32 row . row dots (one
+    batched product, TF32 off), so the host fetches C floats.  An f32
+    pack is its own mirror at the padded width: zero padding columns add
+    nothing to a row . row dot."""
+    ga = rows_a if dev_map is None else dev_map[rows_a]
+    gb = rows_b if dev_map is None else dev_map[rows_b]
+    va = dev_f32[ga]  # [C, d]
+    vb = dev_f32[gb]
+    with exact_f32():
+        return torch.bmm(va[:, None, :], vb[:, :, None])[:, 0, 0]
+
+
 class RetrievalEngine:
     """Packs the corpus onto one CUDA device (or the CPU, for tests) and
     runs verified-exact cosine top-k."""
@@ -148,6 +170,7 @@ class RetrievalEngine:
         self.precision = precision
         self.device = torch.device("cuda" if device is None else device)
         self._cand_hint: Dict[int, Tuple[int, int]] = {}
+        self._pair_hint: Dict[int, Tuple[int, int]] = {}
         self._corpus: Optional[PackedCorpus] = None
         self._fingerprint: Optional[Tuple[int, int, int, int]] = None
         self._quick_token: Optional[Tuple[int, int]] = None
@@ -358,6 +381,29 @@ class RetrievalEngine:
         )
 
     @staticmethod
+    def pairwise_candidate_base(k: int) -> int:
+        """The KB's first-attempt pairwise over-provisioning (the pair
+        ladder's :meth:`candidate_count`)."""
+        return max(k + 64, k * 5 // 4)
+
+    def initial_pairwise_candidates(self, k: int, n_valid: int) -> int:
+        """First-attempt pairwise candidate width with the learned per-``k``
+        hint applied, as :meth:`initial_candidates`: a flat score
+        distribution fails the margin at the base width on every call, and
+        the hint makes steady state one pass."""
+        c = self._hinted_width(self._pair_hint, self.pairwise_candidate_base(k), k)
+        total = n_valid * (n_valid - 1) // 2
+        return min(c, total) if total > 0 else c
+
+    def record_pairwise_candidates(
+        self, k: int, c_final: int, widened: bool
+    ) -> None:
+        """Feed the pairwise widen loop's outcome back into its hint."""
+        self._record_width(
+            self._pair_hint, self.pairwise_candidate_base(k), k, c_final, widened
+        )
+
+    @staticmethod
     def _hinted_width(
         hints: Dict[int, Tuple[int, int]], base: int, k: int
     ) -> int:
@@ -519,3 +565,101 @@ class RetrievalEngine:
                 wide=wide,
             ), wide
         return exact(*ops, q, n_valid, k_eff, wide=wide), wide
+
+    # -- pairwise -------------------------------------------------------------
+
+    def _keyed_pairwise_possible(self, corpus: PackedCorpus) -> bool:
+        """Dispatch condition of the keyed pairwise candidate pass: the
+        quantized-prescore gate of the retrieval kernels, and shapes the
+        pair-key kernel takes.  ``pairwise_eps`` consults it for the
+        KEY_EPS term, so bound and dispatch cannot drift; c-independent
+        (the candidate count only narrows the route further)."""
+        from ..ops.pairwise import keyed_pairwise_route
+        from ..ops.pallas_extract import pair_keys_supported
+
+        if not self._selection_kernels_on(corpus):
+            return False
+        block_rows = min(256, corpus.n_padded)
+        return pair_keys_supported(
+            corpus.n_padded, block_rows
+        ) and keyed_pairwise_route(corpus.n_padded, block_rows, 1)
+
+    def pairwise_eps(self, corpus: PackedCorpus) -> float:
+        """Bound on ``|device pairwise prescore - exact f32 score|`` — the
+        reference's formula unchanged: both sides of each dot are stored
+        vectors, so int8 stacks both rows' quantization residuals on the
+        bf16 term; plus one KEY_EPS when the keyed pass can dispatch."""
+        from ..ops.pallas_extract import KEY_EPS
+
+        key_eps = KEY_EPS if self._keyed_pairwise_possible(corpus) else 0.0
+        bf16_term = 2.0**-8 * (1.0 + 2.0**-9) + 3e-5
+        if corpus.precision == "f32":
+            return 1e-4 + key_eps
+        if corpus.precision == "bf16":
+            return bf16_term + key_eps
+        s = corpus.scale_max
+        t = float(np.sqrt(2.0 * np.log(2.0 / 1e-15)))
+        return bf16_term + t * s * 1.001 + 0.25 * corpus.dim * s * s + key_eps
+
+    def pairwise_topk(
+        self, corpus: PackedCorpus, k: int
+    ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """Top-``k`` document pairs by similarity (strict upper triangle):
+        ``(scores f32 [k'], rows_a int64 [k'], rows_b int64 [k'])``, rows
+        indexing ``corpus.emb_ids``.  The keyed candidate pass first
+        (quantized prescores, the bound in the last slot; the KB's rescore
+        margin owns exactness), the exact blocked pass when the keyed one
+        cannot run or comes back not ``ok``."""
+        from ..ops.pairwise import (
+            keyed_pairwise_route,
+            pairwise_candidates_keyed,
+            pairwise_topk_blocked,
+        )
+
+        n = corpus.n_valid
+        k_eff = min(int(k), n * (n - 1) // 2)
+        if k_eff <= 0:
+            empty_i = np.zeros((0,), dtype=np.int64)
+            return np.zeros((0,), dtype=np.float32), empty_i, empty_i
+        block_rows = min(256, corpus.n_padded)
+        result = None
+        if self._keyed_pairwise_possible(corpus) and keyed_pairwise_route(
+            corpus.n_padded, block_rows, k_eff
+        ):
+            vals, rows, cols, ok = pairwise_candidates_keyed(
+                corpus.data, n, k_eff, block_rows=block_rows,
+                row_scales=corpus.row_scales,
+            )
+            if ok:
+                result = (vals, rows, cols)
+        if result is None:
+            result = pairwise_topk_blocked(
+                corpus.data, n, k_eff, block_rows=block_rows,
+                row_scales=corpus.row_scales,
+            )
+        vals, rows, cols = (t.cpu().numpy() for t in result)
+        return (
+            vals.astype(np.float32, copy=False),
+            rows.astype(np.int64),
+            cols.astype(np.int64),
+        )
+
+    def pairwise_rescore(
+        self, corpus: PackedCorpus, rows_a: np.ndarray, rows_b: np.ndarray
+    ) -> Optional[np.ndarray]:
+        """Exact f32 scores of the candidate pairs ``(rows_a[i],
+        rows_b[i])`` (pack rows), gathered and dotted on the device from
+        the rescore mirror; ``None`` when the corpus has none (the KB then
+        gathers on the host or from SQLite)."""
+        if corpus.dev_rescore is None or corpus.n_padded >= 2**31:
+            return None
+        c = int(len(rows_a))
+        if c == 0:
+            return np.zeros((0,), dtype=np.float32)
+        dev_f32, dev_map = corpus.dev_rescore
+        ra, rb = (
+            torch.from_numpy(np.asarray(r, dtype=np.int64)).to(corpus.device)
+            for r in (rows_a, rows_b)
+        )
+        out = _pairwise_rescore_from_rows(dev_f32, dev_map, ra, rb)
+        return out.cpu().numpy().astype(np.float32, copy=False)

@@ -19,10 +19,16 @@ device order (``precision='auto'`` then stores bf16), as in the
 reference.  ``kernel='xla'`` keeps float storage on the plain exact scan;
 ``kernel='pallas'`` selects the float kernels.
 
-Not ported yet: ``AsyncKB``, metadata filters (``where=``), the graph,
-key/value and pairwise interfaces, deletes, sidecars, meshes, replicas,
-the host search route and ``device_rescore='host'``.  Where a call needs
-one of them it raises ``NotImplementedError`` naming what is missing.
+``document_top_pairwise_scores(n)`` runs the reference's pairwise pipeline
+the same way: keyed pair candidates (or the exact blocked pass), the f32
+pair rescore, the margin check against ``pairwise_eps`` with the 4x widen
+and its width hint, then hydration.
+
+Not ported yet: ``AsyncKB``, metadata filters (``where=``, also on the
+pairwise call), the graph and key/value interfaces, deletes, sidecars,
+meshes, replicas, the host search route and ``device_rescore='host'``.
+Where a call needs one of them it raises ``NotImplementedError`` naming
+what is missing.
 """
 
 from __future__ import annotations
@@ -32,7 +38,7 @@ import logging
 import threading
 from contextlib import contextmanager
 from pathlib import Path
-from typing import Any, Dict, Iterator, List, Optional, Tuple, Union
+from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -55,6 +61,7 @@ from .utils import (
     delete_file_if_exists,
     resolve_to_local_uncompressed_file,
 )
+from .utils.topk_np import top_k_numpy
 from .utils.trace import QueryStats, phase, profiler_trace
 from .utils.typecheck import typeguard_exempt
 
@@ -321,6 +328,74 @@ def _finalize_prescores(
     return _hydrate_and_mint(tx, top_emb, pre_vals[:, :k_eff], doc_cache)
 
 
+def _finalize_pairwise(
+    tx: Tx,
+    corpus: PackedCorpus,
+    pre_vals: np.ndarray,
+    rows_a: np.ndarray,
+    rows_b: np.ndarray,
+    k: int,
+    rescore: bool,
+    pre_eps: Optional[float] = None,
+    device_rescorer: Optional[
+        Callable[[np.ndarray, np.ndarray], Optional[np.ndarray]]
+    ] = None,
+) -> Optional[List[Tuple[float, DocumentRecord, DocumentRecord]]]:
+    """Hydrate the top pairs, f32-rescoring the candidates first when
+    ``rescore`` is on.  Returns ``None`` when the margin check fails: the
+    k-th rescored score must clear the boundary prescore ``pre_vals[-1]``
+    by ``pre_eps`` unless the candidates were every pair.
+
+    The exact scores come from ``device_rescorer`` (the engine's
+    ``pairwise_rescore``); when it declines, from the host f32 rows in
+    4096-pair blocks (one flat gather would hold 2·C·d floats); without
+    host rows either, from the stored vectors in SQLite."""
+    emb_a = corpus.emb_ids[rows_a]
+    emb_b = corpus.emb_ids[rows_b]
+    n_pairs = len(emb_a)
+    if n_pairs == 0:
+        return []
+    total_pairs = corpus.n_valid * (corpus.n_valid - 1) // 2
+    if rescore:
+        exact: Optional[np.ndarray] = None
+        if device_rescorer is not None:
+            exact = device_rescorer(np.asarray(rows_a), np.asarray(rows_b))
+        if exact is None and corpus.host_f32 is not None:
+            ra = np.asarray(rows_a, dtype=np.int64)
+            rb = np.asarray(rows_b, dtype=np.int64)
+            if corpus.host_row_map is not None:
+                ra = corpus.host_row_map[ra]
+                rb = corpus.host_row_map[rb]
+            host = corpus.host_f32
+            exact = np.empty((n_pairs,), dtype=np.float32)
+            blk = 4096
+            for i in range(0, n_pairs, blk):
+                exact[i : i + blk] = np.einsum(
+                    "ij,ij->i", host[ra[i : i + blk]], host[rb[i : i + blk]]
+                )
+        elif exact is None:
+            unique = sorted(set(map(int, emb_a)) | set(map(int, emb_b)))
+            vectors = tx.fetch_embedding_rows(unique)
+            pos = {e: i for i, e in enumerate(unique)}
+            va = vectors[[pos[int(e)] for e in emb_a]]
+            vb = vectors[[pos[int(e)] for e in emb_b]]
+            exact = np.einsum("ij,ij->i", va, vb)
+        order = top_k_numpy(exact, k)
+        triples = [(score, int(emb_a[i]), int(emb_b[i])) for score, i in order]
+        if pre_eps is not None and n_pairs < total_pairs and triples:
+            if triples[-1][0] < float(pre_vals[-1]) + pre_eps:
+                return None
+    else:
+        triples = [
+            (float(pre_vals[i]), int(emb_a[i]), int(emb_b[i]))
+            for i in range(min(k, n_pairs))
+        ]
+    doc_by_emb = tx.fetch_docs_by_emb_ids(
+        sorted({e for _, e1, e2 in triples for e in (e1, e2)})
+    )
+    return [(score, doc_by_emb[e1], doc_by_emb[e2]) for score, e1, e2 in triples]
+
+
 def _resolve_device(device: Any) -> torch.device:
     """``device=None`` means the CUDA device — never a silent CPU run."""
     if device is None:
@@ -540,6 +615,49 @@ class KB:
                 "rescore margin insufficient at the candidate boundary; "
                 "widening device candidates to %d and retrying", c,
             )
+
+    def document_top_pairwise_scores(
+        self, n: int, where: None = None
+    ) -> List[Tuple[float, DocumentRecord, DocumentRecord]]:
+        """The ``n`` most similar document pairs, exact: ``(score, doc,
+        doc)`` by descending f32 score of the stored vectors (with
+        ``rescore=False``, the device prescores in device order)."""
+        if where is not None:
+            raise NotImplementedError(
+                "where= (filtered pairwise) is not ported to svs_tpu_torch yet"
+            )
+        with self._lock:
+            corpus = self._ensure_engine_fresh()
+        if corpus.n_valid < 2 or n <= 0:
+            return []
+        c = n
+        c0 = None
+        pre_eps = None
+        if self.engine.rescore:
+            c0 = c = self.engine.initial_pairwise_candidates(n, corpus.n_valid)
+            pre_eps = self.engine.pairwise_eps(corpus)
+        total_pairs = corpus.n_valid * (corpus.n_valid - 1) // 2
+        while True:
+            with phase("pairwise_search", self._stats), profiler_trace("pairwise"):
+                vals, rows_a, rows_b = self.engine.pairwise_topk(corpus, c)
+            with phase("pairwise_finalize", self._stats), self._lock:
+                db = self._require_db()
+                with db.transaction() as tx:
+                    results = _finalize_pairwise(
+                        tx, corpus, vals, rows_a, rows_b, n,
+                        self.engine.rescore, pre_eps,
+                        device_rescorer=lambda ra, rb:
+                            self.engine.pairwise_rescore(corpus, ra, rb),
+                    )
+            if results is not None:
+                if c0 is not None:
+                    self.engine.record_pairwise_candidates(
+                        n, c, widened=(c != c0)
+                    )
+                return results
+            self.engine.widen_retries += 1
+            c = min(total_pairs, c * 4)
+            log.info("pairwise rescore margin insufficient; widening to %d", c)
 
     def __len__(self) -> int:
         with self._lock:

@@ -125,6 +125,8 @@ def library() -> ctypes.CDLL:
             lib.svs_reduce_keys.restype = i
             lib.svs_extract.argtypes = [vp, i, i, vp, vp, vp]
             lib.svs_extract.restype = i
+            lib.svs_pair_keys.argtypes = [vp, i, i, vp, vp]
+            lib.svs_pair_keys.restype = i
             _lib = lib
     return _lib
 

@@ -2,7 +2,7 @@
 kernels (port of ``svs_tpu.ops.pallas_extract``).
 
 The module keeps the reference's name so every constant, key encoding and
-finish sits where a reader of ``svs_tpu`` expects it.  Eight of its nine
+finish sits where a reader of ``svs_tpu`` expects it.  All nine of its
 Pallas kernels are CUDA C++ here (``svs_tpu_torch/csrc``):
 
 - ``_fused3_extract_int8`` / ``_fused3_extract`` — guarded v3, int8 or
@@ -11,7 +11,10 @@ Pallas kernels are CUDA C++ here (``svs_tpu_torch/csrc``):
 - ``_fused_extract_int8`` / ``_fused_extract`` — v1 values + indices;
 - ``_reduce_keys`` — pass-2 reduction (``_make_reduce_kernel``);
 - ``_extract`` — the two-pass top-8 over a precomputed score matrix
-  (``_extract_kernel``), for batches above ``FUSED_MAX_BATCH``.
+  (``_extract_kernel``), for batches above ``FUSED_MAX_BATCH`` and the
+  exact pairwise pass's per-row selection;
+- ``pairwise_keys_extract`` — v2 packed keys over a precomputed pair-score
+  block (``_pair_keys_kernel``), for the keyed pairwise pass.
 
 Each wrapper launches its kernel for CUDA tensors (or raises) and takes
 its plain-torch twin (``*_plain``, one torch op per JAX op, so nothing is
@@ -23,8 +26,7 @@ reference leaves them to XLA.
 Every key encoding, bias, grid, subtile width, H value and dead marker is
 the reference's, so ``KEY_EPS``, ``GUARD_KEY_EPS`` and the engine's
 ``prescore_eps`` carry over unchanged, and so do their soundness proofs
-(see the comments in ``svs_tpu/ops/pallas_extract.py``).  The pairwise
-kernel (``_pair_keys_kernel``) is not ported yet.
+(see the comments in ``svs_tpu/ops/pallas_extract.py``).
 """
 
 from __future__ import annotations
@@ -1123,6 +1125,90 @@ def score_topk_fused3_int8_packed(
     return pack_vals_idx(vals, rows, wide=wide)
 
 
+# --- keyed extraction over precomputed scores (the pairwise path) ----------
+
+#: Score columns per output tile: 8 subtiles of ``FUSED_SUBTILE``.
+PAIR_BLOCK_N = 4096
+PAIR_NSUB = PAIR_BLOCK_N // FUSED_SUBTILE  # 8 subtiles per block
+#: Live key lanes per block (the rest of the 128-lane out tile is DEAD).
+PAIR_KEYS = PAIR_NSUB * EXTRACT_H  # 64
+_PAIR_OUT_LANES = 128
+#: Row-batch ceiling of the reference kernel (kept so dispatch matches).
+PAIR_MAX_ROWS = 256
+#: Mask value for dead score entries (diagonal, lower triangle, padding):
+#: finite (an f32 -inf would destroy the key's lane bits), strictly below
+#: every real cosine score, and decoding to exactly -2.0.
+PAIR_MASKED = -2.0
+#: Decoded-value threshold separating real (unit-norm-domain) candidates
+#: from PAIR_MASKED sentinels and KEY_DEAD padding.
+PAIR_LIVE_MIN = -1.5
+
+
+def pair_keys_supported(n_cols: int, rows: int) -> bool:
+    """Shapes :func:`pairwise_keys_extract` handles (the reference
+    predicate): 4096-aligned score columns and ``rows % 8 == 0`` within
+    ``PAIR_MAX_ROWS``."""
+    return (
+        n_cols % PAIR_BLOCK_N == 0
+        and n_cols >= PAIR_BLOCK_N
+        and rows % 8 == 0
+        and 0 < rows <= PAIR_MAX_ROWS
+    )
+
+
+def _pair_keys_plain(scores: torch.Tensor) -> torch.Tensor:
+    """Plain-torch twin of ``_pair_keys_kernel``: the v2 emit with every
+    lane live, regrouped per 4096-column block into the 64 key lanes and
+    64 ``KEY_DEAD`` lanes."""
+    r, n = scores.shape
+    nbc = n // PAIR_BLOCK_N
+    out = torch.full(
+        (r, nbc, _PAIR_OUT_LANES), KEY_DEAD, dtype=torch.float32,
+        device=scores.device,
+    )
+    out[:, :, :PAIR_KEYS] = _v2_emit(scores, n_valid=n).view(r, nbc, PAIR_KEYS)
+    return out.view(r, nbc * _PAIR_OUT_LANES)
+
+
+def pairwise_keys_extract(scores: torch.Tensor) -> torch.Tensor:
+    """Per-512-subtile top-``EXTRACT_H`` packed keys of an ``[R, N]`` f32
+    score matrix: ``[R, (N/PAIR_BLOCK_N) * 128]`` raw key tiles, per block
+    lanes ``[0, PAIR_KEYS)`` the 8 subtiles' descending top-8 keys and the
+    rest ``KEY_DEAD``.  Scores must be finite and within the key horizon
+    (mask dead entries with :data:`PAIR_MASKED`, never -inf); the callers
+    guarantee it.  Requires :func:`pair_keys_supported`."""
+    r, n = scores.shape
+    if not pair_keys_supported(n, r):
+        raise ValueError(
+            f"pairwise_keys_extract needs N % {PAIR_BLOCK_N} == 0 and "
+            f"R % 8 == 0 with 0 < R <= {PAIR_MAX_ROWS}; got R={r}, N={n}"
+        )
+    if scores.dtype != torch.float32:
+        raise ValueError(
+            f"pairwise_keys_extract needs f32 scores, got {scores.dtype}"
+        )
+    if not scores.is_cuda:
+        return _pair_keys_plain(scores)
+    from . import kernels
+
+    scores = scores.contiguous()
+    out = torch.empty(
+        (r, (n // PAIR_BLOCK_N) * _PAIR_OUT_LANES),
+        dtype=torch.float32,
+        device=scores.device,
+    )
+    stream = torch.cuda.current_stream(scores.device).cuda_stream
+    rc = kernels.library().svs_pair_keys(
+        scores.data_ptr(), r, n, out.data_ptr(), stream
+    )
+    kernels.check(rc, "pair_keys kernel")
+    pairwise_keys_extract.launches += 1  # type: ignore[attr-defined]
+    return out
+
+
+pairwise_keys_extract.launches = 0  # type: ignore[attr-defined]
+
+
 #: The kernel wrappers of this module, for launch accounting.
 KERNEL_WRAPPERS = (
     _fused3_extract_int8,
@@ -1133,6 +1219,7 @@ KERNEL_WRAPPERS = (
     _fused2_extract,
     _fused_extract,
     _extract,
+    pairwise_keys_extract,
 )
 
 

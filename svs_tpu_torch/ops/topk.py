@@ -57,8 +57,10 @@ def int8_dot(q_int8: torch.Tensor, docs_int8: torch.Tensor) -> torch.Tensor:
     the product the reference package leaves to XLA outside any kernel.
     On the card it is ``torch._int_mm`` (cuBLASLt), which wants more than
     16 rows and widths that are multiples of 8, so the query rows are
-    padded; on the CPU an int32 matmul.  Integer sums are exact in any
-    order, so both give the same bits."""
+    padded; on the CPU a float64 matmul (every partial sum is an integer
+    far below 2^53, so exact, and BLAS-fast where torch's int32 matmul is
+    not).  Integer sums are exact in any order, so both give the same
+    bits."""
     b, d = q_int8.shape
     if q_int8.is_cuda:
         if d % 8 or docs_int8.shape[0] % 8:
@@ -72,7 +74,9 @@ def int8_dot(q_int8: torch.Tensor, docs_int8: torch.Tensor) -> torch.Tensor:
             qp = torch.zeros((rows, d), dtype=torch.int8, device=q_int8.device)
             qp[:b] = q_int8
         return torch._int_mm(qp, docs_int8.t())[:b]
-    return q_int8.to(torch.int32) @ docs_int8.to(torch.int32).t()
+    return (q_int8.to(torch.float64) @ docs_int8.to(torch.float64).t()).to(
+        torch.int32
+    )
 
 
 #: Ceiling on the f32 bytes of one row block of a non-f32 corpus widened by

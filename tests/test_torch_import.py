@@ -1,7 +1,7 @@
 """The PyTorch port stands alone: it imports with JAX and the JAX
 package's optional dependencies blocked (int8 and bf16 storage, batches
-above 256), never imports ``svs_tpu``, and refuses to fall back to the
-CPU when no device was named."""
+above 256, top document pairs), never imports ``svs_tpu``, and refuses to
+fall back to the CPU when no device was named."""
 
 import subprocess
 import sys
@@ -101,6 +101,53 @@ _BLOCKED_BF16_WIDE_BATCH = textwrap.dedent(
 )
 
 
+_BLOCKED_PAIRWISE = textwrap.dedent(
+    """
+    import sys, zlib
+
+    BLOCKED = ("jax", "jaxlib", "networkx", "ml_dtypes", "aiohttp", "dotenv")
+
+    class Blocker:
+        def find_spec(self, name, path=None, target=None):
+            if name.split(".")[0] in BLOCKED:
+                raise ImportError(f"{name} is blocked in this test")
+            return None
+
+    sys.meta_path.insert(0, Blocker())
+
+    import numpy as np
+    from svs_tpu_torch import KB
+    from svs_tpu_torch.utils.topk_np import top_pairs_numpy
+
+    def vec(text):
+        rng = np.random.default_rng(zlib.crc32(text.encode()))
+        v = rng.standard_normal(24).astype(np.float32)
+        return v / np.linalg.norm(v)
+
+    async def embed(texts):
+        return [vec(t).tolist() for t in texts]
+
+    path = sys.argv[1]
+    kb = KB(path, embed, force_fresh_db=True, device="cpu")
+    with kb.bulk_add_docs() as add:
+        ids = [add(f"doc {i}") for i in range(4000)]
+    pairs = kb.document_top_pairwise_scores(15)
+    kb.close()
+    # exact: the brute-force f32 top-15 pairs (the 4096-row pack takes the
+    # keyed route, then the f32 rescore and the margin check)
+    m = np.stack([vec(f"doc {i}") for i in range(4000)])
+    want = top_pairs_numpy(m @ m.T, 15)
+    assert [(a["id"], b["id"]) for _, a, b in pairs] == [
+        (ids[r], ids[c]) for _, r, c in want
+    ], pairs
+    assert max(abs(s - w[0]) for (s, _, _), w in zip(pairs, want)) < 1e-6
+    loaded = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED + ("svs_tpu",))
+    assert not loaded, loaded
+    print("ROUND_TRIP_OK")
+    """
+)
+
+
 def _run_blocked(script: str, tmp_path: Path) -> None:
     repo = Path(svs_tpu_torch.__file__).resolve().parent.parent
     proc = subprocess.run(
@@ -120,6 +167,10 @@ def test_imports_and_round_trips_without_jax(tmp_path):
 
 def test_bf16_round_trip_and_batch_of_300_without_jax(tmp_path):
     _run_blocked(_BLOCKED_BF16_WIDE_BATCH, tmp_path)
+
+
+def test_pairwise_without_jax(tmp_path):
+    _run_blocked(_BLOCKED_PAIRWISE, tmp_path)
 
 
 def test_kb_without_device_refuses_cpu(tmp_path):
