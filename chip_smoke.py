@@ -14,7 +14,11 @@ from a seed:
    plain PyTorch version (bit-identical on int8 and on lattice data;
    within ``SCORE_TOL`` and one key-grid step at a grid edge on random
    float data), and times the kernel, its plain version, and one library
-   call where one computes the same function;
+   call where one computes the same function, each as device time per
+   launch over a run of launches between one pair of CUDA events; then
+   holds ``_extract`` and ``pairwise_keys_extract`` to their plain versions
+   on adversarial inputs at the same shapes (ties, -inf or masked rows and
+   subtiles, keys past the key horizon);
 3. end-to-end phase: writes a 1M-doc SQLite store through the port's
    ``Tx`` and drives four retrieval paths, each with the launch counts set
    to 0 just before it and read just after:
@@ -30,8 +34,10 @@ from a seed:
    ``document_top_pairwise_scores(10,000)`` three times on each of five
    paths (int8, bf16 and f32 on the dupe-planted store, ``rescore=False``,
    int8 on the flat store), each result held against a brute-force top-k
-   of the pairs on the card, plus one profiled call for the device's idle
-   share.
+   of the pairs on the card; on the int8 keyed and ``rescore=False`` exact
+   paths, one more call unprofiled and two under ``torch.profiler``, for
+   the device's idle share and the kernels' device time per launch in the
+   call.
 
 Prints the card's name and power limit, a JSON line describing every
 kernel, and, last, ``{"ok": true, "device": {...}}``.  Exits non-zero, with
@@ -108,22 +114,41 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, reps: int) -> float:
-    """Median device time of ``fn`` over ``reps`` runs (CUDA events),
-    after one warm-up run."""
+#: Cycles per second that ``torch.cuda._sleep`` spins at, rounded up from
+#: an H100's top SM clock (1.98 GHz), so a hold is never shorter than asked.
+SPIN_HZ = 2.0e9
+
+
+def time_ms(fn, launches: int) -> float:
+    """Device time per call of ``fn``: one CUDA event pair around
+    ``launches`` calls, after a warm-up call, divided by the count.  A spin
+    kernel queued first (``torch.cuda._sleep``) holds the device while the
+    host enqueues the calls, so the window holds them back to back on the
+    device and not the host's launch gaps.  ``fn`` must not synchronise."""
     import torch
 
     fn()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    fn()
+    host_s = time.perf_counter() - t  # enqueue time of one call
+    torch.cuda.synchronize()
+    hold_s = min(1.0, 3.0 * launches * host_s + 1e-3)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(hold_s * SPIN_HZ))
+    t = time.perf_counter()
+    start.record()
+    for _ in range(launches):
         fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    end.record()
+    enqueue_s = time.perf_counter() - t
+    end.synchronize()
+    if enqueue_s > hold_s:
+        log(f"  time_ms: the host took {enqueue_s * 1e3:.2f} ms to enqueue "
+            f"{launches} calls, past the {hold_s * 1e3:.2f} ms hold: the "
+            f"window may hold launch gaps")
+    return start.elapsed_time(end) / launches
 
 
 def bound(nbytes: float, ops: float, op_type: str) -> tuple:
@@ -171,6 +196,12 @@ def max_abs_err(a, b) -> float:
     if not same and err == 0.0:
         err = float("nan")  # differing bits that are not a finite gap
     return err
+
+
+def neg_zeros(x) -> int:
+    import torch
+
+    return int(((x == 0) & torch.signbit(x)).sum())
 
 
 def check_exact(name, got_t, ref_t) -> float:
@@ -255,18 +286,14 @@ def check_keys_close(name, got, ref, scores, v3) -> float:
     return float((lg - lr).abs().max()) / qscale
 
 
-def kernel_phase(n_docs: int, reps: int) -> dict:
-    """Each kernel against its plain version on synthetic full-size packs,
-    at the main paths' shapes; returns per-kernel records."""
+def int8_pack(n_docs: int, gen, dev) -> tuple:
+    """``(docs int8 [n_pad, DIM], row scales f32 [n_pad])``: ``n_docs``
+    random unit rows quantized as the engine packs them, padded to a
+    multiple of 16,384 rows with zero rows."""
     import torch
 
-    from svs_tpu_torch.ops import pallas_extract as P
-    from svs_tpu_torch.ops.quant import _int8_scores, quantize_rows_int8
-    from svs_tpu_torch.ops.topk import exact_f32, mask_cols, scores_matmul
+    from svs_tpu_torch.ops.quant import quantize_rows_int8
 
-    dev = torch.device("cuda")
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(SEED)
     n_pad = -(-n_docs // 16384) * 16384
     docs = torch.zeros((n_pad, DIM), dtype=torch.int8, device=dev)
     scales = torch.full(
@@ -278,6 +305,45 @@ def kernel_phase(n_docs: int, reps: int) -> dict:
         q8, s = quantize_rows_int8(rows)
         docs[lo : lo + len(rows)] = q8
         scales[lo : lo + len(rows)] = s
+    return docs, scales
+
+
+def pair_block(gen, dev) -> tuple:
+    """``(scores [256, p_pad] f32, live bool [256, p_pad])``: rows 50,000..
+    of a 100k x 1536 unit corpus padded as the engine pads it, against the
+    whole corpus (f32 products, TF32 off), and the strict upper triangle of
+    valid columns that the pairwise passes keep."""
+    import torch
+
+    from svs_tpu_torch.ops.topk import exact_f32
+
+    p_pad = -(-PAIR_DOCS // 16384) * 16384
+    pdocs = torch.zeros((p_pad, DIM), dtype=torch.float32, device=dev)
+    fill_rows(pdocs, PAIR_DOCS, lambda r: unit_rows_torch(r, DIM, gen, dev))
+    row0 = PAIR_DOCS // 2
+    with exact_f32():
+        pscores = pdocs[row0 : row0 + 256] @ pdocs.t()
+    del pdocs
+    cols = torch.arange(p_pad, device=dev)
+    rows = torch.arange(row0, row0 + 256, device=dev)
+    live = (cols[None, :] > rows[:, None]) & (cols < PAIR_DOCS)[None, :]
+    return pscores, live
+
+
+def kernel_phase(n_docs: int, reps: int) -> dict:
+    """Each kernel against its plain version on synthetic full-size packs,
+    at the main paths' shapes; returns per-kernel records."""
+    import torch
+
+    from svs_tpu_torch.ops import pallas_extract as P
+    from svs_tpu_torch.ops.quant import _int8_scores, quantize_rows_int8
+    from svs_tpu_torch.ops.topk import mask_cols, scores_matmul
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    docs, scales = int8_pack(n_docs, gen, dev)
+    n_pad = docs.shape[0]
     nb = n_pad // P.FUSED_BLOCK_N
     log(f"kernel phase: pack {n_pad} x {DIM} int8 (n_valid {n_docs}, nb {nb})")
 
@@ -391,11 +457,36 @@ def kernel_phase(n_docs: int, reps: int) -> dict:
         ext_bound,
         lambda: torch.topk(scores.view(512, -1, P.SUBTILE), P.EXTRACT_H, dim=2),
     )
+    # adversarial inputs at the same shape, bit-identical to the plain
+    # version: the scores on a 2^-7 grid (ties, and -0.0 beside +0.0)
+    neg_inf = float("-inf")
     ties = torch.round(scores * 128.0) / 128.0
-    del scores
-    check_exact("_extract (2^-7 grid ties)", P._extract(ties), P._extract_plain(ties))
-    log("  _extract on a 2^-7 grid of the same scores: bit-identical")
+    ref = P._extract_plain(ties)
+    check_exact("_extract (2^-7 grid ties)", P._extract(ties), ref)
+    log(f"  _extract on a 2^-7 grid of the same scores "
+        f"({int((ref[0] == 0).sum())} zero maxima, {neg_zeros(ties)} entries "
+        f"-0.0): bit-identical")
+    del ref
+    # four distinct values, so the highest-column rule decides most rounds
+    ties = mask_cols(
+        torch.randint(1, 5, scores.shape, generator=gen, device=dev,
+                      dtype=torch.int32).float() / 4.0,
+        n_docs,
+    )
+    check_exact("_extract (4 distinct values)", P._extract(ties), P._extract_plain(ties))
+    log("  _extract on 4 distinct values per subtile: bit-identical")
     del ties
+    # whole rows -inf, every third subtile -inf, a row of 244 live entries
+    dry = scores
+    del scores
+    dry[:8] = neg_inf
+    dry.view(512, -1, P.SUBTILE)[8:, ::3] = neg_inf
+    keep = dry[9, ::4099].clone()
+    dry[9] = neg_inf
+    dry[9, ::4099] = keep
+    check_exact("_extract (-inf rows and subtiles)", P._extract(dry), P._extract_plain(dry))
+    log("  _extract with -inf rows and subtiles: bit-identical")
+    del dry, keep
     torch.cuda.empty_cache()
 
     # #5-#7 on bf16 and f32 packs: lattice data bit-identical, then random
@@ -447,16 +538,8 @@ def kernel_phase(n_docs: int, reps: int) -> dict:
     # 100k x 1536 unit corpus padded as the engine pads it), masked to the
     # strict upper triangle with PAIR_MASKED as the keyed pass masks it;
     # then #8 on the same block masked with -inf, as the exact pass has it
-    p_pad = -(-PAIR_DOCS // 16384) * 16384
-    pdocs = torch.zeros((p_pad, DIM), dtype=torch.float32, device=dev)
-    fill_rows(pdocs, PAIR_DOCS, lambda r: unit_rows_torch(r, DIM, gen, dev))
-    row0 = PAIR_DOCS // 2
-    with exact_f32():
-        pscores = pdocs[row0 : row0 + 256] @ pdocs.t()
-    del pdocs
-    cols = torch.arange(p_pad, device=dev)
-    rows = torch.arange(row0, row0 + 256, device=dev)
-    live = (cols[None, :] > rows[:, None]) & (cols < PAIR_DOCS)[None, :]
+    pscores, live = pair_block(gen, dev)
+    p_pad = pscores.shape[1]
     keyed_in = torch.where(live, pscores, P.PAIR_MASKED).contiguous()
     out_cols = (p_pad // P.PAIR_BLOCK_N) * 128
     compare(
@@ -467,6 +550,38 @@ def kernel_phase(n_docs: int, reps: int) -> dict:
         bound(nbytes(keyed_in) + 256 * out_cols * 4, 5.0 * keyed_in.numel(), "f32"),
         lambda: torch.topk(keyed_in.view(256, -1, P.FUSED_SUBTILE), P.EXTRACT_H, dim=2),
     )
+    # adversarial inputs at the same shape, bit-identical to the plain
+    # version: five distinct scores (equal key levels: the lane decides)
+    few = torch.randint(-2, 3, keyed_in.shape, generator=gen, device=dev,
+                        dtype=torch.int32).float() / 8.0
+    few = torch.where(live, few, P.PAIR_MASKED)
+    check_exact("pairwise_keys_extract (5 distinct scores)",
+                P.pairwise_keys_extract(few), P._pair_keys_plain(few))
+    del few
+    # whole rows and every third subtile at PAIR_MASKED
+    dry = keyed_in.clone()
+    dry[:8] = P.PAIR_MASKED
+    dry.view(256, -1, P.FUSED_SUBTILE)[8:, ::3] = P.PAIR_MASKED
+    check_exact("pairwise_keys_extract (masked rows and subtiles)",
+                P.pairwise_keys_extract(dry), P._pair_keys_plain(dry))
+    del dry
+    # past the key horizon (s > 2.94): keys of 2^24 and more lose lane
+    # bits and collide, so one round clears several entries; half the rows
+    # on a 1/16 grid collide more
+    far = keyed_in.abs() + 2.95
+    far[:128] = torch.round(far[:128] * 16.0) / 16.0
+    lane = torch.arange(P.FUSED_SUBTILE, device=dev, dtype=torch.float32)
+    keys = torch.floor((far.view(256, -1, P.FUSED_SUBTILE) + P.KEY_BIAS) * P.KEY_QSCALE) * 512.0 + lane
+    keys = keys.sort(dim=2).values
+    collide = int((keys[:, :, 1:] == keys[:, :, :-1]).any(dim=2).sum())
+    del keys
+    if collide == 0:
+        raise AssertionError("the past-horizon pair block has no colliding keys")
+    check_exact("pairwise_keys_extract (past the key horizon)",
+                P.pairwise_keys_extract(far), P._pair_keys_plain(far))
+    log(f"  pairwise_keys_extract on 5-value, masked and past-horizon blocks "
+        f"({collide} subtiles with colliding keys): bit-identical")
+    del far
     exact_in = torch.where(live, pscores, float("-inf")).contiguous()
     del keyed_in, pscores
     out_cols = (p_pad // P.SUBTILE) * P.EXTRACT_H
@@ -478,7 +593,13 @@ def kernel_phase(n_docs: int, reps: int) -> dict:
         bound(nbytes(exact_in) + 2 * 256 * out_cols * 4, 0.0, "f32"),
         lambda: torch.topk(exact_in.view(256, -1, P.SUBTILE), P.EXTRACT_H, dim=2),
     )
-    del exact_in
+    ties = torch.round(exact_in * 8.0) / 8.0
+    ref = P._extract_plain(ties)
+    check_exact("_extract (pair block on a 1/8 grid)", P._extract(ties), ref)
+    log(f"  _extract on the pair block rounded to a 1/8 grid "
+        f"({int((ref[0] == 0).sum())} zero maxima, {neg_zeros(ties)} entries "
+        f"-0.0): bit-identical")
+    del exact_in, ties, ref
     torch.cuda.empty_cache()
     return records
 
@@ -784,38 +905,61 @@ def check_pairs(results, ref, oracle, k: int) -> None:
         raise AssertionError(f"{len(missing)} oracle pairs missing, e.g. {missing[0]}")
 
 
+def kernel_times(prof) -> dict:
+    """``{kernel name: (device ms, launches)}`` of one profiled window."""
+    import torch
+
+    by_name: dict = {}
+    for e in prof.events():
+        # device activities only; a record_function range also shows up on
+        # the device timeline, as a user annotation spanning kernels
+        if e.device_type == torch.autograd.DeviceType.CUDA and not getattr(
+            e, "is_user_annotation", False
+        ):
+            ms, n = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
+    return by_name
+
+
 def device_idle_share(fn) -> dict:
-    """One call of ``fn`` under ``torch.profiler``: its wall time, the summed
-    CUDA kernel time, and the idle share 1 - kernel / wall (None where the
-    profiler saw no device time), with the eight largest kernels."""
+    """``fn`` once unprofiled, then in two ``torch.profiler`` windows: each
+    wall time, the summed CUDA kernel time and the idle share 1 - kernel /
+    wall (None where the profiler saw no device time).  The first window
+    of a process also starts the device tracer; the second reports, beside
+    its numbers, the eight largest kernels, each with its launch count and
+    device time per launch."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t
-    by_name: dict = {}
-    try:
-        for e in prof.events():
-            # device activities only; a record_function range also shows up
-            # on the device timeline, as a user annotation spanning kernels
-            if e.device_type == torch.autograd.DeviceType.CUDA and not getattr(
-                e, "is_user_annotation", False
-            ):
-                by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
-    except Exception as exc:  # a measurement, not a check: record why it is missing
-        return {"wall_ms": wall * 1e3, "idle_share": None, "error": repr(exc)}
-    busy_ms = sum(by_name.values())
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    return {
-        "wall_ms": wall * 1e3,
-        "kernel_ms": busy_ms,
-        "idle_share": None if busy_ms == 0 else 1.0 - busy_ms / (wall * 1e3),
-        "top_kernels_ms": {name[:80]: ms for name, ms in top},
-    }
+    t = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    out: dict = {"unprofiled_wall_ms": (time.perf_counter() - t) * 1e3}
+    for window in ("first_profile", "second_profile"):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t) * 1e3
+        try:
+            by_name = kernel_times(prof)
+        except Exception as exc:  # a measurement, not a check: record why it is missing
+            out[window] = {"wall_ms": wall_ms, "idle_share": None, "error": repr(exc)}
+            continue
+        busy_ms = sum(ms for ms, _ in by_name.values())
+        top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+        out[window] = {
+            "wall_ms": wall_ms,
+            "kernel_ms": busy_ms,
+            "idle_share": None if busy_ms == 0 else 1.0 - busy_ms / wall_ms,
+            "top_kernels": {
+                name[:80]: {"ms": ms, "launches": n, "us_per_launch": ms * 1e3 / n}
+                for name, (ms, n) in top
+            },
+        }
+    out["first_profile"].pop("top_kernels", None)
+    return out
 
 
 def pairwise_phase(work: Path, out: dict) -> None:
@@ -856,9 +1000,17 @@ def pairwise_phase(work: Path, out: dict) -> None:
                     },
                 })
                 if profile:
-                    res["profiled_call"] = device_idle_share(
+                    prof = res["profiled_call"] = device_idle_share(
                         lambda: kb.document_top_pairwise_scores(PAIR_K)
                     )
+                    first, second = prof["first_profile"], prof["second_profile"]
+                    log(f"e2e {label}: unprofiled {prof['unprofiled_wall_ms']:.2f} ms; "
+                        f"profiled {first['wall_ms']:.2f} ms (idle share "
+                        f"{first['idle_share']}), then {second['wall_ms']:.2f} ms "
+                        f"(idle share {second['idle_share']})")
+                    for name, k in second.get("top_kernels", {}).items():
+                        log(f"  {k['ms']:.3f} ms = {k['launches']} x "
+                            f"{k['us_per_launch']:.2f} us  {name}")
             finally:
                 kb.close()
 
@@ -891,7 +1043,7 @@ def pairwise_phase(work: Path, out: dict) -> None:
             del oracle
             oracle = pair_oracle(ref_bf16, PAIR_K)
             pair_path("pairwise_rescore_off", ["_extract"], store, ref_bf16, oracle,
-                      rescore=False)
+                      profile=True, rescore=False)
             del ref_bf16
         finally:
             store.unlink(missing_ok=True)
@@ -903,7 +1055,9 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--docs", type=int, default=1_000_000)
     ap.add_argument("--reps", type=int, default=5, help="calls per shape and path")
-    ap.add_argument("--kernel-reps", type=int, default=20)
+    ap.add_argument("--kernel-reps", type=int, default=20,
+                    help="launches per timed window of a kernel or library "
+                    "call (a plain version takes a quarter, at least 3)")
     ap.add_argument("--skip-e2e", action="store_true", help="kernel phase only")
     args = ap.parse_args()
 
@@ -960,6 +1114,19 @@ def main() -> int:
                 "shape": rec["what"],
             })
     if e2e is not None:
+        # each profiled call's device time per launch of the port's own
+        # kernels, beside the event-timed run of launches on the pair block
+        symbols = {"pair_keys_kernel": "pairwise_keys_extract", "extract_kernel": "_extract"}
+        for label, detail in e2e.items():
+            prof = detail.get("profiled_call", {}) if isinstance(detail, dict) else {}
+            tops = prof.get("second_profile", {}).get("top_kernels", {})
+            for kname, k in tops.items():
+                for sym, rec_name in symbols.items():
+                    if f"{sym}(" in kname:
+                        ev = [r["ms"] * 1e3 for r in records[rec_name] if "pair" in r["what"]]
+                        log(f"{label}: {sym} {k['us_per_launch']:.2f} us per launch in "
+                            f"situ ({k['launches']} launches), {ev[0]:.2f} us in the "
+                            f"event-timed run of launches")
         e2e["seconds_total"] = time.perf_counter() - t_start
         print(json.dumps({"e2e": e2e}))
     print(json.dumps({"kernels": kernels_json}))

@@ -33,9 +33,9 @@ _lock = threading.Lock()
 build_seconds = 0.0
 
 
-def _sources() -> list[Path]:
+def _sources(csrc: Path) -> list[Path]:
     return sorted(
-        p for p in _CSRC.iterdir() if p.suffix in (".cu", ".cuh")
+        p for p in csrc.iterdir() if p.suffix in (".cu", ".cuh")
     )
 
 
@@ -52,20 +52,20 @@ def _nvcc() -> str:
     )
 
 
-def library_path() -> Path:
-    """Where the library for the current sources lives (built or not)."""
+def library_path(csrc: Path = _CSRC) -> Path:
+    """Where the library of the sources in ``csrc`` lives (built or not)."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in _sources(csrc):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return _BUILD_ROOT / h.hexdigest()[:16] / "libsvs_kernels.so"
 
 
-def _build(target: Path) -> None:
+def _build(target: Path, csrc: Path) -> None:
     global build_seconds
     target.parent.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
-    cu = [p for p in _sources() if p.suffix == ".cu"]
+    cu = [p for p in _sources(csrc) if p.suffix == ".cu"]
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(
         prefix=".build-", dir=str(target.parent)
@@ -73,7 +73,7 @@ def _build(target: Path) -> None:
         objs = [str(Path(tmp) / f"{p.stem}.o") for p in cu]
         procs = [
             subprocess.Popen(
-                [nvcc, *NVCC_FLAGS, "-I", str(_CSRC), "-c", "-o", obj, str(src)],
+                [nvcc, *NVCC_FLAGS, "-I", str(csrc), "-c", "-o", obj, str(src)],
                 stdout=subprocess.PIPE,
                 stderr=subprocess.PIPE,
                 text=True,
@@ -101,6 +101,27 @@ def _build(target: Path) -> None:
     build_seconds = time.perf_counter() - t0
 
 
+def load(csrc: Path = _CSRC) -> ctypes.CDLL:
+    """The library of the sources in ``csrc`` (the package's own, or the
+    same files from another tree), built first if needed, and loaded."""
+    path = library_path(csrc)
+    if not path.exists():
+        _build(path, csrc)
+    lib = ctypes.CDLL(str(path))
+    vp, i = ctypes.c_void_p, ctypes.c_int
+    lib.svs_fused_int8.argtypes = [i, vp, vp, vp, vp, i, i, i, i, vp, vp, vp]
+    lib.svs_fused_int8.restype = i
+    lib.svs_fused_float.argtypes = [i, i, vp, vp, i, i, i, i, vp, vp, vp]
+    lib.svs_fused_float.restype = i
+    lib.svs_reduce_keys.argtypes = [vp, i, i, i, vp, vp]
+    lib.svs_reduce_keys.restype = i
+    lib.svs_extract.argtypes = [vp, i, i, vp, vp, vp]
+    lib.svs_extract.restype = i
+    lib.svs_pair_keys.argtypes = [vp, i, i, vp, vp]
+    lib.svs_pair_keys.restype = i
+    return lib
+
+
 def library() -> ctypes.CDLL:
     """The loaded kernel library, building it first if needed."""
     global _lib
@@ -108,26 +129,7 @@ def library() -> ctypes.CDLL:
         return _lib
     with _lock:
         if _lib is None:
-            path = library_path()
-            if not path.exists():
-                _build(path)
-            lib = ctypes.CDLL(str(path))
-            vp, i = ctypes.c_void_p, ctypes.c_int
-            lib.svs_fused_int8.argtypes = [
-                i, vp, vp, vp, vp, i, i, i, i, vp, vp, vp
-            ]
-            lib.svs_fused_int8.restype = i
-            lib.svs_fused_float.argtypes = [
-                i, i, vp, vp, i, i, i, i, vp, vp, vp
-            ]
-            lib.svs_fused_float.restype = i
-            lib.svs_reduce_keys.argtypes = [vp, i, i, i, vp, vp]
-            lib.svs_reduce_keys.restype = i
-            lib.svs_extract.argtypes = [vp, i, i, vp, vp, vp]
-            lib.svs_extract.restype = i
-            lib.svs_pair_keys.argtypes = [vp, i, i, vp, vp]
-            lib.svs_pair_keys.restype = i
-            _lib = lib
+            _lib = load()
     return _lib
 
 

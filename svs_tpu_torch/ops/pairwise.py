@@ -20,10 +20,15 @@ Two passes, both the reference's:
   owns the widen-retry.
 
 ``lax.scan`` becomes a Python loop over row blocks; its carries stay
-device tensors, so an attempt syncs with the host once (``covered`` /
-``ok``), not once per block.  Row blocks made only of padding rows (the
-pack's last rows) are skipped: they hold no live pair, and as a suffix of
-the collected candidates they never move a live candidate's position.
+device tensors.  A keyed attempt syncs with the host once (``ok``).  The
+exact pass syncs once per row block where it selects through
+``_extract``: ``extract_topk``'s coverage check
+(``pallas_extract._verified_merge``) asks the host whether to take the
+fallback, where the reference branches on the device (``lax.cond``); then
+once more per attempt (``covered``).  Row blocks made only of padding rows
+(the pack's last rows) are skipped: they hold no live pair, and as a
+suffix of the collected candidates they never move a live candidate's
+position.
 """
 
 from __future__ import annotations

@@ -111,11 +111,14 @@ def _extract_plain(scores: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain-torch twin of ``_extract_kernel``: per 1024-lane subtile the
     top-8 values and their global column (as f32), ties to the highest
     column.  An all -inf subtile yields -inf at its highest column on
-    every round, as the reference does."""
+    every round, as the reference does.  A max of zero comes out as +0.0
+    (``amax`` may keep either sign where -0.0 ties +0.0; the kernel emits
+    the same canonical zero)."""
     b, n = scores.shape
     t = n // SUBTILE
     gidx = torch.arange(n, device=scores.device).to(torch.float32)
-    return _top8_rounds(scores.view(b, t, SUBTILE), gidx.view(1, t, SUBTILE))
+    vals, idx = _top8_rounds(scores.view(b, t, SUBTILE), gidx.view(1, t, SUBTILE))
+    return vals + 0.0, idx
 
 
 def _extract(scores: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

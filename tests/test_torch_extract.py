@@ -51,6 +51,64 @@ def test_extract_twin_bit_identical():
     assert set(ti.numpy()[3, :8]) == {1023.0}
 
 
+def _few_values(rng):
+    """Four distinct values (no zero, so no -0.0 / +0.0 tie at a max): the
+    highest-index rule decides most rounds."""
+    return (rng.integers(1, 5, (16, 32768)) / 4.0).astype(np.float32)
+
+
+def _neg_inf_rows_and_subtiles(rng):
+    """Whole rows -inf, every third subtile -inf, a row of eleven live
+    entries, on random scores."""
+    s = rng.standard_normal((16, 32768)).astype(np.float32)
+    s[:2] = -np.inf
+    s.reshape(16, -1, 1024)[2:, ::3] = -np.inf
+    keep = s[3, ::3001].copy()
+    s[3] = -np.inf
+    s[3, ::3001] = keep
+    return s
+
+
+def _pair_block_on_grid(rng):
+    """The exact pairwise pass's input: the strict upper triangle of a unit
+    corpus's pair scores, -inf elsewhere, rounded to a 1/8 grid (ties)."""
+    m = rng.standard_normal((32768, 32)).astype(np.float32)
+    m /= np.linalg.norm(m, axis=1, keepdims=True)
+    rows = np.arange(32768 - 16, 32768)
+    s = m[rows] @ m.T
+    s = np.round(s * 8.0) / 8.0 + np.float32(0.0)  # no -0.0: the port emits a zero max as +0.0
+    return np.where(np.arange(32768)[None, :] > rows[:, None], s, -np.inf).astype(np.float32)
+
+
+@pytest.mark.parametrize(
+    "make", [_few_values, _neg_inf_rows_and_subtiles, _pair_block_on_grid],
+    ids=["few_values", "neg_inf_rows_and_subtiles", "pair_block_on_grid"],
+)
+def test_extract_plain_adversarial_bit_identical(make):
+    """The card's oracle, ``_extract_plain``, against the JAX kernel in
+    interpret mode on the inputs the redesigned kernel is held to."""
+    s = make(np.random.default_rng(23))
+    jv, ji = J._extract(jnp.asarray(s), interpret=True)
+    tv, ti = T._extract_plain(torch.from_numpy(s))
+    np.testing.assert_array_equal(_bits(jv), _bits(tv.numpy()))
+    np.testing.assert_array_equal(_bits(ji), _bits(ti.numpy()))
+
+
+def test_extract_zero_max_is_positive_zero():
+    """A subtile whose max is zero emits +0.0 whatever the signs of the
+    zeros it ties (the kernel makes the same canonical zero), at the
+    reference's columns: the highest among the equal zeros first."""
+    s = np.full((8, T.BLOCK_N), -np.inf, dtype=np.float32)
+    s[:, :4] = -0.0
+    s[:4, 2] = 0.0
+    jv, ji = J._extract(jnp.asarray(s), interpret=True)
+    tv, ti = T._extract(torch.from_numpy(s))
+    np.testing.assert_array_equal(_bits(ji), _bits(ti.numpy()))
+    np.testing.assert_array_equal(np.asarray(jv), tv.numpy())  # -0.0 == +0.0
+    assert (_bits(tv.numpy()[:, :4]) == 0).all()
+    np.testing.assert_array_equal(ti.numpy()[:, :8], [[3, 2, 1, 0] + [1023] * 4] * 8)
+
+
 @pytest.mark.parametrize("dtype", ["bf16", "f32"])
 def test_score_topk_extract_packed_matches(dtype):
     """Float scoring + ``_extract`` + verified merge + packing on a lattice

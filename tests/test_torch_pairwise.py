@@ -132,6 +132,49 @@ def test_pairwise_keys_extract_twin_bit_identical(make, r, n):
     assert full.any() and (dec[full] == TP.PAIR_MASKED).all()
 
 
+def _few_values_block(r, n, seed):
+    """Five distinct scores: every subtile's keys share a few levels, so
+    the lane bits decide the order."""
+    rng = np.random.default_rng(seed)
+    return (rng.integers(-2, 3, (r, n)) / 8.0).astype(np.float32)
+
+
+def _masked_block(r, n, seed):
+    """A pair block with whole rows and every third subtile at PAIR_MASKED."""
+    s = _pair_block(r, n, seed)
+    s[:2] = JP.PAIR_MASKED
+    s.reshape(r, -1, 512)[2:, ::3] = JP.PAIR_MASKED
+    return s
+
+
+def _past_horizon_block(r, n, seed):
+    """Scores above 2.94: keys of 2^24 and more lose lane bits and collide,
+    so a round clears several entries at once; half the rows on a 1/16
+    grid collide more."""
+    s = np.abs(_random_block(r, n, seed)) + np.float32(2.95)
+    s[: r // 2] = np.round(s[: r // 2] * 16.0) / 16.0
+    return s.astype(np.float32)
+
+
+@pytest.mark.parametrize(
+    "make", [_few_values_block, _masked_block, _past_horizon_block],
+    ids=["few_values", "masked_rows_and_subtiles", "past_key_horizon"],
+)
+def test_pair_keys_plain_adversarial_bit_identical(make):
+    """The card's oracle, ``_pair_keys_plain``, against the JAX kernel in
+    interpret mode on the inputs the redesigned kernel is held to."""
+    scores = make(16, 8192, 4)
+    want = np.asarray(JP.pairwise_keys_extract(jnp.asarray(scores), interpret=True))
+    got = TP._pair_keys_plain(torch.from_numpy(scores)).numpy()
+    assert _bits(got) == _bits(want)
+    if make is _past_horizon_block:
+        lane = np.arange(512, dtype=np.float32)
+        sub = scores.reshape(16, -1, 512)
+        keys = np.floor((sub + np.float32(1.0625)) * np.float32(8192.0)) * np.float32(512.0) + lane
+        keys = np.sort(keys.astype(np.float32), axis=2)
+        assert (keys[:, :, 1:] == keys[:, :, :-1]).any()  # collisions happen
+
+
 @pytest.mark.parametrize(
     "shape, dtype",
     [
