@@ -10,20 +10,22 @@ from a seed:
 1. builds the hand-written CUDA kernels from the sources in the checkout
    (one ``nvcc`` per source, in parallel);
 2. kernel phase: runs each kernel on synthetic 1M x 1536 packs (int8, bf16,
-   f32) at the shapes the main paths give it, holds its output against its
-   plain PyTorch version (bit-identical on int8 and on lattice data;
-   within ``SCORE_TOL`` and one key-grid step at a grid edge on random
-   float data), and times the kernel, its plain version, and one library
+   f32) at the shapes the main paths give it (the guarded v3 kernels at
+   each of ``V3_BATCHES``), holds its output against its plain PyTorch
+   version (bit-identical on int8, on lattice data and, for v3, on
+   clipped scores whose keys collide past 2^24; within ``SCORE_TOL`` and
+   one key-grid step at a grid edge on random float data), and times the kernel, its plain version, and one library
    call where one computes the same function, each as device time per
    launch over a run of launches between one pair of CUDA events; then
    holds ``_extract`` and ``pairwise_keys_extract`` to their plain versions
    on adversarial inputs at the same shapes (ties, -inf or masked rows and
    subtiles, keys past the key horizon);
 3. end-to-end phase: writes a 1M-doc SQLite store through the port's
-   ``Tx`` and drives four retrieval paths, each with the launch counts set
+   ``Tx`` and drives five retrieval paths, each with the launch counts set
    to 0 just before it and read just after:
    - int8 ``KB`` (``precision='auto'``): ``retrieve_batch`` at B=64/n=100,
-     B=8/n=100, B=8/n=1000 and B=512/n=100;
+     B=8/n=100, B=8/n=1000 and B=512/n=100, then on a second int8 ``KB``
+     B=256/n=100 (the guarded v3 kernel at its batch ceiling);
    - bf16 ``KB``: B=64/n=100, B=8/n=100, B=8/n=1000;
    - f32 ``KB``: the same three shapes;
    - ``rescore=False`` ``KB`` (bf16 storage): B=8/n=100;
@@ -93,6 +95,10 @@ SOURCES = {
     "pairwise_keys_extract": "svs_tpu_torch/csrc/pair_keys.cu",
 }
 SHAPES = (("B64_n100", 64, 100), ("B8_n100", 8, 100), ("B8_n1000", 8, 1000))
+#: Batches the guarded v3 kernels are held and timed at: where v3 takes over
+#: from v2, the headline batch, one that is not a multiple of the 64-query
+#: tile, and the batch ceiling of the fused kernels.
+V3_BATCHES = (16, 64, 100, 256)
 #: The repo's pairwise benchmark (benchmarks/tpu_pairwise_kb.py): 100k docs
 #: x 1536, the top 10,000 pairs; dupe-planted stores plant 12% of every
 #: 20,000-row insert chunk as perturbed copies (cos ~0.94).
@@ -151,6 +157,39 @@ def time_ms(fn, launches: int) -> float:
     return start.elapsed_time(end) / launches
 
 
+def wall_ms(fn, calls: int) -> float:
+    """Median host-clock time of one call of ``fn`` that ends in a device
+    sync, after a warm-up call: what a caller that waits for the result
+    pays, host syncs inside ``fn`` included."""
+    import torch
+
+    fn()
+    times = []
+    for _ in range(calls):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+    return statistics.median(times)
+
+
+#: Batches of the v2/v3 crossover data (GUARD_MIN_BATCH = 16 is the TPU's
+#: static prior for where v3 takes over).
+CROSSOVER_BATCHES = (16, 32)
+
+
+def crossover(label, v2, v3, make_queries, out) -> None:
+    """v2 (kernel + finish, its coverage sync included) against v3 (kernel
+    + finish) at C = 400, host clock, at each of CROSSOVER_BATCHES."""
+    for b in CROSSOVER_BATCHES:
+        q = make_queries(b)
+        rec = {"v2_ms": wall_ms(lambda: v2(q), 10), "v3_ms": wall_ms(lambda: v3(q), 10)}
+        out[f"{label} B={b}"] = rec
+        log(f"  crossover {label} B={b}, C=400 (host clock, kernel + finish): "
+            f"v2 {rec['v2_ms']:.4f} ms, v3 {rec['v3_ms']:.4f} ms")
+
+
 def bound(nbytes: float, ops: float, op_type: str) -> tuple:
     """``(bound_ms, bound_by)``: the least time one H100 could take."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -177,6 +216,35 @@ def lattice_rows_torch(n: int, d: int, gen, device) -> "torch.Tensor":
 
     m = torch.randint(-4, 5, (n, d), generator=gen, device=device, dtype=torch.int8)
     return m.to(torch.float32) / 128.0
+
+
+def clip_rows_torch(n: int, d: int, gen, device) -> "torch.Tensor":
+    """Entries m * 2^-3, m in [-2, 2], with m in {1, 2} on the row pairs
+    4j, 4j + 1.  Every product is a multiple of 2^-6 and every partial sum
+    of a dot at d <= 1536 is an exact f32 number (|sum| <= 96), so any
+    order gives the same bits.  Two positive rows score >= 24 and clip at
+    3.0, where v3 keys pass 2^24 and the key of odd lane 4j + 1 rounds (to
+    even) onto that of lane 4j."""
+    import torch
+
+    m = torch.randint(-2, 3, (n, d), generator=gen, device=device, dtype=torch.int8)
+    pos = torch.randint(1, 3, (n, d), generator=gen, device=device, dtype=torch.int8)
+    rows = torch.arange(n, device=device)[:, None] % 4 < 2
+    return torch.where(rows, pos, m).to(torch.float32) / 8.0
+
+
+def v3_collisions(scores, n_valid: int) -> int:
+    """Subtiles of a [B, N] score matrix where two live v3 keys are equal
+    (the keys computed as the plain version computes them)."""
+    import torch
+
+    b, n = scores.shape
+    lane = torch.arange(1024, device=scores.device, dtype=torch.float32)
+    keys = torch.floor((scores.clamp(-3.0, 3.0).view(b, -1, 1024) + 1.0625) * 4096.0) * 1024.0 + lane
+    live = (torch.arange(n, device=scores.device) < n_valid).view(1, -1, 1024)
+    keys = torch.where(live, keys, -(2.0**24)).sort(dim=2).values
+    same = (keys[:, :, 1:] == keys[:, :, :-1]) & (keys[:, :, 1:] > -(2.0**24))
+    return int(same.any(dim=2).sum())
 
 
 def fill_rows(out, n_rows: int, make) -> None:
@@ -241,12 +309,14 @@ def check_v1_close(name, got_t, ref_t, scores, n_valid) -> float:
     return err
 
 
-def check_keys_close(name, got, ref, scores, v3) -> float:
+def check_keys_close(name, got, ref, scores, v3, tol=SCORE_TOL) -> float:
     """Keys on random float data, position by position: within one grid
-    step of the plain key, and the kernel's key level within SCORE_TOL of
+    step of the plain key, and the kernel's key level within ``tol`` of
     the plain score of the doc it names (so a key moves only at a grid
     edge).  v3's dead lanes must match and its guard lane must be the max
-    of its own subtile tails.  Returns the max level gap in score units."""
+    of its own subtile tails.  Returns the largest gap the keys show: how
+    far a plain score lies outside the score interval of the kernel's key
+    level for the same doc (0.0 when every level holds its score)."""
     import torch
 
     dev = got.device
@@ -277,13 +347,20 @@ def check_keys_close(name, got, ref, scores, v3) -> float:
     if v3:
         s = s.clamp(-3.0, 3.0)
     x = (s + 1.0625) * qscale
-    lo = torch.floor(x - SCORE_TOL * qscale)
-    hi = torch.floor(x + SCORE_TOL * qscale)
+    lo = torch.floor(x - tol * qscale)
+    hi = torch.floor(x + tol * qscale)
     ok = ((lg - lr).abs() <= 1) & (lg.double() >= lo) & (lg.double() <= hi)
+    # the level's scores are [lg, lg + 1) / qscale - KEY_BIAS
+    level = lg.double() / qscale - 1.0625
+    gap = torch.clamp(torch.maximum(level - s, s - (level + 1.0 / qscale)), min=0.0)
+    need = float(gap[~dead].max()) if bool((~dead).any()) else 0.0
     if not bool(ok[~dead].all()):
         bad = int((~ok & ~dead).sum())
-        raise AssertionError(f"{name}: {bad} keys outside one grid step at an edge")
-    return float((lg - lr).abs().max()) / qscale
+        raise AssertionError(
+            f"{name}: {bad} keys outside one grid step at an edge (largest "
+            f"score gap {need}, tolerance {tol})"
+        )
+    return need
 
 
 def int8_pack(n_docs: int, gen, dev) -> tuple:
@@ -330,9 +407,10 @@ def pair_block(gen, dev) -> tuple:
     return pscores, live
 
 
-def kernel_phase(n_docs: int, reps: int) -> dict:
+def kernel_phase(n_docs: int, reps: int, cross: dict) -> dict:
     """Each kernel against its plain version on synthetic full-size packs,
-    at the main paths' shapes; returns per-kernel records."""
+    at the main paths' shapes; returns per-kernel records, and fills
+    ``cross`` with the v2/v3 crossover data."""
     import torch
 
     from svs_tpu_torch.ops import pallas_extract as P
@@ -380,15 +458,27 @@ def kernel_phase(n_docs: int, reps: int) -> dict:
             2.0 * b * n_pad * DIM, "int8",
         )
 
-    # #1 guarded v3 at B = 64, C = 400
-    q8, qs = queries(64)
-    args = (docs, scales, q8, qs, n_docs)
-    out3 = compare(
-        "_fused3_extract_int8",
-        lambda: P._fused3_extract_int8(*args),
-        lambda: P._fused3_extract_int8_plain(*args),
-        "B=64 (v3, C=400)",
-        fused_int8_bound(64, nb * 128),
+    # #1 guarded v3 at every batch of V3_BATCHES (C <= 1024: C does not
+    # reach the kernel), bit-identical
+    for b in V3_BATCHES:
+        q8, qs = queries(b)
+        args = (docs, scales, q8, qs, n_docs)
+        got = compare(
+            "_fused3_extract_int8",
+            lambda: P._fused3_extract_int8(*args),
+            lambda: P._fused3_extract_int8_plain(*args),
+            f"B={b} (v3, C=400)",
+            fused_int8_bound(b, nb * 128),
+        )
+        if b == 64:
+            out3 = got
+        del got
+    crossover(
+        "int8",
+        lambda q: P.fused2_topk_int8(docs, scales, q, n_docs, 400),
+        lambda q: P.fused3_candidates_int8(docs, scales, q, n_docs, 400),
+        lambda b: unit_rows_torch(b, DIM, gen, dev),
+        cross,
     )
     # #2 on #1's keys: the staged v3 finish's pass-2 input
     keys3 = out3.view(64, nb, 128)[:, :, : P.GUARD_KEYS].reshape(64, -1)
@@ -489,10 +579,12 @@ def kernel_phase(n_docs: int, reps: int) -> dict:
     del dry, keep
     torch.cuda.empty_cache()
 
-    # #5-#7 on bf16 and f32 packs: lattice data bit-identical, then random
-    # unit data within tolerance (timed)
-    float_cases = (
-        ("_fused3_extract", 64, "v3, C=400", nb * 128, 1),
+    # #5-#7 on bf16 and f32 packs: lattice data bit-identical, v3 on
+    # clipped colliding keys bit-identical, then random unit data within
+    # tolerance (timed)
+    float_cases = tuple(
+        ("_fused3_extract", b, "v3, C=400", nb * 128, 1) for b in V3_BATCHES
+    ) + (
         ("_fused2_extract", 8, "v2, k=400", n_pad // 64, 1),
         ("_fused_extract", 8, "v1, k=4000", n_pad // 64, 2),
     )
@@ -508,7 +600,30 @@ def kernel_phase(n_docs: int, reps: int) -> dict:
             ref_t = ref if isinstance(ref, tuple) else (ref,)
             check_exact(f"{name} {dt_name} lattice", got_t, ref_t)
             log(f"  {name} {dt_name} B={b} ({what}) on lattice data: bit-identical")
+        # scores past 3.0 clip, their keys pass 2^24 and collide: the
+        # chunked top-4 merge must keep clear-every-equal
+        fill_rows(fdocs, n_docs, lambda r: clip_rows_torch(r, DIM, gen, dev))
+        for b in (64, 256):
+            q = clip_rows_torch(b, DIM, gen, dev).to(dt)
+            got = P._fused3_extract(fdocs, q, n_docs)
+            torch.cuda.synchronize()
+            check_exact(f"_fused3_extract {dt_name} B={b} clipped", (got,),
+                        (P._fused3_extract_plain(fdocs, q, n_docs),))
+            collide = v3_collisions(scores_matmul(fdocs, q), n_docs)
+            if collide == 0:
+                raise AssertionError("the clipped v3 input has no colliding keys")
+            log(f"  _fused3_extract {dt_name} B={b} on clipped scores "
+                f"({collide} subtiles with colliding keys): bit-identical")
+            del got
+        torch.cuda.empty_cache()
         fill_rows(fdocs, n_docs, lambda r: unit_rows_torch(r, DIM, gen, dev))
+        crossover(
+            dt_name,
+            lambda q: P.fused2_topk(fdocs, q, n_docs, 400),
+            lambda q: P.fused3_candidates(fdocs, q, n_docs, 400),
+            lambda b: unit_rows_torch(b, DIM, gen, dev),
+            cross,
+        )
         for name, b, what, cols, outs in float_cases:
             q = unit_rows_torch(b, DIM, gen, dev).to(dt).contiguous()
             got = getattr(P, name)(fdocs, q, n_docs)
@@ -696,15 +811,20 @@ def drive_path(label, expected, fn, out) -> None:
         raise AssertionError(f"{label}: kernels not launched: {missing}")
 
 
-def kb_shapes(kb, shapes, reps, rng, qvec, scan, out) -> None:
+def kb_shapes(kb, shapes, reps, rng, qvec, scan, out, v3=None) -> None:
     """``retrieve_batch`` at each shape, ``reps`` times, each result held
     against the brute-force scan ``scan(queries) -> (scan queries, scan
-    matrix)``; records first and warm latencies."""
+    matrix)``; records first and warm latencies and the launches of each
+    shape's calls.  ``v3`` names the guarded v3 wrapper that must launch
+    in every shape of 64 queries or more."""
     import torch
+
+    from svs_tpu_torch.ops import pallas_extract as P
 
     for label, b, n in shapes:
         lat = []
         kb._stats.reset()
+        before = P.launch_counts()
         for rep in range(reps):
             v = unit_queries(rng, b)
             texts = [f"{label}-{rep}-{i}" for i in range(b)]
@@ -716,7 +836,11 @@ def kb_shapes(kb, shapes, reps, rng, qvec, scan, out) -> None:
             lat.append(time.perf_counter() - t)
             check_results(*hits_to_arrays(res), *scan(v), n)
         warm = lat[1:] if len(lat) > 1 else lat
+        launches = {k: v - before[k] for k, v in P.launch_counts().items()}
+        if v3 is not None and 64 <= b <= P.FUSED_MAX_BATCH and launches[v3] <= 0:
+            raise AssertionError(f"{label}: the guarded v3 kernel ({v3}) did not launch")
         out[label] = {
+            "launches": launches,
             "first_s": lat[0],
             "warm_p50_ms": statistics.median(warm) * 1e3,
             "warm_ms": [x * 1e3 for x in warm],
@@ -727,7 +851,8 @@ def kb_shapes(kb, shapes, reps, rng, qvec, scan, out) -> None:
             "widen_retries": kb.engine.widen_retries,
         }
         log(f"e2e {label}: first {lat[0]:.3f} s, warm p50 "
-            f"{out[label]['warm_p50_ms']:.2f} ms over {len(warm)}; exact vs scan")
+            f"{out[label]['warm_p50_ms']:.2f} ms over {len(warm)}; exact vs scan; "
+            f"launches {({k: v for k, v in launches.items() if v})}")
 
 
 def e2e_phase(n_docs: int, reps: int, work: Path) -> dict:
@@ -756,7 +881,7 @@ def e2e_phase(n_docs: int, reps: int, work: Path) -> dict:
         def f32_scan(v):
             return v, ref_matrix
 
-        def kb_path(label, expected, shapes, scan, check=None, **options):
+        def kb_path(label, expected, shapes, scan, check=None, v3=None, **options):
             res = out[f"paths_detail_{label}"] = {}
 
             def run():
@@ -764,7 +889,7 @@ def e2e_phase(n_docs: int, reps: int, work: Path) -> dict:
                 try:
                     if check is not None:
                         check(kb)
-                    kb_shapes(kb, shapes, reps, rng, qvec, scan, res)
+                    kb_shapes(kb, shapes, reps, rng, qvec, scan, res, v3=v3)
                     res["pack_events"] = dict(kb.engine.pack_events)
                 finally:
                     kb.close()
@@ -777,12 +902,17 @@ def e2e_phase(n_docs: int, reps: int, work: Path) -> dict:
         # (C > GUARD_MAX_C) would keep the guarded v3 kernel off for the
         # rest of the run
         kb_path("int8_kb", fused_int8 + ["_reduce_keys", "_extract"],
-                SHAPES + (("B512_n100", 512, 100),), f32_scan)
+                SHAPES + (("B512_n100", 512, 100),), f32_scan,
+                v3="_fused3_extract_int8")
+        # v3 at the fused kernels' batch ceiling, on a KB of its own: the
+        # int8 KB's n=100 hint has widened past GUARD_MAX_C by now
+        kb_path("int8_kb_b256", ["_fused3_extract_int8", "_reduce_keys"],
+                (("B256_n100", 256, 100),), f32_scan, v3="_fused3_extract_int8")
         kb_path("bf16_kb", fused_float + ["_reduce_keys"], SHAPES, f32_scan,
-                precision="bf16")
+                v3="_fused3_extract", precision="bf16")
         # f32 storage: the pack is its own rescore mirror
         kb_path("f32_kb", fused_float + ["_reduce_keys"], SHAPES, f32_scan,
-                precision="f32")
+                v3="_fused3_extract", precision="f32")
 
         # rescore=False returns raw prescores ('auto' stores bf16): the scan
         # is of the bf16-rounded corpus and queries (f32 dots, TF32 off)
@@ -1084,7 +1214,8 @@ def main() -> int:
         f"(load {time.perf_counter() - t0:.1f} s) -> {kernels.library_path()}")
 
     t0 = time.perf_counter()
-    records = kernel_phase(args.docs, args.kernel_reps)
+    cross: dict = {}
+    records = kernel_phase(args.docs, args.kernel_reps, cross)
     log(f"kernel phase: {time.perf_counter() - t0:.1f} s")
     e2e = None
     if not args.skip_e2e:
@@ -1129,15 +1260,15 @@ def main() -> int:
                             f"event-timed run of launches")
         e2e["seconds_total"] = time.perf_counter() - t_start
         print(json.dumps({"e2e": e2e}))
+    print(json.dumps({"v2_v3_crossover_ms": cross}))
     print(json.dumps({"kernels": kernels_json}))
     print(card)
     if e2e is None:
         log("chip_smoke: kernel phase only (--skip-e2e): no result line")
         return 3
-    # the smoke drives one card, whatever the machine holds
     print(json.dumps({
         "ok": True,
-        "device": {"platform": "gpu", "kind": kind, "count": 1},
+        "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()},
     }))
     return 0
 

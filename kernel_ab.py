@@ -1,21 +1,27 @@
 #!/usr/bin/env python3
-"""Times the port's two selection kernels, ``_extract`` (``csrc/extract.cu``)
-and ``pairwise_keys_extract`` (``csrc/pair_keys.cu``), against the same
-kernels built from another tree's ``csrc`` (an earlier commit, unpacked with
-``git archive``), on one CUDA device, on the inputs the main paths give them.
+"""Times the port's kernels against the same kernels built from another
+tree's ``csrc`` (an earlier commit, unpacked with ``git archive``), on one
+CUDA device, on the inputs the main paths give them.
 
 Both libraries are built by ``svs_tpu_torch.ops.kernels.load`` and driven
-through the port's own wrappers.  Each is first held bit for bit against
-the plain PyTorch version, then timed in turns (old, new, new, old, ...)
-with ``chip_smoke.time_ms``: device time per launch over a run of launches
-between one CUDA event pair.
+through the port's own wrappers.  Each is first held against the plain
+PyTorch version (bit for bit; the float v3 kernels on random unit data
+within ``chip_smoke.SCORE_TOL`` at a key-grid edge), then timed in turns
+(old, new, new, old, ...) with ``chip_smoke.time_ms``: device time per
+launch over a run of launches between one CUDA event pair.
 
-Shapes: the keyed pass's [256, 114,688] pair block (PAIR_MASKED outside the
-strict upper triangle), the exact pass's (-inf there), and the [512,
-1,015,808] f32 scores of an int8 pack at B = 512.
+Cases (``--only``):
+- ``selection``: ``_extract`` (``csrc/extract.cu``) and
+  ``pairwise_keys_extract`` (``csrc/pair_keys.cu``) on the keyed pass's
+  [256, 114,688] pair block (PAIR_MASKED outside the strict upper
+  triangle), the exact pass's (-inf there), and the [512, 1,015,808] f32
+  scores of an int8 pack at B = 512;
+- ``v3``: the guarded v3 kernels (mode 3 of ``csrc/fused_int8.cu`` and
+  ``csrc/fused_float.cu``) on 1M x 1536 packs of random unit rows: int8
+  at B = 64 and 256, bf16 and f32 at B = 64.
 
     git archive <commit> svs_tpu_torch/csrc | tar -x -C build/ab_old
-    python3 kernel_ab.py --old build/ab_old/svs_tpu_torch/csrc
+    python3 kernel_ab.py --old build/ab_old/svs_tpu_torch/csrc --only v3
 
 Prints the card's name and power limit, then one JSON line.
 """
@@ -45,34 +51,64 @@ def launching_from(lib, fn):
     return run
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--old", type=Path, required=True,
-                    help="the other tree's svs_tpu_torch/csrc directory")
-    ap.add_argument("--launches", type=int, default=20)
-    ap.add_argument("--turns", type=int, default=4,
-                    help="timed windows per build and shape, in turns")
-    args = ap.parse_args()
-
+def v3_cases(dev, gen):
+    """``(what, call, plain, check, bound)`` of the guarded v3 kernels on
+    1M x 1536 packs of random unit rows; ``check(got, ref)`` raises on a
+    mismatch and returns the error."""
     import torch
 
-    if not torch.cuda.is_available():
-        S.log("kernel_ab: CUDA is not available; this needs a GPU")
-        return 2
-    from svs_tpu_torch.ops import kernels
+    from svs_tpu_torch.ops import pallas_extract as P
+    from svs_tpu_torch.ops.quant import quantize_rows_int8
+    from svs_tpu_torch.ops.topk import scores_matmul
+
+    n_docs = 1_000_000
+    docs, scales = S.int8_pack(n_docs, gen, dev)
+    n_pad = docs.shape[0]
+    out_bytes = (n_pad // P.FUSED_BLOCK_N) * 128 * 4
+    cases = []
+    for b in (64, 256):
+        q8, qs = quantize_rows_int8(S.unit_rows_torch(b, S.DIM, gen, dev))
+        args = (docs, scales, q8.contiguous(), qs.contiguous(), n_docs)
+        cases.append((
+            f"fused3 int8 B={b}",
+            lambda args=args: (P._fused3_extract_int8(*args),),
+            lambda args=args: (P._fused3_extract_int8_plain(*args),),
+            lambda got, ref: S.check_exact("v3 int8", got, ref),
+            S.bound(S.nbytes(docs, scales) + b * (S.DIM + 4) + b * out_bytes,
+                    2.0 * b * n_pad * S.DIM, "int8"),
+        ))
+    yield from cases
+    del cases, docs, scales
+    torch.cuda.empty_cache()
+    for dt_name, dt in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        fdocs = torch.zeros((n_pad, S.DIM), dtype=dt, device=dev)
+        S.fill_rows(fdocs, n_docs, lambda r: S.unit_rows_torch(r, S.DIM, gen, dev))
+        q = S.unit_rows_torch(64, S.DIM, gen, dev).to(dt).contiguous()
+        scores = scores_matmul(fdocs, q)
+
+        def check(got, ref, scores=scores, dt_name=dt_name):
+            return S.check_keys_close(f"v3 {dt_name}", got[0], ref[0], scores, v3=True)
+
+        yield (
+            f"fused3 {dt_name} B=64",
+            lambda fdocs=fdocs, q=q: (P._fused3_extract(fdocs, q, n_docs),),
+            lambda fdocs=fdocs, q=q: (P._fused3_extract_plain(fdocs, q, n_docs),),
+            check,
+            S.bound(S.nbytes(fdocs, q) + 64 * out_bytes,
+                    2.0 * 64 * n_pad * S.DIM, dt_name),
+        )
+        del fdocs, q, scores, check
+        torch.cuda.empty_cache()
+
+
+def selection_cases(dev, gen):
+    """``(what, call, plain, check, bound)`` of the two selection kernels."""
+    import torch
+
     from svs_tpu_torch.ops import pallas_extract as P
     from svs_tpu_torch.ops.quant import _int8_scores
     from svs_tpu_torch.ops.topk import mask_cols
 
-    card = S.card_line()
-    S.log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
-    with ThreadPoolExecutor(2) as pool:
-        built = pool.map(kernels.load, (args.old.resolve(), kernels._CSRC))
-        libs = dict(zip(("old", "new"), built))
-
-    dev = torch.device("cuda")
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(S.SEED)
     pscores, live = S.pair_block(gen, dev)
     keyed_in = torch.where(live, pscores, P.PAIR_MASKED).contiguous()
     exact_in = torch.where(live, pscores, float("-inf")).contiguous()
@@ -86,40 +122,82 @@ def main() -> int:
     def ext_bytes(x):
         return S.nbytes(x) + 2 * x.shape[0] * (x.shape[1] // 1024) * 8 * 4
 
-    cases = [
-        ("pair_keys [256, 114688] keyed pair block",
-         lambda: (P.pairwise_keys_extract(keyed_in),),
-         lambda: (P._pair_keys_plain(keyed_in),),
-         S.nbytes(keyed_in) + 256 * (keyed_in.shape[1] // 4096) * 128 * 4),
-        ("extract [256, 114688] exact pair block", lambda: P._extract(exact_in),
-         lambda: P._extract_plain(exact_in), ext_bytes(exact_in)),
-        ("extract [512, 1015808] int8 scores, B=512", lambda: P._extract(scores512),
-         lambda: P._extract_plain(scores512), ext_bytes(scores512)),
-    ]
+    def exact(got, ref):
+        return S.check_exact("selection", got, ref)
+
+    yield ("pair_keys [256, 114688] keyed pair block",
+           lambda: (P.pairwise_keys_extract(keyed_in),),
+           lambda: (P._pair_keys_plain(keyed_in),), exact,
+           S.bound(S.nbytes(keyed_in) + 256 * (keyed_in.shape[1] // 4096) * 128 * 4,
+                   0.0, "f32"))
+    yield ("extract [256, 114688] exact pair block", lambda: P._extract(exact_in),
+           lambda: P._extract_plain(exact_in), exact,
+           S.bound(ext_bytes(exact_in), 0.0, "f32"))
+    yield ("extract [512, 1015808] int8 scores, B=512", lambda: P._extract(scores512),
+           lambda: P._extract_plain(scores512), exact,
+           S.bound(ext_bytes(scores512), 0.0, "f32"))
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--old", type=Path, required=True,
+                    help="the other tree's svs_tpu_torch/csrc directory")
+    ap.add_argument("--launches", type=int, default=20)
+    ap.add_argument("--turns", type=int, default=4,
+                    help="timed windows per build and shape, in turns")
+    ap.add_argument("--only", choices=("all", "selection", "v3"), default="all")
+    args = ap.parse_args()
+
+    import torch
+
+    if not torch.cuda.is_available():
+        S.log("kernel_ab: CUDA is not available; this needs a GPU")
+        return 2
+    from svs_tpu_torch.ops import kernels
+
+    card = S.card_line()
+    S.log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    with ThreadPoolExecutor(2) as pool:
+        built = pool.map(kernels.load, (args.old.resolve(), kernels._CSRC))
+        libs = dict(zip(("old", "new"), built))
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(S.SEED)
+    groups = []
+    if args.only in ("all", "selection"):
+        groups.append(selection_cases(dev, gen))
+    if args.only in ("all", "v3"):
+        groups.append(v3_cases(dev, gen))
     result = {"card": card, "shapes": {}}
-    for what, call, plain, nb in cases:
-        ref = plain()
-        torch.cuda.synchronize()
-        fns = {name: launching_from(lib, call) for name, lib in libs.items()}
-        for name, fn in fns.items():
-            S.check_exact(f"{name} {what}", fn(), ref)
-        del ref
-        names = list(fns)
-        times = {name: [] for name in names}
-        for turn in range(args.turns):
-            for name in names if turn % 2 == 0 else names[::-1]:
-                times[name].append(S.time_ms(fns[name], args.launches))
-        bound_ms = S.bound(nb, 0.0, "f32")[0]
-        rec = {"bound_ms": bound_ms}
-        for name in names:
-            med = statistics.median(times[name])
-            rec[name] = {"ms": times[name], "median_ms": med,
-                         "share_of_bound": bound_ms / med}
-            S.log(f"{what}: {name} median {med * 1e3:.2f} us "
-                  f"({bound_ms / med:.0%} of the {bound_ms * 1e3:.2f} us bound), "
-                  f"windows {[round(t * 1e3, 2) for t in times[name]]} us")
-        result["shapes"][what] = rec
-        torch.cuda.empty_cache()
+    for cases in groups:
+        for what, call, plain, check, (bound_ms, bound_by) in cases:
+            ref = plain()
+            torch.cuda.synchronize()
+            fns = {name: launching_from(lib, call) for name, lib in libs.items()}
+            errs = {}
+            for name, fn in fns.items():
+                got = fn()
+                torch.cuda.synchronize()
+                errs[name] = check(got, ref)
+            del ref, got
+            names = list(fns)
+            times = {name: [] for name in names}
+            for turn in range(args.turns):
+                for name in names if turn % 2 == 0 else names[::-1]:
+                    times[name].append(S.time_ms(fns[name], args.launches))
+            rec = {"bound_ms": bound_ms, "bound_by": bound_by}
+            for name in names:
+                med = statistics.median(times[name]) if times[name] else None
+                rec[name] = {"ms": times[name], "median_ms": med,
+                             "max_abs_err": errs[name],
+                             "share_of_bound": None if med is None else bound_ms / med}
+                S.log(f"{what}: {name} max |err| {errs[name]}; median "
+                      f"{'-' if med is None else f'{med * 1e3:.2f} us'} "
+                      f"(bound {bound_ms * 1e3:.2f} us, {bound_by}), windows "
+                      f"{[round(t * 1e3, 2) for t in times[name]]} us")
+            result["shapes"][what] = rec
+            torch.cuda.empty_cache()
     print(card)
     print(json.dumps(result))
     return 0

@@ -1,21 +1,34 @@
-// The shared tiling and emit of the fused scoring kernels (fused_int8.cu,
-// fused_float.cu): one CUDA block owns 1024 docs x QT queries, stages
-// 64-byte slices of its doc rows in shared memory, and ends with one of
-// three emits over the f32 scores its threads hold in registers:
+// The emits of the fused scoring kernels (fused_int8.cu, fused_float.cu).
+//
+// Modes 1 and 2 (v1, v2) keep the first core: one CUDA block owns 1024 docs
+// x QT queries (QT 8 or 16), stages 64-byte slices of its doc rows in shared
+// memory, and ends with emit() over the f32 scores its threads hold:
 //
 //   mode 1  v1  (_fused_kernel / _fused_int8_kernel):   top-8 values + f32
 //               indices per 512-doc subtile, ties to the highest index
 //   mode 2  v2  (_fused2_kernel / _fused2_int8_kernel): top-8 packed keys
 //               floor((s + KEY_BIAS) * KEY_QSCALE) * 512 + lane (_emit_keys)
-//   mode 3  v3  (_fused3_kernel / _fused3_int8_kernel): top-4 packed keys
-//               floor((clip(s,-3,3) + KEY_BIAS) * GUARD_QSCALE) * 1024 +
-//               lane per 1024-doc subtile, plus one guard lane per
-//               8192-doc block (_guard_emit)
+//
+// Mode 3, v3 (_fused3_kernel / _fused3_int8_kernel, _guard_emit), runs on
+// the core of fused3.cuh and ends with v3_select_chunk() below: per 1024-doc
+// subtile the top-4 packed keys floor((clip(s,-3,3) + KEY_BIAS) *
+// GUARD_QSCALE) * 1024 + lane, and per 8192-doc block one guard lane, the
+// max of its 8 subtile tails.  A v3 block walks its subtile in 4 chunks of
+// 256 docs (64 queries x 1024 docs of f32 accumulators would be all of an
+// SM's registers), so the top-4 is merged chunk by chunk.  That is exact:
+// the reference's 4 rounds of max-then-clear-every-equal emit the 4 largest
+// DISTINCT keys of the subtile (then KEY_DEAD, the floor of every key, once
+// they run out), and the 4 largest distinct values of a union are the 4
+// largest distinct values of the union of its parts' top-4 lists.  Keys
+// collide only past 2^24 (clipped raw-op scores above ~2.94, where key +
+// lane rounds to even); the merge keeps one copy of each value, as
+// clear-every-equal does.
 //
 // Outputs use the TPU kernels' exact layouts (svs_tpu/ops/pallas_extract.py),
 // so the plain-torch finishes consume them unchanged.  Every step of the key
 // arithmetic is written as __fmul_rn/__fadd_rn/floorf in the reference's
-// order, so nvcc contracts nothing and a key on a grid edge never moves.
+// order (svs::v2_key, svs::v3_key), so nvcc contracts nothing and a key on
+// a grid edge never moves.
 #pragma once
 
 #include "svs_common.cuh"
@@ -45,10 +58,6 @@ struct Emit<1> {  // v1: FUSED_SUBTILE x EXTRACT_H
 template <>
 struct Emit<2> {  // v2: FUSED_SUBTILE x EXTRACT_H
   static constexpr int kSub = 512, kH = 8;
-};
-template <>
-struct Emit<3> {  // v3: GUARD_SUBTILE x GUARD_H
-  static constexpr int kSub = 1024, kH = 4;
 };
 
 // Output columns per query row of each mode, for n docs.
@@ -99,21 +108,11 @@ __device__ __forceinline__ void emit(const float (&s)[QT][kDocsPerThread],
       if (MODE == 1) {
         // gidx < nv, both exact in f32 below 2^24 (fused_supported)
         v = row < n_valid ? s[i][m] : -INFINITY;
-      } else if (MODE == 2) {
+      } else {
         // floor((s + KEY_BIAS) * KEY_QSCALE) * 512 + lane   (_emit_keys)
         const int lane = local & 511;
         const int live = min(max(n_valid - (row - lane), 0), 512);
         v = lane < live ? v2_key(s[i][m], lane) : kKeyDead;
-      } else {
-        // floor((clip(s, -3, 3) + KEY_BIAS) * GUARD_QSCALE) * 1024 + lane
-        const int lane = local;
-        const int live = min(max(n_valid - doc0, 0), 1024);
-        const float c = fminf(fmaxf(s[i][m], -3.0f), 3.0f);
-        const float key = __fadd_rn(
-            __fmul_rn(floorf(__fmul_rn(__fadd_rn(c, 1.0625f), 4096.0f)),
-                      1024.0f),
-            (float)lane);
-        v = lane < live ? key : kKeyDead;
       }
       sc[i * kBlockDocs + local] = v;
     }
@@ -160,17 +159,10 @@ __device__ __forceinline__ void emit(const float (&s)[QT][kDocsPerThread],
         }
       }
     } else {
-      size_t col0;
-      if (MODE == 2) {
-        col0 = (size_t)qrow * out_cols + (size_t)(sub_row0 / kSub) * kH;
-      } else {
-        col0 = (size_t)qrow * out_cols +
-               (size_t)(doc0 / kFusedBlockN) * kGuardOutLanes +
-               (size_t)((doc0 % kFusedBlockN) / kSub) * kH;
-      }
-      float mv = kKeyDead;
+      const size_t col0 =
+          (size_t)qrow * out_cols + (size_t)(sub_row0 / kSub) * kH;
       for (int h = 0; h < kH; ++h) {
-        mv = v[0];
+        float mv = v[0];
 #pragma unroll
         for (int e = 1; e < kE; ++e) mv = fmaxf(mv, v[e]);
         mv = warp_max(mv);
@@ -180,15 +172,93 @@ __device__ __forceinline__ void emit(const float (&s)[QT][kDocsPerThread],
           if (v[e] == mv) v[e] = kKeyDead;
         }
       }
-      if (MODE == 3 && lane == 0) {
-        // guard lane: running max of the subtile tails of this 8192 block;
-        // the wrapper pre-fills the output with KEY_DEAD
-        atomic_max_float(out0 + (size_t)qrow * out_cols +
-                             (size_t)(doc0 / kFusedBlockN) * kGuardOutLanes +
-                             kGuardKeys,
-                         mv);
+    }
+  }
+}
+
+// --- v3: the chunked emit of fused3.cuh ----------------------------------
+
+constexpr int kV3H = 4;          // GUARD_H
+constexpr int kV3SubDocs = 1024;  // GUARD_SUBTILE
+
+// The warp-wide max of one float per lane, through the order-preserving
+// int (one redux.sync).
+__device__ __forceinline__ float warp_max_redux(float v) {
+  return order_key_value(__reduce_max_sync(0xffffffffu, order_key(v)));
+}
+
+// Drop the head of a descending list of kV3H keys.
+__device__ __forceinline__ void v3_pop(float (&l)[kV3H]) {
+#pragma unroll
+  for (int h = 0; h + 1 < kV3H; ++h) l[h] = l[h + 1];
+  l[kV3H - 1] = kKeyDead;
+}
+
+// One warp, one query row: the top-4 distinct keys of a chunk of kDocs keys
+// (sc, contiguous), merged with the running top-4 of the subtile's earlier
+// chunks (run, shared memory; not read for the first chunk).  The last
+// chunk writes the subtile's 4 keys to out4 (16-byte aligned) and folds its
+// tail into the block's guard lane with an atomic max (order-independent,
+// so deterministic; the wrapper pre-fills the output with KEY_DEAD); the
+// others leave the merged list in run.
+//
+// Only keys above the running 4th can enter the merged list (one equal to
+// it is a copy or the 4th itself), so the chunk's rounds stop at the first
+// max that is not above it: after the first chunk of random data, most
+// chunks end after one round.
+template <int kDocs>
+__device__ __forceinline__ void v3_select_chunk(const float* sc, float* run,
+                                                bool first, bool last,
+                                                int lane, float* out4,
+                                                float* guard) {
+  constexpr int kE = kDocs / 32;
+  float r[kV3H];
+#pragma unroll
+  for (int h = 0; h < kV3H; ++h) r[h] = first ? kKeyDead : run[h];
+  float v[kE];
+#pragma unroll
+  for (int e = 0; e < kE; ++e) v[e] = sc[lane + 32 * e];
+  // max-then-clear-every-equal, as _guard_emit: the chunk's top-4 distinct
+  // keys above r[3], then KEY_DEAD
+  float top[kV3H];
+  bool done = false;
+#pragma unroll
+  for (int h = 0; h < kV3H; ++h) {
+    top[h] = kKeyDead;
+    if (!done) {  // warp-uniform
+      float m = v[0];
+#pragma unroll
+      for (int e = 1; e < kE; ++e) m = fmaxf(m, v[e]);
+      m = warp_max_redux(m);
+      done = m <= r[kV3H - 1];
+      if (!done) {
+        top[h] = m;
+#pragma unroll
+        for (int e = 0; e < kE; ++e) {
+          if (v[e] == m) v[e] = kKeyDead;
+        }
       }
     }
+  }
+  // merge two descending distinct lists, one copy of each value
+  float merged[kV3H];
+#pragma unroll
+  for (int h = 0; h < kV3H; ++h) {
+    const float x = fmaxf(r[0], top[0]);
+    merged[h] = x;
+    const bool from_r = r[0] == x, from_top = top[0] == x;
+    if (from_r) v3_pop(r);
+    if (from_top) v3_pop(top);
+  }
+  __syncwarp();  // every lane has read run before lane 0 rewrites it
+  if (lane != 0) return;
+  if (last) {
+    *reinterpret_cast<float4*>(out4) =
+        make_float4(merged[0], merged[1], merged[2], merged[3]);
+    atomic_max_float(guard, merged[kV3H - 1]);
+  } else {
+#pragma unroll
+    for (int h = 0; h < kV3H; ++h) run[h] = merged[h];
   }
 }
 

@@ -1,5 +1,5 @@
 // Fused float scoring + per-subtile selection: the bf16/f32 prescore kernels
-// of the retrieval ladder, on the tiling and emits of the int8 kernels.
+// of the retrieval ladder.
 //
 // Replaces (svs_tpu/ops/pallas_extract.py):
 //   mode 3  _fused3_kernel (guarded v3, :1111; wrapper _fused3_extract :1216)
@@ -7,32 +7,54 @@
 //   mode 1  _fused_kernel  (v1,         :270;  wrapper _fused_extract  :322)
 // The TPU kernels accumulate an f32 dot of bf16 x bf16 or f32 x f32
 // operands (HIGHEST precision for f32) and emit straight from that
-// accumulator, with no rescale; the emits (fused_emit.cuh) are the int8
-// kernels' own.  The wrapper casts the queries to the docs' dtype first
-// (round to nearest even), as the reference does.
+// accumulator, with no rescale; the emits are the int8 kernels'.  The
+// wrapper casts the queries to the docs' dtype first (round to nearest
+// even), as the reference does.
 //
-// The product is true f32 accumulation: every bf16 and f32 element is
-// widened to f32 (exact) and multiplied-and-added with fmaf on the CUDA
-// cores.  No TF32 and no tensor-core pass, so an f32 corpus keeps the f32
-// error term of the engine's prescore bound (1e-4), and a bf16 product is
-// exact before its rounded add.  The sum runs in another order than the
-// reference's, so on random data a score may differ in its last ulp; on
-// inputs whose partial sums are all exact f32 numbers the result is
-// bit-identical whatever the order.
+// Mode 3 (fused3.cuh; the int8 mode 3's ring, tiles and chunked emit, see
+// fused_int8.cu).  What bounds it on one H100 SXM (published peaks at
+// 700 W: 3.35 TB/s, 989 bf16 TFLOP/s on the tensor cores, 67 f32 TFLOP/s
+// on the CUDA cores), over the 1,015,808 x 1536 pack at B = 16 / 64 / 256:
+// - bf16 reads 3.12 GB, 0.931 ms; its 2 * B * N * d FLOP take 0.05 / 0.20 /
+//   0.81 ms on the tensor cores: bound by the read at every batch;
+// - f32 reads 6.24 GB, 1.86 ms; its FLOP take 0.75 / 2.98 / 11.9 ms on the
+//   CUDA cores: bound by the read at B = 16, by the FFMA rate from B = 32.
+// Design:
+// - bf16 on the tensor cores: wgmma m64nQTk16 bf16 x bf16 -> f32, docs as
+//   A and queries as B, both K-major as stored, from the swizzled stages.
+// - f32 stays true f32 on the CUDA cores (no TF32, no split-precision
+//   emulation: the engine's 1e-4 term of prescore_eps assumes true f32
+//   dots): each thread holds a register block of QT/8 queries x 8 docs and
+//   reads both operands from the swizzled tiles as 16-byte words, 8 + QT/8
+//   words (broadcast to the lanes that share them) per 32 * QT/8 fmaf, so
+//   the FFMA pipe and not shared memory is the limit.  Each dot is one
+//   fmaf chain in column order.
 //
-// What bounds it on an H100 (1M x 1536): the corpus read is 3.1 GB in bf16
-// and 6.2 GB in f32 (0.93 / 1.86 ms at 3.35 TB/s); the product is
-// 2 * B * 1M * 1536 FLOP, 3.1e10 at B = 8 and 2.0e11 at B = 64, against
-// 67 TFLOP/s of f32 on the CUDA cores (3.0 ms at B = 64).  So B = 8 is
-// bound by the read and B = 64 by the FFMA rate; bf16 on the tensor cores
-// (mma.sync / wgmma) would lift the latter and is later work.
+// The bf16 accumulation.  A bf16 x bf16 product is exact in f32.  fmaf
+// rounds each add to nearest; the tensor cores, as measured on NVIDIA's
+// earlier generations, align a k16 step's addends to the largest and
+// truncate what falls off, so each of its 17 addends (the 16 products and
+// the running sum) may lose up to one unit in the 24th bit of the largest,
+// 2^-23 M.  So the kernel sums each 128-byte slice (64 of the d columns)
+// from zero on the tensor cores, 4 k16 steps, and adds that partial to the
+// f32 total with one round-to-nearest add.  Every addend in a slice s is at
+// most |q_s| |d_s| (Cauchy-Schwarz over its columns), so the slice loses
+// at most 68 * 2^-23 |q_s| |d_s|, and over the slices at most 68 * 2^-23
+// |q| |d| (Cauchy-Schwarz over the slices): 8.1e-6 for unit rows (whose
+// bf16 rounding keeps |q|, |d| <= 1 + 2^-8), plus d / 64 = 24 rounded adds
+// of a total below 1, 24 * 2^-25 = 0.7e-6.  That is inside the 3e-5
+// accumulation cushion of the engine's bf16 prescore_eps (engine/index.py,
+// prescore_eps), and a true f32 dot has an error of the same order, so
+// the bound holds against both.  On inputs whose partial sums are all
+// exact f32 numbers (the smoke's lattice data) every order gives the same
+// bits.
 //
-// Design: as fused_int8.cu.  One block owns 1024 docs x QT queries and
-// stages 64-byte slices of its doc rows (16 f32 or 32 bf16 elements) in
-// shared memory; the query slice is staged once per block as f32.  Each
-// thread widens its 4 docs' 16-byte words to f32 and keeps a QT x 4 f32
-// accumulator in registers.
+// Modes 1 and 2 keep the first core (fused_emit.cuh): one block owns 1024
+// docs x QT = 8 or 16 queries and stages 64-byte slices of its doc rows;
+// each thread widens its 4 docs' 16-byte words to f32 and keeps a QT x 4
+// f32 accumulator, fmaf on the CUDA cores.
 
+#include "fused3.cuh"
 #include "fused_emit.cuh"
 
 namespace {
@@ -169,8 +191,12 @@ cudaError_t launch_type(int mode, const void* q, const void* docs, int b,
       return small ? launch<T, 8, 2>(qt, dt, b, n, d, n_valid, out0, out1, st)
                    : launch<T, 16, 2>(qt, dt, b, n, d, n_valid, out0, out1, st);
     case 3:
-      return small ? launch<T, 8, 3>(qt, dt, b, n, d, n_valid, out0, out1, st)
-                   : launch<T, 16, 3>(qt, dt, b, n, d, n_valid, out0, out1, st);
+      if constexpr (std::is_same<T, float>::value) {
+        return svs::fused3::launch_f32(qt, dt, b, n, d, n_valid, out0, st);
+      } else {
+        return svs::fused3::launch_mma<false>(q, nullptr, docs, nullptr, b, n,
+                                              d, n_valid, out0, st);
+      }
     default:
       return cudaErrorInvalidValue;
   }
@@ -184,7 +210,7 @@ cudaError_t launch_type(int mode, const void* q, const void* docs, int b,
 // mode 3 (v3): out0 = key tiles [b, (n/8192)*128], PRE-FILLED with
 //              KEY_DEAD by the caller; out1 unused.
 // Requires n % 8192 == 0, d a multiple of 64 bytes' worth of elements,
-// 0 < b, 16-byte aligned docs.
+// 0 < b, 16-byte aligned q and docs.
 extern "C" int svs_fused_float(int mode, int dtype, const void* q,
                                const void* docs, int b, int n, int d,
                                int n_valid, void* out0, void* out1,

@@ -1,40 +1,51 @@
 // Fused int8 scoring + per-subtile selection: the three int8 prescore
-// kernels of the retrieval main path, as one matmul core with three emits.
+// kernels of the retrieval main path.
 //
 // Replaces (svs_tpu/ops/pallas_extract.py):
-//   mode 3  _fused3_int8_kernel (guarded v3):  top-4 keys per 1024-doc
-//           subtile + one guard lane per 8192-doc block  (wrapper :1245)
-//   mode 2  _fused2_int8_kernel (keyed v2):    top-8 keys per 512-doc
-//           subtile                                       (wrapper :733)
-//   mode 1  _fused_int8_kernel (v1):           top-8 values + f32 indices
-//           per 512-doc subtile, ties to the highest index (wrapper :449)
-// The emits are shared with the float kernels (fused_emit.cuh).
+//   mode 3  _fused3_int8_kernel (guarded v3, :1160; wrapper :1245): top-4
+//           keys per 1024-doc subtile + one guard lane per 8192-doc block.
+//           The engine's rung for 16 <= B <= 256 when C <= 1024.
+//   mode 2  _fused2_int8_kernel (keyed v2, :685):  top-8 keys per 512-doc
+//           subtile
+//   mode 1  _fused_int8_kernel (v1, :399):  top-8 values + f32 indices per
+//           512-doc subtile, ties to the highest index
 //
-// What bounds it on an H100: at B = 256 over 1M x 1536 the product is
-// ~0.8 T int8 ops against a 1.56 GB corpus read (about 500 ops per byte),
-// so large batches are compute-bound and small ones (B = 8: ~16 ops per
-// byte) are bound by the corpus read.  This first version multiplies with
-// __dp4a on the CUDA cores (exact int32 sums, so every order gives the
-// same bits); the tensor cores (mma/wgmma on s8) and TMA are later work.
-//
-// Design.  The TPU kernel holds a [B, 8192] accumulator in VMEM over a
-// sequential grid of dim chunks.  Here one CUDA block owns 1024 docs (one
-// v3 subtile, two v1/v2 subtiles) x QT queries; the dim loop runs inside
-// the block, staging 64-byte slices of the 1024 doc rows in shared memory.
-// Each thread keeps a QT x 4 int32 accumulator in registers.  The emit
-// rescales the sums, writes scores or keys to shared memory (reusing the
-// staging buffer) and each warp extracts one (query, subtile) pair by
-// iterated warp-wide max-and-clear.  Query tiles vary fastest over the
-// grid, so blocks reading the same docs run together and share them
-// through L2.  v3's guard lane is a max over the 8 subtiles of a block that
-// live in different CUDA blocks: the wrapper pre-fills the output with
-// KEY_DEAD and each subtile folds its tail in with an atomic float max
+// Mode 3 (fused3.cuh).  What bounds it on one H100 SXM (published peaks at
+// 700 W: 3.35 TB/s, 1,979 int8 TOP/s dense): over the 1,015,808 x 1536
+// pack it reads 1.56 GB, 0.467 ms; the product is 2 * B * N * d ops,
+// 0.05 / 0.20 / 0.80 T at B = 16 / 64 / 256, 0.03 / 0.10 / 0.40 ms.  So
+// the corpus read bounds it at every batch v3 takes.  Design:
+// - the tensor cores: wgmma m64nQTk32 s8 x s8 -> s32, four warpgroups of
+//   one m64 tile of docs each and the query tile as N, both operands
+//   K-major as they lie in memory, read by the tensor cores straight from
+//   the 128-byte-swizzled stages through shared-memory descriptors.  The
+//   int32 sum is exact in any order, so the kernel is bit-identical to its
+//   plain version;
+// - a query tile of up to 64 (16 / 32 / 64 by batch): at B <= 64 each doc
+//   is read from memory once per batch; past 64 the query tiles run
+//   fastest over the grid, so the tiles of one doc block run together and
+//   share its read through the 50 MB L2;
+// - a 3-stage ring of 128-byte column slices (256 doc rows + the query
+//   tile, 40 KB at QT = 64) filled by 2-D TMA tile loads from a producer
+//   warp, so loads stay in flight while 16 consumer warps multiply and
+//   emit (16, not 8: the emit between chunks, not the tensor cores, is
+//   what holds a block back at B = 256);
+// - each block walks its 1024-doc subtile in 4 chunks of 256 docs (64
+//   queries x 1024 docs of accumulators would be every register of the
+//   SM) and merges the per-chunk top-4 (fused_emit.cuh: why that is exact).
+// The emit rescales each sum as acc * rs * qs, two separately rounded
+// products as the reference writes them (__fmul_rn: nvcc would otherwise
+// fuse one with the key's + KEY_BIAS into an FMA and move keys that sit on
+// a grid edge).  The guard lane is a max over the 8 subtiles of a block,
+// which live in different CUDA blocks: the wrapper pre-fills the output
+// with KEY_DEAD and each subtile folds its tail in with an atomic float max
 // (order-independent, so deterministic).
 //
-// The rescale acc * rs * qs is two separately rounded products, as the
-// reference writes it (__fmul_rn: nvcc would otherwise fuse it with the
-// key's + KEY_BIAS into one FMA and move keys that sit on a grid edge).
+// Modes 1 and 2 keep the first core (fused_emit.cuh): one block owns 1024
+// docs x QT = 8 or 16 queries, stages 64-byte slices of its doc rows in
+// shared memory and multiplies with __dp4a on the CUDA cores.
 
+#include "fused3.cuh"
 #include "fused_emit.cuh"
 
 namespace {
@@ -173,7 +184,8 @@ extern "C" int svs_fused_int8(int mode, const void* q, const void* qs,
     case 2:
       return (int)launch_mode<2>(q8, qsf, d8, rsf, b, n, d, n_valid, o0, o1, st);
     case 3:
-      return (int)launch_mode<3>(q8, qsf, d8, rsf, b, n, d, n_valid, o0, o1, st);
+      return (int)svs::fused3::launch_mma<true>(q8, qsf, d8, rsf, b, n, d,
+                                                n_valid, o0, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

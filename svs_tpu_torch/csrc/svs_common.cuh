@@ -21,6 +21,16 @@ __device__ __forceinline__ float v2_key(float s, int lane) {
       (float)lane);
 }
 
+// The v3 (guarded) packed key of score s at lane (0..1023) of its 1024-lane
+// subtile: floor((clip(s, -3, 3) + KEY_BIAS) * GUARD_QSCALE) * 1024 + lane
+// (_guard_emit), every step rounded as written.
+__device__ __forceinline__ float v3_key(float s, int lane) {
+  const float c = fminf(fmaxf(s, -3.0f), 3.0f);
+  return __fadd_rn(
+      __fmul_rn(floorf(__fmul_rn(__fadd_rn(c, 1.0625f), 4096.0f)), 1024.0f),
+      (float)lane);
+}
+
 // Warp-wide max of one float per lane; every lane gets the result.
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
@@ -64,8 +74,15 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-__device__ __forceinline__ void mbar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_u32(bar))
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count = 1) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+// One plain arrival on `bar` (a consumer releasing a stage).
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar))
                : "memory");
 }
 

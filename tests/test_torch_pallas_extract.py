@@ -86,6 +86,32 @@ def test_fused3_kernel_twin_bit_identical(corpus, batch):
     np.testing.assert_array_equal(_bits(batch["v3"]), _bits(got))
 
 
+@pytest.fixture(scope="module", params=[64, 100])
+def v3_batch(request, corpus):
+    """A v3-sized query batch, zero-padded to a multiple of 8 rows as the
+    callers pad it (100 -> 104: not a multiple of the CUDA kernel's
+    64-query tile), with the JAX v3 output only."""
+    docs, rs, _ = corpus
+    b = request.param
+    rng = np.random.default_rng(1000 + b)
+    q = np.zeros((-(-b // 8) * 8, D), dtype=np.float32)
+    q[:b] = rng.standard_normal((b, D))
+    q[:b] /= np.linalg.norm(q[:b], axis=1, keepdims=True)
+    qi, qs = j_quantize(jnp.asarray(q))
+    args = (jnp.asarray(docs), jnp.asarray(rs), qi, qs, jnp.int32(N_VALID))
+    return {
+        "qi": np.asarray(qi),
+        "qs": np.asarray(qs),
+        "v3": np.asarray(J._fused3_extract_int8(*args, interpret=True)),
+    }
+
+
+def test_fused3_kernel_twin_bit_identical_v3_batches(corpus, v3_batch):
+    got = T._fused3_extract_int8(*_torch_args(corpus, v3_batch)).numpy()
+    assert got.shape == v3_batch["v3"].shape
+    np.testing.assert_array_equal(_bits(v3_batch["v3"]), _bits(got))
+
+
 def _v2_subtile_keys(docs, rs, qi_row, qs_row, sub, fused):
     """Top-8 v2 keys of one 512-doc subtile, emulated in NumPy with the
     emit either as written (two rounded products, then the add) or

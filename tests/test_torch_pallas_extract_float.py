@@ -127,6 +127,71 @@ def test_fused3_float_twin(case):
     )
 
 
+@pytest.fixture(scope="module", params=[64, 100])
+def v3_case(request, corpus, dtype_name):
+    """A v3-sized query batch, zero-padded to a multiple of 8 rows as the
+    callers pad it (100 -> 104: not a multiple of the CUDA kernel's
+    64-query tile), with the JAX v3 output only."""
+    kind, docs = corpus
+    b = request.param
+    q = np.zeros((-(-b // 8) * 8, D), dtype=np.float32)
+    q[:b] = _rows(np.random.default_rng(200 + b), b, kind, dtype_name)
+    jdt, tdt = DTYPES[dtype_name]
+    args = (jnp.asarray(docs, jdt), jnp.asarray(q, jdt), jnp.int32(N_VALID))
+    return {
+        "kind": kind,
+        "docs": torch.from_numpy(docs).to(tdt),
+        "q": torch.from_numpy(q).to(tdt),
+        "v3": np.asarray(J._fused3_extract(*args, interpret=True)),
+    }
+
+
+def test_fused3_float_twin_v3_batches(v3_case):
+    test_fused3_float_twin(v3_case)
+
+
+def _clip_rows(rng, n):
+    """Entries m * 2^-3, m in [-2, 2], with m in {1, 2} on the row pairs
+    4j, 4j + 1: all products are multiples of 2^-6 and every partial sum is
+    exact (|sum| <= 8 at D = 128).  Two positive rows mostly score above
+    3.0, where v3 keys pass 2^24 and the key of odd lane 4j + 1 rounds
+    (to even) onto that of lane 4j."""
+    m = rng.integers(-2, 3, (n, D))
+    pos = rng.integers(1, 3, (n, D))
+    rows = (np.arange(n) % 4 < 2)[:, None]
+    return (np.where(rows, pos, m) / 8.0).astype(np.float32)
+
+
+@pytest.mark.parametrize("b", [16, 64])
+def test_fused3_clipped_colliding_keys_bit_identical(b):
+    """Scores clipped at 3.0 key past 2^24, where key + lane rounds to even
+    and equal keys of one subtile all clear in one round: the twin keeps
+    the reference's clear-every-equal bit for bit."""
+    rng = np.random.default_rng(300 + b)
+    docs = _clip_rows(rng, N)
+    q = _clip_rows(rng, b)
+    ref = np.asarray(
+        J._fused3_extract(jnp.asarray(docs), jnp.asarray(q), jnp.int32(N_VALID),
+                          interpret=True)
+    )
+    got = T._fused3_extract(torch.from_numpy(docs), torch.from_numpy(q), N_VALID).numpy()
+    np.testing.assert_array_equal(_bits(ref), _bits(got))
+    # the input does collide: some subtile holds two equal live keys
+    scores = np.clip(q @ docs.T, -3.0, 3.0).reshape(b, -1, T.GUARD_SUBTILE)
+    lane = np.arange(T.GUARD_SUBTILE, dtype=np.float32)
+    keys = (np.floor((scores + np.float32(T.KEY_BIAS)) * np.float32(T.GUARD_QSCALE))
+            * np.float32(T.GUARD_SUBTILE) + lane).astype(np.float32)
+    live = (np.arange(N) < N_VALID).reshape(1, -1, T.GUARD_SUBTILE)
+    keys = np.sort(np.where(live, keys, T.KEY_DEAD), axis=2)
+    same = (keys[:, :, 1:] == keys[:, :, :-1]) & (keys[:, :, 1:] > T.KEY_DEAD)
+    assert same.any(axis=2).sum() > 0
+    # and the top-4 of a subtile repeats no key (one copy of each value)
+    top = ref.reshape(b, -1, 128)[:, :, :32].reshape(b, -1, T.GUARD_H)
+    live_top = top[top[:, :, 0] > 2.0**24]
+    assert len(live_top) > 0
+    assert np.all(np.diff(live_top, axis=1) < 0)
+
+
 def test_fused2_float_twin(case):
     got = T._fused2_extract(case["docs"], case["q"], N_VALID).numpy()
     ref = case["v2"]
