@@ -11,21 +11,26 @@ from a seed:
    (one ``nvcc`` per source, in parallel);
 2. kernel phase: runs each kernel on synthetic 1M x 1536 packs (int8, bf16,
    f32) at the shapes the main paths give it (the guarded v3 kernels at
-   each of ``V3_BATCHES``), holds its output against its plain PyTorch
-   version (bit-identical on int8, on lattice data and, for v3, on
-   clipped scores whose keys collide past 2^24; within ``SCORE_TOL`` and
-   one key-grid step at a grid edge on random float data), and times the kernel, its plain version, and one library
-   call where one computes the same function, each as device time per
-   launch over a run of launches between one pair of CUDA events; then
-   holds ``_extract`` and ``pairwise_keys_extract`` to their plain versions
-   on adversarial inputs at the same shapes (ties, -inf or masked rows and
-   subtiles, keys past the key horizon);
+   each of ``V3_BATCHES``, the keyed v2 kernels at B=8 and at each of
+   ``V2_BATCHES``), holds its output against its plain PyTorch version
+   (bit-identical on int8, on lattice data, on scores past 2^24 whose
+   keys collide, and on equal keys across the chunk boundaries of the v3
+   core's merge; within ``SCORE_TOL`` and one key-grid step at a grid edge
+   on random float data), and times the kernel, its plain version, and
+   one library call where one computes the same function, each as device
+   time per launch over a run of launches between one pair of CUDA
+   events; then holds ``_extract`` and ``pairwise_keys_extract`` to their
+   plain versions on adversarial inputs at the same shapes (ties, -inf or
+   masked rows and subtiles, keys past the key horizon);
 3. end-to-end phase: writes a 1M-doc SQLite store through the port's
    ``Tx`` and drives five retrieval paths, each with the launch counts set
    to 0 just before it and read just after:
    - int8 ``KB`` (``precision='auto'``): ``retrieve_batch`` at B=64/n=100,
-     B=8/n=100, B=8/n=1000 and B=512/n=100, then on a second int8 ``KB``
-     B=256/n=100 (the guarded v3 kernel at its batch ceiling);
+     B=8/n=100, B=8/n=1000 and B=512/n=100; then ``load()`` (the
+     hydration prewarm), B=64/n=100 again, and one B=64 call unprofiled
+     and under ``torch.profiler`` (idle share, kernels in situ); then on a
+     second int8 ``KB`` B=256/n=100 (the guarded v3 kernel at its batch
+     ceiling);
    - bf16 ``KB``: B=64/n=100, B=8/n=100, B=8/n=1000;
    - f32 ``KB``: the same three shapes;
    - ``rescore=False`` ``KB`` (bf16 storage): B=8/n=100;
@@ -39,7 +44,9 @@ from a seed:
    of the pairs on the card; on the int8 keyed and ``rescore=False`` exact
    paths, one more call unprofiled and two under ``torch.profiler``, for
    the device's idle share and the kernels' device time per launch in the
-   call.
+   call; then ``bulk_del_docs`` of 1% of the flat store's docs and
+   ``retrieve_batch`` (B=64, n=100) held against a brute-force scan of
+   the survivors.
 
 Prints the card's name and power limit, a JSON line describing every
 kernel, and, last, ``{"ok": true, "device": {...}}``.  Exits non-zero, with
@@ -99,6 +106,13 @@ SHAPES = (("B64_n100", 64, 100), ("B8_n100", 8, 100), ("B8_n1000", 8, 1000))
 #: from v2, the headline batch, one that is not a multiple of the 64-query
 #: tile, and the batch ceiling of the fused kernels.
 V3_BATCHES = (16, 64, 100, 256)
+#: Batches the keyed v2 kernels are held and timed at on the v3 core (B=8
+#: stays on the first core): where the int8 and bf16 KBs run v2 after the
+#: n=100 margin check has widened C to 1,600 (past GUARD_MAX_C), and the
+#: smallest batch the new core takes.
+V2_BATCHES = (16, 64, 256)
+#: The candidate count of those calls (it does not reach the kernel).
+V2_C = 1600
 #: The repo's pairwise benchmark (benchmarks/tpu_pairwise_kb.py): 100k docs
 #: x 1536, the top 10,000 pairs; dupe-planted stores plant 12% of every
 #: 20,000-row insert chunk as perturbed copies (cos ~0.94).
@@ -233,15 +247,38 @@ def clip_rows_torch(n: int, d: int, gen, device) -> "torch.Tensor":
     return torch.where(rows, pos, m).to(torch.float32) / 8.0
 
 
-def v3_collisions(scores, n_valid: int) -> int:
-    """Subtiles of a [B, N] score matrix where two live v3 keys are equal
-    (the keys computed as the plain version computes them)."""
+def chunk_edge_rows_torch(n: int, d: int, gen, device, queries: bool) -> "torch.Tensor":
+    """Lattice rows (as ``lattice_rows_torch``) with column 0 set: 1.0 in
+    every query row; 3.5 in the doc rows 255 and 256 of every 512, whose
+    other entries are 0.  Those docs score exactly 3.5 against every
+    query, above every lattice score, and past 2^24 the key of lane 255
+    rounds (to even) onto that of lane 256: one key on both sides of a
+    256-doc chunk boundary, which the chunked merge must keep once."""
+    import torch
+
+    rows = lattice_rows_torch(n, d, gen, device)
+    if queries:
+        rows[:, 0] = 1.0
+        return rows
+    rows[:, 0] = 0.0
+    edge = torch.arange(n, device=device) % 512
+    edge = (edge == 255) | (edge == 256)
+    rows[edge] = 0.0
+    rows[edge, 0] = 3.5
+    return rows
+
+
+def key_collisions(scores, n_valid: int, v3: bool) -> int:
+    """Subtiles of a [B, N] score matrix where two live v3 (or v2) keys are
+    equal (the keys computed as the plain version computes them)."""
     import torch
 
     b, n = scores.shape
-    lane = torch.arange(1024, device=scores.device, dtype=torch.float32)
-    keys = torch.floor((scores.clamp(-3.0, 3.0).view(b, -1, 1024) + 1.0625) * 4096.0) * 1024.0 + lane
-    live = (torch.arange(n, device=scores.device) < n_valid).view(1, -1, 1024)
+    w, qscale = (1024, 4096.0) if v3 else (512, 8192.0)
+    lane = torch.arange(w, device=scores.device, dtype=torch.float32)
+    s = scores.clamp(-3.0, 3.0) if v3 else scores
+    keys = torch.floor((s.view(b, -1, w) + 1.0625) * qscale) * float(w) + lane
+    live = (torch.arange(n, device=scores.device) < n_valid).view(1, -1, w)
     keys = torch.where(live, keys, -(2.0**24)).sort(dim=2).values
     same = (keys[:, :, 1:] == keys[:, :, :-1]) & (keys[:, :, 1:] > -(2.0**24))
     return int(same.any(dim=2).sum())
@@ -499,7 +536,26 @@ def kernel_phase(n_docs: int, reps: int, cross: dict) -> dict:
         reduce_bound(keys3, h2_3),
         lambda: torch.topk(keys3.view(64, -1, 128), min(h2_3, 128), dim=2),
     )
-    # #3 keyed v2 at B = 8, k = 400
+    # #3 keyed v2 on the v3 core at V2_BATCHES (and at B=100, a batch that is
+    # not a multiple of the 64-query tile, checked only), bit-identical
+    for b in V2_BATCHES + (100,):
+        q8, qs = queries(b)
+        args = (docs, scales, q8, qs, n_docs)
+        what = f"B={b} (v2, C={V2_C})"
+        if b == 100:
+            check_exact(f"_fused2_extract_int8 ({what})",
+                        (P._fused2_extract_int8(*args),),
+                        (P._fused2_extract_int8_plain(*args),))
+            log(f"  _fused2_extract_int8 {what}: bit-identical")
+            continue
+        compare(
+            "_fused2_extract_int8",
+            lambda: P._fused2_extract_int8(*args),
+            lambda: P._fused2_extract_int8_plain(*args),
+            what,
+            fused_int8_bound(b, n_pad // 64),
+        )
+    # #3 keyed v2 at B = 8, k = 400 (the first core)
     q8, qs = queries(8)
     args = (docs, scales, q8, qs, n_docs)
     keys2 = compare(
@@ -584,6 +640,8 @@ def kernel_phase(n_docs: int, reps: int, cross: dict) -> dict:
     # tolerance (timed)
     float_cases = tuple(
         ("_fused3_extract", b, "v3, C=400", nb * 128, 1) for b in V3_BATCHES
+    ) + tuple(
+        ("_fused2_extract", b, f"v2, C={V2_C}", n_pad // 64, 1) for b in V2_BATCHES
     ) + (
         ("_fused2_extract", 8, "v2, k=400", n_pad // 64, 1),
         ("_fused_extract", 8, "v1, k=4000", n_pad // 64, 2),
@@ -600,21 +658,35 @@ def kernel_phase(n_docs: int, reps: int, cross: dict) -> dict:
             ref_t = ref if isinstance(ref, tuple) else (ref,)
             check_exact(f"{name} {dt_name} lattice", got_t, ref_t)
             log(f"  {name} {dt_name} B={b} ({what}) on lattice data: bit-identical")
-        # scores past 3.0 clip, their keys pass 2^24 and collide: the
-        # chunked top-4 merge must keep clear-every-equal
+        # scores past 3.0 (clipped by v3, not by v2): their keys pass 2^24
+        # and collide, and the chunked top-4 (v3) and top-8 (v2) merges
+        # must keep clear-every-equal
         fill_rows(fdocs, n_docs, lambda r: clip_rows_torch(r, DIM, gen, dev))
-        for b in (64, 256):
+        for name, b in (("_fused3_extract", 64), ("_fused3_extract", 256),
+                        ("_fused2_extract", 16), ("_fused2_extract", 256)):
             q = clip_rows_torch(b, DIM, gen, dev).to(dt)
-            got = P._fused3_extract(fdocs, q, n_docs)
+            got = getattr(P, name)(fdocs, q, n_docs)
             torch.cuda.synchronize()
-            check_exact(f"_fused3_extract {dt_name} B={b} clipped", (got,),
-                        (P._fused3_extract_plain(fdocs, q, n_docs),))
-            collide = v3_collisions(scores_matmul(fdocs, q), n_docs)
+            check_exact(f"{name} {dt_name} B={b} past 2^24", (got,),
+                        (getattr(P, name + "_plain")(fdocs, q, n_docs),))
+            collide = key_collisions(scores_matmul(fdocs, q), n_docs,
+                                     v3=name == "_fused3_extract")
             if collide == 0:
-                raise AssertionError("the clipped v3 input has no colliding keys")
-            log(f"  _fused3_extract {dt_name} B={b} on clipped scores "
+                raise AssertionError(f"the {name} input past 2^24 has no colliding keys")
+            log(f"  {name} {dt_name} B={b} on scores past 2^24 "
                 f"({collide} subtiles with colliding keys): bit-identical")
             del got
+        fill_rows(fdocs, n_docs,
+                  lambda r: chunk_edge_rows_torch(r, DIM, gen, dev, queries=False))
+        q = chunk_edge_rows_torch(64, DIM, gen, dev, queries=True).to(dt)
+        for name in ("_fused3_extract", "_fused2_extract"):
+            got = getattr(P, name)(fdocs, q, n_docs)
+            torch.cuda.synchronize()
+            check_exact(f"{name} {dt_name} B=64 chunk edges", (got,),
+                        (getattr(P, name + "_plain")(fdocs, q, n_docs),))
+            del got
+        log(f"  _fused3_extract / _fused2_extract {dt_name} B=64 with equal keys "
+            f"across every 256-doc chunk boundary at 255/256: bit-identical")
         torch.cuda.empty_cache()
         fill_rows(fdocs, n_docs, lambda r: unit_rows_torch(r, DIM, gen, dev))
         crossover(
@@ -755,11 +827,12 @@ def hits_to_arrays(results) -> tuple:
     return rows, scores
 
 
-def check_results(rows, scores, qvecs, ref_matrix, n) -> None:
+def check_results(rows, scores, qvecs, ref_matrix, n, dead=None) -> None:
     """Every result row is the brute-force top-n of ``ref_matrix`` (f32
-    dots, TF32 off): ids identical except between scores closer than
-    SCORE_TOL (the reference tie rule, larger row first, orders the scan),
-    and every score within SCORE_TOL of the true dot."""
+    dots, TF32 off) over its rows that ``dead`` (bool [N]) does not mark:
+    ids identical except between scores closer than SCORE_TOL (the
+    reference tie rule, larger row first, orders the scan), and every
+    score within SCORE_TOL of the true dot."""
     import torch
 
     from svs_tpu_torch.ops.topk import exact_f32
@@ -767,6 +840,11 @@ def check_results(rows, scores, qvecs, ref_matrix, n) -> None:
     q = torch.from_numpy(np.ascontiguousarray(qvecs, dtype=np.float32)).cuda()
     with exact_f32():
         exact = q @ ref_matrix.t()  # [B, N]
+    if dead is not None:
+        hit = dead.cpu().numpy()[np.asarray(rows)]
+        if hit.any():
+            raise AssertionError(f"{int(hit.sum())} hits are deleted rows")
+        exact = torch.where(dead[None, :], float("-inf"), exact)
     cand_v, cand_i = torch.topk(exact, n + 64, dim=1)
     for b in range(len(rows)):
         if len(rows[b]) != n:
@@ -881,7 +959,8 @@ def e2e_phase(n_docs: int, reps: int, work: Path) -> dict:
         def f32_scan(v):
             return v, ref_matrix
 
-        def kb_path(label, expected, shapes, scan, check=None, v3=None, **options):
+        def kb_path(label, expected, shapes, scan, check=None, v3=None,
+                    after=None, **options):
             res = out[f"paths_detail_{label}"] = {}
 
             def run():
@@ -890,6 +969,8 @@ def e2e_phase(n_docs: int, reps: int, work: Path) -> dict:
                     if check is not None:
                         check(kb)
                     kb_shapes(kb, shapes, reps, rng, qvec, scan, res, v3=v3)
+                    if after is not None:
+                        after(kb, res)
                     res["pack_events"] = dict(kb.engine.pack_events)
                 finally:
                     kb.close()
@@ -897,17 +978,58 @@ def e2e_phase(n_docs: int, reps: int, work: Path) -> dict:
             drive_path(label, expected, run, out)
             torch.cuda.empty_cache()
 
+        def profile_call(kb, res, label, b, n):
+            """One call of ``b`` new queries unprofiled and profiled
+            (``device_idle_share``), then once more for its phase times."""
+            texts = [f"{label}-{i}" for i in range(b)]
+            qvec.update(zip(texts, unit_queries(rng, b)))
+            prof = res[label] = device_idle_share(lambda: kb.retrieve_batch(texts, n))
+            kb._stats.reset()
+            kb.retrieve_batch(texts, n)
+            prof["phases_ms"] = {
+                k: v["last_s"] * 1e3 for k, v in kb._stats.snapshot().items()
+            }
+            second = prof["second_profile"]
+            log(f"e2e {label}: unprofiled {prof['unprofiled_wall_ms']:.2f} ms "
+                f"(then phases {({k: round(v, 2) for k, v in prof['phases_ms'].items()})} "
+                f"ms); profiled {second['wall_ms']:.2f} ms, kernels "
+                f"{second.get('kernel_ms')} ms (idle share {second['idle_share']})")
+            for name, k in second.get("top_kernels", {}).items():
+                log(f"  {k['ms']:.3f} ms = {k['launches']} x "
+                    f"{k['us_per_launch']:.2f} us  {name}")
+            for name, k in second.get("top_host_ops", {}).items():
+                log(f"  host {k['self_ms']:.3f} ms self over {k['count']}  {name}")
+
+        def loaded(kb, res):
+            """``load()`` (the hydration prewarm), the B=64 shape again
+            (``finalize`` p50 before: the shape's first run; after: this
+            one), then one B=64 call unprofiled and profiled."""
+            t = time.perf_counter()
+            kb.load()
+            res["load_s"] = time.perf_counter() - t
+            kb_shapes(kb, (("B64_n100_loaded", 64, 100),), reps, rng, qvec,
+                      f32_scan, res)
+            before = res["B64_n100"]["phase_p50_ms"]
+            after = res["B64_n100_loaded"]["phase_p50_ms"]
+            log(f"e2e int8_kb: load() {res['load_s']:.2f} s; B=64, n=100 "
+                f"finalize p50 {before['finalize']:.2f} -> "
+                f"{after['finalize']:.2f} ms, device_search p50 "
+                f"{before['device_search']:.2f} -> {after['device_search']:.2f} ms")
+            profile_call(kb, res, "profiled_B64_n100", 64, 100)
+
         # int8 (precision='auto').  B=64 first: the engine's per-n width
         # hint is shared by every batch size, and a widened hint
         # (C > GUARD_MAX_C) would keep the guarded v3 kernel off for the
         # rest of the run
         kb_path("int8_kb", fused_int8 + ["_reduce_keys", "_extract"],
                 SHAPES + (("B512_n100", 512, 100),), f32_scan,
-                v3="_fused3_extract_int8")
+                v3="_fused3_extract_int8", after=loaded)
         # v3 at the fused kernels' batch ceiling, on a KB of its own: the
         # int8 KB's n=100 hint has widened past GUARD_MAX_C by now
         kb_path("int8_kb_b256", ["_fused3_extract_int8", "_reduce_keys"],
-                (("B256_n100", 256, 100),), f32_scan, v3="_fused3_extract_int8")
+                (("B256_n100", 256, 100),), f32_scan, v3="_fused3_extract_int8",
+                after=lambda kb, res: profile_call(kb, res, "profiled_B256_n100",
+                                                   256, 100))
         kb_path("bf16_kb", fused_float + ["_reduce_keys"], SHAPES, f32_scan,
                 v3="_fused3_extract", precision="bf16")
         # f32 storage: the pack is its own rescore mirror
@@ -1056,8 +1178,9 @@ def device_idle_share(fn) -> dict:
     wall time, the summed CUDA kernel time and the idle share 1 - kernel /
     wall (None where the profiler saw no device time).  The first window
     of a process also starts the device tracer; the second reports, beside
-    its numbers, the eight largest kernels, each with its launch count and
-    device time per launch."""
+    its numbers, the twelve largest kernels, each with its launch count and
+    device time per launch, and the ten host operations with the most
+    self time (host clock, the profiler's own cost included)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1078,7 +1201,8 @@ def device_idle_share(fn) -> dict:
             out[window] = {"wall_ms": wall_ms, "idle_share": None, "error": repr(exc)}
             continue
         busy_ms = sum(ms for ms, _ in by_name.values())
-        top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+        top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
+        host = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)[:10]
         out[window] = {
             "wall_ms": wall_ms,
             "kernel_ms": busy_ms,
@@ -1087,9 +1211,70 @@ def device_idle_share(fn) -> dict:
                 name[:80]: {"ms": ms, "launches": n, "us_per_launch": ms * 1e3 / n}
                 for name, (ms, n) in top
             },
+            "top_host_ops": {
+                e.key[:60]: {"self_ms": e.self_cpu_time_total / 1e3, "count": e.count}
+                for e in host
+            },
         }
     out["first_profile"].pop("top_kernels", None)
+    out["first_profile"].pop("top_host_ops", None)
     return out
+
+
+def delete_then_retrieve(store: Path, ref, reps: int, out: dict) -> None:
+    """``bulk_del_docs`` 1% of a pairwise store's docs, then
+    ``retrieve_batch`` (B=64, n=100) ``reps`` times, each result held
+    against a brute-force scan of the survivors (no deleted row returned)."""
+    import torch
+
+    import svs_tpu_torch
+
+    qvec = {}
+
+    async def embed(texts):
+        return [qvec[t].tolist() for t in texts]
+
+    rng = np.random.default_rng(SEED + 4)
+    gone = np.sort(rng.choice(PAIR_DOCS, PAIR_DOCS // 100, replace=False))
+    dead = torch.zeros(PAIR_DOCS, dtype=torch.bool, device=ref.device)
+    dead[torch.from_numpy(gone).to(ref.device)] = True
+    res = out["paths_detail_delete_then_retrieve"] = {"deleted": len(gone)}
+
+    def run():
+        kb = svs_tpu_torch.KB(store, embed, device="cuda")
+        try:
+            with kb.bulk_query_docs() as q:
+                ids = {int(d["text"].rsplit("#", 1)[1]): d["id"] for d in q.query_level(0)}
+            t = time.perf_counter()
+            with kb.bulk_del_docs() as delete:
+                for row in gone:
+                    delete(ids[int(row)])
+            res["delete_s"] = time.perf_counter() - t
+            if len(kb) != PAIR_DOCS - len(gone):
+                raise AssertionError(f"{len(kb)} docs after the deletes")
+            lat = []
+            for rep in range(reps):
+                v = unit_queries(rng, 64)
+                texts = [f"after-delete-{rep}-{i}" for i in range(64)]
+                qvec.update(zip(texts, v))
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                hits = kb.retrieve_batch(texts, 100)
+                torch.cuda.synchronize()
+                lat.append(time.perf_counter() - t)
+                check_results(*hits_to_arrays(hits), v, ref, 100, dead=dead)
+            res.update({
+                "first_s": lat[0],
+                "warm_ms": [x * 1e3 for x in lat[1:]],
+                "pack_events": dict(kb.engine.pack_events),
+            })
+        finally:
+            kb.close()
+
+    drive_path("delete_then_retrieve", ["_fused_extract_int8"], run, out)
+    log(f"e2e delete_then_retrieve: {len(gone)} docs deleted in "
+        f"{res['delete_s']:.2f} s; B=64, n=100 first {res['first_s']:.3f} s "
+        f"(repack), warm {res['warm_ms']} ms; exact vs the survivors' scan")
 
 
 def pairwise_phase(work: Path, out: dict) -> None:
@@ -1163,6 +1348,7 @@ def pairwise_phase(work: Path, out: dict) -> None:
         try:
             if label == "flat":
                 pair_path("pairwise_int8_flat", keyed, store, ref, oracle)
+                delete_then_retrieve(store, ref, 3, out)
                 continue
             pair_path("pairwise_int8_dupes", keyed, store, ref, oracle, profile=True)
             pair_path("pairwise_bf16_dupes", keyed, store, ref, oracle, precision="bf16")

@@ -18,10 +18,18 @@ Cases (``--only``):
   scores of an int8 pack at B = 512;
 - ``v3``: the guarded v3 kernels (mode 3 of ``csrc/fused_int8.cu`` and
   ``csrc/fused_float.cu``) on 1M x 1536 packs of random unit rows: int8
-  at B = 64 and 256, bf16 and f32 at B = 64.
+  at B = 64 and 256, bf16 and f32 at B = 64;
+- ``v2``: the keyed v2 kernels (mode 2 of the same files) on the same
+  packs, int8, bf16 and f32 at B = 8, 16, 64 and 256 (the calls of a
+  ``KB`` at C = 1,600; C does not reach the kernel), and at B = 9: 8
+  queries and one zero row, the v3 core's cost at B = 8 (the kernel
+  sends B <= 8 to the first core).  bf16 and f32 keys
+  are held within ``chip_smoke.SCORE_TOL`` of the plain version's scores.
+
+``--only`` may be given more than once.
 
     git archive <commit> svs_tpu_torch/csrc | tar -x -C build/ab_old
-    python3 kernel_ab.py --old build/ab_old/svs_tpu_torch/csrc --only v3
+    python3 kernel_ab.py --old build/ab_old/svs_tpu_torch/csrc --only v2 --only v3
 
 Prints the card's name and power limit, then one JSON line.
 """
@@ -51,10 +59,10 @@ def launching_from(lib, fn):
     return run
 
 
-def v3_cases(dev, gen):
-    """``(what, call, plain, check, bound)`` of the guarded v3 kernels on
-    1M x 1536 packs of random unit rows; ``check(got, ref)`` raises on a
-    mismatch and returns the error."""
+def fused_cases(dev, gen, mode):
+    """``(what, call, plain, check, bound)`` of the guarded v3 (``mode`` 3)
+    or keyed v2 (2) kernels on 1M x 1536 packs of random unit rows;
+    ``check(got, ref)`` raises on a mismatch and returns the error."""
     import torch
 
     from svs_tpu_torch.ops import pallas_extract as P
@@ -64,16 +72,31 @@ def v3_cases(dev, gen):
     n_docs = 1_000_000
     docs, scales = S.int8_pack(n_docs, gen, dev)
     n_pad = docs.shape[0]
-    out_bytes = (n_pad // P.FUSED_BLOCK_N) * 128 * 4
+    if mode == 3:
+        name, tag, v3 = "_fused3_extract", "fused3", True
+        out_bytes = (n_pad // P.FUSED_BLOCK_N) * 128 * 4
+        int8_batches, float_batches = (64, 256), (64,)
+    else:
+        name, tag, v3 = "_fused2_extract", "fused2", False
+        out_bytes = (n_pad // P.FUSED_SUBTILE) * P.EXTRACT_H * 4
+        # B=9 (8 queries and one zero row) times the v3 core at B=8: the
+        # kernel sends B <= 8 to the first core
+        int8_batches = float_batches = (8, 9) + S.V2_BATCHES
+    def queries(b):
+        rows = S.unit_rows_torch(b, S.DIM, gen, dev)
+        if b == 9:
+            rows[8] = 0.0
+        return rows
+
     cases = []
-    for b in (64, 256):
-        q8, qs = quantize_rows_int8(S.unit_rows_torch(b, S.DIM, gen, dev))
+    for b in int8_batches:
+        q8, qs = quantize_rows_int8(queries(b))
         args = (docs, scales, q8.contiguous(), qs.contiguous(), n_docs)
         cases.append((
-            f"fused3 int8 B={b}",
-            lambda args=args: (P._fused3_extract_int8(*args),),
-            lambda args=args: (P._fused3_extract_int8_plain(*args),),
-            lambda got, ref: S.check_exact("v3 int8", got, ref),
+            f"{tag} int8 B={b}",
+            lambda args=args: (getattr(P, name + "_int8")(*args),),
+            lambda args=args: (getattr(P, name + "_int8_plain")(*args),),
+            lambda got, ref: S.check_exact(f"{tag} int8", got, ref),
             S.bound(S.nbytes(docs, scales) + b * (S.DIM + 4) + b * out_bytes,
                     2.0 * b * n_pad * S.DIM, "int8"),
         ))
@@ -83,21 +106,24 @@ def v3_cases(dev, gen):
     for dt_name, dt in (("bf16", torch.bfloat16), ("f32", torch.float32)):
         fdocs = torch.zeros((n_pad, S.DIM), dtype=dt, device=dev)
         S.fill_rows(fdocs, n_docs, lambda r: S.unit_rows_torch(r, S.DIM, gen, dev))
-        q = S.unit_rows_torch(64, S.DIM, gen, dev).to(dt).contiguous()
-        scores = scores_matmul(fdocs, q)
+        for b in float_batches:
+            q = queries(b).to(dt).contiguous()
+            scores = scores_matmul(fdocs, q)
 
-        def check(got, ref, scores=scores, dt_name=dt_name):
-            return S.check_keys_close(f"v3 {dt_name}", got[0], ref[0], scores, v3=True)
+            def check(got, ref, scores=scores, dt_name=dt_name):
+                return S.check_keys_close(f"{tag} {dt_name}", got[0], ref[0],
+                                          scores, v3=v3)
 
-        yield (
-            f"fused3 {dt_name} B=64",
-            lambda fdocs=fdocs, q=q: (P._fused3_extract(fdocs, q, n_docs),),
-            lambda fdocs=fdocs, q=q: (P._fused3_extract_plain(fdocs, q, n_docs),),
-            check,
-            S.bound(S.nbytes(fdocs, q) + 64 * out_bytes,
-                    2.0 * 64 * n_pad * S.DIM, dt_name),
-        )
-        del fdocs, q, scores, check
+            yield (
+                f"{tag} {dt_name} B={b}",
+                lambda fdocs=fdocs, q=q: (getattr(P, name)(fdocs, q, n_docs),),
+                lambda fdocs=fdocs, q=q: (getattr(P, name + "_plain")(fdocs, q, n_docs),),
+                check,
+                S.bound(S.nbytes(fdocs, q) + b * out_bytes,
+                        2.0 * b * n_pad * S.DIM, dt_name),
+            )
+            del q, scores, check
+        del fdocs
         torch.cuda.empty_cache()
 
 
@@ -145,7 +171,8 @@ def main() -> int:
     ap.add_argument("--launches", type=int, default=20)
     ap.add_argument("--turns", type=int, default=4,
                     help="timed windows per build and shape, in turns")
-    ap.add_argument("--only", choices=("all", "selection", "v3"), default="all")
+    ap.add_argument("--only", choices=("all", "selection", "v3", "v2"),
+                    action="append", help="the cases to run (default: all)")
     args = ap.parse_args()
 
     import torch
@@ -164,11 +191,14 @@ def main() -> int:
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(S.SEED)
+    only = set(args.only or ("all",))
     groups = []
-    if args.only in ("all", "selection"):
+    if only & {"all", "selection"}:
         groups.append(selection_cases(dev, gen))
-    if args.only in ("all", "v3"):
-        groups.append(v3_cases(dev, gen))
+    if only & {"all", "v3"}:
+        groups.append(fused_cases(dev, gen, 3))
+    if only & {"all", "v2"}:
+        groups.append(fused_cases(dev, gen, 2))
     result = {"card": card, "shapes": {}}
     for cases in groups:
         for what, call, plain, check, (bound_ms, bound_by) in cases:

@@ -1,10 +1,13 @@
 // The core of the guarded v3 prescore kernels (mode 3 of fused_int8.cu and
-// fused_float.cu): _fused3_int8_kernel and _fused3_kernel of
-// svs_tpu/ops/pallas_extract.py, with the chunked emit of fused_emit.cuh.
-// The design and its bounds are in the headers of those two files.
+// fused_float.cu: _fused3_int8_kernel and _fused3_kernel of
+// svs_tpu/ops/pallas_extract.py) and of the keyed v2 ones at 9 <= B <= 256
+// (mode 2: _fused2_int8_kernel, _fused2_kernel), with the chunked emit of
+// fused_emit.cuh.  The design and its bounds are in the headers of those
+// two files.
 //
-// One CUDA block owns one 1024-doc subtile x a tile of QT (16, 32 or 64)
-// queries, query tiles fastest over the grid.  Its warps:
+// One CUDA block owns 1024 docs (one v3 subtile, two v2 subtiles) x a tile
+// of QT (16, 32 or 64) queries, query tiles fastest over the grid.  Its
+// warps:
 // - a producer warp, whose lane 0 streams the block's data through a
 //   kStages ring in shared memory: per stage, one 128-byte column slice of
 //   256 doc rows and of the QT query rows, each one 2-D TMA tile load
@@ -14,8 +17,10 @@
 //   multiplied, also across the emit between chunks;
 // - 16 (int8, bf16: fused3_mma_kernel, four warpgroups on wgmma) or 8
 //   (f32: fused3_f32_kernel) consumer warps that multiply one chunk of 256
-//   docs x QT queries, write the chunk's keys to shared memory, and select
-//   and merge per query row (v3_select_chunk), 4 chunks per block.
+//   docs x QT queries, write the chunk's keys (mode 3: v3 keys, mode 2: v2
+//   keys) to shared memory, and select and merge per query row
+//   (select_chunk: the top-4 of a 1024-doc subtile over 4 chunks, or the
+//   top-8 of a 512-doc subtile over 2), 4 chunks per block.
 // The swizzle puts 16-byte column c of tile row r at c ^ (r % 8): the
 // K-major layout wgmma reads through its descriptors, and one in which 8
 // consecutive rows at one column fill all 32 banks, so the f32 kernel's
@@ -50,15 +55,37 @@ __host__ __device__ constexpr int stage_bytes() {
   return kDocStageBytes + QT * kSliceBytes;
 }
 
+// The emit of a mode: what a subtile is, its list length H, its key.
+template <int MODE>
+struct Select;
+template <>
+struct Select<3> {  // v3: top-4 per 1024-doc subtile, one guard lane a block
+  static constexpr int kH = fused::kV3H, kSubDocs = fused::kV3SubDocs;
+  static constexpr bool kGuard = true;
+  __device__ __forceinline__ static float key(float s, int lane) {
+    return v3_key(s, lane);
+  }
+};
+template <>
+struct Select<2> {  // v2: top-8 per 512-doc subtile
+  static constexpr int kH = fused::kV2H, kSubDocs = fused::kV2SubDocs;
+  static constexpr bool kGuard = false;
+  __device__ __forceinline__ static float key(float s, int lane) {
+    return v2_key(s, lane);
+  }
+};
+
 // Dynamic shared memory of a block: the ring, the chunk's keys [QT][PITCH]
-// f32, the running top-4 lists [QT][4], the mbarriers; plus the slack that
-// aligns the ring to 1024 bytes (the 128-byte swizzle's period).
-template <int QT, int PITCH>
+// f32, the running top-H lists [QT][H], the mbarriers; plus the slack that
+// aligns the ring to 1024 bytes (the 128-byte swizzle's period).  At QT =
+// 64 and H = 8 that is 188 KB of the 227 KB a block may have.
+template <int QT, int PITCH, int H>
 struct Smem {
   static constexpr int kKeys = kStages * stage_bytes<QT>();
   static constexpr int kRun = kKeys + QT * PITCH * 4;
-  static constexpr int kBars = kRun + QT * fused::kV3H * 4;
+  static constexpr int kBars = kRun + QT * H * 4;
   static constexpr int kBytes = kBars + 2 * kStages * 8 + 1024;
+  static_assert(kBytes <= 232448, "a block's shared memory");
 };
 
 // --- TMA: 2-D tile loads through a tensor map ----------------------------
@@ -126,14 +153,14 @@ inline cudaError_t tile_map(CUtensorMap* map, const void* base,
 struct Block {
   unsigned char* ring;  // kStages stages, 1024-aligned
   float* keys;          // [QT][PITCH]
-  float* run;           // [QT][4]
+  float* run;           // [QT][H]
   uint64_t* full;       // [kStages]
   uint64_t* empty;      // [kStages]
 };
 
-template <int QT, int PITCH>
+template <int QT, int PITCH, int H>
 __device__ __forceinline__ Block block_smem(unsigned char* raw) {
-  using L = Smem<QT, PITCH>;
+  using L = Smem<QT, PITCH, H>;
   const uint32_t pad = (1024u - (smem_u32(raw) & 1023u)) & 1023u;
   unsigned char* base = raw + pad;
   Block s;
@@ -208,23 +235,52 @@ struct Ring {
   }
 };
 
+// A chunk's place in the block: its subtile, the subtile's lanes before
+// the chunk, and the subtile's live lanes (clip(n_valid - start, 0, sub)).
+template <int MODE>
+struct ChunkPos {
+  static constexpr int kPer = Select<MODE>::kSubDocs / kChunkDocs;
+  int sub, lane0, live;
+  __device__ __forceinline__ ChunkPos(int chunk, int doc0, int n_valid)
+      : sub(chunk / kPer),
+        lane0((chunk % kPer) * kChunkDocs),
+        live(min(max(n_valid - doc0 - sub * Select<MODE>::kSubDocs, 0),
+                 Select<MODE>::kSubDocs)) {}
+  // the key of score s of chunk doc `doc`, or KEY_DEAD past the live lanes
+  __device__ __forceinline__ float key(float s, int doc) const {
+    const int lane = lane0 + doc;
+    return lane < live ? Select<MODE>::key(s, lane) : kKeyDead;
+  }
+};
+
 // After a chunk's keys are in s.keys: each warp selects the query rows
 // warp, warp + WARPS, ... (below b) and merges them into the subtile's
-// lists.
-template <int QT, int PITCH, int WARPS>
+// lists; the subtile's last chunk writes them out (mode 3: 4 keys at the
+// subtile's place in its block's 128 lanes, and the guard lane; mode 2: 8
+// keys at column (row0 / 512) * 8).
+template <int MODE, int QT, int PITCH, int WARPS>
 __device__ __forceinline__ void select_rows(const Block& s, int chunk,
                                             int warp, int lane, int q0, int b,
                                             int doc0, int out_cols,
                                             float* __restrict__ out) {
+  using Sel = Select<MODE>;
+  constexpr int kPer = ChunkPos<MODE>::kPer;
+  const int sub = chunk / kPer, part = chunk % kPer;
 #pragma unroll 1
   for (int q = warp; q < QT && q0 + q < b; q += WARPS) {
-    float* row = out + (size_t)(q0 + q) * out_cols +
-                 (size_t)(doc0 / kFusedBlockN) * kGuardOutLanes;
-    fused::v3_select_chunk<kChunkDocs>(
-        s.keys + q * PITCH, s.run + q * fused::kV3H, chunk == 0,
-        chunk == kChunks - 1, lane,
-        row + ((doc0 % kFusedBlockN) / kV3SubDocs) * fused::kV3H,
-        row + kGuardKeys);
+    float* row = out + (size_t)(q0 + q) * out_cols;
+    float* dst;
+    float* guard = nullptr;
+    if constexpr (MODE == 3) {
+      row += (size_t)(doc0 / kFusedBlockN) * kGuardOutLanes;
+      dst = row + ((doc0 % kFusedBlockN) / kV3SubDocs) * Sel::kH;
+      guard = row + kGuardKeys;
+    } else {
+      dst = row + (size_t)(doc0 / Sel::kSubDocs + sub) * Sel::kH;
+    }
+    fused::select_chunk<kChunkDocs, Sel::kH, Sel::kGuard>(
+        s.keys + q * PITCH, s.run + q * Sel::kH, part == 0, part == kPer - 1,
+        lane, dst, guard);
   }
 }
 
@@ -366,7 +422,7 @@ constexpr int kMmaPitch = kChunkDocs + 4;
 // them and releases the stage.  Accumulator register 4j + r of m-tile mt
 // holds doc 64 (T g + mt) + 16w + lane/4 + 8(r/2) and query 8j + 2(lane%4)
 // + r%2, w the warp in its group.
-template <bool kInt8, int QT>
+template <bool kInt8, int QT, int MODE>
 __global__ void __launch_bounds__((kMmaWarps + 1) * 32, 1)
     fused3_mma_kernel(const __grid_constant__ CUtensorMap dmap,
                       const __grid_constant__ CUtensorMap qmap,
@@ -377,7 +433,7 @@ __global__ void __launch_bounds__((kMmaWarps + 1) * 32, 1)
   constexpr int MT = kMmaTiles;
   using Acc = typename std::conditional<kInt8, int, float>::type;
   extern __shared__ unsigned char smem_raw[];
-  const Block s = block_smem<QT, kMmaPitch>(smem_raw);
+  const Block s = block_smem<QT, kMmaPitch, Select<MODE>::kH>(smem_raw);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int q0 = blockIdx.x * QT;
   const int doc0 = blockIdx.y * kV3SubDocs;
@@ -393,7 +449,6 @@ __global__ void __launch_bounds__((kMmaWarps + 1) * 32, 1)
   }
   const int group = warp >> 2;
   const int doc_w = group * MT * 64 + (warp & 3) * 16 + (lane >> 2);
-  const int live = min(max(n_valid - doc0, 0), kV3SubDocs);
 
   Ring<QT> ring;
   Acc acc[MT][R];
@@ -453,6 +508,7 @@ __global__ void __launch_bounds__((kMmaWarps + 1) * 32, 1)
 
     // keys of the chunk -> shared memory (after every warp's last read of
     // the previous chunk's keys)
+    const ChunkPos<MODE> pos(chunk, doc0, n_valid);
     consumers_sync<kMmaWarps>();
     float qscale[QT / 8][2];
     if constexpr (kInt8) {
@@ -469,8 +525,7 @@ __global__ void __launch_bounds__((kMmaWarps + 1) * 32, 1)
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int doc = doc_w + 64 * mt + 8 * h;
-        const int sub_lane = chunk * kChunkDocs + doc;
-        const float r_scale = kInt8 ? rs[doc0 + sub_lane] : 0.0f;
+        const float r_scale = kInt8 ? rs[doc0 + chunk * kChunkDocs + doc] : 0.0f;
 #pragma unroll
         for (int j = 0; j < QT / 8; ++j)
 #pragma unroll
@@ -485,12 +540,12 @@ __global__ void __launch_bounds__((kMmaWarps + 1) * 32, 1)
               sc = a;
             }
             s.keys[(8 * j + 2 * (lane & 3) + c) * kMmaPitch + doc] =
-                sub_lane < live ? v3_key(sc, sub_lane) : kKeyDead;
+                pos.key(sc, doc);
           }
       }
     consumers_sync<kMmaWarps>();
-    select_rows<QT, kMmaPitch, kMmaWarps>(s, chunk, warp, lane, q0, b, doc0,
-                                          out_cols, out);
+    select_rows<MODE, QT, kMmaPitch, kMmaWarps>(s, chunk, warp, lane, q0, b,
+                                                doc0, out_cols, out);
   }
 }
 
@@ -515,7 +570,7 @@ constexpr int kFfmaPitch = kChunkDocs + 8;
 // queries wq * QT/2 + lq + 4i and the 8 docs wd * 64 + ld + 8j, a TQ x 8
 // register block.  Per 4 columns it loads 8 + TQ 16-byte words (lanes that
 // share a word get it broadcast) for 32 * TQ fmaf.
-template <int QT>
+template <int QT, int MODE>
 __global__ void __launch_bounds__((kFfmaWarps + 1) * 32, 1)
     fused3_f32_kernel(const __grid_constant__ CUtensorMap dmap,
                       const __grid_constant__ CUtensorMap qmap, int b,
@@ -523,7 +578,7 @@ __global__ void __launch_bounds__((kFfmaWarps + 1) * 32, 1)
                       float* __restrict__ out) {
   constexpr int TQ = QT / 8;
   extern __shared__ unsigned char smem_raw[];
-  const Block s = block_smem<QT, kFfmaPitch>(smem_raw);
+  const Block s = block_smem<QT, kFfmaPitch, Select<MODE>::kH>(smem_raw);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int q0 = blockIdx.x * QT;
   const int doc0 = blockIdx.y * kV3SubDocs;
@@ -543,7 +598,6 @@ __global__ void __launch_bounds__((kFfmaWarps + 1) * 32, 1)
   // 8), so the row offsets below are immediates.
   const int d_base = (wd * 64 + ld) * kSliceBytes;
   const int q_base = kDocStageBytes + (wq * (QT / 2) + lq) * kSliceBytes;
-  const int live = min(max(n_valid - doc0, 0), kV3SubDocs);
 
   Ring<QT> ring;
   float acc[TQ][8];
@@ -581,25 +635,25 @@ __global__ void __launch_bounds__((kFfmaWarps + 1) * 32, 1)
       ring.release(s, lane);
     }
 
+    const ChunkPos<MODE> pos(chunk, doc0, n_valid);
     consumers_sync<kFfmaWarps>();
 #pragma unroll
     for (int i = 0; i < TQ; ++i)
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         const int doc = wd * 64 + ld + 8 * j;
-        const int sub_lane = chunk * kChunkDocs + doc;
         s.keys[(wq * (QT / 2) + lq + 4 * i) * kFfmaPitch + doc] =
-            sub_lane < live ? v3_key(acc[i][j], sub_lane) : kKeyDead;
+            pos.key(acc[i][j], doc);
       }
     consumers_sync<kFfmaWarps>();
-    select_rows<QT, kFfmaPitch, kFfmaWarps>(s, chunk, warp, lane, q0, b, doc0,
-                                            out_cols, out);
+    select_rows<MODE, QT, kFfmaPitch, kFfmaWarps>(s, chunk, warp, lane, q0, b,
+                                                  doc0, out_cols, out);
   }
 }
 
 // --- host side --------------------------------------------------------------
 
-template <bool kInt8, int QT>
+template <bool kInt8, int QT, int MODE>
 inline cudaError_t launch_mma_tile(const void* q, const float* qs,
                                    const void* docs, const float* rs, int b,
                                    int n, int d, int n_valid, float* out,
@@ -610,20 +664,22 @@ inline cudaError_t launch_mma_tile(const void* q, const float* qs,
   CUtensorMap dmap, qmap;
   cudaError_t err = tile_map(&dmap, docs, type, elem, n, d, kChunkDocs);
   if (err == cudaSuccess) err = tile_map(&qmap, q, type, elem, b, d, QT);
-  constexpr int smem = Smem<QT, kMmaPitch>::kBytes;
+  constexpr int smem = Smem<QT, kMmaPitch, Select<MODE>::kH>::kBytes;
   if (err == cudaSuccess) {
-    err = cudaFuncSetAttribute(fused3_mma_kernel<kInt8, QT>,
+    err = cudaFuncSetAttribute(fused3_mma_kernel<kInt8, QT, MODE>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                smem);
   }
   if (err != cudaSuccess) return err;
   const dim3 grid((b + QT - 1) / QT, n / kV3SubDocs);
-  fused3_mma_kernel<kInt8, QT><<<grid, (kMmaWarps + 1) * 32, smem, stream>>>(
-      dmap, qmap, rs, qs, b, d * elem, n_valid, fused::out_columns(3, n), out);
+  fused3_mma_kernel<kInt8, QT, MODE>
+      <<<grid, (kMmaWarps + 1) * 32, smem, stream>>>(
+          dmap, qmap, rs, qs, b, d * elem, n_valid,
+          fused::out_columns(MODE, n), out);
   return cudaGetLastError();
 }
 
-template <int QT>
+template <int QT, int MODE>
 inline cudaError_t launch_f32_tile(const void* q, const void* docs, int b,
                                    int n, int d, int n_valid, float* out,
                                    cudaStream_t stream) {
@@ -633,53 +689,54 @@ inline cudaError_t launch_f32_tile(const void* q, const void* docs, int b,
   if (err == cudaSuccess) {
     err = tile_map(&qmap, q, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, b, d, QT);
   }
-  constexpr int smem = Smem<QT, kFfmaPitch>::kBytes;
+  constexpr int smem = Smem<QT, kFfmaPitch, Select<MODE>::kH>::kBytes;
   if (err == cudaSuccess) {
-    err = cudaFuncSetAttribute(fused3_f32_kernel<QT>,
+    err = cudaFuncSetAttribute(fused3_f32_kernel<QT, MODE>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                smem);
   }
   if (err != cudaSuccess) return err;
   const dim3 grid((b + QT - 1) / QT, n / kV3SubDocs);
-  fused3_f32_kernel<QT><<<grid, (kFfmaWarps + 1) * 32, smem, stream>>>(
-      dmap, qmap, b, d * 4, n_valid, fused::out_columns(3, n), out);
+  fused3_f32_kernel<QT, MODE><<<grid, (kFfmaWarps + 1) * 32, smem, stream>>>(
+      dmap, qmap, b, d * 4, n_valid, fused::out_columns(MODE, n), out);
   return cudaGetLastError();
 }
 
 // The query tile: the smallest of 16, 32, 64 that holds the batch, else 64.
 inline int query_tile(int b) { return b <= 16 ? 16 : b <= 32 ? 32 : 64; }
 
-// v3 on int8 (kInt8) or bf16 storage; out pre-filled with KEY_DEAD.
-template <bool kInt8>
+// Mode 3 (v3) or 2 (v2) on int8 (kInt8) or bf16 storage.  Mode 3 needs out
+// pre-filled with KEY_DEAD; mode 2 writes every key of its rows.
+template <bool kInt8, int MODE>
 inline cudaError_t launch_mma(const void* q, const float* qs, const void* docs,
                               const float* rs, int b, int n, int d,
                               int n_valid, float* out, cudaStream_t stream) {
   switch (query_tile(b)) {
     case 16:
-      return launch_mma_tile<kInt8, 16>(q, qs, docs, rs, b, n, d, n_valid, out,
-                                        stream);
+      return launch_mma_tile<kInt8, 16, MODE>(q, qs, docs, rs, b, n, d,
+                                              n_valid, out, stream);
     case 32:
-      return launch_mma_tile<kInt8, 32>(q, qs, docs, rs, b, n, d, n_valid, out,
-                                        stream);
+      return launch_mma_tile<kInt8, 32, MODE>(q, qs, docs, rs, b, n, d,
+                                              n_valid, out, stream);
     default:
-      return launch_mma_tile<kInt8, 64>(q, qs, docs, rs, b, n, d, n_valid, out,
-                                        stream);
+      return launch_mma_tile<kInt8, 64, MODE>(q, qs, docs, rs, b, n, d,
+                                              n_valid, out, stream);
   }
 }
 
-// v3 on f32 storage; out pre-filled with KEY_DEAD.  (A template, so that
+// Mode 3 or 2 on f32 storage, out as for launch_mma.  (A template, so that
 // only the file that launches it compiles the f32 kernels.)
-template <typename T>
+template <int MODE, typename T>
 inline cudaError_t launch_f32(const T* q, const T* docs, int b, int n, int d,
                               int n_valid, float* out, cudaStream_t stream) {
   static_assert(std::is_same<T, float>::value, "f32 storage only");
   switch (query_tile(b)) {
     case 16:
-      return launch_f32_tile<16>(q, docs, b, n, d, n_valid, out, stream);
+      return launch_f32_tile<16, MODE>(q, docs, b, n, d, n_valid, out, stream);
     case 32:
-      return launch_f32_tile<32>(q, docs, b, n, d, n_valid, out, stream);
+      return launch_f32_tile<32, MODE>(q, docs, b, n, d, n_valid, out, stream);
     default:
-      return launch_f32_tile<64>(q, docs, b, n, d, n_valid, out, stream);
+      return launch_f32_tile<64, MODE>(q, docs, b, n, d, n_valid, out, stream);
   }
 }
 

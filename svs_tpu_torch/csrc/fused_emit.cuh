@@ -1,28 +1,35 @@
 // The emits of the fused scoring kernels (fused_int8.cu, fused_float.cu).
 //
-// Modes 1 and 2 (v1, v2) keep the first core: one CUDA block owns 1024 docs
-// x QT queries (QT 8 or 16), stages 64-byte slices of its doc rows in shared
-// memory, and ends with emit() over the f32 scores its threads hold:
+// The first core (modes 1 and 2 for B <= 8): one CUDA block owns 1024 docs
+// x QT = 8 queries, stages 64-byte slices of its doc rows in shared memory,
+// and ends with emit() over the f32 scores its threads hold:
 //
 //   mode 1  v1  (_fused_kernel / _fused_int8_kernel):   top-8 values + f32
 //               indices per 512-doc subtile, ties to the highest index
+//               (also the v1 rung for 9 <= B <= 256, QT = 16)
 //   mode 2  v2  (_fused2_kernel / _fused2_int8_kernel): top-8 packed keys
 //               floor((s + KEY_BIAS) * KEY_QSCALE) * 512 + lane (_emit_keys)
 //
-// Mode 3, v3 (_fused3_kernel / _fused3_int8_kernel, _guard_emit), runs on
-// the core of fused3.cuh and ends with v3_select_chunk() below: per 1024-doc
-// subtile the top-4 packed keys floor((clip(s,-3,3) + KEY_BIAS) *
-// GUARD_QSCALE) * 1024 + lane, and per 8192-doc block one guard lane, the
-// max of its 8 subtile tails.  A v3 block walks its subtile in 4 chunks of
-// 256 docs (64 queries x 1024 docs of f32 accumulators would be all of an
-// SM's registers), so the top-4 is merged chunk by chunk.  That is exact:
-// the reference's 4 rounds of max-then-clear-every-equal emit the 4 largest
-// DISTINCT keys of the subtile (then KEY_DEAD, the floor of every key, once
-// they run out), and the 4 largest distinct values of a union are the 4
-// largest distinct values of the union of its parts' top-4 lists.  Keys
-// collide only past 2^24 (clipped raw-op scores above ~2.94, where key +
-// lane rounds to even); the merge keeps one copy of each value, as
-// clear-every-equal does.
+// The core of fused3.cuh (mode 3 at every batch, mode 2 for 9 <= B <= 256)
+// ends with select_chunk() below.  Mode 3, v3 (_fused3_kernel /
+// _fused3_int8_kernel, _guard_emit): per 1024-doc subtile the top-4 packed
+// keys floor((clip(s,-3,3) + KEY_BIAS) * GUARD_QSCALE) * 1024 + lane, and
+// per 8192-doc block one guard lane, the max of its 8 subtile tails.  Mode
+// 2, v2: per 512-doc subtile the top-8 v2 keys, no guard.  A block of that
+// core walks its 1024 docs in 4 chunks of 256 (64 queries x 1024 docs of
+// f32 accumulators would be all of an SM's registers), so the top-H of a
+// subtile (H = 4 over 4 chunks, or H = 8 over 2) is merged chunk by chunk.
+// That is exact for any H: the reference's H rounds of
+// max-then-clear-every-equal emit the H largest DISTINCT keys of the
+// subtile (then KEY_DEAD, the floor of every key, once they run out), and
+// the H largest distinct values of a union are the H largest distinct
+// values of the union of its parts' top-H lists.  Keys collide only past
+// 2^24 (v3: clipped raw-op scores above ~2.94; v2: scores above ~2.94,
+// unclipped), where key + lane rounds to even; the merge keeps one copy of
+// each value, as clear-every-equal does.  (It takes every live key to be
+// above KEY_DEAD, as every score above -5.06 keys: a v2 subtile whose
+// live keys all lay below it would emit one of them in the reference and
+// KEY_DEAD here.  Unit rows score within [-1, 1].)
 //
 // Outputs use the TPU kernels' exact layouts (svs_tpu/ops/pallas_extract.py),
 // so the plain-torch finishes consume them unchanged.  Every step of the key
@@ -176,10 +183,12 @@ __device__ __forceinline__ void emit(const float (&s)[QT][kDocsPerThread],
   }
 }
 
-// --- v3: the chunked emit of fused3.cuh ----------------------------------
+// --- the chunked emit of fused3.cuh (v3, and v2 for B > 8) ------------------
 
-constexpr int kV3H = 4;          // GUARD_H
+constexpr int kV3H = 4;           // GUARD_H
 constexpr int kV3SubDocs = 1024;  // GUARD_SUBTILE
+constexpr int kV2H = 8;           // EXTRACT_H
+constexpr int kV2SubDocs = 512;   // FUSED_SUBTILE
 
 // The warp-wide max of one float per lane, through the order-preserving
 // int (one redux.sync).
@@ -187,50 +196,50 @@ __device__ __forceinline__ float warp_max_redux(float v) {
   return order_key_value(__reduce_max_sync(0xffffffffu, order_key(v)));
 }
 
-// Drop the head of a descending list of kV3H keys.
-__device__ __forceinline__ void v3_pop(float (&l)[kV3H]) {
+// Drop the head of a descending list of H keys.
+template <int H>
+__device__ __forceinline__ void pop_head(float (&l)[H]) {
 #pragma unroll
-  for (int h = 0; h + 1 < kV3H; ++h) l[h] = l[h + 1];
-  l[kV3H - 1] = kKeyDead;
+  for (int h = 0; h + 1 < H; ++h) l[h] = l[h + 1];
+  l[H - 1] = kKeyDead;
 }
 
-// One warp, one query row: the top-4 distinct keys of a chunk of kDocs keys
-// (sc, contiguous), merged with the running top-4 of the subtile's earlier
+// One warp, one query row: the top-H distinct keys of a chunk of kDocs keys
+// (sc, contiguous), merged with the running top-H of the subtile's earlier
 // chunks (run, shared memory; not read for the first chunk).  The last
-// chunk writes the subtile's 4 keys to out4 (16-byte aligned) and folds its
-// tail into the block's guard lane with an atomic max (order-independent,
-// so deterministic; the wrapper pre-fills the output with KEY_DEAD); the
-// others leave the merged list in run.
+// chunk of the subtile writes its H keys to out (16-byte aligned) and,
+// with kGuard (v3), folds its tail into the block's guard lane with an
+// atomic max (order-independent, so deterministic; the wrapper pre-fills
+// the output with KEY_DEAD); the others leave the merged list in run.
 //
-// Only keys above the running 4th can enter the merged list (one equal to
-// it is a copy or the 4th itself), so the chunk's rounds stop at the first
-// max that is not above it: after the first chunk of random data, most
-// chunks end after one round.
-template <int kDocs>
-__device__ __forceinline__ void v3_select_chunk(const float* sc, float* run,
-                                                bool first, bool last,
-                                                int lane, float* out4,
-                                                float* guard) {
+// Only keys above the running H-th can enter the merged list (one equal to
+// it is a copy or the H-th itself), so the chunk's rounds stop at the
+// first max that is not above it: after the first chunk of random data,
+// most v3 chunks end after one round.
+template <int kDocs, int H, bool kGuard>
+__device__ __forceinline__ void select_chunk(const float* sc, float* run,
+                                             bool first, bool last, int lane,
+                                             float* out, float* guard) {
   constexpr int kE = kDocs / 32;
-  float r[kV3H];
+  float r[H];
 #pragma unroll
-  for (int h = 0; h < kV3H; ++h) r[h] = first ? kKeyDead : run[h];
+  for (int h = 0; h < H; ++h) r[h] = first ? kKeyDead : run[h];
   float v[kE];
 #pragma unroll
   for (int e = 0; e < kE; ++e) v[e] = sc[lane + 32 * e];
-  // max-then-clear-every-equal, as _guard_emit: the chunk's top-4 distinct
-  // keys above r[3], then KEY_DEAD
-  float top[kV3H];
+  // max-then-clear-every-equal, as _guard_emit / _emit_keys: the chunk's
+  // top-H distinct keys above r[H - 1], then KEY_DEAD
+  float top[H];
   bool done = false;
 #pragma unroll
-  for (int h = 0; h < kV3H; ++h) {
+  for (int h = 0; h < H; ++h) {
     top[h] = kKeyDead;
     if (!done) {  // warp-uniform
       float m = v[0];
 #pragma unroll
       for (int e = 1; e < kE; ++e) m = fmaxf(m, v[e]);
       m = warp_max_redux(m);
-      done = m <= r[kV3H - 1];
+      done = m <= r[H - 1];
       if (!done) {
         top[h] = m;
 #pragma unroll
@@ -241,24 +250,27 @@ __device__ __forceinline__ void v3_select_chunk(const float* sc, float* run,
     }
   }
   // merge two descending distinct lists, one copy of each value
-  float merged[kV3H];
+  float merged[H];
 #pragma unroll
-  for (int h = 0; h < kV3H; ++h) {
+  for (int h = 0; h < H; ++h) {
     const float x = fmaxf(r[0], top[0]);
     merged[h] = x;
     const bool from_r = r[0] == x, from_top = top[0] == x;
-    if (from_r) v3_pop(r);
-    if (from_top) v3_pop(top);
+    if (from_r) pop_head(r);
+    if (from_top) pop_head(top);
   }
   __syncwarp();  // every lane has read run before lane 0 rewrites it
   if (lane != 0) return;
   if (last) {
-    *reinterpret_cast<float4*>(out4) =
-        make_float4(merged[0], merged[1], merged[2], merged[3]);
-    atomic_max_float(guard, merged[kV3H - 1]);
+#pragma unroll
+    for (int h = 0; h < H; h += 4) {
+      reinterpret_cast<float4*>(out)[h / 4] =
+          make_float4(merged[h], merged[h + 1], merged[h + 2], merged[h + 3]);
+    }
+    if constexpr (kGuard) atomic_max_float(guard, merged[H - 1]);
   } else {
 #pragma unroll
-    for (int h = 0; h < kV3H; ++h) run[h] = merged[h];
+    for (int h = 0; h < H; ++h) run[h] = merged[h];
   }
 }
 

@@ -49,10 +49,14 @@
 // exact f32 numbers (the smoke's lattice data) every order gives the same
 // bits.
 //
-// Modes 1 and 2 keep the first core (fused_emit.cuh): one block owns 1024
-// docs x QT = 8 or 16 queries and stages 64-byte slices of its doc rows;
-// each thread widens its 4 docs' 16-byte words to f32 and keeps a QT x 4
-// f32 accumulator, fmaf on the CUDA cores.
+// Mode 2 at 9 <= B <= 256 runs on the same core as mode 3, bf16 on wgmma
+// with the same slice-wise accumulation (so the same error bound), f32 on
+// the FFMA register block; only the emit differs (see fused_int8.cu).
+//
+// Mode 1, and mode 2 at B <= 8, keep the first core (fused_emit.cuh): one
+// block owns 1024 docs x QT = 8 (mode 1 past 8: 16) queries and stages
+// 64-byte slices of its doc rows; each thread widens its 4 docs' 16-byte
+// words to f32 and keeps a QT x 4 f32 accumulator, fmaf on the CUDA cores.
 
 #include "fused3.cuh"
 #include "fused_emit.cuh"
@@ -175,6 +179,20 @@ cudaError_t launch(const T* q, const T* docs, int b, int n, int d,
   return cudaGetLastError();
 }
 
+// Mode 3, or mode 2 past B = 8, on the core of fused3.cuh.
+template <typename T, int MODE>
+cudaError_t launch_core(const void* q, const void* docs, int b, int n, int d,
+                        int n_valid, float* out, cudaStream_t st) {
+  if constexpr (std::is_same<T, float>::value) {
+    return svs::fused3::launch_f32<MODE>(static_cast<const float*>(q),
+                                         static_cast<const float*>(docs), b, n,
+                                         d, n_valid, out, st);
+  } else {
+    return svs::fused3::launch_mma<false, MODE>(q, nullptr, docs, nullptr, b,
+                                                n, d, n_valid, out, st);
+  }
+}
+
 template <typename T>
 cudaError_t launch_type(int mode, const void* q, const void* docs, int b,
                         int n, int d, int n_valid, float* out0, float* out1,
@@ -189,14 +207,9 @@ cudaError_t launch_type(int mode, const void* q, const void* docs, int b,
                    : launch<T, 16, 1>(qt, dt, b, n, d, n_valid, out0, out1, st);
     case 2:
       return small ? launch<T, 8, 2>(qt, dt, b, n, d, n_valid, out0, out1, st)
-                   : launch<T, 16, 2>(qt, dt, b, n, d, n_valid, out0, out1, st);
+                   : launch_core<T, 2>(q, docs, b, n, d, n_valid, out0, st);
     case 3:
-      if constexpr (std::is_same<T, float>::value) {
-        return svs::fused3::launch_f32(qt, dt, b, n, d, n_valid, out0, st);
-      } else {
-        return svs::fused3::launch_mma<false>(q, nullptr, docs, nullptr, b, n,
-                                              d, n_valid, out0, st);
-      }
+      return launch_core<T, 3>(q, docs, b, n, d, n_valid, out0, st);
     default:
       return cudaErrorInvalidValue;
   }

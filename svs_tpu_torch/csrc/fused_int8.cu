@@ -5,8 +5,9 @@
 //   mode 3  _fused3_int8_kernel (guarded v3, :1160; wrapper :1245): top-4
 //           keys per 1024-doc subtile + one guard lane per 8192-doc block.
 //           The engine's rung for 16 <= B <= 256 when C <= 1024.
-//   mode 2  _fused2_int8_kernel (keyed v2, :685):  top-8 keys per 512-doc
-//           subtile
+//   mode 2  _fused2_int8_kernel (keyed v2, :685; wrapper :746): top-8 keys
+//           per 512-doc subtile.  The engine's rung when v3 does not take
+//           the batch (B < 16, or C past GUARD_MAX_C after a widen).
 //   mode 1  _fused_int8_kernel (v1, :399):  top-8 values + f32 indices per
 //           512-doc subtile, ties to the highest index
 //
@@ -41,9 +42,19 @@
 // with KEY_DEAD and each subtile folds its tail in with an atomic float max
 // (order-independent, so deterministic).
 //
-// Modes 1 and 2 keep the first core (fused_emit.cuh): one block owns 1024
-// docs x QT = 8 or 16 queries, stages 64-byte slices of its doc rows in
-// shared memory and multiplies with __dp4a on the CUDA cores.
+// Mode 2 at 9 <= B <= 256 runs on the same core and bound as mode 3 (the
+// product and the read are the same; only the emit differs): 4 chunks of
+// 256 docs per block, and per 512-doc subtile the top-8 distinct v2 keys
+// merged over its 2 chunks (select_chunk, H = 8, no guard lane).  Its
+// emit does more selection than v3's, 8 rounds on a subtile's first chunk
+// where v3 does 4 on its first of four, and the rescale is the same two
+// rounded products.
+//
+// Mode 1, and mode 2 at B <= 8, keep the first core (fused_emit.cuh): one
+// block owns 1024 docs x QT = 8 (mode 1 past 8: 16) queries, stages
+// 64-byte slices of its doc rows in shared memory and multiplies with
+// __dp4a on the CUDA cores.  At B <= 8 it reads the pack once, at 59% of
+// the byte bound.
 
 #include "fused3.cuh"
 #include "fused_emit.cuh"
@@ -144,16 +155,13 @@ cudaError_t launch(const int8_t* q, const float* qs, const int8_t* docs,
   return cudaGetLastError();
 }
 
-template <int MODE>
-cudaError_t launch_mode(const int8_t* q, const float* qs, const int8_t* docs,
-                        const float* rs, int b, int n, int d, int n_valid,
-                        float* out0, float* out1, cudaStream_t stream) {
+cudaError_t launch_v1(const int8_t* q, const float* qs, const int8_t* docs,
+                      const float* rs, int b, int n, int d, int n_valid,
+                      float* out0, float* out1, cudaStream_t stream) {
   if (b <= 8) {
-    return launch<8, MODE>(q, qs, docs, rs, b, n, d, n_valid, out0, out1,
-                           stream);
+    return launch<8, 1>(q, qs, docs, rs, b, n, d, n_valid, out0, out1, stream);
   }
-  return launch<16, MODE>(q, qs, docs, rs, b, n, d, n_valid, out0, out1,
-                          stream);
+  return launch<16, 1>(q, qs, docs, rs, b, n, d, n_valid, out0, out1, stream);
 }
 
 }  // namespace
@@ -180,12 +188,17 @@ extern "C" int svs_fused_int8(int mode, const void* q, const void* qs,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (mode) {
     case 1:
-      return (int)launch_mode<1>(q8, qsf, d8, rsf, b, n, d, n_valid, o0, o1, st);
+      return (int)launch_v1(q8, qsf, d8, rsf, b, n, d, n_valid, o0, o1, st);
     case 2:
-      return (int)launch_mode<2>(q8, qsf, d8, rsf, b, n, d, n_valid, o0, o1, st);
+      if (b <= 8) {
+        return (int)launch<8, 2>(q8, qsf, d8, rsf, b, n, d, n_valid, o0, o1,
+                                 st);
+      }
+      return (int)svs::fused3::launch_mma<true, 2>(q8, qsf, d8, rsf, b, n, d,
+                                                   n_valid, o0, st);
     case 3:
-      return (int)svs::fused3::launch_mma<true>(q8, qsf, d8, rsf, b, n, d,
-                                                n_valid, o0, st);
+      return (int)svs::fused3::launch_mma<true, 3>(q8, qsf, d8, rsf, b, n, d,
+                                                   n_valid, o0, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -24,11 +24,18 @@ the same way: keyed pair candidates (or the exact blocked pass), the f32
 pair rescore, the margin check against ``pairwise_eps`` with the 4x widen
 and its width hint, then hydration.
 
+The reference's other synchronous methods are here with its semantics:
+``bulk_del_docs``, ``bulk_query_docs``, ``bulk_graph_update`` and
+``bulk_keyval_update`` (one transaction each, rolled back when the block
+raises), ``load()`` (pack now and prewarm the hydration row cache) and
+``warmup()``.  A delete moves the store's fingerprint, so the next search
+repacks from a full rescan and never returns a deleted row.
+
 Not ported yet: ``AsyncKB``, metadata filters (``where=``, also on the
-pairwise call), the graph and key/value interfaces, deletes, sidecars,
-meshes, replicas, the host search route and ``device_rescore='host'``.
-Where a call needs one of them it raises ``NotImplementedError`` naming
-what is missing.
+pairwise call), sidecars (``sidecar=True``, ``close(write_sidecar=True)``;
+``load()`` writes none), incremental repacks, meshes, replicas, the host
+search route and ``device_rescore='host'``.  Where a call needs one of
+them it raises ``NotImplementedError`` naming what is missing.
 """
 
 from __future__ import annotations
@@ -38,7 +45,17 @@ import logging
 import threading
 from contextlib import contextmanager
 from pathlib import Path
-from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple, Union
+from typing import (
+    Any,
+    Callable,
+    Dict,
+    Iterator,
+    List,
+    Optional,
+    Sequence,
+    Tuple,
+    Union,
+)
 
 import numpy as np
 import torch
@@ -53,7 +70,20 @@ from .engine.packing import PackedCorpus
 from .store.blob import embedding_to_bytes
 from .store.db import Database
 from .store.tx import Tx
-from .types import DocumentAdder, DocumentId, DocumentRecord, EmbeddingFunc, Retrieval
+from .types import (
+    DocumentAdder,
+    DocumentDeleter,
+    DocumentId,
+    DocumentQuerier,
+    DocumentRecord,
+    EdgeId,
+    EdgeRecord,
+    EmbeddingFunc,
+    GraphInterface,
+    KeyValueInterface,
+    NetworkXGraphTypes,
+    Retrieval,
+)
 from .utils import (
     EventLoopThread,
     atomic_gzip_file,
@@ -166,6 +196,20 @@ def _prebuilt_record(
         },
         meta_str,
     )
+
+
+def _edge_record(
+    row: "Tuple[EdgeId, DocumentId, DocumentId, DocumentId, Optional[float], bool]",
+) -> EdgeRecord:
+    edge_id, a, b, r, w, d = row
+    return {
+        "id": edge_id,
+        "a": a,
+        "b": b,
+        "relationship": r,
+        "weight": w,
+        "directed": d,
+    }
 
 
 class DocRowCache:
@@ -486,9 +530,57 @@ class KB:
     def _ensure_engine_fresh(self) -> PackedCorpus:
         return self.engine.ensure_fresh(self._require_db())
 
-    def close(self, vacuum: bool = False, also_gzip: bool = False) -> None:
+    def load(self) -> None:
+        """Pack the device corpus now and prewarm the hydration row cache,
+        so that batched hydration never reads the store.  Unlike the
+        reference it writes no sidecar: sidecars are not ported yet."""
+        with self._lock:
+            self._ensure_engine_fresh()
+            with self._require_db().transaction() as tx:
+                warmed = self._doc_cache.prewarm(tx)
+            if warmed:
+                log.info("hydration cache prewarmed (%d rows)", warmed)
+
+    def warmup(
+        self,
+        batch_sizes: Sequence[int] = (1,),
+        n: int = 16,
+        rounds: int = 2,
+        routes: str = "both",
+    ) -> None:
+        """Run ``rounds`` searches of random unit queries at each batch
+        size (the ``warmup`` phase of :meth:`stats`), so that the kernels
+        are built and the width hints set before live traffic.  ``routes``
+        is accepted for the reference's signature: the host route is not
+        ported, so every search takes the device route."""
+        del routes
+        with self._lock:
+            corpus = self._ensure_engine_fresh()
+        if corpus.n_valid == 0 or corpus.dim == 0:
+            return
+        rng = np.random.default_rng(0)
+        for b in batch_sizes:
+            for _ in range(max(1, rounds)):
+                v = rng.standard_normal((int(b), corpus.dim)).astype(np.float32)
+                v /= np.linalg.norm(v, axis=1, keepdims=True)
+                with phase("warmup", self._stats):
+                    self._search_hydrated(corpus, v, min(n, corpus.n_valid))
+
+    def close(
+        self,
+        vacuum: bool = False,
+        also_gzip: bool = False,
+        write_sidecar: Optional[bool] = None,
+    ) -> None:
         """Close the database (optionally VACUUM it and publish a ``.gz``
-        copy) and drop the device corpus."""
+        copy) and drop the device corpus.  ``write_sidecar=True`` raises
+        ``NotImplementedError`` (and leaves the KB open): the ``.svsx``
+        sidecar is not ported yet."""
+        if write_sidecar:
+            raise NotImplementedError(
+                "close(write_sidecar=True): the .svsx sidecar is not ported "
+                "to svs_tpu_torch yet"
+            )
         self._loop.stop()
         with self._lock:
             if self.db is None:
@@ -548,6 +640,208 @@ class KB:
                         tx.set_doc_embedding(doc_id, blob, skip_check_old=True)
                 if pending:
                     tx.bump_matrix_version()
+
+    @typeguard_exempt
+    @contextmanager
+    def bulk_del_docs(self) -> Iterator[DocumentDeleter]:
+        with self._lock:
+            db = self._require_db()
+            with db.transaction() as tx:
+                in_context = True
+
+                def del_doc(doc_id: DocumentId) -> None:
+                    assert in_context, _OUT_OF_CONTEXT
+                    tx.del_doc(doc_id)
+
+                try:
+                    yield del_doc
+                finally:
+                    in_context = False
+                tx.bump_matrix_version()
+
+    @typeguard_exempt
+    @contextmanager
+    def bulk_query_docs(self) -> Iterator[DocumentQuerier]:
+        with self._lock:
+            db = self._require_db()
+            with db.transaction() as tx:
+                in_context = True
+
+                class Querier(DocumentQuerier):
+                    def count(self) -> int:
+                        assert in_context, _OUT_OF_CONTEXT
+                        return tx.count_docs()
+
+                    def query_doc(
+                        self, doc_id: DocumentId, include_embedding: bool = False
+                    ) -> DocumentRecord:
+                        assert in_context, _OUT_OF_CONTEXT
+                        return tx.fetch_doc(doc_id, include_embedding)
+
+                    def query_children(
+                        self, doc_id: DocumentId, include_embedding: bool = False
+                    ) -> List[DocumentRecord]:
+                        assert in_context, _OUT_OF_CONTEXT
+                        return tx.fetch_doc_children(doc_id, include_embedding)
+
+                    def query_level(
+                        self,
+                        level: int,
+                        include_embedding: bool = False,
+                        limit: Optional[int] = None,
+                    ) -> List[DocumentRecord]:
+                        assert in_context, _OUT_OF_CONTEXT
+                        return tx.fetch_docs_at_level(
+                            level, include_embedding, limit
+                        )
+
+                    def dfs_traversal(
+                        self, include_embedding: bool = False
+                    ) -> Iterator[DocumentRecord]:
+                        def visit(doc: DocumentRecord) -> Iterator[DocumentRecord]:
+                            yield doc
+                            for child in self.query_children(
+                                doc["id"], include_embedding
+                            ):
+                                yield from visit(child)
+
+                        for root in self.query_level(0, include_embedding):
+                            yield from visit(root)
+
+                    def update_doc_meta(
+                        self,
+                        doc_id: DocumentId,
+                        new_meta: Optional[Dict[str, Any]],
+                    ) -> None:
+                        assert in_context, _OUT_OF_CONTEXT
+                        tx.update_doc_meta(doc_id, new_meta)
+
+                try:
+                    yield Querier()
+                finally:
+                    in_context = False
+
+    @typeguard_exempt
+    @contextmanager
+    def bulk_graph_update(self) -> Iterator[GraphInterface]:
+        with self._lock:
+            db = self._require_db()
+            with db.transaction() as tx:
+                in_context = True
+
+                class Graph(GraphInterface):
+                    def count_edges(self) -> int:
+                        assert in_context, _OUT_OF_CONTEXT
+                        return tx.count_edges()
+
+                    def add_directed_edge(
+                        self,
+                        from_doc: DocumentId,
+                        to_doc: DocumentId,
+                        relationship: DocumentId,
+                        weight: Optional[float] = None,
+                    ) -> EdgeId:
+                        assert in_context, _OUT_OF_CONTEXT
+                        return tx.add_directed_edge(
+                            from_doc, to_doc, relationship, weight
+                        )
+
+                    def add_edge(
+                        self,
+                        doc1: DocumentId,
+                        doc2: DocumentId,
+                        relationship: DocumentId,
+                        weight: Optional[float] = None,
+                    ) -> EdgeId:
+                        assert in_context, _OUT_OF_CONTEXT
+                        return tx.add_edge(doc1, doc2, relationship, weight)
+
+                    def del_edge(self, edge_id: EdgeId) -> None:
+                        assert in_context, _OUT_OF_CONTEXT
+                        tx.del_edge(edge_id)
+
+                    def edges(
+                        self, limit: Optional[int] = None, offset: int = 0
+                    ) -> List[EdgeRecord]:
+                        assert in_context, _OUT_OF_CONTEXT
+                        return [
+                            _edge_record(row)
+                            for row in tx.list_edges(limit, offset)
+                        ]
+
+                    def build_networkx_graph(
+                        self, multigraph: bool = True
+                    ) -> NetworkXGraphTypes:
+                        # networkx is imported by the Tx, only when called
+                        assert in_context, _OUT_OF_CONTEXT
+                        return tx.build_networkx_graph(multigraph)
+
+                try:
+                    yield Graph()
+                finally:
+                    in_context = False
+
+    @typeguard_exempt
+    @contextmanager
+    def bulk_keyval_update(self) -> Iterator[KeyValueInterface]:
+        with self._lock:
+            db = self._require_db()
+            with db.transaction() as tx:
+                in_context = True
+
+                class KeyVal(KeyValueInterface):
+                    def has(self, key: str) -> bool:
+                        assert in_context, _OUT_OF_CONTEXT
+                        return tx.has_key_user(key)
+
+                    def __contains__(self, key: str) -> bool:
+                        return self.has(key)
+
+                    def get(self, key: str, default: Any = KeyError) -> Any:
+                        assert in_context, _OUT_OF_CONTEXT
+                        try:
+                            return tx.get_key_user(key)
+                        except KeyError:
+                            if default is KeyError:
+                                raise
+                            return default
+
+                    def __getitem__(self, key: str) -> Any:
+                        return self.get(key)
+
+                    def set(self, key: str, val: Any) -> None:
+                        assert in_context, _OUT_OF_CONTEXT
+                        tx.set_key_user(key, val)
+
+                    def __setitem__(self, key: str, val: Any) -> None:
+                        self.set(key, val)
+
+                    def remove(self, key: str) -> None:
+                        assert in_context, _OUT_OF_CONTEXT
+                        tx.del_key_user(key)
+
+                    def __delitem__(self, key: str) -> None:
+                        self.remove(key)
+
+                    def count(self) -> int:
+                        assert in_context, _OUT_OF_CONTEXT
+                        return tx.count_keys_user()
+
+                    def __len__(self) -> int:
+                        return self.count()
+
+                    def items(self) -> Iterator[Tuple[str, Any]]:
+                        assert in_context, _OUT_OF_CONTEXT
+                        yield from tx.iter_keyval_user()
+
+                    def __iter__(self) -> Iterator[str]:
+                        assert in_context, _OUT_OF_CONTEXT
+                        yield from tx.iter_keys_user()
+
+                try:
+                    yield KeyVal()
+                finally:
+                    in_context = False
 
     def retrieve(self, query: str, n: int, where: None = None) -> List[Retrieval]:
         return self.retrieve_batch([query], n, where=where)[0]

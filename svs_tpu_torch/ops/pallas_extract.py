@@ -426,8 +426,8 @@ def _check_float_args(
         )
     if not docs.is_contiguous() or not queries.is_contiguous():
         raise ValueError("docs and queries must be contiguous")
-    if docs.data_ptr() % 16:
-        raise ValueError("docs must be 16-byte aligned")
+    if docs.data_ptr() % 16 or queries.data_ptr() % 16:
+        raise ValueError("docs and queries must be 16-byte aligned")
     if n % FUSED_BLOCK_N or d % DIM_CHUNK or not 0 < b <= FUSED_MAX_BATCH:
         raise ValueError(
             f"fused float kernels need n % {FUSED_BLOCK_N} == 0, d % "

@@ -90,7 +90,8 @@ def test_fused3_kernel_twin_bit_identical(corpus, batch):
 def v3_batch(request, corpus):
     """A v3-sized query batch, zero-padded to a multiple of 8 rows as the
     callers pad it (100 -> 104: not a multiple of the CUDA kernel's
-    64-query tile), with the JAX v3 output only."""
+    64-query tile), with the JAX v3 and v2 outputs (both kernels run on
+    the CUDA v3 core at these batches)."""
     docs, rs, _ = corpus
     b = request.param
     rng = np.random.default_rng(1000 + b)
@@ -103,6 +104,7 @@ def v3_batch(request, corpus):
         "qi": np.asarray(qi),
         "qs": np.asarray(qs),
         "v3": np.asarray(J._fused3_extract_int8(*args, interpret=True)),
+        "v2": np.asarray(J._fused2_extract_int8(*args, interpret=True)),
     }
 
 
@@ -129,11 +131,9 @@ def _v2_subtile_keys(docs, rs, qi_row, qs_row, sub, fused):
     return np.sort(keys)[::-1][: T.EXTRACT_H]
 
 
-def test_fused2_kernel_twin_bit_identical_but_xla_fma(corpus, batch):
-    """Bit-identical except in subtiles where XLA contracted the emit into
-    an FMA.  There, a NumPy emulation of the FMA reproduces the reference
-    exactly and the as-written emulation reproduces the port: the only
-    difference is that contraction."""
+def _check_fused2_but_xla_fma(corpus, batch, max_subtiles):
+    """The v2 twin against the reference: bit-identical except in at most
+    ``max_subtiles`` subtiles, each explained by XLA's FMA contraction."""
     docs, rs, _ = corpus
     ref = batch["v2"]
     got = T._fused2_extract_int8(*_torch_args(corpus, batch)).numpy()
@@ -141,12 +141,26 @@ def test_fused2_kernel_twin_bit_identical_but_xla_fma(corpus, batch):
     subtiles = sorted(
         {tuple(x) for x in np.argwhere(_bits(ref) != _bits(got)) // [1, T.EXTRACT_H]}
     )
-    assert len(subtiles) <= 4, f"{len(subtiles)} subtiles differ"
+    assert len(subtiles) <= max_subtiles, f"{len(subtiles)} subtiles differ"
     for row, sub in subtiles:
         cols = slice(sub * T.EXTRACT_H, (sub + 1) * T.EXTRACT_H)
         args = (docs, rs, batch["qi"][row], batch["qs"][row], sub)
         np.testing.assert_array_equal(ref[row, cols], _v2_subtile_keys(*args, fused=True))
         np.testing.assert_array_equal(got[row, cols], _v2_subtile_keys(*args, fused=False))
+
+
+def test_fused2_kernel_twin_bit_identical_but_xla_fma(corpus, batch):
+    """Bit-identical except in subtiles where XLA contracted the emit into
+    an FMA.  There, a NumPy emulation of the FMA reproduces the reference
+    exactly and the as-written emulation reproduces the port: the only
+    difference is that contraction."""
+    _check_fused2_but_xla_fma(corpus, batch, 4)
+
+
+def test_fused2_kernel_twin_bit_identical_but_xla_fma_v3_batches(corpus, v3_batch):
+    """The same at the batches where the CUDA kernel runs on the v3 core
+    (up to 4 differing subtiles per 16 query rows, as at B = 16)."""
+    _check_fused2_but_xla_fma(corpus, v3_batch, 4 * -(-v3_batch["qi"].shape[0] // 16))
 
 
 def test_fused_v1_kernel_twin_bit_identical(corpus, batch):

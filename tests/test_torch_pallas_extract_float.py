@@ -131,7 +131,8 @@ def test_fused3_float_twin(case):
 def v3_case(request, corpus, dtype_name):
     """A v3-sized query batch, zero-padded to a multiple of 8 rows as the
     callers pad it (100 -> 104: not a multiple of the CUDA kernel's
-    64-query tile), with the JAX v3 output only."""
+    64-query tile), with the JAX v3 and v2 outputs (both kernels run on
+    the CUDA v3 core at these batches)."""
     kind, docs = corpus
     b = request.param
     q = np.zeros((-(-b // 8) * 8, D), dtype=np.float32)
@@ -143,6 +144,7 @@ def v3_case(request, corpus, dtype_name):
         "docs": torch.from_numpy(docs).to(tdt),
         "q": torch.from_numpy(q).to(tdt),
         "v3": np.asarray(J._fused3_extract(*args, interpret=True)),
+        "v2": np.asarray(J._fused2_extract(*args, interpret=True)),
     }
 
 
@@ -201,6 +203,10 @@ def test_fused2_float_twin(case):
         return
     sub = (np.arange(ref.shape[1]) // T.EXTRACT_H) * T.FUSED_SUBTILE
     _check_keys(ref, got, _twin_scores(case), sub, T.KEY_QSCALE)
+
+
+def test_fused2_float_twin_v3_batches(v3_case):
+    test_fused2_float_twin(v3_case)
 
 
 def test_fused_v1_float_twin(case):
