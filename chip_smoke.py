@@ -16,14 +16,18 @@ from a seed:
    (bit-identical on int8, on lattice data, on scores past 2^24 whose
    keys collide, and on equal keys across the chunk boundaries of the v3
    core's merge; within ``SCORE_TOL`` and one key-grid step at a grid edge
-   on random float data), and times the kernel, its plain version, and
+   on random float data), holds the staged finish (#2) to its plain
+   version on those kernels' keys and on lattice keys that tie across
+   groups and dead-padded rows (and on v2 keys of 8M- and 33.6M-doc
+   corpora, where its buffers pass the shared-memory limit and go to
+   global scratch), and times the kernel, its plain version, and
    one library call where one computes the same function, each as device
    time per launch over a run of launches between one pair of CUDA
    events; then holds ``_extract`` and ``pairwise_keys_extract`` to their
    plain versions on adversarial inputs at the same shapes (ties, -inf or
    masked rows and subtiles, keys past the key horizon);
 3. end-to-end phase: writes a 1M-doc SQLite store through the port's
-   ``Tx`` and drives five retrieval paths, each with the launch counts set
+   ``Tx`` and drives six retrieval paths, each with the launch counts set
    to 0 just before it and read just after:
    - int8 ``KB`` (``precision='auto'``): ``retrieve_batch`` at B=64/n=100,
      B=8/n=100, B=8/n=1000 and B=512/n=100; then ``load()`` (the
@@ -33,6 +37,8 @@ from a seed:
      ceiling);
    - bf16 ``KB``: B=64/n=100, B=8/n=100, B=8/n=1000;
    - f32 ``KB``: the same three shapes;
+   - int8 ``KB`` with ``device_rescore='host'`` (no device mirror; the
+     candidates rescored on the host): B=64, B=8 and B=256 at n=100;
    - ``rescore=False`` ``KB`` (bf16 storage): B=8/n=100;
    checking every result against a brute-force scan on the card (for
    ``rescore=False``, of the bf16-rounded corpus and queries);
@@ -83,7 +89,7 @@ REPLACES = {
     "_fused3_extract_int8": "svs_tpu/ops/pallas_extract.py:1160",
     "_fused2_extract_int8": "svs_tpu/ops/pallas_extract.py:685",
     "_fused_extract_int8": "svs_tpu/ops/pallas_extract.py:399",
-    "_reduce_keys": "svs_tpu/ops/pallas_extract.py:772",
+    "_staged_finish": "svs_tpu/ops/pallas_extract.py:772",
     "_fused3_extract": "svs_tpu/ops/pallas_extract.py:1111",
     "_fused2_extract": "svs_tpu/ops/pallas_extract.py:611",
     "_fused_extract": "svs_tpu/ops/pallas_extract.py:270",
@@ -94,7 +100,7 @@ SOURCES = {
     "_fused3_extract_int8": "svs_tpu_torch/csrc/fused_int8.cu",
     "_fused2_extract_int8": "svs_tpu_torch/csrc/fused_int8.cu",
     "_fused_extract_int8": "svs_tpu_torch/csrc/fused_int8.cu",
-    "_reduce_keys": "svs_tpu_torch/csrc/reduce_keys.cu",
+    "_staged_finish": "svs_tpu_torch/csrc/reduce_keys.cu",
     "_fused3_extract": "svs_tpu_torch/csrc/fused_float.cu",
     "_fused2_extract": "svs_tpu_torch/csrc/fused_float.cu",
     "_fused_extract": "svs_tpu_torch/csrc/fused_float.cu",
@@ -444,6 +450,68 @@ def pair_block(gen, dev) -> tuple:
     return pscores, live
 
 
+def finish_input(b: int, v3: bool, n_docs: int, gen, mode: str):
+    """Keys for the staged finish from the plain emit (v3 block tiles or
+    v2 keys) of ``[b, n_pad]`` scores: ``random``, N(0, 0.03^2) scores
+    (about a unit corpus's spread at d = 1536); ``lattice``, scores on a
+    1/16 grid that repeat every 8,192 docs, so every 128-lane group holds
+    the same level-2 keys; ``dead``, random scores with 24,676 live docs,
+    so the rows hold fewer live keys than C."""
+    import torch
+
+    from svs_tpu_torch.ops import pallas_extract as P
+
+    n_pad = -(-n_docs // 16384) * 16384
+    dev = torch.device("cuda")
+    if mode == "lattice":
+        s = torch.randint(-4, 5, (b, P.FUSED_BLOCK_N), generator=gen, device=dev)
+        s = (s.float() / 16.0).repeat(1, n_pad // P.FUSED_BLOCK_N)
+        n_valid = n_docs
+    else:
+        s = torch.randn((b, n_pad), generator=gen, device=dev) * 0.03
+        n_valid = n_docs if mode == "random" else 3 * P.FUSED_BLOCK_N + 100
+    return (P._v3_emit if v3 else P._v2_emit)(s, n_valid).contiguous()
+
+
+def finish_checks(compare, src, v3: bool, c: int, n_docs: int, gen) -> None:
+    """#2 on ``src`` (timed against its plain version and ``torch.topk``
+    of the level-1 keys at the same C), then on lattice keys that tie
+    across groups and on dead-padded rows, each bit-identical."""
+    import torch
+
+    from svs_tpu_torch.ops import pallas_extract as P
+
+    b, width = src.shape
+    nb = width // 128
+    if v3:
+        h2 = P._guard_reduce_h2(nb, c)
+        level1 = src.view(b, nb, 128)[:, :, : P.GUARD_KEYS].reshape(b, -1).contiguous()
+    else:
+        h2 = P._reduce_h2(nb * P.FUSED_BLOCK_N, c)
+        level1 = src
+    l1 = level1.shape[1]
+    kind = "v3 staged" if v3 else "v2"
+    compare(
+        "_staged_finish",
+        lambda: P._staged_finish(src, v3, c, h2),
+        lambda: P._staged_finish_plain(src, v3, c, h2),
+        f"{kind} keys [{b}, {l1}], h2={h2}, C={c}",
+        bound(b * l1 * 4 + b * c * 8, 0.0, "f32"),
+        lambda: torch.topk(level1, c, dim=1),
+    )
+    for mode in ("lattice", "dead"):
+        keys = finish_input(b, v3, n_docs, gen, mode)
+        got = P._staged_finish(keys, v3, c, h2)
+        torch.cuda.synchronize()
+        ref = P._staged_finish_plain(keys, v3, c, h2)
+        check_exact(f"_staged_finish {kind} B={b} {mode}", got, ref)
+        note = f"{int(ref[2].ne(0).sum())} rows flagged" if not v3 else (
+            f"{int(torch.isinf(ref[2]).sum())} rows with an infinite bound")
+        log(f"  _staged_finish {kind} [{b}, {l1}] h2={h2} C={c} on {mode} keys "
+            f"({note}): bit-identical")
+        del keys, got, ref
+
+
 def kernel_phase(n_docs: int, reps: int, cross: dict) -> dict:
     """Each kernel against its plain version on synthetic full-size packs,
     at the main paths' shapes; returns per-kernel records, and fills
@@ -497,6 +565,7 @@ def kernel_phase(n_docs: int, reps: int, cross: dict) -> dict:
 
     # #1 guarded v3 at every batch of V3_BATCHES (C <= 1024: C does not
     # reach the kernel), bit-identical
+    outs3 = {}
     for b in V3_BATCHES:
         q8, qs = queries(b)
         args = (docs, scales, q8, qs, n_docs)
@@ -507,8 +576,8 @@ def kernel_phase(n_docs: int, reps: int, cross: dict) -> dict:
             f"B={b} (v3, C=400)",
             fused_int8_bound(b, nb * 128),
         )
-        if b == 64:
-            out3 = got
+        if b in (64, 256):
+            outs3[b] = got
         del got
     crossover(
         "int8",
@@ -516,25 +585,6 @@ def kernel_phase(n_docs: int, reps: int, cross: dict) -> dict:
         lambda q: P.fused3_candidates_int8(docs, scales, q, n_docs, 400),
         lambda b: unit_rows_torch(b, DIM, gen, dev),
         cross,
-    )
-    # #2 on #1's keys: the staged v3 finish's pass-2 input
-    keys3 = out3.view(64, nb, 128)[:, :, : P.GUARD_KEYS].reshape(64, -1)
-    l1p = -(-keys3.shape[1] // P.REDUCE_BLOCK) * P.REDUCE_BLOCK
-    keys3 = torch.cat(
-        [keys3, keys3.new_full((64, l1p - keys3.shape[1]), P.KEY_DEAD)], dim=1
-    ).contiguous()
-    h2_3 = P._guard_reduce_h2(nb, 400)
-
-    def reduce_bound(keys, h2):
-        return bound(nbytes(keys) * (1 + h2 / 128), 0.0, "f32")
-
-    compare(
-        "_reduce_keys",
-        lambda: P._reduce_keys(keys3, h2_3),
-        lambda: P._reduce_keys_plain(keys3, h2_3),
-        f"v3 keys [64, {l1p}], h2={h2_3}",
-        reduce_bound(keys3, h2_3),
-        lambda: torch.topk(keys3.view(64, -1, 128), min(h2_3, 128), dim=2),
     )
     # #3 keyed v2 on the v3 core at V2_BATCHES (and at B=100, a batch that is
     # not a multiple of the 64-query tile, checked only), bit-identical
@@ -548,13 +598,16 @@ def kernel_phase(n_docs: int, reps: int, cross: dict) -> dict:
                         (P._fused2_extract_int8_plain(*args),))
             log(f"  _fused2_extract_int8 {what}: bit-identical")
             continue
-        compare(
+        got = compare(
             "_fused2_extract_int8",
             lambda: P._fused2_extract_int8(*args),
             lambda: P._fused2_extract_int8_plain(*args),
             what,
             fused_int8_bound(b, n_pad // 64),
         )
+        if b == 64:
+            keys2_64 = got
+        del got
     # #3 keyed v2 at B = 8, k = 400 (the first core)
     q8, qs = queries(8)
     args = (docs, scales, q8, qs, n_docs)
@@ -565,19 +618,26 @@ def kernel_phase(n_docs: int, reps: int, cross: dict) -> dict:
         "B=8 (v2, k=400)",
         fused_int8_bound(8, n_pad // 64),
     )
-    l1p = -(-keys2.shape[1] // P.REDUCE_BLOCK) * P.REDUCE_BLOCK
-    keys2 = torch.cat(
-        [keys2, keys2.new_zeros((8, l1p - keys2.shape[1]))], dim=1
-    ).contiguous()
-    h2_2 = P._reduce_h2(n_pad, 400)
-    compare(
-        "_reduce_keys",
-        lambda: P._reduce_keys(keys2, h2_2),
-        lambda: P._reduce_keys_plain(keys2, h2_2),
-        f"v2 keys [8, {l1p}], h2={h2_2}",
-        reduce_bound(keys2, h2_2),
-        lambda: torch.topk(keys2.view(8, -1, 128), min(h2_2, 128), dim=2),
+    # #2, the staged finish, on the keys #1 and #3 gave: v3 at B = 64 and
+    # 256 (C = 400), v2 at B = 8 (k = 400) and B = 64 (C = 1,600)
+    finish_cases = (
+        (outs3[64], True, 400), (outs3[256], True, 400),
+        (keys2, False, 400), (keys2_64, False, V2_C),
     )
+    for src, v3, c in finish_cases:
+        finish_checks(compare, src, v3, c, n_docs, gen)
+    del outs3, keys2, keys2_64, finish_cases
+    # #2 past the shared-memory limit, on v2 keys of corpora well past 1M
+    # docs: 8M docs at C = 16,000 (n = 1,000 after one widen: the sort
+    # buffer goes to global scratch), 33.6M docs at C = 1,600 (65,792
+    # winners: a 32-bit column field, the winners go to scratch) and at
+    # C = 20,000 (both go)
+    for b, blocks, c in ((8, 977, 16_000), (4, 4100, V2_C), (2, 4100, 20_000)):
+        n_big = blocks * P.FUSED_BLOCK_N
+        src = finish_input(b, False, n_big, gen, "random")
+        finish_checks(compare, src, False, c, n_big, gen)
+        del src
+        torch.cuda.empty_cache()
     # #4 v1 at B = 8, k = 4000
     compare(
         "_fused_extract_int8",
@@ -993,7 +1053,8 @@ def e2e_phase(n_docs: int, reps: int, work: Path) -> dict:
             log(f"e2e {label}: unprofiled {prof['unprofiled_wall_ms']:.2f} ms "
                 f"(then phases {({k: round(v, 2) for k, v in prof['phases_ms'].items()})} "
                 f"ms); profiled {second['wall_ms']:.2f} ms, kernels "
-                f"{second.get('kernel_ms')} ms (idle share {second['idle_share']})")
+                f"{second.get('kernel_ms')} ms in {second.get('kernel_launches')} "
+                f"launches (idle share {second['idle_share']})")
             for name, k in second.get("top_kernels", {}).items():
                 log(f"  {k['ms']:.3f} ms = {k['launches']} x "
                     f"{k['us_per_launch']:.2f} us  {name}")
@@ -1021,20 +1082,32 @@ def e2e_phase(n_docs: int, reps: int, work: Path) -> dict:
         # hint is shared by every batch size, and a widened hint
         # (C > GUARD_MAX_C) would keep the guarded v3 kernel off for the
         # rest of the run
-        kb_path("int8_kb", fused_int8 + ["_reduce_keys", "_extract"],
+        kb_path("int8_kb", fused_int8 + ["_staged_finish", "_extract"],
                 SHAPES + (("B512_n100", 512, 100),), f32_scan,
                 v3="_fused3_extract_int8", after=loaded)
         # v3 at the fused kernels' batch ceiling, on a KB of its own: the
         # int8 KB's n=100 hint has widened past GUARD_MAX_C by now
-        kb_path("int8_kb_b256", ["_fused3_extract_int8", "_reduce_keys"],
+        kb_path("int8_kb_b256", ["_fused3_extract_int8", "_staged_finish"],
                 (("B256_n100", 256, 100),), f32_scan, v3="_fused3_extract_int8",
                 after=lambda kb, res: profile_call(kb, res, "profiled_B256_n100",
                                                    256, 100))
-        kb_path("bf16_kb", fused_float + ["_reduce_keys"], SHAPES, f32_scan,
+        kb_path("bf16_kb", fused_float + ["_staged_finish"], SHAPES, f32_scan,
                 v3="_fused3_extract", precision="bf16")
         # f32 storage: the pack is its own rescore mirror
-        kb_path("f32_kb", fused_float + ["_reduce_keys"], SHAPES, f32_scan,
+        kb_path("f32_kb", fused_float + ["_staged_finish"], SHAPES, f32_scan,
                 v3="_fused3_extract", precision="f32")
+
+        # the host-finalised rescore: no device mirror; the prescored
+        # candidates are rescored by one BLAS matvec per query over the
+        # pack's host f32 cache (B=64 first: v3 on its first call)
+        def no_mirror(kb, res):
+            if kb.engine.corpus.dev_rescore is not None:
+                raise AssertionError("device_rescore='host' built a device mirror")
+
+        kb_path("host_rescore",
+                ["_fused3_extract_int8", "_fused2_extract_int8", "_staged_finish"],
+                (("B64_n100", 64, 100), ("B8_n100", 8, 100), ("B256_n100", 256, 100)),
+                f32_scan, after=no_mirror, precision="int8", device_rescore="host")
 
         # rescore=False returns raw prescores ('auto' stores bf16): the scan
         # is of the bf16-rounded corpus and queries (f32 dots, TF32 off)
@@ -1206,6 +1279,7 @@ def device_idle_share(fn) -> dict:
         out[window] = {
             "wall_ms": wall_ms,
             "kernel_ms": busy_ms,
+            "kernel_launches": sum(n for _, n in by_name.values()),
             "idle_share": None if busy_ms == 0 else 1.0 - busy_ms / wall_ms,
             "top_kernels": {
                 name[:80]: {"ms": ms, "launches": n, "us_per_launch": ms * 1e3 / n}

@@ -3,8 +3,9 @@
 tree's ``csrc`` (an earlier commit, unpacked with ``git archive``), on one
 CUDA device, on the inputs the main paths give them.
 
-Both libraries are built by ``svs_tpu_torch.ops.kernels.load`` and driven
-through the port's own wrappers.  Each is first held against the plain
+Both libraries are built by ``svs_tpu_torch.ops.kernels.build`` and driven
+through the port's own wrappers (the other tree's launchers bound here, by
+this tree's signatures and its own pass-2 kernel's).  Each is first held against the plain
 PyTorch version (bit for bit; the float v3 kernels on random unit data
 within ``chip_smoke.SCORE_TOL`` at a key-grid edge), then timed in turns
 (old, new, new, old, ...) with ``chip_smoke.time_ms``: device time per
@@ -19,6 +20,15 @@ Cases (``--only``):
 - ``v3``: the guarded v3 kernels (mode 3 of ``csrc/fused_int8.cu`` and
   ``csrc/fused_float.cu``) on 1M x 1536 packs of random unit rows: int8
   at B = 64 and 256, bf16 and f32 at B = 64;
+- ``finish``: the staged finish (#2, ``csrc/reduce_keys.cu``) on the keys
+  of random scores over 1M docs at the main paths' shapes (v3 at B = 64
+  and 256, C = 400; v2 at B = 8, C = 400 and B = 64, C = 1,600), and at
+  the shapes where its buffers pass shared memory (v2 on 8M docs at
+  B = 8, C = 16,000; on 33.6M docs at B = 4, C = 1,600 and B = 2,
+  C = 20,000), against
+  the parent's chain: pass 2 on the other tree's ``svs_reduce_keys``,
+  then the torch sort, gather and decode (the plain version's);
+  ``torch.topk`` of the level-1 keys at the same C is timed beside them;
 - ``v2``: the keyed v2 kernels (mode 2 of the same files) on the same
   packs, int8, bf16 and f32 at B = 8, 16, 64 and 256 (the calls of a
   ``KB`` at C = 1,600; C does not reach the kernel), and at B = 9: 8
@@ -37,6 +47,7 @@ Prints the card's name and power limit, then one JSON line.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 import statistics
 import sys
@@ -44,6 +55,24 @@ from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import chip_smoke as S
+
+
+def load_other(csrc):
+    """Another tree's kernel library, built from ``csrc``, with each of its
+    launchers that this tree also has bound by this tree's signature, and
+    the pass-2 kernel of trees before the staged finish, ``svs_reduce_keys``."""
+    from svs_tpu_torch.ops import kernels
+
+    vp, i = ctypes.c_void_p, ctypes.c_int
+    lib = ctypes.CDLL(str(kernels.build(csrc)))
+    signatures = {**kernels.SIGNATURES, "svs_reduce_keys": ([vp, i, i, i, vp, vp], i)}
+    for name, (argtypes, restype) in signatures.items():
+        if hasattr(lib, name):
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = restype
+    return lib
+
 
 def launching_from(lib, fn):
     """``fn`` with the port's wrappers launching their kernels from ``lib``."""
@@ -127,6 +156,72 @@ def fused_cases(dev, gen, mode):
         torch.cuda.empty_cache()
 
 
+def old_reduce(keys, h2):
+    """Pass 2 alone through the current library's ``svs_reduce_keys`` (the
+    parent trees' #2, ``csrc/reduce_keys.cu`` before the staged finish)."""
+    import torch
+
+    from svs_tpu_torch.ops import kernels
+    from svs_tpu_torch.ops import pallas_extract as P
+
+    b, l1 = keys.shape
+    out = torch.empty((b, (l1 // P.REDUCE_GROUP) * h2), dtype=torch.float32,
+                      device=keys.device)
+    rc = kernels.library().svs_reduce_keys(
+        keys.data_ptr(), b, l1, h2, out.data_ptr(),
+        torch.cuda.current_stream(keys.device).cuda_stream,
+    )
+    kernels.check(rc, "reduce_keys kernel")
+    return out
+
+
+def parent_finish(src, v3, c, h2):
+    """The parent's finish chain: the plain version with its pass 2 on the
+    other tree's kernel (``old_reduce``)."""
+    from svs_tpu_torch.ops import pallas_extract as P
+
+    return P._staged_finish_plain(src, v3, c, h2, old_reduce)
+
+
+def finish_cases(gen):
+    """``(what, calls, plain, check, bound, library)`` of the staged finish
+    (#2) on keys of random scores, at the main paths' shapes over 1M
+    docs and at the three shapes past shared memory: "old" is the
+    parent's chain (pass 2 on the other tree's ``svs_reduce_keys``, then
+    the torch sort, gather and decode of the plain version), "new" the
+    one kernel; ``library`` is ``torch.topk`` of the level-1 keys at the
+    same C."""
+    import torch
+
+    from svs_tpu_torch.ops import pallas_extract as P
+
+    big = 4100 * P.FUSED_BLOCK_N
+    for v3, b, c, n_docs in ((True, 64, 400, 1_000_000), (True, 256, 400, 1_000_000),
+                             (False, 8, 400, 1_000_000), (False, 64, S.V2_C, 1_000_000),
+                             (False, 8, 16_000, 977 * P.FUSED_BLOCK_N),
+                             (False, 4, S.V2_C, big), (False, 2, 20_000, big)):
+        src = S.finish_input(b, v3, n_docs, gen, "random")
+        nb = src.shape[1] // 128
+        if v3:
+            h2 = P._guard_reduce_h2(nb, c)
+            level1 = src.view(b, nb, 128)[:, :, : P.GUARD_KEYS].reshape(b, -1).contiguous()
+        else:
+            h2 = P._reduce_h2(nb * P.FUSED_BLOCK_N, c)
+            level1 = src
+        l1 = level1.shape[1]
+        yield (
+            f"staged finish {'v3' if v3 else 'v2'} keys [{b}, {l1}], h2={h2}, C={c}",
+            {
+                "old": lambda src=src, v3=v3, c=c, h2=h2: parent_finish(src, v3, c, h2),
+                "new": lambda src=src, v3=v3, c=c, h2=h2: P._staged_finish(src, v3, c, h2),
+            },
+            lambda src=src, v3=v3, c=c, h2=h2: P._staged_finish_plain(src, v3, c, h2),
+            lambda got, ref: S.check_exact("staged finish", got, ref),
+            S.bound(b * l1 * 4 + b * c * 8, 0.0, "f32"),
+            lambda level1=level1, c=c: torch.topk(level1, c, dim=1),
+        )
+
+
 def selection_cases(dev, gen):
     """``(what, call, plain, check, bound)`` of the two selection kernels."""
     import torch
@@ -171,7 +266,7 @@ def main() -> int:
     ap.add_argument("--launches", type=int, default=20)
     ap.add_argument("--turns", type=int, default=4,
                     help="timed windows per build and shape, in turns")
-    ap.add_argument("--only", choices=("all", "selection", "v3", "v2"),
+    ap.add_argument("--only", choices=("all", "selection", "v3", "v2", "finish"),
                     action="append", help="the cases to run (default: all)")
     args = ap.parse_args()
 
@@ -185,8 +280,9 @@ def main() -> int:
     card = S.card_line()
     S.log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     with ThreadPoolExecutor(2) as pool:
-        built = pool.map(kernels.load, (args.old.resolve(), kernels._CSRC))
-        libs = dict(zip(("old", "new"), built))
+        old = pool.submit(load_other, args.old.resolve())
+        new = pool.submit(kernels.load)
+        libs = {"old": old.result(), "new": new.result()}
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
@@ -199,12 +295,15 @@ def main() -> int:
         groups.append(fused_cases(dev, gen, 3))
     if only & {"all", "v2"}:
         groups.append(fused_cases(dev, gen, 2))
+    if only & {"all", "finish"}:
+        groups.append(finish_cases(gen))
     result = {"card": card, "shapes": {}}
     for cases in groups:
-        for what, call, plain, check, (bound_ms, bound_by) in cases:
+        for what, call, plain, check, (bound_ms, bound_by), *library in cases:
             ref = plain()
             torch.cuda.synchronize()
-            fns = {name: launching_from(lib, call) for name, lib in libs.items()}
+            calls = call if isinstance(call, dict) else dict.fromkeys(libs, call)
+            fns = {name: launching_from(lib, calls[name]) for name, lib in libs.items()}
             errs = {}
             for name, fn in fns.items():
                 got = fn()
@@ -217,6 +316,10 @@ def main() -> int:
                 for name in names if turn % 2 == 0 else names[::-1]:
                     times[name].append(S.time_ms(fns[name], args.launches))
             rec = {"bound_ms": bound_ms, "bound_by": bound_by}
+            if library:
+                rec["library_ms"] = [S.time_ms(library[0], args.launches)
+                                     for _ in range(args.turns // 2)]
+                S.log(f"{what}: library {[round(t * 1e3, 2) for t in rec['library_ms']]} us")
             for name in names:
                 med = statistics.median(times[name]) if times[name] else None
                 rec[name] = {"ms": times[name], "median_ms": med,

@@ -42,6 +42,7 @@ def packed_from_numpy(
     host_f32: Optional[np.ndarray],
     host_row_map: Optional[np.ndarray],
     device: Union[str, torch.device],
+    mirror: bool = True,
 ) -> PackedCorpus:
     """Upload a host pack and its f32 rescore mirror to ``device``.
 
@@ -49,11 +50,11 @@ def packed_from_numpy(
     with f32 ``host_scales`` ``[n_padded]``, or bf16 / f32 with
     ``host_scales=None``.  ``emb_ids`` int64 ``[n_valid]`` maps pack rows
     to embedding ids; ``host_f32`` ``[n_valid, dim]`` are the exact rows in
-    cache order and ``host_row_map`` the pack-row -> cache-row map
-    (``None`` = identity).  With ``host_f32`` the corpus gets a device
-    mirror for the exact rescore: an upload of those rows, or, for an f32
-    pack, the pack itself.  Without it the corpus has no mirror, which
-    only a ``rescore=False`` engine searches.
+    cache order (the host rescore cache; ``None`` keeps none) and
+    ``host_row_map`` the pack-row -> cache-row map (``None`` = identity).
+    With ``mirror`` the corpus gets a device mirror for the exact rescore:
+    for an f32 pack the pack itself, else an upload of ``host_f32`` (none
+    without it).  Without a mirror the engine rescores on the host.
     """
     if precision not in ("int8", "bf16", "f32"):
         raise ValueError(f"unknown precision: {precision!r}")
@@ -67,24 +68,23 @@ def packed_from_numpy(
         row_scales = torch.from_numpy(
             np.ascontiguousarray(host_scales, np.float32)
         ).to(device)
-    dev_rescore = None
-    dev_emb = None
     host_cache = None
     if host_f32 is not None:
-        host_f32 = np.asarray(host_f32, dtype=np.float32)
-        host_cache = (host_f32, host_row_map)
-        if precision == "f32":
-            dev_rescore = (data, None)
-        else:
-            dev_f32 = torch.from_numpy(np.ascontiguousarray(host_f32)).to(device)
-            dev_map = (
-                torch.from_numpy(np.asarray(host_row_map, dtype=np.int64)).to(device)
-                if host_row_map is not None
-                else None
-            )
-            dev_rescore = (dev_f32, dev_map)
-        if n_valid == 0 or int(emb_ids.max()) < 2**31:
-            dev_emb = torch.from_numpy(emb_ids.astype(np.int32)).to(device)
+        host_cache = (np.asarray(host_f32, dtype=np.float32), host_row_map)
+    dev_rescore = None
+    if mirror and precision == "f32":
+        dev_rescore = (data, None)
+    elif mirror and host_cache is not None:
+        dev_f32 = torch.from_numpy(np.ascontiguousarray(host_cache[0])).to(device)
+        dev_map = (
+            torch.from_numpy(np.asarray(host_row_map, dtype=np.int64)).to(device)
+            if host_row_map is not None
+            else None
+        )
+        dev_rescore = (dev_f32, dev_map)
+    dev_emb = None
+    if dev_rescore is not None and (n_valid == 0 or int(emb_ids.max()) < 2**31):
+        dev_emb = torch.from_numpy(emb_ids.astype(np.int32)).to(device)
     return PackedCorpus(
         data=data,
         row_scales=row_scales,

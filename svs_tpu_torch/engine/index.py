@@ -12,7 +12,11 @@
   candidates plus a boundary bound;
 - **final selection** — gather the candidates' exact f32 rows from the
   device mirror, f32 dots, and the reference tie rule, emitting one
-  ``[B, 2n + 1]`` int32 wire per batch;
+  ``[B, 2n + 1]`` int32 wire per batch; without a mirror
+  (``device_rescore='host'``, a corpus over
+  ``SVS_TPU_DEVICE_RESCORE_MAX_BYTES``, or a gather over
+  ``_DEVICE_GATHER_MAX_BYTES``) :meth:`RetrievalEngine.topk_with_rescore`
+  returns the prescored candidates and the KB rescores them on the host;
 - **candidate sizing** — the width hints of the widen-and-retry loops;
 - **pairwise** — the top pairs of the corpus (keyed candidates or the
   exact blocked pass, ``ops.pairwise``), their bound ``pairwise_eps`` and
@@ -20,8 +24,7 @@
 
 Not ported yet (``ROADMAP.md``): the host route and two-pass host search,
 hedged fetches and RPC-floor probes, incremental append/delete, sidecars,
-calibration, meshes and replicas, the subset corpus of filtered pairwise,
-``device_rescore='host'`` and the host-finalised ``topk_with_rescore``.
+calibration, meshes and replicas, the subset corpus of filtered pairwise.
 """
 
 from __future__ import annotations
@@ -42,6 +45,7 @@ from .packing import (
     PackedCorpus,
     pack_host,
     pad_queries,
+    rescore_cache_limit,
 )
 
 log = logging.getLogger(__name__)
@@ -55,13 +59,41 @@ CANDIDATE_MIN_EXTRA = 32
 #: from indices-as-f32-values to the int32 layout.
 WIDE_INDEX_MIN_ROWS = 1 << 24
 
-#: Ceiling on the [b, C, d] f32 candidate gather of one rescore step; a
-#: batch whose gather exceeds it is rescored in query slices.
+#: Ceiling on the [B, C, d] f32 candidate gather of a device rescore; a
+#: batch whose gather exceeds it is rescored on the host, as the
+#: reference routes it.
 _DEVICE_GATHER_MAX_BYTES = 4_000_000_000
 
 #: Default ceiling on the f32 rescore mirror (bytes); env override
 #: ``SVS_TPU_DEVICE_RESCORE_MAX_BYTES`` as in the reference.
 _DEVICE_RESCORE_MAX_BYTES = 8_000_000_000
+
+
+def _rescore_from_packed(
+    packed: torch.Tensor,
+    dev_f32: torch.Tensor,
+    dev_map: Optional[torch.Tensor],
+    queries: torch.Tensor,
+    wide: bool,
+    dim: Optional[int] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Exact f32 rescore chained onto the packed prescore wire (C
+    candidates): gather the candidates' f32 rows from the mirror and take
+    true-f32 dots (one ``bmm``, TF32 off).  Returns ``(rows int64 [B, C],
+    exact f32 [B, C], boundary-prescore bits int32 [B, 1])``.
+
+    The gather clamps candidate rows into the mirror, as the reference's
+    gathers clamp: a starved guarded pool may name padding rows, and its
+    bound is +inf then, so those rows never pass the margin check."""
+    if dim is not None and dim != queries.shape[1]:
+        queries = queries[:, :dim]
+    rows, tail_bits = unpack_rows_tail(packed, packed.shape[1] // 2, wide)
+    rows = rows.to(torch.int64)
+    at = rows.clamp(0, dev_f32.shape[0] - 1)
+    cand = dev_f32[at if dev_map is None else dev_map[at]]  # [B, C, d]
+    with exact_f32():
+        exact = torch.bmm(cand, queries[:, :, None].to(torch.float32))[:, :, 0]
+    return rows, exact, tail_bits
 
 
 def _final_from_packed(
@@ -74,24 +106,14 @@ def _final_from_packed(
     wide: bool,
     dim: Optional[int] = None,
 ) -> torch.Tensor:
-    """Exact rescore AND final top-k selection chained onto the packed
-    prescore wire (C candidates): gather the candidates' f32 rows from
-    the mirror, take true-f32 dots (one ``bmm``, TF32 off), and order them
-    with the reference tie rule.  Returns the int32 wire ``[B, 2k + 1]``:
-    top-k emb ids ++ top-k exact score bits ++ boundary-prescore bits.
-
-    Candidate rows are clamped into the mirror, as the reference's gathers
-    clamp: a starved guarded pool may name padding rows, and its bound is
-    +inf then, so those rows never pass the margin check."""
-    if dim is not None and dim != queries.shape[1]:
-        queries = queries[:, :dim]
-    rows, tail_bits = unpack_rows_tail(packed, packed.shape[1] // 2, wide)
-    rows = rows.to(torch.int64).clamp(0, dev_emb.shape[0] - 1)
-    gr = rows if dev_map is None else dev_map[rows]
-    cand = dev_f32[gr]  # [B, C, d]
-    with exact_f32():
-        exact = torch.bmm(cand, queries[:, :, None].to(torch.float32))[:, :, 0]
-    emb_of = dev_emb[rows]
+    """Exact rescore (:func:`_rescore_from_packed`) AND final top-k
+    selection with the reference tie rule.  Returns the int32 wire
+    ``[B, 2k + 1]``: top-k emb ids ++ top-k exact score bits ++
+    boundary-prescore bits."""
+    rows, exact, tail_bits = _rescore_from_packed(
+        packed, dev_f32, dev_map, queries, wide, dim=dim
+    )
+    emb_of = dev_emb[rows.clamp(0, dev_emb.shape[0] - 1)]
     return final_select_wire(exact, emb_of, tail_bits, k)
 
 
@@ -142,11 +164,6 @@ class RetrievalEngine:
             raise ValueError(
                 "kernel='pallas' requires float storage (f32/bf16); int8 "
                 "corpora use the exact int8 path — pass kernel='auto'"
-            )
-        if device_rescore == "host":
-            raise NotImplementedError(
-                "device_rescore='host' (host-finalised rescore) is not "
-                "ported to svs_tpu_torch yet"
             )
         #: The reference's names: 'auto' takes the hand-written kernels
         #: where the shapes allow and the exact scan otherwise; 'xla' keeps
@@ -253,12 +270,21 @@ class RetrievalEngine:
         budget = env_int(
             "SVS_TPU_DEVICE_RESCORE_MAX_BYTES", _DEVICE_RESCORE_MAX_BYTES
         )
-        # the rescore mirror: none without the rescore; an f32 pack is its
-        # own (no second copy, no budget); else the f32 rows within budget
-        mirror = None
-        if self.rescore and budget > 0:
-            if self.precision == "f32" or 0 < cache.nbytes <= budget or n == 0:
-                mirror = cache
+        # the host f32 cache within SVS_TPU_RESCORE_CACHE_MAX_BYTES (past
+        # it the host rescore reads rows from the store); the device
+        # mirror only under the device rescore: an f32 pack is its own (no
+        # second copy, no budget), else the host cache within budget
+        if cache.nbytes > rescore_cache_limit():
+            cache = row_map = None
+        mirror = (
+            self.rescore
+            and self.device_rescore != "host"
+            and budget > 0
+            and (
+                self.precision == "f32"
+                or (cache is not None and (0 < cache.nbytes <= budget or n == 0))
+            )
+        )
         return packed_from_numpy(
             data,
             scales,
@@ -268,9 +294,10 @@ class RetrievalEngine:
             version,
             self.precision,
             float(scales[:n].max()) if scales is not None and n > 0 else 0.0,
-            mirror,
+            cache,
             row_map,
             self.device,
+            mirror=mirror,
         )
 
     # -- search ---------------------------------------------------------------
@@ -279,9 +306,15 @@ class RetrievalEngine:
         """Dispatch counters surfaced through ``kb.stats()['dispatch']``."""
         return {"widen_retries": float(self.widen_retries)}
 
+    def _gather_fits(self, b: int, c: int, dev_f32: torch.Tensor) -> bool:
+        """Whether the ``[b, c, d]`` f32 candidate gather of a device
+        rescore stays within ``_DEVICE_GATHER_MAX_BYTES`` (``d`` the
+        mirror's width: an f32 pack's mirror is ``dim_padded`` wide)."""
+        return b * c * int(dev_f32.shape[1]) * 4 <= _DEVICE_GATHER_MAX_BYTES
+
     def topk_final(
         self, corpus: PackedCorpus, queries: np.ndarray, n: int, c: int
-    ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    ) -> Optional[Tuple[np.ndarray, np.ndarray, np.ndarray]]:
         """The on-device batch pipeline: prescore (``c`` candidates) ->
         exact f32 rescore -> final top-``n`` with the reference tie rule;
         one query upload, one compact ``[B, 2n+1]`` fetch.
@@ -289,18 +322,19 @@ class RetrievalEngine:
         Returns ``(emb_ids int64 [B, n'], scores f32 [B, n'], boundary f32
         [B])`` with ``n' = min(n, c, n_valid)``.  The caller proves
         exactness via ``scores[:, -1] >= boundary + prescore_eps`` and
-        widens ``c`` on failure.
+        widens ``c`` on failure.  ``None`` when the corpus has no device
+        mirror (or no int32 emb-id mirror) or the ``[B, C, d]`` gather is
+        over ``_DEVICE_GATHER_MAX_BYTES``: the caller then takes
+        :meth:`topk_with_rescore` and the host's selection.
         """
         dev = corpus.dev_rescore
         if dev is None or corpus.dev_emb is None:
-            raise NotImplementedError(
-                "this corpus has no device f32 mirror (over "
-                "SVS_TPU_DEVICE_RESCORE_MAX_BYTES, or emb ids past int32); "
-                "the host-finalised rescore is not ported to svs_tpu_torch yet"
-            )
+            return None
         queries = np.atleast_2d(np.asarray(queries, dtype=np.float32))
         b = queries.shape[0]
         c_eff = min(int(c), corpus.n_valid)
+        if not self._gather_fits(b, c_eff, dev[0]):
+            return None
         n_eff = min(int(n), c_eff)
         if n_eff <= 0:
             return (
@@ -313,25 +347,47 @@ class RetrievalEngine:
         )
         packed_dev, wide = self._prescore_packed(corpus, q_dev, c_eff)
         dim = corpus.dim if int(dev[0].shape[1]) == corpus.dim else None
-        step = max(1, _DEVICE_GATHER_MAX_BYTES // (c_eff * int(dev[0].shape[1]) * 4))
-        wires = [
-            _final_from_packed(
-                packed_dev[lo : lo + step],
-                dev[0],
-                dev[1],
-                corpus.dev_emb,
-                q_dev[lo : lo + step],
-                n_eff,
-                wide,
-                dim=dim,
-            )
-            for lo in range(0, b, step)
-        ]
-        arr = torch.cat(wires, dim=0).cpu().numpy()
+        wire = _final_from_packed(
+            packed_dev, dev[0], dev[1], corpus.dev_emb, q_dev, n_eff, wide,
+            dim=dim,
+        )
+        arr = wire.cpu().numpy()
         emb = arr[:, :n_eff].astype(np.int64)
         scores = np.ascontiguousarray(arr[:, n_eff : 2 * n_eff]).view(np.float32)
         boundary = np.ascontiguousarray(arr[:, 2 * n_eff]).view(np.float32)
         return emb, scores, boundary
+
+    def topk_with_rescore(
+        self, corpus: PackedCorpus, queries: np.ndarray, k: int
+    ) -> Tuple[np.ndarray, np.ndarray, Optional[np.ndarray]]:
+        """:meth:`topk` plus, when the corpus has a device mirror and the
+        ``[B, k, d]`` gather fits, the exact f32 scores of every candidate,
+        gathered and dotted on the device: ``(pre_vals, rows, exact)``.
+        Then ``pre_vals`` is the boundary prescore broadcast to ``[B, k]``
+        (the margin proof reads its last column; the exact scores
+        supersede the rest).  Otherwise ``(pre_vals f32, rows int64,
+        None)`` from :meth:`topk` and the caller rescores on the host."""
+        dev = corpus.dev_rescore
+        queries = np.atleast_2d(np.asarray(queries, dtype=np.float32))
+        b = queries.shape[0]
+        k_eff = min(int(k), corpus.n_valid)
+        if dev is None or not self._gather_fits(b, k_eff, dev[0]):
+            vals, rows = self.topk(corpus, queries, k)
+            return vals, rows, None
+        if k_eff <= 0:
+            empty = np.zeros((b, 0), dtype=np.float32)
+            return empty, np.zeros((b, 0), dtype=np.int64), empty
+        q_dev = torch.from_numpy(pad_queries(queries, corpus.dim_padded)).to(
+            corpus.device
+        )
+        packed_dev, wide = self._prescore_packed(corpus, q_dev, k_eff)
+        dim = corpus.dim if int(dev[0].shape[1]) == corpus.dim else None
+        rows, exact, tail_bits = _rescore_from_packed(
+            packed_dev, dev[0], dev[1], q_dev, wide, dim=dim
+        )
+        exact_np = exact.cpu().numpy()
+        tail = tail_bits[:, 0].cpu().numpy().view(np.float32)
+        return np.broadcast_to(tail[:, None], exact_np.shape), rows.cpu().numpy(), exact_np
 
     def topk(
         self, corpus: PackedCorpus, queries: np.ndarray, k: int

@@ -36,6 +36,18 @@ _PERMUTE_SEED = 0xC0FFEE
 #: temporaries at ~400 MB for d = 1536).
 _QUANT_CHUNK_ROWS = 1 << 16
 
+#: Keep the f32 scan matrix on the host (the rescore's gather source) up to
+#: this many bytes; beyond it the rescore fetches rows from the store.  The
+#: default (16 GB ~ 2.6M docs at dim 1536) is the reference's.
+_RESCORE_CACHE_DEFAULT = 16_000_000_000
+
+
+def rescore_cache_limit() -> int:
+    """``SVS_TPU_RESCORE_CACHE_MAX_BYTES``, default 16 GB."""
+    from ..utils.env import env_int
+
+    return env_int("SVS_TPU_RESCORE_CACHE_MAX_BYTES", _RESCORE_CACHE_DEFAULT)
+
 
 def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m

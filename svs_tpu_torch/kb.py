@@ -9,7 +9,11 @@ Retrieval runs the reference pipeline on one CUDA device:
    (``precision='auto'``), or bf16 / f32 — and proposes an
    over-provisioned candidate set per query (fused selection kernels);
 2. the candidates are rescored in exact f32 from a device mirror of the
-   stored vectors and selected with the reference tie rule;
+   stored vectors and selected with the reference tie rule — or, with
+   ``device_rescore='host'`` (reference-bit-identical scores) or a corpus
+   whose f32 rows pass ``SVS_TPU_DEVICE_RESCORE_MAX_BYTES``, on the host
+   from the pack's f32 cache (from SQLite past
+   ``SVS_TPU_RESCORE_CACHE_MAX_BYTES``);
 3. the margin check against ``prescore_eps`` proves the candidate set
    covered the true top-n — otherwise the candidates widen 4x and the
    search retries — and the winners are hydrated from SQLite.
@@ -33,8 +37,8 @@ repacks from a full rescan and never returns a deleted row.
 
 Not ported yet: ``AsyncKB``, metadata filters (``where=``, also on the
 pairwise call), sidecars (``sidecar=True``, ``close(write_sidecar=True)``;
-``load()`` writes none), incremental repacks, meshes, replicas, the host
-search route and ``device_rescore='host'``.  Where a call needs one of
+``load()`` writes none), incremental repacks, meshes, replicas and the host
+search route.  Where a call needs one of
 them it raises ``NotImplementedError`` naming what is missing.
 """
 
@@ -351,6 +355,70 @@ def _finalize_device_final(
         if np.any(v_k < boundary + np.asarray(pre_eps)):
             return None
     return _hydrate_and_mint(tx, emb, scores, doc_cache)
+
+
+def _finalize_batch(
+    tx: Tx,
+    corpus: PackedCorpus,
+    vectors: np.ndarray,
+    pre_vals: np.ndarray,
+    pre_rows: np.ndarray,
+    k: int,
+    pre_eps: Optional[np.ndarray],
+    doc_cache: Optional[DocRowCache] = None,
+    device_exact: Optional[np.ndarray] = None,
+) -> Optional[List[List[Retrieval]]]:
+    """The reference's host-finalised rescore: exact f32 scores of the
+    candidates ``pre_rows`` (pack rows), the reference tie rule, the
+    margin proof, hydration.
+
+    The scores are ``device_exact`` when the engine rescored on the
+    device; else one BLAS matvec per query over the rows gathered from the
+    pack's host f32 cache (``host_f32[rows] @ q``, the reference's own
+    call, so the scores are bit-identical to it); without a host cache,
+    over the rows of one ``fetch_embedding_rows`` of the union of
+    candidates.  Returns ``None`` when some query's k-th exact score does
+    not clear the boundary prescore ``pre_vals[:, -1]`` by ``pre_eps``
+    (unless every document was a candidate): the caller widens."""
+    n_queries = vectors.shape[0]
+    if pre_rows.size == 0:
+        return [[] for _ in range(n_queries)]
+    c_count = pre_rows.shape[1]
+    k_eff = min(k, c_count)
+    vec32 = vectors.astype(np.float32, copy=False)
+    if device_exact is not None:
+        exact = np.asarray(device_exact, dtype=np.float32)
+    elif corpus.host_f32 is not None:
+        exact = np.empty((n_queries, c_count), dtype=np.float32)
+        hf, rm = corpus.host_f32, corpus.host_row_map
+        for b in range(n_queries):
+            rows_b = pre_rows[b] if rm is None else rm[pre_rows[b]]
+            exact[b] = hf[rows_b] @ vec32[b]
+    else:
+        exact = np.empty((n_queries, c_count), dtype=np.float32)
+        unique_rows = np.unique(pre_rows)
+        sub_matrix = tx.fetch_embedding_rows(corpus.emb_ids[unique_rows])
+        pos_arr = np.searchsorted(unique_rows, pre_rows)  # [B, C]
+        for b in range(n_queries):
+            exact[b] = sub_matrix[pos_arr[b]] @ vec32[b]
+    # the reference tie rule: equal scores break to the LARGER emb id, so
+    # order the candidates by emb id, then a reversed stable argsort
+    emb_of = corpus.emb_ids[pre_rows]  # [B, C]
+    id_order = np.argsort(emb_of, axis=1, kind="stable")
+    exact_o = np.take_along_axis(exact, id_order, axis=1)
+    rows_o = np.take_along_axis(pre_rows, id_order, axis=1)
+    rev = exact_o[:, ::-1]
+    order_rev = np.argsort(-rev, axis=1, kind="stable")[:, :k_eff]
+    order = c_count - 1 - order_rev
+    top_scores = np.take_along_axis(exact_o, order, axis=1)
+    top_rows = np.take_along_axis(rows_o, order, axis=1)
+    if pre_eps is not None and c_count < corpus.n_valid and k_eff > 0:
+        # no non-candidate's true score can pass its prescore (at most the
+        # boundary) plus the error bound
+        v_k = top_scores[:, k_eff - 1]
+        if np.any(v_k < pre_vals[:, -1] + np.asarray(pre_eps)):
+            return None
+    return _hydrate_and_mint(tx, corpus.emb_ids[top_rows], top_scores, doc_cache)
 
 
 def _finalize_prescores(
@@ -889,17 +957,29 @@ class KB:
             # term) depends on the current c
             pre_eps = self.engine.prescore_eps(corpus, vectors, c)
             with phase("device_search", self._stats), profiler_trace("retrieve"):
-                emb, scores, boundary = self.engine.topk_final(
-                    corpus, vectors, n, c
-                )
+                final = self.engine.topk_final(corpus, vectors, n, c)
+                if final is None:
+                    # no device mirror, or a gather past its ceiling: the
+                    # host rescores the prescored candidates
+                    pre_vals, pre_rows, dev_exact = self.engine.topk_with_rescore(
+                        corpus, vectors, c
+                    )
             with phase("finalize", self._stats), self._lock:
                 db = self._require_db()
                 with db.transaction() as tx:
-                    results = _finalize_device_final(
-                        tx, corpus, emb, scores, boundary,
-                        min(c, corpus.n_valid), pre_eps,
-                        doc_cache=self._doc_cache,
-                    )
+                    if final is not None:
+                        emb, scores, boundary = final
+                        results = _finalize_device_final(
+                            tx, corpus, emb, scores, boundary,
+                            min(c, corpus.n_valid), pre_eps,
+                            doc_cache=self._doc_cache,
+                        )
+                    else:
+                        results = _finalize_batch(
+                            tx, corpus, vectors, pre_vals, pre_rows, n,
+                            pre_eps, doc_cache=self._doc_cache,
+                            device_exact=dev_exact,
+                        )
             if results is not None:
                 self.engine.record_candidates(n, c, widened=(c != c0))
                 return results

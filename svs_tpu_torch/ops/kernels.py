@@ -101,24 +101,36 @@ def _build(target: Path, csrc: Path) -> None:
     build_seconds = time.perf_counter() - t0
 
 
-def load(csrc: Path = _CSRC) -> ctypes.CDLL:
+#: The C interface of this tree's ``csrc``: argument types of each launcher
+#: (each returns a ``cudaError_t`` as int).
+_vp, _i, _sz, _ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_size_t, ctypes.c_longlong
+SIGNATURES = {
+    "svs_fused_int8": ([_i, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _vp, _vp, _vp], _i),
+    "svs_fused_float": ([_i, _i, _vp, _vp, _i, _i, _i, _i, _vp, _vp, _vp], _i),
+    "svs_staged_finish_scratch": ([_i, _i, _i, _i, _i], _ll),
+    "svs_staged_finish": ([_vp, _i, _i, _i, _i, _i, _vp, _vp, _vp, _vp, _sz, _vp], _i),
+    "svs_extract": ([_vp, _i, _i, _vp, _vp, _vp], _i),
+    "svs_pair_keys": ([_vp, _i, _i, _vp, _vp], _i),
+}
+
+
+def build(csrc: Path = _CSRC) -> Path:
     """The library of the sources in ``csrc`` (the package's own, or the
-    same files from another tree), built first if needed, and loaded."""
+    same files from another tree), built first if needed."""
     path = library_path(csrc)
     if not path.exists():
         _build(path, csrc)
-    lib = ctypes.CDLL(str(path))
-    vp, i = ctypes.c_void_p, ctypes.c_int
-    lib.svs_fused_int8.argtypes = [i, vp, vp, vp, vp, i, i, i, i, vp, vp, vp]
-    lib.svs_fused_int8.restype = i
-    lib.svs_fused_float.argtypes = [i, i, vp, vp, i, i, i, i, vp, vp, vp]
-    lib.svs_fused_float.restype = i
-    lib.svs_reduce_keys.argtypes = [vp, i, i, i, vp, vp]
-    lib.svs_reduce_keys.restype = i
-    lib.svs_extract.argtypes = [vp, i, i, vp, vp, vp]
-    lib.svs_extract.restype = i
-    lib.svs_pair_keys.argtypes = [vp, i, i, vp, vp]
-    lib.svs_pair_keys.restype = i
+    return path
+
+
+def load(csrc: Path = _CSRC) -> ctypes.CDLL:
+    """The library of the sources in ``csrc``, built first if needed, with
+    every launcher of :data:`SIGNATURES` bound (a missing one raises)."""
+    lib = ctypes.CDLL(str(build(csrc)))
+    for name, (argtypes, restype) in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = restype
     return lib
 
 

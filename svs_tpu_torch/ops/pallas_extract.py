@@ -9,7 +9,9 @@ Pallas kernels are CUDA C++ here (``svs_tpu_torch/csrc``):
   bf16/f32 (``_fused3_int8_kernel``, ``_fused3_kernel``);
 - ``_fused2_extract_int8`` / ``_fused2_extract`` — keyed v2;
 - ``_fused_extract_int8`` / ``_fused_extract`` — v1 values + indices;
-- ``_reduce_keys`` — pass-2 reduction (``_make_reduce_kernel``);
+- ``_staged_finish`` — pass-2 reduction (``_make_reduce_kernel``), with
+  the top-C merge and the decode of the v2 finish and of v3's staged
+  finish folded into the same launch;
 - ``_extract`` — the two-pass top-8 over a precomputed score matrix
   (``_extract_kernel``), for batches above ``FUSED_MAX_BATCH`` and the
   exact pairwise pass's per-row selection;
@@ -19,9 +21,9 @@ Pallas kernels are CUDA C++ here (``svs_tpu_torch/csrc``):
 Each wrapper launches its kernel for CUDA tensors (or raises) and takes
 its plain-torch twin (``*_plain``, one torch op per JAX op, so nothing is
 contracted) only for CPU tensors.  Each wrapper counts its launches in a
-plain int attribute, ``<wrapper>.launches``.  The finishes around the
-kernels (merge, decode, coverage proof, bound) are plain torch, as the
-reference leaves them to XLA.
+plain int attribute, ``<wrapper>.launches``.  The other finishes (v1's
+verified merge, v3's unstaged merge) are plain torch, as the reference
+leaves them to XLA.
 
 Every key encoding, bias, grid, subtile width, H value and dead marker is
 the reference's, so ``KEY_EPS``, ``GUARD_KEY_EPS`` and the engine's
@@ -627,42 +629,16 @@ _fused2_extract_int8.launches = 0  # type: ignore[attr-defined]
 
 
 def _reduce_keys_plain(keys: torch.Tensor, h2: int) -> torch.Tensor:
-    """Plain-torch twin of ``_make_reduce_kernel(h2)``: re-key every
-    128-lane group by position, ``floor(k / 128) * 128 + pos``, and take
-    its top-``h2`` by iterated max-and-clear (clear value -2^24)."""
+    """Pass 2 in plain torch (``_make_reduce_kernel(h2)``; on the card it
+    runs inside :func:`_staged_finish`): re-key every 128-lane group by
+    position, ``floor(k / 128) * 128 + pos``, and take its top-``h2`` by
+    iterated max-and-clear (clear value -2^24)."""
     b, l1 = keys.shape
     groups = l1 // REDUCE_GROUP
     lane = torch.arange(REDUCE_GROUP, device=keys.device).to(torch.float32)
     grp = keys.view(b, groups, REDUCE_GROUP)
     k2 = torch.floor(grp * (1.0 / float(REDUCE_GROUP))) * float(REDUCE_GROUP) + lane
     return _extract_keys(k2, h2, dead=-(2.0**24)).reshape(b, groups * h2)
-
-
-def _reduce_keys(keys: torch.Tensor, h2: int) -> torch.Tensor:
-    """Top-``h2`` (as re-packed keys) of every 128-lane group of ``keys``.
-    Requires ``keys.shape[1] % REDUCE_BLOCK == 0`` and ``h2 % 8 == 0``."""
-    b, l1 = keys.shape
-    if l1 % REDUCE_BLOCK or h2 % 8 or h2 <= 0:
-        raise ValueError(f"_reduce_keys: bad shape l1={l1}, h2={h2}")
-    if not keys.is_cuda:
-        return _reduce_keys_plain(keys, h2)
-    from . import kernels
-
-    if keys.dtype != torch.float32 or not keys.is_contiguous():
-        raise ValueError("_reduce_keys needs contiguous f32 keys")
-    out = torch.empty(
-        (b, (l1 // REDUCE_GROUP) * h2), dtype=torch.float32, device=keys.device
-    )
-    stream = torch.cuda.current_stream(keys.device).cuda_stream
-    rc = kernels.library().svs_reduce_keys(
-        keys.data_ptr(), b, l1, h2, out.data_ptr(), stream
-    )
-    kernels.check(rc, "reduce_keys kernel")
-    _reduce_keys.launches += 1  # type: ignore[attr-defined]
-    return out
-
-
-_reduce_keys.launches = 0  # type: ignore[attr-defined]
 
 
 def _reduce_h2(n: int, k: int) -> int:
@@ -697,41 +673,16 @@ def fused2_supported(n: int, d: int, b: int, k: int) -> bool:
 def _fused2_finish(
     keys1: torch.Tensor, k: int, h2: int, b_real: int
 ) -> Tuple[torch.Tensor, torch.Tensor, bool]:
-    """Pass-2 + merge + decode + coverage for the keyed kernels.  Returns
-    ``(vals, idx, covered)`` over the padded batch; coverage is judged on
-    the first ``b_real`` rows only (zero-padded query rows tie)."""
-    b_pad, l1 = keys1.shape
-    l1p = ((l1 + REDUCE_BLOCK - 1) // REDUCE_BLOCK) * REDUCE_BLOCK
-    keys1p = keys1 if l1p == l1 else torch.cat(
-        [keys1, keys1.new_zeros((b_pad, l1p - l1))], dim=1
+    """Pass-2 + merge + decode + coverage for the keyed kernels (one
+    :func:`_staged_finish` launch).  Returns ``(vals, idx, covered)`` over
+    the padded batch; coverage is judged on the first ``b_real`` rows only
+    (zero-padded query rows tie), the domain guard on every row, and the
+    one host decision on ``covered`` is the reference's ``bool(covered)``."""
+    vals, idx, flags = _staged_finish(keys1, False, k, h2)
+    failed = torch.logical_or(
+        torch.any(flags[:b_real] & 1 != 0), torch.any(flags & 2 != 0)
     )
-    keys2 = _reduce_keys(keys1p, h2)
-    sel_keys, sel_cols = top_k(keys2, k)
-    k2i = sel_keys.to(torch.int32)
-    vals = _key_vals(sel_keys)
-    lane2 = k2i - torch.div(k2i, REDUCE_GROUP, rounding_mode="floor") * REDUCE_GROUP
-    pos = torch.div(sel_cols, h2, rounding_mode="floor") * REDUCE_GROUP + lane2
-    k1i = torch.gather(keys1p, 1, pos).to(torch.int32)
-    lanes = int(_KEY_LANES)
-    lane1 = k1i - torch.div(k1i, lanes, rounding_mode="floor") * lanes
-    jb = torch.div(pos, _FUSED_OUT_LANES, rounding_mode="floor")
-    cb = pos - jb * _FUSED_OUT_LANES
-    s = torch.div(cb, EXTRACT_H, rounding_mode="floor")
-    idx = (jb * FUSED_BLOCK_N + s * FUSED_SUBTILE + lane1).to(torch.int32)
-    v_k = vals[:b_real, k - 1 : k]
-    tails1 = _key_vals(keys1[:b_real, EXTRACT_H - 1 :: EXTRACT_H])
-    tails2 = _key_vals(keys2[:b_real, h2 - 1 :: h2])
-    hidden = torch.logical_or(
-        torch.any(tails1 > v_k - KEY_EPS), torch.any(tails2 > v_k - KEY_EPS)
-    )
-    # Domain guard: a LIVE key at the rounding horizon has lost lane bits
-    # (KEY_DEAD markers from tail-padding subtiles are expected and pass).
-    live_min = torch.min(torch.where(keys1 == KEY_DEAD, 0.0, keys1))
-    in_range = torch.logical_and(
-        torch.max(keys1) < KEY_HORIZON, live_min > -KEY_HORIZON
-    )
-    covered = torch.logical_and(torch.logical_not(hidden), in_range)
-    return vals, idx, bool(covered)
+    return vals, idx, not bool(failed)
 
 
 def fused2_topk_int8(
@@ -974,55 +925,161 @@ def _fused3_finish(
     docstring for the soundness argument).  Returns ``(vals f32 [B, c],
     rows int32 [B, c], bound f32 [B])`` over the padded batch; ``bound``
     is +inf when key saturation or a starved pool makes it untrustworthy.
-    ``b_real`` is unused, as in the reference (the bound is per row)."""
+    ``b_real`` is unused, as in the reference (the bound is per row).
+    At ``GUARD_STAGE_MIN_BLOCKS`` blocks and more the finish is one
+    :func:`_staged_finish` launch; below, one ``top_k`` over all keys."""
     del b_real
     b_pad = out.shape[0]
     nb = out.shape[1] // _GUARD_OUT_LANES
+    h2 = _guard_reduce_h2(nb, c)
+    if nb >= GUARD_STAGE_MIN_BLOCKS and h2 <= 48:
+        return _staged_finish(out, True, c, h2)
     o3 = out.view(b_pad, nb, _GUARD_OUT_LANES)
     keys = o3[:, :, :GUARD_KEYS].reshape(b_pad, nb * GUARD_KEYS)
-    h2 = _guard_reduce_h2(nb, c)
-    staged = nb >= GUARD_STAGE_MIN_BLOCKS and h2 <= 48
+    sel, cols = top_k(keys, c)
+    ki = sel.to(torch.int32)
+    lane = ki - torch.div(ki, GUARD_SUBTILE, rounding_mode="floor") * GUARD_SUBTILE
+    vals = _guard_key_vals(sel)
+    rows = _guard_rows(cols, lane, nb)
+    bound = torch.maximum(
+        _guard_key_vals(torch.amax(o3[:, :, GUARD_KEYS], dim=1)), vals[:, -1]
+    )
+    return vals, rows, _guard_refuse(bound, sel[:, 0], sel[:, -1] <= KEY_DEAD)
 
-    if staged:
-        l1 = nb * GUARD_KEYS
-        l1p = ((l1 + REDUCE_BLOCK - 1) // REDUCE_BLOCK) * REDUCE_BLOCK
-        # pad with KEY_DEAD (not zeros): see the reference's comment
-        keys1p = keys if l1p == l1 else torch.cat(
-            [keys, keys.new_full((b_pad, l1p - l1), KEY_DEAD)], dim=1
-        )
-        keys2 = _reduce_keys(keys1p, h2)
-        sel, cols2 = top_k(keys2, c)
-        k2i = sel.to(torch.int32)
-        lane2 = k2i - torch.div(k2i, REDUCE_GROUP, rounding_mode="floor") * REDUCE_GROUP
-        pos = torch.div(cols2, h2, rounding_mode="floor") * REDUCE_GROUP + lane2
-        k1i = torch.gather(keys1p, 1, pos).to(torch.int32)
-        vals = _guard_key_vals(sel)
-        lane = k1i - torch.div(k1i, GUARD_SUBTILE, rounding_mode="floor") * GUARD_SUBTILE
-        cols = pos
-        sat_key = torch.amax(keys, dim=1)
-        dead_sel = torch.amin(k1i, dim=1).to(torch.float32) <= KEY_DEAD
-        stage_tail = torch.amax(keys2[:, h2 - 1 :: h2], dim=1)
-    else:
-        sel, cols = top_k(keys, c)
-        ki = sel.to(torch.int32)
-        lane = ki - torch.div(ki, GUARD_SUBTILE, rounding_mode="floor") * GUARD_SUBTILE
-        vals = _guard_key_vals(sel)
-        sat_key = sel[:, 0]
-        dead_sel = sel[:, -1] <= KEY_DEAD
-        stage_tail = None
 
+def _guard_rows(cols: torch.Tensor, lane: torch.Tensor, nb: int) -> torch.Tensor:
+    """Doc rows of guarded key columns ``cols`` (of the ``nb * 32`` key
+    lanes) with in-subtile lanes ``lane``, clamped into the corpus (a
+    dead selection may name a padding position; its bound is +inf)."""
     jb = torch.div(cols, GUARD_KEYS, rounding_mode="floor")
     s = torch.div(cols - jb * GUARD_KEYS, GUARD_H, rounding_mode="floor")
     rows = jb * FUSED_BLOCK_N + s * GUARD_SUBTILE + lane
-    rows = torch.clamp_max(rows, nb * FUSED_BLOCK_N - 1).to(torch.int32)
-    guard_keys = torch.amax(o3[:, :, GUARD_KEYS], dim=1)
-    bound = torch.maximum(_guard_key_vals(guard_keys), vals[:, -1])
-    if stage_tail is not None:
-        bound = torch.maximum(bound, _guard_key_vals(stage_tail))
+    return torch.clamp_max(rows, nb * FUSED_BLOCK_N - 1).to(torch.int32)
+
+
+def _guard_refuse(
+    bound: torch.Tensor, sat_key: torch.Tensor, dead_sel: torch.Tensor
+) -> torch.Tensor:
+    """``bound``, +inf where key saturation or a dead selection makes it
+    untrustworthy (the reference's two refusals)."""
     inf = torch.full_like(bound, float("inf"))
     bound = torch.where(sat_key >= _GUARD_SAT_KEY, inf, bound)
-    bound = torch.where(dead_sel, inf, bound)
-    return vals, rows, bound
+    return torch.where(dead_sel, inf, bound)
+
+
+def _staged_finish_plain(
+    src: torch.Tensor,
+    v3: bool,
+    c: int,
+    h2: int,
+    reduce_keys: Callable[[torch.Tensor, int], torch.Tensor] = _reduce_keys_plain,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain-torch twin of the staged finish kernel (``csrc/reduce_keys.cu``):
+    the reference's ``_fused2_finish`` (``v3=False``, ``src`` the level-1
+    keys) or the staged branch of ``_fused3_finish`` (``v3=True``, ``src``
+    the block tiles), one torch op per JAX op.  Returns ``(vals f32 [B, c],
+    idx int32 [B, c], aux [B])``: v2 doc indices and int32 flags (bit 0: a
+    level-1 or pass-2 tail beats the c-th value less ``KEY_EPS``; bit 1: a
+    live level-1 key outside the key horizon), v3 rows and the f32 bound.
+    ``reduce_keys(keys1p, h2)`` is pass 2 (another implementation of
+    :func:`_reduce_keys_plain` may stand in for it)."""
+    b_pad, width = src.shape
+    nb = width // _GUARD_OUT_LANES
+    if v3:
+        keys = src.view(b_pad, nb, _GUARD_OUT_LANES)[:, :, :GUARD_KEYS]
+        keys = keys.reshape(b_pad, nb * GUARD_KEYS)
+        # pad with KEY_DEAD (not zeros): see the reference's comment
+        fill = KEY_DEAD
+    else:
+        keys, fill = src, 0.0
+    l1 = keys.shape[1]
+    l1p = ((l1 + REDUCE_BLOCK - 1) // REDUCE_BLOCK) * REDUCE_BLOCK
+    keys1p = keys if l1p == l1 else torch.cat(
+        [keys, keys.new_full((b_pad, l1p - l1), fill)], dim=1
+    )
+    keys2 = reduce_keys(keys1p.contiguous(), h2)
+    sel, cols2 = top_k(keys2, c)
+    k2i = sel.to(torch.int32)
+    lane2 = k2i - torch.div(k2i, REDUCE_GROUP, rounding_mode="floor") * REDUCE_GROUP
+    pos = torch.div(cols2, h2, rounding_mode="floor") * REDUCE_GROUP + lane2
+    k1i = torch.gather(keys1p, 1, pos).to(torch.int32)
+    tails2 = keys2[:, h2 - 1 :: h2]
+    if v3:
+        vals = _guard_key_vals(sel)
+        lane = k1i - torch.div(k1i, GUARD_SUBTILE, rounding_mode="floor") * GUARD_SUBTILE
+        guard_keys = torch.amax(src.view(b_pad, nb, _GUARD_OUT_LANES)[:, :, GUARD_KEYS], dim=1)
+        bound = torch.maximum(_guard_key_vals(guard_keys), vals[:, -1])
+        # keys dropped at pass 2 are bounded by their group's kept tail
+        bound = torch.maximum(bound, _guard_key_vals(torch.amax(tails2, dim=1)))
+        dead_sel = torch.amin(k1i, dim=1).to(torch.float32) <= KEY_DEAD
+        bound = _guard_refuse(bound, torch.amax(keys, dim=1), dead_sel)
+        return vals, _guard_rows(pos, lane, nb), bound
+    vals = _key_vals(sel)
+    lanes = int(_KEY_LANES)
+    lane1 = k1i - torch.div(k1i, lanes, rounding_mode="floor") * lanes
+    jb = torch.div(pos, _FUSED_OUT_LANES, rounding_mode="floor")
+    s = torch.div(pos - jb * _FUSED_OUT_LANES, EXTRACT_H, rounding_mode="floor")
+    idx = (jb * FUSED_BLOCK_N + s * FUSED_SUBTILE + lane1).to(torch.int32)
+    thr = vals[:, c - 1 : c] - KEY_EPS
+    hidden = torch.logical_or(
+        torch.any(_key_vals(keys[:, EXTRACT_H - 1 :: EXTRACT_H]) > thr, dim=1),
+        torch.any(_key_vals(tails2) > thr, dim=1),
+    )
+    # Domain guard: a LIVE key at the rounding horizon has lost lane bits
+    # (KEY_DEAD markers from tail-padding subtiles are expected and pass).
+    live_min = torch.amin(torch.where(keys == KEY_DEAD, 0.0, keys), dim=1)
+    in_range = torch.logical_and(
+        torch.amax(keys, dim=1) < KEY_HORIZON, live_min > -KEY_HORIZON
+    )
+    flags = hidden.to(torch.int32) + torch.logical_not(in_range).to(torch.int32) * 2
+    return vals, idx, flags
+
+
+def _staged_finish(
+    src: torch.Tensor, v3: bool, c: int, h2: int
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The staged finish (pass 2 + top-``c`` in ``lax.top_k`` order +
+    decode) in one kernel launch; see :func:`_staged_finish_plain` for the
+    function and the outputs.  ``src`` is ``[B, nb * 128]`` f32: v2 keys
+    (``v3=False``) or v3 block tiles."""
+    b, width = src.shape
+    l1 = width // 4 if v3 else width
+    groups = -(-l1 // REDUCE_BLOCK) * (REDUCE_BLOCK // REDUCE_GROUP)
+    if width % _GUARD_OUT_LANES or b == 0 or not 0 < h2 <= REDUCE_GROUP:
+        raise ValueError(f"_staged_finish: bad shape [{b}, {width}], h2={h2}")
+    if not 0 < c <= groups * h2:
+        raise ValueError(f"_staged_finish: c={c} outside (0, {groups * h2}]")
+    if src.dtype != torch.float32:
+        raise ValueError(f"_staged_finish needs f32 keys, got {src.dtype}")
+    if not src.is_cuda:
+        return _staged_finish_plain(src, v3, c, h2)
+    from . import kernels
+
+    lib = kernels.library()
+    src = src.contiguous()
+    vals = torch.empty((b, c), dtype=torch.float32, device=src.device)
+    idx = torch.empty((b, c), dtype=torch.int32, device=src.device)
+    aux = torch.empty(
+        (b,), dtype=torch.float32 if v3 else torch.int32, device=src.device
+    )
+    # past the shared-memory limit (C or the winners of a corpus well past
+    # 1M docs) the kernel keeps its buffers in this scratch
+    nbytes = lib.svs_staged_finish_scratch(b, width, int(v3), c, h2)
+    if nbytes < 0:
+        kernels.check(-nbytes, "staged finish kernel")
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=src.device) if nbytes else None
+    stream = torch.cuda.current_stream(src.device).cuda_stream
+    rc = lib.svs_staged_finish(
+        src.data_ptr(), b, width, int(v3), c, h2,
+        vals.data_ptr(), idx.data_ptr(), aux.data_ptr(),
+        None if scratch is None else scratch.data_ptr(), nbytes, stream,
+    )
+    kernels.check(rc, "staged finish kernel")
+    _staged_finish.launches += 1  # type: ignore[attr-defined]
+    return vals, idx, aux
+
+
+_staged_finish.launches = 0  # type: ignore[attr-defined]
 
 
 def _fused3_extract_plain(
@@ -1217,7 +1274,7 @@ KERNEL_WRAPPERS = (
     _fused3_extract_int8,
     _fused2_extract_int8,
     _fused_extract_int8,
-    _reduce_keys,
+    _staged_finish,
     _fused3_extract,
     _fused2_extract,
     _fused_extract,

@@ -189,8 +189,8 @@ def test_engine_options_resolve_like_jax(kw):
 def test_refused_options():
     with pytest.raises(ValueError, match="float storage"):
         RetrievalEngine(device="cpu", precision="int8", kernel="pallas")
-    with pytest.raises(NotImplementedError, match="device_rescore='host'"):
-        RetrievalEngine(device="cpu", device_rescore="host")
+    with pytest.raises(ValueError, match="device_rescore"):
+        RetrievalEngine(device="cpu", device_rescore="device")
 
 
 def _pack_inputs(n, d, seed):

@@ -183,9 +183,12 @@ def test_keyed_widen_and_hint_match_jax_kb(keyed_store, monkeypatch):
 
 
 def test_sqlite_rescore_without_mirror_matches_jax_kb(small_store, monkeypatch):
-    """``SVS_TPU_DEVICE_RESCORE_MAX_BYTES=0``: the port's corpus keeps no
-    f32 rows, so the rescore reads the stored vectors from SQLite."""
+    """``SVS_TPU_DEVICE_RESCORE_MAX_BYTES=0`` and
+    ``SVS_TPU_RESCORE_CACHE_MAX_BYTES=0``: the corpus has no device mirror
+    and keeps no host f32 rows, so the rescore reads the stored vectors
+    from SQLite."""
     monkeypatch.setenv("SVS_TPU_DEVICE_RESCORE_MAX_BYTES", "0")
+    monkeypatch.setenv("SVS_TPU_RESCORE_CACHE_MAX_BYTES", "0")
     fetched = []
     real = Tx.fetch_embedding_rows
 

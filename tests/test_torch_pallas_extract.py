@@ -172,7 +172,7 @@ def test_fused_v1_kernel_twin_bit_identical(corpus, batch):
 def test_reduce_keys_twin_bit_identical(batch):
     keys = batch["v2"]
     ref = np.asarray(J._reduce_keys(jnp.asarray(keys), 8, interpret=True))
-    got = T._reduce_keys(_t(keys), 8).numpy()
+    got = T._reduce_keys_plain(_t(keys), 8).numpy()
     np.testing.assert_array_equal(_bits(ref), _bits(got))
 
 
