@@ -122,6 +122,9 @@ V2_C = 1600
 #: The repo's pairwise benchmark (benchmarks/tpu_pairwise_kb.py): 100k docs
 #: x 1536, the top 10,000 pairs; dupe-planted stores plant 12% of every
 #: 20,000-row insert chunk as perturbed copies (cos ~0.94).
+#: The incremental phase: docs per append and per delete on the 1M store.
+APPEND_DOCS = 10_000
+DELETE_DOCS = 1_000
 PAIR_DOCS = 100_000
 PAIR_K = 10_000
 PAIR_CHUNK = 20_000
@@ -997,6 +1000,7 @@ def e2e_phase(n_docs: int, reps: int, work: Path) -> dict:
     import torch
 
     import svs_tpu_torch
+    from svs_tpu_torch.engine.sidecar import sidecar_path_for
 
     store = work / "store.sqlite"
     t0 = time.perf_counter()
@@ -1066,8 +1070,11 @@ def e2e_phase(n_docs: int, reps: int, work: Path) -> dict:
             (``finalize`` p50 before: the shape's first run; after: this
             one), then one B=64 call unprofiled and profiled."""
             t = time.perf_counter()
-            kb.load()
+            kb.load()  # also writes <store>.svsx (1M docs >= SIDECAR_AUTO_MIN_DOCS)
             res["load_s"] = time.perf_counter() - t
+            sc = sidecar_path_for(store)
+            res["sidecar_gb"] = sc.stat().st_size / 1e9 if sc.exists() else None
+            log(f"e2e int8_kb: load() wrote a {res['sidecar_gb']} GB sidecar")
             kb_shapes(kb, (("B64_n100_loaded", 64, 100),), reps, rng, qvec,
                       f32_scan, res)
             before = res["B64_n100"]["phase_p50_ms"]
@@ -1123,12 +1130,175 @@ def e2e_phase(n_docs: int, reps: int, work: Path) -> dict:
         kb_path("rescore_off_kb", ["_fused_extract"], (("B8_n100", 8, 100),),
                 bf16_scan, check=is_bf16, rescore=False)
         del ref_bf16
+        ref_matrix = incremental_phase(store, ref_matrix, reps, out)
     finally:
         store.unlink(missing_ok=True)
+        sidecar_path_for(store).unlink(missing_ok=True)
     del ref_matrix
     torch.cuda.empty_cache()
     pairwise_phase(work, out)
     return out
+
+
+def incremental_phase(store: Path, ref_matrix, reps: int, out: dict):
+    """Writes to the 1M int8 store on a KB that has packed, each followed
+    by ``retrieve_batch`` (B=64, n=100) ``reps`` times and held against a
+    brute-force scan of the live rows (no deleted row returned): append
+    ``APPEND_DOCS`` random unit docs, append as many again (the pack grows
+    past its padding), ``bulk_del_docs`` ``DELETE_DOCS``, then
+    ``close(write_sidecar=True)`` and a fresh ``KB`` on the file.  Each
+    step must repack as named (``append``, ``append``, ``delete``, then
+    ``sidecar`` with no scan and a device mirror), each is driven with the
+    launch counts set to 0 just before it and read just after, and its
+    first call's ``pack`` phase, first and warm latencies are recorded.
+    Returns the reference matrix with the appended rows."""
+    import torch
+
+    import svs_tpu_torch
+    from svs_tpu_torch.engine.sidecar import sidecar_path_for
+
+    qvec = {}
+
+    async def embed(texts):
+        return [qvec[t].tolist() for t in texts]
+
+    rng = np.random.default_rng(SEED + 5)
+    dead = torch.zeros(ref_matrix.shape[0], dtype=torch.bool, device=ref_matrix.device)
+    n_base = ref_matrix.shape[0]
+    kbs = {}
+    res = out["paths_detail_incremental"] = {}
+
+    def queries(label, vectors):
+        texts = [f"{label}-q{i}" for i in range(len(vectors))]
+        qvec.update(zip(texts, vectors))
+        return texts
+
+    def step(label, want_events, first_vectors=None, first_rows=None, check=None):
+        """``reps`` B=64 calls: the first on ``first_vectors`` (whose hit 0
+        must be ``first_rows``) or random queries, the rest random."""
+        kb = kbs["kb"]
+        before = dict(kb.engine.pack_events)
+        lat, pack_ms = [], None
+        for rep in range(reps):
+            v = first_vectors if rep == 0 and first_vectors is not None else unit_queries(rng, 64)
+            texts = queries(f"{label}-{rep}", v)
+            kb._stats.reset()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            hits = kb.retrieve_batch(texts, 100)
+            torch.cuda.synchronize()
+            lat.append(time.perf_counter() - t)
+            if rep == 0:
+                pack_ms = kb._stats.snapshot()["pack"]["last_s"] * 1e3
+            rows, scores = hits_to_arrays(hits)
+            check_results(rows, scores, v, ref_matrix, 100, dead=dead)
+            if rep == 0 and first_rows is not None and (rows[:, 0] != first_rows).any():
+                raise AssertionError(f"{label}: a query equal to a doc did not get it first")
+        events = {k: v - before[k] for k, v in kb.engine.pack_events.items()}
+        events = {k: v for k, v in events.items() if v and k != "reuse"}
+        corpus = kb.engine.corpus
+        res[label] = {
+            "pack_ms": pack_ms,
+            "first_s": lat[0],
+            "warm_p50_ms": statistics.median(lat[1:]) * 1e3,
+            "warm_ms": [x * 1e3 for x in lat[1:]],
+            "pack_events": events,
+            "n_valid": corpus.n_valid,
+            "n_padded": corpus.n_padded,
+            "device_mirror": corpus.dev_rescore is not None,
+        }
+        if events != want_events:
+            raise AssertionError(f"{label}: pack_events {events}, want {want_events}")
+        if check is not None:
+            check(corpus)
+        log(f"e2e incremental {label}: pack phase {pack_ms:.1f} ms, first "
+            f"{lat[0]:.3f} s, warm p50 {res[label]['warm_p50_ms']:.2f} ms; events "
+            f"{events}; n_valid {corpus.n_valid}, n_padded {corpus.n_padded}; "
+            f"exact vs the live rows' scan")
+
+    def append(label, first_row):
+        nonlocal ref_matrix, dead
+        rows = unit_queries(rng, APPEND_DOCS)
+        texts = [f"synthetic document #{first_row + i}" for i in range(APPEND_DOCS)]
+        qvec.update(zip(texts, rows))
+        t = time.perf_counter()
+        with kbs["kb"].bulk_add_docs() as add:
+            for text in texts:
+                add(text)
+        res[f"{label}_write_s"] = time.perf_counter() - t
+        new = torch.from_numpy(rows).to(ref_matrix.device)
+        ref_matrix = torch.cat([ref_matrix, new])
+        dead = torch.cat([dead, torch.zeros(APPEND_DOCS, dtype=torch.bool, device=dead.device)])
+        pick = rng.choice(APPEND_DOCS, 64, replace=False)
+        step(label, {"append": 1}, rows[pick], first_row + pick)
+
+    def run_first():
+        kbs["kb"] = svs_tpu_torch.KB(store, embed, device="cuda")
+        step("open", {"sidecar": 1})  # the int8 KB's load() left it
+
+    def run_append_1():
+        append("append_1", n_base)
+
+    def run_append_2():
+        append("append_2", n_base + APPEND_DOCS)
+        grown = (n_base + 2 * APPEND_DOCS + 16_383) // 16_384 * 16_384
+        if kbs["kb"].engine.corpus.n_padded != grown:
+            raise AssertionError(f"the pack did not grow to {grown} rows")
+
+    def run_delete():
+        kb = kbs["kb"]
+        gone = np.sort(rng.choice(ref_matrix.shape[0], DELETE_DOCS, replace=False))
+        with kb.bulk_query_docs() as q:
+            docs = [q.query_doc(int(r) + 1) for r in gone]  # doc i has id i + 1
+        if any(d["text"] != f"synthetic document #{r}" for d, r in zip(docs, gone)):
+            raise AssertionError("a doc id does not hold the row it was written with")
+        t = time.perf_counter()
+        with kb.bulk_del_docs() as delete:
+            for d in docs:
+                delete(d["id"])
+        res["delete_write_s"] = time.perf_counter() - t
+        dead[torch.from_numpy(gone).to(dead.device)] = True
+        # the first call asks for the deleted docs themselves
+        gone_rows = ref_matrix[torch.from_numpy(gone[:64]).to(dead.device)]
+        step("delete", {"delete": 1}, gone_rows.cpu().numpy())
+        # the survivor check's id scan again, its pages now cached: the
+        # share of the step's pack phase that was the store's page cache
+        with kb._require_db().transaction() as tx:
+            t = time.perf_counter()
+            tx.embedding_ids()
+            res["delete_id_scan_again_s"] = time.perf_counter() - t
+        log(f"e2e incremental: the id scan again {res['delete_id_scan_again_s']:.2f} s")
+
+    def run_reopen():
+        kb = kbs.pop("kb")
+        t = time.perf_counter()
+        kb.close(write_sidecar=True)
+        res["close_write_sidecar_s"] = time.perf_counter() - t
+        res["sidecar_gb"] = sidecar_path_for(store).stat().st_size / 1e9
+        log(f"e2e incremental: close(write_sidecar=True) {res['close_write_sidecar_s']:.2f} s "
+            f"({res['sidecar_gb']:.2f} GB)")
+        kbs["kb"] = svs_tpu_torch.KB(store, embed, device="cuda")
+
+        def mirrored(corpus):
+            if corpus.dev_rescore is None:
+                raise AssertionError("the sidecar load built no device mirror")
+
+        step("reopen", {"sidecar": 1}, check=mirrored)
+
+    try:
+        for label, fn in (("incremental_open", run_first),
+                          ("incremental_append_1", run_append_1),
+                          ("incremental_append_2", run_append_2),
+                          ("incremental_delete", run_delete),
+                          ("incremental_reopen", run_reopen)):
+            drive_path(label, ["_staged_finish"], fn, out)
+            counts = out["paths"][label]["launches"]
+            if counts["_fused3_extract_int8"] + counts["_fused2_extract_int8"] <= 0:
+                raise AssertionError(f"{label}: no int8 prescore kernel launched")
+    finally:
+        if "kb" in kbs:
+            kbs["kb"].close()
+    return ref_matrix
 
 
 def write_pair_store(path: Path, seed: int, dupe_frac: float) -> np.ndarray:
@@ -1317,6 +1487,12 @@ def delete_then_retrieve(store: Path, ref, reps: int, out: dict) -> None:
     def run():
         kb = svs_tpu_torch.KB(store, embed, device="cuda")
         try:
+            # pack before the deletes (from the sidecar the flat pairwise
+            # KB's close left), so that they repack incrementally
+            v = unit_queries(rng, 64)
+            texts = [f"before-delete-{i}" for i in range(64)]
+            qvec.update(zip(texts, v))
+            check_results(*hits_to_arrays(kb.retrieve_batch(texts, 100)), v, ref, 100)
             with kb.bulk_query_docs() as q:
                 ids = {int(d["text"].rsplit("#", 1)[1]): d["id"] for d in q.query_level(0)}
             t = time.perf_counter()
@@ -1342,13 +1518,16 @@ def delete_then_retrieve(store: Path, ref, reps: int, out: dict) -> None:
                 "warm_ms": [x * 1e3 for x in lat[1:]],
                 "pack_events": dict(kb.engine.pack_events),
             })
+            if kb.engine.pack_events["delete"] != 1:
+                raise AssertionError(f"no incremental delete: {kb.engine.pack_events}")
         finally:
             kb.close()
 
     drive_path("delete_then_retrieve", ["_fused_extract_int8"], run, out)
     log(f"e2e delete_then_retrieve: {len(gone)} docs deleted in "
         f"{res['delete_s']:.2f} s; B=64, n=100 first {res['first_s']:.3f} s "
-        f"(repack), warm {res['warm_ms']} ms; exact vs the survivors' scan")
+        f"(incremental delete), warm {res['warm_ms']} ms; pack_events "
+        f"{res['pack_events']}; exact vs the survivors' scan")
 
 
 def pairwise_phase(work: Path, out: dict) -> None:
@@ -1357,6 +1536,7 @@ def pairwise_phase(work: Path, out: dict) -> None:
     import torch
 
     import svs_tpu_torch
+    from svs_tpu_torch.engine.sidecar import sidecar_path_for
 
     async def embed(texts):  # pairwise embeds nothing
         raise AssertionError("the pairwise path does not embed")
@@ -1437,6 +1617,7 @@ def pairwise_phase(work: Path, out: dict) -> None:
             del ref_bf16
         finally:
             store.unlink(missing_ok=True)
+            sidecar_path_for(store).unlink(missing_ok=True)
             del ref, oracle
             torch.cuda.empty_cache()
 
@@ -1482,6 +1663,7 @@ def main() -> int:
         if work.exists():
             shutil.rmtree(work)
         work.mkdir(parents=True)
+        log(f"e2e: {shutil.disk_usage(work).free / 1e9:.1f} GB free on the work disk")
         try:
             e2e = e2e_phase(args.docs, args.reps, work)
         finally:

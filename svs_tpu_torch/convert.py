@@ -6,12 +6,30 @@ imports neither package's JAX side: it only takes arrays."""
 
 from __future__ import annotations
 
-from typing import Optional, Union
+from typing import Optional, Tuple, Union
 
 import numpy as np
 import torch
 
-from .engine.packing import PackedCorpus
+from .engine.packing import PackedCorpus, _is_mmap_backed
+
+#: Bytes per staged copy when a memory-mapped array (a sidecar) uploads.
+_STAGE_CHUNK_BYTES = 64 * 1024 * 1024
+
+
+def upload(arr: np.ndarray, device: torch.device) -> torch.Tensor:
+    """``arr`` on ``device``.  A memory-mapped source (a sidecar's pack or
+    f32 cache) is copied into RAM one 64 MB slice of rows at a time, so
+    the file reads sequentially and no torch tensor aliases the read-only
+    mapping."""
+    if not _is_mmap_backed(arr):
+        return torch.from_numpy(np.ascontiguousarray(arr)).to(device)
+    dtype = torch.from_numpy(np.zeros(0, dtype=arr.dtype)).dtype
+    out = torch.empty(arr.shape, dtype=dtype, device=device)
+    rows = max(1, _STAGE_CHUNK_BYTES // max(1, arr[:1].nbytes))
+    for lo in range(0, arr.shape[0], rows):
+        out[lo : lo + rows] = torch.from_numpy(np.array(arr[lo : lo + rows]))
+    return out
 
 
 def _upload_data(
@@ -24,10 +42,11 @@ def _upload_data(
     if precision == "bf16":
         if arr.dtype.itemsize != 2:
             raise ValueError(f"a bf16 pack needs 16-bit words, got {arr.dtype}")
-        words = np.ascontiguousarray(arr).view(np.int16)
-        return torch.from_numpy(words).to(device).view(torch.bfloat16)
+        return upload(arr.view(np.int16), device).view(torch.bfloat16)
     dtype = np.int8 if precision == "int8" else np.float32
-    return torch.from_numpy(np.ascontiguousarray(arr, dtype)).to(device)
+    if arr.dtype != dtype:
+        arr = arr.astype(dtype)
+    return upload(arr, device)
 
 
 def packed_from_numpy(
@@ -71,20 +90,11 @@ def packed_from_numpy(
     host_cache = None
     if host_f32 is not None:
         host_cache = (np.asarray(host_f32, dtype=np.float32), host_row_map)
-    dev_rescore = None
-    if mirror and precision == "f32":
-        dev_rescore = (data, None)
-    elif mirror and host_cache is not None:
-        dev_f32 = torch.from_numpy(np.ascontiguousarray(host_cache[0])).to(device)
-        dev_map = (
-            torch.from_numpy(np.asarray(host_row_map, dtype=np.int64)).to(device)
-            if host_row_map is not None
-            else None
-        )
-        dev_rescore = (dev_f32, dev_map)
-    dev_emb = None
-    if dev_rescore is not None and (n_valid == 0 or int(emb_ids.max()) < 2**31):
-        dev_emb = torch.from_numpy(emb_ids.astype(np.int32)).to(device)
+    dev_rescore, dev_emb = (
+        device_mirror(data, precision, host_cache, emb_ids, n_valid)
+        if mirror
+        else (None, None)
+    )
     return PackedCorpus(
         data=data,
         row_scales=row_scales,
@@ -98,3 +108,43 @@ def packed_from_numpy(
         dev_rescore=dev_rescore,
         dev_emb=dev_emb,
     )
+
+
+def device_mirror(
+    data: torch.Tensor,
+    precision: str,
+    host_cache: Optional[Tuple[np.ndarray, Optional[np.ndarray]]],
+    emb_ids: np.ndarray,
+    n_valid: int,
+) -> Tuple[
+    Optional[Tuple[torch.Tensor, Optional[torch.Tensor]]], Optional[torch.Tensor]
+]:
+    """The exact-rescore mirrors of a pack on ``data``'s device:
+    ``(dev_rescore, dev_emb)``.  An f32 pack is its own mirror; else the
+    host f32 cache and its row map upload (none without a cache).  The
+    int32 emb-id mirror comes with a rescore mirror when every id fits."""
+    dev_rescore = None
+    if precision == "f32":
+        dev_rescore = (data, None)
+    elif host_cache is not None:
+        cache_f32, row_map = host_cache
+        dev_map = (
+            upload(np.asarray(row_map, dtype=np.int64), data.device)
+            if row_map is not None
+            else None
+        )
+        dev_rescore = (upload(cache_f32, data.device), dev_map)
+    dev_emb = None
+    if dev_rescore is not None:
+        dev_emb = emb_mirror(emb_ids, n_valid, data.device)
+    return dev_rescore, dev_emb
+
+
+def emb_mirror(
+    emb_ids: np.ndarray, n_valid: int, device: torch.device
+) -> Optional[torch.Tensor]:
+    """``emb_ids`` as int32 on ``device`` (the final selection's tie-rule
+    input), or ``None`` when an id does not fit int32."""
+    if n_valid and int(emb_ids.max()) >= 2**31:
+        return None
+    return torch.from_numpy(emb_ids.astype(np.int32)).to(device)

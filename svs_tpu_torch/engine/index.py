@@ -4,8 +4,13 @@
 - **freshness** — the pack is keyed by the store's ``matrix_version`` plus
   SQLite's ``data_version`` (an O(1) token per query) and, when the token
   moves, the ``(version, count, max id, generation)`` fingerprint of the
-  embeddings table; a pack is reused while it matches and rebuilt from a
-  full BLOB scan otherwise;
+  embeddings table; a pack is reused while it matches, else repacked in
+  the reference's order: an incremental append (only the new rows are
+  fetched and written into the pack's padding), an incremental delete
+  (tail rows move into the deleted slots), a current ``<db>.svsx``
+  sidecar, and last a full BLOB scan.  The device mirrors follow an
+  incremental repack on the card (the appended rows concatenate onto the
+  f32 mirror; a delete re-points its row map);
 - **search dispatch** — the prescore ladder of the reference for int8,
   bf16 and f32 storage: guarded v3, keyed v2, v1, the two-pass extraction
   (batches above 256), then the plain exact scan, each proposing C
@@ -22,15 +27,17 @@
   exact blocked pass, ``ops.pairwise``), their bound ``pairwise_eps`` and
   the f32 pair rescore from the device mirror.
 
-Not ported yet (``ROADMAP.md``): the host route and two-pass host search,
-hedged fetches and RPC-floor probes, incremental append/delete, sidecars,
-calibration, meshes and replicas, the subset corpus of filtered pairwise.
+Not ported yet (``ROADMAP.md``): the host route and two-pass host search
+(with it the deferred background upload of a cold pack), hedged fetches
+and RPC-floor probes, calibration, meshes and replicas, the subset corpus
+of filtered pairwise.
 """
 
 from __future__ import annotations
 
 import logging
 import threading
+from pathlib import Path
 from typing import Dict, Optional, Tuple, Union
 
 import numpy as np
@@ -43,9 +50,20 @@ from .packing import (
     LARGE_ROW_MULTIPLE,
     ROW_MULTIPLE,
     PackedCorpus,
+    _cast_padded,
+    _grow_rows,
+    _is_mmap_backed,
+    _move_rows,
     pack_host,
     pad_queries,
+    quantize_int8,
     rescore_cache_limit,
+)
+from .sidecar import (
+    load_sidecar,
+    save_sidecar,
+    save_sidecar_arrays,
+    sidecar_fingerprint,
 )
 
 log = logging.getLogger(__name__)
@@ -68,6 +86,11 @@ _DEVICE_GATHER_MAX_BYTES = 4_000_000_000
 #: ``SVS_TPU_DEVICE_RESCORE_MAX_BYTES`` as in the reference.
 _DEVICE_RESCORE_MAX_BYTES = 8_000_000_000
 
+#: A sidecar's memory-mapped f32 cache up to this many bytes is copied into
+#: RAM on load (env ``SVS_TPU_HOST_CACHE_RAM_MAX``, the reference's
+#: default): the host rescore reads RAM faster than the mapping.
+_HOST_CACHE_RAM_MAX = 256 * 1024 * 1024
+
 
 def _rescore_from_packed(
     packed: torch.Tensor,
@@ -89,7 +112,8 @@ def _rescore_from_packed(
         queries = queries[:, :dim]
     rows, tail_bits = unpack_rows_tail(packed, packed.shape[1] // 2, wide)
     rows = rows.to(torch.int64)
-    at = rows.clamp(0, dev_f32.shape[0] - 1)
+    # an incremental delete leaves the map shorter than the mirror
+    at = rows.clamp(0, (dev_f32 if dev_map is None else dev_map).shape[0] - 1)
     cand = dev_f32[at if dev_map is None else dev_map[at]]  # [B, C, d]
     with exact_f32():
         exact = torch.bmm(cand, queries[:, :, None].to(torch.float32))[:, :, 0]
@@ -192,21 +216,36 @@ class RetrievalEngine:
         self._fingerprint: Optional[Tuple[int, int, int, int]] = None
         self._quick_token: Optional[Tuple[int, int]] = None
         #: How each :meth:`ensure_fresh` call was satisfied: ``reuse`` =
-        #: token/fingerprint hit, ``scan`` = full BLOB rescan.
-        self.pack_events: Dict[str, int] = {"reuse": 0, "scan": 0}
+        #: token/fingerprint hit, ``append``/``delete`` = incremental
+        #: repack, ``sidecar`` = mmap load, ``scan`` = full BLOB rescan.
+        self.pack_events: Dict[str, int] = {
+            "reuse": 0, "append": 0, "delete": 0, "sidecar": 0, "scan": 0,
+        }
         #: Margin-check failures that widened the candidate set.
         self.widen_retries = 0
+        #: Sidecar file the current pack was loaded from (its bytes are the
+        #: pack's, so a write to that path is skipped).
+        self._sidecar_source: Optional[Path] = None
+        #: Background scan that attaches the f32 rescore cache to a pack
+        #: loaded from a sidecar without one, and the fingerprint of its
+        #: last spawn (one attempt per store state).
+        self._cache_rebuild_thread: Optional[threading.Thread] = None
+        self._cache_rebuild_fp: Optional[Tuple[int, int, int, int]] = None
         self._lock = threading.Lock()
 
     def shutdown(self) -> None:
-        """Release engine-owned resources (no background threads exist in
-        this port yet, so nothing to join)."""
+        """Join the background rescore-cache rebuild, if one runs."""
+        t = self._cache_rebuild_thread
+        if t is not None and t.is_alive():
+            t.join(timeout=30.0)
+        self._cache_rebuild_thread = None
 
     def invalidate(self) -> None:
         with self._lock:
             self._corpus = None
             self._fingerprint = None
             self._quick_token = None
+            self._sidecar_source = None
 
     @property
     def corpus(self) -> Optional[PackedCorpus]:
@@ -226,39 +265,79 @@ class RetrievalEngine:
     def ensure_fresh(
         self,
         db: Database,
-        sidecar_path: object = None,
+        sidecar_path: Union[str, Path, None] = None,
     ) -> PackedCorpus:
         """Return a corpus reflecting the store's current embeddings,
-        re-packing from the BLOBs if stale.  ``sidecar_path`` is accepted
-        for signature parity; sidecars are not ported yet."""
-        del sidecar_path
+        repacking if stale: incrementally after a pure append or a pure
+        delete, from the sidecar at ``sidecar_path`` when it is current,
+        else from a full BLOB scan.  The caller serializes store access
+        (the KB holds its lock around this)."""
         with db.transaction() as tx:
             quick = (tx.matrix_version(), tx.data_version())
         with self._lock:
             if self._corpus is not None and self._quick_token == quick:
                 self.pack_events["reuse"] += 1
+                self._maybe_respawn_cache_rebuild(db)
+                # the host cache may have attached late (background rebuild)
+                self._maybe_build_device_rescore(self._corpus)
                 return self._corpus
         fingerprint = self._store_fingerprint(db)
         with self._lock:
             if self._corpus is not None and self._fingerprint == fingerprint:
+                # a write that did not touch the embeddings (meta, KV)
                 self._quick_token = quick
                 self.pack_events["reuse"] += 1
+                self._maybe_respawn_cache_rebuild(db)
                 return self._corpus
-            self.pack_events["scan"] += 1
-            log.info("packing corpus from store (fingerprint %s)", fingerprint)
-            with db.transaction() as tx:
-                matrix, emb_ids = tx.build_embeddings_matrix()
-            corpus = self._pack(matrix, emb_ids, fingerprint[0])
+            corpus = self._try_incremental_append(db, fingerprint)
+            if corpus is not None:
+                self.pack_events["append"] += 1
+            if corpus is None:
+                corpus = self._try_incremental_delete(db, fingerprint)
+                if corpus is not None:
+                    self.pack_events["delete"] += 1
+            if corpus is None and sidecar_path is not None:
+                corpus = self._try_sidecar(sidecar_path, fingerprint)
+                if corpus is not None:
+                    self.pack_events["sidecar"] += 1
+                    self._spawn_rescore_cache_rebuild(db.path, corpus, fingerprint)
+            if corpus is None:
+                self.pack_events["scan"] += 1
+                log.info("packing corpus from store (fingerprint %s)", fingerprint)
+                self._sidecar_source = None
+                with db.transaction() as tx:
+                    matrix, emb_ids = tx.build_embeddings_matrix()
+                corpus = self._pack(matrix, emb_ids, fingerprint[0])
             self._corpus = corpus
             self._fingerprint = fingerprint
             self._quick_token = quick
+            self._maybe_build_device_rescore(corpus)
             return corpus
+
+    def _mirror_allowed(
+        self, precision: str, cache: Optional[np.ndarray], n: int
+    ) -> bool:
+        """The device-mirror policy: only under the device rescore and for
+        a non-empty pack; an f32 pack is its own mirror (no second copy, no
+        budget), else the host cache within
+        ``SVS_TPU_DEVICE_RESCORE_MAX_BYTES``."""
+        from ..utils.env import env_int
+
+        budget = env_int(
+            "SVS_TPU_DEVICE_RESCORE_MAX_BYTES", _DEVICE_RESCORE_MAX_BYTES
+        )
+        return (
+            self.rescore
+            and self.device_rescore != "host"
+            and budget > 0
+            and n > 0
+            and (precision == "f32" or (cache is not None and cache.nbytes <= budget))
+        )
 
     def _pack(
         self, matrix: np.ndarray, emb_ids: np.ndarray, version: int
     ) -> PackedCorpus:
         from ..convert import packed_from_numpy
-        from ..utils.env import env_int
 
         data, scales, ids, cache, row_map, n, d = pack_host(
             matrix,
@@ -267,24 +346,10 @@ class RetrievalEngine:
             row_multiple=self._row_multiple(matrix.shape[0]),
             dim_multiple=DIM_MULTIPLE,
         )
-        budget = env_int(
-            "SVS_TPU_DEVICE_RESCORE_MAX_BYTES", _DEVICE_RESCORE_MAX_BYTES
-        )
         # the host f32 cache within SVS_TPU_RESCORE_CACHE_MAX_BYTES (past
-        # it the host rescore reads rows from the store); the device
-        # mirror only under the device rescore: an f32 pack is its own (no
-        # second copy, no budget), else the host cache within budget
+        # it the host rescore reads rows from the store)
         if cache.nbytes > rescore_cache_limit():
             cache = row_map = None
-        mirror = (
-            self.rescore
-            and self.device_rescore != "host"
-            and budget > 0
-            and (
-                self.precision == "f32"
-                or (cache is not None and (0 < cache.nbytes <= budget or n == 0))
-            )
-        )
         return packed_from_numpy(
             data,
             scales,
@@ -297,8 +362,424 @@ class RetrievalEngine:
             cache,
             row_map,
             self.device,
-            mirror=mirror,
+            mirror=self._mirror_allowed(self.precision, cache, n),
         )
+
+    def _try_incremental_append(
+        self, db: Database, fingerprint: Tuple[int, int, int, int]
+    ) -> Optional[PackedCorpus]:
+        """Append-only fast path (the reference's gates): when the only
+        change since the last pack is new embeddings, fetch just those rows
+        and write them at the pack's end, growing it to the next row
+        multiple when they pass its padding, instead of rescanning every
+        BLOB.  The host f32 cache grows by the same rows; the device mirror
+        is the old one with the new rows' upload concatenated."""
+        from ..convert import emb_mirror
+
+        old = self._corpus
+        if old is None or self._fingerprint is None:
+            return None
+        if old.n_valid == 0:
+            # an empty pack has no established dim: a full pack instead
+            return None
+        _, old_count, old_max, old_gen = self._fingerprint
+        _, new_count, new_max, new_gen = fingerprint
+        added = new_count - old_count
+        if added <= 0 or added != new_max - old_max or old.n_valid != old_count:
+            return None
+        # the generation counts every embeddings-table write: pure appends
+        # move it by exactly `added`, a delete+insert or an UPDATE further
+        if new_gen - old_gen != added:
+            return None
+        with db.transaction() as tx:
+            new_rows, new_ids = tx.fetch_embeddings_after(old_max)
+        if new_rows.shape[0] != added or new_rows.shape[1] != old.dim:
+            return None
+        log.info("incremental append: +%d docs (no full repack)", added)
+        n0, n1 = old.n_valid, old.n_valid + added
+        grow = self._row_multiple(n1)
+        dev = old.device
+        scales_new = None
+        scale_max = old.scale_max
+        if old.precision == "int8":
+            q_new, s_new = quantize_int8(new_rows, added, old.dim_padded)
+            data_new = _grow_rows(old.data, torch.from_numpy(q_new).to(dev), n0, grow)
+            scales_new = _grow_rows(
+                old.row_scales, torch.from_numpy(s_new).to(dev), n0, grow
+            )
+            scale_max = max(scale_max, float(np.max(s_new)))
+        else:
+            from ..convert import _upload_data
+
+            padded = _cast_padded(new_rows, added, old.dim_padded, old.precision)
+            data_new = _grow_rows(
+                old.data, _upload_data(padded, old.precision, dev), n0, grow
+            )
+        self._sidecar_source = None
+
+        host_cache = None
+        old_cache = old.host_cache  # one read: (f32, row_map) or None
+        if old_cache is not None and (
+            (len(old_cache[0]) + added) * old.dim * 4 <= rescore_cache_limit()
+        ):
+            # appended pack rows land at the cache's end in both layouts
+            old_f32, old_map = old_cache
+            host_f32 = np.concatenate(
+                [old_f32, new_rows.astype(np.float32, copy=False)]
+            )
+            host_map = None
+            if old_map is not None:
+                host_map = np.concatenate(
+                    [old_map, np.arange(len(old_f32), len(host_f32), dtype=np.int64)]
+                )
+            host_cache = (host_f32, host_map)
+        emb_ids = np.concatenate([old.emb_ids, new_ids])
+        # the mirror follows on the card: an f32 pack is its own; else the
+        # old f32 mirror with the new rows' upload concatenated, unless the
+        # grown cache passes a ceiling (the reference then has none either)
+        dev_rescore = None
+        if old.dev_rescore is not None and self._mirror_allowed(
+            old.precision, host_cache[0] if host_cache is not None else None, n1
+        ):
+            if old.precision == "f32":
+                dev_rescore = (data_new, None)
+            elif host_cache is not None:
+                host_f32, host_map = host_cache
+                new_f32 = torch.from_numpy(host_f32[-added:]).to(dev)
+                dev_rescore = (
+                    torch.cat([old.dev_rescore[0], new_f32]),
+                    None if host_map is None else torch.from_numpy(host_map).to(dev),
+                )
+        return PackedCorpus(
+            data=data_new,
+            row_scales=scales_new,
+            emb_ids=emb_ids,
+            n_valid=n1,
+            dim=old.dim,
+            version=fingerprint[0],
+            precision=old.precision,
+            scale_max=scale_max,
+            host_cache=host_cache,
+            dev_rescore=dev_rescore,
+            dev_emb=None if dev_rescore is None else emb_mirror(emb_ids, n1, dev),
+        )
+
+    def _try_incremental_delete(
+        self, db: Database, fingerprint: Tuple[int, int, int, int]
+    ) -> Optional[PackedCorpus]:
+        """Delete-only fast path (the reference's gates): when the only
+        change since the last pack is removed embeddings (count down and
+        generation up by exactly ``removed``, the survivors a subset of the
+        pack), compact the pack: live rows from the tail move into the
+        deleted slots and ``n_valid`` shrinks.  The kernels mask by
+        ``n_valid``, so the stale rows past it are never scored.  Declined
+        when at least half the pack died (a repack reclaims the buffer) or
+        when nothing survives.
+
+        The f32 cache rows never move (they may be a read-only sidecar
+        mapping): the cache's row map is re-pointed, and made explicit.
+        On the device the f32 mirror stays and only its map is replaced."""
+        from ..convert import emb_mirror
+
+        old = self._corpus
+        if old is None or self._fingerprint is None:
+            return None
+        if old.n_valid == 0:
+            return None
+        _, old_count, old_max, old_gen = self._fingerprint
+        _, new_count, new_max, new_gen = fingerprint
+        removed = old_count - new_count
+        if removed <= 0 or new_count <= 0 or old.n_valid != old_count:
+            return None
+        # pure deletes move the generation by exactly `removed`; any insert
+        # or update moves it further
+        if new_gen - old_gen != removed or new_max > old_max:
+            return None
+        if removed * 2 >= old_count:
+            return None  # bulk wipe: repack to reclaim the buffer
+        with db.transaction() as tx:
+            cur_ids = tx.embedding_ids()
+        if cur_ids.shape[0] != new_count:
+            return None  # raced a foreign writer; the fingerprint is stale
+        keep = np.isin(old.emb_ids, cur_ids, assume_unique=True)
+        if int(keep.sum()) != new_count:
+            return None  # survivors not a subset of the pack
+        old_n, new_n = old.n_valid, new_count
+        dead = np.flatnonzero(~keep)
+        dead_below = dead[dead < new_n]
+        live_tail = new_n + np.flatnonzero(keep[new_n:])
+        log.info(
+            "incremental delete: -%d docs (no full repack; %d rows moved)",
+            removed, int(dead_below.size),
+        )
+        emb_ids = old.emb_ids.copy()
+        emb_ids[dead_below] = emb_ids[live_tail]
+        emb_ids = emb_ids[:new_n]
+        dev = old.device
+        data_new, scales_new = old.data, old.row_scales
+        if dead_below.size:
+            src = torch.from_numpy(live_tail).to(dev)
+            dst = torch.from_numpy(dead_below).to(dev)
+            data_new = _move_rows(old.data, src, dst)
+            if old.row_scales is not None:
+                scales_new = _move_rows(old.row_scales, src, dst)
+        # else a pure tail delete: nothing moves, only the mask boundary
+
+        host_cache = None
+        old_cache = old.host_cache  # one read: (f32, row_map) or None
+        if old_cache is not None:
+            cache_f32, old_map = old_cache
+            # explicit afterwards: a later append concatenates cache rows
+            # at the end and reads a None map as "cache row i = pack row i"
+            base = old_map if old_map is not None else np.arange(old_n, dtype=np.int64)
+            new_map = base[:old_n].copy()
+            new_map[dead_below] = base[live_tail]
+            host_cache = (cache_f32, new_map[:new_n])
+        self._sidecar_source = None
+        dev_rescore = None
+        if old.dev_rescore is not None:
+            if old.precision == "f32":
+                dev_rescore = (data_new, None)
+            elif host_cache is not None:
+                dev_rescore = (
+                    old.dev_rescore[0], torch.from_numpy(host_cache[1]).to(dev)
+                )
+        return PackedCorpus(
+            data=data_new,
+            row_scales=scales_new,
+            emb_ids=emb_ids,
+            n_valid=new_n,
+            dim=old.dim,
+            version=fingerprint[0],
+            precision=old.precision,
+            scale_max=old.scale_max,  # still an upper bound for survivors
+            host_cache=host_cache,
+            dev_rescore=dev_rescore,
+            dev_emb=None if dev_rescore is None else emb_mirror(emb_ids, new_n, dev),
+        )
+
+    def _maybe_respawn_cache_rebuild(self, db: Database) -> None:
+        """A live pack can lack its f32 rescore cache (a sidecar without
+        one, a rebuild that found the store moved): re-attempt the
+        background rebuild once per store state while queries flow.
+        Caller holds the engine lock."""
+        corpus, fp = self._corpus, self._fingerprint
+        if (
+            corpus is None
+            or fp is None
+            or corpus.host_f32 is not None
+            or not self.rescore
+            or fp == self._cache_rebuild_fp
+        ):
+            return
+        t = self._cache_rebuild_thread
+        if t is not None and t.is_alive():
+            return
+        self._spawn_rescore_cache_rebuild(db.path, corpus, fp)
+
+    def _spawn_rescore_cache_rebuild(
+        self,
+        db_path: Union[str, Path],
+        corpus: PackedCorpus,
+        fingerprint: Tuple[int, int, int, int],
+    ) -> None:
+        """A pack loaded from a sidecar without the f32 sections has no
+        rescore cache, so its rescores read SQLite.  Rebuild the cache from
+        a background scan (one transaction, on a connection of its own)
+        and attach it to the live corpus only while the store still has
+        the pack's fingerprint and the ids agree; the next reuse then
+        builds the device mirror."""
+        if (
+            not self.rescore
+            or corpus.host_f32 is not None
+            or corpus.n_valid == 0
+            or corpus.n_valid * corpus.dim * 4 > rescore_cache_limit()
+        ):
+            return
+
+        def work() -> None:
+            try:
+                db2 = Database(db_path)
+                try:
+                    with db2.transaction() as tx:
+                        version = tx.matrix_version()
+                        count, max_id, generation = tx.embeddings_fingerprint()
+                        if (version, count, max_id, generation) != fingerprint:
+                            return
+                        matrix, ids = tx.build_embeddings_matrix()
+                finally:
+                    db2.close()
+                row_map = np.searchsorted(ids, corpus.emb_ids).astype(np.int64)
+                at = np.minimum(row_map, len(ids) - 1)
+                if not np.array_equal(ids[at], corpus.emb_ids):
+                    return  # ids diverged from the pack: never attach
+                with self._lock:
+                    if self._corpus is corpus:
+                        # one store publishes the pair: no torn reads
+                        object.__setattr__(corpus, "host_cache", (matrix, row_map))
+                        log.info(
+                            "rescore cache rebuilt in background (%d rows)",
+                            matrix.shape[0],
+                        )
+            except Exception:
+                log.warning("background rescore-cache rebuild failed", exc_info=True)
+
+        self._cache_rebuild_fp = fingerprint
+        t = threading.Thread(target=work, name="svs-tpu-rescore-cache", daemon=True)
+        t.start()
+        self._cache_rebuild_thread = t
+
+    def _maybe_build_device_rescore(self, corpus: PackedCorpus) -> None:
+        """Give ``corpus`` its device mirrors when it has none and the
+        policy allows one: after a sidecar load without the f32 sections,
+        once the background rebuild has attached the host cache.  Caller
+        holds the engine lock."""
+        from ..convert import device_mirror
+
+        if corpus.dev_rescore is not None:
+            return
+        cache = corpus.host_cache
+        if not self._mirror_allowed(
+            corpus.precision, cache[0] if cache is not None else None, corpus.n_valid
+        ):
+            return
+        dev_rescore, dev_emb = device_mirror(
+            corpus.data, corpus.precision, cache, corpus.emb_ids, corpus.n_valid
+        )
+        # the emb-id mirror first: a reader that sees dev_rescore sees both
+        object.__setattr__(corpus, "dev_emb", dev_emb)
+        object.__setattr__(corpus, "dev_rescore", dev_rescore)
+
+    def _try_sidecar(
+        self, path: Union[str, Path], fingerprint: Tuple[int, int, int, int]
+    ) -> Optional[PackedCorpus]:
+        """The pack from a current sidecar at ``path`` (``None`` when it is
+        missing, stale, corrupt, of another precision or padding).  Its
+        f32 sections become the host cache (an f32 pack's true-dim view is
+        its own); a cache within ``SVS_TPU_HOST_CACHE_RAM_MAX`` is copied
+        into RAM, a larger one stays mapped.  The pack and the device
+        mirror upload synchronously."""
+        from ..convert import packed_from_numpy
+        from ..utils.env import env_int
+
+        loaded = load_sidecar(path, expected_version=fingerprint)
+        if loaded is None:
+            return None
+        data, row_scales, emb_ids, header = loaded
+        if header["precision"] != self.precision:
+            log.info(
+                "sidecar precision %s != engine %s; rebuilding",
+                header["precision"], self.precision,
+            )
+            return None
+        if header["n_padded"] % self._row_multiple(header["n_valid"]) != 0:
+            log.info("sidecar row padding incompatible; rebuilding")
+            return None
+        if header["dim_padded"] % DIM_MULTIPLE != 0:
+            log.info("sidecar dim padding incompatible; rebuilding")
+            return None
+        log.info("loading corpus from sidecar %s", path)
+        n_valid, dim = int(header["n_valid"]), int(header["dim"])
+        host_cache = None
+        if "_f32_cache" in header:
+            cache = header["_f32_cache"]
+            if cache.nbytes <= rescore_cache_limit():
+                host_cache = (cache, header.get("_f32_row_map"))
+        elif self.precision == "f32":
+            # the mapped pack already is the exact bytes: a true-dim view
+            # of it is the host gather source, no rescan and no RAM copy
+            host_cache = (data[:n_valid, :dim], None)
+        if host_cache is not None:
+            cache_arr, rmap = host_cache
+            ram_max = env_int("SVS_TPU_HOST_CACHE_RAM_MAX", _HOST_CACHE_RAM_MAX)
+            if _is_mmap_backed(cache_arr) and cache_arr.nbytes <= ram_max:
+                host_cache = (np.array(cache_arr, copy=True), rmap)
+        corpus = packed_from_numpy(
+            data,
+            row_scales,
+            emb_ids,
+            n_valid,
+            dim,
+            header["matrix_version"],
+            self.precision,
+            float(np.max(row_scales[:n_valid]))
+            if row_scales is not None and n_valid > 0
+            else 0.0,
+            host_cache[0] if host_cache is not None else None,
+            host_cache[1] if host_cache is not None else None,
+            self.device,
+            mirror=self._mirror_allowed(
+                self.precision,
+                host_cache[0] if host_cache is not None else None,
+                n_valid,
+            ),
+        )
+        self._sidecar_source = Path(path)
+        return corpus
+
+    def write_sidecar(self, path: Union[str, Path]) -> None:
+        """Persist the current pack to ``path`` (skipped when the pack was
+        loaded from that very file)."""
+        if self._corpus is None:
+            raise RuntimeError("write_sidecar: nothing packed yet")
+        if self._sidecar_source is not None and Path(path) == self._sidecar_source:
+            log.debug("sidecar %s already current; skipping write", path)
+            return
+        save_sidecar(path, self._corpus, fingerprint=self._fingerprint)
+
+    def write_sidecar_from_store(
+        self,
+        db: Database,
+        path: Union[str, Path],
+        *,
+        min_docs: int = 0,
+        scan_ok: bool = True,
+    ) -> bool:
+        """Write or refresh the sidecar at ``path`` to match the store's
+        current embeddings — the publish flow of ``close()``, so that no
+        consumer pays the cold-start rescan.  Writes the pack in hand when
+        it is current (read back from the device), else scans and packs
+        on the host only, when ``scan_ok`` (a pure consumer's close under
+        the ``'auto'`` policy never pays a full scan).  Skips stores below
+        ``min_docs`` and files already current.  Returns True iff a
+        current sidecar exists at ``path`` on return."""
+        fingerprint = self._store_fingerprint(db)
+        if fingerprint[1] < max(1, min_docs):
+            return False
+        if sidecar_fingerprint(path) == list(fingerprint):
+            return True
+        with self._lock:
+            corpus = self._corpus
+            if corpus is not None and self._fingerprint == fingerprint:
+                save_sidecar(path, corpus, fingerprint=fingerprint)
+                return True
+        if not scan_ok:
+            log.debug("publish: no current pack and scan_ok=False; skipping %s", path)
+            return False
+        log.info("publish: packing corpus for sidecar %s", path)
+        with db.transaction() as tx:
+            matrix, emb_ids = tx.build_embeddings_matrix()
+        host_data, host_scales, emb_ids, cache_f32, row_map, n, d = pack_host(
+            matrix,
+            emb_ids,
+            self.precision,
+            row_multiple=self._row_multiple(matrix.shape[0]),
+            dim_multiple=DIM_MULTIPLE,
+        )
+        save_sidecar_arrays(
+            path,
+            n_valid=n,
+            dim=d,
+            precision=self.precision,
+            matrix_version=fingerprint[0],
+            fingerprint=fingerprint,
+            emb_ids=emb_ids,
+            row_scales=host_scales,
+            data=host_data,
+            f32_cache=cache_f32,
+            f32_row_map=row_map,
+        )
+        return True
 
     # -- search ---------------------------------------------------------------
 

@@ -182,6 +182,45 @@ def pack_host(
     return host_data, host_scales, emb_ids, matrix, perm, n, d
 
 
+def _is_mmap_backed(a: np.ndarray) -> bool:
+    """True when ``a`` is (a view chain over) a ``np.memmap``."""
+    seen: object = a
+    while isinstance(seen, np.ndarray):
+        if isinstance(seen, np.memmap):
+            return True
+        seen = seen.base
+    return False
+
+
+def _grow_rows(
+    old: torch.Tensor, new: torch.Tensor, n0: int, row_multiple: int
+) -> torch.Tensor:
+    """``old`` with ``new`` written at row ``n0`` (leading axis), grown
+    with zero rows to the next ``row_multiple`` when it does not fit.
+    Functional: the result is a new buffer, so a search holding ``old``
+    keeps exactly the rows it started with."""
+    needed = n0 + new.shape[0]
+    if needed > old.shape[0]:
+        grown_rows = _round_up(needed, row_multiple)
+        out = torch.zeros(
+            (grown_rows,) + tuple(old.shape[1:]), dtype=old.dtype, device=old.device
+        )
+        out[: old.shape[0]] = old
+    else:
+        out = old.clone()
+    out[n0:needed] = new
+    return out
+
+
+def _move_rows(buf: torch.Tensor, src: torch.Tensor, dst: torch.Tensor) -> torch.Tensor:
+    """A copy of ``buf`` with rows ``src`` written over rows ``dst`` — the
+    compaction step of an incremental delete.  Functional, as
+    :func:`_grow_rows`."""
+    out = buf.clone()
+    out[dst] = buf[src]
+    return out
+
+
 class _PermutedRows:
     """Row-sliceable view ``matrix[perm]`` that gathers one slice at a
     time (the full permuted copy would double the f32 footprint)."""

@@ -32,13 +32,21 @@ The reference's other synchronous methods are here with its semantics:
 ``bulk_del_docs``, ``bulk_query_docs``, ``bulk_graph_update`` and
 ``bulk_keyval_update`` (one transaction each, rolled back when the block
 raises), ``load()`` (pack now and prewarm the hydration row cache) and
-``warmup()``.  A delete moves the store's fingerprint, so the next search
-repacks from a full rescan and never returns a deleted row.
+``warmup()``.  A write moves the store's fingerprint, so the next search
+repacks and never returns a deleted row: incrementally after a pure
+append or a pure delete, as the reference does, else from a full rescan.
+
+Sidecars as in the reference: with ``sidecar='auto'`` (the default) or
+``True`` a cold open loads a current ``<db>.svsx`` instead of rescanning
+the store (fetched beside a remote URL when the publisher shipped one),
+``load()`` writes one for stores of ``SIDECAR_AUTO_MIN_DOCS`` and more
+(always with ``True``), and ``close()`` publishes one per the same policy
+or its ``write_sidecar`` override.  The file format is the reference's,
+so each package loads the other's sidecar.
 
 Not ported yet: ``AsyncKB``, metadata filters (``where=``, also on the
-pairwise call), sidecars (``sidecar=True``, ``close(write_sidecar=True)``;
-``load()`` writes none), incremental repacks, meshes, replicas and the host
-search route.  Where a call needs one of
+pairwise call), meshes, replicas and the host search route (with it the
+deferred background upload of a cold pack).  Where a call needs one of
 them it raises ``NotImplementedError`` naming what is missing.
 """
 
@@ -71,6 +79,7 @@ from .embeddings.base import (
 )
 from .engine.index import RetrievalEngine
 from .engine.packing import PackedCorpus
+from .engine.sidecar import sidecar_path_for
 from .store.blob import embedding_to_bytes
 from .store.db import Database
 from .store.tx import Tx
@@ -94,6 +103,7 @@ from .utils import (
     chunkify,
     delete_file_if_exists,
     resolve_to_local_uncompressed_file,
+    try_fetch_remote_sidecar,
 )
 from .utils.topk_np import top_k_numpy
 from .utils.trace import QueryStats, phase, profiler_trace
@@ -106,10 +116,9 @@ BULK_EMBEDDING_CHUNK_SIZE = 200
 
 _OUT_OF_CONTEXT = "You may not call this function outside of the context manager!"
 
-
-def _sidecar_path_for(db_path: Union[str, Path]) -> Path:
-    """The reference's sidecar file next to a database (``<db>.svsx``)."""
-    return Path(f"{db_path}.svsx")
+#: The ``'auto'`` sidecar policy persists the pack for stores of at least
+#: this many docs (below it a rescan is cheap).
+SIDECAR_AUTO_MIN_DOCS = 50_000
 
 
 def _reconcile_embedding_func(
@@ -175,13 +184,40 @@ def _open_database(
 ) -> Tuple[Database, EmbeddingFunc]:
     if force_fresh_db:
         delete_file_if_exists(local_path)
-        delete_file_if_exists(_sidecar_path_for(local_path))
+        delete_file_if_exists(sidecar_path_for(local_path))
     db = Database(local_path)
     try:
         return db, _reconcile_embedding_func(db, embedding_func)
     except BaseException:
         db.close()
         raise
+
+
+def _publish_sidecar(
+    engine: RetrievalEngine,
+    policy: Union[bool, str],
+    db: Database,
+    override: Optional[bool],
+) -> None:
+    """Close-time sidecar policy: leave a current ``<db>.svsx`` behind so
+    consumers skip the cold-start rescan.  Never fatal — a failed write
+    only costs the next opener a rescan.  Under ``'auto'`` a full store
+    scan happens only when this connection wrote (``total_changes``); a
+    pure consumer at most writes the pack it already holds."""
+    if override is False or (override is None and policy is False):
+        return
+    auto = override is None and policy == "auto"
+    min_docs = SIDECAR_AUTO_MIN_DOCS if auto else 0
+    wrote = db.conn is not None and db.conn.total_changes > 0
+    try:
+        engine.write_sidecar_from_store(
+            db,
+            sidecar_path_for(db.path),
+            min_docs=min_docs,
+            scan_ok=(not auto) or wrote,
+        )
+    except Exception:
+        log.warning("publish-time sidecar write failed", exc_info=True)
 
 
 def _prebuilt_record(
@@ -548,11 +584,6 @@ class KB:
             raise NotImplementedError(
                 "replicas= is not ported to svs_tpu_torch yet"
             )
-        if sidecar is True:
-            raise NotImplementedError(
-                "sidecar files are not ported to svs_tpu_torch yet; pass "
-                "sidecar='auto' or False"
-            )
         self.local_path_or_remote_url = local_path_or_remote_url
         self.embedding_func = embedding_func
         self.embedding_func_orig = embedding_func
@@ -573,6 +604,11 @@ class KB:
             local_path = self._loop.run(
                 resolve_to_local_uncompressed_file(local_path_or_remote_url)
             )
+            if sidecar is not False and not force_fresh_db:
+                # publishers ship <db>.svsx beside a remote <db>(.gz)
+                self._loop.run(
+                    try_fetch_remote_sidecar(local_path_or_remote_url, local_path)
+                )
             self.db, self.embedding_func = _open_database(
                 local_path, force_fresh_db, embedding_func
             )
@@ -595,15 +631,27 @@ class KB:
             raise RuntimeError("KB is closed")
         return self.db
 
+    def _sidecar_path(self) -> Optional[Path]:
+        if self.sidecar is False or self.db is None:
+            return None
+        return sidecar_path_for(self.db.path)
+
     def _ensure_engine_fresh(self) -> PackedCorpus:
-        return self.engine.ensure_fresh(self._require_db())
+        return self.engine.ensure_fresh(self._require_db(), self._sidecar_path())
 
     def load(self) -> None:
-        """Pack the device corpus now and prewarm the hydration row cache,
-        so that batched hydration never reads the store.  Unlike the
-        reference it writes no sidecar: sidecars are not ported yet."""
+        """Pack the device corpus now, write a sidecar per the policy
+        (``True``, or ``'auto'`` at ``SIDECAR_AUTO_MIN_DOCS`` docs and
+        more), and prewarm the hydration row cache, so that batched
+        hydration never reads the store."""
         with self._lock:
-            self._ensure_engine_fresh()
+            corpus = self._ensure_engine_fresh()
+            path = self._sidecar_path()
+            if path is not None and (
+                self.sidecar is True
+                or (self.sidecar == "auto" and corpus.n_valid >= SIDECAR_AUTO_MIN_DOCS)
+            ):
+                self.engine.write_sidecar(path)
             with self._require_db().transaction() as tx:
                 warmed = self._doc_cache.prewarm(tx)
             if warmed:
@@ -640,20 +688,16 @@ class KB:
         also_gzip: bool = False,
         write_sidecar: Optional[bool] = None,
     ) -> None:
-        """Close the database (optionally VACUUM it and publish a ``.gz``
-        copy) and drop the device corpus.  ``write_sidecar=True`` raises
-        ``NotImplementedError`` (and leaves the KB open): the ``.svsx``
-        sidecar is not ported yet."""
-        if write_sidecar:
-            raise NotImplementedError(
-                "close(write_sidecar=True): the .svsx sidecar is not ported "
-                "to svs_tpu_torch yet"
-            )
+        """Publish a sidecar (``write_sidecar``: ``True`` always, ``False``
+        never, ``None`` per the instance's policy), close the database
+        (optionally VACUUM it and publish a ``.gz`` copy) and drop the
+        device corpus."""
         self._loop.stop()
         with self._lock:
             if self.db is None:
                 return
             db = self.db
+            _publish_sidecar(self.engine, self.sidecar, db, write_sidecar)
             if vacuum:
                 db.vacuum()
             db.close()

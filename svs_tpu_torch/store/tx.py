@@ -496,9 +496,9 @@ class Tx:
 
     def embedding_ids(self) -> np.ndarray:
         """All embedding ids as int64 in id order — the incremental-delete
-        packing path's survivor check (id-only PK scan, no BLOB decode:
-        ~100x cheaper than a full matrix rescan at 1M rows)."""
-        n = self.count_embeddings()
+        packing path's survivor check (id-only PK scan, no BLOB decode).
+        One pass over the table: a ``COUNT(*)`` first would walk every
+        leaf page a second time (each holds one or two 6 KB rows)."""
         return np.fromiter(
             (
                 r[0]
@@ -507,7 +507,6 @@ class Tx:
                 )
             ),
             dtype=np.int64,
-            count=n,
         )
 
     def embeddings_generation(self) -> int:

@@ -9,6 +9,7 @@ from .files import (
     delete_file_if_exists,
     file_cached_wget,
     resolve_to_local_uncompressed_file,
+    try_fetch_remote_sidecar,
 )
 
 __all__ = [
@@ -19,4 +20,5 @@ __all__ = [
     "delete_file_if_exists",
     "file_cached_wget",
     "resolve_to_local_uncompressed_file",
+    "try_fetch_remote_sidecar",
 ]

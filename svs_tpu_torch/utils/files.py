@@ -143,6 +143,45 @@ async def resolve_to_local_uncompressed_file(path_or_url: Union[str, Path]) -> P
     return target
 
 
+async def try_fetch_remote_sidecar(
+    path_or_url: Union[str, Path], local_db_path: Union[str, Path]
+) -> bool:
+    """Best-effort fetch of the publisher's packed-matrix sidecar.
+
+    A publisher's ``close()`` leaves ``<db>.svsx`` next to ``<db>.gz``; a
+    consumer opening the KB from a URL skips the cold-start BLOB rescan
+    when that sibling was uploaded too.  The sidecar URL is the DB URL
+    minus any ``.gz`` plus ``.svsx``.  Any failure (404, network, local
+    sidecar already present) is non-fatal: the engine rescans, and a stale
+    or corrupt download is ignored by the sidecar's own fingerprint check.
+    Returns True iff a sidecar file exists at the expected local path on
+    return.
+    """
+    is_remote, located = _split_remote_or_local(path_or_url)
+    if not is_remote:
+        return False
+    dest = Path(f"{local_db_path}.svsx")
+    if dest.exists():
+        return True
+    base = located[: -len(".gz")] if located.endswith(".gz") else located
+    url = f"{base}.svsx"
+    try:
+        cached = await file_cached_wget(url)
+    except Exception as exc:
+        log.info("no remote sidecar at %s (%s)", url, exc)
+        return False
+    loop = asyncio.get_running_loop()
+
+    def place() -> None:
+        tmp = Path(f"{dest}.tmp")
+        shutil.copyfile(cached, tmp)
+        os.replace(tmp, dest)
+
+    await loop.run_in_executor(None, place)
+    log.info("fetched remote sidecar %s -> %s", url, dest)
+    return True
+
+
 def atomic_gzip_file(src: Union[str, Path], dest: Union[str, Path]) -> None:
     """Gzip ``src`` to ``dest`` atomically (write ``dest + '.tmp'``, then
     rename).  Used by ``close(also_gzip=True)`` to publish a KB."""

@@ -110,23 +110,30 @@ def _leaf_hits(results, count):
 
 @pytest.mark.parametrize("precision", ["auto", "f32"])
 def test_delete_then_retrieve_matches_reference(stores, precision):
-    """Deletes through the port, on a KB that has already packed: the next
-    search repacks (the fingerprint moved), returns no deleted id, and both
-    packages read the same hits from the file."""
-    _, path = stores
+    """Deletes through each package, on a KB that has already packed: the
+    next search repacks as the reference's does (an incremental delete,
+    the same ``pack_events``), returns no deleted id, and both packages
+    read the same hits from the file."""
+    ref_path, path = stores
+    ref_kb = svs_tpu.KB(ref_path, _embed, precision=precision)
     kb = svs_tpu_torch.KB(path, _embed, device="cpu", precision=precision)
     try:
         before = kb.retrieve_batch(QUERIES, 10)
+        ref_kb.retrieve_batch(QUERIES, 10)
         gone = _leaf_hits(before, 15)
         assert len(gone) == 15
-        with kb.bulk_del_docs() as delete:
-            for doc_id in gone:
-                delete(doc_id)
+        for k in (kb, ref_kb):
+            with k.bulk_del_docs() as delete:
+                for doc_id in gone:
+                    delete(doc_id)
         after = kb.retrieve_batch(QUERIES, 10)
-        assert kb.stats()["pack_events"]["scan"] == 2.0
+        ref_kb.retrieve_batch(QUERIES, 10)
+        assert kb.stats()["pack_events"] == ref_kb.stats()["pack_events"]
+        assert kb.stats()["pack_events"]["delete"] == 1.0
         assert len(kb) == 2 * N_ROOTS + N_ROOTS // 5 - len(gone)
     finally:
         kb.close()
+        ref_kb.close()
     assert not set(gone) & {i for row in _ids(after) for i in row}
     ref, got = _retrieve_both(path)
     _assert_same_hits(ref, got)
@@ -408,12 +415,17 @@ def test_warmup_records_its_phase(stores):
         kb.close()
 
 
-def test_close_write_sidecar_is_not_ported(stores):
-    _, path = stores
+def test_close_write_sidecar_publishes_like_reference(stores):
+    """``close(write_sidecar=True)`` on a KB that never packed: each package
+    scans, packs on the host and publishes ``<db>.svsx``; the two files are
+    byte for byte the same, and the port's KB is closed after it."""
+    ref_path, path = stores
     kb = svs_tpu_torch.KB(path, _embed, device="cpu")
-    with pytest.raises(NotImplementedError, match="sidecar"):
-        kb.close(write_sidecar=True)
-    assert len(kb) == 2 * N_ROOTS + N_ROOTS // 5  # still open
-    kb.close(write_sidecar=False)
+    assert len(kb) == 2 * N_ROOTS + N_ROOTS // 5
+    kb.close(write_sidecar=True)
     with pytest.raises(RuntimeError, match="closed"):
         len(kb)
+    svs_tpu.KB(ref_path, _embed).close(write_sidecar=True)
+    ours = path.with_name(path.name + ".svsx").read_bytes()
+    theirs = ref_path.with_name(ref_path.name + ".svsx").read_bytes()
+    assert ours == theirs
