@@ -41,7 +41,13 @@ from a seed:
      candidates rescored on the host): B=64, B=8 and B=256 at n=100;
    - ``rescore=False`` ``KB`` (bf16 storage): B=8/n=100;
    checking every result against a brute-force scan on the card (for
-   ``rescore=False``, of the bf16-rounded corpus and queries);
+   ``rescore=False``, of the bf16-rounded corpus and queries); then the
+   ``filters`` phase (``filters_phase``): the 1M store's docs tagged with
+   ``tenant`` and ``shard`` meta, and ``where=`` cells on int8 ``KB``s —
+   the pre-filter device and host routes, the post-filter ladder of a
+   dict and of an opaque predicate — and an ``AsyncKB`` serving
+   concurrent plain and filtered batches, each held against a
+   brute-force scan of the matching rows; then the incremental phase;
 4. pairwise phase: writes two 100k x 1536 stores (the repo's pairwise
    benchmark: dupe-planted and flat random) and drives
    ``document_top_pairwise_scores(10,000)`` three times on each of five
@@ -1130,6 +1136,7 @@ def e2e_phase(n_docs: int, reps: int, work: Path) -> dict:
         kb_path("rescore_off_kb", ["_fused_extract"], (("B8_n100", 8, 100),),
                 bf16_scan, check=is_bf16, rescore=False)
         del ref_bf16
+        filters_phase(store, ref_matrix, reps, out)
         ref_matrix = incremental_phase(store, ref_matrix, reps, out)
     finally:
         store.unlink(missing_ok=True)
@@ -1138,6 +1145,220 @@ def e2e_phase(n_docs: int, reps: int, work: Path) -> dict:
     torch.cuda.empty_cache()
     pairwise_phase(work, out)
     return out
+
+
+def filters_phase(store: Path, ref_matrix, reps: int, out: dict) -> None:
+    """Metadata filters and ``AsyncKB`` on the 1M int8 store, after the
+    six retrieval paths (so the oracle is the store as written).  Tags doc
+    ``i`` with ``{"tenant": i % 500, "shard": i % 4}`` through
+    ``bulk_query_docs().update_doc_meta`` in one transaction (a meta-only
+    write: the next ``KB`` still opens from the sidecar, no scan), then
+    drives, each with the launch counts set to 0 just before it and read
+    just after, ``reps`` calls at n=100 of:
+
+    - ``filter_prefilter``: ``where={"tenant": 7}`` (2,000 docs), B=64 —
+      the pre-filter device route (a subset gather and one f32 product);
+    - ``filter_prefilter_host``: the same on ``KB(device_rescore='host')``
+      — the pre-filter host route;
+    - ``filter_ladder_dict``: ``where={"shard": 1}`` (250,000 docs, past
+      the pre-filter gate), B=64 — the post-filter ladder at m=400, 1,600;
+    - ``filter_ladder_predicate``: an opaque predicate passing 2%
+      (``tenant < 10``), B=8 — the ladder at m=400, 1,600, 6,400, ...;
+    - ``async``: an int8 ``AsyncKB`` opened from the sidecar, ``await
+      load()``, then ``asyncio.gather`` of four ``retrieve_batch`` (B=64)
+      and one with ``where={"tenant": 7}``.
+
+    Every call is held against a brute-force f32 scan on the card of the
+    matching rows only (``check_results``) and every hit must pass its
+    filter; each cell records its first and warm latencies, phase p50s,
+    the ladder's rounds (batch, m) per call and the widen retries, and
+    the pre-filter and dict-ladder cells the device's idle share in one
+    profiled call."""
+    import asyncio
+
+    import torch
+
+    import svs_tpu_torch
+
+    qvec = {}
+
+    async def embed(texts):
+        return [qvec[t].tolist() for t in texts]
+
+    rng = np.random.default_rng(SEED + 6)
+    n_docs = ref_matrix.shape[0]
+    row = torch.arange(n_docs, device=ref_matrix.device)
+    res = out["paths_detail_filters"] = {}
+
+    def tag():
+        kb = svs_tpu_torch.KB(store, embed, device="cuda")
+        try:
+            t = time.perf_counter()
+            with kb.bulk_query_docs() as q:
+                for i in range(n_docs):  # doc i has id i + 1
+                    q.update_doc_meta(i + 1, {"tenant": i % 500, "shard": i % 4})
+            res["tag_s"] = time.perf_counter() - t
+        finally:
+            kb.close()
+        log(f"e2e filters: tagged {n_docs} docs in {res['tag_s']:.1f} s (one transaction)")
+
+    def tenant_lt_10(doc):
+        return doc["meta"]["tenant"] < 10
+
+    cells = {
+        # label: (where, the rows it passes, the check of a hit's meta)
+        "tenant7": ({"tenant": 7}, row % 500 == 7, lambda m: m["tenant"] == 7),
+        "shard1": ({"shard": 1}, row % 4 == 1, lambda m: m["shard"] == 1),
+        "tenant_lt_10": (tenant_lt_10, row % 500 < 10, lambda m: m["tenant"] < 10),
+    }
+
+    def check(hits, v, name):
+        where, match, ok = cells[name] if name else (None, None, None)
+        rows, scores = hits_to_arrays(hits)
+        check_results(rows, scores, v, ref_matrix, 100,
+                      dead=None if match is None else ~match)
+        if ok is not None and not all(ok(h["doc"]["meta"]) for q in hits for h in q):
+            raise AssertionError(f"{name}: a hit does not pass the filter")
+
+    def cell(kb, label, name, b, profile=False):
+        """``reps`` calls of B new queries with the filter ``name``; with
+        ``profile``, one more call unprofiled and under ``torch.profiler``
+        (``device_idle_share``)."""
+        where = cells[name][0]
+        rounds = []
+        real = kb._search.search_hydrated
+
+        def spy(corpus, vectors, n):
+            rounds[-1].append([len(vectors), n])
+            return real(corpus, vectors, n)
+
+        kb._search.search_hydrated = spy
+        kb._stats.reset()
+        widen0 = kb.engine.widen_retries
+        lat = []
+        try:
+            for rep in range(reps):
+                v = unit_queries(rng, b)
+                texts = [f"{label}-{rep}-{i}" for i in range(b)]
+                qvec.update(zip(texts, v))
+                rounds.append([])
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                hits = kb.retrieve_batch(texts, 100, where=where)
+                torch.cuda.synchronize()
+                lat.append(time.perf_counter() - t)
+                check(hits, v, name)
+        finally:
+            del kb._search.search_hydrated
+        res[label] = {
+            "first_s": lat[0],
+            "warm_p50_ms": statistics.median(lat[1:]) * 1e3,
+            "warm_ms": [x * 1e3 for x in lat[1:]],
+            "phase_p50_ms": {
+                k: v["p50_s"] * 1e3 for k, v in kb._stats.snapshot().items()
+            },
+            "ladder_rounds": rounds,  # per call: [batch, m] of each round
+            "widen_retries": kb.engine.widen_retries - widen0,
+            "pack_events": dict(kb.engine.pack_events),
+        }
+        if profile:
+            texts = [f"{label}-profiled-{i}" for i in range(b)]
+            qvec.update(zip(texts, unit_queries(rng, b)))
+            prof = res[label]["profiled_call"] = device_idle_share(
+                lambda: kb.retrieve_batch(texts, 100, where=where)
+            )
+            second = prof["second_profile"]
+            log(f"e2e {label}: unprofiled {prof['unprofiled_wall_ms']:.2f} ms; profiled "
+                f"{second['wall_ms']:.2f} ms, kernels {second.get('kernel_ms')} ms in "
+                f"{second.get('kernel_launches')} launches (idle share {second['idle_share']})")
+        log(f"e2e {label}: first {lat[0]:.3f} s, warm p50 "
+            f"{res[label]['warm_p50_ms']:.2f} ms; phases "
+            f"{({k: round(v, 2) for k, v in res[label]['phase_p50_ms'].items()})} ms; "
+            f"ladder rounds {rounds}; widen retries {res[label]['widen_retries']}; "
+            f"exact vs the matching rows' scan")
+
+    def opened_from_sidecar(kb, label):
+        ev = kb.engine.pack_events
+        if ev["sidecar"] != 1 or ev["scan"] != 0:
+            raise AssertionError(f"{label}: pack_events {ev}: the meta write made the sidecar stale")
+
+    def kb_cell(label, name, b, profile=False, **options):
+        def run():
+            kb = svs_tpu_torch.KB(store, embed, device="cuda", precision="int8", **options)
+            try:
+                cell(kb, label, name, b, profile)
+                opened_from_sidecar(kb, label)
+                if options and kb.engine.corpus.dev_rescore is not None:
+                    raise AssertionError("device_rescore='host' built a device mirror")
+            finally:
+                kb.close()
+
+        return run
+
+    def run_async():
+        async def go():
+            akb = svs_tpu_torch.AsyncKB(store, embed, device="cuda", precision="int8")
+            try:
+                t = time.perf_counter()
+                await akb.load()
+                res["async_load_s"] = time.perf_counter() - t
+                opened_from_sidecar(akb, "async")
+                akb._stats.reset()
+                lat = []
+                for rep in range(reps):
+                    names = [None, None, None, None, "tenant7"]
+                    vs = [unit_queries(rng, 64) for _ in names]
+                    texts = [[f"async-{rep}-{j}-{i}" for i in range(64)] for j in range(5)]
+                    for tx, v in zip(texts, vs):
+                        qvec.update(zip(tx, v))
+                    torch.cuda.synchronize()
+                    t = time.perf_counter()
+                    outs = await asyncio.gather(*(
+                        akb.retrieve_batch(tx, 100, where=None if nm is None else cells[nm][0])
+                        for tx, nm in zip(texts, names)
+                    ))
+                    torch.cuda.synchronize()
+                    lat.append(time.perf_counter() - t)
+                    for hits, v, nm in zip(outs, vs, names):
+                        check(hits, v, nm)
+                res["async"] = {
+                    "load_s": res["async_load_s"],
+                    "first_s": lat[0],
+                    "warm_p50_ms": statistics.median(lat[1:]) * 1e3,
+                    "warm_ms": [x * 1e3 for x in lat[1:]],
+                    "phase_p50_ms": {
+                        k: v["p50_s"] * 1e3 for k, v in akb._stats.snapshot().items()
+                    },
+                    "widen_retries": akb.engine.widen_retries,
+                }
+            finally:
+                await akb.close()
+            log(f"e2e async: load() {res['async_load_s']:.2f} s; gather of 5 x B=64 "
+                f"first {lat[0]:.3f} s, warm p50 {res['async']['warm_p50_ms']:.2f} ms; "
+                f"phases {({k: round(v, 2) for k, v in res['async']['phase_p50_ms'].items()})} "
+                f"ms; exact vs the scans")
+
+        asyncio.run(go())
+
+    tag()
+    int8 = ["_fused3_extract_int8", "_fused2_extract_int8", "_fused_extract_int8"]
+    for label, expected, run in (
+        # the pre-filter routes run no hand-written kernel: a gather, one
+        # f32 product and the final selection
+        ("filter_prefilter", [], kb_cell("filter_prefilter", "tenant7", 64, profile=True)),
+        ("filter_prefilter_host", [],
+         kb_cell("filter_prefilter_host", "tenant7", 64, device_rescore="host")),
+        ("filter_ladder_dict", ["_fused2_extract_int8", "_fused_extract_int8", "_staged_finish"],
+         kb_cell("filter_ladder_dict", "shard1", 64, profile=True)),
+        ("filter_ladder_predicate", [], kb_cell("filter_ladder_predicate", "tenant_lt_10", 8)),
+        ("async", ["_fused3_extract_int8", "_staged_finish"], run_async),
+    ):
+        drive_path(label, expected, run, out)
+        if label in ("filter_ladder_predicate", "async"):
+            counts = out["paths"][label]["launches"]
+            if sum(counts[k] for k in int8) <= 0:
+                raise AssertionError(f"{label}: no int8 prescore kernel launched")
+        torch.cuda.empty_cache()
 
 
 def incremental_phase(store: Path, ref_matrix, reps: int, out: dict):
@@ -1530,6 +1751,90 @@ def delete_then_retrieve(store: Path, ref, reps: int, out: dict) -> None:
         f"{res['pack_events']}; exact vs the survivors' scan")
 
 
+def filtered_pairs(store: Path, ref, out: dict) -> None:
+    """Filtered pairwise on the 100k dupe-planted store with an int8 ``KB``:
+    tags doc ``i`` with ``{"g": i % 5, "head": i < 20480}`` in one
+    transaction, then ``document_top_pairwise_scores(10,000)`` three times
+    each with ``where={"head": True}`` (20,480 rows: a 4,096-aligned
+    subset, the keyed route), ``where={"g": 0}`` (20,000 rows padded to
+    20,224: the exact blocked pass) and the same subset through an opaque
+    predicate (which must give the identical list), each with the launch
+    counts set to 0 just before it and read just after, held against a
+    brute-force top-10,000 of the subset's pairs on the card, every
+    document passing the filter."""
+    import torch
+
+    import svs_tpu_torch
+
+    async def embed(texts):  # pairwise embeds nothing
+        raise AssertionError("the pairwise path does not embed")
+
+    res = out["paths_detail_pairwise_filtered"] = {}
+    kb = svs_tpu_torch.KB(store, embed, device="cuda")
+    try:
+        t = time.perf_counter()
+        with kb.bulk_query_docs() as q:
+            for i in range(PAIR_DOCS):  # doc i has id i + 1
+                q.update_doc_meta(i + 1, {"g": i % 5, "head": i < 20480})
+        res["tag_s"] = time.perf_counter() - t
+    finally:
+        kb.close()
+    log(f"e2e pairwise_filtered: tagged {PAIR_DOCS} docs in {res['tag_s']:.1f} s")
+    head = torch.arange(20480, device=ref.device)
+    g0 = torch.arange(0, PAIR_DOCS, 5, device=ref.device)
+    listed = {}
+
+    def g_is_0(doc):
+        return doc["meta"]["g"] == 0
+
+    for label, where, rows, ok, expected in (
+        ("pairwise_filter_keyed", {"head": True}, head,
+         lambda m: m["head"] is True, ["pairwise_keys_extract"]),
+        ("pairwise_filter_blocked", {"g": 0}, g0, lambda m: m["g"] == 0, ["_extract"]),
+        ("pairwise_filter_predicate", g_is_0, g0, lambda m: m["g"] == 0, ["_extract"]),
+    ):
+        v, r, c = pair_oracle(ref[rows], PAIR_K)
+        oracle = (v, rows[r], rows[c])
+
+        def run():
+            kb = svs_tpu_torch.KB(store, embed, device="cuda")
+            try:
+                lat, widens = [], []
+                for _ in range(3):
+                    before = kb.engine.widen_retries
+                    torch.cuda.synchronize()
+                    t = time.perf_counter()
+                    pairs = kb.document_top_pairwise_scores(PAIR_K, where=where)
+                    torch.cuda.synchronize()
+                    lat.append(time.perf_counter() - t)
+                    widens.append(kb.engine.widen_retries - before)
+                    check_pairs(pairs, ref, oracle, PAIR_K)
+                    if not all(ok(d["meta"]) for _, a, b in pairs for d in (a, b)):
+                        raise AssertionError(f"{label}: a pair does not pass the filter")
+                listed[label] = [(s, a["id"], b["id"]) for s, a, b in pairs]
+                res[label] = {
+                    "first_s": lat[0],
+                    "warm_ms": [x * 1e3 for x in lat[1:]],
+                    "warm_p50_ms": statistics.median(lat[1:]) * 1e3,
+                    "widen_retries_per_call": widens,
+                    "phase_p50_ms": {
+                        k: v["p50_s"] * 1e3 for k, v in kb._stats.snapshot().items()
+                    },
+                    "pair_hint": {str(k): v for k, v in kb.engine._pair_hint.items()},
+                }
+            finally:
+                kb.close()
+
+        drive_path(label, expected, run, out)
+        log(f"e2e {label}: {int(rows.numel())} rows; first {res[label]['first_s']:.3f} s, "
+            f"warm {res[label]['warm_ms']} ms, widens {res[label]['widen_retries_per_call']}; "
+            f"phases {({k: round(v, 2) for k, v in res[label]['phase_p50_ms'].items()})} ms; "
+            f"exact vs the subset's oracle")
+        del oracle, v, r, c
+    if listed["pairwise_filter_predicate"] != listed["pairwise_filter_blocked"]:
+        raise AssertionError("the predicate and the dict of one subset gave other pairs")
+
+
 def pairwise_phase(work: Path, out: dict) -> None:
     """``KB.document_top_pairwise_scores(10,000)`` on 100k x 1536 stores,
     3 calls per path, each result held against the brute-force oracle."""
@@ -1607,6 +1912,7 @@ def pairwise_phase(work: Path, out: dict) -> None:
             pair_path("pairwise_int8_dupes", keyed, store, ref, oracle, profile=True)
             pair_path("pairwise_bf16_dupes", keyed, store, ref, oracle, precision="bf16")
             pair_path("pairwise_f32_dupes", keyed, store, ref, oracle, precision="f32")
+            filtered_pairs(store, ref, out)
             # rescore=False returns raw bf16 prescores: the oracle is of the
             # bf16-rounded matrix
             ref_bf16 = ref.to(torch.bfloat16).to(torch.float32)

@@ -25,16 +25,21 @@
 - **candidate sizing** — the width hints of the widen-and-retry loops;
 - **pairwise** — the top pairs of the corpus (keyed candidates or the
   exact blocked pass, ``ops.pairwise``), their bound ``pairwise_eps`` and
-  the f32 pair rescore from the device mirror.
+  the f32 pair rescore from the device mirror;
+- **metadata filters** — the pre-filter route of a selective filter
+  (:meth:`RetrievalEngine.subset_topk`: the matching rows' exact f32
+  scores from the device mirror or the host cache) and the derived corpus
+  of filtered pairwise (:meth:`RetrievalEngine.subset_pairwise_corpus`).
 
 Not ported yet (``ROADMAP.md``): the host route and two-pass host search
 (with it the deferred background upload of a cold pack), hedged fetches
-and RPC-floor probes, calibration, meshes and replicas, the subset corpus
-of filtered pairwise.
+and RPC-floor probes, calibration, meshes and replicas (with them the
+mesh branch of ``subset_topk``).
 """
 
 from __future__ import annotations
 
+import hashlib
 import logging
 import threading
 from pathlib import Path
@@ -141,6 +146,76 @@ def _final_from_packed(
     return final_select_wire(exact, emb_of, tail_bits, k)
 
 
+def _subset_final(
+    dev_f32: torch.Tensor,
+    dev_map: Optional[torch.Tensor],
+    rows: torch.Tensor,
+    emb_of: torch.Tensor,
+    n_live: int,
+    queries: torch.Tensor,
+    k: int,
+    dim: Optional[int] = None,
+) -> torch.Tensor:
+    """Exact top-``k`` over an explicit row subset — the pre-filter route
+    of selective metadata filters.  ``rows`` are int64 pack rows padded to
+    a fixed width (padding repeats row 0), ``emb_of`` the matching int32
+    emb ids, ``n_live`` the live prefix length.  The rows' f32 vectors are
+    gathered from the mirror through its row map (mapped as
+    :func:`_rescore_from_packed` maps them: an incremental delete leaves
+    the map shorter than the mirror), one true-f32 ``[B, d] x [F, d]^T``
+    product (TF32 off), the padding masked to ``-inf``, and the final
+    tie-rule selection wire — exact by construction, so no margin proof
+    and no widen loop."""
+    if dim is not None and dim != queries.shape[1]:
+        queries = queries[:, :dim]
+    at = rows.clamp(0, (dev_f32 if dev_map is None else dev_map).shape[0] - 1)
+    cand = dev_f32[at if dev_map is None else dev_map[at]]  # [F, d]
+    with exact_f32():
+        exact = queries.to(torch.float32) @ cand.t()  # [B, F]
+    live = torch.arange(rows.shape[0], device=rows.device)[None, :] < n_live
+    exact = torch.where(live, exact, float("-inf"))
+    emb_b = emb_of[None, :].expand(exact.shape[0], -1)
+    tail = torch.zeros((exact.shape[0], 1), dtype=torch.int32, device=exact.device)
+    return final_select_wire(exact, emb_b, tail, k)
+
+
+def _subset_select_np(
+    exact: np.ndarray, emb: np.ndarray, k: int
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Host top-``k`` of exact subset scores with the reference tie rule
+    (descending score, equal scores break to the larger emb id) —
+    boundary-tie safe: the argpartition prefilter keeps EVERY row tied
+    with the k-th score, then the lexsort decides among them."""
+    n_q, f = exact.shape
+    k = min(int(k), f)
+    out_emb = np.empty((n_q, k), dtype=np.int64)
+    out_scores = np.empty((n_q, k), dtype=np.float32)
+    for b in range(n_q):
+        row = exact[b]
+        if k < f:
+            part = np.argpartition(row, f - k)[f - k :]
+            boundary = row[part].min()
+            cand = np.nonzero(row >= boundary)[0]
+        else:
+            cand = np.arange(f)
+        order = np.lexsort((-emb[cand], -row[cand]))[:k]
+        sel = cand[order]
+        out_emb[b] = emb[sel]
+        out_scores[b] = row[sel]
+    return out_emb, out_scores
+
+
+#: Host-route ceiling for the pre-filter subset dot (B * F * d mults):
+#: past it the host would be slower than the post-filter device ladder,
+#: so ``subset_topk`` declines and the caller widens.
+_SUBSET_HOST_MAX_FLOPS = 2_000_000_000
+
+#: Entries kept in the engine's device-side subset cache (rows + emb ids
+#: per distinct filter); bounds the device memory held for dead corpora
+#: and filters.
+_SUBSET_DEV_CACHE_MAX = 16
+
+
 def _pairwise_rescore_from_rows(
     dev_f32: torch.Tensor,
     dev_map: Optional[torch.Tensor],
@@ -231,6 +306,11 @@ class RetrievalEngine:
         #: last spawn (one attempt per store state).
         self._cache_rebuild_thread: Optional[threading.Thread] = None
         self._cache_rebuild_fp: Optional[Tuple[int, int, int, int]] = None
+        #: Device arrays of the pre-filter subsets, keyed by the filter's
+        #: canonical string: ``(corpus, rows, emb ids, match-set digest)``.
+        self._subset_dev: Dict[
+            str, Tuple[PackedCorpus, torch.Tensor, torch.Tensor, bytes]
+        ] = {}
         self._lock = threading.Lock()
 
     def shutdown(self) -> None:
@@ -896,6 +976,112 @@ class RetrievalEngine:
         packed_dev, wide = self._prescore_packed(corpus, q_dev, k_eff)
         return unpack_vals_idx(packed_dev.cpu(), k_eff, wide=wide)
 
+    def subset_topk(
+        self,
+        corpus: PackedCorpus,
+        queries: np.ndarray,
+        emb_sub: np.ndarray,
+        k: int,
+        cache_key: Optional[str] = None,
+    ) -> Optional[Tuple[np.ndarray, np.ndarray]]:
+        """Exact top-``k`` restricted to the documents whose embedding ids
+        are in ``emb_sub`` — the pre-filter route of selective metadata
+        filters (``KB.retrieve(..., where=...)``): score only the matching
+        rows in exact f32 and select with the reference tie rule, with no
+        margin proof and no widen loop.
+
+        Returns ``(emb_ids int64 [B, k'], scores f32 [B, k'])`` with ``k' =
+        min(k, |matching rows in this pack|)``, or ``None`` when no route
+        applies (no f32 gather source, or a host-route shape past
+        ``_SUBSET_HOST_MAX_FLOPS``): the caller falls back to the
+        post-filter ladder.  The device route gathers from the rescore
+        mirror (emb ids below 2^31, the ``[F_pad, d]`` gather within
+        ``_DEVICE_GATHER_MAX_BYTES``); else the host route gathers the
+        pack's f32 cache through its row map and takes one NumPy product
+        (the reference's own call).  Ids absent from the pack are dropped.
+        ``cache_key`` (the filter's canonical string) keeps the subset's
+        device arrays across calls, checked against the corpus object and
+        a digest of the match set."""
+        queries = np.atleast_2d(np.asarray(queries, dtype=np.float32))
+        emb_sub = np.asarray(emb_sub, dtype=np.int64)
+        rows, present = corpus.rows_for_emb_ids(emb_sub)
+        if not bool(present.all()):
+            rows, emb_sub = rows[present], emb_sub[present]
+        f = int(rows.size)
+        b = queries.shape[0]
+        if f == 0:
+            return (
+                np.zeros((b, 0), dtype=np.int64),
+                np.zeros((b, 0), dtype=np.float32),
+            )
+        k_eff = min(int(k), f)
+        dev = corpus.dev_rescore
+        if dev is not None and int(emb_sub.max()) < 2**31:
+            f_pad = max(512, 1 << (f - 1).bit_length())
+            if f_pad * int(dev[0].shape[1]) * 4 <= _DEVICE_GATHER_MAX_BYTES:
+                rows_dev, emb_dev = self._subset_arrays(
+                    corpus, rows, emb_sub, f_pad, cache_key
+                )
+                q_dev = torch.from_numpy(
+                    pad_queries(queries, corpus.dim_padded)
+                ).to(corpus.device)
+                dim = corpus.dim if int(dev[0].shape[1]) == corpus.dim else None
+                wire = _subset_final(
+                    dev[0], dev[1], rows_dev, emb_dev, f, q_dev, k_eff, dim=dim
+                )
+                arr = wire.cpu().numpy()
+                emb = arr[:, :k_eff].astype(np.int64)
+                scores = np.ascontiguousarray(arr[:, k_eff : 2 * k_eff]).view(
+                    np.float32
+                )
+                return emb, scores
+        host = corpus.host_f32
+        if host is None:
+            return None
+        if b * f * corpus.dim > _SUBSET_HOST_MAX_FLOPS:
+            return None
+        row_map = corpus.host_row_map
+        src = rows if row_map is None else row_map[rows]
+        exact = queries @ host[src].T  # [B, F] exact f32 (the returned scores)
+        return _subset_select_np(exact, emb_sub, k_eff)
+
+    def _subset_arrays(
+        self,
+        corpus: PackedCorpus,
+        rows: np.ndarray,
+        emb_sub: np.ndarray,
+        f_pad: int,
+        cache_key: Optional[str],
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The subset's padded pack rows (int64) and emb ids (int32) on the
+        device, from the cache when its entry holds this corpus and this
+        match set (a meta-only update can swap which ids match at the same
+        count on the same pack).  A store sweeps every entry of another
+        corpus: each pins a superseded pack on the device."""
+        digest = hashlib.blake2b(emb_sub.tobytes(), digest_size=16).digest()
+        if cache_key is not None:
+            with self._lock:
+                entry = self._subset_dev.get(cache_key)
+            if entry is not None and entry[0] is corpus and entry[3] == digest:
+                return entry[1], entry[2]
+        f = int(rows.size)
+        rows_p = np.zeros(f_pad, dtype=np.int64)
+        rows_p[:f] = rows
+        emb_p = np.full(f_pad, -1, dtype=np.int32)
+        emb_p[:f] = emb_sub
+        rows_dev = torch.from_numpy(rows_p).to(corpus.device)
+        emb_dev = torch.from_numpy(emb_p).to(corpus.device)
+        if cache_key is not None:
+            with self._lock:
+                for ck in [
+                    ck for ck, e in self._subset_dev.items() if e[0] is not corpus
+                ]:
+                    del self._subset_dev[ck]
+                while len(self._subset_dev) >= _SUBSET_DEV_CACHE_MAX:
+                    self._subset_dev.pop(next(iter(self._subset_dev)))
+                self._subset_dev[cache_key] = (corpus, rows_dev, emb_dev, digest)
+        return rows_dev, emb_dev
+
     def candidate_count(self, k: int) -> int:
         """How many candidates the device should return for a final top-k."""
         if not self.rescore:
@@ -1137,6 +1323,52 @@ class RetrievalEngine:
         s = corpus.scale_max
         t = float(np.sqrt(2.0 * np.log(2.0 / 1e-15)))
         return bf16_term + t * s * 1.001 + 0.25 * corpus.dim * s * s + key_eps
+
+    def subset_pairwise_corpus(
+        self,
+        corpus: PackedCorpus,
+        rows: np.ndarray,
+        emb_sub: np.ndarray,
+    ) -> PackedCorpus:
+        """A derived :class:`PackedCorpus` of only the given pack rows — the
+        filtered-pairwise route (``where=`` on
+        ``document_top_pairwise_scores``): the unchanged verified pairwise
+        loop then runs on "a corpus of just the matching documents", with
+        its bound, margin check, widen and tie rule.
+
+        The rows (and their int8 scales) are gathered on the device, the
+        padding rows zeroed as in a real pack, to a multiple of
+        ``ROW_MULTIPLE``; the host f32 cache subsets along.  The derived
+        corpus gets no device mirror, so its pair rescore runs on the host
+        rows (or, without them, from the store by emb id), as the
+        reference's does."""
+        f = int(rows.size)
+        f_pad = max(-(-f // ROW_MULTIPLE) * ROW_MULTIPLE, ROW_MULTIPLE)
+        rows_p = np.zeros(f_pad, dtype=np.int64)
+        rows_p[:f] = rows
+        rows_dev = torch.from_numpy(rows_p).to(corpus.device)
+        data = torch.index_select(corpus.data, 0, rows_dev)
+        data[f:] = 0
+        scales = None
+        if corpus.row_scales is not None:
+            scales = torch.index_select(corpus.row_scales, 0, rows_dev)
+            scales[f:] = 0
+        host_cache = None
+        if corpus.host_f32 is not None:
+            row_map = corpus.host_row_map
+            src = rows if row_map is None else row_map[rows]
+            host_cache = (np.ascontiguousarray(corpus.host_f32[src]), None)
+        return PackedCorpus(
+            data=data,
+            row_scales=scales,
+            emb_ids=np.asarray(emb_sub, dtype=np.int64),
+            n_valid=f,
+            dim=corpus.dim,
+            version=corpus.version,
+            precision=corpus.precision,
+            scale_max=corpus.scale_max,  # an upper bound: the eps stays sound
+            host_cache=host_cache,
+        )
 
     def pairwise_topk(
         self, corpus: PackedCorpus, k: int

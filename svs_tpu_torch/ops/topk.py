@@ -11,6 +11,7 @@ stable sort.
 from __future__ import annotations
 
 import contextlib
+import threading
 from typing import Any, Iterator, Optional, Tuple
 
 import numpy as np
@@ -24,24 +25,39 @@ NEG_INF = float("-inf")
 FALLBACK_SCORES_BUDGET = 1 << 31  # 2 GiB
 
 
+#: Threads inside :func:`exact_f32` and the TF32 flags the first of them
+#: found (the flags are process-wide; concurrent ``AsyncKB`` searches run
+#: their products on several threads at once).
+_EXACT_F32_LOCK = threading.Lock()
+_exact_f32_state: list = [0, None]
+
+
 @contextlib.contextmanager
 def exact_f32() -> Iterator[None]:
     """Run the enclosed float32 products in true f32: TF32 off for both
     cuBLAS and cuDNN.  The engine's error bounds (the 1e-4 and 3e-5
-    cushions of ``prescore_eps``) assume full-precision f32 dots."""
-    prev = (
-        torch.backends.cuda.matmul.allow_tf32,
-        torch.backends.cudnn.allow_tf32,
-    )
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    cushions of ``prescore_eps``) assume full-precision f32 dots.  The
+    flags stay off until the last thread inside leaves, which restores
+    what the first one found."""
+    with _EXACT_F32_LOCK:
+        if _exact_f32_state[0] == 0:
+            _exact_f32_state[1] = (
+                torch.backends.cuda.matmul.allow_tf32,
+                torch.backends.cudnn.allow_tf32,
+            )
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
+        _exact_f32_state[0] += 1
     try:
         yield
     finally:
-        (
-            torch.backends.cuda.matmul.allow_tf32,
-            torch.backends.cudnn.allow_tf32,
-        ) = prev
+        with _EXACT_F32_LOCK:
+            _exact_f32_state[0] -= 1
+            if _exact_f32_state[0] == 0:
+                (
+                    torch.backends.cuda.matmul.allow_tf32,
+                    torch.backends.cudnn.allow_tf32,
+                ) = _exact_f32_state[1]
 
 
 def top_k(values: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:

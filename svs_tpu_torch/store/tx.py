@@ -331,7 +331,7 @@ class Tx:
 
         Returns ``None`` when the pair can't be routed through SQL with
         *exactly* the Python-equality semantics of
-        :func:`svs_tpu.kb.meta_filter_predicate` (not ported yet) — non-scalar values
+        :func:`svs_tpu_torch.kb.meta_filter_predicate` — non-scalar values
         (dict/list compare structurally in Python, textually in SQL),
         ints outside SQLite's 64-bit range, keys needing JSON-path
         escaping, or a build without JSON1 — so the caller falls back to

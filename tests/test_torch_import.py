@@ -1,7 +1,8 @@
 """The PyTorch port stands alone: it imports with JAX and the JAX
 package's optional dependencies blocked (int8 and bf16 storage, batches
-above 256, top document pairs), never imports ``svs_tpu``, and refuses to
-fall back to the CPU when no device was named."""
+above 256, top document pairs, metadata filters and ``AsyncKB``), never
+imports ``svs_tpu``, and refuses to fall back to the CPU when no device
+was named."""
 
 import subprocess
 import sys
@@ -148,6 +149,67 @@ _BLOCKED_PAIRWISE = textwrap.dedent(
 )
 
 
+_BLOCKED_FILTERS_ASYNC = textwrap.dedent(
+    """
+    import asyncio, sys, zlib
+
+    BLOCKED = ("jax", "jaxlib", "networkx", "ml_dtypes", "aiohttp", "dotenv")
+
+    class Blocker:
+        def find_spec(self, name, path=None, target=None):
+            if name.split(".")[0] in BLOCKED:
+                raise ImportError(f"{name} is blocked in this test")
+            return None
+
+    sys.meta_path.insert(0, Blocker())
+
+    import numpy as np
+    from svs_tpu_torch import AsyncKB, KB, meta_filter_predicate
+
+    def vec(text):
+        rng = np.random.default_rng(zlib.crc32(text.encode()))
+        v = rng.standard_normal(12).astype(np.float32)
+        return v / np.linalg.norm(v)
+
+    async def embed(texts):
+        return [vec(t).tolist() for t in texts]
+
+    path = sys.argv[1]
+    kb = KB(path, embed, force_fresh_db=True, device="cpu")
+    with kb.bulk_add_docs() as add:
+        ids = [add(f"doc {i}", meta={"g": i % 10}) for i in range(500)]
+    hits = kb.retrieve("query", 5, where={"g": 3})
+    pairs = kb.document_top_pairwise_scores(4, where=meta_filter_predicate({"g": 3}))
+    kb.close()
+    # exact: the f32 top-5 of the 50 matching docs, and their top-4 pairs
+    m = np.stack([vec(f"doc {i}") for i in range(500)])
+    match = [i for i in range(500) if i % 10 == 3]
+    s = m[match] @ vec("query")
+    assert [h["doc"]["id"] for h in hits] == [
+        ids[match[j]] for j in np.argsort(-s, kind="stable")[:5]
+    ], hits
+    g = m[match] @ m[match].T
+    iu = np.triu_indices(len(match), 1)
+    top = np.argsort(-g[iu], kind="stable")[:4]
+    assert [(a["id"], b["id"]) for _, a, b in pairs] == [
+        (ids[match[iu[0][t]]], ids[match[iu[1][t]]]) for t in top
+    ], pairs
+
+    async def run():
+        akb = AsyncKB(path, embed, device="cpu")
+        try:
+            return await akb.retrieve("query", 5, where={"g": 3})
+        finally:
+            await akb.close()
+
+    assert asyncio.run(run()) == hits
+    loaded = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED + ("svs_tpu",))
+    assert not loaded, loaded
+    print("ROUND_TRIP_OK")
+    """
+)
+
+
 def _run_blocked(script: str, tmp_path: Path) -> None:
     repo = Path(svs_tpu_torch.__file__).resolve().parent.parent
     proc = subprocess.run(
@@ -171,6 +233,10 @@ def test_bf16_round_trip_and_batch_of_300_without_jax(tmp_path):
 
 def test_pairwise_without_jax(tmp_path):
     _run_blocked(_BLOCKED_PAIRWISE, tmp_path)
+
+
+def test_filters_and_async_kb_without_jax(tmp_path):
+    _run_blocked(_BLOCKED_FILTERS_ASYNC, tmp_path)
 
 
 def test_kb_without_device_refuses_cpu(tmp_path):

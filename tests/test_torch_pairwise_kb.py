@@ -202,15 +202,25 @@ def test_sqlite_rescore_without_mirror_matches_jax_kb(small_store, monkeypatch):
     _assert_same_pairs(ref, got)
 
 
-def test_where_is_not_ported(small_store):
+def test_where_and_n0_match_jax_kb(small_store):
+    """``where=`` and ``n=0`` through both KBs: no pairs for n = 0 (with or
+    without a filter) nor for a filter no document passes (these docs have
+    no meta); the empty dict matches every document."""
     path, embed, _ = small_store
-    kb = svs_tpu_torch.KB(path, embed, device="cpu")
-    try:
-        with pytest.raises(NotImplementedError, match="where="):
-            kb.document_top_pairwise_scores(5, where={"a": 1})
-        assert kb.document_top_pairwise_scores(0) == []
-    finally:
-        kb.close()
+    out = []
+    for pkg, kw in ((svs_tpu, {}), (svs_tpu_torch, {"device": "cpu"})):
+        kb = pkg.KB(path, embed, **kw)
+        try:
+            assert kb.document_top_pairwise_scores(0) == []
+            assert kb.document_top_pairwise_scores(0, where={"a": 1}) == []
+            assert kb.document_top_pairwise_scores(5, where={"a": 1}) == []
+            assert kb.document_top_pairwise_scores(5, where=lambda d: False) == []
+            every = kb.document_top_pairwise_scores(5, where={})
+            assert every == kb.document_top_pairwise_scores(5)
+            out.append(every)
+        finally:
+            kb.close()
+    _assert_same_pairs(*out)
 
 
 def test_16384_doc_store_takes_the_keyed_route(tmp_path, monkeypatch):
