@@ -26,9 +26,14 @@ from a seed:
    events; then holds ``_extract`` and ``pairwise_keys_extract`` to their
    plain versions on adversarial inputs at the same shapes (ties, -inf or
    masked rows and subtiles, keys past the key horizon);
-3. end-to-end phase: writes a 1M-doc SQLite store through the port's
-   ``Tx`` and drives six retrieval paths, each with the launch counts set
-   to 0 just before it and read just after:
+3. end-to-end phase: loads the native host library (``native_phase``:
+   it must load; its build time, path and the host's thread counts),
+   writes a 1M-doc SQLite store through the port's ``Tx`` and drives six
+   retrieval paths, each with the launch counts set to 0 just before it
+   and read just after (a pack of 64 MB and more uploads in the
+   background, so a ``KB``'s first call may take the host route; after it
+   the smoke waits for the uploads, ``settle``, and records the first
+   call's route, ``pack`` phase and scan, ``first_call``):
    - int8 ``KB`` (``precision='auto'``): ``retrieve_batch`` at B=64/n=100,
      B=8/n=100, B=8/n=1000 and B=512/n=100; then ``load()`` (the
      hydration prewarm), B=64/n=100 again, and one B=64 call unprofiled
@@ -41,8 +46,15 @@ from a seed:
      candidates rescored on the host): B=64, B=8 and B=256 at n=100;
    - ``rescore=False`` ``KB`` (bf16 storage): B=8/n=100;
    checking every result against a brute-force scan on the card (for
-   ``rescore=False``, of the bf16-rounded corpus and queries); then the
-   ``filters`` phase (``filters_phase``): the 1M store's docs tagged with
+   ``rescore=False``, of the bf16-rounded corpus and queries); the
+   ``native`` cell reads which scan packed each rescan and its ``pack``
+   phase; then ``cold_start`` (``cold_start_phase``: a ``KB`` from the
+   sidecar, its first B=64 call on the host route while the pack uploads,
+   ``wait_for_mirror``, warm calls on the device route) and
+   ``host_route`` (``host_route_phase``: the measured round-trip floor,
+   the forced host route at 1M for B=1, 4 (native two-pass) and 64, where
+   ``'auto'`` sends each shape, and a new 10,000-doc store at B=1 with
+   ``force``, ``off`` and ``auto``); then the ``filters`` phase (``filters_phase``): the 1M store's docs tagged with
    ``tenant`` and ``shard`` meta, and ``where=`` cells on int8 ``KB``s —
    the pre-filter device and host routes, the post-filter ladder of a
    dict and of an opaque predicate — and an ``AsyncKB`` serving
@@ -958,12 +970,46 @@ def drive_path(label, expected, fn, out) -> None:
         raise AssertionError(f"{label}: kernels not launched: {missing}")
 
 
+def settle(engine, res: dict, label: str) -> None:
+    """After a ``KB``'s first call: ``wait_for_mirror()`` (the deferred
+    pack upload and the background f32 mirror), so that the warm calls
+    measure the device route with its mirror as before the deferral;
+    records the seconds and fails when the wait did not settle or an
+    upload failed (``pack_upload_failures``, ``mirror_upload_failures``)."""
+    t = time.perf_counter()
+    ok = engine.wait_for_mirror(timeout=600)
+    res["settle_s"] = time.perf_counter() - t
+    stats = engine.dispatch_stats()
+    if not ok or stats["pack_upload_failures"] or stats["mirror_upload_failures"]:
+        raise AssertionError(f"{label}: the uploads did not settle ({ok}, {stats})")
+
+
+def first_call(kb, label: str) -> dict:
+    """How a ``KB``'s first call went (its ``kb.stats()`` since the last
+    reset): the route (``host`` when ``host_search`` answered), its
+    ``pack`` phase (s), the scan that packed it (``native_parallel``,
+    ``native``, ``stream``; None for a sidecar load or a reuse); then
+    :func:`settle` when an upload is in flight."""
+    snap = kb._stats.snapshot()
+    first = {
+        "route": "host" if "host_search" in snap else "device",
+        "pack_s": snap["pack"]["last_s"] if "pack" in snap else None,
+        "scan": kb.engine.last_scan,
+        "scan_split_s": kb.engine.last_scan_split,
+        "uploading": kb.engine.pack_uploading or kb.engine.mirror_uploading,
+    }
+    if first["uploading"]:
+        settle(kb.engine, first, label)
+    return first
+
+
 def kb_shapes(kb, shapes, reps, rng, qvec, scan, out, v3=None) -> None:
     """``retrieve_batch`` at each shape, ``reps`` times, each result held
     against the brute-force scan ``scan(queries) -> (scan queries, scan
     matrix)``; records first and warm latencies and the launches of each
     shape's calls.  ``v3`` names the guarded v3 wrapper that must launch
-    in every shape of 64 queries or more."""
+    in every shape of 64 queries or more.  After each shape's first call
+    (:func:`first_call`) the KB's background uploads settle."""
     import torch
 
     from svs_tpu_torch.ops import pallas_extract as P
@@ -982,12 +1028,15 @@ def kb_shapes(kb, shapes, reps, rng, qvec, scan, out, v3=None) -> None:
             torch.cuda.synchronize()
             lat.append(time.perf_counter() - t)
             check_results(*hits_to_arrays(res), *scan(v), n)
+            if rep == 0:
+                first = first_call(kb, label)
         warm = lat[1:] if len(lat) > 1 else lat
         launches = {k: v - before[k] for k, v in P.launch_counts().items()}
         if v3 is not None and 64 <= b <= P.FUSED_MAX_BATCH and launches[v3] <= 0:
             raise AssertionError(f"{label}: the guarded v3 kernel ({v3}) did not launch")
         out[label] = {
             "launches": launches,
+            "first": first,
             "first_s": lat[0],
             "warm_p50_ms": statistics.median(warm) * 1e3,
             "warm_ms": [x * 1e3 for x in warm],
@@ -997,7 +1046,7 @@ def kb_shapes(kb, shapes, reps, rng, qvec, scan, out, v3=None) -> None:
             },
             "widen_retries": kb.engine.widen_retries,
         }
-        log(f"e2e {label}: first {lat[0]:.3f} s, warm p50 "
+        log(f"e2e {label}: first {lat[0]:.3f} s ({first}), warm p50 "
             f"{out[label]['warm_p50_ms']:.2f} ms over {len(warm)}; exact vs scan; "
             f"launches {({k: v for k, v in launches.items() if v})}")
 
@@ -1009,6 +1058,7 @@ def e2e_phase(n_docs: int, reps: int, work: Path) -> dict:
     from svs_tpu_torch.engine.sidecar import sidecar_path_for
 
     store = work / "store.sqlite"
+    native = native_phase()
     t0 = time.perf_counter()
     matrix = write_store(store, n_docs)
     t_write = time.perf_counter() - t0
@@ -1022,7 +1072,8 @@ def e2e_phase(n_docs: int, reps: int, work: Path) -> dict:
         return [qvec[t].tolist() for t in texts]
 
     rng = np.random.default_rng(SEED + 1)
-    out = {"store_write_s": t_write, "docs": n_docs, "paths": {}, "launches": {}}
+    out = {"store_write_s": t_write, "docs": n_docs, "paths": {}, "launches": {},
+           "native": native}
     fused_int8 = ["_fused3_extract_int8", "_fused2_extract_int8", "_fused_extract_int8"]
     fused_float = ["_fused3_extract", "_fused2_extract", "_fused_extract"]
     try:
@@ -1136,6 +1187,27 @@ def e2e_phase(n_docs: int, reps: int, work: Path) -> dict:
         kb_path("rescore_off_kb", ["_fused_extract"], (("B8_n100", 8, 100),),
                 bf16_scan, check=is_bf16, rescore=False)
         del ref_bf16
+        # the native phase: every full rescan of the 1M store above
+        scans = native["rescans"] = {}
+        for label in ("int8_kb", "bf16_kb", "f32_kb", "rescore_off_kb"):
+            detail = out[f"paths_detail_{label}"]
+            first_shape = next(iter(v for v in detail.values() if isinstance(v, dict) and "first" in v))
+            scans[label] = {
+                k: first_shape["first"][k] for k in ("pack_s", "scan", "scan_split_s", "route")
+            }
+            log(f"e2e native: {label} packed by a {scans[label]['scan']} scan, "
+                f"pack phase {scans[label]['pack_s']:.2f} s (split "
+                f"{scans[label]['scan_split_s']}); its first call on the "
+                f"{scans[label]['route']} route")
+        native["store_read"] = read_rate(store, 2 << 30)
+        log(f"e2e native: read the store's first {native['store_read']['bytes'] / 1e9:.2f} GB "
+            f"at {native['store_read']['gb_per_s']:.2f} GB/s (what the scans read from)")
+        native["count_star_s"] = count_star_s(store)
+        log(f"e2e native: SELECT count(*) over the embeddings took "
+            f"{native['count_star_s']:.2f} s (a walk of every leaf page: a rescan "
+            f"makes one for its count, and one more across its range counts)")
+        cold_start_phase(store, ref_matrix, reps, out)
+        host_route_phase(store, ref_matrix, reps, work, out)
         filters_phase(store, ref_matrix, reps, out)
         ref_matrix = incremental_phase(store, ref_matrix, reps, out)
     finally:
@@ -1145,6 +1217,326 @@ def e2e_phase(n_docs: int, reps: int, work: Path) -> dict:
     torch.cuda.empty_cache()
     pairwise_phase(work, out)
     return out
+
+
+def native_phase() -> dict:
+    """Loads the native host library (``svs_tpu_torch.native``, built with
+    ``g++`` from the checkout at first use) and fails when it does not:
+    the scans, the fused pack and the host two-pass run on it.  Records
+    its build seconds and path, and the host's thread counts (torch's, and
+    NumPy's BLAS pools when ``threadpoolctl`` is there)."""
+    import os
+
+    import torch
+
+    from svs_tpu_torch import native
+
+    t = time.perf_counter()
+    if not native.native_available():
+        raise AssertionError("the native host library did not build or load")
+    res = {
+        "load_s": time.perf_counter() - t,
+        "build_s": native.build_seconds,
+        "library": str(native.library_path()),
+        "torch_threads": torch.get_num_threads(),
+        "cpu_count": os.cpu_count(),
+    }
+    try:
+        from threadpoolctl import threadpool_info
+
+        res["blas_threads"] = {
+            i.get("internal_api", "?"): i.get("num_threads") for i in threadpool_info()
+        }
+    except ImportError:
+        res["blas_threads"] = "not measured (no threadpoolctl)"
+    log(f"e2e native: library built in {res['build_s']:.1f} s (load "
+        f"{res['load_s']:.1f} s) -> {res['library']}; torch threads "
+        f"{res['torch_threads']}, BLAS {res['blas_threads']}, {res['cpu_count']} CPUs")
+    return res
+
+
+def count_star_s(path: Path) -> float:
+    """Seconds of one ``SELECT count(*) FROM embeddings`` on the store (a
+    walk of every leaf page of the table)."""
+    import sqlite3
+
+    conn = sqlite3.connect(str(path))
+    try:
+        t = time.perf_counter()
+        conn.execute("SELECT count(*) FROM embeddings;").fetchone()
+        return time.perf_counter() - t
+    finally:
+        conn.close()
+
+
+def read_rate(path: Path, limit: int) -> dict:
+    """Seconds and GB/s of one sequential read of the first ``limit`` bytes
+    of ``path`` in 64 MB reads, through the page cache as the scans read
+    it."""
+    t = time.perf_counter()
+    done = 0
+    with open(path, "rb", buffering=0) as f:
+        while done < limit:
+            got = f.read(min(64 << 20, limit - done))
+            if not got:
+                break
+            done += len(got)
+    dt = time.perf_counter() - t
+    return {"bytes": done, "s": dt, "gb_per_s": done / dt / 1e9}
+
+
+def cold_start_phase(store: Path, ref_matrix, reps: int, out: dict) -> None:
+    """A cold open of the 1M int8 store from its sidecar, as every process
+    start or reopen of a published store: a ``KB`` with no ``load()``, at
+    once one B=64, n=100 call (its route, wall time, and whether the pack
+    was still uploading when the route was chosen), then
+    ``wait_for_mirror()`` (its seconds), then ``reps`` more calls on the
+    device route (warm p50).  Every call is exact against the brute-force
+    scan; fails when the first call took the device route while the pack
+    uploaded, a later one the host route, an upload failed or the f32
+    mirror is not live."""
+    import torch
+
+    import svs_tpu_torch
+
+    qvec = {}
+
+    async def embed(texts):
+        return [qvec[t].tolist() for t in texts]
+
+    rng = np.random.default_rng(SEED + 7)
+    res = out["paths_detail_cold_start"] = {}
+
+    def call(kb, label):
+        v = unit_queries(rng, 64)
+        texts = [f"{label}-{i}" for i in range(64)]
+        qvec.update(zip(texts, v))
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        hits = kb.retrieve_batch(texts, 100)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        check_results(*hits_to_arrays(hits), v, ref_matrix, 100)
+        return wall
+
+    def run():
+        kb = svs_tpu_torch.KB(store, embed, device="cuda")
+        try:
+            eng = kb.engine
+            seen = []
+            real = eng.host_route
+
+            def spy(corpus, batch, k=None):
+                routed = real(corpus, batch, k=k)
+                seen.append({"pack_uploading": not corpus.device_ready, "host": routed})
+                return routed
+
+            eng.host_route = spy
+            kb._stats.reset()
+            res["first_s"] = call(kb, "cold-0")
+            snap = kb._stats.snapshot()
+            res["first"] = seen[0]
+            res["first_host_searches"] = snap.get("host_search", {}).get("count", 0)
+            res["first_phases_ms"] = {k: v["last_s"] * 1e3 for k, v in snap.items()}
+            res["pack_events"] = dict(eng.pack_events)
+            del eng.host_route
+            t = time.perf_counter()
+            settled = eng.wait_for_mirror(timeout=600)
+            res["wait_for_mirror_s"] = time.perf_counter() - t
+            host_before = kb.stats().get("host_search", {}).get("count", 0)
+            lat = [call(kb, f"cold-{i + 1}") for i in range(reps)]
+            res["warm_p50_ms"] = statistics.median(lat) * 1e3
+            res["warm_ms"] = [x * 1e3 for x in lat]
+            res["dispatch"] = eng.dispatch_stats()
+            res["mirror_live"] = eng.corpus.dev_rescore is not None
+            host_after = kb.stats().get("host_search", {}).get("count", 0)
+            log(f"e2e cold_start: first call {res['first_s']:.3f} s on the "
+                f"{'host' if seen[0]['host'] else 'device'} route (pack uploading "
+                f"when routed: {seen[0]['pack_uploading']}; phases "
+                f"{({k: round(v, 1) for k, v in res['first_phases_ms'].items()})} ms); "
+                f"wait_for_mirror {res['wait_for_mirror_s']:.2f} s; warm p50 "
+                f"{res['warm_p50_ms']:.2f} ms over {reps} on the device route; "
+                f"dispatch {res['dispatch']}; exact vs scan")
+            if res["pack_events"].get("sidecar") != 1 or res["pack_events"].get("scan"):
+                raise AssertionError(f"cold_start: not a sidecar open: {res['pack_events']}")
+            if len(seen) != 1 or not (seen[0]["pack_uploading"] and seen[0]["host"]):
+                raise AssertionError(
+                    f"cold_start: the first call was not routed to the host while "
+                    f"the pack uploaded: {seen}")
+            if res["first_host_searches"] != 1:
+                raise AssertionError(
+                    f"cold_start: host_search counted {res['first_host_searches']} "
+                    f"for the first call")
+            if not settled or not res["mirror_live"]:
+                raise AssertionError("cold_start: the mirror is not live after wait_for_mirror")
+            if res["dispatch"]["pack_upload_failures"] or res["dispatch"]["mirror_upload_failures"]:
+                raise AssertionError(f"cold_start: an upload failed: {res['dispatch']}")
+            if host_after != host_before:
+                raise AssertionError("cold_start: a warm call took the host route")
+        finally:
+            kb.close()
+
+    drive_path("cold_start", ["_staged_finish"], run, out)
+    counts = out["paths"]["cold_start"]["launches"]
+    if counts["_fused3_extract_int8"] + counts["_fused2_extract_int8"] <= 0:
+        raise AssertionError("cold_start: no int8 prescore kernel launched")
+    torch.cuda.empty_cache()
+
+
+#: The small store of the host_route phase: the corpus size at which the
+#: reference's README has a host scan win (10,000 docs x 1536).
+SMALL_DOCS = 10_000
+
+
+def host_route_phase(store: Path, ref_matrix, reps: int, work: Path, out: dict) -> None:
+    """The host route and its dispatch rule on the card's machine.
+
+    On the 1M int8 store (a ``KB`` from the sidecar, built with
+    ``SVS_TPU_HOST_DISPATCH=force``): the measured round-trip floor, where
+    ``'auto'`` sends B = 1, 4, 64, 256 at n=100, then the forced host
+    route at B=1 and B=4 (the native int8 two-pass, after its int8 rows
+    have built) and B=64 (the slab GEMM), first call and warm p50 over
+    ``reps`` each.  On a new ``SMALL_DOCS`` x 1536 store: B=1, n=10 with
+    ``force`` and with ``off`` (warm p50 each) and what ``auto`` chose.
+    Every call exact against a brute-force scan."""
+    import os
+
+    import torch
+
+    import svs_tpu_torch
+
+    qvec = {}
+
+    async def embed(texts):
+        return [qvec[t].tolist() for t in texts]
+
+    rng = np.random.default_rng(SEED + 8)
+    res = out["paths_detail_host_route"] = {}
+
+    def calls(kb, label, b, n, ref, count):
+        lat, host = [], 0
+        for rep in range(count):
+            v = unit_queries(rng, b)
+            texts = [f"{label}-{rep}-{i}" for i in range(b)]
+            qvec.update(zip(texts, v))
+            before = kb.stats().get("host_search", {}).get("count", 0)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            hits = kb.retrieve_batch(texts, n)
+            torch.cuda.synchronize()
+            lat.append(time.perf_counter() - t)
+            host += kb.stats().get("host_search", {}).get("count", 0) - before
+            check_results(*hits_to_arrays(hits), v, ref, n)
+        return lat, host
+
+    def with_dispatch(value, make):
+        prev = os.environ.get("SVS_TPU_HOST_DISPATCH")
+        os.environ["SVS_TPU_HOST_DISPATCH"] = value
+        try:
+            return make()
+        finally:
+            if prev is None:
+                os.environ.pop("SVS_TPU_HOST_DISPATCH")
+            else:
+                os.environ["SVS_TPU_HOST_DISPATCH"] = prev
+
+    def run_1m():
+        kb = with_dispatch("force", lambda: svs_tpu_torch.KB(store, embed, device="cuda"))
+        try:
+            eng = kb.engine
+            if eng.host_dispatch != "force":
+                raise AssertionError("SVS_TPU_HOST_DISPATCH=force was not read")
+            corpus = kb._ensure_engine_fresh()
+            settle(eng, res, "host_route")
+            res["rpc_floor_ms"] = eng.device_rpc_floor() * 1e3
+            cells = {}
+            for label, b in (("B1", 1), ("B4", 4), ("B64", 64)):
+                lat, host = calls(kb, f"host1m-{label}", b, 100, ref_matrix, 1)
+                first = lat[0]
+                if b == 1 and eng._host_i8_thread is not None:
+                    t = time.perf_counter()
+                    eng._host_i8_thread.join()
+                    res["host_i8_build_wait_s"] = time.perf_counter() - t
+                lat, host2 = calls(kb, f"host1m-{label}", b, 100, ref_matrix, reps)
+                if host + host2 != reps + 1:
+                    raise AssertionError(f"host_route {label}: a forced call took the device")
+                cells[label] = {
+                    "first_s": first,
+                    "warm_p50_ms": statistics.median(lat) * 1e3,
+                    "warm_ms": [x * 1e3 for x in lat],
+                    "two_pass_bw": eng._host_twopass_bw,
+                }
+                log(f"e2e host_route 1M forced {label}, n=100: first {first:.3f} s, "
+                    f"warm p50 {cells[label]['warm_p50_ms']:.2f} ms over {reps}; exact vs scan")
+            if eng._host_twopass_bw is None:
+                raise AssertionError("host_route: the native two-pass never ran")
+            res["forced_1m"] = cells
+            # where the rule sends each shape, on the estimates the scans left
+            eng.host_dispatch = "auto"
+            eng._host_bw_t = time.monotonic()
+            res["auto_1m"] = {
+                f"B{b}": "host" if eng.host_route(corpus, b, k=100) else "device"
+                for b in (1, 4, 64, 256)
+            }
+            res["host_scan_bw"] = eng._host_scan_bw
+            res["host_twopass_bw"] = eng._host_twopass_bw
+            log(f"e2e host_route: round-trip floor {res['rpc_floor_ms']:.4f} ms; host "
+                f"scan {res['host_scan_bw'] / 1e9:.2f} GB/s, two-pass "
+                f"{res['host_twopass_bw'] / 1e9:.2f} GB/s effective; auto at 1M "
+                f"(n=100): {res['auto_1m']}")
+        finally:
+            kb.close()
+
+    def run_small():
+        path = work / "small.sqlite"
+        ref_small = ref_matrix[:0]
+        try:
+            from svs_tpu_torch.store.blob import embedding_to_bytes
+            from svs_tpu_torch.store.db import Database
+
+            m = unit_queries(np.random.default_rng(SEED + 9), SMALL_DOCS)
+            db = Database(path)
+            try:
+                with db.transaction() as tx:
+                    tx.add_docs_bulk(
+                        [f"small document #{i}" for i in range(SMALL_DOCS)],
+                        [embedding_to_bytes(r) for r in m],
+                    )
+                    tx.bump_matrix_version()
+            finally:
+                db.close()
+            ref_small = torch.from_numpy(m).cuda()
+            small = res["small_10k"] = {}
+            for value in ("force", "off", "auto"):
+                kb = with_dispatch(
+                    value, lambda: svs_tpu_torch.KB(path, embed, device="cuda")
+                )
+                try:
+                    lat0, _ = calls(kb, f"small-{value}-first", 1, 10, ref_small, 1)
+                    settle(kb.engine, {}, f"small {value}")
+                    lat, host = calls(kb, f"small-{value}", 1, 10, ref_small, reps)
+                    small[value] = {
+                        "first_s": lat0[0],
+                        "warm_p50_ms": statistics.median(lat) * 1e3,
+                        "warm_ms": [x * 1e3 for x in lat],
+                        "host_calls": host,
+                        "rpc_floor_ms": kb.engine.dispatch_stats().get("rpc_floor_ms"),
+                    }
+                    if value == "force" and host != reps or value == "off" and host:
+                        raise AssertionError(f"small {value}: {host} host calls of {reps}")
+                    log(f"e2e host_route 10k {value}: B=1, n=10 warm p50 "
+                        f"{small[value]['warm_p50_ms']:.3f} ms over {reps}, {host} on the "
+                        f"host route; floor {small[value]['rpc_floor_ms']} ms; exact vs scan")
+                finally:
+                    kb.close()
+            small["auto_chose"] = "host" if small["auto"]["host_calls"] else "device"
+        finally:
+            del ref_small
+            path.unlink(missing_ok=True)
+
+    drive_path("host_route", [], run_1m, out)
+    drive_path("host_route_small", [], run_small, out)
+    torch.cuda.empty_cache()
 
 
 def filters_phase(store: Path, ref_matrix, reps: int, out: dict) -> None:
@@ -1248,9 +1640,12 @@ def filters_phase(store: Path, ref_matrix, reps: int, out: dict) -> None:
                 torch.cuda.synchronize()
                 lat.append(time.perf_counter() - t)
                 check(hits, v, name)
+                if rep == 0:
+                    first = first_call(kb, label)
         finally:
             del kb._search.search_hydrated
         res[label] = {
+            "first": first,
             "first_s": lat[0],
             "warm_p50_ms": statistics.median(lat[1:]) * 1e3,
             "warm_ms": [x * 1e3 for x in lat[1:]],
@@ -1271,7 +1666,7 @@ def filters_phase(store: Path, ref_matrix, reps: int, out: dict) -> None:
             log(f"e2e {label}: unprofiled {prof['unprofiled_wall_ms']:.2f} ms; profiled "
                 f"{second['wall_ms']:.2f} ms, kernels {second.get('kernel_ms')} ms in "
                 f"{second.get('kernel_launches')} launches (idle share {second['idle_share']})")
-        log(f"e2e {label}: first {lat[0]:.3f} s, warm p50 "
+        log(f"e2e {label}: first {lat[0]:.3f} s ({first}), warm p50 "
             f"{res[label]['warm_p50_ms']:.2f} ms; phases "
             f"{({k: round(v, 2) for k, v in res[label]['phase_p50_ms'].items()})} ms; "
             f"ladder rounds {rounds}; widen retries {res[label]['widen_retries']}; "
@@ -1303,6 +1698,11 @@ def filters_phase(store: Path, ref_matrix, reps: int, out: dict) -> None:
                 await akb.load()
                 res["async_load_s"] = time.perf_counter() - t
                 opened_from_sidecar(akb, "async")
+                settled = {}
+                await asyncio.get_running_loop().run_in_executor(
+                    None, settle, akb.engine, settled, "async"
+                )
+                res["async_settle_s"] = settled["settle_s"]
                 akb._stats.reset()
                 lat = []
                 for rep in range(reps):
@@ -1413,6 +1813,8 @@ def incremental_phase(store: Path, ref_matrix, reps: int, out: dict):
                 pack_ms = kb._stats.snapshot()["pack"]["last_s"] * 1e3
             rows, scores = hits_to_arrays(hits)
             check_results(rows, scores, v, ref_matrix, 100, dead=dead)
+            if rep == 0:
+                first = first_call(kb, label)
             if rep == 0 and first_rows is not None and (rows[:, 0] != first_rows).any():
                 raise AssertionError(f"{label}: a query equal to a doc did not get it first")
         events = {k: v - before[k] for k, v in kb.engine.pack_events.items()}
@@ -1420,6 +1822,7 @@ def incremental_phase(store: Path, ref_matrix, reps: int, out: dict):
         corpus = kb.engine.corpus
         res[label] = {
             "pack_ms": pack_ms,
+            "first": first,
             "first_s": lat[0],
             "warm_p50_ms": statistics.median(lat[1:]) * 1e3,
             "warm_ms": [x * 1e3 for x in lat[1:]],
@@ -1433,7 +1836,7 @@ def incremental_phase(store: Path, ref_matrix, reps: int, out: dict):
         if check is not None:
             check(corpus)
         log(f"e2e incremental {label}: pack phase {pack_ms:.1f} ms, first "
-            f"{lat[0]:.3f} s, warm p50 {res[label]['warm_p50_ms']:.2f} ms; events "
+            f"{lat[0]:.3f} s ({first}), warm p50 {res[label]['warm_p50_ms']:.2f} ms; events "
             f"{events}; n_valid {corpus.n_valid}, n_padded {corpus.n_padded}; "
             f"exact vs the live rows' scan")
 
@@ -1714,6 +2117,7 @@ def delete_then_retrieve(store: Path, ref, reps: int, out: dict) -> None:
             texts = [f"before-delete-{i}" for i in range(64)]
             qvec.update(zip(texts, v))
             check_results(*hits_to_arrays(kb.retrieve_batch(texts, 100)), v, ref, 100)
+            res["before_delete"] = first_call(kb, "delete_then_retrieve")
             with kb.bulk_query_docs() as q:
                 ids = {int(d["text"].rsplit("#", 1)[1]): d["id"] for d in q.query_level(0)}
             t = time.perf_counter()
@@ -1734,6 +2138,8 @@ def delete_then_retrieve(store: Path, ref, reps: int, out: dict) -> None:
                 torch.cuda.synchronize()
                 lat.append(time.perf_counter() - t)
                 check_results(*hits_to_arrays(hits), v, ref, 100, dead=dead)
+                if rep == 0:
+                    res["first"] = first_call(kb, "delete_then_retrieve")
             res.update({
                 "first_s": lat[0],
                 "warm_ms": [x * 1e3 for x in lat[1:]],
@@ -1811,6 +2217,8 @@ def filtered_pairs(store: Path, ref, out: dict) -> None:
                     check_pairs(pairs, ref, oracle, PAIR_K)
                     if not all(ok(d["meta"]) for _, a, b in pairs for d in (a, b)):
                         raise AssertionError(f"{label}: a pair does not pass the filter")
+                    if len(lat) == 1:
+                        settle(kb.engine, {}, label)
                 listed[label] = [(s, a["id"], b["id"]) for s, a, b in pairs]
                 res[label] = {
                     "first_s": lat[0],
@@ -1862,6 +2270,8 @@ def pairwise_phase(work: Path, out: dict) -> None:
                     lat.append(time.perf_counter() - t)
                     widens.append(kb.engine.widen_retries - before)
                     check_pairs(pairs, ref, oracle, PAIR_K)
+                    if len(lat) == 1:
+                        res["first"] = first_call(kb, label)
                 res.update({
                     "precision": kb.engine.precision,
                     "first_s": lat[0],

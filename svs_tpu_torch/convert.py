@@ -11,25 +11,17 @@ from typing import Optional, Tuple, Union
 import numpy as np
 import torch
 
-from .engine.packing import PackedCorpus, _is_mmap_backed
-
-#: Bytes per staged copy when a memory-mapped array (a sidecar) uploads.
-_STAGE_CHUNK_BYTES = 64 * 1024 * 1024
+from .engine.packing import PackedCorpus, _is_mmap_backed, staged_device_put
 
 
 def upload(arr: np.ndarray, device: torch.device) -> torch.Tensor:
     """``arr`` on ``device``.  A memory-mapped source (a sidecar's pack or
-    f32 cache) is copied into RAM one 64 MB slice of rows at a time, so
-    the file reads sequentially and no torch tensor aliases the read-only
-    mapping."""
+    f32 cache) goes through :func:`~svs_tpu_torch.engine.packing.
+    staged_device_put`, so the file reads sequentially and no torch tensor
+    aliases the read-only mapping."""
     if not _is_mmap_backed(arr):
         return torch.from_numpy(np.ascontiguousarray(arr)).to(device)
-    dtype = torch.from_numpy(np.zeros(0, dtype=arr.dtype)).dtype
-    out = torch.empty(arr.shape, dtype=dtype, device=device)
-    rows = max(1, _STAGE_CHUNK_BYTES // max(1, arr[:1].nbytes))
-    for lo in range(0, arr.shape[0], rows):
-        out[lo : lo + rows] = torch.from_numpy(np.array(arr[lo : lo + rows]))
-    return out
+    return staged_device_put(arr, device)
 
 
 def _upload_data(

@@ -31,25 +31,43 @@
   scores from the device mirror or the host cache) and the derived corpus
   of filtered pairwise (:meth:`RetrievalEngine.subset_pairwise_corpus`).
 
-Not ported yet (``ROADMAP.md``): the host route and two-pass host search
-(with it the deferred background upload of a cold pack), hedged fetches
-and RPC-floor probes, calibration, meshes and replicas (with them the
-mesh branch of ``subset_topk``).
+- **cold start** — a pack of ``DEFER_MIN_BYTES`` and more whose host f32
+  rows are kept (a rescan, or a sidecar with its f32 sections) publishes
+  with its host arrays and uploads in a background thread
+  (:meth:`RetrievalEngine._spawn_pack_upload`), and an f32 mirror past
+  ``_MIRROR_SYNC_MAX_BYTES`` uploads in another; both stage through
+  pinned buffers on an uploader stream and yield to live queries between
+  chunks.  Every device entry point waits for the pack; a failed upload
+  leaves the host arrays (moved to the device per call) or the host
+  rescore, each counted in :meth:`RetrievalEngine.dispatch_stats`;
+- **host route** — :meth:`RetrievalEngine.host_route`, the reference's
+  rule: answer from the host f32 rows while the pack uploads, or when the
+  estimated host scan (an EWMA of measured scans) beats the device's
+  measured round-trip floor; :meth:`RetrievalEngine.host_topk_exact` is a
+  NumPy scan or the native int8 two-pass, with the reference's tie rule.
+
+Not ported yet (``ROADMAP.md``): hedged fetches, calibration, meshes and
+replicas (with them the mesh branch of ``subset_topk``).
 """
 
 from __future__ import annotations
 
+import functools
 import hashlib
 import logging
+import os
 import threading
+import time
+import weakref
 from pathlib import Path
-from typing import Dict, Optional, Tuple, Union
+from typing import Any, Callable, Dict, Iterator, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
 from ..store.db import Database
 from ..ops.topk import exact_f32, final_select_wire, unpack_rows_tail
+from . import packing as _packing
 from .packing import (
     DIM_MULTIPLE,
     LARGE_ROW_MULTIPLE,
@@ -95,6 +113,87 @@ _DEVICE_RESCORE_MAX_BYTES = 8_000_000_000
 #: RAM on load (env ``SVS_TPU_HOST_CACHE_RAM_MAX``, the reference's
 #: default): the host rescore reads RAM faster than the mapping.
 _HOST_CACHE_RAM_MAX = 256 * 1024 * 1024
+
+#: f32 rescore mirrors up to this size upload synchronously inside
+#: ``ensure_fresh``; larger ones upload in a background thread, and the
+#: rescore reads the host rows until the mirror publishes.
+_MIRROR_SYNC_MAX_BYTES = 32 * 1024 * 1024
+
+#: Staged-copy granularity of a mirror upload.
+_MIRROR_CHUNK_BYTES = 64 * 1024 * 1024
+
+#: Host-route guard: ceiling on the ``[B, rows]`` f32 score matrix the host
+#: exact scan materializes (also its slab size).
+_HOST_SCAN_MAX_SCORE_BYTES = 256 * 1024 * 1024
+
+#: Prior for the host exact scan's bandwidth (bytes/s over the f32 rows),
+#: refined by an EWMA of measured scans.  Env ``SVS_TPU_HOST_SCAN_BW``.
+_HOST_SCAN_BW_PRIOR = 6e9
+
+#: Prior for the device round-trip floor (seconds), used until a quiet
+#: measurement lands.  Env ``SVS_TPU_RPC_FLOOR``.  The floor is never
+#: measured while uploads or queries are in flight: a probe queued behind
+#: a transfer reads the transfer.
+_RPC_FLOOR_PRIOR = 0.030
+
+#: Rows of an unaligned host cache copied per block (:func:`_aligned_blocks`).
+_UNALIGNED_CHUNK_BYTES = 64 * 1024 * 1024
+
+
+def _aligned_blocks(hf: np.ndarray) -> "Iterator[Tuple[int, np.ndarray]]":
+    """``(first row, rows)`` blocks of the host rows ``hf`` that are
+    aligned arrays: ``hf`` itself when it is aligned, else aligned copies
+    of ``_UNALIGNED_CHUNK_BYTES`` each.  A sidecar's memory-mapped f32
+    section sits at an offset the format does not align: NumPy's product
+    skips BLAS on it, and native code must not assume its float
+    alignment."""
+    if hf.flags.aligned:
+        yield 0, hf
+        return
+    step = max(1, _UNALIGNED_CHUNK_BYTES // max(1, hf.shape[1] * 4))
+    for lo in range(0, hf.shape[0], step):
+        yield lo, np.array(hf[lo : lo + step], dtype=np.float32)
+
+
+def _host_scores(hf: np.ndarray, queries: np.ndarray) -> np.ndarray:
+    """Exact f32 scores ``[B, rows]`` of ``queries`` against the host rows
+    ``hf``: a matvec for one query (the reference's accumulation), one
+    GEMM for a batch, over :func:`_aligned_blocks` (each row's dot
+    unchanged)."""
+
+    def scores(rows: np.ndarray) -> np.ndarray:
+        return (rows @ queries[0])[None, :] if len(queries) == 1 else queries @ rows.T
+
+    if hf.flags.aligned:
+        return scores(hf)
+    out = np.empty((len(queries), hf.shape[0]), dtype=np.float32)
+    for lo, block in _aligned_blocks(hf):
+        out[:, lo : lo + len(block)] = scores(block)
+    return out
+
+
+class _MirrorUploadAborted(Exception):
+    """Raised inside a background uploader when ``shutdown()`` asks it to
+    stop mid-transfer, or when the corpus it uploads for is superseded."""
+
+
+def _marks_inflight(fn: Callable[..., Any]) -> Callable[..., Any]:
+    """Bracket a device-touching engine method with the in-flight count
+    and last-arrival time that the background uploaders yield to."""
+
+    @functools.wraps(fn)
+    def wrapper(self: Any, *args: Any, **kwargs: Any) -> Any:
+        self._last_query_t = time.monotonic()
+        with self._inflight_lock:
+            self._inflight += 1
+        try:
+            return fn(self, *args, **kwargs)
+        finally:
+            with self._inflight_lock:
+                self._inflight -= 1
+            self._last_query_t = time.monotonic()
+
+    return wrapper
 
 
 def _rescore_from_packed(
@@ -312,13 +411,79 @@ class RetrievalEngine:
             str, Tuple[PackedCorpus, torch.Tensor, torch.Tensor, bytes]
         ] = {}
         self._lock = threading.Lock()
+        #: How the last full scan of ``ensure_fresh`` read the store
+        #: (``Tx.last_scan``: ``native_parallel``, ``native`` or ``stream``),
+        #: and its seconds: the scan (with ``Tx.last_scan_split``), then the
+        #: pack (the host pass and, unless deferred, the upload).
+        self.last_scan: Optional[str] = None
+        self.last_scan_split: Optional[Dict[str, float]] = None
+
+        #: Host dispatch (the reference's): 'auto' answers from the host f32
+        #: rows when the estimated host scan beats the measured device
+        #: round-trip floor; 'off' / 'force' override.  Env
+        #: ``SVS_TPU_HOST_DISPATCH``.
+        self.host_dispatch = os.environ.get("SVS_TPU_HOST_DISPATCH", "auto")
+        if self.host_dispatch not in ("auto", "off", "force"):
+            log.warning(
+                "ignoring SVS_TPU_HOST_DISPATCH=%r (want auto/off/force)",
+                self.host_dispatch,
+            )
+            self.host_dispatch = "auto"
+        from ..utils.env import env_float
+
+        #: Learned host-scan bandwidth (bytes/s): an EWMA of every host
+        #: scan, refreshed by a background probe when stale.
+        self._host_scan_bw = env_float("SVS_TPU_HOST_SCAN_BW", _HOST_SCAN_BW_PRIOR)
+        self._host_bw_t = 0.0
+        self._host_bw_thread: Optional[threading.Thread] = None
+        #: Background builder of large host int8 prescore arrays.
+        self._host_i8_thread: Optional[threading.Thread] = None
+        #: The two-pass host search's own effective-bandwidth EWMA.
+        self._host_twopass_bw: Optional[float] = None
+        #: Measured device round-trip floor and its re-probe schedule.
+        self._rpc_floor: Optional[float] = None
+        self._rpc_floor_t = 0.0
+        self._rpc_probes = 0
+        self._rpc_probe_thread: Optional[threading.Thread] = None
+        #: Background uploaders of a deferred pack and of a large f32
+        #: mirror, and (weakly) the corpus each serves; spawn bookkeeping
+        #: under ``_mirror_lock``.
+        self._pack_thread: Optional[threading.Thread] = None
+        self._mirror_thread: Optional[threading.Thread] = None
+        self._pack_thread_corpus: Callable[[], Optional[PackedCorpus]] = lambda: None
+        self._mirror_thread_corpus: Callable[[], Optional[PackedCorpus]] = lambda: None
+        self._mirror_lock = threading.Lock()
+        #: Last query arrival and in-flight count (the uploaders yield to
+        #: them), and the threads blocked on a deferred pack (the pack
+        #: uploader stops yielding while one waits).
+        self._last_query_t = 0.0
+        self._inflight = 0
+        self._pack_waiters = 0
+        self._inflight_lock = threading.Lock()
+        #: Set by ``shutdown()``: aborts a background upload; each uploader
+        #: captures the event current at its spawn.
+        self._mirror_stop = threading.Event()
+        #: Uploads that failed: a pack left on the host (moved to the
+        #: device per call), a mirror left to the host rescore.
+        self.pack_upload_failures = 0
+        self.mirror_upload_failures = 0
 
     def shutdown(self) -> None:
-        """Join the background rescore-cache rebuild, if one runs."""
-        t = self._cache_rebuild_thread
-        if t is not None and t.is_alive():
-            t.join(timeout=30.0)
-        self._cache_rebuild_thread = None
+        """Abort and join the background uploads, probes and builders (a
+        thread caught mid-device-call at interpreter exit can abort the
+        process).  The engine can be used again afterwards: a fresh stop
+        event re-arms future uploads, while a straggler keeps the old,
+        set one it captured."""
+        self._mirror_stop.set()
+        for attr in (
+            "_pack_thread", "_mirror_thread", "_rpc_probe_thread",
+            "_host_bw_thread", "_host_i8_thread", "_cache_rebuild_thread",
+        ):
+            t = getattr(self, attr)
+            if t is not None and t.is_alive():
+                t.join(timeout=30.0)
+            setattr(self, attr, None)
+        self._mirror_stop = threading.Event()
 
     def invalidate(self) -> None:
         with self._lock:
@@ -342,6 +507,7 @@ class RetrievalEngine:
             count, max_id, generation = tx.embeddings_fingerprint()
         return (version, count, max_id, generation)
 
+    @_marks_inflight
     def ensure_fresh(
         self,
         db: Database,
@@ -350,8 +516,9 @@ class RetrievalEngine:
         """Return a corpus reflecting the store's current embeddings,
         repacking if stale: incrementally after a pure append or a pure
         delete, from the sidecar at ``sidecar_path`` when it is current,
-        else from a full BLOB scan.  The caller serializes store access
-        (the KB holds its lock around this)."""
+        else from a full BLOB scan.  A large sidecar or scan pack may
+        return before its upload (see the module docstring).  The caller
+        serializes store access (the KB holds its lock around this)."""
         with db.transaction() as tx:
             quick = (tx.matrix_version(), tx.data_version())
         with self._lock:
@@ -385,12 +552,24 @@ class RetrievalEngine:
                 self.pack_events["scan"] += 1
                 log.info("packing corpus from store (fingerprint %s)", fingerprint)
                 self._sidecar_source = None
+                t0 = time.perf_counter()
                 with db.transaction() as tx:
                     matrix, emb_ids = tx.build_embeddings_matrix()
+                    self.last_scan = tx.last_scan
+                t1 = time.perf_counter()
                 corpus = self._pack(matrix, emb_ids, fingerprint[0])
+                self.last_scan_split = {
+                    "scan_s": t1 - t0,
+                    **(tx.last_scan_split or {}),
+                    "pack_s": time.perf_counter() - t1,
+                }
             self._corpus = corpus
             self._fingerprint = fingerprint
             self._quick_token = quick
+            if not corpus.device_ready:
+                # spawned after the install: the uploader of a pack this one
+                # superseded aborts at its next chunk
+                self._spawn_pack_upload(corpus)
             self._maybe_build_device_rescore(corpus)
             return corpus
 
@@ -417,8 +596,6 @@ class RetrievalEngine:
     def _pack(
         self, matrix: np.ndarray, emb_ids: np.ndarray, version: int
     ) -> PackedCorpus:
-        from ..convert import packed_from_numpy
-
         data, scales, ids, cache, row_map, n, d = pack_host(
             matrix,
             emb_ids,
@@ -430,19 +607,43 @@ class RetrievalEngine:
         # it the host rescore reads rows from the store)
         if cache.nbytes > rescore_cache_limit():
             cache = row_map = None
-        return packed_from_numpy(
-            data,
-            scales,
-            ids,
-            n,
-            d,
-            version,
-            self.precision,
-            float(scales[:n].max()) if scales is not None and n > 0 else 0.0,
-            cache,
-            row_map,
-            self.device,
-            mirror=self._mirror_allowed(self.precision, cache, n),
+        return self._new_pack(data, scales, ids, n, d, version, cache, row_map)
+
+    def _new_pack(
+        self,
+        data: np.ndarray,
+        scales: Optional[np.ndarray],
+        emb_ids: np.ndarray,
+        n: int,
+        d: int,
+        version: int,
+        cache: Optional[np.ndarray],
+        row_map: Optional[np.ndarray],
+    ) -> PackedCorpus:
+        """A corpus of the host pack: deferred (its host arrays, the upload
+        left to ``ensure_fresh``'s :meth:`_spawn_pack_upload`) when host f32
+        rows can answer meanwhile and the pack reaches ``DEFER_MIN_BYTES``,
+        else uploaded now.  The mirrors follow in
+        :meth:`_maybe_build_device_rescore`."""
+        from ..convert import packed_from_numpy
+
+        scale_max = float(np.max(scales[:n])) if scales is not None and n > 0 else 0.0
+        if cache is None or data.nbytes < _packing.DEFER_MIN_BYTES:
+            return packed_from_numpy(
+                data, scales, emb_ids, n, d, version, self.precision, scale_max,
+                cache, row_map, self.device, mirror=False,
+            )
+        return PackedCorpus(
+            data=data,
+            row_scales=scales,
+            emb_ids=np.asarray(emb_ids, dtype=np.int64),
+            n_valid=n,
+            dim=d,
+            version=int(version),
+            precision=self.precision,
+            scale_max=scale_max,
+            host_cache=(np.asarray(cache, dtype=np.float32), row_map),
+            _device_ready=threading.Event(),
         )
 
     def _try_incremental_append(
@@ -476,16 +677,17 @@ class RetrievalEngine:
         if new_rows.shape[0] != added or new_rows.shape[1] != old.dim:
             return None
         log.info("incremental append: +%d docs (no full repack)", added)
+        old_data, old_scales = self._pack_arrays(old)  # a deferred upload lands first
         n0, n1 = old.n_valid, old.n_valid + added
         grow = self._row_multiple(n1)
-        dev = old.device
+        dev = old_data.device
         scales_new = None
         scale_max = old.scale_max
         if old.precision == "int8":
             q_new, s_new = quantize_int8(new_rows, added, old.dim_padded)
-            data_new = _grow_rows(old.data, torch.from_numpy(q_new).to(dev), n0, grow)
+            data_new = _grow_rows(old_data, torch.from_numpy(q_new).to(dev), n0, grow)
             scales_new = _grow_rows(
-                old.row_scales, torch.from_numpy(s_new).to(dev), n0, grow
+                old_scales, torch.from_numpy(s_new).to(dev), n0, grow
             )
             scale_max = max(scale_max, float(np.max(s_new)))
         else:
@@ -493,7 +695,7 @@ class RetrievalEngine:
 
             padded = _cast_padded(new_rows, added, old.dim_padded, old.precision)
             data_new = _grow_rows(
-                old.data, _upload_data(padded, old.precision, dev), n0, grow
+                old_data, _upload_data(padded, old.precision, dev), n0, grow
             )
         self._sidecar_source = None
 
@@ -595,14 +797,14 @@ class RetrievalEngine:
         emb_ids = old.emb_ids.copy()
         emb_ids[dead_below] = emb_ids[live_tail]
         emb_ids = emb_ids[:new_n]
-        dev = old.device
-        data_new, scales_new = old.data, old.row_scales
+        data_new, scales_new = self._pack_arrays(old)  # a deferred upload lands first
+        dev = data_new.device
         if dead_below.size:
             src = torch.from_numpy(live_tail).to(dev)
             dst = torch.from_numpy(dead_below).to(dev)
-            data_new = _move_rows(old.data, src, dst)
-            if old.row_scales is not None:
-                scales_new = _move_rows(old.row_scales, src, dst)
+            data_new = _move_rows(data_new, src, dst)
+            if scales_new is not None:
+                scales_new = _move_rows(scales_new, src, dst)
         # else a pure tail delete: nothing moves, only the mask boundary
 
         host_cache = None
@@ -709,26 +911,349 @@ class RetrievalEngine:
         t.start()
         self._cache_rebuild_thread = t
 
+    # -- deferred uploads and the device mirrors -------------------------------
+
+    def _await_pack_device(self, corpus: PackedCorpus) -> None:
+        """Block until a deferred pack is published, counted as a pack
+        waiter so the uploader's throttle stops yielding (the waiter is
+        often a query that is itself in flight)."""
+        if corpus.device_ready:
+            return
+        with self._inflight_lock:
+            self._pack_waiters += 1
+        try:
+            corpus.wait_device()
+        finally:
+            with self._inflight_lock:
+                self._pack_waiters -= 1
+
+    def _pack_arrays(
+        self, corpus: PackedCorpus
+    ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """``corpus``'s packed matrix and row scales as tensors on the
+        engine's device, for a device entry point: waits out a deferred
+        upload first; after a failed one (the host arrays were published)
+        moves them to the device for this call."""
+        from ..convert import _upload_data, upload
+
+        self._await_pack_device(corpus)
+        data, scales = corpus.data, corpus.row_scales
+        if not isinstance(data, torch.Tensor):
+            data = _upload_data(data, corpus.precision, self.device)
+        if scales is not None and not isinstance(scales, torch.Tensor):
+            scales = upload(np.asarray(scales, dtype=np.float32), self.device)
+        return data, scales
+
+    def _upload_pack(
+        self,
+        host_data: np.ndarray,
+        host_scales: Optional[np.ndarray],
+        precision: str,
+        throttle: Callable[[], None],
+    ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """The host pack staged onto the engine's device (bf16 as its
+        16-bit words, viewed as ``torch.bfloat16``)."""
+        put = _packing.staged_device_put
+        if precision == "bf16":
+            data = put(np.asarray(host_data).view(np.int16), self.device, throttle=throttle)
+            data = data.view(torch.bfloat16)
+        else:
+            data = put(np.asarray(host_data), self.device, throttle=throttle)
+        scales = None
+        if host_scales is not None:
+            scales = put(np.asarray(host_scales, dtype=np.float32), self.device)
+        return data, scales
+
+    def _spawn_pack_upload(self, corpus: PackedCorpus) -> None:
+        """Background uploader of a deferred pack: stage the host pack onto
+        the device (yielding to live queries between chunks, at most 5 s
+        a chunk), publish it on the corpus, then build the mirrors.  While
+        it runs, :meth:`host_route` answers from the host f32 rows, and
+        device entry points wait in :meth:`_await_pack_device`.
+
+        Failures retry twice; a permanent failure publishes the HOST
+        arrays, so waiters never hang: device entry points then move the
+        pack to the device per call (:meth:`_pack_arrays`), logged and
+        counted in ``pack_upload_failures``.  An upload whose corpus is no
+        longer the engine's aborts at its next chunk and publishes its host
+        arrays too (uncounted); the uploader of the newer corpus joins it
+        first, so one upload runs at a time and none is skipped."""
+        with self._mirror_lock:
+            prev = self._pack_thread
+            if prev is not None and prev.is_alive():
+                if self._pack_thread_corpus() is corpus:
+                    return
+            else:
+                prev = None
+            stop = self._mirror_stop
+            host_data, host_scales = corpus.data, corpus.row_scales
+
+            def work() -> None:
+                if prev is not None:
+                    prev.join()
+                published = False
+                try:
+                    throttle = functools.partial(
+                        self._mirror_throttle, stop, 5.0, corpus
+                    )
+                    log.info(
+                        "uploading pack to device in background (%.2f GB); "
+                        "queries answer from the host rows meanwhile",
+                        host_data.nbytes / 1e9,
+                    )
+                    for attempt in range(3):
+                        try:
+                            data, scales = self._upload_pack(
+                                host_data, host_scales, corpus.precision, throttle
+                            )
+                            corpus.publish_device(data, scales)
+                            published = True
+                            log.info("pack live on device")
+                            self._maybe_build_device_rescore(corpus)
+                            return
+                        except _MirrorUploadAborted:
+                            log.info("pack upload stopped (shutdown or superseded)")
+                            return
+                        except Exception as exc:
+                            if attempt == 2:
+                                raise
+                            log.warning("pack upload failed (%s); retrying", exc)
+                            time.sleep(2.0 * (attempt + 1))
+                except Exception:
+                    self.pack_upload_failures += 1
+                    log.warning(
+                        "background pack upload failed permanently; device "
+                        "calls will move the host pack per call",
+                        exc_info=True,
+                    )
+                finally:
+                    if not published:
+                        corpus.publish_device(host_data, host_scales)
+
+            t = threading.Thread(target=work, name="svs-tpu-pack-upload", daemon=True)
+            t.start()
+            self._pack_thread, self._pack_thread_corpus = t, weakref.ref(corpus)
+
+    @property
+    def pack_uploading(self) -> bool:
+        """True while a deferred pack upload is in flight."""
+        t = self._pack_thread
+        return t is not None and t.is_alive()
+
     def _maybe_build_device_rescore(self, corpus: PackedCorpus) -> None:
         """Give ``corpus`` its device mirrors when it has none and the
-        policy allows one: after a sidecar load without the f32 sections,
-        once the background rebuild has attached the host cache.  Caller
-        holds the engine lock."""
-        from ..convert import device_mirror
-
-        if corpus.dev_rescore is not None:
+        policy allows one (:meth:`_mirror_allowed`): an f32 pack is its own
+        mirror; else the host f32 cache uploads, synchronously up to
+        ``_MIRROR_SYNC_MAX_BYTES`` and in one background thread past it
+        (the rescore reads the host rows until it publishes; a publish
+        onto a superseded corpus is dropped).  A failed upload leaves the
+        rescore on the host, logged and counted in
+        ``mirror_upload_failures``.  Runs after a sidecar load without f32
+        sections once the background rebuild attached the host cache, and
+        after a deferred pack lands.  A corpus that is no longer the
+        engine's gets none."""
+        if (
+            corpus.dev_rescore is not None
+            or not corpus.device_ready
+            or corpus is not self._corpus
+        ):
             return
         cache = corpus.host_cache
         if not self._mirror_allowed(
             corpus.precision, cache[0] if cache is not None else None, corpus.n_valid
         ):
             return
-        dev_rescore, dev_emb = device_mirror(
-            corpus.data, corpus.precision, cache, corpus.emb_ids, corpus.n_valid
+        if corpus.precision == "f32":
+            if isinstance(corpus.data, torch.Tensor):  # else a failed upload
+                self._publish_mirror(corpus, corpus.data, None)
+            return
+        assert cache is not None
+        cache_f32, row_map = cache
+        if cache_f32.nbytes <= _MIRROR_SYNC_MAX_BYTES:
+            try:
+                self._upload_and_publish_mirror(corpus, cache_f32, row_map)
+            except Exception:
+                self.mirror_upload_failures += 1
+                log.warning(
+                    "device rescore mirror upload failed; the rescore stays "
+                    "on the host rows", exc_info=True,
+                )
+            return
+        with self._mirror_lock:
+            prev = self._mirror_thread
+            if prev is not None and prev.is_alive():
+                if self._mirror_thread_corpus() is corpus:
+                    return
+            else:
+                prev = None
+            # the stop event current at the spawn: shutdown() re-arms the
+            # attribute after its join
+            stop = self._mirror_stop
+
+            def work() -> None:
+                if prev is not None:
+                    prev.join()  # a superseded corpus's upload aborts
+                try:
+                    self._upload_and_publish_mirror(corpus, cache_f32, row_map, stop)
+                except Exception:
+                    self.mirror_upload_failures += 1
+                    log.warning(
+                        "background mirror upload failed; the rescore stays "
+                        "on the host rows", exc_info=True,
+                    )
+
+            t = threading.Thread(target=work, name="svs-tpu-mirror-upload", daemon=True)
+            t.start()
+            self._mirror_thread, self._mirror_thread_corpus = t, weakref.ref(corpus)
+
+    def _upload_and_publish_mirror(
+        self,
+        corpus: PackedCorpus,
+        cache_f32: np.ndarray,
+        row_map: Optional[np.ndarray],
+        stop: Optional[threading.Event] = None,
+    ) -> None:
+        """Upload the f32 mirror and its row map, and publish both on
+        ``corpus``.  The background path passes ``stop``, the shutdown
+        event captured at its spawn: its upload yields to live queries,
+        stops once ``stop`` is set or ``corpus`` is superseded, and it
+        publishes under the engine lock and only onto the engine's current
+        corpus."""
+        from ..convert import upload
+
+        log.info(
+            "uploading f32 rescore mirror to device (%.2f GB)", cache_f32.nbytes / 1e9
         )
-        # the emb-id mirror first: a reader that sees dev_rescore sees both
-        object.__setattr__(corpus, "dev_emb", dev_emb)
-        object.__setattr__(corpus, "dev_rescore", dev_rescore)
+        try:
+            dev = self._upload_f32_mirror(cache_f32, stop, corpus)
+        except _MirrorUploadAborted:
+            log.info("mirror upload stopped (shutdown or superseded)")
+            return
+        dev_map = (
+            upload(np.asarray(row_map, dtype=np.int64), self.device)
+            if row_map is not None
+            else None
+        )
+        if stop is not None:
+            with self._lock:
+                if self._corpus is not corpus or corpus.dev_rescore is not None:
+                    return
+                self._publish_mirror(corpus, dev, dev_map)
+            log.info("f32 rescore mirror live on device")
+            return
+        self._publish_mirror(corpus, dev, dev_map)
+
+    def _publish_mirror(
+        self,
+        corpus: PackedCorpus,
+        dev: torch.Tensor,
+        dev_map: Optional[torch.Tensor],
+    ) -> None:
+        """The emb-id mirror first: a reader that sees ``dev_rescore``
+        reads ``dev_emb`` without re-checking."""
+        from ..convert import emb_mirror
+
+        object.__setattr__(
+            corpus, "dev_emb", emb_mirror(corpus.emb_ids, corpus.n_valid, dev.device)
+        )
+        object.__setattr__(corpus, "dev_rescore", (dev, dev_map))
+
+    def _upload_f32_mirror(
+        self,
+        cache_f32: np.ndarray,
+        stop: Optional[threading.Event] = None,
+        corpus: Optional[PackedCorpus] = None,
+    ) -> torch.Tensor:
+        """Stage the f32 rows onto the device in ``_MIRROR_CHUNK_BYTES``
+        chunks (:func:`packing.staged_device_put`); a background upload
+        (``stop`` given) yields to live queries between chunks, for
+        ``corpus`` while it stays the engine's."""
+        throttle = (
+            None
+            if stop is None
+            else functools.partial(self._mirror_throttle, stop, 60.0, corpus)
+        )
+        return _packing.staged_device_put(
+            np.asarray(cache_f32, dtype=np.float32),
+            self.device,
+            chunk_bytes=_MIRROR_CHUNK_BYTES,
+            throttle=throttle,
+        )
+
+    @property
+    def mirror_uploading(self) -> bool:
+        """True while a background f32 mirror upload is in flight."""
+        t = self._mirror_thread
+        return t is not None and t.is_alive()
+
+    def wait_for_mirror(self, timeout: Optional[float] = None) -> bool:
+        """Block until the engine reaches its steady state: the deferred
+        pack upload, the background rescore-cache rebuild and the mirror
+        upload have finished, including uploads those stages spawn when
+        they land (the cache rebuild is what makes a mirror possible).
+        False when ``timeout`` passed first, or when background work kept
+        respawning past 8 passes (a fast-failing upload cycle): either
+        way not settled, and the caller reads the corpus's state."""
+        deadline = None if timeout is None else time.monotonic() + timeout
+
+        def join(t: Optional[threading.Thread]) -> bool:
+            if t is None:
+                return True
+            left = None if deadline is None else max(0.0, deadline - time.monotonic())
+            t.join(left)
+            return not t.is_alive()
+
+        spins = 0
+        while True:
+            spins += 1
+            if spins > 8:
+                return False
+            if not join(self._pack_thread):
+                return False
+            if not join(self._cache_rebuild_thread):
+                return False
+            corpus = self._corpus
+            if corpus is not None and corpus.device_ready:
+                # the cache may have attached after the pack's own kick
+                self._maybe_build_device_rescore(corpus)
+            if not join(self._mirror_thread):
+                return False
+            threads = (
+                self._pack_thread, self._cache_rebuild_thread, self._mirror_thread,
+            )
+            if all(t is None or not t.is_alive() for t in threads):
+                # with no uploader left, an unpublished pack is not settled
+                current = self._corpus
+                return current is None or current.device_ready
+            if deadline is not None and time.monotonic() >= deadline:
+                return False
+
+    def _mirror_throttle(
+        self,
+        stop: threading.Event,
+        max_defer: float = 60.0,
+        corpus: Optional[PackedCorpus] = None,
+    ) -> None:
+        """Called before each background-upload chunk: wait until no query
+        is in flight and arrivals have left a 250 ms gap, but never past
+        ``max_defer`` seconds a chunk, and not at all while a thread waits
+        on the pack (yielding to it would be a priority inversion).
+        Raises :class:`_MirrorUploadAborted` once ``stop`` is set, or once
+        ``corpus`` (when given) is no longer the engine's."""
+        deadline = time.monotonic() + max_defer
+        while True:
+            if stop.is_set() or (corpus is not None and self._corpus is not corpus):
+                raise _MirrorUploadAborted()
+            if time.monotonic() >= deadline:
+                return
+            with self._inflight_lock:
+                busy = self._inflight > 0
+                waited_on = self._pack_waiters > 0
+            if waited_on:
+                return
+            if not busy and time.monotonic() - self._last_query_t >= 0.25:
+                return
+            time.sleep(0.05)
 
     def _try_sidecar(
         self, path: Union[str, Path], fingerprint: Tuple[int, int, int, int]
@@ -737,9 +1262,10 @@ class RetrievalEngine:
         missing, stale, corrupt, of another precision or padding).  Its
         f32 sections become the host cache (an f32 pack's true-dim view is
         its own); a cache within ``SVS_TPU_HOST_CACHE_RAM_MAX`` is copied
-        into RAM, a larger one stays mapped.  The pack and the device
-        mirror upload synchronously."""
-        from ..convert import packed_from_numpy
+        into RAM, a larger one stays mapped.  With a host cache, a pack of
+        ``DEFER_MIN_BYTES`` and more stays on the host (the mapping) for
+        the background upload; else it uploads here.  The mirrors follow
+        in ``ensure_fresh``."""
         from ..utils.env import env_int
 
         loaded = load_sidecar(path, expected_version=fingerprint)
@@ -774,28 +1300,17 @@ class RetrievalEngine:
             ram_max = env_int("SVS_TPU_HOST_CACHE_RAM_MAX", _HOST_CACHE_RAM_MAX)
             if _is_mmap_backed(cache_arr) and cache_arr.nbytes <= ram_max:
                 host_cache = (np.array(cache_arr, copy=True), rmap)
-        corpus = packed_from_numpy(
+        self._sidecar_source = Path(path)
+        return self._new_pack(
             data,
             row_scales,
             emb_ids,
             n_valid,
             dim,
             header["matrix_version"],
-            self.precision,
-            float(np.max(row_scales[:n_valid]))
-            if row_scales is not None and n_valid > 0
-            else 0.0,
             host_cache[0] if host_cache is not None else None,
             host_cache[1] if host_cache is not None else None,
-            self.device,
-            mirror=self._mirror_allowed(
-                self.precision,
-                host_cache[0] if host_cache is not None else None,
-                n_valid,
-            ),
         )
-        self._sidecar_source = Path(path)
-        return corpus
 
     def write_sidecar(self, path: Union[str, Path]) -> None:
         """Persist the current pack to ``path`` (skipped when the pack was
@@ -805,6 +1320,7 @@ class RetrievalEngine:
         if self._sidecar_source is not None and Path(path) == self._sidecar_source:
             log.debug("sidecar %s already current; skipping write", path)
             return
+        self._await_pack_device(self._corpus)  # never a half-uploaded pack
         save_sidecar(path, self._corpus, fingerprint=self._fingerprint)
 
     def write_sidecar_from_store(
@@ -831,6 +1347,7 @@ class RetrievalEngine:
         with self._lock:
             corpus = self._corpus
             if corpus is not None and self._fingerprint == fingerprint:
+                self._await_pack_device(corpus)  # never a half-uploaded pack
                 save_sidecar(path, corpus, fingerprint=fingerprint)
                 return True
         if not scan_ok:
@@ -864,8 +1381,370 @@ class RetrievalEngine:
     # -- search ---------------------------------------------------------------
 
     def dispatch_stats(self) -> Dict[str, float]:
-        """Dispatch counters surfaced through ``kb.stats()['dispatch']``."""
-        return {"widen_retries": float(self.widen_retries)}
+        """Dispatch inputs and counters surfaced through
+        ``kb.stats()['dispatch']``: the host-scan bandwidth estimate, the
+        measured round-trip floor (once measured), the widen retries and
+        the failed uploads."""
+        out = {
+            "widen_retries": float(self.widen_retries),
+            "host_scan_bw": float(self._host_scan_bw),
+            "pack_upload_failures": float(self.pack_upload_failures),
+            "mirror_upload_failures": float(self.mirror_upload_failures),
+        }
+        if self._rpc_floor is not None:
+            out["rpc_floor_ms"] = float(self._rpc_floor * 1e3)
+        return out
+
+    # -- host route --------------------------------------------------------------
+
+    #: Re-probe schedule of the round-trip floor: 30 s after the first
+    #: measurement, doubling to a 15-minute steady state.
+    RPC_REPROBE_BASE_S = 30.0
+    RPC_REPROBE_MAX_S = 900.0
+
+    def _measure_rpc_floor_once(self) -> float:
+        """Best of 3 round trips of one minimal launch on the engine's
+        device (an 8-element sum) and the fetch of its result, timed on
+        the host.  Raises on device errors (callers decide)."""
+        x = torch.zeros(8, dtype=torch.float32, device=self.device)
+        x.sum().item()  # the first launch pays the setup, outside the runs
+        best = float("inf")
+        for _ in range(3):
+            t0 = time.perf_counter()
+            x.sum().item()
+            best = min(best, time.perf_counter() - t0)
+        return best
+
+    def _rpc_refresh_interval(self) -> float:
+        return min(
+            self.RPC_REPROBE_MAX_S,
+            self.RPC_REPROBE_BASE_S * (2.0 ** max(0, self._rpc_probes - 1)),
+        )
+
+    def _quiet(self) -> bool:
+        with self._inflight_lock:
+            busy = self._inflight > 0
+        return not (busy or self.pack_uploading or self.mirror_uploading)
+
+    def _maybe_spawn_rpc_probe(self) -> None:
+        """Re-measure the floor in the background at a quiet moment; the
+        result blends in (EWMA), so one outlier cannot swing the rule
+        while a moved floor converges in a few probes."""
+        if not self._quiet():
+            return
+        t = self._rpc_probe_thread
+        if t is not None and t.is_alive():
+            return
+
+        def work() -> None:
+            try:
+                new = self._measure_rpc_floor_once()
+            except Exception:
+                log.debug("round-trip floor re-probe failed", exc_info=True)
+                return
+            old = self._rpc_floor
+            self._rpc_floor = new if old is None else 0.5 * old + 0.5 * new
+            self._rpc_floor_t = time.monotonic()
+            self._rpc_probes += 1
+            log.info(
+                "device round-trip floor re-probed: %.3f ms (blended %.3f ms)",
+                new * 1e3, self._rpc_floor * 1e3,
+            )
+
+        t = threading.Thread(target=work, name="svs-tpu-rpc-probe", daemon=True)
+        t.start()
+        self._rpc_probe_thread = t
+
+    def device_rpc_floor(self) -> float:
+        """The round-trip floor of one minimal launch and fetch on this
+        engine's device: measured at the first quiet call (never while an
+        upload or a search is in flight: the probe would queue behind
+        it), then re-probed in the background on the decaying schedule.
+        Until then the prior (``SVS_TPU_RPC_FLOOR``, 30 ms) stands; a
+        failed probe leaves it unset, to be measured again."""
+        if self._rpc_floor is not None:
+            if time.monotonic() - self._rpc_floor_t >= self._rpc_refresh_interval():
+                self._maybe_spawn_rpc_probe()
+            return self._rpc_floor
+        from ..utils.env import env_float
+
+        prior = env_float("SVS_TPU_RPC_FLOOR", _RPC_FLOOR_PRIOR)
+        if not self._quiet():
+            return prior
+        try:
+            best = self._measure_rpc_floor_once()
+        except Exception:
+            log.warning(
+                "device round-trip floor probe failed; keeping the prior "
+                "(%.1f ms)", prior * 1e3, exc_info=True,
+            )
+            return prior
+        self._rpc_floor = best
+        self._rpc_floor_t = time.monotonic()
+        self._rpc_probes = 1
+        log.info("device round-trip floor: %.3f ms", best * 1e3)
+        return best
+
+    def host_route(
+        self, corpus: PackedCorpus, batch: int, k: Optional[int] = None
+    ) -> bool:
+        """The reference's dispatch rule: answer from the host f32 rows
+        when the estimated host exact scan (passes x cache bytes / learned
+        bandwidth) beats the measured device round-trip floor.
+
+        Never without the exactness machinery (host rows, the rescore) or
+        past ``_HOST_SCAN_MAX_SCORE_BYTES`` of ``[batch, n]`` scores; always
+        (any batch: the scan is slabbed) while a deferred pack uploads.
+        ``k`` lets the two-pass bandwidth apply only where the two-pass
+        runs (it declines at ``k >= n / 8``)."""
+        if (
+            self.host_dispatch == "off"
+            or not self.rescore
+            or corpus.host_f32 is None
+            or corpus.n_valid == 0
+        ):
+            return False
+        if not corpus.device_ready:
+            return True
+        if self.host_dispatch == "force":
+            return True
+        if batch * corpus.n_valid * 4 > _HOST_SCAN_MAX_SCORE_BYTES:
+            return False
+        self._maybe_refresh_host_bw(corpus)
+        bw = self._host_scan_bw
+        if (
+            batch <= self.HOST_TWOPASS_MAX_BATCH
+            and self._host_twopass_bw is not None
+            and corpus.host_i8 is not None
+            and k is not None
+            and k < corpus.n_valid // 8
+        ):
+            bw = max(bw, self._host_twopass_bw)
+        slab = max(1, _HOST_SCAN_MAX_SCORE_BYTES // max(1, corpus.n_valid * 4))
+        passes = -(-batch // slab)
+        host_s = passes * corpus.host_f32.nbytes / bw
+        return host_s < self.device_rpc_floor()
+
+    #: Re-probe the host-scan bandwidth when no scan or probe refreshed it
+    #: for this long.
+    HOST_BW_REFRESH_S = 300.0
+
+    def _maybe_refresh_host_bw(self, corpus: PackedCorpus) -> None:
+        """A background slab probe of the host-scan bandwidth when the EWMA
+        is stale: it otherwise only moves when the host route runs, so a
+        device-winning steady state would starve it."""
+        if time.monotonic() - self._host_bw_t < self.HOST_BW_REFRESH_S:
+            return
+        t = self._host_bw_thread
+        if t is not None and t.is_alive():
+            return
+        hf = corpus.host_f32
+        if hf is None or hf.shape[0] == 0:
+            return
+        self._host_bw_t = time.monotonic()  # claimed before the thread runs
+
+        def work() -> None:
+            try:
+                rows = min(hf.shape[0], max(1, 64 * 1024 * 1024 // max(1, hf.shape[1] * 4)))
+                q = np.zeros(hf.shape[1], dtype=np.float32)
+                q[0] = 1.0
+                t0 = time.perf_counter()
+                _host_scores(hf[:rows], q[None, :])
+                dt = time.perf_counter() - t0
+                if dt > 1e-6:
+                    measured = rows * hf.shape[1] * 4 / dt
+                    self._host_scan_bw = 0.5 * self._host_scan_bw + 0.5 * measured
+            except Exception:
+                log.debug("host bandwidth probe failed", exc_info=True)
+
+        t = threading.Thread(target=work, name="svs-tpu-hostbw-probe", daemon=True)
+        t.start()
+        self._host_bw_thread = t
+
+    def host_topk_exact(
+        self, corpus: PackedCorpus, queries: np.ndarray, k: int
+    ) -> Tuple[np.ndarray, np.ndarray]:
+        """Exact top-``k`` over the whole corpus on the host with the
+        reference tie rule: the native two-pass (:meth:`_host_two_pass`)
+        where it applies, else a full f32 scan, a matvec for a solo query
+        (the reference's accumulation: the same bits) and one GEMM per
+        slab of a batch (``_HOST_SCAN_MAX_SCORE_BYTES`` of scores).
+        Returns ``(emb_ids int64 [B, k'], scores f32 [B, k'])`` with
+        ``k' = min(k, n_valid)``, and feeds the measured bandwidth into
+        the dispatch EWMA.
+
+        Host rows that no pack row maps to (the rows an incremental
+        delete dropped: their cache rows stay) score ``-inf`` and are
+        never returned; ``svs_tpu`` raises there instead."""
+        hf, rm = corpus.host_f32, corpus.host_row_map
+        assert hf is not None, "host_topk_exact needs the host f32 rows"
+        queries = np.atleast_2d(np.asarray(queries, dtype=np.float32))
+        b = queries.shape[0]
+        k_eff = min(int(k), corpus.n_valid)
+        if k_eff <= 0:
+            return (
+                np.zeros((b, 0), dtype=np.int64),
+                np.zeros((b, 0), dtype=np.float32),
+            )
+        dead = None
+        if rm is None:
+            emb_hf = corpus.emb_ids
+        else:
+            # host row rm[p] holds pack row p: the emb id of each host row
+            emb_hf = np.full(hf.shape[0], -1, dtype=np.int64)
+            emb_hf[rm] = corpus.emb_ids
+            if len(rm) != hf.shape[0]:
+                dead = emb_hf < 0
+        two = self._host_two_pass(corpus, hf, emb_hf, dead, queries, k_eff)
+        if two is not None:
+            return two
+        t0 = time.perf_counter()
+        slab = max(1, _HOST_SCAN_MAX_SCORE_BYTES // max(1, hf.shape[0] * 4))
+        emb_out = np.empty((b, k_eff), dtype=np.int64)
+        score_out = np.empty((b, k_eff), dtype=np.float32)
+        passes = 0
+        for lo in range(0, b, slab):
+            hi = min(b, lo + slab)
+            passes += 1
+            # one pass over the rows a slab (a solo query: the reference's matvec)
+            exact = _host_scores(hf, queries[lo:hi])
+            if dead is not None:
+                exact[:, dead] = -np.inf
+            emb_out[lo:hi], score_out[lo:hi] = _subset_select_np(exact, emb_hf, k_eff)
+        elapsed = time.perf_counter() - t0
+        if elapsed > 1e-5:
+            measured = passes * hf.nbytes / elapsed
+            self._host_scan_bw = 0.5 * self._host_scan_bw + 0.5 * measured
+            self._host_bw_t = time.monotonic()
+        return emb_out, score_out
+
+    #: Two-pass bounds: below MIN_ROWS a BLAS matvec is already ~100 us;
+    #: past MAX_BATCH the per-query int8 scan re-reads the matrix b times
+    #: while the GEMM reads the f32 rows once a slab (crossover b ~ 4).
+    HOST_TWOPASS_MIN_ROWS = 4096
+    HOST_TWOPASS_MAX_BATCH = 4
+    #: Build the host int8 arrays synchronously up to this f32 size, in a
+    #: background thread past it (the full scan answers meanwhile).
+    HOST_I8_SYNC_MAX_BYTES = 128 * 1024 * 1024
+
+    def _ensure_host_i8(
+        self, corpus: PackedCorpus, hf: np.ndarray
+    ) -> Optional[Tuple[np.ndarray, np.ndarray, np.ndarray]]:
+        """The corpus's host int8 prescore arrays, built lazily from its
+        host f32 rows (native quantization, and row sums for the VNNI
+        kernel) and attached in one store."""
+        tri = corpus.host_i8
+        if tri is not None:
+            return tri
+        from ..native import native_available, quantize_int8 as native_quantize
+
+        if not native_available():
+            return None
+
+        def build() -> None:
+            di8 = np.empty(hf.shape, dtype=np.int8)
+            scales = np.empty(hf.shape[0], dtype=np.float32)
+            for lo, block in _aligned_blocks(hf):
+                di8[lo : lo + len(block)], scales[lo : lo + len(block)] = (
+                    native_quantize(block)
+                )
+            sums = di8.sum(axis=1, dtype=np.int32)
+            object.__setattr__(corpus, "host_i8", (di8, scales, sums))
+
+        if hf.nbytes <= self.HOST_I8_SYNC_MAX_BYTES:
+            build()
+            return corpus.host_i8
+        t = self._host_i8_thread
+        if t is None or not t.is_alive():
+            t = threading.Thread(target=build, name="svs-tpu-host-i8", daemon=True)
+            t.start()
+            self._host_i8_thread = t
+        return None
+
+    def _host_two_pass(
+        self,
+        corpus: PackedCorpus,
+        hf: np.ndarray,
+        emb_hf: np.ndarray,
+        dead: Optional[np.ndarray],
+        queries: np.ndarray,
+        k_eff: int,
+    ) -> Optional[Tuple[np.ndarray, np.ndarray]]:
+        """Two-pass host search: the native int8 prescore proposes C
+        candidates per query, their exact f32 rows are rescored one dot
+        per row (the reference's accumulation) with the reference tie
+        rule, and the device path's margin proof checks coverage, widening
+        C 4x until it holds (C = all rows is exact by construction).
+        ``dead`` marks host rows no pack row maps to (scored ``-inf``).
+        ``None`` where it does not apply (no native library, a small
+        corpus, a batch past the crossover, ``k >= n / 8``, no rescore)."""
+        b = queries.shape[0]
+        n = hf.shape[0]
+        if (
+            not self.rescore
+            or b > self.HOST_TWOPASS_MAX_BATCH
+            or n < self.HOST_TWOPASS_MIN_ROWS
+            or k_eff >= n // 8
+        ):
+            return None
+        tri = self._ensure_host_i8(corpus, hf)
+        if tri is None:
+            return None
+        from ..native import int8_topc_prescore
+
+        di8, scales, sums = tri
+        t0 = time.perf_counter()
+        s_q = (np.maximum(np.max(np.abs(queries), axis=1), 1e-30) / 127.0).astype(
+            np.float32
+        )
+        q_i8 = np.clip(np.rint(queries / s_q[:, None]), -127, 127).astype(np.int8)
+        # the device path's int8 bound without the key-grid term
+        d = hf.shape[1]
+        s_d = float(scales.max()) if scales.size else 0.0
+        t_conc = float(np.sqrt(2.0 * np.log(2.0 / 1e-15)))
+        eps = (
+            0.5 * t_conc * (s_q.astype(np.float64) + s_d) * 1.001
+            + 0.25 * d * s_q.astype(np.float64) * s_d
+            + 3e-5
+        )
+        c = self.candidate_count(k_eff)
+        while True:
+            c_eff = min(c, n)
+            out = int8_topc_prescore(di8, scales, sums, q_i8, s_q, c_eff)
+            if out is None:
+                return None
+            pre_vals, pre_idx = out
+            emb_out = np.empty((b, k_eff), dtype=np.int64)
+            score_out = np.empty((b, k_eff), dtype=np.float32)
+            ok = True
+            for bi in range(b):
+                rows = pre_idx[bi].astype(np.int64)
+                exact = hf[rows] @ queries[bi]  # one dot per row
+                if dead is not None:
+                    exact[dead[rows]] = -np.inf
+                e_sel, s_sel = _subset_select_np(exact[None, :], emb_hf[rows], k_eff)
+                if c_eff < n and s_sel[0, -1] < pre_vals[bi, -1] + eps[bi]:
+                    ok = False
+                    break
+                emb_out[bi] = e_sel[0]
+                score_out[bi] = s_sel[0]
+            if ok:
+                elapsed = time.perf_counter() - t0
+                if elapsed > 1e-5:
+                    # its own EWMA: the full-scan model must not learn the
+                    # two-pass's ~4x effective rate
+                    slab = max(1, _HOST_SCAN_MAX_SCORE_BYTES // max(1, n * 4))
+                    measured = -(-b // slab) * hf.nbytes / elapsed
+                    prev = self._host_twopass_bw
+                    self._host_twopass_bw = (
+                        measured if prev is None else 0.5 * prev + 0.5 * measured
+                    )
+                return emb_out, score_out
+            c *= 4
+            log.info(
+                "host two-pass margin insufficient; widening candidates to %d",
+                min(c, n),
+            )
 
     def _gather_fits(self, b: int, c: int, dev_f32: torch.Tensor) -> bool:
         """Whether the ``[b, c, d]`` f32 candidate gather of a device
@@ -873,6 +1752,7 @@ class RetrievalEngine:
         mirror's width: an f32 pack's mirror is ``dim_padded`` wide)."""
         return b * c * int(dev_f32.shape[1]) * 4 <= _DEVICE_GATHER_MAX_BYTES
 
+    @_marks_inflight
     def topk_final(
         self, corpus: PackedCorpus, queries: np.ndarray, n: int, c: int
     ) -> Optional[Tuple[np.ndarray, np.ndarray, np.ndarray]]:
@@ -904,7 +1784,7 @@ class RetrievalEngine:
                 np.full((b,), -np.inf, dtype=np.float32),
             )
         q_dev = torch.from_numpy(pad_queries(queries, corpus.dim_padded)).to(
-            corpus.device
+            self.device
         )
         packed_dev, wide = self._prescore_packed(corpus, q_dev, c_eff)
         dim = corpus.dim if int(dev[0].shape[1]) == corpus.dim else None
@@ -918,6 +1798,7 @@ class RetrievalEngine:
         boundary = np.ascontiguousarray(arr[:, 2 * n_eff]).view(np.float32)
         return emb, scores, boundary
 
+    @_marks_inflight
     def topk_with_rescore(
         self, corpus: PackedCorpus, queries: np.ndarray, k: int
     ) -> Tuple[np.ndarray, np.ndarray, Optional[np.ndarray]]:
@@ -939,7 +1820,7 @@ class RetrievalEngine:
             empty = np.zeros((b, 0), dtype=np.float32)
             return empty, np.zeros((b, 0), dtype=np.int64), empty
         q_dev = torch.from_numpy(pad_queries(queries, corpus.dim_padded)).to(
-            corpus.device
+            self.device
         )
         packed_dev, wide = self._prescore_packed(corpus, q_dev, k_eff)
         dim = corpus.dim if int(dev[0].shape[1]) == corpus.dim else None
@@ -950,6 +1831,7 @@ class RetrievalEngine:
         tail = tail_bits[:, 0].cpu().numpy().view(np.float32)
         return np.broadcast_to(tail[:, None], exact_np.shape), rows.cpu().numpy(), exact_np
 
+    @_marks_inflight
     def topk(
         self, corpus: PackedCorpus, queries: np.ndarray, k: int
     ) -> Tuple[np.ndarray, np.ndarray]:
@@ -971,11 +1853,12 @@ class RetrievalEngine:
                 np.zeros((b, 0), dtype=np.int64),
             )
         q_dev = torch.from_numpy(pad_queries(queries, corpus.dim_padded)).to(
-            corpus.device
+            self.device
         )
         packed_dev, wide = self._prescore_packed(corpus, q_dev, k_eff)
         return unpack_vals_idx(packed_dev.cpu(), k_eff, wide=wide)
 
+    @_marks_inflight
     def subset_topk(
         self,
         corpus: PackedCorpus,
@@ -1019,12 +1902,13 @@ class RetrievalEngine:
         if dev is not None and int(emb_sub.max()) < 2**31:
             f_pad = max(512, 1 << (f - 1).bit_length())
             if f_pad * int(dev[0].shape[1]) * 4 <= _DEVICE_GATHER_MAX_BYTES:
+                self._await_pack_device(corpus)
                 rows_dev, emb_dev = self._subset_arrays(
                     corpus, rows, emb_sub, f_pad, cache_key
                 )
                 q_dev = torch.from_numpy(
                     pad_queries(queries, corpus.dim_padded)
-                ).to(corpus.device)
+                ).to(self.device)
                 dim = corpus.dim if int(dev[0].shape[1]) == corpus.dim else None
                 wire = _subset_final(
                     dev[0], dev[1], rows_dev, emb_dev, f, q_dev, k_eff, dim=dim
@@ -1069,8 +1953,8 @@ class RetrievalEngine:
         rows_p[:f] = rows
         emb_p = np.full(f_pad, -1, dtype=np.int32)
         emb_p[:f] = emb_sub
-        rows_dev = torch.from_numpy(rows_p).to(corpus.device)
-        emb_dev = torch.from_numpy(emb_p).to(corpus.device)
+        rows_dev = torch.from_numpy(rows_p).to(self.device)
+        emb_dev = torch.from_numpy(emb_p).to(self.device)
         if cache_key is not None:
             with self._lock:
                 for ck in [
@@ -1252,12 +2136,13 @@ class RetrievalEngine:
         from ..ops.quant import score_topk_int8_extract_packed, score_topk_int8_packed
         from ..ops.topk import score_topk_packed, streaming_score_topk_packed
 
+        data, scales = self._pack_arrays(corpus)  # a deferred upload lands first
         b = q.shape[0]
         n_valid = corpus.n_valid
         wide = corpus.n_padded >= WIDE_INDEX_MIN_ROWS
         n_pad, d_pad = corpus.n_padded, corpus.dim_padded
         if corpus.precision == "int8":
-            ops = (corpus.data, corpus.row_scales)
+            ops = (data, scales)
             v3, v2, v1 = (
                 P.score_topk_fused3_int8_packed,
                 P.score_topk_fused2_int8_packed,
@@ -1266,7 +2151,7 @@ class RetrievalEngine:
             two_pass, exact = score_topk_int8_extract_packed, score_topk_int8_packed
             kernels_ok = self.kernel == "auto" and not wide
         else:
-            ops = (corpus.data,)
+            ops = (data,)
             v3, v2, v1 = (
                 P.score_topk_fused3_packed,
                 P.score_topk_fused2_packed,
@@ -1284,8 +2169,7 @@ class RetrievalEngine:
             return two_pass(*ops, q, n_valid, k_eff), wide
         if self._scores_over_budget(corpus, b):
             return streaming_score_topk_packed(
-                corpus.data, q, n_valid, k_eff, row_scales=corpus.row_scales,
-                wide=wide,
+                data, q, n_valid, k_eff, row_scales=scales, wide=wide,
             ), wide
         return exact(*ops, q, n_valid, k_eff, wide=wide), wide
 
@@ -1324,6 +2208,7 @@ class RetrievalEngine:
         t = float(np.sqrt(2.0 * np.log(2.0 / 1e-15)))
         return bf16_term + t * s * 1.001 + 0.25 * corpus.dim * s * s + key_eps
 
+    @_marks_inflight
     def subset_pairwise_corpus(
         self,
         corpus: PackedCorpus,
@@ -1346,12 +2231,13 @@ class RetrievalEngine:
         f_pad = max(-(-f // ROW_MULTIPLE) * ROW_MULTIPLE, ROW_MULTIPLE)
         rows_p = np.zeros(f_pad, dtype=np.int64)
         rows_p[:f] = rows
-        rows_dev = torch.from_numpy(rows_p).to(corpus.device)
-        data = torch.index_select(corpus.data, 0, rows_dev)
+        full_data, full_scales = self._pack_arrays(corpus)
+        rows_dev = torch.from_numpy(rows_p).to(full_data.device)
+        data = torch.index_select(full_data, 0, rows_dev)
         data[f:] = 0
         scales = None
-        if corpus.row_scales is not None:
-            scales = torch.index_select(corpus.row_scales, 0, rows_dev)
+        if full_scales is not None:
+            scales = torch.index_select(full_scales, 0, rows_dev)
             scales[f:] = 0
         host_cache = None
         if corpus.host_f32 is not None:
@@ -1370,6 +2256,7 @@ class RetrievalEngine:
             host_cache=host_cache,
         )
 
+    @_marks_inflight
     def pairwise_topk(
         self, corpus: PackedCorpus, k: int
     ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
@@ -1391,20 +2278,19 @@ class RetrievalEngine:
             empty_i = np.zeros((0,), dtype=np.int64)
             return np.zeros((0,), dtype=np.float32), empty_i, empty_i
         block_rows = min(256, corpus.n_padded)
+        data, scales = self._pack_arrays(corpus)
         result = None
         if self._keyed_pairwise_possible(corpus) and keyed_pairwise_route(
             corpus.n_padded, block_rows, k_eff
         ):
             vals, rows, cols, ok = pairwise_candidates_keyed(
-                corpus.data, n, k_eff, block_rows=block_rows,
-                row_scales=corpus.row_scales,
+                data, n, k_eff, block_rows=block_rows, row_scales=scales,
             )
             if ok:
                 result = (vals, rows, cols)
         if result is None:
             result = pairwise_topk_blocked(
-                corpus.data, n, k_eff, block_rows=block_rows,
-                row_scales=corpus.row_scales,
+                data, n, k_eff, block_rows=block_rows, row_scales=scales,
             )
         vals, rows, cols = (t.cpu().numpy() for t in result)
         return (
@@ -1413,6 +2299,7 @@ class RetrievalEngine:
             cols.astype(np.int64),
         )
 
+    @_marks_inflight
     def pairwise_rescore(
         self, corpus: PackedCorpus, rows_a: np.ndarray, rows_b: np.ndarray
     ) -> Optional[np.ndarray]:
@@ -1427,7 +2314,7 @@ class RetrievalEngine:
             return np.zeros((0,), dtype=np.float32)
         dev_f32, dev_map = corpus.dev_rescore
         ra, rb = (
-            torch.from_numpy(np.asarray(r, dtype=np.int64)).to(corpus.device)
+            torch.from_numpy(np.asarray(r, dtype=np.int64)).to(dev_f32.device)
             for r in (rows_a, rows_b)
         )
         out = _pairwise_rescore_from_rows(dev_f32, dev_map, ra, rb)

@@ -12,13 +12,22 @@ tile-aligned shapes and the pack's bytes are identical to the reference's:
   insertion order.
 
 bf16 is carried on the host as its raw ``uint16`` bits (no ``ml_dtypes``)
-and viewed as ``torch.bfloat16`` on upload; the upload is synchronous.
+and viewed as ``torch.bfloat16`` on upload.  The host pack is one fused
+native pass (``native.permute_cast_pack``) when the native library is
+there, else the chunked NumPy path below: the same bytes.
+
+A pack of ``DEFER_MIN_BYTES`` and more whose host f32 rows are kept may
+publish before its upload (``PackedCorpus.device_ready`` false,
+``data``/``row_scales`` the host arrays): the engine uploads it in the
+background through :func:`staged_device_put` and answers queries from
+the host meanwhile.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+import threading
+from typing import Callable, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -174,6 +183,20 @@ def pack_host(
         emb_ids = emb_ids[perm]
     n_pad = max(_round_up(n, row_multiple), row_multiple)
     d_pad = max(_round_up(d, dim_multiple), dim_multiple)
+    from ..native import permute_cast_pack
+
+    # one multithreaded native pass (permute + pad + cast / quantize), or
+    # the chunked path: the same bytes
+    fused = permute_cast_pack(
+        matrix,
+        perm if perm is not None else np.arange(n, dtype=np.int64),
+        precision,
+        n_pad,
+        d_pad,
+    )
+    if fused is not None:
+        host_data, host_scales = fused
+        return host_data, host_scales, emb_ids, matrix, perm, n, d
     rows = matrix if perm is None else _PermutedRows(matrix, perm)
     if precision == "int8":
         host_data, host_scales = quantize_int8(rows, n_pad, d_pad)
@@ -190,6 +213,81 @@ def _is_mmap_backed(a: np.ndarray) -> bool:
             return True
         seen = seen.base
     return False
+
+
+#: Staged-upload granularity (see :func:`staged_device_put`): big enough to
+#: amortize a transfer's overhead, small enough that a background upload
+#: yields to live queries between chunks.
+STAGE_CHUNK_BYTES = 64 * 1024 * 1024
+
+#: Packs of at least this many bytes may defer their upload to a
+#: background thread (``RetrievalEngine._spawn_pack_upload``): the corpus
+#: publishes at once with its HOST arrays, queries answer exactly from the
+#: host f32 rows meanwhile, and the device copies swap in when they land.
+#: Below it the upload is cheaper than the machinery.
+DEFER_MIN_BYTES = STAGE_CHUNK_BYTES
+
+
+def staged_device_put(
+    host: np.ndarray,
+    device: Union[str, torch.device],
+    chunk_bytes: Optional[int] = None,
+    throttle: Optional[Callable[[], None]] = None,
+) -> torch.Tensor:
+    """``host`` (any NumPy dtype torch takes: bf16 goes as its ``int16``
+    view) on ``device``, one ``chunk_bytes`` slice of rows at a time.
+
+    The device buffer is allocated once, on the calling thread's current
+    stream.  Each chunk is first copied from ``host`` (RAM, or a sidecar
+    ``np.memmap``) into one of two pinned staging buffers, then
+    ``copy_(non_blocking=True)`` on an uploader ``torch.cuda.Stream``: a
+    device copy that reads a memmap directly interleaves page faults with
+    the link (a 40x cliff in the reference's measurements), and the
+    staging keeps the disk read sequential.  ``throttle`` (background
+    callers) runs before each chunk.  The uploader stream is synchronized
+    before the buffer is returned (also on an exception), so a reader on
+    any stream sees the whole array.  On the CPU the chunks are plain
+    copies."""
+    device = torch.device(device)
+    chunk = STAGE_CHUNK_BYTES if chunk_bytes is None else chunk_bytes
+    n = host.shape[0]
+    row_bytes = max(1, host.nbytes // max(1, n))
+    rows = max(1, chunk // row_bytes)
+    dtype = torch.from_numpy(np.zeros(0, dtype=host.dtype)).dtype
+    if device.type != "cuda":
+        out = torch.empty(host.shape, dtype=dtype, device=device)
+        for lo in range(0, n, rows):
+            if throttle is not None:
+                throttle()
+            out[lo : lo + rows] = torch.from_numpy(np.array(host[lo : lo + rows]))
+        return out
+    out = torch.empty(host.shape, dtype=dtype, device=device)
+    stream = torch.cuda.Stream(device)
+    # the copies are ordered after the allocation on the current stream
+    stream.wait_stream(torch.cuda.current_stream(device))
+    staging = [
+        torch.empty((min(rows, n),) + tuple(host.shape[1:]), dtype=dtype, pin_memory=True)
+        for _ in range(2 if n > rows else 1)
+    ]
+    landed: list = [None] * len(staging)
+    try:
+        for i, lo in enumerate(range(0, n, rows)):
+            if throttle is not None:
+                throttle()
+            hi = min(n, lo + rows)
+            slot = i % len(staging)
+            if landed[slot] is not None:
+                landed[slot].synchronize()  # its previous copy has left
+            buf = staging[slot][: hi - lo]
+            buf.numpy()[...] = host[lo:hi]
+            with torch.cuda.stream(stream):
+                out[lo:hi].copy_(buf, non_blocking=True)
+                ev = torch.cuda.Event()
+                ev.record(stream)
+            landed[slot] = ev
+    finally:
+        stream.synchronize()
+    return out
 
 
 def _grow_rows(
@@ -238,7 +336,9 @@ class _PermutedRows:
 class PackedCorpus:
     """Device-resident packed corpus plus host-side id mapping."""
 
-    data: torch.Tensor  # [n_padded, dim_padded] int8, bf16 or f32
+    #: ``[n_padded, dim_padded]`` int8, bf16 or f32 (host arrays while a
+    #: deferred upload runs, see ``_device_ready``)
+    data: torch.Tensor
     row_scales: Optional[torch.Tensor]  # [n_padded] f32 (int8 only)
     emb_ids: np.ndarray  # [n_valid] int64: pack row -> embeddings.id
     n_valid: int
@@ -267,6 +367,46 @@ class PackedCorpus:
     _emb_sort: Optional[Tuple[np.ndarray, np.ndarray]] = dataclasses.field(
         default=None, repr=False, compare=False
     )
+    #: Deferred-upload gate: ``None`` = the pack was born on its device; an
+    #: Event = ``data``/``row_scales`` are HOST arrays (NumPy; bf16 as
+    #: ``uint16`` bits) until the engine's uploader publishes the device
+    #: copies and sets it.  Meanwhile the engine answers from the host f32
+    #: rows (``RetrievalEngine.host_route``).
+    _device_ready: Optional[threading.Event] = dataclasses.field(
+        default=None, repr=False, compare=False
+    )
+    #: Host int8 prescore arrays ``(docs_i8, scales, row_sums)`` in
+    #: host-cache row order: the first pass of the host two-pass search,
+    #: built lazily from ``host_cache`` and attached in one store.
+    host_i8: Optional[Tuple[np.ndarray, np.ndarray, np.ndarray]] = (
+        dataclasses.field(default=None, repr=False, compare=False)
+    )
+
+    @property
+    def device_ready(self) -> bool:
+        """Whether ``data``/``row_scales`` are published (True for every
+        pack that was not deferred)."""
+        ev = self._device_ready
+        return ev is None or ev.is_set()
+
+    def wait_device(self, timeout: Optional[float] = None) -> bool:
+        """Block until the background upload publishes the pack."""
+        ev = self._device_ready
+        return True if ev is None else bool(ev.wait(timeout))
+
+    def publish_device(
+        self,
+        data: "Union[torch.Tensor, np.ndarray]",
+        row_scales: "Optional[Union[torch.Tensor, np.ndarray]]",
+    ) -> None:
+        """Swap in the device copies (or, after a failed upload, keep the
+        host arrays) and release the waiters; called once, by the engine's
+        uploader thread, after its stream has synchronized."""
+        object.__setattr__(self, "data", data)
+        object.__setattr__(self, "row_scales", row_scales)
+        ev = self._device_ready
+        if ev is not None:
+            ev.set()
 
     @property
     def host_f32(self) -> Optional[np.ndarray]:
@@ -277,10 +417,6 @@ class PackedCorpus:
     def host_row_map(self) -> Optional[np.ndarray]:
         cache = self.host_cache
         return cache[1] if cache is not None else None
-
-    @property
-    def device(self) -> torch.device:
-        return self.data.device
 
     def rows_for_emb_ids(
         self, ids: np.ndarray

@@ -81,18 +81,20 @@ def save_sidecar(
 ) -> None:
     """Persist a :class:`~svs_tpu_torch.engine.packing.PackedCorpus` to
     ``path``, reading the pack back from its device (about 0.1 s for the
-    1.56 GB int8 pack of 1M x 1536 on an H100).  ``fingerprint`` is the
+    1.56 GB int8 pack of 1M x 1536 on an H100), or writing its host arrays
+    when the pack holds those (a failed upload).  ``fingerprint`` is the
     store's fingerprint at pack time, the staleness key."""
     import torch
 
-    data = corpus.data
-    if data.dtype == torch.bfloat16:
-        data_np = data.view(torch.int16).cpu().numpy().view(np.uint16)
-    else:
-        data_np = data.cpu().numpy()
-    scales_np = (
-        corpus.row_scales.cpu().numpy() if corpus.row_scales is not None else None
-    )
+    def host(a: Any) -> Any:
+        if not isinstance(a, torch.Tensor):
+            return a
+        if a.dtype == torch.bfloat16:
+            return a.view(torch.int16).cpu().numpy().view(np.uint16)
+        return a.cpu().numpy()
+
+    data_np = host(corpus.data)
+    scales_np = host(corpus.row_scales)
     cache = corpus.host_cache
     save_sidecar_arrays(
         path,

@@ -58,9 +58,15 @@ the store (fetched beside a remote URL when the publisher shipped one),
 or its ``write_sidecar`` override.  The file format is the reference's,
 so each package loads the other's sidecar.
 
-Not ported yet: meshes, replicas and the host search route (with it the
-deferred background upload of a cold pack).  ``mesh=`` and ``replicas=``
-raise ``NotImplementedError``.
+The host route as in the reference: a call answers from the host f32
+rows (``host_search`` in :meth:`KB.stats`) while a cold pack uploads in
+the background, or when the engine's rule finds a host scan cheaper than
+the device's measured round trip (``SVS_TPU_HOST_DISPATCH=auto``, or
+``force`` / ``off``); ``warmup(routes='both')`` then also warms the
+device route.
+
+Not ported yet: meshes and replicas (``mesh=`` and ``replicas=`` raise
+``NotImplementedError``).
 """
 
 from __future__ import annotations
@@ -907,9 +913,17 @@ class _Searcher:
     def search_hydrated(
         self, corpus: PackedCorpus, vectors: np.ndarray, n: int
     ) -> List[List[Retrieval]]:
-        """Verified-exact top-``n`` device search and hydration (with
-        ``rescore=False``, the device prescores in device order)."""
+        """Verified-exact top-``n`` search and hydration: the host route
+        when the engine's rule takes it (``host_search``), else the device
+        search (with ``rescore=False``, the device prescores in device
+        order)."""
         engine = self.engine
+        if engine.host_route(corpus, vectors.shape[0], k=n):
+            with phase("host_search", self.stats):
+                emb, scores = engine.host_topk_exact(corpus, vectors, n)
+            with phase("finalize", self.stats), self.lock:
+                with self.require_db().transaction() as tx:
+                    return _hydrate_and_mint(tx, emb, scores, self.doc_cache)
         c = c0 = engine.initial_candidates(n, corpus.n_valid)
         if not engine.rescore:
             with phase("device_search", self.stats), profiler_trace("retrieve"):
@@ -957,6 +971,47 @@ class _Searcher:
                 "rescore margin insufficient at the candidate boundary; "
                 "widening device candidates to %d and retrying", c,
             )
+
+    def warmup(
+        self,
+        corpus: PackedCorpus,
+        batch_sizes: Sequence[int],
+        n: int,
+        rounds: int,
+        routes: str,
+    ) -> None:
+        """``rounds`` searches of random unit queries at each batch size
+        (the ``warmup`` phase).  With ``routes='both'``, a batch size the
+        host route answered gets one more search on the device route, so
+        that a later dispatch flip does not build kernels on live traffic:
+        only when the pack is on the device (a deferred upload never holds
+        a start-up) and under ``'auto'`` (``'force'`` flips only by the
+        user's hand).  ``'live'`` skips that search: it toggles the
+        engine's shared ``host_dispatch``."""
+        engine = self.engine
+        rng = np.random.default_rng(0)
+
+        def search(b: int) -> None:
+            v = rng.standard_normal((b, corpus.dim)).astype(np.float32)
+            v /= np.linalg.norm(v, axis=1, keepdims=True)
+            with phase("warmup", self.stats):
+                self.search_hydrated(corpus, v, min(n, corpus.n_valid))
+
+        for b in batch_sizes:
+            for _ in range(max(1, rounds)):
+                search(int(b))
+            if (
+                routes == "both"
+                and corpus.device_ready
+                and engine.host_dispatch == "auto"
+                and engine.host_route(corpus, int(b), k=n)
+            ):
+                prev = engine.host_dispatch
+                engine.host_dispatch = "off"
+                try:
+                    search(int(b))
+                finally:
+                    engine.host_dispatch = prev
 
     def top_pairs(
         self, corpus: PackedCorpus, n: int, where: Where
@@ -1176,26 +1231,17 @@ class AsyncKB:
     ) -> None:
         """Run ``rounds`` searches of random unit queries at each batch
         size (the ``warmup`` phase of :meth:`stats`), so that the kernels
-        are built and the width hints set before live traffic.  ``routes``
-        is accepted for the reference's signature: the host route is not
-        ported, so every search takes the device route."""
-        del routes
+        are built and the width hints set before live traffic; ``routes``
+        as in :meth:`KB.warmup`."""
         loop = asyncio.get_running_loop()
         async with self._get_lock():
             corpus = await self._ensure_engine_fresh()
         if corpus.n_valid == 0 or corpus.dim == 0:
             return
-        search = self._searcher(loop)
-        rng = np.random.default_rng(0)
-        for b in batch_sizes:
-            for _ in range(max(1, rounds)):
-                v = rng.standard_normal((int(b), corpus.dim)).astype(np.float32)
-                v /= np.linalg.norm(v, axis=1, keepdims=True)
-                with phase("warmup", self._stats):
-                    await loop.run_in_executor(
-                        None, search.search_hydrated, corpus, v,
-                        min(n, corpus.n_valid),
-                    )
+        await loop.run_in_executor(
+            None, self._searcher(loop).warmup, corpus, batch_sizes, n, rounds,
+            routes,
+        )
 
     async def close(
         self,
@@ -1606,21 +1652,15 @@ class KB:
     ) -> None:
         """Run ``rounds`` searches of random unit queries at each batch
         size (the ``warmup`` phase of :meth:`stats`), so that the kernels
-        are built and the width hints set before live traffic.  ``routes``
-        is accepted for the reference's signature: the host route is not
-        ported, so every search takes the device route."""
-        del routes
+        are built and the width hints set before live traffic.  With
+        ``routes='both'`` (the default) a batch size the host route took
+        is also searched once on the device route (``'live'``: not; see
+        ``_Searcher.warmup``)."""
         with self._lock:
             corpus = self._ensure_engine_fresh()
         if corpus.n_valid == 0 or corpus.dim == 0:
             return
-        rng = np.random.default_rng(0)
-        for b in batch_sizes:
-            for _ in range(max(1, rounds)):
-                v = rng.standard_normal((int(b), corpus.dim)).astype(np.float32)
-                v /= np.linalg.norm(v, axis=1, keepdims=True)
-                with phase("warmup", self._stats):
-                    self._search.search_hydrated(corpus, v, min(n, corpus.n_valid))
+        self._search.warmup(corpus, batch_sizes, n, rounds, routes)
 
     def close(
         self,

@@ -21,7 +21,9 @@ New in this framework: :meth:`bump_matrix_version` / :meth:`matrix_version`
 from __future__ import annotations
 
 import json
+import os
 import sqlite3
+import time
 from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -33,6 +35,10 @@ _MATRIX_VERSION_KEY = "svs_tpu_matrix_version"
 
 #: SQLite's default host-parameter limit is 999; IN-query chunks stay under.
 _IN_CHUNK = 500
+
+#: Use the multi-threaded native scan for corpora at least this large
+#: (below it the range bookkeeping costs more than it saves).
+_PARALLEL_SCAN_MIN_ROWS = 100_000
 
 
 def _record(
@@ -59,6 +65,16 @@ class Tx:
 
     def __init__(self, conn: sqlite3.Connection) -> None:
         self._conn = conn
+        #: Snapshot of ``total_changes`` at transaction start: a non-zero
+        #: delta later means THIS transaction has uncommitted writes, so
+        #: out-of-connection readers (the native scan) must not run.
+        self._changes_at_begin = int(conn.total_changes)
+        #: How the last matrix scan of this transaction ran:
+        #: ``native_parallel``, ``native`` or ``stream``, and the seconds of
+        #: its native steps (``ranges_s``: the id ranges and their counts;
+        #: ``rows_s``: the row scan).
+        self.last_scan: Optional[str] = None
+        self.last_scan_split: Optional[Dict[str, float]] = None
 
     def _chunked_in(
         self, sql_template: str, ids: Sequence[int]
@@ -485,14 +501,18 @@ class Tx:
         The COUNT(*) fallback only runs for read-only opens of stores
         that never had the key seeded (~30-80 s uncached at 1M rows —
         the cost this design removes from every cold open)."""
-        row = self._conn.execute(
-            "SELECT val FROM keyval WHERE key = 'svs_tpu_emb_count';"
-        ).fetchone()
-        count = int(row[0]) if row is not None else self.count_embeddings()
         (max_id,) = self._conn.execute(
             "SELECT COALESCE(MAX(id), 0) FROM embeddings;"
         ).fetchone()
-        return count, int(max_id), self.embeddings_generation()
+        return self._embeddings_count(), int(max_id), self.embeddings_generation()
+
+    def _embeddings_count(self) -> int:
+        """The trigger-maintained embeddings count (O(1)), or ``COUNT(*)``
+        for a store that never had it seeded."""
+        row = self._conn.execute(
+            "SELECT val FROM keyval WHERE key = 'svs_tpu_emb_count';"
+        ).fetchone()
+        return int(row[0]) if row is not None else self.count_embeddings()
 
     def embedding_ids(self) -> np.ndarray:
         """All embedding ids as int64 in id order — the incremental-delete
@@ -529,6 +549,91 @@ class Tx:
             "SELECT embedding FROM embeddings LIMIT 1;"
         ).fetchone()
         return len(row[0]) // 4 if row is not None else 0
+
+    def _native_matrix_scan(
+        self, after_id: int, n: int, dim: int
+    ) -> Optional[Tuple[np.ndarray, np.ndarray]]:
+        """The native scanner (``native.scan_embeddings``): separate
+        read-only SQLite connections copy the blobs straight into NumPy
+        buffers, one thread and connection per id range from
+        ``_PARALLEL_SCAN_MIN_ROWS`` rows.
+
+        The separate connections see only COMMITTED state, so this path
+        runs only when it provably matches this transaction's snapshot
+        (the reference's gates):
+
+        - the caller has already read (the dim and count queries), so
+          under a non-WAL journal this connection holds a shared lock and
+          no writer can commit until the transaction ends; WAL databases,
+          whose readers do not block writers, skip the native path;
+        - a transaction with any uncommitted write of its own skips it
+          outright (``total_changes``): count and max id cannot tell a
+          same-transaction delete + reinsert that reuses the max rowid;
+        - the scanned rows' count and max id are checked against this
+          transaction's view.
+
+        ``None`` on any gate or mismatch: the caller streams instead."""
+        if n <= 0 or dim <= 0:
+            return None
+        if int(self._conn.total_changes) != self._changes_at_begin:
+            return None
+        (_, _, path) = self._conn.execute("PRAGMA database_list;").fetchone()
+        if not path:  # in-memory or temp database
+            return None
+        (mode,) = self._conn.execute("PRAGMA journal_mode;").fetchone()
+        if str(mode).lower() == "wal":
+            return None
+        from ..native import scan_embeddings, scan_embeddings_parallel
+
+        t0 = time.perf_counter()
+        res = None
+        route = "native"
+        ranges_s = 0.0
+        if n >= _PARALLEL_SCAN_MIN_ROWS:
+            # K disjoint id ranges on K threads / connections: the btree and
+            # overflow-page walk parallelizes; the range counts come from
+            # this transaction's snapshot
+            k_threads = min(8, os.cpu_count() or 1)
+            (hi,) = self._conn.execute(
+                "SELECT max(id) FROM embeddings WHERE id > ?;", (after_id,)
+            ).fetchone()
+            if k_threads > 1 and hi is not None and hi > after_id:
+                edges = [
+                    after_id + (int(hi) - after_id) * i // k_threads
+                    for i in range(k_threads + 1)
+                ]
+                ranges = []
+                total = 0
+                for lo, up in zip(edges, edges[1:]):
+                    if up <= lo:
+                        continue
+                    (cnt,) = self._conn.execute(
+                        "SELECT count(*) FROM embeddings "
+                        "WHERE id > ? AND id <= ?;",
+                        (lo, up),
+                    ).fetchone()
+                    ranges.append((lo, up, int(cnt)))
+                    total += int(cnt)
+                ranges_s = time.perf_counter() - t0
+                if total == n:
+                    res = scan_embeddings_parallel(path, ranges, n, dim)
+                    route = "native_parallel"
+        if res is None:
+            res = scan_embeddings(path, after_id, n, dim)
+            route = "native"
+        if res is None:
+            return None
+        matrix, ids = res
+        (max_id,) = self._conn.execute(
+            "SELECT max(id) FROM embeddings WHERE id > ?;", (after_id,)
+        ).fetchone()
+        if int(ids[-1]) != int(max_id):
+            return None
+        self.last_scan = route
+        self.last_scan_split = {
+            "ranges_s": ranges_s, "rows_s": time.perf_counter() - t0 - ranges_s,
+        }
+        return matrix, ids
 
     def _stream_matrix(
         self, cursor: "sqlite3.Cursor", n: int, dim: int
@@ -569,6 +674,7 @@ class Tx:
                 ) from None
             i = j
         assert i == n, f"embeddings changed mid-scan: expected {n}, got {i}"
+        self.last_scan, self.last_scan_split = "stream", None
         matrix = np.frombuffer(buf, dtype="<f4").reshape(n, dim)
         return matrix, ids
 
@@ -592,6 +698,9 @@ class Tx:
                 count=n,
             )
             return np.zeros((n, 0), dtype=np.float32), ids
+        native = self._native_matrix_scan(-1, n, dim)
+        if native is not None:
+            return native
         cur = self._conn.execute("SELECT id, embedding FROM embeddings;")
         return self._stream_matrix(cur, n, dim)
 
@@ -618,6 +727,9 @@ class Tx:
                 count=n,
             )
             return np.zeros((n, dim), dtype=np.float32), ids
+        native = self._native_matrix_scan(after_emb_id, n, dim)
+        if native is not None:
+            return native
         cur = self._conn.execute(
             "SELECT id, embedding FROM embeddings WHERE id > ? ORDER BY id;",
             (after_emb_id,),

@@ -29,3 +29,23 @@ def env_int(name: str, default: int) -> int:
 
 
 _warned_malformed: "set[str]" = set()
+
+
+def env_float(name: str, default: float) -> float:
+    """``float(os.environ[name])`` with ``default`` on missing or malformed
+    values (a malformed one warns once), as :func:`env_int`."""
+    raw = os.environ.get(name)
+    if raw is None:
+        return default
+    try:
+        return float(raw)
+    except ValueError:
+        if name not in _warned_malformed:
+            _warned_malformed.add(name)
+            import logging
+
+            logging.getLogger(__name__).warning(
+                "ignoring malformed %s=%r (want a number); using %g",
+                name, raw, default,
+            )
+        return default

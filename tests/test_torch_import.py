@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: it imports with JAX and the JAX
 package's optional dependencies blocked (int8 and bf16 storage, batches
-above 256, top document pairs, metadata filters and ``AsyncKB``), never
+above 256, top document pairs, metadata filters and ``AsyncKB``, the
+deferred upload, the host route and the native library), never
 imports ``svs_tpu``, and refuses to fall back to the CPU when no device
 was named."""
 
@@ -210,6 +211,66 @@ _BLOCKED_FILTERS_ASYNC = textwrap.dedent(
 )
 
 
+_BLOCKED_HOST_ROUTE = textwrap.dedent(
+    """
+    import os, sys, zlib
+
+    BLOCKED = ("jax", "jaxlib", "networkx", "ml_dtypes", "aiohttp", "dotenv")
+
+    class Blocker:
+        def find_spec(self, name, path=None, target=None):
+            if name.split(".")[0] in BLOCKED:
+                raise ImportError(f"{name} is blocked in this test")
+            return None
+
+    sys.meta_path.insert(0, Blocker())
+
+    import numpy as np
+    import svs_tpu_torch.engine.packing as packing
+    from svs_tpu_torch import KB, native
+    from svs_tpu_torch.engine import RetrievalEngine
+
+    packing.DEFER_MIN_BYTES = 0  # every pack uploads in the background
+    RetrievalEngine.HOST_TWOPASS_MIN_ROWS = 64
+
+    def vec(text):
+        rng = np.random.default_rng(zlib.crc32(text.encode()))
+        v = rng.standard_normal(20).astype(np.float32)
+        return v / np.linalg.norm(v)
+
+    async def embed(texts):
+        return [vec(t).tolist() for t in texts]
+
+    path = sys.argv[1]
+    kb = KB(path, embed, force_fresh_db=True, device="cpu")
+    kb.engine.host_dispatch = "auto"
+    with kb.bulk_add_docs() as add:
+        ids = [add(f"doc {i}") for i in range(800)]
+    cold = kb.retrieve("query", 5)  # the host route while the pack uploads
+    assert kb.stats()["host_search"]["count"] == 1
+    assert kb.engine.wait_for_mirror(timeout=60)
+    assert kb.engine.corpus.dev_rescore is not None
+    def same(hits):
+        assert [h["doc"]["id"] for h in hits] == [h["doc"]["id"] for h in cold]
+        assert max(abs(a["score"] - b["score"]) for a, b in zip(hits, cold)) < 1e-6
+
+    kb.engine.host_dispatch = "off"
+    same(kb.retrieve("query", 5))
+    kb.engine.host_dispatch = "force"
+    same(kb.retrieve("query", 5))  # the two-pass, when native
+    kb.warmup((1,), n=5, routes="both")
+    m = np.stack([vec(f"doc {i}") for i in range(800)])
+    s = m @ vec("query")
+    assert [h["doc"]["id"] for h in cold] == [ids[j] for j in np.argsort(-s)[:5]]
+    assert kb.engine.last_scan == ("native" if native.native_available() else "stream")
+    kb.close()
+    loaded = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED + ("svs_tpu",))
+    assert not loaded, loaded
+    print("ROUND_TRIP_OK")
+    """
+)
+
+
 def _run_blocked(script: str, tmp_path: Path) -> None:
     repo = Path(svs_tpu_torch.__file__).resolve().parent.parent
     proc = subprocess.run(
@@ -237,6 +298,10 @@ def test_pairwise_without_jax(tmp_path):
 
 def test_filters_and_async_kb_without_jax(tmp_path):
     _run_blocked(_BLOCKED_FILTERS_ASYNC, tmp_path)
+
+
+def test_host_route_and_deferred_upload_without_jax(tmp_path):
+    _run_blocked(_BLOCKED_HOST_ROUTE, tmp_path)
 
 
 def test_kb_without_device_refuses_cpu(tmp_path):
