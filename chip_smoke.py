@@ -51,21 +51,36 @@ from a seed:
    phase; then ``cold_start`` (``cold_start_phase``: a ``KB`` from the
    sidecar, its first B=64 call on the host route while the pack uploads,
    ``wait_for_mirror``, warm calls on the device route) and
-   ``host_route`` (``host_route_phase``: the measured round-trip floor,
-   the forced host route at 1M for B=1, 4 (native two-pass) and 64, where
-   ``'auto'`` sends each shape, and a new 10,000-doc store at B=1 with
-   ``force``, ``off`` and ``auto``); then the ``filters`` phase (``filters_phase``): the 1M store's docs tagged with
+   ``host_route`` (``host_route_phase``: the forced host route at 1M for
+   B=1, 4 (native two-pass) and 64, then ``'auto'`` at B = 1, 4, 64, 256,
+   which must take the device with the pack on the card, and a new
+   10,000-doc store at B=1 with ``force``, ``off`` and ``auto``); then the
+   ``filters`` phase (``filters_phase``): the 1M store's docs tagged with
    ``tenant`` and ``shard`` meta, and ``where=`` cells on int8 ``KB``s —
    the pre-filter device and host routes, the post-filter ladder of a
    dict and of an opaque predicate — and an ``AsyncKB`` serving
    concurrent plain and filtered batches, each held against a
    brute-force scan of the matching rows; then the incremental phase;
+   then the serve phase (``serve_phase``): the HTTP server
+   (``svs_tpu_torch.serve``) in this process on an ``AsyncKB`` of the 1M
+   store, 256 single-query ``/retrieve`` requests at n=100 from 64 client
+   threads over keep-alive connections, one 64-query request and a burst
+   past the server's outstanding-query bound (429s), every hit exact
+   against the live rows' scan, with the micro-batcher's coalescing and
+   the kernels' launches asserted; then ``serve_writes_cli_phase``: a
+   writable server on a new 10,000-doc store (``/add``, ``/delete``,
+   ``/kv``, then exact ``/retrieve``), ``tools.selfcheck`` on it, and
+   ``python -m svs_tpu_torch serve --workers 2`` as a subprocess from a
+   copy of the package with nothing built (both workers answer, one
+   kernel build between them, SIGTERM exits 0);
 4. pairwise phase: writes two 100k x 1536 stores (the repo's pairwise
    benchmark: dupe-planted and flat random) and drives
    ``document_top_pairwise_scores(10,000)`` three times on each of five
    paths (int8, bf16 and f32 on the dupe-planted store, ``rescore=False``,
    int8 on the flat store), each result held against a brute-force top-k
-   of the pairs on the card; on the int8 keyed and ``rescore=False`` exact
+   of the pairs on the card (and, on the dupe-planted store, ``/pairwise``
+   at n=10,000 through the HTTP server and ``tools.find_near_duplicates``:
+   ``serve_pairwise``); on the int8 keyed and ``rescore=False`` exact
    paths, one more call unprofiled and two under ``torch.profiler``, for
    the device's idle share and the kernels' device time per launch in the
    call; then ``bulk_del_docs`` of 1% of the flat store's docs and
@@ -1209,7 +1224,10 @@ def e2e_phase(n_docs: int, reps: int, work: Path) -> dict:
         cold_start_phase(store, ref_matrix, reps, out)
         host_route_phase(store, ref_matrix, reps, work, out)
         filters_phase(store, ref_matrix, reps, out)
-        ref_matrix = incremental_phase(store, ref_matrix, reps, out)
+        ref_matrix, dead = incremental_phase(store, ref_matrix, reps, out)
+        serve_phase(store, ref_matrix, dead, out)
+        del dead
+        serve_writes_cli_phase(work, out)
     finally:
         store.unlink(missing_ok=True)
         sidecar_path_for(store).unlink(missing_ok=True)
@@ -1326,8 +1344,8 @@ def cold_start_phase(store: Path, ref_matrix, reps: int, out: dict) -> None:
             seen = []
             real = eng.host_route
 
-            def spy(corpus, batch, k=None):
-                routed = real(corpus, batch, k=k)
+            def spy(corpus):
+                routed = real(corpus)
                 seen.append({"pack_uploading": not corpus.device_ready, "host": routed})
                 return routed
 
@@ -1392,13 +1410,14 @@ def host_route_phase(store: Path, ref_matrix, reps: int, work: Path, out: dict) 
     """The host route and its dispatch rule on the card's machine.
 
     On the 1M int8 store (a ``KB`` from the sidecar, built with
-    ``SVS_TPU_HOST_DISPATCH=force``): the measured round-trip floor, where
-    ``'auto'`` sends B = 1, 4, 64, 256 at n=100, then the forced host
-    route at B=1 and B=4 (the native int8 two-pass, after its int8 rows
-    have built) and B=64 (the slab GEMM), first call and warm p50 over
-    ``reps`` each.  On a new ``SMALL_DOCS`` x 1536 store: B=1, n=10 with
-    ``force`` and with ``off`` (warm p50 each) and what ``auto`` chose.
-    Every call exact against a brute-force scan."""
+    ``SVS_TPU_HOST_DISPATCH=force``), once the pack has landed: the forced
+    host route at B=1 and B=4 (the native int8 two-pass, after its int8
+    rows have built: counted by wrapping ``_host_two_pass``) and B=64 (the
+    slab GEMM), first call and warm p50 over ``reps`` each; then the same
+    ``KB`` under ``'auto'`` at B = 1, 4, 64, 256 (n=100), which must take
+    the device every time.  On a new ``SMALL_DOCS`` x 1536 store: B=1,
+    n=10 with ``force``, ``off`` and ``auto`` (warm p50 each; ``auto``
+    must take the device).  Every call exact against a brute-force scan."""
     import os
 
     import torch
@@ -1448,7 +1467,15 @@ def host_route_phase(store: Path, ref_matrix, reps: int, work: Path, out: dict) 
                 raise AssertionError("SVS_TPU_HOST_DISPATCH=force was not read")
             corpus = kb._ensure_engine_fresh()
             settle(eng, res, "host_route")
-            res["rpc_floor_ms"] = eng.device_rpc_floor() * 1e3
+            two_pass = []
+            real = eng._host_two_pass
+
+            def counted(*args):
+                got = real(*args)
+                two_pass.append(got is not None)
+                return got
+
+            eng._host_two_pass = counted
             cells = {}
             for label, b in (("B1", 1), ("B4", 4), ("B64", 64)):
                 lat, host = calls(kb, f"host1m-{label}", b, 100, ref_matrix, 1)
@@ -1457,6 +1484,7 @@ def host_route_phase(store: Path, ref_matrix, reps: int, work: Path, out: dict) 
                     t = time.perf_counter()
                     eng._host_i8_thread.join()
                     res["host_i8_build_wait_s"] = time.perf_counter() - t
+                before = len(two_pass), sum(two_pass)
                 lat, host2 = calls(kb, f"host1m-{label}", b, 100, ref_matrix, reps)
                 if host + host2 != reps + 1:
                     raise AssertionError(f"host_route {label}: a forced call took the device")
@@ -1464,26 +1492,28 @@ def host_route_phase(store: Path, ref_matrix, reps: int, work: Path, out: dict) 
                     "first_s": first,
                     "warm_p50_ms": statistics.median(lat) * 1e3,
                     "warm_ms": [x * 1e3 for x in lat],
-                    "two_pass_bw": eng._host_twopass_bw,
+                    "two_pass_answers": sum(two_pass) - before[1],
                 }
                 log(f"e2e host_route 1M forced {label}, n=100: first {first:.3f} s, "
-                    f"warm p50 {cells[label]['warm_p50_ms']:.2f} ms over {reps}; exact vs scan")
-            if eng._host_twopass_bw is None:
-                raise AssertionError("host_route: the native two-pass never ran")
+                    f"warm p50 {cells[label]['warm_p50_ms']:.2f} ms over {reps}, "
+                    f"{cells[label]['two_pass_answers']} answered by the native "
+                    f"two-pass; exact vs scan")
+            del eng._host_two_pass
+            if cells["B1"]["two_pass_answers"] != reps or cells["B4"]["two_pass_answers"] != reps:
+                raise AssertionError(f"host_route: the native two-pass did not answer "
+                                     f"every warm B<=4 call: {cells}")
             res["forced_1m"] = cells
-            # where the rule sends each shape, on the estimates the scans left
+            # auto, with the pack on the card: the device at every shape
             eng.host_dispatch = "auto"
-            eng._host_bw_t = time.monotonic()
-            res["auto_1m"] = {
-                f"B{b}": "host" if eng.host_route(corpus, b, k=100) else "device"
-                for b in (1, 4, 64, 256)
-            }
-            res["host_scan_bw"] = eng._host_scan_bw
-            res["host_twopass_bw"] = eng._host_twopass_bw
-            log(f"e2e host_route: round-trip floor {res['rpc_floor_ms']:.4f} ms; host "
-                f"scan {res['host_scan_bw'] / 1e9:.2f} GB/s, two-pass "
-                f"{res['host_twopass_bw'] / 1e9:.2f} GB/s effective; auto at 1M "
-                f"(n=100): {res['auto_1m']}")
+            auto = res["auto_1m"] = {}
+            for b in (1, 4, 64, 256):
+                if eng.host_route(corpus):
+                    raise AssertionError(f"host_route: auto chose the host at B={b}")
+                _, host = calls(kb, f"auto1m-B{b}", b, 100, ref_matrix, 1)
+                auto[f"B{b}"] = "host" if host else "device"
+            if any(v != "device" for v in auto.values()):
+                raise AssertionError(f"host_route: auto took the host route: {auto}")
+            log(f"e2e host_route: auto at 1M (n=100), pack on the card: {auto}; exact vs scan")
         finally:
             kb.close()
 
@@ -1520,16 +1550,14 @@ def host_route_phase(store: Path, ref_matrix, reps: int, work: Path, out: dict) 
                         "warm_p50_ms": statistics.median(lat) * 1e3,
                         "warm_ms": [x * 1e3 for x in lat],
                         "host_calls": host,
-                        "rpc_floor_ms": kb.engine.dispatch_stats().get("rpc_floor_ms"),
                     }
-                    if value == "force" and host != reps or value == "off" and host:
+                    if value == "force" and host != reps or value != "force" and host:
                         raise AssertionError(f"small {value}: {host} host calls of {reps}")
                     log(f"e2e host_route 10k {value}: B=1, n=10 warm p50 "
                         f"{small[value]['warm_p50_ms']:.3f} ms over {reps}, {host} on the "
-                        f"host route; floor {small[value]['rpc_floor_ms']} ms; exact vs scan")
+                        f"host route; exact vs scan")
                 finally:
                     kb.close()
-            small["auto_chose"] = "host" if small["auto"]["host_calls"] else "device"
         finally:
             del ref_small
             path.unlink(missing_ok=True)
@@ -1772,7 +1800,8 @@ def incremental_phase(store: Path, ref_matrix, reps: int, out: dict):
     ``sidecar`` with no scan and a device mirror), each is driven with the
     launch counts set to 0 just before it and read just after, and its
     first call's ``pack`` phase, first and warm latencies are recorded.
-    Returns the reference matrix with the appended rows."""
+    Returns the reference matrix with the appended rows, and the mask of
+    its deleted rows."""
     import torch
 
     import svs_tpu_torch
@@ -1922,7 +1951,551 @@ def incremental_phase(store: Path, ref_matrix, reps: int, out: dict):
     finally:
         if "kb" in kbs:
             kbs["kb"].close()
-    return ref_matrix
+    return ref_matrix, dead
+
+
+#: The serve phase (``svs_tpu_torch.serve``): single-query ``/retrieve``
+#: requests at n=100, sent at once from client threads over keep-alive
+#: connections; the outstanding-query bound of its server (so that a burst
+#: of eight 128-query requests passes it and is shed); a write store's
+#: docs; and the mock-provider store of the two-worker CLI server (past
+#: 16,384 docs, so its pack takes the fused kernels).
+SERVE_REQUESTS = 256
+SERVE_CLIENTS = 64
+SERVE_MAX_QUEUE = 512
+WRITE_DOCS = 10_000
+CLI_DOCS = 20_000
+#: Seconds the two CLI workers may take to listen (each packs, warms, and
+#: one builds the kernels while the other waits for the build).
+CLI_READY_S = 300
+
+
+class _Served:
+    """``make_app(kb).start("127.0.0.1", 0)`` on an event loop thread, for
+    blocking clients; ``prepare(kb)`` runs on that loop before the start."""
+
+    def __init__(self, kb, prepare=None, **app_kw):
+        from svs_tpu_torch import serve
+        from svs_tpu_torch.utils.aio import EventLoopThread
+
+        self.kb = kb
+        self.lt = EventLoopThread("chip-smoke-serve")
+
+        async def start():
+            if prepare is not None:
+                await prepare(kb)
+            self.app = serve.make_app(kb, **app_kw)
+            return await self.app.start("127.0.0.1", 0)
+
+        try:
+            self.port = self.lt.run(start())
+        except BaseException:
+            self.close()
+            raise
+
+    def call(self, method, path, body=None, conn=None):
+        """One request (on ``conn`` when given): ``(status, parsed body)``."""
+        import http.client
+
+        own = conn is None
+        if own:
+            conn = http.client.HTTPConnection("127.0.0.1", self.port, timeout=900)
+        try:
+            data = None if body is None else json.dumps(body).encode()
+            conn.request(method, path, body=data,
+                         headers={"Content-Type": "application/json"})
+            r = conn.getresponse()
+            raw = r.read()
+            ctype = r.getheader("Content-Type", "")
+            return r.status, (json.loads(raw) if "json" in ctype else raw.decode())
+        finally:
+            if own:
+                conn.close()
+
+    def close(self):
+        async def stop():
+            app = getattr(self, "app", None)
+            if app is not None:
+                await app.close()
+            await self.kb.close()
+
+        try:
+            self.lt.run(stop())
+        finally:
+            self.lt.stop()
+
+
+def _json_hits(results):
+    """A ``/retrieve`` answer as ``retrieve_batch`` hits (for
+    :func:`hits_to_arrays`)."""
+    return [[{"score": h["score"], "doc": h["doc"]} for h in hits] for hits in results]
+
+
+def serve_phase(store: Path, ref_matrix, dead, out: dict) -> None:
+    """The HTTP server on the 1M int8 store, in this process: an
+    ``AsyncKB`` (``device='cuda'``) served by ``make_app(...).start`` on a
+    loop thread, after ``load()``, the uploads' settling and
+    ``warmup(warm_bucket_ladder(256), n=100)``.  Traffic:
+    ``SERVE_REQUESTS`` single-query ``/retrieve`` (n=100) sent at once from
+    ``SERVE_CLIENTS`` threads over keep-alive ``http.client`` connections
+    (latency per request, requests per second), one 64-query request, then
+    a burst of eight 128-query requests past ``SERVE_MAX_QUEUE`` that must
+    be partly shed with 429.  Every hit is held against the brute-force
+    scan of the live rows; fails when ``/stats`` shows no coalescing
+    (``avg_batch`` <= 1), a call of the warm window took the host route,
+    an upload failed, or #1, #2 or #3 did not launch."""
+    import asyncio
+    import http.client
+    import threading
+
+    import torch
+
+    import svs_tpu_torch
+    from svs_tpu_torch import serve
+    from svs_tpu_torch.ops import pallas_extract as P
+
+    qvec = {}
+
+    async def embed(texts):
+        return [qvec[t].tolist() for t in texts]
+
+    rng = np.random.default_rng(SEED + 11)
+    res = out["paths_detail_serve"] = {}
+
+    async def prepare(kb):
+        loop = asyncio.get_running_loop()
+        t = time.perf_counter()
+        await kb.load()
+        res["load_s"] = time.perf_counter() - t
+        t = time.perf_counter()
+        if not await loop.run_in_executor(None, kb.engine.wait_for_mirror, 600):
+            raise AssertionError("serve: the uploads did not settle")
+        res["settle_s"] = time.perf_counter() - t
+        t = time.perf_counter()
+        await kb.warmup(serve.warm_bucket_ladder(256), n=100)
+        res["warmup_s"] = time.perf_counter() - t
+
+    def queries(label, b):
+        v = unit_queries(rng, b)
+        texts = [f"serve-{label}-{i}" for i in range(b)]
+        qvec.update(zip(texts, v))
+        return texts, v
+
+    def concurrently(n_threads, work):
+        """``work(i)`` on ``n_threads`` threads released together; the
+        first error raises."""
+        gate = threading.Barrier(n_threads)
+        errors = []
+
+        def run(i):
+            try:
+                work(i, gate)
+            except BaseException as exc:  # re-raised below
+                errors.append(exc)
+                gate.abort()
+
+        threads = [threading.Thread(target=run, args=(i,)) for i in range(n_threads)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=900)
+        if any(th.is_alive() for th in threads):
+            raise AssertionError("serve: a client thread did not finish")
+        if errors:
+            raise errors[0]
+
+    def run():
+        kb = svs_tpu_torch.AsyncKB(store, embed, device="cuda")
+        srv = _Served(kb, prepare, max_queue=SERVE_MAX_QUEUE)
+        try:
+            kb._stats.reset()  # the warm window starts here
+            before = P.launch_counts()
+            texts, vecs = queries("single", SERVE_REQUESTS)
+            results = [None] * SERVE_REQUESTS
+            lat = [0.0] * SERVE_REQUESTS
+
+            def client(ci, gate):
+                conn = http.client.HTTPConnection("127.0.0.1", srv.port, timeout=900)
+                conn.connect()
+                try:
+                    gate.wait()
+                    for i in range(ci, SERVE_REQUESTS, SERVE_CLIENTS):
+                        t0 = time.perf_counter()
+                        st, body = srv.call("POST", "/retrieve",
+                                            {"query": texts[i], "n": 100}, conn)
+                        lat[i] = time.perf_counter() - t0
+                        if st != 200:
+                            raise AssertionError(f"serve: /retrieve answered {st}: {body}")
+                        results[i] = body["results"]
+                finally:
+                    conn.close()
+
+            t = time.perf_counter()
+            concurrently(SERVE_CLIENTS, client)
+            wall = time.perf_counter() - t
+            check_results(*hits_to_arrays(_json_hits(results)), vecs, ref_matrix, 100,
+                          dead=dead)
+            st, stats = srv.call("GET", "/stats")
+            server = dict(stats["server"])
+            lat_ms = np.asarray(lat) * 1e3
+            res["single"] = {
+                "requests": SERVE_REQUESTS, "clients": SERVE_CLIENTS, "wall_s": wall,
+                "requests_per_s": SERVE_REQUESTS / wall,
+                "p50_ms": float(np.percentile(lat_ms, 50)),
+                "p99_ms": float(np.percentile(lat_ms, 99)),
+                "max_ms": float(lat_ms.max()),
+                "server": server,
+                "launches": {k: v - before[k] for k, v in P.launch_counts().items()},
+            }
+            if not server["avg_batch"] > 1:
+                raise AssertionError(f"serve: no coalescing: {server}")
+            texts64, vecs64 = queries("batch64", 64)
+            t = time.perf_counter()
+            st, body = srv.call("POST", "/retrieve", {"queries": texts64, "n": 100})
+            res["batch64_ms"] = (time.perf_counter() - t) * 1e3
+            if st != 200:
+                raise AssertionError(f"serve: the 64-query /retrieve answered {st}")
+            check_results(*hits_to_arrays(_json_hits(body["results"])), vecs64,
+                          ref_matrix, 100, dead=dead)
+            # a burst past the outstanding-query bound: shed, all or nothing
+            burst = [queries(f"burst{j}", 128) for j in range(8)]
+            answers = [None] * 8
+
+            def bursty(j, gate):
+                gate.wait()
+                answers[j] = srv.call("POST", "/retrieve",
+                                      {"queries": burst[j][0], "n": 100})
+
+            concurrently(8, bursty)
+            statuses = [a[0] for a in answers]
+            if statuses.count(429) == 0 or statuses.count(200) == 0 or set(statuses) - {200, 429}:
+                raise AssertionError(f"serve: the burst past max_queue answered {statuses}")
+            for (st, body), (_, v) in zip(answers, burst):
+                if st == 200:
+                    check_results(*hits_to_arrays(_json_hits(body["results"])), v,
+                                  ref_matrix, 100, dead=dead)
+            st, stats = srv.call("GET", "/stats")
+            res["burst"] = {"statuses": statuses, "server": stats["server"]}
+            if stats["server"]["shed"] != 128 * statuses.count(429):
+                raise AssertionError(f"serve: shed {stats['server']['shed']} queries")
+            snap = kb.stats()
+            res["phase_p50_ms"] = {k: v["p50_s"] * 1e3 for k, v in snap.items()
+                                   if isinstance(v, dict) and "p50_s" in v}
+            res["dispatch"] = snap["dispatch"]
+            if "host_search" in snap:
+                raise AssertionError("serve: a call of the warm window took the host route")
+            if snap["dispatch"]["pack_upload_failures"] or snap["dispatch"]["mirror_upload_failures"]:
+                raise AssertionError(f"serve: an upload failed: {snap['dispatch']}")
+            single = res["single"]
+            log(f"e2e serve: load {res['load_s']:.2f} s, settle {res['settle_s']:.2f} s, "
+                f"warmup {res['warmup_s']:.2f} s; {SERVE_REQUESTS} single /retrieve from "
+                f"{SERVE_CLIENTS} clients: p50 {single['p50_ms']:.2f} ms, p99 "
+                f"{single['p99_ms']:.2f} ms, {single['requests_per_s']:.1f} req/s, "
+                f"avg_batch {server['avg_batch']:.2f} ({server['batches']} batches), "
+                f"launches {({k: v for k, v in single['launches'].items() if v})}; "
+                f"64-query request {res['batch64_ms']:.1f} ms; burst {statuses}; "
+                f"phases {({k: round(v, 2) for k, v in res['phase_p50_ms'].items()})}; "
+                f"exact vs the live rows' scan")
+        finally:
+            srv.close()
+
+    drive_path("serve", ["_fused3_extract_int8", "_fused2_extract_int8", "_staged_finish"],
+               run, out)
+    torch.cuda.empty_cache()
+
+
+def serve_pairwise(store: Path, ref, oracle, out: dict) -> None:
+    """``/pairwise`` at n = ``PAIR_K`` on the served 100k dupe-planted store
+    and ``tools.find_near_duplicates`` (every pair: threshold -1) on a
+    ``KB``, each held to the brute-force pair oracle; the pair kernels
+    (#9) must launch."""
+    import torch
+
+    import svs_tpu_torch
+    from svs_tpu_torch import tools
+
+    async def embed(texts):
+        raise AssertionError("the pairwise path does not embed")
+
+    res = out["paths_detail_serve_pairwise"] = {}
+
+    def run():
+        srv = _Served(svs_tpu_torch.AsyncKB(store, embed, device="cuda"))
+        try:
+            lat = []
+            for _ in range(2):
+                t = time.perf_counter()
+                st, body = srv.call("POST", "/pairwise", {"n": PAIR_K})
+                lat.append(time.perf_counter() - t)
+                if st != 200:
+                    raise AssertionError(f"serve: /pairwise answered {st}: {str(body)[:200]}")
+                check_pairs([(p["score"], p["doc_a"], p["doc_b"]) for p in body["pairs"]],
+                            ref, oracle, PAIR_K)
+            res["pairwise_s"] = lat
+        finally:
+            srv.close()
+        kb = svs_tpu_torch.KB(store, embed, device="cuda")
+        try:
+            t = time.perf_counter()
+            dups = tools.find_near_duplicates(kb, threshold=-1.0, max_pairs=PAIR_K)
+            res["find_near_duplicates_s"] = time.perf_counter() - t
+            with kb.bulk_query_docs() as q:  # doc i + 1 holds row i
+                for _, a, _b in dups[:: max(1, len(dups) // 50)]:
+                    if q.query_doc(a)["text"] != f"synthetic document #{a - 1}":
+                        raise AssertionError("a doc id does not hold its row")
+        finally:
+            kb.close()
+        check_pairs([(s, {"text": f"#{a - 1}"}, {"text": f"#{b - 1}"}) for s, a, b in dups],
+                    ref, oracle, PAIR_K)
+        log(f"e2e serve_pairwise: /pairwise n={PAIR_K} {[round(x, 3) for x in lat]} s, "
+            f"find_near_duplicates {res['find_near_duplicates_s']:.3f} s; exact vs the oracle")
+
+    drive_path("serve_pairwise", ["pairwise_keys_extract"], run, out)
+    torch.cuda.empty_cache()
+
+
+def _socket_owners(port: int, pids) -> dict:
+    """``{pid: {tcp state}}`` of the sockets on local ``port`` that each of
+    ``pids`` holds (``0A`` listening, ``01`` established), from ``/proc``."""
+    import os
+
+    states = {}
+    for table in ("/proc/net/tcp", "/proc/net/tcp6"):
+        try:
+            lines = Path(table).read_text().splitlines()[1:]
+        except OSError:
+            continue
+        for line in lines:
+            f = line.split()
+            if int(f[1].rsplit(":", 1)[1], 16) == port:
+                states[f[9]] = f[3]
+    owners = {}
+    for pid in pids:
+        try:
+            fds = os.listdir(f"/proc/{pid}/fd")
+        except OSError:
+            continue
+        for fd in fds:
+            try:
+                link = os.readlink(f"/proc/{pid}/fd/{fd}")
+            except OSError:
+                continue
+            if link.startswith("socket:[") and link[8:-1] in states:
+                owners.setdefault(pid, set()).add(states[link[8:-1]])
+    return owners
+
+
+def _children(pid: int) -> list:
+    import os
+
+    out = []
+    for d in os.listdir("/proc"):
+        if d.isdigit():
+            try:
+                stat = Path(f"/proc/{d}/stat").read_text()
+            except OSError:
+                continue
+            if int(stat.rsplit(")", 1)[1].split()[1]) == pid:
+                out.append(int(d))
+    return out
+
+
+def serve_writes_cli_phase(work: Path, out: dict) -> None:
+    """Writes through the server, the CLI server with two workers, and the
+    store audit:
+
+    - a ``writable`` server on a new ``WRITE_DOCS`` x 1536 store takes
+      ``/add``, ``/delete`` and ``/kv`` calls; ``/retrieve`` then sees the
+      added docs and never a deleted one (held to a brute-force scan of
+      the live rows), and ``/kv`` reads back what was written;
+    - ``python -m svs_tpu_torch serve <store> --workers 2`` as a
+      subprocess, from a copy of the package with nothing built, on a
+      mock-provider store (``CLI_DOCS`` random 3-dim rows; the mock embeds
+      every query as (1, 0, 0)): both workers listen and hold answered
+      keep-alive connections (``/healthz``, ``/retrieve`` against a NumPy
+      scan), SIGTERM ends the parent with code 0 and its worker reaped, and
+      the copy's build directory holds one kernel library and one native
+      library (the workers built each once between them);
+    - ``tools.selfcheck(store, device="cuda")`` on the write store is
+      ``ok``."""
+    import os
+    import signal
+    import socket
+
+    import torch
+
+    import svs_tpu_torch
+    from svs_tpu_torch import tools
+    from svs_tpu_torch.store.blob import embedding_to_bytes
+    from svs_tpu_torch.store.db import Database
+
+    res = out["paths_detail_serve_writes_cli"] = {}
+
+    def write(path, m, params=None):
+        db = Database(path)
+        try:
+            with db.transaction() as tx:
+                tx.add_docs_bulk([f"synthetic document #{i}" for i in range(len(m))],
+                                 [embedding_to_bytes(r) for r in m])
+                if params is not None:
+                    tx.set_key("embedding_func_params", json.dumps(params))
+                tx.bump_matrix_version()
+        finally:
+            db.close()
+
+    def run_writes():
+        path = work / "writes.sqlite"
+        rng = np.random.default_rng(SEED + 12)
+        m = unit_queries(rng, WRITE_DOCS)
+        write(path, m)
+        qvec = {}
+
+        async def embed(texts):
+            return [qvec[t].tolist() for t in texts]
+
+        added = unit_queries(rng, 16)
+        texts = [f"synthetic document #{WRITE_DOCS + i}" for i in range(16)]
+        qvec.update(zip(texts, added))
+        ref = torch.from_numpy(np.concatenate([m, added])).cuda()
+        dead = torch.zeros(len(ref), dtype=torch.bool, device=ref.device)
+        srv = _Served(svs_tpu_torch.AsyncKB(path, embed, device="cuda"), writable=True)
+        try:
+            st, body = srv.call("POST", "/add", {"texts": texts, "metas": [{"w": i} for i in range(16)]})
+            if st != 200 or len(body["ids"]) != 16:
+                raise AssertionError(f"serve writes: /add answered {st}: {body}")
+            ids = body["ids"]
+            # the added docs are found by their own vectors
+            st, body = srv.call("POST", "/retrieve", {"queries": texts, "n": 10})
+            rows, scores = hits_to_arrays(_json_hits(body["results"]))
+            if st != 200 or (rows[:, 0] != WRITE_DOCS + np.arange(16)).any():
+                raise AssertionError("serve writes: an added doc was not its own top hit")
+            check_results(rows, scores, added, ref, 10, dead=dead)
+            # delete four added docs and four of the store's (doc i + 1 holds row i)
+            gone_rows = [WRITE_DOCS + i for i in range(4)] + [0, 1, 2, 3]
+            st, body = srv.call("POST", "/delete", {"ids": ids[:4] + [1, 2, 3, 4]})
+            if st != 200 or body != {"deleted": 8}:
+                raise AssertionError(f"serve writes: /delete answered {st}: {body}")
+            dead[torch.tensor(gone_rows, device=dead.device)] = True
+            gone_q = [texts[i] for i in range(4)]
+            for r in range(4):
+                qvec[f"gone-{r}"] = m[r]
+            st, body = srv.call("POST", "/retrieve",
+                                {"queries": gone_q + [f"gone-{r}" for r in range(4)], "n": 10})
+            check_results(*hits_to_arrays(_json_hits(body["results"])),
+                          np.concatenate([added[:4], m[:4]]), ref, 10, dead=dead)
+            kv = [srv.call("PUT", "/kv/a%20key", "v1"), srv.call("GET", "/kv/a%20key"),
+                  srv.call("DELETE", "/kv/a%20key"), srv.call("GET", "/kv/a%20key")]
+            if [s for s, _ in kv] != [200, 200, 200, 404] or kv[1][1] != {"key": "a key", "value": "v1"}:
+                raise AssertionError(f"serve writes: /kv answered {kv}")
+            st, body = srv.call("GET", "/healthz")
+            res["writes"] = {"healthz": body, "kv": [s for s, _ in kv]}
+            if body["docs"] != WRITE_DOCS + 8:
+                raise AssertionError(f"serve writes: /healthz counts {body['docs']} docs")
+        finally:
+            srv.close()
+        t = time.perf_counter()
+        report = tools.selfcheck(path, device="cuda")
+        res["selfcheck_s"] = time.perf_counter() - t
+        res["selfcheck"] = {k: v["ok"] for k, v in report["checks"].items()}
+        if not report["ok"]:
+            raise AssertionError(f"selfcheck failed: {json.dumps(report)[:2000]}")
+        log(f"e2e serve writes: /add 16, /delete 8, /kv, then exact /retrieve on the "
+            f"live rows; selfcheck ok in {res['selfcheck_s']:.2f} s ({res['selfcheck']})")
+        path.unlink(missing_ok=True)
+
+    def run_cli():
+        root = Path(__file__).resolve().parent
+        pkg = work / "cli_pkg"
+        shutil.copytree(root / "svs_tpu_torch", pkg / "svs_tpu_torch",
+                        ignore=shutil.ignore_patterns("__pycache__"))
+        path = work / "mock.sqlite"
+        m = np.random.default_rng(SEED + 13).standard_normal((CLI_DOCS, 3)).astype(np.float32)
+        m /= np.linalg.norm(m, axis=1, keepdims=True)
+        write(path, m, {"provider": "mock"})
+        mock_q = np.asarray([[1.0, 0.0, 0.0]], dtype=np.float32)  # the mock's query
+        ref = torch.from_numpy(m).cuda()
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        logf = work / "cli_serve.log"
+        t0 = time.perf_counter()
+        with open(logf, "wb") as f:
+            proc = subprocess.Popen(
+                [sys.executable, "-m", "svs_tpu_torch", "serve", str(path), "--workers", "2",
+                 "--port", str(port), "--max-batch", "16"],
+                cwd=pkg, stdout=f, stderr=subprocess.STDOUT,
+                env={**os.environ, "PYTHONPATH": str(pkg)},
+            )
+        workers = [proc.pid]
+        conns = []
+        try:
+            deadline = time.monotonic() + CLI_READY_S
+            while True:
+                if proc.poll() is not None:
+                    raise AssertionError(f"the CLI server exited: {logf.read_text()[-4000:]}")
+                workers = [proc.pid] + _children(proc.pid)
+                owners = _socket_owners(port, workers)
+                if len(workers) == 2 and all("0A" in owners.get(p, ()) for p in workers):
+                    break
+                if time.monotonic() > deadline:
+                    raise AssertionError(f"the two workers never listened: {workers}: "
+                                         f"{logf.read_text()[-4000:]}")
+                time.sleep(0.2)
+            res["cli_ready_s"] = time.perf_counter() - t0
+            import http.client
+
+            for _ in range(24):
+                c = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+                conns.append(c)
+                c.request("GET", "/healthz")
+                r = c.getresponse()
+                body = json.loads(r.read())
+                if r.status != 200 or body["docs"] != CLI_DOCS:
+                    raise AssertionError(f"CLI server /healthz: {r.status} {body}")
+                c.request("POST", "/retrieve", body=json.dumps({"query": "anything", "n": 5}))
+                r = c.getresponse()
+                body = json.loads(r.read())
+                if r.status != 200:
+                    raise AssertionError(f"CLI server /retrieve: {r.status} {body}")
+                check_results(*hits_to_arrays(_json_hits([body["results"]])), mock_q, ref, 5)
+            owners = _socket_owners(port, workers)
+            if not all("01" in owners.get(p, ()) for p in workers):
+                raise AssertionError(f"a worker answered no connection: {owners}")
+            for c in conns:
+                c.close()
+            proc.send_signal(signal.SIGTERM)
+            rc = proc.wait(timeout=120)
+            if rc != 0:
+                raise AssertionError(f"the CLI server exited {rc}: {logf.read_text()[-4000:]}")
+            if Path(f"/proc/{workers[1]}").exists():
+                raise AssertionError("a worker outlived the parent")
+            build = pkg / "build" / "svs_tpu_torch"
+            libs = sorted(str(p.relative_to(build)) for p in build.rglob("*.so"))
+            res["cli"] = {"workers": workers, "libraries": libs,
+                          "ready_s": res["cli_ready_s"]}
+            kernel_libs = [p for p in libs if p.endswith("libsvs_kernels.so")]
+            native_libs = [p for p in libs if p.endswith("libfastpack.so")]
+            if len(kernel_libs) != 1 or len(native_libs) != 1 or len(libs) != 2:
+                raise AssertionError(f"the workers' build directory holds {libs}")
+            if list(build.rglob(".build-*")) or list(build.rglob("*.tmp")):
+                raise AssertionError("a build left a temporary behind")
+            log(f"e2e serve CLI: two workers ready in {res['cli_ready_s']:.1f} s (one "
+                f"kernel build between them), both answered, SIGTERM -> exit 0; "
+                f"build directory {libs}")
+        finally:
+            for c in conns:
+                c.close()
+            if proc.poll() is None:
+                for pid in _children(proc.pid):
+                    os.kill(pid, signal.SIGKILL)
+                proc.kill()
+                proc.wait(timeout=60)
+            path.unlink(missing_ok=True)
+            shutil.rmtree(pkg, ignore_errors=True)
+
+    drive_path("serve_writes", [], run_writes, out)
+    drive_path("serve_cli", [], run_cli, out)
+    torch.cuda.empty_cache()
 
 
 def write_pair_store(path: Path, seed: int, dupe_frac: float) -> np.ndarray:
@@ -2323,6 +2896,7 @@ def pairwise_phase(work: Path, out: dict) -> None:
             pair_path("pairwise_bf16_dupes", keyed, store, ref, oracle, precision="bf16")
             pair_path("pairwise_f32_dupes", keyed, store, ref, oracle, precision="f32")
             filtered_pairs(store, ref, out)
+            serve_pairwise(store, ref, oracle, out)
             # rescore=False returns raw bf16 prescores: the oracle is of the
             # bf16-rounded matrix
             ref_bf16 = ref.to(torch.bfloat16).to(torch.float32)
@@ -2418,6 +2992,11 @@ def main() -> int:
                             f"event-timed run of launches")
         e2e["seconds_total"] = time.perf_counter() - t_start
         print(json.dumps({"e2e": e2e}))
+        single = e2e["paths_detail_serve"]["single"]
+        print(f"serve: {single['requests']} single /retrieve (n=100) from "
+              f"{single['clients']} client threads: p50 {single['p50_ms']:.2f} ms, "
+              f"p99 {single['p99_ms']:.2f} ms, {single['requests_per_s']:.1f} req/s, "
+              f"avg_batch {single['server']['avg_batch']:.2f}; {card}")
     print(json.dumps({"v2_v3_crossover_ms": cross}))
     print(json.dumps({"kernels": kernels_json}))
     print(card)

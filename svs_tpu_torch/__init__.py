@@ -5,8 +5,11 @@ CUDA device, with the int8 selection kernels of ``svs_tpu`` hand-written
 in CUDA C++ (``csrc/``): the synchronous :class:`KB` and the asynchronous
 :class:`AsyncKB`, metadata filters (``where=``, built by
 :func:`meta_filter_predicate` or any predicate) on retrieval and on
-pairwise.  The package imports torch and NumPy, never JAX and never
-``svs_tpu``: the two packages share a file format, not code.
+pairwise; the HTTP server (:mod:`svs_tpu_torch.serve`), the command line
+(``python -m svs_tpu_torch``) and the maintenance tools
+(:mod:`svs_tpu_torch.tools`).  The package imports torch and NumPy,
+never JAX and never ``svs_tpu``: the two packages share a file format,
+not code.
 """
 
 from .embeddings import make_mock_embeddings_func

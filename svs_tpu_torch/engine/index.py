@@ -40,11 +40,13 @@
   chunks.  Every device entry point waits for the pack; a failed upload
   leaves the host arrays (moved to the device per call) or the host
   rescore, each counted in :meth:`RetrievalEngine.dispatch_stats`;
-- **host route** — :meth:`RetrievalEngine.host_route`, the reference's
-  rule: answer from the host f32 rows while the pack uploads, or when the
-  estimated host scan (an EWMA of measured scans) beats the device's
-  measured round-trip floor; :meth:`RetrievalEngine.host_topk_exact` is a
-  NumPy scan or the native int8 two-pass, with the reference's tie rule.
+- **host route** — :meth:`RetrievalEngine.host_route`: answer from the
+  host f32 rows while the pack uploads (nothing is on the card yet) or
+  when the caller forces it; with the pack on the card ``'auto'`` always
+  takes the device (a deliberate difference from ``svs_tpu``, whose rule
+  also weighs an estimated host scan against the device's round-trip
+  floor); :meth:`RetrievalEngine.host_topk_exact` is a NumPy scan or the
+  native int8 two-pass, with the reference's tie rule.
 
 Not ported yet (``ROADMAP.md``): hedged fetches, calibration, meshes and
 replicas (with them the mesh branch of ``subset_topk``).
@@ -122,19 +124,9 @@ _MIRROR_SYNC_MAX_BYTES = 32 * 1024 * 1024
 #: Staged-copy granularity of a mirror upload.
 _MIRROR_CHUNK_BYTES = 64 * 1024 * 1024
 
-#: Host-route guard: ceiling on the ``[B, rows]`` f32 score matrix the host
-#: exact scan materializes (also its slab size).
+#: Ceiling on the ``[B, rows]`` f32 score matrix the host exact scan
+#: materializes: its slab size.
 _HOST_SCAN_MAX_SCORE_BYTES = 256 * 1024 * 1024
-
-#: Prior for the host exact scan's bandwidth (bytes/s over the f32 rows),
-#: refined by an EWMA of measured scans.  Env ``SVS_TPU_HOST_SCAN_BW``.
-_HOST_SCAN_BW_PRIOR = 6e9
-
-#: Prior for the device round-trip floor (seconds), used until a quiet
-#: measurement lands.  Env ``SVS_TPU_RPC_FLOOR``.  The floor is never
-#: measured while uploads or queries are in flight: a probe queued behind
-#: a transfer reads the transfer.
-_RPC_FLOOR_PRIOR = 0.030
 
 #: Rows of an unaligned host cache copied per block (:func:`_aligned_blocks`).
 _UNALIGNED_CHUNK_BYTES = 64 * 1024 * 1024
@@ -418,10 +410,9 @@ class RetrievalEngine:
         self.last_scan: Optional[str] = None
         self.last_scan_split: Optional[Dict[str, float]] = None
 
-        #: Host dispatch (the reference's): 'auto' answers from the host f32
-        #: rows when the estimated host scan beats the measured device
-        #: round-trip floor; 'off' / 'force' override.  Env
-        #: ``SVS_TPU_HOST_DISPATCH``.
+        #: Host dispatch: 'auto' answers from the host f32 rows only while
+        #: the pack uploads, 'force' always, 'off' never (:meth:`host_route`).
+        #: Env ``SVS_TPU_HOST_DISPATCH``.
         self.host_dispatch = os.environ.get("SVS_TPU_HOST_DISPATCH", "auto")
         if self.host_dispatch not in ("auto", "off", "force"):
             log.warning(
@@ -429,22 +420,8 @@ class RetrievalEngine:
                 self.host_dispatch,
             )
             self.host_dispatch = "auto"
-        from ..utils.env import env_float
-
-        #: Learned host-scan bandwidth (bytes/s): an EWMA of every host
-        #: scan, refreshed by a background probe when stale.
-        self._host_scan_bw = env_float("SVS_TPU_HOST_SCAN_BW", _HOST_SCAN_BW_PRIOR)
-        self._host_bw_t = 0.0
-        self._host_bw_thread: Optional[threading.Thread] = None
         #: Background builder of large host int8 prescore arrays.
         self._host_i8_thread: Optional[threading.Thread] = None
-        #: The two-pass host search's own effective-bandwidth EWMA.
-        self._host_twopass_bw: Optional[float] = None
-        #: Measured device round-trip floor and its re-probe schedule.
-        self._rpc_floor: Optional[float] = None
-        self._rpc_floor_t = 0.0
-        self._rpc_probes = 0
-        self._rpc_probe_thread: Optional[threading.Thread] = None
         #: Background uploaders of a deferred pack and of a large f32
         #: mirror, and (weakly) the corpus each serves; spawn bookkeeping
         #: under ``_mirror_lock``.
@@ -469,15 +446,15 @@ class RetrievalEngine:
         self.mirror_upload_failures = 0
 
     def shutdown(self) -> None:
-        """Abort and join the background uploads, probes and builders (a
+        """Abort and join the background uploads and builders (a
         thread caught mid-device-call at interpreter exit can abort the
         process).  The engine can be used again afterwards: a fresh stop
         event re-arms future uploads, while a straggler keeps the old,
         set one it captured."""
         self._mirror_stop.set()
         for attr in (
-            "_pack_thread", "_mirror_thread", "_rpc_probe_thread",
-            "_host_bw_thread", "_host_i8_thread", "_cache_rebuild_thread",
+            "_pack_thread", "_mirror_thread", "_host_i8_thread",
+            "_cache_rebuild_thread",
         ):
             t = getattr(self, attr)
             if t is not None and t.is_alive():
@@ -1381,122 +1358,25 @@ class RetrievalEngine:
     # -- search ---------------------------------------------------------------
 
     def dispatch_stats(self) -> Dict[str, float]:
-        """Dispatch inputs and counters surfaced through
-        ``kb.stats()['dispatch']``: the host-scan bandwidth estimate, the
-        measured round-trip floor (once measured), the widen retries and
-        the failed uploads."""
-        out = {
+        """Dispatch counters surfaced through ``kb.stats()['dispatch']``:
+        the widen retries and the failed uploads."""
+        return {
             "widen_retries": float(self.widen_retries),
-            "host_scan_bw": float(self._host_scan_bw),
             "pack_upload_failures": float(self.pack_upload_failures),
             "mirror_upload_failures": float(self.mirror_upload_failures),
         }
-        if self._rpc_floor is not None:
-            out["rpc_floor_ms"] = float(self._rpc_floor * 1e3)
-        return out
 
     # -- host route --------------------------------------------------------------
 
-    #: Re-probe schedule of the round-trip floor: 30 s after the first
-    #: measurement, doubling to a 15-minute steady state.
-    RPC_REPROBE_BASE_S = 30.0
-    RPC_REPROBE_MAX_S = 900.0
-
-    def _measure_rpc_floor_once(self) -> float:
-        """Best of 3 round trips of one minimal launch on the engine's
-        device (an 8-element sum) and the fetch of its result, timed on
-        the host.  Raises on device errors (callers decide)."""
-        x = torch.zeros(8, dtype=torch.float32, device=self.device)
-        x.sum().item()  # the first launch pays the setup, outside the runs
-        best = float("inf")
-        for _ in range(3):
-            t0 = time.perf_counter()
-            x.sum().item()
-            best = min(best, time.perf_counter() - t0)
-        return best
-
-    def _rpc_refresh_interval(self) -> float:
-        return min(
-            self.RPC_REPROBE_MAX_S,
-            self.RPC_REPROBE_BASE_S * (2.0 ** max(0, self._rpc_probes - 1)),
-        )
-
-    def _quiet(self) -> bool:
-        with self._inflight_lock:
-            busy = self._inflight > 0
-        return not (busy or self.pack_uploading or self.mirror_uploading)
-
-    def _maybe_spawn_rpc_probe(self) -> None:
-        """Re-measure the floor in the background at a quiet moment; the
-        result blends in (EWMA), so one outlier cannot swing the rule
-        while a moved floor converges in a few probes."""
-        if not self._quiet():
-            return
-        t = self._rpc_probe_thread
-        if t is not None and t.is_alive():
-            return
-
-        def work() -> None:
-            try:
-                new = self._measure_rpc_floor_once()
-            except Exception:
-                log.debug("round-trip floor re-probe failed", exc_info=True)
-                return
-            old = self._rpc_floor
-            self._rpc_floor = new if old is None else 0.5 * old + 0.5 * new
-            self._rpc_floor_t = time.monotonic()
-            self._rpc_probes += 1
-            log.info(
-                "device round-trip floor re-probed: %.3f ms (blended %.3f ms)",
-                new * 1e3, self._rpc_floor * 1e3,
-            )
-
-        t = threading.Thread(target=work, name="svs-tpu-rpc-probe", daemon=True)
-        t.start()
-        self._rpc_probe_thread = t
-
-    def device_rpc_floor(self) -> float:
-        """The round-trip floor of one minimal launch and fetch on this
-        engine's device: measured at the first quiet call (never while an
-        upload or a search is in flight: the probe would queue behind
-        it), then re-probed in the background on the decaying schedule.
-        Until then the prior (``SVS_TPU_RPC_FLOOR``, 30 ms) stands; a
-        failed probe leaves it unset, to be measured again."""
-        if self._rpc_floor is not None:
-            if time.monotonic() - self._rpc_floor_t >= self._rpc_refresh_interval():
-                self._maybe_spawn_rpc_probe()
-            return self._rpc_floor
-        from ..utils.env import env_float
-
-        prior = env_float("SVS_TPU_RPC_FLOOR", _RPC_FLOOR_PRIOR)
-        if not self._quiet():
-            return prior
-        try:
-            best = self._measure_rpc_floor_once()
-        except Exception:
-            log.warning(
-                "device round-trip floor probe failed; keeping the prior "
-                "(%.1f ms)", prior * 1e3, exc_info=True,
-            )
-            return prior
-        self._rpc_floor = best
-        self._rpc_floor_t = time.monotonic()
-        self._rpc_probes = 1
-        log.info("device round-trip floor: %.3f ms", best * 1e3)
-        return best
-
-    def host_route(
-        self, corpus: PackedCorpus, batch: int, k: Optional[int] = None
-    ) -> bool:
-        """The reference's dispatch rule: answer from the host f32 rows
-        when the estimated host exact scan (passes x cache bytes / learned
-        bandwidth) beats the measured device round-trip floor.
-
-        Never without the exactness machinery (host rows, the rescore) or
-        past ``_HOST_SCAN_MAX_SCORE_BYTES`` of ``[batch, n]`` scores; always
-        (any batch: the scan is slabbed) while a deferred pack uploads.
-        ``k`` lets the two-pass bandwidth apply only where the two-pass
-        runs (it declines at ``k >= n / 8``)."""
+    def host_route(self, corpus: PackedCorpus) -> bool:
+        """Whether a search of ``corpus`` answers from its host f32 rows:
+        while the pack is still uploading (nothing is on the card yet, and
+        the host rows are), and under ``'force'``.  Under ``'auto'`` a pack
+        on the card always takes the device, at every batch size (the
+        reference also sends a search to the host when an estimated host
+        scan beats the device's measured round-trip floor; on a local card
+        that floor is tens of microseconds).  Never without the exactness
+        machinery: the host rows and the rescore."""
         if (
             self.host_dispatch == "off"
             or not self.rescore
@@ -1504,62 +1384,7 @@ class RetrievalEngine:
             or corpus.n_valid == 0
         ):
             return False
-        if not corpus.device_ready:
-            return True
-        if self.host_dispatch == "force":
-            return True
-        if batch * corpus.n_valid * 4 > _HOST_SCAN_MAX_SCORE_BYTES:
-            return False
-        self._maybe_refresh_host_bw(corpus)
-        bw = self._host_scan_bw
-        if (
-            batch <= self.HOST_TWOPASS_MAX_BATCH
-            and self._host_twopass_bw is not None
-            and corpus.host_i8 is not None
-            and k is not None
-            and k < corpus.n_valid // 8
-        ):
-            bw = max(bw, self._host_twopass_bw)
-        slab = max(1, _HOST_SCAN_MAX_SCORE_BYTES // max(1, corpus.n_valid * 4))
-        passes = -(-batch // slab)
-        host_s = passes * corpus.host_f32.nbytes / bw
-        return host_s < self.device_rpc_floor()
-
-    #: Re-probe the host-scan bandwidth when no scan or probe refreshed it
-    #: for this long.
-    HOST_BW_REFRESH_S = 300.0
-
-    def _maybe_refresh_host_bw(self, corpus: PackedCorpus) -> None:
-        """A background slab probe of the host-scan bandwidth when the EWMA
-        is stale: it otherwise only moves when the host route runs, so a
-        device-winning steady state would starve it."""
-        if time.monotonic() - self._host_bw_t < self.HOST_BW_REFRESH_S:
-            return
-        t = self._host_bw_thread
-        if t is not None and t.is_alive():
-            return
-        hf = corpus.host_f32
-        if hf is None or hf.shape[0] == 0:
-            return
-        self._host_bw_t = time.monotonic()  # claimed before the thread runs
-
-        def work() -> None:
-            try:
-                rows = min(hf.shape[0], max(1, 64 * 1024 * 1024 // max(1, hf.shape[1] * 4)))
-                q = np.zeros(hf.shape[1], dtype=np.float32)
-                q[0] = 1.0
-                t0 = time.perf_counter()
-                _host_scores(hf[:rows], q[None, :])
-                dt = time.perf_counter() - t0
-                if dt > 1e-6:
-                    measured = rows * hf.shape[1] * 4 / dt
-                    self._host_scan_bw = 0.5 * self._host_scan_bw + 0.5 * measured
-            except Exception:
-                log.debug("host bandwidth probe failed", exc_info=True)
-
-        t = threading.Thread(target=work, name="svs-tpu-hostbw-probe", daemon=True)
-        t.start()
-        self._host_bw_thread = t
+        return not corpus.device_ready or self.host_dispatch == "force"
 
     def host_topk_exact(
         self, corpus: PackedCorpus, queries: np.ndarray, k: int
@@ -1570,8 +1395,7 @@ class RetrievalEngine:
         (the reference's accumulation: the same bits) and one GEMM per
         slab of a batch (``_HOST_SCAN_MAX_SCORE_BYTES`` of scores).
         Returns ``(emb_ids int64 [B, k'], scores f32 [B, k'])`` with
-        ``k' = min(k, n_valid)``, and feeds the measured bandwidth into
-        the dispatch EWMA.
+        ``k' = min(k, n_valid)``.
 
         Host rows that no pack row maps to (the rows an incremental
         delete dropped: their cache rows stay) score ``-inf`` and are
@@ -1598,24 +1422,16 @@ class RetrievalEngine:
         two = self._host_two_pass(corpus, hf, emb_hf, dead, queries, k_eff)
         if two is not None:
             return two
-        t0 = time.perf_counter()
         slab = max(1, _HOST_SCAN_MAX_SCORE_BYTES // max(1, hf.shape[0] * 4))
         emb_out = np.empty((b, k_eff), dtype=np.int64)
         score_out = np.empty((b, k_eff), dtype=np.float32)
-        passes = 0
         for lo in range(0, b, slab):
             hi = min(b, lo + slab)
-            passes += 1
             # one pass over the rows a slab (a solo query: the reference's matvec)
             exact = _host_scores(hf, queries[lo:hi])
             if dead is not None:
                 exact[:, dead] = -np.inf
             emb_out[lo:hi], score_out[lo:hi] = _subset_select_np(exact, emb_hf, k_eff)
-        elapsed = time.perf_counter() - t0
-        if elapsed > 1e-5:
-            measured = passes * hf.nbytes / elapsed
-            self._host_scan_bw = 0.5 * self._host_scan_bw + 0.5 * measured
-            self._host_bw_t = time.monotonic()
         return emb_out, score_out
 
     #: Two-pass bounds: below MIN_ROWS a BLAS matvec is already ~100 us;
@@ -1693,7 +1509,6 @@ class RetrievalEngine:
         from ..native import int8_topc_prescore
 
         di8, scales, sums = tri
-        t0 = time.perf_counter()
         s_q = (np.maximum(np.max(np.abs(queries), axis=1), 1e-30) / 127.0).astype(
             np.float32
         )
@@ -1729,16 +1544,6 @@ class RetrievalEngine:
                 emb_out[bi] = e_sel[0]
                 score_out[bi] = s_sel[0]
             if ok:
-                elapsed = time.perf_counter() - t0
-                if elapsed > 1e-5:
-                    # its own EWMA: the full-scan model must not learn the
-                    # two-pass's ~4x effective rate
-                    slab = max(1, _HOST_SCAN_MAX_SCORE_BYTES // max(1, n * 4))
-                    measured = -(-b // slab) * hf.nbytes / elapsed
-                    prev = self._host_twopass_bw
-                    self._host_twopass_bw = (
-                        measured if prev is None else 0.5 * prev + 0.5 * measured
-                    )
                 return emb_out, score_out
             c *= 4
             log.info(

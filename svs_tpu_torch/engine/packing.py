@@ -382,6 +382,15 @@ class PackedCorpus:
         dataclasses.field(default=None, repr=False, compare=False)
     )
 
+    def nbytes_device(self) -> int:
+        """Bytes of the prescore arrays on the device (``data``, and the
+        int8 ``row_scales``), as ``svs_tpu``'s ``nbytes_device``."""
+        return sum(
+            a.nbytes if isinstance(a, np.ndarray) else a.numel() * a.element_size()
+            for a in (self.data, self.row_scales)
+            if a is not None
+        )
+
     @property
     def device_ready(self) -> bool:
         """Whether ``data``/``row_scales`` are published (True for every

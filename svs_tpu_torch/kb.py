@@ -58,12 +58,12 @@ the store (fetched beside a remote URL when the publisher shipped one),
 or its ``write_sidecar`` override.  The file format is the reference's,
 so each package loads the other's sidecar.
 
-The host route as in the reference: a call answers from the host f32
-rows (``host_search`` in :meth:`KB.stats`) while a cold pack uploads in
-the background, or when the engine's rule finds a host scan cheaper than
-the device's measured round trip (``SVS_TPU_HOST_DISPATCH=auto``, or
-``force`` / ``off``); ``warmup(routes='both')`` then also warms the
-device route.
+The host route: a call answers from the host f32 rows (``host_search``
+in :meth:`KB.stats`) while a cold pack uploads in the background, or
+always under ``SVS_TPU_HOST_DISPATCH=force`` (``off``: never).  With the
+pack on the card ``auto`` takes the device; ``svs_tpu`` also sends a call
+to the host when an estimated host scan beats the device's measured round
+trip, which this port does not (``RetrievalEngine.host_route``).
 
 Not ported yet: meshes and replicas (``mesh=`` and ``replicas=`` raise
 ``NotImplementedError``).
@@ -185,8 +185,13 @@ def _reconcile_embedding_func(
         else:
             embedding_func = make_embeddings_func(db_params, trusted=False)
     elif ctor_params is not None:
-        with db.transaction() as tx:
-            tx.set_key("embedding_func_params", json.dumps(ctor_params))
+        # immediate, and unless another opener stored params meanwhile:
+        # processes opening one new database together must not deadlock
+        with db.transaction(immediate=True) as tx:
+            try:
+                tx.get_key("embedding_func_params")
+            except KeyError:
+                tx.set_key("embedding_func_params", json.dumps(ctor_params))
         assert embedding_func is not None
     else:
         if embedding_func is not None:
@@ -918,7 +923,7 @@ class _Searcher:
         search (with ``rescore=False``, the device prescores in device
         order)."""
         engine = self.engine
-        if engine.host_route(corpus, vectors.shape[0], k=n):
+        if engine.host_route(corpus):
             with phase("host_search", self.stats):
                 emb, scores = engine.host_topk_exact(corpus, vectors, n)
             with phase("finalize", self.stats), self.lock:
@@ -978,40 +983,16 @@ class _Searcher:
         batch_sizes: Sequence[int],
         n: int,
         rounds: int,
-        routes: str,
     ) -> None:
         """``rounds`` searches of random unit queries at each batch size
-        (the ``warmup`` phase).  With ``routes='both'``, a batch size the
-        host route answered gets one more search on the device route, so
-        that a later dispatch flip does not build kernels on live traffic:
-        only when the pack is on the device (a deferred upload never holds
-        a start-up) and under ``'auto'`` (``'force'`` flips only by the
-        user's hand).  ``'live'`` skips that search: it toggles the
-        engine's shared ``host_dispatch``."""
-        engine = self.engine
+        (the ``warmup`` phase), each on the route a live call would take."""
         rng = np.random.default_rng(0)
-
-        def search(b: int) -> None:
-            v = rng.standard_normal((b, corpus.dim)).astype(np.float32)
-            v /= np.linalg.norm(v, axis=1, keepdims=True)
-            with phase("warmup", self.stats):
-                self.search_hydrated(corpus, v, min(n, corpus.n_valid))
-
         for b in batch_sizes:
             for _ in range(max(1, rounds)):
-                search(int(b))
-            if (
-                routes == "both"
-                and corpus.device_ready
-                and engine.host_dispatch == "auto"
-                and engine.host_route(corpus, int(b), k=n)
-            ):
-                prev = engine.host_dispatch
-                engine.host_dispatch = "off"
-                try:
-                    search(int(b))
-                finally:
-                    engine.host_dispatch = prev
+                v = rng.standard_normal((int(b), corpus.dim)).astype(np.float32)
+                v /= np.linalg.norm(v, axis=1, keepdims=True)
+                with phase("warmup", self.stats):
+                    self.search_hydrated(corpus, v, min(n, corpus.n_valid))
 
     def top_pairs(
         self, corpus: PackedCorpus, n: int, where: Where
@@ -1232,15 +1213,15 @@ class AsyncKB:
         """Run ``rounds`` searches of random unit queries at each batch
         size (the ``warmup`` phase of :meth:`stats`), so that the kernels
         are built and the width hints set before live traffic; ``routes``
-        as in :meth:`KB.warmup`."""
+        as in :meth:`KB.warmup`: accepted for ``svs_tpu``'s signature, it
+        changes nothing."""
         loop = asyncio.get_running_loop()
         async with self._get_lock():
             corpus = await self._ensure_engine_fresh()
         if corpus.n_valid == 0 or corpus.dim == 0:
             return
         await loop.run_in_executor(
-            None, self._searcher(loop).warmup, corpus, batch_sizes, n, rounds,
-            routes,
+            None, self._searcher(loop).warmup, corpus, batch_sizes, n, rounds
         )
 
     async def close(
@@ -1652,15 +1633,19 @@ class KB:
     ) -> None:
         """Run ``rounds`` searches of random unit queries at each batch
         size (the ``warmup`` phase of :meth:`stats`), so that the kernels
-        are built and the width hints set before live traffic.  With
-        ``routes='both'`` (the default) a batch size the host route took
-        is also searched once on the device route (``'live'``: not; see
-        ``_Searcher.warmup``)."""
+        are built and the width hints set before live traffic.  Each
+        search takes the route a live call would: with the pack on the
+        card, the device.  ``routes`` (``'both'`` or ``'live'``) is
+        accepted for ``svs_tpu``'s signature and changes nothing: in
+        ``svs_tpu``, ``'both'`` also warms the device route of a batch
+        size its rule sent to the host, which this port's rule never does
+        with the pack on the card, and no search here touches
+        ``engine.host_dispatch``."""
         with self._lock:
             corpus = self._ensure_engine_fresh()
         if corpus.n_valid == 0 or corpus.dim == 0:
             return
-        self._search.warmup(corpus, batch_sizes, n, rounds, routes)
+        self._search.warmup(corpus, batch_sizes, n, rounds)
 
     def close(
         self,

@@ -116,10 +116,23 @@ SIGNATURES = {
 
 def build(csrc: Path = _CSRC) -> Path:
     """The library of the sources in ``csrc`` (the package's own, or the
-    same files from another tree), built first if needed."""
+    same files from another tree), built first if needed: under an
+    exclusive ``fcntl`` lock on its build directory, re-checked once the
+    lock is held, so that processes starting together (the forked workers
+    of ``serve --workers``) share one build and the others wait for it."""
+    import fcntl
+
     path = library_path(csrc)
-    if not path.exists():
-        _build(path, csrc)
+    if path.exists():
+        return path
+    path.parent.mkdir(parents=True, exist_ok=True)
+    with open(path.parent / ".lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            if not path.exists():
+                _build(path, csrc)
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
     return path
 
 

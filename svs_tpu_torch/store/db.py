@@ -192,16 +192,20 @@ class Database:
             conn.execute("ROLLBACK;")
             raise
 
-    def transaction(self) -> "Transaction":
+    def transaction(self, immediate: bool = False) -> "Transaction":
         """One atomic unit of work: ``with db.transaction() as tx: ...``.
         Commits on clean exit, rolls back when an exception passes through.
+        ``immediate`` takes the write lock at BEGIN (waiting out another
+        writer), for a read-then-write that other processes may race: two
+        deferred transactions that both read and then both write deadlock,
+        and SQLite fails one of them at once with "database is locked".
 
         Returns a :class:`Transaction` whose ``__enter__``/``__exit__`` can
         also be driven manually — the async facade needs to hold a
         transaction open across an ``async with`` block while running the
         actual SQL calls in an executor.
         """
-        return Transaction(self)
+        return Transaction(self, immediate)
 
     def vacuum(self) -> None:
         assert self.conn is not None, "database is closed"
@@ -216,16 +220,25 @@ class Database:
     def check_or_set_schema_version(self) -> None:
         """New database: stamp schema version + creation time.  Existing
         database: verify the version matches (future migrations hook in
-        here)."""
+        here).  The stamp is written under an immediate transaction that
+        reads the version again, so processes opening a new database
+        together (the forked workers of ``serve --workers``) stamp it once
+        instead of deadlocking."""
         with self.transaction() as tx:
             try:
                 version = tx.get_key("schema_version")
             except KeyError:
-                tx.set_key("schema_version", SCHEMA_VERSION)
-                tx.set_key(
-                    "created_datetime", datetime.now(timezone.utc).isoformat()
-                )
-                return
+                version = None
+        if version is None:
+            with self.transaction(immediate=True) as tx:
+                try:
+                    version = tx.get_key("schema_version")
+                except KeyError:
+                    tx.set_key("schema_version", SCHEMA_VERSION)
+                    tx.set_key(
+                        "created_datetime", datetime.now(timezone.utc).isoformat()
+                    )
+                    return
         if version != SCHEMA_VERSION:
             raise RuntimeError(
                 f"unsupported schema version {version!r} "
@@ -237,14 +250,15 @@ class Transaction:
     """BEGIN on ``__enter__`` (yields a :class:`Tx`), COMMIT on clean
     ``__exit__``, ROLLBACK + re-raise when exiting with an exception."""
 
-    def __init__(self, db: Database) -> None:
+    def __init__(self, db: Database, immediate: bool = False) -> None:
         self._db = db
+        self._begin = "BEGIN IMMEDIATE TRANSACTION;" if immediate else "BEGIN TRANSACTION;"
 
     def __enter__(self) -> Tx:
         db = self._db
         assert db.conn is not None, "database is closed"
         assert not db._in_tx, "transactions do not nest"
-        db.conn.execute("BEGIN TRANSACTION;")
+        db.conn.execute(self._begin)
         db._in_tx = True
         return Tx(db.conn)
 

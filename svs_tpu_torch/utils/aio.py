@@ -1,11 +1,13 @@
 """Async building blocks.
 
 - :func:`locked` — serialize an async function behind one asyncio lock.
+- :func:`cached` — async LRU cache with single-flight deduplication of
+  concurrent identical calls.
 - :class:`EventLoopThread` — a private asyncio event loop running in a
   daemon thread, used by the sync ``KB`` facade to await async embedding
   providers and remote-file resolution without an ambient event loop.
 
-Behavior parity with the reference: ``svs/util.py:32-93`` (locked)
+Behavior parity with the reference: ``svs/util.py:32-93`` (locked/cached)
 and ``svs/kb.py:1402-1427`` (the private-loop pattern, here factored into a
 reusable class instead of being inlined in the KB).
 """
@@ -78,6 +80,63 @@ def locked() -> Callable[
         async def wrapper(*args: Any, **kwargs: Any) -> T:
             async with lock:
                 return await fn(*args, **kwargs)
+
+        return wrapper
+
+    return decorator
+
+
+def cached(
+    maxsize: Optional[int] = None,
+) -> Callable[[Callable[..., Awaitable[T]]], Callable[..., Awaitable[T]]]:
+    """Async LRU cache decorator with single-flight semantics.
+
+    Concurrent calls with the same arguments share one in-flight
+    computation; the losers wait on loop-local events that the computing
+    call sets via ``call_soon_threadsafe``, so deduplication works across
+    event loops (several sync ``KB`` instances share one provider cache).
+    A failed computation is not cached; one waiter retries.
+    ``maxsize=None`` means unbounded.
+    """
+
+    def decorator(fn: Callable[..., Awaitable[T]]) -> Callable[..., Awaitable[T]]:
+        cache: "OrderedDict[Tuple[Any, ...], T]" = OrderedDict()
+        inflight: Dict[
+            Tuple[Any, ...],
+            "list[Tuple[asyncio.AbstractEventLoop, asyncio.Event]]",
+        ] = {}
+        mu = threading.Lock()
+
+        @functools.wraps(fn)
+        async def wrapper(*args: Any, **kwargs: Any) -> T:
+            key = (args, tuple(sorted(kwargs.items())))
+            while True:
+                with mu:
+                    if key in cache:
+                        cache.move_to_end(key)
+                        return cache[key]
+                    waiters = inflight.get(key)
+                    if waiters is not None:
+                        event = asyncio.Event()
+                        waiters.append((asyncio.get_running_loop(), event))
+                    else:
+                        inflight[key] = []  # we compute
+                        event = None
+                if event is not None:
+                    await event.wait()
+                    continue  # either cached now, or the computing call failed
+                try:
+                    result = await fn(*args, **kwargs)
+                    with mu:
+                        cache[key] = result
+                        if maxsize is not None and len(cache) > maxsize:
+                            cache.popitem(last=False)
+                    return result
+                finally:
+                    with mu:
+                        woken = inflight.pop(key)
+                    for lp, ev in woken:
+                        lp.call_soon_threadsafe(ev.set)
 
         return wrapper
 

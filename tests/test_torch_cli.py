@@ -1,0 +1,266 @@
+"""The port's command line (``svs_tpu_torch.cli``) against ``svs_tpu.cli``
+on the CPU: the cases of the reference's ``tests/test_cli.py`` (and the
+CLI cases of ``tests/test_tools.py``) run through both ``main``s, each on
+its own copy of one store, with ``--device cpu`` for the port; stdout,
+stderr and exit codes must be equal (paths and timings aside).  Then
+what the port does on its own: ``--device``, ``bench`` (no benchmark yet:
+it never runs the JAX ``bench.py``), ``--replicas`` and an embedding
+provider that is not ported (exit 2, no traceback)."""
+
+import json
+import re
+import shutil
+import sqlite3
+
+import pytest
+import torch
+
+import svs_tpu
+import svs_tpu.cli as ref_cli
+import svs_tpu_torch
+import svs_tpu_torch.cli as port_cli
+
+from kb_helpers import make_onehot_embedder
+
+torch.set_num_threads(2)
+
+#: Subcommands that open a KB, and so take ``--device``.
+_DEVICE_COMMANDS = {"pack", "query", "pairs", "reembed", "selfcheck", "gzip", "warm"}
+
+
+def _run(cli, argv, capsys):
+    if cli is port_cli and argv[0] in _DEVICE_COMMANDS:
+        argv = [*argv, "--device", "cpu"]
+    rc = cli.main(argv)
+    out = capsys.readouterr()
+    return rc, out.out, out.err
+
+
+def _both(tmp_path, capsys, argv, db_name="db.sqlite"):
+    """``argv`` (``{db}`` / ``{dir}`` replaced per package) through both
+    CLIs, each on its own copy of ``tmp_path / db_name``; returns
+    ``[(rc, out, err)]`` for svs_tpu, then the port, with the copies' paths
+    written back as ``{db}`` / ``{dir}``."""
+    src = tmp_path / db_name
+    got = []
+    for name, cli in (("ref", ref_cli), ("port", port_cli)):
+        d = tmp_path / name
+        d.mkdir(exist_ok=True)
+        db = d / db_name
+        if src.exists():
+            shutil.copy(src, db)
+        args = [a.replace("{db}", str(db)).replace("{dir}", str(d)) for a in argv]
+        rc, out, err = _run(cli, args, capsys)
+        got.append((rc, out.replace(str(db), "{db}").replace(str(d), "{dir}"),
+                    err.replace(str(db), "{db}").replace(str(d), "{dir}")))
+    return got
+
+
+def _same(tmp_path, capsys, argv, db_name="db.sqlite"):
+    ref, port = _both(tmp_path, capsys, argv, db_name)
+    assert port == ref
+    return ref
+
+
+@pytest.fixture
+def populated(tmp_path):
+    kb = svs_tpu.KB(tmp_path / "db.sqlite", svs_tpu.make_mock_embeddings_func())
+    with kb.bulk_add_docs() as add:
+        ids = [add(f"doc {i}") for i in range(4)]
+    with kb.bulk_graph_update() as g:
+        g.add_edge(ids[0], ids[1], ids[2])
+    kb.close()
+    return tmp_path
+
+
+def test_info(populated, capsys):
+    rc, out, _ = _same(populated, capsys, ["info", "{db}"])
+    info = json.loads(out)
+    assert rc == 0 and info["docs"] == 4 and info["embeddings"] == 4
+    assert info["embedding_dim"] == 3 and info["edges"] == 1
+    assert info["embedding_func_params"] == {"provider": "mock"}
+    rc, _, err = _same(populated, capsys, ["info", "{dir}/missing.sqlite"])
+    assert rc == 1 and "no such database" in err
+
+
+def test_query(populated, capsys):
+    rc, out, _ = _same(populated, capsys, ["query", "{db}", "anything", "-n", "2"])
+    lines = out.strip().splitlines()
+    assert rc == 0 and len(lines) == 2 and lines[0].startswith("+1.000000")
+
+
+def test_query_meta_filter(tmp_path, capsys):
+    kb = svs_tpu.KB(tmp_path / "db.sqlite", svs_tpu.make_mock_embeddings_func())
+    with kb.bulk_add_docs() as add:
+        for i in range(6):
+            add(f"doc {i}", meta={"lang": "de" if i % 2 else "en"})
+    kb.close()
+    rc, out, _ = _same(tmp_path, capsys, ["query", "{db}", "x", "-n", "6",
+                                          "--meta-filter", '{"lang": "de"}'])
+    assert rc == 0 and len(out.strip().splitlines()) == 3
+    for bad in ('["lang"]', '{"lang": de}'):
+        rc, out, err = _same(tmp_path, capsys, ["query", "{db}", "x", "--meta-filter", bad])
+        assert rc == 2 and not out and "Traceback" not in err
+
+
+def test_pack_writes_sidecar(populated, capsys):
+    rc, out, _ = _same(populated, capsys, ["pack", "{db}"])
+    assert rc == 0 and "sidecar written" in out
+    from svs_tpu_torch.engine.sidecar import sidecar_path_for
+
+    assert sidecar_path_for(populated / "port" / "db.sqlite").exists()
+
+
+def test_pairs(populated, capsys):
+    rc, out, _ = _same(populated, capsys, ["pairs", "{db}", "-n", "3"])
+    assert rc == 0 and len(out.strip().splitlines()) == 3
+
+
+def test_gzip(populated, capsys):
+    rc, out, _ = _same(populated, capsys, ["gzip", "{db}"])
+    assert rc == 0 and out == "wrote {db}.gz\n"
+    assert (populated / "port" / "db.sqlite.gz").exists()
+
+
+def test_pairs_meta_filter(tmp_path, capsys):
+    kb = svs_tpu.KB(tmp_path / "db.sqlite", svs_tpu.make_mock_embeddings_func())
+    with kb.bulk_add_docs() as add:
+        for i in range(8):
+            add(f"doc {i}", meta={"lang": "de" if i % 2 else "en"})
+    kb.close()
+    rc, out, _ = _same(tmp_path, capsys, ["pairs", "{db}", "-n", "100",
+                                          "--meta-filter", '{"lang": "de"}'])
+    assert rc == 0 and len(out.strip().splitlines()) == 4 * 3 // 2
+    rc, _, _ = _same(tmp_path, capsys, ["pairs", "{db}", "--meta-filter", "nope"])
+    assert rc == 2
+
+
+def test_cli_warm(tmp_path, capsys):
+    kb = svs_tpu.KB(tmp_path / "db.sqlite", make_onehot_embedder(), force_fresh_db=True)
+    with kb.bulk_add_docs() as add:
+        for i in range(12):
+            add(f"vec:{i}")
+    kb.close()
+    ref, port = _both(tmp_path, capsys, ["warm", "{db}", "--batches", "1,2", "-n", "4"])
+
+    def untimed(out):
+        return re.sub(r"\d+\.\ds", "<s>", out)
+
+    assert port[0] == ref[0] == 0
+    assert untimed(port[1]) == untimed(ref[1])
+    assert "warmup (2 batch shapes" in port[1]
+    assert "uploads settled: True" in port[1]
+
+
+def test_cli_reembed(tmp_path, capsys):
+    kb = svs_tpu.KB(tmp_path / "db.sqlite", make_onehot_embedder())
+    with kb.bulk_add_docs() as add:
+        add("vec:1"), add("vec:2")
+    kb.close()
+    rc, out, _ = _same(tmp_path, capsys, [
+        "reembed", "{db}", "{dir}/out.sqlite", "--provider-params", '{"provider": "mock"}',
+    ])
+    assert rc == 0 and "re-embedded 2 documents" in out
+    dest = svs_tpu_torch.KB(tmp_path / "port" / "out.sqlite", device="cpu")
+    assert len(dest) == 2
+    dest.close()
+
+
+def _selfcheck_db(tmp_path):
+    from kb_helpers import make_angle_embedder
+
+    kb = svs_tpu.KB(tmp_path / "db.sqlite", make_angle_embedder())
+    with kb.bulk_add_docs() as add:
+        root = add("angle:0", meta={"kind": "root"})
+        for i in range(1, 30):
+            add(f"angle:{i * 7 % 360}", parent_id=root if i % 3 else None)
+    kb.close()
+
+
+def test_selfcheck_cli_exit_codes(tmp_path, capsys):
+    _selfcheck_db(tmp_path)
+    rc, out, _ = _same(tmp_path, capsys, ["selfcheck", "{db}", "-q", "2", "-n", "3"])
+    assert rc == 0 and json.loads(out)["ok"]
+    conn = sqlite3.connect(tmp_path / "db.sqlite")
+    conn.execute("UPDATE docs SET level = 9 WHERE parent_id IS NULL;")
+    conn.commit()
+    conn.close()
+    rc, out, _ = _same(tmp_path, capsys, ["selfcheck", "{db}", "-q", "0"])
+    assert rc == 1 and not json.loads(out)["checks"]["levels"]["ok"]
+    rc, _, err = _same(tmp_path, capsys, ["selfcheck", "{dir}/missing.sqlite"])
+    assert rc == 1 and "no such database" in err
+
+
+def test_cli_serve_accepts_workers(monkeypatch):
+    seen = {}
+    monkeypatch.setattr("svs_tpu_torch.serve.run_server",
+                        lambda db, **kw: seen.update(kw, db=db))
+    assert port_cli.main(["serve", "/tmp/x.sqlite", "--workers", "3"]) == 0
+    assert seen["workers"] == 3 and seen["db"] == "/tmp/x.sqlite"
+    # the device is named, never resolved, before the workers fork
+    assert seen["device"] == "cuda"
+    assert port_cli.main(["serve", "/tmp/x.sqlite", "--device", "cpu",
+                          "--max-batch", "64", "--no-warm"]) == 0
+    assert seen["device"] == "cpu" and seen["max_batch"] == 64 and seen["warm"] is False
+    assert seen["workers"] == 1 and seen["window_ms"] == 2.0 and seen["max_queue"] is None
+
+
+@pytest.mark.parametrize("command", sorted(_DEVICE_COMMANDS | {"serve"}))
+def test_device_flag_defaults_to_cuda(command):
+    argv = {"reembed": ["a", "b", "--provider-params", "{}"],
+            "query": ["a", "text"]}.get(command, ["a"])
+    parsed = {}
+
+    def capture(args):
+        parsed.update(vars(args))
+        return 0
+
+    import argparse
+
+    real = argparse.ArgumentParser.parse_args
+
+    def parse(self, args=None, namespace=None):
+        ns = real(self, args, namespace)
+        ns.fn = capture
+        return ns
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(argparse.ArgumentParser, "parse_args", parse)
+        assert port_cli.main([command, *argv]) == 0
+        assert parsed["device"] == "cuda"
+        assert port_cli.main([command, *argv, "--device", "cpu"]) == 0
+        assert parsed["device"] == "cpu"
+
+
+def test_bench_says_there_is_no_port_benchmark(monkeypatch, capsys):
+    import runpy
+
+    def never(*a, **kw):
+        raise AssertionError("the port's CLI ran bench.py")
+
+    monkeypatch.setattr(runpy, "run_path", never)
+    assert port_cli.main(["bench", "--preset", "smoke"]) == 1
+    err = capsys.readouterr().err
+    assert "bench_torch.py" in err and "does not exist yet" in err
+
+
+def test_replicas_and_unported_provider_exit_2(tmp_path, capsys):
+    assert port_cli.main(["serve", str(tmp_path / "x.sqlite"), "--replicas", "2"]) == 2
+    err = capsys.readouterr().err
+    assert "replicas" in err and "not ported" in err and "Traceback" not in err
+    # a store written with a provider the port does not carry
+    kb = svs_tpu_torch.KB(tmp_path / "o.sqlite", make_onehot_embedder(), device="cpu")
+    with kb.bulk_add_docs() as add:
+        add("vec:1")
+    kb.close()
+    conn = sqlite3.connect(tmp_path / "o.sqlite")
+    conn.execute("UPDATE keyval SET val = ? WHERE key = 'embedding_func_params';",
+                 (json.dumps({"provider": "ollama", "model": "m"}),))
+    conn.commit()
+    conn.close()
+    for argv in (["query", str(tmp_path / "o.sqlite"), "x", "--device", "cpu"],
+                 ["reembed", str(tmp_path / "o.sqlite"), str(tmp_path / "p.sqlite"),
+                  "--provider-params", '{"provider": "openai"}', "--device", "cpu"]):
+        assert port_cli.main(argv) == 2
+        err = capsys.readouterr().err
+        assert "not ported" in err and "Traceback" not in err

@@ -1,9 +1,9 @@
 """The PyTorch port stands alone: it imports with JAX and the JAX
 package's optional dependencies blocked (int8 and bf16 storage, batches
 above 256, top document pairs, metadata filters and ``AsyncKB``, the
-deferred upload, the host route and the native library), never
-imports ``svs_tpu``, and refuses to fall back to the CPU when no device
-was named."""
+deferred upload, the host route and the native library, the HTTP server,
+the CLI and the tools), never imports ``svs_tpu``, and refuses to fall
+back to the CPU when no device was named."""
 
 import subprocess
 import sys
@@ -271,6 +271,69 @@ _BLOCKED_HOST_ROUTE = textwrap.dedent(
 )
 
 
+_BLOCKED_SERVE_CLI_TOOLS = textwrap.dedent(
+    """
+    import asyncio, http.client, json, runpy, sys, threading
+
+    BLOCKED = ("jax", "jaxlib", "networkx", "ml_dtypes", "aiohttp", "dotenv")
+
+    class Blocker:
+        def find_spec(self, name, path=None, target=None):
+            if name.split(".")[0] in BLOCKED:
+                raise ImportError(f"{name} is blocked in this test")
+            return None
+
+    sys.meta_path.insert(0, Blocker())
+
+    import svs_tpu_torch
+    import svs_tpu_torch.__main__
+    from svs_tpu_torch import cli, serve, tools, util
+    from svs_tpu_torch.utils import load_env
+
+    path = sys.argv[1]
+    kb = svs_tpu_torch.KB(path, svs_tpu_torch.make_mock_embeddings_func(),
+                          force_fresh_db=True, device="cpu")
+    with kb.bulk_add_docs() as add:
+        ids = [add(f"doc {i}") for i in range(5)]
+    kb.close()
+    assert tools.selfcheck(path, queries=2, n=3, device="cpu")["ok"]
+    assert util.get_top_k(__import__("numpy").arange(4.0), 2) == [(3.0, 3), (2.0, 2)]
+    assert load_env(path + ".no-such.env") is False
+
+    async def main():
+        akb = svs_tpu_torch.AsyncKB(path, device="cpu")
+        app = serve.make_app(akb)
+        port = await app.start("127.0.0.1", 0)
+
+        def client():
+            c = http.client.HTTPConnection("127.0.0.1", port, timeout=30)
+            c.request("POST", "/retrieve", body=json.dumps({"query": "x", "n": 2}))
+            r = c.getresponse()
+            return r.status, json.loads(r.read())
+
+        status, body = await asyncio.get_running_loop().run_in_executor(None, client)
+        await app.close()
+        await akb.close()
+        return status, body
+
+    status, body = asyncio.run(main())
+    assert status == 200, (status, body)
+    assert [h["doc"]["id"] for h in body["results"]] == ids[::-1][:2], body
+    sys.argv = ["svs-tpu-torch", "--help"]
+    try:
+        runpy.run_module("svs_tpu_torch", run_name="__main__")
+    except SystemExit as exc:
+        assert exc.code == 0, exc.code
+    else:
+        raise AssertionError("--help did not exit")
+    assert cli.main(["info", path]) == 0
+    loaded = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED + ("svs_tpu",))
+    assert not loaded, loaded
+    print("ROUND_TRIP_OK")
+    """
+)
+
+
 def _run_blocked(script: str, tmp_path: Path) -> None:
     repo = Path(svs_tpu_torch.__file__).resolve().parent.parent
     proc = subprocess.run(
@@ -302,6 +365,14 @@ def test_filters_and_async_kb_without_jax(tmp_path):
 
 def test_host_route_and_deferred_upload_without_jax(tmp_path):
     _run_blocked(_BLOCKED_HOST_ROUTE, tmp_path)
+
+
+def test_serve_cli_tools_util_without_jax_or_aiohttp(tmp_path):
+    """``serve`` (answering a request over ``http.client``), ``cli``
+    (``python -m svs_tpu_torch --help``, ``info``), ``tools``, ``util``,
+    ``__main__`` and ``load_env`` with ``svs_tpu``, JAX, ``aiohttp``,
+    ``dotenv`` and ``networkx`` blocked."""
+    _run_blocked(_BLOCKED_SERVE_CLI_TOOLS, tmp_path)
 
 
 def test_kb_without_device_refuses_cpu(tmp_path):

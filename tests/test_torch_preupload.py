@@ -70,7 +70,6 @@ def test_queries_answer_during_upload_then_device_takes_over(
         assert kb.engine.wait_for_mirror(timeout=60)
         assert corpus.device_ready and isinstance(corpus.data, torch.Tensor)
         assert corpus.dev_rescore is not None
-        kb.engine._rpc_floor, kb.engine._rpc_floor_t = 0.0, float("inf")
         hits_warm = kb.retrieve("angle:33", 6)
         assert kb.stats()["device_search"]["count"] >= 1
         assert _ids(hits_warm) == _ids(hits_cold)
