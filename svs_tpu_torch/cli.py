@@ -155,7 +155,8 @@ def cmd_reembed(args: argparse.Namespace) -> int:
 
     params = _json.loads(args.provider_params)
     count = reembed(
-        args.db, args.out, make_embeddings_func(params), device=args.device
+        args.db, args.out, make_embeddings_func(params, device=args.device),
+        device=args.device,
     )
     print(f"re-embedded {count} documents -> {args.out}")
     return 0
@@ -196,8 +197,11 @@ def cmd_warm(args: argparse.Namespace) -> int:
     """Bring a node to steady state before putting it in service: pack
     (sidecar when present), run the search pipeline at the requested
     batch shapes (the kernels build at first use), and wait out the
-    background pack/mirror uploads.  The port keeps no calibration cache
-    to persist yet."""
+    background pack/mirror uploads and the dispatch-calibration probes
+    the shapes spawned, whose winners persist in the calibration cache
+    (``SVS_TPU_CALIB_CACHE``, default
+    ``~/.cache/svs_tpu_torch/dispatch.json``) for the processes that
+    serve next."""
     import time as _time
 
     from .serve import warm_bucket_ladder
@@ -217,6 +221,8 @@ def cmd_warm(args: argparse.Namespace) -> int:
     t0 = _time.perf_counter()
     ok = kb.engine.wait_for_mirror(args.timeout)
     print(f"uploads settled: {ok} ({_time.perf_counter() - t0:.1f}s)")
+    # the probes persist their winners as they land (no output of their own)
+    ok = kb.engine.join_dispatch_probes(args.timeout) and ok
     kb.close(write_sidecar=None)
     return 0 if ok else 1
 
@@ -341,8 +347,8 @@ def main(argv: "Optional[List[str]]" = None) -> int:
     p = sub.add_parser(
         "warm",
         help="run the serve batch shapes once + settle uploads (run "
-        "before putting a node in service; the port has no calibration "
-        "cache to persist yet)",
+        "before putting a node in service; persists the dispatch "
+        "calibration probes)",
     )
     p.add_argument("db")
     p.add_argument("--batches", default=None,

@@ -1,12 +1,14 @@
 """Build the port's :class:`~svs_tpu_torch.engine.packing.PackedCorpus`
 from a host pack given as NumPy arrays — the port's own ``pack_host``
 output, or ``svs_tpu.engine.packing.pack_host``'s (the parity tests use
-that to search the identical pack with both packages).  This module
-imports neither package's JAX side: it only takes arrays."""
+that to search the identical pack with both packages); and a Flax BERT
+parameter tree as the port's encoder's state dict
+(:func:`bert_state_dict_from_flax`).  This module imports neither
+package's JAX side: it only takes arrays."""
 
 from __future__ import annotations
 
-from typing import Optional, Tuple, Union
+from typing import Any, Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -140,3 +142,34 @@ def emb_mirror(
     if n_valid and int(emb_ids.max()) >= 2**31:
         return None
     return torch.from_numpy(emb_ids.astype(np.int32)).to(device)
+
+
+def bert_state_dict_from_flax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """A Flax BERT parameter tree (nested dicts of NumPy arrays, as
+    ``flax_model.msgpack`` holds it) as the state dict of
+    :class:`svs_tpu_torch.embeddings.bert.BertEncoder`: Dense ``kernel
+    [in, out]`` becomes ``weight [out, in]``, LayerNorm ``scale`` becomes
+    ``weight``, Embed ``embedding`` becomes ``weight``; names join with
+    ``.`` (``encoder.layer.0.attention.self.query.weight``).  The pooler,
+    which ``last_hidden_state`` does not use, is dropped; bf16 leaves
+    arrive as f32."""
+    out: Dict[str, torch.Tensor] = {}
+
+    def walk(tree: Dict[str, Any], prefix: str) -> None:
+        for name, value in tree.items():
+            if isinstance(value, dict):
+                walk(value, f"{prefix}{name}.")
+                continue
+            arr = np.array(value, dtype=np.float32)  # a writable copy
+            if name == "kernel":
+                if arr.ndim != 2:
+                    raise ValueError(f"{prefix}kernel: expected a 2-D Dense kernel, got {arr.shape}")
+                arr, name = arr.T, "weight"
+            elif name in ("scale", "embedding"):
+                name = "weight"
+            elif name != "bias":
+                raise ValueError(f"unexpected Flax parameter {prefix}{name}")
+            out[prefix + name] = torch.from_numpy(np.ascontiguousarray(arr))
+
+    walk({k: v for k, v in params.items() if k != "pooler"}, "")
+    return out

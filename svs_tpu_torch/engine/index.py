@@ -48,8 +48,12 @@
   floor); :meth:`RetrievalEngine.host_topk_exact` is a NumPy scan or the
   native int8 two-pass, with the reference's tie rule.
 
-Not ported yet (``ROADMAP.md``): hedged fetches, calibration, meshes and
-replicas (with them the mesh branch of ``subset_topk``).
+- **dispatch calibration** — the v2/v3 choice per shape class from a
+  measured winner (``engine.calibrate``), the static prior until one is
+  measured, sticky per engine.
+
+Not ported yet (``ROADMAP.md``): meshes and replicas (with them the mesh
+branch of ``subset_topk``); hedged fetches, by decision.
 """
 
 from __future__ import annotations
@@ -444,6 +448,12 @@ class RetrievalEngine:
         #: device per call), a mirror left to the host rescore.
         self.pack_upload_failures = 0
         self.mirror_upload_failures = 0
+        #: v2/v3 decisions by calibration key, fixed at their first use
+        #: (a probe that lands later changes only later engines), and the
+        #: probe threads this engine spawned.
+        self._calib_sticky: Dict[str, str] = {}
+        self._calib_lock = threading.Lock()
+        self._probe_threads: list = []
 
     def shutdown(self) -> None:
         """Abort and join the background uploads and builders (a
@@ -460,6 +470,7 @@ class RetrievalEngine:
             if t is not None and t.is_alive():
                 t.join(timeout=30.0)
             setattr(self, attr, None)
+        self.join_dispatch_probes(timeout=30.0)
         self._mirror_stop = threading.Event()
 
     def invalidate(self) -> None:
@@ -1873,18 +1884,103 @@ class RetrievalEngine:
     def _guarded_selection_possible(
         self, corpus: PackedCorpus, b: int, k: int
     ) -> bool:
-        """Dispatch condition for the guarded (v3) kernel, on the static
-        ``GUARD_MIN_BATCH`` prior (the reference's calibration, which may
-        move the v2/v3 crossover per chip, is not ported yet).  Growing
-        ``k`` past ``GUARD_MAX_C`` turns it off, so the widen ladder
-        escalates v3 -> v2/v1 -> exact."""
-        from ..ops.pallas_extract import fused3_supported
+        """Dispatch condition for the guarded (v3) kernel — the reference's
+        single-device branch: the structural envelope first; where no v2
+        can run at this shape, the static ``GUARD_MIN_BATCH`` rule;
+        otherwise the calibrated winner (:meth:`_calib_winner`).
+        ``prescore_eps`` consults this for the (larger) ``GUARD_KEY_EPS``
+        term, so bound and dispatch cannot drift.  Growing ``k`` past
+        ``GUARD_MAX_C`` turns it off, so the widen ladder escalates
+        v3 -> v2/v1 -> exact."""
+        from ..ops.pallas_extract import fused3_shape_ok, fused3_supported
 
         if not self._selection_kernels_on(corpus):
             return False
-        return fused3_supported(
-            corpus.n_padded, corpus.dim_padded, b, min(k, corpus.n_valid)
+        c = min(k, corpus.n_valid)
+        n_rows = corpus.n_padded
+        if not fused3_shape_ok(n_rows, corpus.dim_padded, b, c):
+            return False
+        if not self._keyed_selection_possible(corpus, b, k):
+            # no v2 at this shape -> nothing to calibrate against; the
+            # static rule is the only sound choice
+            return fused3_supported(n_rows, corpus.dim_padded, b, c)
+        return self._calib_winner(corpus, n_rows, b, c) == "v3"
+
+    def _calib_winner(
+        self, corpus: PackedCorpus, n_rows: int, b: int, c: int
+    ) -> str:
+        """The v2-vs-v3 winner for this shape class: the persisted
+        calibration measurement when one exists, else the static prior
+        (``GUARD_MIN_BATCH``) — and in that case a one-time background
+        probe is spawned to measure the crossover on this card
+        (``engine.calibrate``).  Sticky per engine instance
+        (``_calib_sticky``)."""
+        from ..ops.pallas_extract import GUARD_MIN_BATCH
+        from .calibrate import device_kind, dispatch_key, get_calibrator
+
+        key = dispatch_key(
+            device_kind(self.device), corpus.precision, n_rows,
+            corpus.dim_padded, b, c,
         )
+        with self._calib_lock:
+            winner = self._calib_sticky.get(key)
+            if winner is None:
+                winner = get_calibrator().decide(key)
+                if winner is None:
+                    winner = "v3" if b >= GUARD_MIN_BATCH else "v2"
+                    self._maybe_spawn_dispatch_probe(corpus, b, c, key)
+                self._calib_sticky[key] = winner
+        return winner
+
+    def _maybe_spawn_dispatch_probe(
+        self, corpus: PackedCorpus, b: int, c: int, key: str
+    ) -> None:
+        """Time v2 against v3 at the live shape on the live corpus, once
+        per shape class, in a daemon thread on a CUDA stream of its own
+        (the first query never waits for it).  The winner is persisted for
+        later engines and processes; THIS engine keeps its prior (sticky
+        decisions)."""
+        from .calibrate import get_calibrator, probing_enabled, time_kernel_pair
+
+        if not probing_enabled(self.device):
+            return
+        cal = get_calibrator()
+        if not cal.claim_probe(key):
+            return
+
+        def work() -> None:
+            try:
+                data, scales = self._pack_arrays(corpus)
+                rng = np.random.default_rng(0)
+                q_np = rng.standard_normal((b, corpus.dim_padded)).astype(np.float32)
+                q_np /= np.linalg.norm(q_np, axis=1, keepdims=True)
+                q = torch.from_numpy(q_np).to(data.device)
+                wide = corpus.n_padded >= WIDE_INDEX_MIN_ROWS
+                v2_s, v3_s = time_kernel_pair(corpus, data, scales, q, c, wide)
+                cal.record(key, "v2" if v2_s <= v3_s else "v3", v2_s, v3_s)
+            except Exception as exc:  # a probe must never break serving
+                cal.release_probe(key)
+                log.warning("dispatch probe %s failed (%s); keeping the "
+                            "static prior", key, exc)
+
+        t = threading.Thread(
+            target=work, name="svs-tpu-dispatch-probe", daemon=True
+        )
+        self._probe_threads.append(t)
+        t.start()
+
+    def join_dispatch_probes(self, timeout: Optional[float] = None) -> bool:
+        """Test and smoke hook: wait for this engine's outstanding dispatch
+        probes; False when one is still running at ``timeout``."""
+        deadline = None if timeout is None else time.monotonic() + timeout
+        with self._calib_lock:
+            threads = list(self._probe_threads)
+        for t in threads:
+            left = None if deadline is None else max(0.0, deadline - time.monotonic())
+            t.join(left)
+        with self._calib_lock:
+            self._probe_threads = [t for t in self._probe_threads if t.is_alive()]
+            return not self._probe_threads
 
     def _scores_over_budget(self, corpus: PackedCorpus, b: int) -> bool:
         """Whether a materializing exact path's ``[B, N]`` f32 score

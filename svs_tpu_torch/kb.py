@@ -150,13 +150,14 @@ SIDECAR_AUTO_MIN_DOCS = 50_000
 
 
 def _reconcile_embedding_func(
-    db: Database, embedding_func: Optional[EmbeddingFunc]
+    db: Database, embedding_func: Optional[EmbeddingFunc], device: torch.device
 ) -> EmbeddingFunc:
     """The open-time handshake that makes a KB self-describing (the
     reference's four cases over constructor func x params stored in the
     DB): both known -> warn if they differ (constructor wins); only DB ->
-    rebuild from stored params; only constructor -> persist its params;
-    neither -> error (a brand-new DB needs a function)."""
+    rebuild from stored params (a ``local`` provider on the KB's
+    ``device``); only constructor -> persist its params; neither -> error
+    (a brand-new DB needs a function)."""
     db.check_or_set_schema_version()
     with db.transaction() as tx:
         try:
@@ -183,7 +184,9 @@ def _reconcile_embedding_func(
                 db_params,
             )
         else:
-            embedding_func = make_embeddings_func(db_params, trusted=False)
+            embedding_func = make_embeddings_func(
+                db_params, trusted=False, device=device
+            )
     elif ctor_params is not None:
         # immediate, and unless another opener stored params meanwhile:
         # processes opening one new database together must not deadlock
@@ -214,13 +217,14 @@ def _open_database(
     local_path: Union[str, Path],
     force_fresh_db: bool,
     embedding_func: Optional[EmbeddingFunc],
+    device: torch.device,
 ) -> Tuple[Database, EmbeddingFunc]:
     if force_fresh_db:
         delete_file_if_exists(local_path)
         delete_file_if_exists(sidecar_path_for(local_path))
     db = Database(local_path)
     try:
-        return db, _reconcile_embedding_func(db, embedding_func)
+        return db, _reconcile_embedding_func(db, embedding_func, device)
     except BaseException:
         db.close()
         raise
@@ -1162,7 +1166,7 @@ class AsyncKB:
             loop = asyncio.get_running_loop()
             self.db, self.embedding_func = await loop.run_in_executor(
                 None, _open_database, local_path, self.force_fresh_db,
-                self.embedding_func,
+                self.embedding_func, self.engine.device,
             )
         return self.db
 
@@ -1577,7 +1581,7 @@ class KB:
                     try_fetch_remote_sidecar(local_path_or_remote_url, local_path)
                 )
             self.db, self.embedding_func = _open_database(
-                local_path, force_fresh_db, embedding_func
+                local_path, force_fresh_db, embedding_func, self.engine.device
             )
         except BaseException:
             self._loop.stop()

@@ -7,9 +7,12 @@ The reference's only tracing is log lines bracketing expensive phases
   log and a thread-safe in-process stats registry;
 - :class:`QueryStats` — the last-N per-phase timings (pack / embed /
   device search / rescore+hydrate), exposed as ``kb.stats()``;
-- :func:`profiler_trace` — a ``torch.profiler.record_function`` range, so
-  a retrieval shows up as one named span in any ``torch.profiler`` trace
-  taken around it.
+- :func:`profiler_trace` — when ``SVS_TPU_PROFILE_DIR`` is set (read at
+  call time), a ``torch.profiler`` trace of the block (CPU activities, and
+  CUDA ones when there is a card) written under ``<dir>/<label>/`` as
+  ``svs_tpu``'s ``jax.profiler`` traces are laid out, a Chrome / Perfetto
+  trace file; unset, a ``torch.profiler.record_function`` range, so the
+  block shows up as one named span in any trace taken around it.
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ import contextlib
 
 from .typecheck import typeguard_exempt
 import logging
+import os
 import threading
 import time
 from collections import defaultdict, deque
@@ -84,12 +88,36 @@ def phase(
         log.log(level, "%s: %.3f ms", name, dt * 1e3)
 
 
+#: One trace at a time: ``torch.profiler`` sessions do not nest, so a
+#: block that starts while another thread traces is only marked.
+_TRACE_LOCK = threading.Lock()
+
+
 @typeguard_exempt
 @contextlib.contextmanager
 def profiler_trace(label: str) -> Iterator[None]:
-    """Mark a block as one named range for ``torch.profiler`` (a cheap
-    no-op while no profiler is recording)."""
+    """Trace a block into ``$SVS_TPU_PROFILE_DIR/<label>/`` when the
+    variable is set (the env var is read at CALL time, so setting it after
+    import works), else mark it as one named range (a cheap no-op while no
+    profiler is recording)."""
     import torch
 
-    with torch.profiler.record_function(label):
-        yield
+    profile_dir = os.environ.get("SVS_TPU_PROFILE_DIR")
+    if not profile_dir or not _TRACE_LOCK.acquire(blocking=False):
+        with torch.profiler.record_function(label):
+            yield
+        return
+    try:
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if torch.cuda.is_available():
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        out = os.path.join(profile_dir, label)
+        with torch.profiler.profile(
+            activities=activities,
+            on_trace_ready=torch.profiler.tensorboard_trace_handler(out),
+        ):
+            with torch.profiler.record_function(label):
+                yield
+        log.info("profiler trace of %r written under %s", label, out)
+    finally:
+        _TRACE_LOCK.release()

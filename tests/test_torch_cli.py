@@ -4,8 +4,9 @@ CLI cases of ``tests/test_tools.py``) run through both ``main``s, each on
 its own copy of one store, with ``--device cpu`` for the port; stdout,
 stderr and exit codes must be equal (paths and timings aside).  Then
 what the port does on its own: ``--device``, ``bench`` (no benchmark yet:
-it never runs the JAX ``bench.py``), ``--replicas`` and an embedding
-provider that is not ported (exit 2, no traceback)."""
+it never runs the JAX ``bench.py``), ``--replicas`` and a local model type
+that is not ported (exit 2, no traceback); and ``info`` / ``query`` on
+stores of the openai, ollama and local providers."""
 
 import json
 import re
@@ -21,6 +22,7 @@ import svs_tpu_torch
 import svs_tpu_torch.cli as port_cli
 
 from kb_helpers import make_onehot_embedder
+from torch_provider_helpers import StubServer, write_tiny_bert
 
 torch.set_num_threads(2)
 
@@ -248,19 +250,65 @@ def test_replicas_and_unported_provider_exit_2(tmp_path, capsys):
     assert port_cli.main(["serve", str(tmp_path / "x.sqlite"), "--replicas", "2"]) == 2
     err = capsys.readouterr().err
     assert "replicas" in err and "not ported" in err and "Traceback" not in err
-    # a store written with a provider the port does not carry
+    # a store written with a local provider whose model type the port does
+    # not carry (every provider is ported; encoders past BERT are not)
+    ck = write_tiny_bert(tmp_path / "roberta", model_type="roberta")
     kb = svs_tpu_torch.KB(tmp_path / "o.sqlite", make_onehot_embedder(), device="cpu")
     with kb.bulk_add_docs() as add:
         add("vec:1")
     kb.close()
+    params = json.dumps({"provider": "local", "model": str(ck)})
     conn = sqlite3.connect(tmp_path / "o.sqlite")
-    conn.execute("UPDATE keyval SET val = ? WHERE key = 'embedding_func_params';",
-                 (json.dumps({"provider": "ollama", "model": "m"}),))
+    conn.execute("UPDATE keyval SET val = ? WHERE key = 'embedding_func_params';", (params,))
     conn.commit()
     conn.close()
     for argv in (["query", str(tmp_path / "o.sqlite"), "x", "--device", "cpu"],
                  ["reembed", str(tmp_path / "o.sqlite"), str(tmp_path / "p.sqlite"),
-                  "--provider-params", '{"provider": "openai"}', "--device", "cpu"]):
+                  "--provider-params", params, "--device", "cpu"]):
         assert port_cli.main(argv) == 2
         err = capsys.readouterr().err
-        assert "not ported" in err and "Traceback" not in err
+        assert "not ported" in err and "roberta" in err and "Traceback" not in err
+
+
+def _query_lines(out):
+    rows = [line.split(None, 2) for line in out.strip().splitlines()]
+    return [r[1] for r in rows], [float(r[0]) for r in rows]
+
+
+@pytest.mark.parametrize("provider", ["openai", "ollama", "local"])
+def test_info_and_query_on_provider_stores(tmp_path, capsys, monkeypatch, provider):
+    """``info`` and ``query`` on a store written by ``svs_tpu`` with each
+    provider, through both CLIs: the port rebuilds the provider from the
+    stored params (openai / ollama against a loopback stub, the local
+    encoder on the CPU) and prints the reference's info and hits."""
+    import svs_tpu.embeddings as ref_emb
+
+    pytest.importorskip("aiohttp" if provider != "local" else "transformers")
+    srv = StubServer(embed_dim=24)
+    try:
+        monkeypatch.setenv("OPENAI_BASE_URL", f"{srv.url}/v1/embeddings")
+        monkeypatch.setenv("OPENAI_API_KEY", "sk-cli")
+        monkeypatch.setenv("OLLAMA_BASE_URL", srv.url)
+        if provider == "openai":
+            fn = ref_emb.make_openai_embeddings_func(dimensions=24)
+        elif provider == "ollama":
+            fn = ref_emb.make_ollama_embeddings_func("nomic", base_url=srv.url)
+        else:
+            ck = write_tiny_bert(tmp_path / "ck")
+            fn = ref_emb.make_local_embeddings_func(str(ck), max_length=16, compute_dtype="float32")
+        kb = svs_tpu.KB(tmp_path / "db.sqlite", fn)
+        with kb.bulk_add_docs() as add:
+            for text in ["the cat sat", "a dog ran fast", "red mat", "blue dog", "sad cat"]:
+                add(text)
+        kb.close()
+        capsys.readouterr()  # the reference's writes may warn (transformers)
+        ref, port = _both(tmp_path, capsys, ["info", "{db}"])
+        assert port[:2] == ref[:2] and port[0] == 0 and port[2] == ""
+        assert json.loads(port[1])["embedding_func_params"]["provider"] == provider
+        ref, port = _both(tmp_path, capsys, ["query", "{db}", "the cat", "-n", "3"])
+        assert port[0] == ref[0] == 0 and "Traceback" not in port[2]
+        (got_ids, got_scores), (want_ids, want_scores) = _query_lines(port[1]), _query_lines(ref[1])
+        assert got_ids == want_ids and len(got_ids) == 3
+        assert max(abs(a - b) for a, b in zip(got_scores, want_scores)) <= 2e-6
+    finally:
+        srv.close()

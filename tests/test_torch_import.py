@@ -2,7 +2,9 @@
 package's optional dependencies blocked (int8 and bf16 storage, batches
 above 256, top document pairs, metadata filters and ``AsyncKB``, the
 deferred upload, the host route and the native library, the HTTP server,
-the CLI and the tools), never imports ``svs_tpu``, and refuses to fall
+the CLI and the tools; the embedding providers, the dispatch calibration
+and the trace export, with ``transformers``, ``flax``, ``msgpack`` and
+``aiohttp`` blocked too), never imports ``svs_tpu``, and refuses to fall
 back to the CPU when no device was named."""
 
 import subprocess
@@ -334,6 +336,56 @@ _BLOCKED_SERVE_CLI_TOOLS = textwrap.dedent(
 )
 
 
+_BLOCKED_PROVIDERS = textwrap.dedent(
+    """
+    import asyncio, os, sys
+
+    BLOCKED = ("jax", "jaxlib", "networkx", "ml_dtypes", "aiohttp", "dotenv",
+               "transformers", "flax", "msgpack", "tokenizers", "safetensors")
+
+    class Blocker:
+        def find_spec(self, name, path=None, target=None):
+            if name.split(".")[0] in BLOCKED:
+                raise ImportError(f"{name} is blocked in this test")
+            return None
+
+    sys.meta_path.insert(0, Blocker())
+
+    import numpy as np
+    import svs_tpu_torch
+    from svs_tpu_torch import KB, make_local_embeddings_func, make_openai_embeddings_func
+    from svs_tpu_torch import make_ollama_embeddings_func
+    from svs_tpu_torch.embeddings import bert, checkpoint, http, wordpiece
+    from svs_tpu_torch.engine import calibrate
+    from svs_tpu_torch.utils import trace
+    from tests.torch_provider_helpers import StubServer, write_tiny_bert
+
+    path = sys.argv[1]
+    ck = write_tiny_bert(os.path.dirname(path) + "/ck")
+    f = make_local_embeddings_func(str(ck), max_length=16, compute_dtype="float32", device="cpu")
+    vecs = np.asarray(asyncio.run(f(["the cat sat", "a dog ran"])))
+    assert vecs.shape == (2, 32) and np.allclose(np.linalg.norm(vecs, axis=1), 1, atol=1e-5)
+    kb = KB(path, f, force_fresh_db=True, device="cpu")
+    with kb.bulk_add_docs() as add:
+        ids = [add(t) for t in ["the cat sat", "a dog ran", "red mat", "blue dog"]]
+    first = kb.retrieve("the cat sat", 2)
+    assert first[0]["doc"]["id"] == ids[0], first
+    kb.close()
+    kb = KB(path, device="cpu")  # rebuilt from the stored params
+    assert kb.retrieve("the cat sat", 2) == first
+    kb.close()
+    with StubServer(embed_dim=8) as srv:
+        os.environ["OPENAI_BASE_URL"] = srv.url + "/v1/embeddings"
+        o = asyncio.run(make_openai_embeddings_func(api_key="k")(["x", "y"]))
+        l = asyncio.run(make_ollama_embeddings_func("m", base_url=srv.url)(["x"]))
+        assert len(o) == 2 and len(o[0]) == 8 and l[0] == o[0]
+    loaded = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED + ("svs_tpu",))
+    assert not loaded, loaded
+    print("ROUND_TRIP_OK")
+    """
+)
+
+
 def _run_blocked(script: str, tmp_path: Path) -> None:
     repo = Path(svs_tpu_torch.__file__).resolve().parent.parent
     proc = subprocess.run(
@@ -373,6 +425,15 @@ def test_serve_cli_tools_util_without_jax_or_aiohttp(tmp_path):
     ``__main__`` and ``load_env`` with ``svs_tpu``, JAX, ``aiohttp``,
     ``dotenv`` and ``networkx`` blocked."""
     _run_blocked(_BLOCKED_SERVE_CLI_TOOLS, tmp_path)
+
+
+def test_providers_calibration_trace_without_jax_transformers_flax_msgpack_aiohttp(tmp_path):
+    """The local provider embeds on the CPU (a checkpoint written by the
+    port's own writer), a store written with it reopens with no function,
+    and the openai / ollama providers answer from a stdlib stub, with JAX,
+    ``svs_tpu``, ``transformers``, ``flax``, ``msgpack`` and ``aiohttp``
+    blocked; the calibration and trace modules import."""
+    _run_blocked(_BLOCKED_PROVIDERS, tmp_path)
 
 
 def test_kb_without_device_refuses_cpu(tmp_path):
