@@ -60,7 +60,12 @@ from a seed:
    the pre-filter device and host routes, the post-filter ladder of a
    dict and of an opaque predicate — and an ``AsyncKB`` serving
    concurrent plain and filtered batches, each held against a
-   brute-force scan of the matching rows; then the incremental phase;
+   brute-force scan of the matching rows; then the mesh and replica
+   phases (``mesh_and_replica_phases``: a 2-shard int8 mesh ``KB`` from
+   the sidecar and a bf16 one on the one card, a repeated device, at
+   B = 8-512 and a ``where=`` batch; then ``KB(replicas=[cuda:0,
+   cuda:0])`` at B = 1-256; every answer also set beside a single-device
+   ``KB``'s on the same queries); then the incremental phase;
    then the serve phase (``serve_phase``): the HTTP server
    (``svs_tpu_torch.serve``) in this process on an ``AsyncKB`` of the 1M
    store, 256 single-query ``/retrieve`` requests at n=100 from 64 client
@@ -83,7 +88,9 @@ from a seed:
    ``serve_pairwise``); on the int8 keyed and ``rescore=False`` exact
    paths, one more call unprofiled and two under ``torch.profiler``, for
    the device's idle share and the kernels' device time per launch in the
-   call; then ``bulk_del_docs`` of 1% of the flat store's docs and
+   call; on the dupe-planted store also the mesh's pairwise ring, its
+   post-filtered ``where=`` call and a ``mesh_2d(2, 2)`` bf16 retrieval
+   (``mesh_pairwise``); then ``bulk_del_docs`` of 1% of the flat store's docs and
    ``retrieve_batch`` (B=64, n=100) held against a brute-force scan of
    the survivors;
 5. the phases of the dispatch calibration, the trace export and the
@@ -119,6 +126,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import threading
 import time
 import zlib
 from pathlib import Path
@@ -908,26 +916,28 @@ def kernel_phase(n_docs: int, reps: int, cross: dict) -> dict:
     return records
 
 
-def write_store(path: Path, n_docs: int) -> np.ndarray:
+def write_store(path: Path, n_docs: int, device: str = "cuda"):
     """A SQLite store of ``n_docs`` random unit vectors written through the
-    port's ``Tx`` (doc ``i`` holds row ``i``); returns the f32 rows."""
+    port's ``Tx`` (doc ``i`` holds row ``i``), the rows made on ``device``
+    from the seed, 50,000 at a time (the host only writes them); returns
+    the f32 rows, a tensor on ``device``."""
+    import torch
+
     from svs_tpu_torch.store.blob import embedding_to_bytes
     from svs_tpu_torch.store.db import Database
 
-    rng = np.random.default_rng(SEED)
-    matrix = np.empty((n_docs, DIM), dtype=np.float32)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    matrix = torch.empty((n_docs, DIM), dtype=torch.float32, device=device)
     db = Database(path)
     try:
         with db.transaction() as tx:
             for lo in range(0, n_docs, 50_000):
-                rows = rng.standard_normal(
-                    (min(50_000, n_docs - lo), DIM)
-                ).astype(np.float32)
-                rows /= np.linalg.norm(rows, axis=1, keepdims=True)
-                matrix[lo : lo + len(rows)] = rows
+                rows = matrix[lo : lo + 50_000]
+                torch.randn(rows.shape, generator=gen, out=rows)
+                rows /= torch.linalg.vector_norm(rows, dim=1, keepdim=True)
                 tx.add_docs_bulk(
                     [f"synthetic document #{lo + i}" for i in range(len(rows))],
-                    [embedding_to_bytes(r) for r in rows],
+                    [embedding_to_bytes(r) for r in rows.cpu().numpy()],
                 )
             tx.bump_matrix_version()
     finally:
@@ -1098,11 +1108,9 @@ def e2e_phase(n_docs: int, reps: int, work: Path, cross: dict) -> dict:
     store = work / "store.sqlite"
     native = native_phase()
     t0 = time.perf_counter()
-    matrix = write_store(store, n_docs)
+    ref_matrix = write_store(store, n_docs)
     t_write = time.perf_counter() - t0
     log(f"e2e: wrote {n_docs} x {DIM} store in {t_write:.1f} s")
-    ref_matrix = torch.from_numpy(matrix).cuda()
-    del matrix
 
     qvec = {}
 
@@ -1193,8 +1201,10 @@ def e2e_phase(n_docs: int, reps: int, work: Path, cross: dict) -> dict:
                 (("B256_n100", 256, 100),), f32_scan, v3="_fused3_extract_int8",
                 after=lambda kb, res: profile_call(kb, res, "profiled_B256_n100",
                                                    256, 100))
+        bf16_solo: dict = {}
         kb_path("bf16_kb", fused_float + ["_staged_finish"], SHAPES, f32_scan,
-                v3="_fused3_extract", precision="bf16")
+                v3="_fused3_extract", precision="bf16",
+                after=lambda kb, res: mesh_bf16_solo(kb, qvec, ref_matrix, bf16_solo, res))
         # f32 storage: the pack is its own rescore mirror
         kb_path("f32_kb", fused_float + ["_staged_finish"], SHAPES, f32_scan,
                 v3="_fused3_extract", precision="f32")
@@ -1247,6 +1257,7 @@ def e2e_phase(n_docs: int, reps: int, work: Path, cross: dict) -> dict:
         cold_start_phase(store, ref_matrix, reps, out)
         host_route_phase(store, ref_matrix, reps, work, out)
         filters_phase(store, ref_matrix, reps, out)
+        mesh_and_replica_phases(store, ref_matrix, bf16_solo, out)
         calibration_phase(store, ref_matrix, work, cross, out)
         trace_phase(store, ref_matrix, work, out)
         ref_matrix, dead = incremental_phase(store, ref_matrix, reps, out)
@@ -1814,6 +1825,472 @@ def filters_phase(store: Path, ref_matrix, reps: int, out: dict) -> None:
             if sum(counts[k] for k in int8) <= 0:
                 raise AssertionError(f"{label}: no int8 prescore kernel launched")
         torch.cuda.empty_cache()
+
+
+#: The single-host mesh and replica phases: 2 shards (or replicas) of the
+#: 1M store on the one card (a repeated device), ``MESH_REPS`` calls a shape.
+MESH_SHARDS = 2
+MESH_REPS = 4
+MESH_SHAPES = (("B8_n100", 8, 100), ("B64_n100", 64, 100), ("B256_n100", 256, 100),
+               ("B512_n100", 512, 100))
+#: Pairs of the mesh's filtered pairwise call: at 10,000 the post-filter
+#: walks global prefixes of 640,000 pairs and more (126 s on the card in
+#: a rehearsal); 1,000 head pairs need a prefix of about 16,000.
+MESH_WHERE_K = 1000
+REPLICA_SHAPES = (("B1_n100", 1, 100), ("B7_n100", 7, 100), ("B64_n100", 64, 100),
+                  ("B256_n100", 256, 100), ("B8_n1000", 8, 1000))
+#: The prescore kernel of a replica slice's first try (C = 4n, the width
+#: hint cleared), which every replica of a split batch must launch.
+REPLICA_FIRST_KERNEL = {"B7_n100": "_fused2_extract_int8", "B64_n100": "_fused3_extract_int8",
+                        "B256_n100": "_fused3_extract_int8", "B8_n1000": "_fused_extract_int8"}
+
+
+def mesh_kb_label(kb) -> str:
+    eng = kb.engine
+    if getattr(eng, "mesh", None) is not None:
+        return f"mesh {eng.precision}"
+    if hasattr(eng, "devices"):
+        return "replicas"
+    return f"single device {eng.precision}"
+
+
+def run_mesh_shape(kb, query_sets, label, n, ref_matrix, answers, stats,
+                   where=None, match=None) -> None:
+    """One call of each query set in ``query_sets`` (texts ``texts_of(label,
+    rep, b)``), the width hint cleared first; each result exact against
+    the scan and kept in ``answers[(label, rep)]``."""
+    import torch
+
+    from svs_tpu_torch.ops import pallas_extract as P
+
+    kb.engine._cand_hint.clear()
+    before = P.launch_counts()
+    widen0 = kb.engine.widen_retries
+    lat = []
+    for rep, v in enumerate(query_sets):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        hits = kb.retrieve_batch(texts_of(label, rep, len(v)), n, where=where)
+        torch.cuda.synchronize()
+        lat.append(time.perf_counter() - t)
+        rows, scores = hits_to_arrays(hits)
+        check_results(rows, scores, v, ref_matrix, n,
+                      dead=None if match is None else ~match)
+        answers[(label, rep)] = (rows, scores)
+    stats[label] = {
+        "first_s": lat[0],
+        "warm_ms": [x * 1e3 for x in lat[1:]],
+        "warm_p50_ms": statistics.median(lat[1:]) * 1e3 if len(lat) > 1 else None,
+        "launches": {k: v - before[k] for k, v in P.launch_counts().items() if v - before[k]},
+        "widen_retries": kb.engine.widen_retries - widen0,
+    }
+    p50 = stats[label]["warm_p50_ms"]
+    log(f"e2e {mesh_kb_label(kb)} {label}: first {lat[0]:.3f} s, warm "
+        f"{stats[label]['warm_ms']} ms (p50 {p50} over {len(lat) - 1}), widens "
+        f"{stats[label]['widen_retries']}, launches {stats[label]['launches']}; exact vs scan")
+
+
+def mesh_bf16_queries() -> dict:
+    """The bf16 mesh's query sets (``MESH_SHAPES[:2]``, ``MESH_REPS`` sets
+    a shape), the same for the e2e phase's single-device bf16 ``KB``
+    (``bf16_kb``) and for the bf16 mesh, whose answers are set beside it."""
+    rng = np.random.default_rng(SEED + 10)
+    return {"bf16_" + label: [unit_queries(rng, b) for _ in range(MESH_REPS)]
+            for label, b, _ in MESH_SHAPES[:2]}
+
+
+def mesh_bf16_solo(kb, qvec: dict, ref_matrix, answers: dict, res: dict) -> None:
+    """The bf16 mesh's queries on a single-device bf16 ``KB`` (in the e2e
+    phase, before the mesh phase: one rescan less): its answers go into
+    ``answers``, for the mesh's to be compared with."""
+    queries = mesh_bf16_queries()
+    for label, vs in queries.items():
+        for rep, v in enumerate(vs):
+            qvec.update(zip(texts_of(label, rep, len(v)), v))
+    stats = res["mesh_bf16_queries"] = {}
+    for label, _, n in MESH_SHAPES[:2]:
+        run_mesh_shape(kb, queries["bf16_" + label], "bf16_" + label, n, ref_matrix,
+                       answers, stats)
+
+
+def mesh_and_replica_phases(store: Path, ref_matrix, bf16_solo: dict, out: dict) -> None:
+    """``KB(mesh=...)`` and ``KB(replicas=...)`` on the 1M store, after the
+    filters phase (its meta tags) and before the incremental phase (the
+    sidecar's 1,015,808 rows = 31 x 32,768 load on a 2-shard mesh), all on
+    the one card: a mesh or replica list that repeats ``cuda:0``.  Each
+    path runs with the launch counts set to 0 just before it and read just
+    after (``drive_path``); every answer is held against a brute-force f32
+    scan on the card (``check_results``) and against a single-device
+    ``KB`` of the same precision on the same queries (bit-identical or
+    not, reported):
+
+    - ``mesh_solo``: the single-device int8 ``KB`` from the sidecar,
+      ``MESH_REPS`` calls of every shape below and one of each replica
+      slice alone (the launches a replica's slice takes on one device);
+    - ``mesh_int8``: ``KB(mesh=default_mesh(devices=[cuda:0] * 2))`` from
+      the sidecar (asserted: no rescan), ``MESH_SHAPES`` with the width
+      hint cleared before each (so each first tries C = 400), one
+      ``where={"tenant": 7}`` batch (the mesh subset route), the sharded
+      mirror asserted as two blocks of 507,904 rows, and one B=64 call
+      unprofiled and under ``torch.profiler`` (idle share);
+    - ``mesh_bf16``: a bf16 mesh ``KB`` (a rescan) at B=8 and B=64, on
+      the queries that the e2e phase's single-device bf16 ``KB`` answered
+      into ``bf16_solo`` (``mesh_bf16_solo``);
+    - ``replicas``: ``KB(replicas=[cuda:0, cuda:0])`` from the sidecar at
+      ``REPLICA_SHAPES``; the clone's arrays asserted distinct tensors
+      equal to the primary's; at each split shape one more call with the
+      slices run one after another, each engine's launches counted alone,
+      asserted to split into one slice a replica and every replica to
+      launch its slice's first kernel; the counts set beside the single
+      device's at the slices.
+
+    Records warm p50s, first calls, the pack seconds and each path's peak
+    device memory."""
+    import torch
+
+    import svs_tpu_torch
+    from svs_tpu_torch.ops import pallas_extract as P
+    from svs_tpu_torch.parallel import default_mesh
+    from svs_tpu_torch.parallel.mesh import ShardedArray
+
+    qvec = {}
+
+    async def embed(texts):
+        return [qvec[t].tolist() for t in texts]
+
+    rng = np.random.default_rng(SEED + 9)
+    res = out["paths_detail_mesh"] = {}
+    rep_res = out["paths_detail_replicas"] = {}
+    tenant7 = torch.arange(ref_matrix.shape[0], device=ref_matrix.device) % 500 == 7
+    queries = {}
+    for label, b, _ in MESH_SHAPES + tuple(("rep_" + s[0],) + s[1:] for s in REPLICA_SHAPES):
+        queries[label] = [unit_queries(rng, b) for _ in range(MESH_REPS)]
+    queries["where_B64"] = [unit_queries(rng, 64)]
+    bf16_queries = mesh_bf16_queries()
+    for label, vs in (*queries.items(), *bf16_queries.items()):
+        for rep, v in enumerate(vs):
+            qvec.update(zip(texts_of(label, rep, len(v)), v))
+    solo_answers: dict = {}
+
+    def run_shape(kb, label, n, answers, stats, where=None, match=None, reps=MESH_REPS):
+        run_mesh_shape(kb, queries[label][:reps], label, n, ref_matrix, answers, stats,
+                       where=where, match=match)
+
+    def same_as_solo(answers, stats, labels, solo=solo_answers):
+        """Bit-identical to the single-device KB's answers on the same
+        queries (every call of each shape; recorded, never asserted: both
+        are exact)."""
+        for label in labels:
+            ident = [
+                np.array_equal(answers[key][0], solo[key][0])
+                and np.array_equal(answers[key][1], solo[key][1])
+                for key in answers
+                if key[0] == label
+            ]
+            stats[label]["bit_identical_to_single_device"] = bool(ident) and all(ident)
+
+    def opened(kb, label, stats):
+        t = time.perf_counter()
+        kb.retrieve_batch(texts_of("rep_B1_n100", 0, 1), 1)  # packs (may answer from the host)
+        stats["open_s"] = time.perf_counter() - t
+        stats["pack_s"] = kb._stats.snapshot().get("pack", {}).get("last_s")
+        settle(kb.engine, stats, label)
+        stats["pack_events"] = dict(kb.engine.pack_events)
+
+    def run_solo():
+        stats = res["solo"] = {}
+        kb = svs_tpu_torch.KB(store, embed, device="cuda", precision="int8")
+        try:
+            opened(kb, "mesh_solo", stats)
+            for label, _, n in MESH_SHAPES:
+                run_shape(kb, label, n, solo_answers, stats)
+            run_shape(kb, "where_B64", 100, solo_answers, stats, where={"tenant": 7},
+                      match=tenant7)
+            for label, _, n in REPLICA_SHAPES:
+                run_shape(kb, "rep_" + label, n, solo_answers, stats)
+            # each replica's slice alone: the launches one device takes
+            halves = rep_res["single_device_slices"] = {}
+            for label, b, n in REPLICA_SHAPES:
+                if b < 2:
+                    continue
+                sums: dict = {}
+                for i, part in enumerate(np.array_split(queries["rep_" + label][0], MESH_SHARDS)):
+                    key = f"slice_{label}_{i}"
+                    queries[key] = [part]
+                    qvec.update(zip(texts_of(key, 0, len(part)), part))
+                    run_shape(kb, key, n, {}, stats)
+                    for k, v in stats[key]["launches"].items():
+                        sums[k] = sums.get(k, 0) + v
+                halves[label] = sums
+        finally:
+            kb.close(write_sidecar=False)
+
+    def run_mesh_int8():
+        stats = res["int8"] = {}
+        torch.cuda.reset_peak_memory_stats()
+        mesh = default_mesh(devices=["cuda:0"] * MESH_SHARDS)
+        kb = svs_tpu_torch.KB(store, embed, mesh=mesh, precision="int8")
+        try:
+            opened(kb, "mesh_int8", stats)
+            ev = stats["pack_events"]
+            if ev["sidecar"] != 1 or ev["scan"] != 0:
+                raise AssertionError(f"mesh_int8: pack_events {ev}: the mesh did not load the sidecar")
+            corpus = kb.engine.corpus
+            mirror = corpus.dev_rescore[0] if corpus.dev_rescore is not None else None
+            if not isinstance(mirror, ShardedArray) or [
+                int(b.shape[0]) for b in mirror.row_blocks()
+            ] != [corpus.n_padded // MESH_SHARDS] * MESH_SHARDS:
+                raise AssertionError(f"mesh_int8: the sharded mirror is {mirror}")
+            stats["mirror_rows"] = [int(b.shape[0]) for b in mirror.row_blocks()]
+            answers: dict = {}
+            for label, _, n in MESH_SHAPES:
+                run_shape(kb, label, n, answers, stats)
+            run_shape(kb, "where_B64", 100, answers, stats, where={"tenant": 7}, match=tenant7)
+            same_as_solo(answers, stats, [s[0] for s in MESH_SHAPES] + ["where_B64"])
+            if stats["where_B64"]["launches"]:
+                raise AssertionError("mesh where=: the subset route launched a prescore kernel")
+            texts = texts_of("B64_n100", 0, 64)
+            prof = stats["profiled_B64_n100"] = device_idle_share(
+                lambda: kb.retrieve_batch(texts, 100)
+            )
+            second = prof["second_profile"]
+            log(f"e2e mesh int8: profiled B=64 {second['wall_ms']:.2f} ms, kernels "
+                f"{second.get('kernel_ms')} ms in {second.get('kernel_launches')} launches "
+                f"(idle share {second['idle_share']}; unprofiled "
+                f"{prof['unprofiled_wall_ms']:.2f} ms)")
+            for name, k in second.get("top_kernels", {}).items():
+                log(f"  {k['ms']:.3f} ms = {k['launches']} x {k['us_per_launch']:.2f} us  {name}")
+        finally:
+            kb.close(write_sidecar=False)
+        stats["peak_mb"] = torch.cuda.max_memory_allocated() / 1e6
+        log(f"e2e mesh int8: open {stats['open_s']:.2f} s (pack {stats['pack_s']}), mirror "
+            f"blocks {stats['mirror_rows']}, bit-identical to one device "
+            f"{ {k: v['bit_identical_to_single_device'] for k, v in stats.items() if isinstance(v, dict) and 'bit_identical_to_single_device' in v} }; "
+            f"peak {stats['peak_mb']:.0f} MB")
+
+    def run_mesh_bf16():
+        stats = res["bf16"] = {}
+        torch.cuda.reset_peak_memory_stats()
+        kb = svs_tpu_torch.KB(store, embed, precision="bf16",
+                              mesh=default_mesh(devices=["cuda:0"] * MESH_SHARDS))
+        try:
+            opened(kb, "mesh_bf16", stats)
+            answers: dict = {}
+            for label, _, n in MESH_SHAPES[:2]:
+                run_mesh_shape(kb, bf16_queries["bf16_" + label], "bf16_" + label, n,
+                               ref_matrix, answers, stats)
+            same_as_solo(answers, stats, ["bf16_" + s[0] for s in MESH_SHAPES[:2]],
+                         solo=bf16_solo)
+        finally:
+            kb.close(write_sidecar=False)
+        stats["peak_mb"] = torch.cuda.max_memory_allocated() / 1e6
+        log(f"e2e mesh bf16: open (a rescan) {stats['open_s']:.2f} s; bit-identical to one "
+            f"bf16 device {[stats[k]['bit_identical_to_single_device'] for k in bf16_queries]}; "
+            f"peak {stats['peak_mb']:.0f} MB")
+
+    def per_replica(kb, label, n):
+        """One more call of the shape's first queries, every engine's width
+        hint cleared and the slices run one after another (a lock around
+        each), so that each engine's launches are its own: the batch must
+        split into one slice a replica, and every replica must launch its
+        slice's first kernel."""
+        eng = kb.engine
+        engines = [eng, *eng._secondaries]
+        v = queries["rep_" + label][0]
+        plan = eng._plan(eng.corpus, v)
+        if [e for e, _, _ in plan] != engines[: min(len(v), MESH_SHARDS)]:
+            raise AssertionError(f"replicas {label}: the plan runs on {len(plan)} replica(s)")
+        for e in engines:
+            e._cand_hint.clear()
+        lock = threading.Lock()
+        counts = [dict() for _ in engines]
+
+        def serial(plan, fn):
+            def counted(e, c, q):
+                with lock:
+                    before = P.launch_counts()
+                    try:
+                        return fn(e, c, q)
+                    finally:
+                        mine = counts[engines.index(e)]
+                        for k, x in P.launch_counts().items():
+                            if x - before[k]:
+                                mine[k] = mine.get(k, 0) + x - before[k]
+            return type(eng)._run(eng, plan, counted)
+
+        eng._run = serial
+        try:
+            hits = kb.retrieve_batch(texts_of("rep_" + label, 0, len(v)), n)
+        finally:
+            del eng._run
+        rows, scores = hits_to_arrays(hits)
+        check_results(rows, scores, v, ref_matrix, n)
+        first = REPLICA_FIRST_KERNEL[label]
+        for i, mine in enumerate(counts[: len(plan)]):
+            if mine.get(first, 0) < 1:
+                raise AssertionError(f"replicas {label}: replica {i} launched {mine}, "
+                                     f"not its slice's {first}")
+        log(f"  replicas {label}: per replica, slices run one after another: {counts}")
+        return counts
+
+    def run_replicas():
+        stats = rep_res["int8"] = {}
+        torch.cuda.reset_peak_memory_stats()
+        kb = svs_tpu_torch.KB(store, embed, replicas=["cuda:0"] * MESH_SHARDS, precision="int8")
+        try:
+            opened(kb, "replicas", stats)
+            answers: dict = {}
+            for label, b, n in REPLICA_SHAPES:
+                run_shape(kb, "rep_" + label, n, answers, stats)
+                got = stats["rep_" + label]["launches"]
+                one = rep_res["single_device_slices"].get(label)
+                if one is not None:
+                    stats["rep_" + label]["per_replica"] = per_replica(kb, label, n)
+                    log(f"  replicas {label}: launches {got}; the single device on the "
+                        f"{MESH_SHARDS} slices {one} (a batch widens as a whole, a slice alone "
+                        f"on its own)")
+            same_as_solo(answers, stats, ["rep_" + s[0] for s in REPLICA_SHAPES])
+            # the clone's mirrors follow the primary's background upload on
+            # the first call after it: checked after the shapes
+            corpus = kb.engine.corpus
+            (clone,) = corpus.replica_clones
+            for name, a, b in (("data", clone.data, corpus.data),
+                               ("row_scales", clone.row_scales, corpus.row_scales),
+                               ("mirror", clone.dev_rescore[0], corpus.dev_rescore[0]),
+                               ("emb", clone.dev_emb, corpus.dev_emb)):
+                if a.data_ptr() == b.data_ptr() or not torch.equal(a, b):
+                    raise AssertionError(f"replicas: the clone's {name} is not a distinct equal copy")
+        finally:
+            kb.close(write_sidecar=False)
+        stats["peak_mb"] = torch.cuda.max_memory_allocated() / 1e6
+        log(f"e2e replicas: open {stats['open_s']:.2f} s; bit-identical to one device "
+            f"{ {k: v['bit_identical_to_single_device'] for k, v in stats.items() if isinstance(v, dict) and 'bit_identical_to_single_device' in v} }; "
+            f"peak {stats['peak_mb']:.0f} MB")
+
+    int8 = ["_fused3_extract_int8", "_fused2_extract_int8", "_staged_finish"]
+    for label, expected, run in (
+        ("mesh_solo", int8, run_solo),
+        ("mesh_int8", ["_fused3_extract_int8", "_fused2_extract_int8", "_staged_finish",
+                       "_extract"], run_mesh_int8),
+        ("mesh_bf16", ["_fused3_extract", "_fused2_extract"], run_mesh_bf16),
+        ("replicas", int8 + ["_fused_extract_int8"], run_replicas),
+    ):
+        drive_path(label, expected, run, out)
+        torch.cuda.empty_cache()
+
+
+def texts_of(label: str, rep: int, b: int) -> list:
+    return [f"mesh-{label}-{rep}-{i}" for i in range(b)]
+
+
+def mesh_pairwise(store: Path, ref, oracle, out: dict) -> None:
+    """The mesh's pairwise ring and its dim-sharded retrieval on the 100k
+    dupe-planted store (after ``filtered_pairs`` tagged it), each path with
+    the launch counts set to 0 just before it and read just after:
+
+    - ``mesh_pairwise``: ``document_top_pairwise_scores(10,000)`` twice on
+      an int8 ``KB(mesh=default_mesh(devices=[cuda:0] * 2))`` (the ring on
+      the pack dequantized to bf16 per shard), held against the
+      brute-force top 10,000 pairs; then the top ``MESH_WHERE_K`` pairs
+      with ``where={"head": True}`` (no subset corpus on a mesh: the
+      exact global pair prefix, post-filtered and widened 4x), held
+      against the subset's oracle;
+    - ``mesh_2d``: a bf16 ``KB(mesh=mesh_2d(2, 2, devices=[cuda:0] * 4))``
+      at B=8, n=100 (each row block's partial dots over two dim blocks,
+      summed), held against a brute-force scan.
+
+    Records the calls' seconds, the ring's widths, widens and peak device
+    memory."""
+    import torch
+
+    import svs_tpu_torch
+    from svs_tpu_torch.parallel import default_mesh, mesh_2d
+    from svs_tpu_torch.parallel import pairwise_sharded
+
+    qvec = {}
+
+    async def embed(texts):
+        return [qvec[t].tolist() for t in texts]
+
+    res = out["paths_detail_mesh_pairwise"] = {}
+    head = torch.arange(20480, device=ref.device)
+    v, r, c = pair_oracle(ref[head], MESH_WHERE_K)
+    head_oracle = (v, head[r], head[c])
+    widths = []
+    real_pass = pairwise_sharded._ring_pass
+
+    def ring_pass(docs, n_valid, k, per_row_k, mesh, data_axis):
+        widths[-1].append([k, per_row_k])
+        return real_pass(docs, n_valid, k, per_row_k, mesh, data_axis)
+
+    def run_ring():
+        torch.cuda.reset_peak_memory_stats()
+        kb = svs_tpu_torch.KB(store, embed, precision="int8",
+                              mesh=default_mesh(devices=["cuda:0"] * MESH_SHARDS))
+        pairwise_sharded._ring_pass = ring_pass
+        try:
+            lat, widens = [], []
+            for where in (None, None, {"head": True}):
+                widths.append([])
+                before = kb.engine.widen_retries
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                k = PAIR_K if where is None else MESH_WHERE_K
+                pairs = kb.document_top_pairwise_scores(k, where=where)
+                torch.cuda.synchronize()
+                lat.append(time.perf_counter() - t)
+                widens.append(kb.engine.widen_retries - before)
+                check_pairs(pairs, ref, oracle if where is None else head_oracle, k)
+                if where is not None:
+                    if not all(d["meta"]["head"] is True for _, a, b in pairs for d in (a, b)):
+                        raise AssertionError("mesh where=: a pair does not pass the filter")
+            res.update({
+                "first_s": lat[0],
+                "warm_ms": [lat[1] * 1e3],
+                "where_head_s": lat[2],
+                "widen_retries_per_call": widens,
+                "ring_k_and_widths_per_call": widths,
+                "pack_events": dict(kb.engine.pack_events),
+                "phase_p50_ms": {k: v["p50_s"] * 1e3 for k, v in kb._stats.snapshot().items()},
+                "peak_mb": torch.cuda.max_memory_allocated() / 1e6,
+            })
+        finally:
+            pairwise_sharded._ring_pass = real_pass
+            kb.close(write_sidecar=False)
+        log(f"e2e mesh_pairwise: first {lat[0]:.3f} s, warm {lat[1] * 1e3:.1f} ms, where="
+            f"head {lat[2]:.3f} s; widens {widens}; ring (k, width) per call {widths}; "
+            f"peak {res['peak_mb']:.0f} MB; exact vs the oracles")
+
+    def run_2d():
+        stats = res["mesh_2d"] = {}
+        rng = np.random.default_rng(SEED + 10)
+        kb = svs_tpu_torch.KB(store, embed, precision="bf16",
+                              mesh=mesh_2d(2, 2, devices=["cuda:0"] * 4))
+        try:
+            lat = []
+            for rep in range(MESH_REPS):
+                v8 = unit_queries(rng, 8)
+                texts = [f"mesh2d-{rep}-{i}" for i in range(8)]
+                qvec.update(zip(texts, v8))
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                hits = kb.retrieve_batch(texts, 100)
+                torch.cuda.synchronize()
+                lat.append(time.perf_counter() - t)
+                check_results(*hits_to_arrays(hits), v8, ref, 100)
+            if kb.engine.model_axis != "model" or kb.engine.corpus.dev_rescore is not None:
+                raise AssertionError("mesh_2d: not a dim-sharded engine with the host rescore")
+            stats.update({"first_s": lat[0], "warm_ms": [x * 1e3 for x in lat[1:]],
+                          "pack_events": dict(kb.engine.pack_events)})
+        finally:
+            kb.close(write_sidecar=False)
+        log(f"e2e mesh_2d: bf16 2 x 2, B=8 n=100 first {lat[0]:.3f} s, warm "
+            f"{stats['warm_ms']} ms; exact vs scan")
+
+    drive_path("mesh_pairwise", ["_extract"], run_ring, out)
+    torch.cuda.empty_cache()
+    drive_path("mesh_2d", ["_extract"], run_2d, out)
+    torch.cuda.empty_cache()
 
 
 def incremental_phase(store: Path, ref_matrix, reps: int, out: dict):
@@ -2923,6 +3400,7 @@ def pairwise_phase(work: Path, out: dict) -> None:
             pair_path("pairwise_bf16_dupes", keyed, store, ref, oracle, precision="bf16")
             pair_path("pairwise_f32_dupes", keyed, store, ref, oracle, precision="f32")
             filtered_pairs(store, ref, out)
+            mesh_pairwise(store, ref, oracle, out)
             serve_pairwise(store, ref, oracle, out)
             # rescore=False returns raw bf16 prescores: the oracle is of the
             # bf16-rounded matrix
@@ -3175,8 +3653,8 @@ class _EmbeddingStub:
     """A standard-library OpenAI (``/v1/embeddings``) and Ollama
     (``/api/embed``) endpoint on 127.0.0.1 answering ``seeded_unit``
     vectors (written with ``%.6f``: Python's float repr would spend most of
-    the phase in ``json.dumps``); the first request of each path is
-    answered 503."""
+    the phase in ``json.dumps``; each text's row formatted once, for both
+    providers); the first request of each path is answered 503."""
 
     def __init__(self, dim: int) -> None:
         import threading
@@ -3187,6 +3665,12 @@ class _EmbeddingStub:
         failed_paths: set = set()
         stub = self
         row = "[" + ",".join(["%.6f"] * dim) + "]"
+        rows: dict = {}
+
+        def row_of(text: str) -> str:
+            if text not in rows:
+                rows[text] = row % tuple(seeded_unit(text, dim))
+            return rows[text]
 
         class Handler(BaseHTTPRequestHandler):
             protocol_version = "HTTP/1.1"
@@ -3202,7 +3686,7 @@ class _EmbeddingStub:
                     stub.unavailable += 1
                     status, text = 503, json.dumps({"error": "warming up"})
                 else:
-                    vecs = [row % tuple(seeded_unit(t, dim)) for t in json.loads(raw)["input"]]
+                    vecs = [row_of(t) for t in json.loads(raw)["input"]]
                     status = 200
                     text = ('{"embeddings": [%s]}' % ",".join(vecs)
                             if self.path.endswith("/api/embed") else

@@ -227,11 +227,38 @@ def cmd_warm(args: argparse.Namespace) -> int:
     return 0 if ok else 1
 
 
+def _replica_devices(device: str, n: int) -> List[str]:
+    """The devices of ``--replicas N``: N CUDA devices from the named one
+    (``cuda`` is ``cuda:0``), or N copies of a device that is not CUDA (the
+    CPU).  Raises the replica engine's ``ValueError`` where the machine
+    has fewer.  The count comes from ``torch.cuda.device_count()``, which
+    reads NVML where it can and so leaves CUDA uninitialised for the
+    workers' fork."""
+    import torch
+
+    if n < 1:
+        raise ValueError("n_replicas must be >= 1")
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return [str(dev)] * n
+    first = dev.index or 0
+    have = max(0, torch.cuda.device_count() - first)
+    if n > have:
+        raise ValueError(f"n_replicas={n} but only {have} devices available")
+    return [f"cuda:{first + i}" for i in range(n)]
+
+
 def cmd_serve(args: argparse.Namespace) -> int:
     from .serve import run_server
 
+    placement: dict = {"device": args.device}
     if args.replicas is not None:
-        raise NotImplementedError("replicas= is not ported to svs_tpu_torch yet")
+        try:
+            placement = {"replicas": _replica_devices(args.device, args.replicas)}
+        except ValueError as exc:
+            # more replicas than devices: the replica engine's message
+            print(f"error: {exc}", file=sys.stderr)
+            return 2
     run_server(
         args.db,
         host=args.host,
@@ -244,7 +271,7 @@ def cmd_serve(args: argparse.Namespace) -> int:
         workers=args.workers,
         precision=args.precision,
         sidecar="auto",
-        device=args.device,
+        **placement,
     )
     return 0
 
@@ -383,8 +410,10 @@ def main(argv: "Optional[List[str]]" = None) -> int:
                    default="auto")
     device_flag(p)
     p.add_argument("--replicas", type=int, default=None,
-                   help="replicate the corpus to N devices (not ported "
-                   "to svs_tpu_torch yet: exits 2)")
+                   help="replicate the corpus to N devices and split each "
+                   "micro-batch across them (throughput mode; corpus must "
+                   "fit one device): N CUDA devices from --device's (cuda "
+                   "is cuda:0); with --device cpu, N copies on the CPU")
     p.add_argument("--no-warm", action="store_true",
                    help="skip warming the batcher's batch shapes at "
                    "startup (early requests then pay the kernels' first use)")
@@ -401,8 +430,8 @@ def main(argv: "Optional[List[str]]" = None) -> int:
     try:
         return args.fn(args)
     except NotImplementedError as exc:
-        # a part of svs_tpu the port does not carry yet (a provider,
-        # replicas): the message names it
+        # a part of svs_tpu the port does not carry yet (a local model
+        # type): the message names it
         print(f"error: {exc}", file=sys.stderr)
         return 2
 

@@ -52,8 +52,15 @@
   measured winner (``engine.calibrate``), the static prior until one is
   measured, sticky per engine.
 
-Not ported yet (``ROADMAP.md``): meshes and replicas (with them the mesh
-branch of ``subset_topk``); hedged fetches, by decision.
+- **meshes** — with ``mesh=`` the pack is split over a
+  ``parallel.mesh.Mesh`` (rows over its ``data`` axis, the dim over a
+  ``model`` axis) and every rung runs per shard (``parallel.sharded``):
+  the prescore, the device rescore and the pre-filter route where the
+  rows live, the pairwise pass as a ring (``parallel.pairwise_sharded``);
+  no incremental repack, no deferred upload, no subset pairwise corpus,
+  as in the reference.  Replicas are ``parallel.replicas.ReplicaEngine``.
+
+Not ported, by decision: hedged fetches (``ROADMAP.md``).
 """
 
 from __future__ import annotations
@@ -66,13 +73,19 @@ import threading
 import time
 import weakref
 from pathlib import Path
-from typing import Any, Callable, Dict, Iterator, Optional, Tuple, Union
+from typing import TYPE_CHECKING, Any, Callable, Dict, Iterator, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
 from ..store.db import Database
-from ..ops.topk import exact_f32, final_select_wire, unpack_rows_tail
+from ..ops.topk import (
+    exact_f32,
+    final_select_wire,
+    gathered_dots,
+    gathered_scores,
+    unpack_rows_tail,
+)
 from . import packing as _packing
 from .packing import (
     DIM_MULTIPLE,
@@ -94,6 +107,9 @@ from .sidecar import (
     save_sidecar_arrays,
     sidecar_fingerprint,
 )
+
+if TYPE_CHECKING:
+    from ..parallel.mesh import Mesh
 
 log = logging.getLogger(__name__)
 
@@ -214,9 +230,7 @@ def _rescore_from_packed(
     rows = rows.to(torch.int64)
     # an incremental delete leaves the map shorter than the mirror
     at = rows.clamp(0, (dev_f32 if dev_map is None else dev_map).shape[0] - 1)
-    cand = dev_f32[at if dev_map is None else dev_map[at]]  # [B, C, d]
-    with exact_f32():
-        exact = torch.bmm(cand, queries[:, :, None].to(torch.float32))[:, :, 0]
+    exact = gathered_dots(dev_f32, at if dev_map is None else dev_map[at], queries)
     return rows, exact, tail_bits
 
 
@@ -264,9 +278,7 @@ def _subset_final(
     if dim is not None and dim != queries.shape[1]:
         queries = queries[:, :dim]
     at = rows.clamp(0, (dev_f32 if dev_map is None else dev_map).shape[0] - 1)
-    cand = dev_f32[at if dev_map is None else dev_map[at]]  # [F, d]
-    with exact_f32():
-        exact = queries.to(torch.float32) @ cand.t()  # [B, F]
+    exact = gathered_scores(dev_f32, at if dev_map is None else dev_map[at], queries)
     live = torch.arange(rows.shape[0], device=rows.device)[None, :] < n_live
     exact = torch.where(live, exact, float("-inf"))
     emb_b = emb_of[None, :].expand(exact.shape[0], -1)
@@ -345,6 +357,9 @@ class RetrievalEngine:
         device: Union[str, torch.device, None] = None,
         kernel: str = "auto",
         device_rescore: str = "auto",
+        mesh: Optional["Mesh"] = None,
+        data_axis: str = "data",
+        model_axis: Optional[str] = None,
     ) -> None:
         if precision not in ("auto", "f32", "bf16", "int8"):
             raise ValueError(f"unknown precision: {precision!r}")
@@ -359,6 +374,23 @@ class RetrievalEngine:
                 "kernel='pallas' requires float storage (f32/bf16); int8 "
                 "corpora use the exact int8 path — pass kernel='auto'"
             )
+        if kernel == "pallas" and mesh is not None:
+            raise ValueError(
+                "kernel='pallas' is single-device; sharded meshes use the "
+                "per-shard path — pass kernel='auto'"
+            )
+        #: The mesh a sharded corpus lives on (``parallel.mesh.Mesh``), or
+        #: None; a mesh axis named 'model' shards the embedding dim.
+        self.mesh = mesh
+        if mesh is not None:
+            if data_axis not in mesh.axis_names:
+                raise ValueError(
+                    f"mesh has axes {mesh.axis_names}, expected a {data_axis!r} axis"
+                )
+            if model_axis is None and "model" in mesh.axis_names:
+                model_axis = "model"
+        self.data_axis = data_axis
+        self.model_axis = model_axis
         #: The reference's names: 'auto' takes the hand-written kernels
         #: where the shapes allow and the exact scan otherwise; 'xla' keeps
         #: every precision on the exact scan; 'pallas' takes the float
@@ -372,14 +404,25 @@ class RetrievalEngine:
         if precision == "auto":
             # the reference's rule: int8 under the verified rescore, bf16
             # where the int8 path does not apply (rescore off, the host
-            # rescore, or kernel='pallas', whose kernels are float-only)
+            # rescore, kernel='pallas', whose kernels are float-only, or a
+            # dim-sharded mesh: per-row int8 scales need whole rows)
             precision = (
                 "int8"
-                if self.rescore and device_rescore == "auto" and kernel != "pallas"
+                if (
+                    self.rescore
+                    and device_rescore == "auto"
+                    and kernel != "pallas"
+                    and self.model_axis is None
+                )
                 else "bf16"
             )
         self.precision = precision
-        self.device = torch.device("cuda" if device is None else device)
+        #: The device of single-device work (uploads, merges, the final
+        #: selection): the mesh's primary on a mesh engine.
+        self.device = (
+            mesh.primary if mesh is not None
+            else torch.device("cuda" if device is None else device)
+        )
         self._cand_hint: Dict[int, Tuple[int, int]] = {}
         self._pair_hint: Dict[int, Tuple[int, int]] = {}
         self._corpus: Optional[PackedCorpus] = None
@@ -485,8 +528,19 @@ class RetrievalEngine:
         return self._corpus
 
     def _row_multiple(self, n_rows: int) -> int:
-        """Large corpora align to the fused kernels' block multiple."""
-        return LARGE_ROW_MULTIPLE if n_rows >= LARGE_ROW_MULTIPLE else ROW_MULTIPLE
+        """Large corpora align to the fused kernels' block multiple; on a
+        mesh every shard does (the multiple times the data shards)."""
+        base = LARGE_ROW_MULTIPLE if n_rows >= LARGE_ROW_MULTIPLE else ROW_MULTIPLE
+        return base * self._shards(self.data_axis)
+
+    def _dim_multiple(self) -> int:
+        return DIM_MULTIPLE * self._shards(self.model_axis)
+
+    def _shards(self, axis: Optional[str]) -> int:
+        """Shards along a mesh ``axis`` (1 without a mesh or an axis)."""
+        if self.mesh is None or axis is None:
+            return 1
+        return int(self.mesh.shape[axis])
 
     @staticmethod
     def _store_fingerprint(db: Database) -> Tuple[int, int, int, int]:
@@ -589,7 +643,7 @@ class RetrievalEngine:
             emb_ids,
             self.precision,
             row_multiple=self._row_multiple(matrix.shape[0]),
-            dim_multiple=DIM_MULTIPLE,
+            dim_multiple=self._dim_multiple(),
         )
         # the host f32 cache within SVS_TPU_RESCORE_CACHE_MAX_BYTES (past
         # it the host rescore reads rows from the store)
@@ -616,6 +670,9 @@ class RetrievalEngine:
         from ..convert import packed_from_numpy
 
         scale_max = float(np.max(scales[:n])) if scales is not None and n > 0 else 0.0
+        if self.mesh is not None:
+            return self._new_mesh_pack(data, scales, emb_ids, n, d, version, scale_max,
+                                       cache, row_map)
         if cache is None or data.nbytes < _packing.DEFER_MIN_BYTES:
             return packed_from_numpy(
                 data, scales, emb_ids, n, d, version, self.precision, scale_max,
@@ -634,6 +691,45 @@ class RetrievalEngine:
             _device_ready=threading.Event(),
         )
 
+    def _new_mesh_pack(
+        self,
+        data: np.ndarray,
+        scales: Optional[np.ndarray],
+        emb_ids: np.ndarray,
+        n: int,
+        d: int,
+        version: int,
+        scale_max: float,
+        cache: Optional[np.ndarray],
+        row_map: Optional[np.ndarray],
+    ) -> PackedCorpus:
+        """A mesh pack: each shard uploads from the host pack straight to
+        its device (``parallel.mesh.place``), never deferred (as the
+        reference's mesh packs)."""
+        from ..parallel.mesh import place
+
+        assert self.mesh is not None
+        log.info(
+            "placing pack on the mesh %s (%.2f GB)", self.mesh.shape, data.nbytes / 1e9
+        )
+        return PackedCorpus(
+            data=place(data, self.mesh, self.data_axis, self.model_axis,
+                       bf16=self.precision == "bf16"),
+            row_scales=(
+                None if scales is None
+                else place(np.asarray(scales, dtype=np.float32), self.mesh, self.data_axis)
+            ),
+            emb_ids=np.asarray(emb_ids, dtype=np.int64),
+            n_valid=n,
+            dim=d,
+            version=int(version),
+            precision=self.precision,
+            scale_max=scale_max,
+            host_cache=(
+                None if cache is None else (np.asarray(cache, dtype=np.float32), row_map)
+            ),
+        )
+
     def _try_incremental_append(
         self, db: Database, fingerprint: Tuple[int, int, int, int]
     ) -> Optional[PackedCorpus]:
@@ -642,11 +738,12 @@ class RetrievalEngine:
         and write them at the pack's end, growing it to the next row
         multiple when they pass its padding, instead of rescanning every
         BLOB.  The host f32 cache grows by the same rows; the device mirror
-        is the old one with the new rows' upload concatenated."""
+        is the old one with the new rows' upload concatenated.  Skipped on
+        a mesh (growing a sharded pack would move every shard boundary)."""
         from ..convert import emb_mirror
 
         old = self._corpus
-        if old is None or self._fingerprint is None:
+        if old is None or self._fingerprint is None or self.mesh is not None:
             return None
         if old.n_valid == 0:
             # an empty pack has no established dim: a full pack instead
@@ -748,11 +845,12 @@ class RetrievalEngine:
 
         The f32 cache rows never move (they may be a read-only sidecar
         mapping): the cache's row map is re-pointed, and made explicit.
-        On the device the f32 mirror stays and only its map is replaced."""
+        On the device the f32 mirror stays and only its map is replaced.
+        Skipped on a mesh, as the reference skips it."""
         from ..convert import emb_mirror
 
         old = self._corpus
-        if old is None or self._fingerprint is None:
+        if old is None or self._fingerprint is None or self.mesh is not None:
             return None
         if old.n_valid == 0:
             return None
@@ -926,6 +1024,8 @@ class RetrievalEngine:
 
         self._await_pack_device(corpus)
         data, scales = corpus.data, corpus.row_scales
+        if self.mesh is not None:
+            return data, scales  # shards placed on their devices, never deferred
         if not isinstance(data, torch.Tensor):
             data = _upload_data(data, corpus.precision, self.device)
         if scales is not None and not isinstance(scales, torch.Tensor):
@@ -1051,6 +1151,9 @@ class RetrievalEngine:
             corpus.precision, cache[0] if cache is not None else None, corpus.n_valid
         ):
             return
+        if self.mesh is not None:
+            self._build_mesh_rescore(corpus)
+            return
         if corpus.precision == "f32":
             if isinstance(corpus.data, torch.Tensor):  # else a failed upload
                 self._publish_mirror(corpus, corpus.data, None)
@@ -1093,6 +1196,47 @@ class RetrievalEngine:
             t = threading.Thread(target=work, name="svs-tpu-mirror-upload", daemon=True)
             t.start()
             self._mirror_thread, self._mirror_thread_corpus = t, weakref.ref(corpus)
+
+    def _build_mesh_rescore(self, corpus: PackedCorpus) -> None:
+        """The mesh's mirrors, synchronously: the f32 rows in pack-row
+        order, padded to ``n_padded`` and split like the pack's rows (each
+        shard's rows made on the host and uploaded to its device), an f32
+        pack its own; and the ``[n_padded]`` int32 emb-id mirror on the
+        primary.  Each shard then rescores the merged candidates in its
+        row range (``parallel.sharded.sharded_rescore_final``).  None on
+        a dim-sharded mesh (a shard holds partial rows: the rescore stays
+        on the host) or with an emb id past int32."""
+        from ..parallel.mesh import place_rows
+
+        assert self.mesh is not None
+        if self.model_axis is not None or not corpus.emb_ids_fit_int32():
+            return
+        n_pad, n_valid = corpus.n_padded, corpus.n_valid
+        if corpus.precision == "f32":
+            dev = corpus.data
+        else:
+            assert corpus.host_cache is not None
+            cache_f32, row_map = corpus.host_cache
+            d = corpus.dim
+
+            def shard_rows(r0: int, r1: int) -> np.ndarray:
+                out = np.zeros((r1 - r0, d), dtype=np.float32)
+                hi = min(r1, n_valid)
+                if hi > r0:
+                    rows = np.arange(r0, hi)
+                    out[: hi - r0] = cache_f32[rows if row_map is None else row_map[rows]]
+                return out
+
+            log.info(
+                "uploading sharded f32 rescore mirror (%.2f GB over %d shards)",
+                n_pad * d * 4 / 1e9, self._shards(self.data_axis),
+            )
+            dev = place_rows((n_pad, d), np.float32, shard_rows, self.mesh, self.data_axis)
+        emb_pad = np.zeros(n_pad, dtype=np.int32)
+        emb_pad[:n_valid] = corpus.emb_ids.astype(np.int32)
+        # the emb-id mirror first: a reader that sees dev_rescore reads it
+        object.__setattr__(corpus, "dev_emb", torch.from_numpy(emb_pad).to(self.device))
+        object.__setattr__(corpus, "dev_rescore", (dev, None))
 
     def _upload_and_publish_mirror(
         self,
@@ -1267,10 +1411,10 @@ class RetrievalEngine:
             )
             return None
         if header["n_padded"] % self._row_multiple(header["n_valid"]) != 0:
-            log.info("sidecar row padding incompatible; rebuilding")
+            log.info("sidecar row padding incompatible (or with the mesh); rebuilding")
             return None
-        if header["dim_padded"] % DIM_MULTIPLE != 0:
-            log.info("sidecar dim padding incompatible; rebuilding")
+        if header["dim_padded"] % self._dim_multiple() != 0:
+            log.info("sidecar dim padding incompatible (or with the mesh); rebuilding")
             return None
         log.info("loading corpus from sidecar %s", path)
         n_valid, dim = int(header["n_valid"]), int(header["dim"])
@@ -1349,7 +1493,7 @@ class RetrievalEngine:
             emb_ids,
             self.precision,
             row_multiple=self._row_multiple(matrix.shape[0]),
-            dim_multiple=DIM_MULTIPLE,
+            dim_multiple=self._dim_multiple(),
         )
         save_sidecar_arrays(
             path,
@@ -1604,10 +1748,18 @@ class RetrievalEngine:
         )
         packed_dev, wide = self._prescore_packed(corpus, q_dev, c_eff)
         dim = corpus.dim if int(dev[0].shape[1]) == corpus.dim else None
-        wire = _final_from_packed(
-            packed_dev, dev[0], dev[1], corpus.dev_emb, q_dev, n_eff, wide,
-            dim=dim,
-        )
+        if self.mesh is not None:
+            from ..parallel.sharded import sharded_rescore_final
+
+            wire = sharded_rescore_final(
+                packed_dev, dev[0], corpus.dev_emb, q_dev, n_eff, wide=wide,
+                mesh=self.mesh, data_axis=self.data_axis, dim=dim,
+            )
+        else:
+            wire = _final_from_packed(
+                packed_dev, dev[0], dev[1], corpus.dev_emb, q_dev, n_eff, wide,
+                dim=dim,
+            )
         arr = wire.cpu().numpy()
         emb = arr[:, :n_eff].astype(np.int64)
         scores = np.ascontiguousarray(arr[:, n_eff : 2 * n_eff]).view(np.float32)
@@ -1629,8 +1781,15 @@ class RetrievalEngine:
         queries = np.atleast_2d(np.asarray(queries, dtype=np.float32))
         b = queries.shape[0]
         k_eff = min(int(k), corpus.n_valid)
-        if dev is None or not self._gather_fits(b, k_eff, dev[0]):
-            vals, rows = self.topk(corpus, queries, k)
+        if (
+            dev is None
+            or self.mesh is not None  # the mesh rescore lives in topk_final only
+            or not self._gather_fits(b, k_eff, dev[0])
+        ):
+            # NOT virtual: under a ReplicaEngine this runs on one replica's
+            # slice, and a virtual topk would split it again at batch sizes
+            # prescore_eps never saw
+            vals, rows = RetrievalEngine.topk(self, corpus, queries, k)
             return vals, rows, None
         if k_eff <= 0:
             empty = np.zeros((b, 0), dtype=np.float32)
@@ -1715,8 +1874,13 @@ class RetrievalEngine:
             )
         k_eff = min(int(k), f)
         dev = corpus.dev_rescore
-        if dev is not None and int(emb_sub.max()) < 2**31:
+        if (
+            dev is not None
+            and (self.mesh is None or corpus.dev_emb is not None)
+            and int(emb_sub.max()) < 2**31
+        ):
             f_pad = max(512, 1 << (f - 1).bit_length())
+            # on a mesh each shard's gather is [F_pad, dim]: the same ceiling
             if f_pad * int(dev[0].shape[1]) * 4 <= _DEVICE_GATHER_MAX_BYTES:
                 self._await_pack_device(corpus)
                 rows_dev, emb_dev = self._subset_arrays(
@@ -1726,9 +1890,17 @@ class RetrievalEngine:
                     pad_queries(queries, corpus.dim_padded)
                 ).to(self.device)
                 dim = corpus.dim if int(dev[0].shape[1]) == corpus.dim else None
-                wire = _subset_final(
-                    dev[0], dev[1], rows_dev, emb_dev, f, q_dev, k_eff, dim=dim
-                )
+                if self.mesh is not None:
+                    from ..parallel.sharded import sharded_subset_topk
+
+                    wire = sharded_subset_topk(
+                        dev[0], corpus.dev_emb, rows_dev, f, q_dev, k_eff,
+                        mesh=self.mesh, data_axis=self.data_axis, dim=dim,
+                    )
+                else:
+                    wire = _subset_final(
+                        dev[0], dev[1], rows_dev, emb_dev, f, q_dev, k_eff, dim=dim
+                    )
                 arr = wire.cpu().numpy()
                 emb = arr[:, :k_eff].astype(np.int64)
                 scores = np.ascontiguousarray(arr[:, k_eff : 2 * k_eff]).view(
@@ -1867,8 +2039,16 @@ class RetrievalEngine:
 
         if not self._selection_kernels_on(corpus):
             return False
+        # on a mesh the keyed kernel runs per shard (data axis only), so
+        # the shard's shape decides; the key grid is the same, and one
+        # KEY_EPS covers the merged candidates
+        if self.model_axis is not None:
+            return False
         return fused2_supported(
-            corpus.n_padded, corpus.dim_padded, b, min(k, corpus.n_valid)
+            corpus.n_padded // self._shards(self.data_axis),
+            corpus.dim_padded,
+            b,
+            min(k, corpus.n_valid),
         )
 
     def _selection_kernels_on(self, corpus: PackedCorpus) -> bool:
@@ -1892,12 +2072,37 @@ class RetrievalEngine:
         term, so bound and dispatch cannot drift.  Growing ``k`` past
         ``GUARD_MAX_C`` turns it off, so the widen ladder escalates
         v3 -> v2/v1 -> exact."""
-        from ..ops.pallas_extract import fused3_shape_ok, fused3_supported
+        from ..ops.pallas_extract import (
+            FUSED_BLOCK_N,
+            GUARD_KEYS,
+            fused3_shape_ok,
+            fused3_supported,
+        )
 
         if not self._selection_kernels_on(corpus):
             return False
         c = min(k, corpus.n_valid)
         n_rows = corpus.n_padded
+        if self.mesh is not None:
+            # per shard, data axis only; the merged boundary composes the
+            # shards' bounds as the single-device wire does, so one
+            # GUARD_KEY_EPS covers it
+            if self.model_axis is not None:
+                return False
+            n_rows //= self._shards(self.data_axis)
+            # the pack's padding sits at its END, so it concentrates in the
+            # trailing shard(s): a shard whose pool cannot seat c LIVE keys
+            # returns bound +inf, fails the margin on every batch and traps
+            # the widen ladder — refuse unless the worst shard has enough
+            # fully live blocks
+            pad_rows = corpus.n_padded - corpus.n_valid
+            nb_shard = n_rows // FUSED_BLOCK_N
+            dead_blocks_worst = min(-(-pad_rows // FUSED_BLOCK_N), nb_shard)
+            if c > (nb_shard - dead_blocks_worst) * GUARD_KEYS:
+                return False
+            # mesh shards keep the static prior: calibration measures the
+            # single-device kernels, not the per-shard crossover
+            return fused3_supported(n_rows, corpus.dim_padded, b, c)
         if not fused3_shape_ok(n_rows, corpus.dim_padded, b, c):
             return False
         if not self._keyed_selection_possible(corpus, b, k):
@@ -1987,7 +2192,10 @@ class RetrievalEngine:
         matrix would exceed ``FALLBACK_SCORES_BUDGET``."""
         from ..ops.topk import FALLBACK_SCORES_BUDGET
 
-        return b * corpus.n_padded * 4 > FALLBACK_SCORES_BUDGET
+        n_rows = corpus.n_padded
+        if self.model_axis is None:
+            n_rows //= self._shards(self.data_axis)  # per shard on a mesh
+        return b * n_rows * 4 > FALLBACK_SCORES_BUDGET
 
     def prescore_eps(
         self, corpus: PackedCorpus, queries: np.ndarray, k: int
@@ -2037,10 +2245,28 @@ class RetrievalEngine:
         from ..ops.quant import score_topk_int8_extract_packed, score_topk_int8_packed
         from ..ops.topk import score_topk_packed, streaming_score_topk_packed
 
+        from ..ops.topk import pack_vals_idx
+
         data, scales = self._pack_arrays(corpus)  # a deferred upload lands first
         b = q.shape[0]
         n_valid = corpus.n_valid
         wide = corpus.n_padded >= WIDE_INDEX_MIN_ROWS
+        if self.mesh is not None:
+            from ..parallel.sharded import sharded_score_topk
+
+            # the single-device ladder per shard: guarded (v3) when every
+            # shard's pool seats the candidates, else keyed (v2), else the
+            # streamed or materialised exact scan
+            guarded = self._guarded_selection_possible(corpus, b, k_eff)
+            vals, idx = sharded_score_topk(
+                data, scales, q, n_valid, k_eff,
+                mesh=self.mesh,
+                data_axis=self.data_axis,
+                model_axis=self.model_axis,
+                keyed=not guarded and self._keyed_selection_possible(corpus, b, k_eff),
+                guarded=guarded,
+            )
+            return pack_vals_idx(vals, idx, wide=wide), wide
         n_pad, d_pad = corpus.n_padded, corpus.dim_padded
         if corpus.precision == "int8":
             ops = (data, scales)
@@ -2085,7 +2311,7 @@ class RetrievalEngine:
         from ..ops.pairwise import keyed_pairwise_route
         from ..ops.pallas_extract import pair_keys_supported
 
-        if not self._selection_kernels_on(corpus):
+        if not self._selection_kernels_on(corpus) or self.mesh is not None:
             return False
         block_rows = min(256, corpus.n_padded)
         return pair_keys_supported(
@@ -2115,7 +2341,7 @@ class RetrievalEngine:
         corpus: PackedCorpus,
         rows: np.ndarray,
         emb_sub: np.ndarray,
-    ) -> PackedCorpus:
+    ) -> Optional[PackedCorpus]:
         """A derived :class:`PackedCorpus` of only the given pack rows — the
         filtered-pairwise route (``where=`` on
         ``document_top_pairwise_scores``): the unchanged verified pairwise
@@ -2127,7 +2353,10 @@ class RetrievalEngine:
         ``ROW_MULTIPLE``; the host f32 cache subsets along.  The derived
         corpus gets no device mirror, so its pair rescore runs on the host
         rows (or, without them, from the store by emb id), as the
-        reference's does."""
+        reference's does.  ``None`` on a mesh (the pack is sharded): the
+        caller post-filters the exact global pair prefix instead."""
+        if self.mesh is not None:
+            return None
         f = int(rows.size)
         f_pad = max(-(-f // ROW_MULTIPLE) * ROW_MULTIPLE, ROW_MULTIPLE)
         rows_p = np.zeros(f_pad, dtype=np.int64)
@@ -2178,8 +2407,10 @@ class RetrievalEngine:
         if k_eff <= 0:
             empty_i = np.zeros((0,), dtype=np.int64)
             return np.zeros((0,), dtype=np.float32), empty_i, empty_i
-        block_rows = min(256, corpus.n_padded)
         data, scales = self._pack_arrays(corpus)
+        if self.mesh is not None:
+            return self._mesh_pairwise_topk(corpus, data, scales, k_eff)
+        block_rows = min(256, corpus.n_padded)
         result = None
         if self._keyed_pairwise_possible(corpus) and keyed_pairwise_route(
             corpus.n_padded, block_rows, k_eff
@@ -2200,15 +2431,45 @@ class RetrievalEngine:
             cols.astype(np.int64),
         )
 
+    def _mesh_pairwise_topk(
+        self, corpus: PackedCorpus, data: Any, scales: Any, k_eff: int
+    ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """The ring (``parallel.pairwise_sharded``) over the shards, whose
+        products are float: an int8 pack is dequantized to bf16 per shard
+        first (an O(N/D x d) transient), as the reference's mesh does;
+        on a dim-sharded mesh each row block's columns are gathered onto
+        its row's first device."""
+        from ..parallel.mesh import ShardedArray
+        from ..parallel.pairwise_sharded import sharded_pairwise_topk
+
+        assert self.mesh is not None
+        blocks = []
+        for i, row in enumerate(data.blocks):
+            blk = row[0] if len(row) == 1 else torch.cat(
+                self.mesh.gather(row, device=row[0].device), dim=1
+            )
+            if scales is not None:
+                blk = (blk.to(torch.float32) * scales.block(i)[:, None]).to(torch.bfloat16)
+            blocks.append([blk])
+        vals, rows, cols = sharded_pairwise_topk(
+            ShardedArray(self.mesh, blocks, data.shape), corpus.n_valid, k_eff,
+            mesh=self.mesh, data_axis=self.data_axis,
+        )
+        return (
+            vals.cpu().numpy().astype(np.float32, copy=False),
+            rows.cpu().numpy().astype(np.int64),
+            cols.cpu().numpy().astype(np.int64),
+        )
+
     @_marks_inflight
     def pairwise_rescore(
         self, corpus: PackedCorpus, rows_a: np.ndarray, rows_b: np.ndarray
     ) -> Optional[np.ndarray]:
         """Exact f32 scores of the candidate pairs ``(rows_a[i],
         rows_b[i])`` (pack rows), gathered and dotted on the device from
-        the rescore mirror; ``None`` when the corpus has none (the KB then
-        gathers on the host or from SQLite)."""
-        if corpus.dev_rescore is None or corpus.n_padded >= 2**31:
+        the rescore mirror; ``None`` when the corpus has none or is
+        sharded (the KB then gathers on the host or from SQLite)."""
+        if self.mesh is not None or corpus.dev_rescore is None or corpus.n_padded >= 2**31:
             return None
         c = int(len(rows_a))
         if c == 0:

@@ -233,6 +233,7 @@ def staged_device_put(
     device: Union[str, torch.device],
     chunk_bytes: Optional[int] = None,
     throttle: Optional[Callable[[], None]] = None,
+    out: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """``host`` (any NumPy dtype torch takes: bf16 goes as its ``int16``
     view) on ``device``, one ``chunk_bytes`` slice of rows at a time.
@@ -247,21 +248,23 @@ def staged_device_put(
     callers) runs before each chunk.  The uploader stream is synchronized
     before the buffer is returned (also on an exception), so a reader on
     any stream sees the whole array.  On the CPU the chunks are plain
-    copies."""
+    copies.  ``out`` (a tensor of ``host``'s shape and dtype on
+    ``device``, such as a view of a larger buffer) receives the rows in
+    place of a new buffer."""
     device = torch.device(device)
     chunk = STAGE_CHUNK_BYTES if chunk_bytes is None else chunk_bytes
     n = host.shape[0]
     row_bytes = max(1, host.nbytes // max(1, n))
     rows = max(1, chunk // row_bytes)
     dtype = torch.from_numpy(np.zeros(0, dtype=host.dtype)).dtype
-    if device.type != "cuda":
+    if out is None:
         out = torch.empty(host.shape, dtype=dtype, device=device)
+    if device.type != "cuda":
         for lo in range(0, n, rows):
             if throttle is not None:
                 throttle()
             out[lo : lo + rows] = torch.from_numpy(np.array(host[lo : lo + rows]))
         return out
-    out = torch.empty(host.shape, dtype=dtype, device=device)
     stream = torch.cuda.Stream(device)
     # the copies are ordered after the allocation on the current stream
     stream.wait_stream(torch.cuda.current_stream(device))
@@ -337,7 +340,8 @@ class PackedCorpus:
     """Device-resident packed corpus plus host-side id mapping."""
 
     #: ``[n_padded, dim_padded]`` int8, bf16 or f32 (host arrays while a
-    #: deferred upload runs, see ``_device_ready``)
+    #: deferred upload runs, see ``_device_ready``; a
+    #: ``parallel.mesh.ShardedArray`` on a mesh engine)
     data: torch.Tensor
     row_scales: Optional[torch.Tensor]  # [n_padded] f32 (int8 only)
     emb_ids: np.ndarray  # [n_valid] int64: pack row -> embeddings.id
@@ -381,12 +385,20 @@ class PackedCorpus:
     host_i8: Optional[Tuple[np.ndarray, np.ndarray, np.ndarray]] = (
         dataclasses.field(default=None, repr=False, compare=False)
     )
+    #: Copies of this pack on a replica engine's other devices
+    #: (``parallel.replicas.ReplicaEngine``), one per secondary, attached
+    #: once per pack in one store: a search pinned to this snapshot fans
+    #: out against its own clones even across a concurrent repack.
+    replica_clones: Optional[Tuple["PackedCorpus", ...]] = dataclasses.field(
+        default=None, repr=False, compare=False
+    )
 
     def nbytes_device(self) -> int:
         """Bytes of the prescore arrays on the device (``data``, and the
-        int8 ``row_scales``), as ``svs_tpu``'s ``nbytes_device``."""
+        int8 ``row_scales``), as ``svs_tpu``'s ``nbytes_device``; a mesh
+        pack's over all its shards."""
         return sum(
-            a.nbytes if isinstance(a, np.ndarray) else a.numel() * a.element_size()
+            a.numel() * a.element_size() if isinstance(a, torch.Tensor) else a.nbytes
             for a in (self.data, self.row_scales)
             if a is not None
         )

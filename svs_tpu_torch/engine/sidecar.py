@@ -86,7 +86,11 @@ def save_sidecar(
     store's fingerprint at pack time, the staleness key."""
     import torch
 
+    from ..parallel.mesh import ShardedArray
+
     def host(a: Any) -> Any:
+        if isinstance(a, ShardedArray):  # a mesh pack: its shards assembled
+            a = a.cpu()
         if not isinstance(a, torch.Tensor):
             return a
         if a.dtype == torch.bfloat16:

@@ -65,8 +65,12 @@ pack on the card ``auto`` takes the device; ``svs_tpu`` also sends a call
 to the host when an estimated host scan beats the device's measured round
 trip, which this port does not (``RetrievalEngine.host_route``).
 
-Not ported yet: meshes and replicas (``mesh=`` and ``replicas=`` raise
-``NotImplementedError``).
+Meshes and replicas as in the reference: ``mesh=`` (a
+``parallel.default_mesh`` / ``mesh_2d``) shards the corpus over several
+devices and every search runs per shard (filtered pairwise then
+post-filters the exact global pair prefix), ``replicas=`` copies it to
+several devices and splits each batch across them.  A mesh or a replica
+list may repeat a device (``[torch.device('cpu')] * 4`` on the CPU).
 """
 
 from __future__ import annotations
@@ -815,17 +819,48 @@ def _make_engine(
     device_rescore: str,
     replicas: Optional[Any],
 ) -> RetrievalEngine:
-    """The engine of both facades, on one device."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= (sharded corpora) is not ported to svs_tpu_torch yet"
+    """The engine of both facades: on one device, on a mesh
+    (``parallel.mesh.Mesh``: the corpus sharded, for capacity), or a
+    :class:`~svs_tpu_torch.parallel.replicas.ReplicaEngine` when
+    ``replicas`` is set (an int: the first N CUDA devices; or an explicit
+    device sequence, taken as given: copies of the corpus, for
+    throughput).  A mesh and replicas are different axes and mutually
+    exclusive here."""
+    if replicas is None:
+        if mesh is not None:
+            # the mesh places the shards; its first device is the engine's
+            return RetrievalEngine(
+                precision=precision,
+                rescore=rescore,
+                kernel=kernel,
+                device_rescore=device_rescore,
+                mesh=mesh,
+            )
+        return RetrievalEngine(
+            precision=precision,
+            rescore=rescore,
+            device=_resolve_device(device),
+            kernel=kernel,
+            device_rescore=device_rescore,
         )
-    if replicas is not None:
-        raise NotImplementedError("replicas= is not ported to svs_tpu_torch yet")
-    return RetrievalEngine(
+    if mesh is not None:
+        raise ValueError(
+            "mesh and replicas are mutually exclusive: a mesh SHARDS the "
+            "corpus (capacity/latency), replicas COPY it (throughput)"
+        )
+    if device is not None:
+        raise ValueError(
+            "pass devices via replicas=[dev, ...] instead of device= in "
+            "replica mode"
+        )
+    from .parallel.replicas import ReplicaEngine
+
+    by_count = isinstance(replicas, int)
+    return ReplicaEngine(
         precision=precision,
         rescore=rescore,
-        device=_resolve_device(device),
+        n_replicas=replicas if by_count else None,
+        devices=None if by_count else list(replicas),
         kernel=kernel,
         device_rescore=device_rescore,
     )
@@ -1018,7 +1053,10 @@ class _Searcher:
                     rows, ids = rows[present], ids[present]
                 if rows.size < 2:
                     return []
-                corpus = engine.subset_pairwise_corpus(corpus, rows, ids)
+                sub = engine.subset_pairwise_corpus(corpus, rows, ids)
+                if sub is None:  # a mesh engine: no subset corpus
+                    return self.pairwise_postfiltered(corpus, n, where)
+                corpus = sub
                 filtered = True
         if corpus.n_valid < 2 or n <= 0:
             return []
@@ -1047,6 +1085,30 @@ class _Searcher:
             engine.widen_retries += 1
             c = min(total_pairs, c * 4)
             log.info("pairwise rescore margin insufficient; widening to %d", c)
+
+
+    def pairwise_postfiltered(
+        self, corpus: PackedCorpus, n: int, where: Where
+    ) -> List[Tuple[float, DocumentRecord, DocumentRecord]]:
+        """Filtered pairwise for engines without a subset corpus (a mesh):
+        the exact global top-``c`` pairs, kept where BOTH documents pass,
+        ``c`` widened 4x while fewer than ``n`` survive.  Exact: a passing
+        pair outside an exact top-``c`` prefix scores at most the c-th
+        pair, so at most the n-th survivor."""
+        assert where is not None
+        pred = meta_filter_predicate(where) if isinstance(where, dict) else where
+        total = corpus.n_valid * (corpus.n_valid - 1) // 2
+        c = max(n * _FILTER_OVERFETCH, n)
+        while True:
+            pairs = self.top_pairs(corpus, min(c, total), None)
+            kept = [t for t in pairs if pred(t[1]) and pred(t[2])]
+            if len(kept) >= n or c >= total:
+                return kept[:n]
+            c = min(total, c * 4)
+            log.info(
+                "pairwise filter under-filled (%d/%d); widening the exact "
+                "pair prefix to %d", len(kept), n, c,
+            )
 
 
 class _LoopLock:

@@ -11,6 +11,7 @@ Nothing here runs at import: the CPU never builds or loads the library.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -20,7 +21,7 @@ import tempfile
 import threading
 import time
 from pathlib import Path
-from typing import Optional
+from typing import Iterator, Optional, Tuple
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD_ROOT = Path(__file__).resolve().parent.parent.parent / "build" / "svs_tpu_torch"
@@ -156,6 +157,20 @@ def library() -> ctypes.CDLL:
         if _lib is None:
             _lib = load()
     return _lib
+
+
+@contextlib.contextmanager
+def on_device(device) -> Iterator[Tuple[ctypes.CDLL, int]]:
+    """``(library, stream)`` for launches on ``device``, with ``device``
+    made the current CUDA device while they run: the launchers take the
+    current device (``cudaGetDevice``) for their attributes and occupancy,
+    and CUDA refuses a launch on a stream of another device.  A mesh or
+    replica slice on a second card is driven from a thread whose current
+    device is the first."""
+    import torch
+
+    with torch.cuda.device(device):
+        yield library(), torch.cuda.current_stream(device).cuda_stream
 
 
 def check(rc: int, what: str) -> None:

@@ -33,7 +33,7 @@ position.
 
 from __future__ import annotations
 
-from typing import List, Optional, Tuple
+from typing import Generator, List, Optional, Tuple
 
 import torch
 
@@ -66,6 +66,23 @@ def extraction_route_chosen(n: int, rows: int, m: int) -> bool:
     return sel_n <= 2 * n and extract_supported(sel_n, rows, m)
 
 
+def _extraction_input(scores: torch.Tensor, m: int) -> Optional[torch.Tensor]:
+    """The score block as the extraction route takes it (columns padded to
+    the kernel's block with -inf), or ``None`` when
+    :func:`extraction_route_chosen` says the plain top-k."""
+    from .pallas_extract import BLOCK_N as EX_BLOCK
+
+    rows, n = scores.shape
+    if not extraction_route_chosen(n, rows, m):
+        return None
+    sel_n = ((n + EX_BLOCK - 1) // EX_BLOCK) * EX_BLOCK
+    if sel_n != n:
+        scores = torch.cat(
+            [scores, scores.new_full((rows, sel_n - n), NEG_INF)], dim=1
+        )
+    return scores
+
+
 def select_rows_topm(
     scores: torch.Tensor, m: int
 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -75,18 +92,26 @@ def select_rows_topm(
     columns padded to the kernel's block with -inf; else a plain top-k.
     Ties go to the smaller column in the plain top-k and to the higher
     one inside an extraction subtile, as in the reference."""
-    from .pallas_extract import BLOCK_N as EX_BLOCK
     from .pallas_extract import extract_topk
 
-    rows, n = scores.shape
-    if not extraction_route_chosen(n, rows, m):
+    padded = _extraction_input(scores, m)
+    if padded is None:
         return top_k(scores, m)
-    sel_n = ((n + EX_BLOCK - 1) // EX_BLOCK) * EX_BLOCK
-    if sel_n != n:
-        scores = torch.cat(
-            [scores, scores.new_full((rows, sel_n - n), NEG_INF)], dim=1
-        )
-    return extract_topk(scores, m)
+    return extract_topk(padded, m)
+
+
+def select_rows_topm_steps(
+    scores: torch.Tensor, m: int
+) -> "Generator[None, None, Tuple[torch.Tensor, torch.Tensor]]":
+    """:func:`select_rows_topm` as a generator: it yields once before the
+    extraction route's host sync (``pallas_extract.extract_topk_steps``),
+    not at all on the plain route."""
+    from .pallas_extract import extract_topk_steps
+
+    padded = _extraction_input(scores, m)
+    if padded is None:
+        return top_k(scores, m)
+    return (yield from extract_topk_steps(padded, m))
 
 
 def _score_operand(

@@ -33,7 +33,7 @@ the reference's, so ``KEY_EPS``, ``GUARD_KEY_EPS`` and the engine's
 
 from __future__ import annotations
 
-from typing import Callable, Tuple
+from typing import Callable, Generator, Tuple, TypeVar
 
 import torch
 
@@ -49,6 +49,8 @@ from .topk import (
     streaming_score_topk,
     top_k,
 )
+
+T = TypeVar("T")
 
 
 def _exact_fallback(
@@ -143,10 +145,10 @@ def _extract(scores: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     shape = (b, (n // SUBTILE) * EXTRACT_H)
     vals = torch.empty(shape, dtype=torch.float32, device=scores.device)
     idx = torch.empty(shape, dtype=torch.float32, device=scores.device)
-    stream = torch.cuda.current_stream(scores.device).cuda_stream
-    rc = kernels.library().svs_extract(
-        scores.data_ptr(), b, n, vals.data_ptr(), idx.data_ptr(), stream
-    )
+    with kernels.on_device(scores.device) as (lib, stream):
+        rc = lib.svs_extract(
+            scores.data_ptr(), b, n, vals.data_ptr(), idx.data_ptr(), stream
+        )
     kernels.check(rc, "extract kernel")
     _extract.launches += 1  # type: ignore[attr-defined]
     return vals, idx
@@ -185,12 +187,22 @@ def _pad_rows(x: torch.Tensor, fill: float) -> torch.Tensor:
     return torch.cat([x, x.new_full((b_pad - b, x.shape[1]), fill)], dim=0)
 
 
-def extract_topk(
+def drain(steps: "Generator[None, None, T]") -> T:
+    """Run a ``*_steps`` generator to its end and return its value."""
+    while True:
+        try:
+            next(steps)
+        except StopIteration as stop:
+            return stop.value
+
+
+def extract_topk_steps(
     scores: torch.Tensor, k: int
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Exact top-k over ``[B, N]`` scores via ``_extract`` + the verified
-    merge.  Query rows are padded with -inf to a multiple of 8; requires
-    ``extract_supported(N, B, k)``.  Returns ``(vals, idx int32)``."""
+) -> "Generator[None, None, Tuple[torch.Tensor, torch.Tensor]]":
+    """:func:`extract_topk` as a generator: it launches ``_extract`` and
+    yields once, just before the coverage check's host sync, so that a
+    caller driving several shards (``parallel.mesh.run_interleaved``) can
+    queue every shard's launch first."""
     b = scores.shape[0]
     scores = _pad_rows(scores, NEG_INF)
     ev, ei = _extract(scores)
@@ -199,8 +211,18 @@ def extract_topk(
         fv, fi = top_k(scores, k)
         return fv, fi.to(torch.int32)
 
+    yield
     vals, idx = _verified_merge(ev, ei, k, full)
     return vals[:b], idx[:b]
+
+
+def extract_topk(
+    scores: torch.Tensor, k: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact top-k over ``[B, N]`` scores via ``_extract`` + the verified
+    merge.  Query rows are padded with -inf to a multiple of 8; requires
+    ``extract_supported(N, B, k)``.  Returns ``(vals, idx int32)``."""
+    return drain(extract_topk_steps(scores, k))
 
 
 def score_topk_extract_packed(
@@ -296,21 +318,21 @@ def _launch_fused(
     from . import kernels
 
     n, d, b = _check_fused_args(q_docs, row_scales, q_int8, q_scales, n_valid)
-    stream = torch.cuda.current_stream(q_docs.device).cuda_stream
-    rc = kernels.library().svs_fused_int8(
-        mode,
-        q_int8.data_ptr(),
-        q_scales.data_ptr(),
-        q_docs.data_ptr(),
-        row_scales.data_ptr(),
-        b,
-        n,
-        d,
-        int(n_valid),
-        out0.data_ptr(),
-        None if out1 is None else out1.data_ptr(),
-        stream,
-    )
+    with kernels.on_device(q_docs.device) as (lib, stream):
+        rc = lib.svs_fused_int8(
+            mode,
+            q_int8.data_ptr(),
+            q_scales.data_ptr(),
+            q_docs.data_ptr(),
+            row_scales.data_ptr(),
+            b,
+            n,
+            d,
+            int(n_valid),
+            out0.data_ptr(),
+            None if out1 is None else out1.data_ptr(),
+            stream,
+        )
     kernels.check(rc, f"fused int8 kernel (mode {mode})")
 
 
@@ -452,20 +474,20 @@ def _launch_fused_float(
     from . import kernels
 
     n, d, b = _check_float_args(docs, queries, n_valid)
-    stream = torch.cuda.current_stream(docs.device).cuda_stream
-    rc = kernels.library().svs_fused_float(
-        mode,
-        _FLOAT_DTYPES[docs.dtype],
-        queries.data_ptr(),
-        docs.data_ptr(),
-        b,
-        n,
-        d,
-        int(n_valid),
-        out0.data_ptr(),
-        None if out1 is None else out1.data_ptr(),
-        stream,
-    )
+    with kernels.on_device(docs.device) as (lib, stream):
+        rc = lib.svs_fused_float(
+            mode,
+            _FLOAT_DTYPES[docs.dtype],
+            queries.data_ptr(),
+            docs.data_ptr(),
+            b,
+            n,
+            d,
+            int(n_valid),
+            out0.data_ptr(),
+            None if out1 is None else out1.data_ptr(),
+            stream,
+        )
     kernels.check(rc, f"fused float kernel (mode {mode})")
 
 
@@ -678,11 +700,45 @@ def _fused2_finish(
     the padded batch; coverage is judged on the first ``b_real`` rows only
     (zero-padded query rows tie), the domain guard on every row, and the
     one host decision on ``covered`` is the reference's ``bool(covered)``."""
+    vals, idx, failed = _fused2_launch_finish(keys1, k, h2, b_real)
+    return vals, idx, not bool(failed)
+
+
+def _fused2_launch_finish(
+    keys1: torch.Tensor, k: int, h2: int, b_real: int
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """:func:`_fused2_finish` up to its host decision: ``(vals, idx,
+    failed)``, ``failed`` a device bool."""
     vals, idx, flags = _staged_finish(keys1, False, k, h2)
     failed = torch.logical_or(
         torch.any(flags[:b_real] & 1 != 0), torch.any(flags & 2 != 0)
     )
-    return vals, idx, not bool(failed)
+    return vals, idx, failed
+
+
+def fused2_topk_int8_steps(
+    q_docs: torch.Tensor,
+    row_scales: torch.Tensor,
+    queries: torch.Tensor,
+    n_valid: int,
+    k: int,
+) -> "Generator[None, None, Tuple[torch.Tensor, torch.Tensor]]":
+    """:func:`fused2_topk_int8` as a generator that yields once, just
+    before its coverage decision's host sync (see
+    :func:`extract_topk_steps`)."""
+    n = q_docs.shape[0]
+    b = queries.shape[0]
+    queries = _pad_rows(queries, 0.0)
+    q_int8, q_scales = quantize_rows_int8(queries)
+    keys1 = _fused2_extract_int8(q_docs, row_scales, q_int8, q_scales, n_valid)
+    vals, idx, failed = _fused2_launch_finish(keys1, k, _reduce_h2(n, k), b)
+    yield
+    if bool(failed):
+        fv, idx = _exact_fallback(
+            q_docs, queries, n_valid, k, row_scales=row_scales
+        )
+        vals = fv.to(torch.float32)
+    return vals[:b], idx[:b]
 
 
 def fused2_topk_int8(
@@ -695,18 +751,7 @@ def fused2_topk_int8(
     """int8 keyed path, unpacked: ``(quantized vals f32 [B, k], int32
     rows [B, k])``; the exact fallback runs when coverage fails.
     Requires ``fused2_supported``."""
-    n = q_docs.shape[0]
-    b = queries.shape[0]
-    queries = _pad_rows(queries, 0.0)
-    q_int8, q_scales = quantize_rows_int8(queries)
-    keys1 = _fused2_extract_int8(q_docs, row_scales, q_int8, q_scales, n_valid)
-    vals, idx, covered = _fused2_finish(keys1, k, _reduce_h2(n, k), b)
-    if not covered:
-        fv, idx = _exact_fallback(
-            q_docs, queries, n_valid, k, row_scales=row_scales
-        )
-        vals = fv.to(torch.float32)
-    return vals[:b], idx[:b]
+    return drain(fused2_topk_int8_steps(q_docs, row_scales, queries, n_valid, k))
 
 
 def score_topk_fused2_int8_packed(
@@ -752,6 +797,26 @@ def _fused2_extract(
 _fused2_extract.launches = 0  # type: ignore[attr-defined]
 
 
+def fused2_topk_steps(
+    docs: torch.Tensor,
+    queries: torch.Tensor,
+    n_valid: int,
+    k: int,
+) -> "Generator[None, None, Tuple[torch.Tensor, torch.Tensor]]":
+    """:func:`fused2_topk` as a generator that yields once, just before
+    its coverage decision's host sync (see :func:`extract_topk_steps`)."""
+    n = docs.shape[0]
+    b = queries.shape[0]
+    q = _queries_as_docs(docs, queries)
+    keys1 = _fused2_extract(docs, q, n_valid)
+    vals, idx, failed = _fused2_launch_finish(keys1, k, _reduce_h2(n, k), b)
+    yield
+    if bool(failed):
+        fv, idx = _exact_fallback(docs, q, n_valid, k)
+        vals = fv.to(torch.float32)
+    return vals[:b], idx[:b]
+
+
 def fused2_topk(
     docs: torch.Tensor,
     queries: torch.Tensor,
@@ -761,15 +826,7 @@ def fused2_topk(
     """Float keyed path, unpacked: ``(quantized vals f32 [B, k], int32
     rows [B, k])``; the exact fallback runs when coverage fails.
     Requires ``fused2_supported``."""
-    n = docs.shape[0]
-    b = queries.shape[0]
-    q = _queries_as_docs(docs, queries)
-    keys1 = _fused2_extract(docs, q, n_valid)
-    vals, idx, covered = _fused2_finish(keys1, k, _reduce_h2(n, k), b)
-    if not covered:
-        fv, idx = _exact_fallback(docs, q, n_valid, k)
-        vals = fv.to(torch.float32)
-    return vals[:b], idx[:b]
+    return drain(fused2_topk_steps(docs, queries, n_valid, k))
 
 
 def score_topk_fused2_packed(
@@ -1055,25 +1112,24 @@ def _staged_finish(
         return _staged_finish_plain(src, v3, c, h2)
     from . import kernels
 
-    lib = kernels.library()
     src = src.contiguous()
     vals = torch.empty((b, c), dtype=torch.float32, device=src.device)
     idx = torch.empty((b, c), dtype=torch.int32, device=src.device)
     aux = torch.empty(
         (b,), dtype=torch.float32 if v3 else torch.int32, device=src.device
     )
-    # past the shared-memory limit (C or the winners of a corpus well past
-    # 1M docs) the kernel keeps its buffers in this scratch
-    nbytes = lib.svs_staged_finish_scratch(b, width, int(v3), c, h2)
-    if nbytes < 0:
-        kernels.check(-nbytes, "staged finish kernel")
-    scratch = torch.empty(nbytes, dtype=torch.uint8, device=src.device) if nbytes else None
-    stream = torch.cuda.current_stream(src.device).cuda_stream
-    rc = lib.svs_staged_finish(
-        src.data_ptr(), b, width, int(v3), c, h2,
-        vals.data_ptr(), idx.data_ptr(), aux.data_ptr(),
-        None if scratch is None else scratch.data_ptr(), nbytes, stream,
-    )
+    with kernels.on_device(src.device) as (lib, stream):
+        # past the shared-memory limit (C or the winners of a corpus well
+        # past 1M docs) the kernel keeps its buffers in this scratch
+        nbytes = lib.svs_staged_finish_scratch(b, width, int(v3), c, h2)
+        if nbytes < 0:
+            kernels.check(-nbytes, "staged finish kernel")
+        scratch = torch.empty(nbytes, dtype=torch.uint8, device=src.device) if nbytes else None
+        rc = lib.svs_staged_finish(
+            src.data_ptr(), b, width, int(v3), c, h2,
+            vals.data_ptr(), idx.data_ptr(), aux.data_ptr(),
+            None if scratch is None else scratch.data_ptr(), nbytes, stream,
+        )
     kernels.check(rc, "staged finish kernel")
     _staged_finish.launches += 1  # type: ignore[attr-defined]
     return vals, idx, aux
@@ -1257,10 +1313,8 @@ def pairwise_keys_extract(scores: torch.Tensor) -> torch.Tensor:
         dtype=torch.float32,
         device=scores.device,
     )
-    stream = torch.cuda.current_stream(scores.device).cuda_stream
-    rc = kernels.library().svs_pair_keys(
-        scores.data_ptr(), r, n, out.data_ptr(), stream
-    )
+    with kernels.on_device(scores.device) as (lib, stream):
+        rc = lib.svs_pair_keys(scores.data_ptr(), r, n, out.data_ptr(), stream)
     kernels.check(rc, "pair_keys kernel")
     pairwise_keys_extract.launches += 1  # type: ignore[attr-defined]
     return out

@@ -68,6 +68,41 @@ def top_k(values: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     return vals[..., :k], pos[..., :k]
 
 
+def merge_topk(
+    values: torch.Tensor, indices: torch.Tensor, k: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Merge candidate sets along the last axis into one exact top-``k``
+    (``svs_tpu.ops.topk.merge_topk``): ``values``/``indices`` are ``[...,
+    C]`` with C >= k, e.g. per-shard winners side by side.  Any global
+    top-k element is in the union of the per-source top-k sets, so
+    selecting again over the union is exact; ties keep the union's
+    order (:func:`top_k`)."""
+    top_vals, top_pos = top_k(values, k)
+    return top_vals, torch.gather(indices, -1, top_pos)
+
+
+def gathered_dots(
+    src: torch.Tensor, at: torch.Tensor, queries: torch.Tensor
+) -> torch.Tensor:
+    """Exact f32 dots of rows ``src[at]`` (``at`` ``[B, C]``) with their
+    query (``queries`` ``[B, d]``): one gather and one ``bmm``, TF32 off.
+    Returns ``[B, C]``."""
+    cand = src[at]  # [B, C, d]
+    with exact_f32():
+        return torch.bmm(cand, queries[:, :, None].to(torch.float32))[:, :, 0]
+
+
+def gathered_scores(
+    src: torch.Tensor, at: torch.Tensor, queries: torch.Tensor
+) -> torch.Tensor:
+    """Exact f32 scores of every query against rows ``src[at]`` (``at``
+    ``[F]``): one gather and one ``[B, d] x [F, d]^T`` product, TF32 off.
+    Returns ``[B, F]``."""
+    cand = src[at]  # [F, d]
+    with exact_f32():
+        return queries.to(torch.float32) @ cand.t()
+
+
 def int8_dot(q_int8: torch.Tensor, docs_int8: torch.Tensor) -> torch.Tensor:
     """Exact ``[B, d] x [N, d]^T`` int8 product with int32 accumulation —
     the product the reference package leaves to XLA outside any kernel.

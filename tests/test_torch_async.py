@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import svs_tpu
 import svs_tpu_torch
 
@@ -354,9 +355,23 @@ async def test_filtered_pairwise(db_path, AKB):
 
 
 async def test_mesh_and_replicas_refused():
-    for kw in ({"mesh": object()}, {"replicas": 2}):
-        with pytest.raises(NotImplementedError):
-            svs_tpu_torch.AsyncKB("unused.sqlite", device="cpu", **kw)
+    """A mesh together with replicas, and ``device=`` in replica mode, are
+    refused with the reference's messages (meshes and replicas themselves
+    run: ``tests/test_torch_kb_mesh.py``, ``tests/test_torch_replicas.py``)."""
+    from svs_tpu.parallel import default_mesh as j_default_mesh
+    from svs_tpu_torch.parallel import default_mesh
+
+    cases = (
+        ({"mesh": j_default_mesh(), "replicas": 2},
+         {"mesh": default_mesh(devices=["cpu"] * 2), "replicas": ["cpu"] * 2}),
+        ({"replicas": 2, "device": jax.devices()[0]}, {"replicas": ["cpu"] * 2, "device": "cpu"}),
+    )
+    for ref_kw, port_kw in cases:
+        with pytest.raises(ValueError) as want:
+            svs_tpu.AsyncKB("unused.sqlite", **ref_kw)
+        with pytest.raises(ValueError) as got:
+            svs_tpu_torch.AsyncKB("unused.sqlite", **port_kw)
+        assert str(got.value) == str(want.value)
 
 
 # --- parity with svs_tpu.AsyncKB and the port's KB ------------------------------------

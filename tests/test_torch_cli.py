@@ -4,20 +4,31 @@ CLI cases of ``tests/test_tools.py``) run through both ``main``s, each on
 its own copy of one store, with ``--device cpu`` for the port; stdout,
 stderr and exit codes must be equal (paths and timings aside).  Then
 what the port does on its own: ``--device``, ``bench`` (no benchmark yet:
-it never runs the JAX ``bench.py``), ``--replicas`` and a local model type
-that is not ported (exit 2, no traceback); and ``info`` / ``query`` on
-stores of the openai, ollama and local providers."""
+it never runs the JAX ``bench.py``), ``serve --replicas`` (copies of the
+corpus on the CPU answer; more replicas than CUDA devices exit 2 with the
+reference's message) and a local model type that is not ported (exit 2,
+no traceback); and ``info`` / ``query`` on stores of the openai, ollama
+and local providers."""
 
+import http.client
 import json
 import re
 import shutil
+import signal
+import socket
 import sqlite3
+import subprocess
+import sys
+import time
+from pathlib import Path
 
+import jax
 import pytest
 import torch
 
 import svs_tpu
 import svs_tpu.cli as ref_cli
+import svs_tpu.parallel.replicas as ref_replicas
 import svs_tpu_torch
 import svs_tpu_torch.cli as port_cli
 
@@ -247,9 +258,15 @@ def test_bench_says_there_is_no_port_benchmark(monkeypatch, capsys):
 
 
 def test_replicas_and_unported_provider_exit_2(tmp_path, capsys):
-    assert port_cli.main(["serve", str(tmp_path / "x.sqlite"), "--replicas", "2"]) == 2
+    # more replicas than the machine has CUDA devices: the replica engine's
+    # message (the JAX package's text), exit 2, no traceback
+    n = torch.cuda.device_count() + 1
+    assert port_cli.main(["serve", str(tmp_path / "x.sqlite"), "--replicas", str(n)]) == 2
     err = capsys.readouterr().err
-    assert "replicas" in err and "not ported" in err and "Traceback" not in err
+    want = f"n_replicas={n} but only {n - 1} devices available"
+    with pytest.raises(ValueError, match=want):
+        ref_replicas.ReplicaEngine(n_replicas=n, devices=jax.devices()[: n - 1])
+    assert want in err and "Traceback" not in err
     # a store written with a local provider whose model type the port does
     # not carry (every provider is ported; encoders past BERT are not)
     ck = write_tiny_bert(tmp_path / "roberta", model_type="roberta")
@@ -268,6 +285,109 @@ def test_replicas_and_unported_provider_exit_2(tmp_path, capsys):
         assert port_cli.main(argv) == 2
         err = capsys.readouterr().err
         assert "not ported" in err and "roberta" in err and "Traceback" not in err
+
+
+def _free_port():
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+@pytest.mark.parametrize(
+    "device, n, want",
+    [
+        ("cuda", 4, ["cuda:0", "cuda:1", "cuda:2", "cuda:3"]),
+        ("cuda:1", 2, ["cuda:1", "cuda:2"]),
+        ("cuda:2", 3, "n_replicas=3 but only 2 devices available"),
+        ("cuda", 5, "n_replicas=5 but only 4 devices available"),
+        ("cpu", 3, ["cpu", "cpu", "cpu"]),
+        ("cpu", 0, "n_replicas must be >= 1"),
+    ],
+)
+def test_cli_replica_devices(monkeypatch, capsys, tmp_path, device, n, want):
+    """``--replicas N`` takes N CUDA devices from ``--device``'s index (on a
+    4-card host), or N copies of the CPU; too few devices is the replica
+    engine's message, exit 2, checked before the server starts (a
+    ``ValueError`` from serving is not turned into that exit)."""
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    if isinstance(want, list):
+        assert port_cli._replica_devices(device, n) == want
+        return
+    with pytest.raises(ValueError, match=want):
+        port_cli._replica_devices(device, n)
+
+    def no_server(*a, **k):
+        raise AssertionError("the server started")
+
+    import svs_tpu_torch.serve as serve_mod
+
+    monkeypatch.setattr(serve_mod, "run_server", no_server)
+    argv = ["serve", str(tmp_path / "x.sqlite"), "--replicas", str(n), "--device", device]
+    assert port_cli.main(argv) == 2
+    err = capsys.readouterr().err
+    assert want in err and "Traceback" not in err
+
+
+def test_cli_serve_value_error_is_not_a_replica_error(monkeypatch, tmp_path):
+    """A ``ValueError`` raised while the server runs propagates: only the
+    replica count's error becomes exit 2."""
+    import svs_tpu_torch.serve as serve_mod
+
+    def bad_server(*a, **k):
+        raise ValueError("bad store")
+
+    monkeypatch.setattr(serve_mod, "run_server", bad_server)
+    with pytest.raises(ValueError, match="bad store"):
+        port_cli.main(["serve", str(tmp_path / "x.sqlite"), "--replicas", "1",
+                       "--device", "cpu"])
+
+
+@pytest.mark.parametrize("replicas", [1, 2])
+def test_cli_serve_replicas_on_the_cpu_answers(tmp_path, replicas):
+    """``serve --replicas N --device cpu``: N copies of the corpus on the
+    CPU; the server answers a batch (split across the replicas) with the
+    reference tie order, and exits 0 on SIGTERM."""
+    db = tmp_path / "served.sqlite"
+    kb = svs_tpu_torch.KB(db, svs_tpu_torch.make_mock_embeddings_func(),
+                          force_fresh_db=True, device="cpu")
+    with kb.bulk_add_docs() as add:
+        for i in range(6):
+            add(f"doc {i}")
+    kb.close()
+    port = _free_port()
+    log = tmp_path / "serve.log"
+    with open(log, "wb") as out:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "svs_tpu_torch", "serve", str(db), "--device", "cpu",
+             "--replicas", str(replicas), "--port", str(port), "--max-batch", "4"],
+            cwd=Path(svs_tpu_torch.__file__).resolve().parent.parent,
+            stdout=out, stderr=subprocess.STDOUT,
+        )
+    try:
+        deadline = time.monotonic() + 90
+        while True:
+            assert proc.poll() is None, log.read_text()
+            try:
+                c = http.client.HTTPConnection("127.0.0.1", port, timeout=30)
+                c.request("GET", "/healthz")
+                r = c.getresponse()
+                assert r.status == 200 and json.loads(r.read())["docs"] == 6
+                break
+            except OSError:
+                assert time.monotonic() < deadline, log.read_text()
+                time.sleep(0.2)
+        c.request("POST", "/retrieve", body=json.dumps({"queries": ["a", "b", "c"], "n": 2}))
+        r = c.getresponse()
+        results = json.loads(r.read())["results"]
+        assert r.status == 200
+        assert [[h["doc"]["text"] for h in hits] for hits in results] == [["doc 5", "doc 4"]] * 3
+        c.close()
+        proc.send_signal(signal.SIGTERM)
+        assert proc.wait(timeout=60) == 0, log.read_text()
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=60)
 
 
 def _query_lines(out):

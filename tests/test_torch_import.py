@@ -4,8 +4,9 @@ above 256, top document pairs, metadata filters and ``AsyncKB``, the
 deferred upload, the host route and the native library, the HTTP server,
 the CLI and the tools; the embedding providers, the dispatch calibration
 and the trace export, with ``transformers``, ``flax``, ``msgpack`` and
-``aiohttp`` blocked too), never imports ``svs_tpu``, and refuses to fall
-back to the CPU when no device was named."""
+``aiohttp`` blocked too; meshes and replicas, with ``svs_tpu`` itself
+blocked), never imports ``svs_tpu``, and refuses to fall back to the CPU
+when no device was named."""
 
 import subprocess
 import sys
@@ -386,6 +387,57 @@ _BLOCKED_PROVIDERS = textwrap.dedent(
 )
 
 
+_BLOCKED_PARALLEL = textwrap.dedent(
+    """
+    import sys
+
+    BLOCKED = ("jax", "jaxlib", "networkx", "ml_dtypes", "aiohttp", "dotenv", "svs_tpu")
+
+    class Blocker:
+        def find_spec(self, name, path=None, target=None):
+            if name.split(".")[0] in BLOCKED:
+                raise ImportError(f"{name} is blocked in this test")
+            return None
+
+    sys.meta_path.insert(0, Blocker())
+
+    import svs_tpu_torch.parallel
+    import svs_tpu_torch.parallel.mesh
+    import svs_tpu_torch.parallel.multihost as multihost
+    import svs_tpu_torch.parallel.pairwise_sharded
+    import svs_tpu_torch.parallel.replicas
+    import svs_tpu_torch.parallel.sharded
+    from svs_tpu_torch import KB, make_mock_embeddings_func
+    from svs_tpu_torch.parallel import default_mesh, mesh_2d
+
+    path = sys.argv[1]
+    kb = KB(path, make_mock_embeddings_func(), force_fresh_db=True,
+            mesh=default_mesh(devices=["cpu"] * 4))
+    with kb.bulk_add_docs() as add:
+        ids = [add(f"doc {i}") for i in range(6)]
+    hits = kb.retrieve("anything", 3)
+    assert [h["doc"]["id"] for h in hits] == ids[::-1][:3], hits
+    assert len(kb.document_top_pairwise_scores(2)) == 2
+    kb.close()
+    kb = KB(path, mesh=mesh_2d(2, 2, devices=["cpu"] * 4), precision="f32")
+    assert len(kb.retrieve("anything", 3)) == 3
+    kb.close()
+    kb = KB(path, replicas=["cpu"] * 3)
+    assert [h["doc"]["id"] for h in kb.retrieve_batch(["a", "b", "c"], 2)[2]] == ids[::-1][:2]
+    kb.close()
+    try:
+        multihost.initialize()
+    except NotImplementedError as exc:
+        assert "not ported" in str(exc), exc
+    else:
+        raise AssertionError("multihost.initialize did not raise")
+    loaded = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
+    assert not loaded, loaded
+    print("ROUND_TRIP_OK")
+    """
+)
+
+
 def _run_blocked(script: str, tmp_path: Path) -> None:
     repo = Path(svs_tpu_torch.__file__).resolve().parent.parent
     proc = subprocess.run(
@@ -434,6 +486,14 @@ def test_providers_calibration_trace_without_jax_transformers_flax_msgpack_aioht
     ``svs_tpu``, ``transformers``, ``flax``, ``msgpack`` and ``aiohttp``
     blocked; the calibration and trace modules import."""
     _run_blocked(_BLOCKED_PROVIDERS, tmp_path)
+
+
+def test_parallel_modules_without_jax_or_svs_tpu(tmp_path):
+    """Every module of ``svs_tpu_torch.parallel`` imports with JAX and
+    ``svs_tpu`` blocked; a mesh KB (1-D and 2-D) and a replica KB answer
+    on repeated CPU devices; ``multihost.initialize`` raises and names
+    itself."""
+    _run_blocked(_BLOCKED_PARALLEL, tmp_path)
 
 
 def test_kb_without_device_refuses_cpu(tmp_path):

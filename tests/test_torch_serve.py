@@ -562,13 +562,35 @@ async def test_kv_routes(tmp_path):
     await _parity(scenario, tmp_path)
 
 
-def test_serve_with_replica_engine_is_not_ported(db_path):
-    """``svs_tpu``'s replica engine has no port yet: ``replicas=`` raises
-    (the reference's case, ``test_serve_with_replica_engine``, stays in
-    ``tests/test_serve.py``)."""
-    with pytest.raises(NotImplementedError, match="replicas"):
-        svs_tpu_torch.AsyncKB(db_path, make_onehot_embedder(), force_fresh_db=True,
-                              replicas=4, device="cpu")
+async def test_serve_with_replica_engine_is_not_ported(tmp_path):
+    """The reference's ``test_serve_with_replica_engine`` through both
+    servers (the replica engine is ported now; the name is kept): each
+    micro-batch of a burst splits across 4 replicas inside the engine, the
+    reference's on its virtual devices, the port's on ``[cpu] * 4``."""
+
+    async def scenario(pkg, db_path, t):
+        make = svs_tpu.AsyncKB if pkg is REF else svs_tpu_torch.AsyncKB  # no device=
+        kb = make(db_path, make_onehot_embedder(), force_fresh_db=True,
+                  replicas=4 if pkg is REF else ["cpu"] * 4)
+        async with kb.bulk_add_docs() as add:
+            for i in range(16):
+                await add(f"vec:{i}")
+        client = await _client(pkg, kb)
+        try:
+            outs = await asyncio.gather(*[
+                t.call(client, "POST", "/retrieve", label=f"vec:{i}",
+                       json={"query": f"vec:{i}", "n": 1})
+                for i in range(10)
+            ])
+            for i, (st, body) in enumerate(outs):
+                assert st == 200
+                assert body["results"][0]["doc"]["text"] == f"vec:{i}"
+            t.sort(key=lambda entry: entry[0])  # completion order varies
+        finally:
+            await client.close()
+            await kb.close()
+
+    await _parity(scenario, tmp_path)
 
 
 async def test_doc_routes(tmp_path):
