@@ -431,7 +431,8 @@ def main(argv: "Optional[List[str]]" = None) -> int:
         return args.fn(args)
     except NotImplementedError as exc:
         # a part of svs_tpu the port does not carry yet (a local model
-        # type): the message names it
+        # type such as albert, a tokenizer file or component): the
+        # message names it
         print(f"error: {exc}", file=sys.stderr)
         return 2
 

@@ -2,8 +2,8 @@
 from a host pack given as NumPy arrays — the port's own ``pack_host``
 output, or ``svs_tpu.engine.packing.pack_host``'s (the parity tests use
 that to search the identical pack with both packages); and a Flax BERT
-parameter tree as the port's encoder's state dict
-(:func:`bert_state_dict_from_flax`).  This module imports neither
+parameter tree of a BERT-family or DistilBERT encoder as the port's
+encoder's state dict (:func:`encoder_state_dict_from_flax`).  This module imports neither
 package's JAX side: it only takes arrays."""
 
 from __future__ import annotations
@@ -160,12 +160,15 @@ def bert_state_dict_from_flax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]
             if isinstance(value, dict):
                 walk(value, f"{prefix}{name}.")
                 continue
-            arr = np.array(value, dtype=np.float32)  # a writable copy
             if name == "kernel":
-                if arr.ndim != 2:
-                    raise ValueError(f"{prefix}kernel: expected a 2-D Dense kernel, got {arr.shape}")
-                arr, name = arr.T, "weight"
-            elif name in ("scale", "embedding"):
+                if np.ndim(value) != 2:
+                    raise ValueError(f"{prefix}kernel: expected a 2-D Dense kernel, got {np.shape(value)}")
+                # one writable copy, transposed on the way
+                arr, name = np.ascontiguousarray(np.asarray(value).T, dtype=np.float32), "weight"
+                out[prefix + name] = torch.from_numpy(arr)
+                continue
+            arr = np.array(value, dtype=np.float32)  # a writable copy
+            if name in ("scale", "embedding"):
                 name = "weight"
             elif name != "bias":
                 raise ValueError(f"unexpected Flax parameter {prefix}{name}")
@@ -173,3 +176,35 @@ def bert_state_dict_from_flax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]
 
     walk({k: v for k, v in params.items() if k != "pooler"}, "")
     return out
+
+
+#: The top-level subtrees of each family's Flax base model (the pooler,
+#: where a family has one, is dropped).
+_FLAX_TOP = {
+    "bert": ("embeddings", "encoder"),
+    "roberta": ("embeddings", "encoder"),
+    "xlm-roberta": ("embeddings", "encoder"),
+    "electra": ("embeddings", "embeddings_project", "encoder"),
+    "distilbert": ("embeddings", "transformer"),
+}
+
+
+def encoder_state_dict_from_flax(
+    config: Dict[str, Any], params: Dict[str, Any]
+) -> Dict[str, torch.Tensor]:
+    """The Flax base-model tree of ``config``'s ``model_type`` as the state
+    dict of the port's encoder (:func:`svs_tpu_torch.embeddings.encoders.
+    build_encoder`), leaf by leaf as :func:`bert_state_dict_from_flax`:
+    BERT, RoBERTa and XLM-R trees are ``embeddings`` + ``encoder.layer.N``;
+    ELECTRA's adds ``embeddings_project`` (when ``embedding_size`` differs
+    from ``hidden_size``); DistilBERT's is ``embeddings`` +
+    ``transformer.layer.N.{attention.{q,k,v,out}_lin, sa_layer_norm,
+    ffn.lin1, ffn.lin2, output_layer_norm}``.  A subtree the family does
+    not have raises ``ValueError``."""
+    model_type = config.get("model_type")
+    if model_type not in _FLAX_TOP:
+        raise NotImplementedError(f"model_type {model_type!r} has no weight conversion")
+    extra = sorted(set(params) - set(_FLAX_TOP[model_type]) - {"pooler"})
+    if extra:
+        raise ValueError(f"unexpected subtrees {extra} in a {model_type} checkpoint")
+    return bert_state_dict_from_flax(params)

@@ -1,68 +1,155 @@
-"""A BERT encoder (``model_type: "bert"``) in plain PyTorch: the forward
-pass of ``transformers``' ``FlaxBertModel`` that ``svs_tpu``'s local
+"""The post-LayerNorm BERT encoder family in plain PyTorch: the forward
+pass of ``transformers``' ``FlaxBertModel``, ``FlaxRobertaModel``,
+``FlaxXLMRobertaModel`` and ``FlaxElectraModel`` that ``svs_tpu``'s local
 provider runs, up to ``last_hidden_state``.
 
-- embeddings: word + token type (all 0) + absolute position, then
-  LayerNorm with the config's eps;
-- each layer: self-attention (the query scaled by 1/sqrt(head dim), an
-  additive mask of 0 / the f32 minimum over padded keys, softmax), the
-  output projection, residual and LayerNorm; the intermediate projection
-  with exact-erf GELU (``hidden_act: "gelu"``); the output
-  projection, residual and LayerNorm.
+One stack serves the four ``model_type``s; only the embeddings differ:
 
-Parameter names are those of ``transformers``' PyTorch ``BertModel`` (less
-the pooler, which ``last_hidden_state`` does not use), so
-``svs_tpu_torch.convert.bert_state_dict_from_flax`` maps a Flax tree onto
-it.  The encoder is dense matrix products, which the JAX package leaves to
-XLA outside any Pallas kernel; here they are PyTorch's (no kernel of this
-repository).  Precision is the caller's: ``svs_tpu_torch.embeddings.local``
-runs it in f32 (TF32 off) or under ``torch.autocast`` in bf16 with f32
-parameters, as Flax's ``dtype=`` keeps them.
+- ``bert``: word + token type (all 0) + absolute position (0, 1, ...);
+- ``roberta`` / ``xlm-roberta``: positions count the real tokens from
+  ``pad_token_id + 1`` and a pad sits at ``pad_token_id``
+  (``cumsum(ids != pad) * (ids != pad) + pad``, as
+  ``create_position_ids_from_input_ids``); ``type_vocab_size`` may be 1;
+- ``electra``: word, position and token type tables of width
+  ``embedding_size``, the token types all 1 (``FlaxElectraModel``'s
+  default when none are passed), and an ``embeddings_project`` Dense layer
+  to ``hidden_size`` when the two widths differ.
+
+Then LayerNorm with the config's eps, and each layer: self-attention (the
+query scaled by 1/sqrt(head dim), an additive mask of 0 / the f32 minimum
+over padded keys, softmax), the output projection, residual and
+LayerNorm; the intermediate projection with the config's ``hidden_act``
+(:data:`ACTIVATIONS`); the output projection, residual and LayerNorm.
+
+Parameter names are those of the Flax tree (less the pooler, which
+``last_hidden_state`` does not use), so
+``svs_tpu_torch.convert.encoder_state_dict_from_flax`` maps a checkpoint
+onto it.  The encoder is dense matrix products, which the JAX package
+leaves to XLA outside any Pallas kernel; here they are PyTorch's (no
+kernel of this repository).  Precision is the caller's:
+``svs_tpu_torch.embeddings.local`` runs it in f32 (TF32 off) or under
+``torch.autocast`` in bf16 with f32 parameters, as Flax's ``dtype=`` keeps
+them.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Any, Dict
+from typing import Any, Callable, Dict
 
 import torch
 from torch import nn
 from torch.nn import functional as F
 
+#: The ``model_type``s this module's encoder computes.
+MODEL_TYPES = ("bert", "roberta", "xlm-roberta", "electra")
+#: ``transformers``' Flax ``ACT2FN`` entries that are ported (``gelu`` is
+#: the exact erf form, ``gelu_new`` / ``gelu_pytorch_tanh`` the tanh one).
+ACTIVATIONS: Dict[str, Callable[[torch.Tensor], torch.Tensor]] = {
+    "gelu": F.gelu,
+    "gelu_new": lambda x: F.gelu(x, approximate="tanh"),
+    "gelu_pytorch_tanh": lambda x: F.gelu(x, approximate="tanh"),
+    "relu": F.relu,
+    "silu": F.silu,
+    "swish": F.silu,
+}
+
+
+def activation(name: str) -> Callable[[torch.Tensor], torch.Tensor]:
+    fn = ACTIVATIONS.get(name)
+    if fn is None:
+        raise NotImplementedError(
+            f"activation {name!r} is not ported (ported: {sorted(ACTIVATIONS)})"
+        )
+    return fn
 
 
 def check_config(config: Dict[str, Any]) -> None:
     """Refuse what this encoder does not compute, naming it."""
     model_type = config.get("model_type")
-    if model_type != "bert":
+    if model_type not in MODEL_TYPES:
         raise NotImplementedError(
-            f"model_type {model_type!r} is not ported: svs_tpu_torch's local "
-            "provider runs BERT encoders (model_type 'bert') only"
+            f"model_type {model_type!r} is not a BERT-family encoder "
+            f"(this module runs {MODEL_TYPES})"
         )
-    act = config.get("hidden_act", "gelu")
-    if act != "gelu":  # exact erf, as bge-*-en-v1.5 and all-MiniLM-L6-v2 use
-        raise NotImplementedError(f"hidden_act {act!r} is not ported")
+    activation(config.get("hidden_act", "gelu"))
     pos = config.get("position_embedding_type", "absolute")
     if pos != "absolute":
         raise NotImplementedError(f"position_embedding_type {pos!r} is not ported")
 
 
+class Linear(nn.Module):
+    """``nn.Linear``'s parameters and product, left uninitialised: the
+    weights always come from a checkpoint, and an encoder of hundreds of
+    millions of parameters builds on the meta device in no time."""
+
+    def __init__(self, d_in: int, d_out: int) -> None:
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(d_out, d_in))
+        self.bias = nn.Parameter(torch.empty(d_out))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x, self.weight, self.bias)
+
+
+class Embedding(nn.Module):
+    """``nn.Embedding``'s table and lookup, left uninitialised."""
+
+    def __init__(self, n: int, width: int) -> None:
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(n, width))
+
+    def forward(self, ids: torch.Tensor) -> torch.Tensor:
+        return F.embedding(ids, self.weight)
+
+
+class LayerNorm(nn.Module):
+    """``nn.LayerNorm`` over the last axis, left uninitialised."""
+
+    def __init__(self, width: int, eps: float) -> None:
+        super().__init__()
+        self.width, self.eps = width, float(eps)
+        self.weight = nn.Parameter(torch.empty(width))
+        self.bias = nn.Parameter(torch.empty(width))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.layer_norm(x, (self.width,), self.weight, self.bias, self.eps)
+
+
+def attention_bias(mask: torch.Tensor) -> torch.Tensor:
+    """``[B, L]`` 0/1 mask -> ``[B, 1, 1, L]`` f32 additive bias: 0 over
+    real keys, the f32 minimum over padded ones (Flax's ``lax.select``)."""
+    zero = torch.zeros((), dtype=torch.float32, device=mask.device)
+    neg = torch.full((), torch.finfo(torch.float32).min, dtype=torch.float32, device=mask.device)
+    return torch.where(mask[:, None, None, :] > 0, zero, neg)
+
+
 class _Embeddings(nn.Module):
     def __init__(self, c: Dict[str, Any]) -> None:
         super().__init__()
-        h = c["hidden_size"]
-        self.word_embeddings = nn.Embedding(c["vocab_size"], h)
-        self.position_embeddings = nn.Embedding(c["max_position_embeddings"], h)
-        self.token_type_embeddings = nn.Embedding(c.get("type_vocab_size", 2), h)
-        self.LayerNorm = nn.LayerNorm(h, eps=c.get("layer_norm_eps", 1e-12))
+        self.model_type = c["model_type"]
+        width = c["hidden_size"]
+        if self.model_type == "electra":
+            width = c.get("embedding_size", width)
+        self.word_embeddings = Embedding(c["vocab_size"], width)
+        self.position_embeddings = Embedding(c["max_position_embeddings"], width)
+        self.token_type_embeddings = Embedding(c.get("type_vocab_size", 2), width)
+        self.LayerNorm = LayerNorm(width, c.get("layer_norm_eps", 1e-12))
+        default_pad = 1 if self.model_type in ("roberta", "xlm-roberta") else 0
+        self.pad_token_id = int(c.get("pad_token_id", default_pad))
+        self.token_type = 1 if self.model_type == "electra" else 0
+
+    def positions(self, ids: torch.Tensor) -> torch.Tensor:
+        if self.model_type in ("roberta", "xlm-roberta"):
+            real = (ids != self.pad_token_id).to(torch.int64)
+            return torch.cumsum(real, dim=1) * real + self.pad_token_id
+        return torch.arange(ids.shape[1], device=ids.device)[None]
 
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
-        pos = torch.arange(ids.shape[1], device=ids.device)
-        token_type = torch.zeros_like(ids)
         x = (
             self.word_embeddings(ids)
-            + self.token_type_embeddings(token_type)
-            + self.position_embeddings(pos)[None]
+            + self.token_type_embeddings(torch.full_like(ids, self.token_type))
+            + self.position_embeddings(self.positions(ids))
         )
         return self.LayerNorm(x)
 
@@ -73,9 +160,9 @@ class _SelfAttention(nn.Module):
         h = c["hidden_size"]
         self.heads = c["num_attention_heads"]
         self.head_dim = h // self.heads
-        self.query = nn.Linear(h, h)
-        self.key = nn.Linear(h, h)
-        self.value = nn.Linear(h, h)
+        self.query = Linear(h, h)
+        self.key = Linear(h, h)
+        self.value = Linear(h, h)
 
     def forward(self, x: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
         b, n, h = x.shape
@@ -96,8 +183,8 @@ class _DenseNorm(nn.Module):
     def __init__(self, d_in: int, c: Dict[str, Any]) -> None:
         super().__init__()
         h = c["hidden_size"]
-        self.dense = nn.Linear(d_in, h)
-        self.LayerNorm = nn.LayerNorm(h, eps=c.get("layer_norm_eps", 1e-12))
+        self.dense = Linear(d_in, h)
+        self.LayerNorm = LayerNorm(h, c.get("layer_norm_eps", 1e-12))
 
     def forward(self, x: torch.Tensor, residual: torch.Tensor) -> torch.Tensor:
         return self.LayerNorm(self.dense(x) + residual)
@@ -116,10 +203,11 @@ class _Attention(nn.Module):
 class _Intermediate(nn.Module):
     def __init__(self, c: Dict[str, Any]) -> None:
         super().__init__()
-        self.dense = nn.Linear(c["hidden_size"], c["intermediate_size"])
+        self.dense = Linear(c["hidden_size"], c["intermediate_size"])
+        self.act = activation(c.get("hidden_act", "gelu"))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.gelu(self.dense(x))
+        return self.act(self.dense(x))
 
 
 class _Layer(nn.Module):
@@ -141,24 +229,26 @@ class _Encoder(nn.Module):
 
 
 class BertEncoder(nn.Module):
-    """``FlaxBertModel``'s ``last_hidden_state`` for a ``config.json``."""
+    """``last_hidden_state`` of a BERT, RoBERTa, XLM-RoBERTa or ELECTRA
+    ``config.json`` (see the module docstring for how they differ)."""
 
     def __init__(self, config: Dict[str, Any]) -> None:
         super().__init__()
         check_config(config)
         self.config = dict(config)
         self.embeddings = _Embeddings(config)
+        if self.embeddings.LayerNorm.width != config["hidden_size"]:
+            self.embeddings_project = Linear(
+                self.embeddings.LayerNorm.width, config["hidden_size"]
+            )
         self.encoder = _Encoder(config)
 
     def forward(self, input_ids: torch.Tensor, attention_mask: torch.Tensor) -> torch.Tensor:
         """``[B, L]`` ids and 0/1 mask -> ``[B, L, hidden]``."""
         x = self.embeddings(input_ids)
-        neg = torch.finfo(torch.float32).min
-        bias = torch.where(
-            attention_mask[:, None, None, :] > 0,
-            torch.zeros((), dtype=torch.float32, device=x.device),
-            torch.full((), neg, dtype=torch.float32, device=x.device),
-        )
+        if hasattr(self, "embeddings_project"):
+            x = self.embeddings_project(x)
+        bias = attention_bias(attention_mask)
         for layer in self.encoder.layer:
             x = layer(x, bias)
         return x

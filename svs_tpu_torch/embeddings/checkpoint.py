@@ -22,7 +22,7 @@ import json
 import os
 import struct
 from pathlib import Path
-from typing import Any, Dict, Tuple, Union
+from typing import Any, Dict, List, Tuple, Union
 
 import numpy as np
 
@@ -168,24 +168,52 @@ def _pack(obj: Any, out: bytearray) -> None:
             _pack(key, out)
             _pack(value, out)
     elif isinstance(obj, np.ndarray):
+        chunks: List[Any] = []
+        _pack_chunks(obj, chunks)
+        out += b"".join(chunks)
+    else:
+        raise TypeError(f"cannot pack {type(obj).__name__}")
+
+
+def _pack_chunks(obj: Any, chunks: List[Any]) -> None:
+    """:func:`_pack` into a list of byte chunks, an ndarray's data as a
+    view of the array (no copy: a checkpoint of 2 GB is written as it is
+    held)."""
+    if isinstance(obj, dict):
+        head = bytearray(b"\xdf" + struct.pack(">I", len(obj)))
+        chunks.append(head)
+        for key, value in obj.items():
+            _pack(key, head)
+            if isinstance(value, (dict, np.ndarray)):
+                _pack_chunks(value, chunks)
+                head = bytearray()
+                chunks.append(head)
+            else:
+                _pack(value, head)
+    elif isinstance(obj, np.ndarray):
         arr = np.ascontiguousarray(obj)
         if arr.nbytes > 1 << 30:
             raise ValueError("arrays past 2^30 bytes are not written here")
-        inner = bytearray()
-        _pack([[int(s) for s in arr.shape], arr.dtype.name, arr.tobytes()], inner)
-        out += b"\xc9" + struct.pack(">I", len(inner)) + struct.pack(">b", _EXT_NDARRAY)
-        out += inner
+        inner = bytearray(b"\xdd" + struct.pack(">I", 3))
+        _pack([int(s) for s in arr.shape], inner)
+        _pack(arr.dtype.name, inner)
+        inner += b"\xc6" + struct.pack(">I", arr.nbytes)
+        chunks.append(b"\xc9" + struct.pack(">I", len(inner) + arr.nbytes)
+                      + struct.pack(">b", _EXT_NDARRAY) + bytes(inner))
+        chunks.append(memoryview(arr.reshape(-1)).cast("B"))
     else:
-        raise TypeError(f"cannot pack {type(obj).__name__}")
+        head = bytearray()
+        _pack(obj, head)
+        chunks.append(head)
 
 
 def packb(tree: Any) -> bytes:
     """Encode nested dicts of NumPy arrays as Flax's ``msgpack_serialize``
     does (readable by ``flax.serialization.msgpack_restore``); for
     checkpoints written from a seed (tests, the smoke)."""
-    out = bytearray()
-    _pack(tree, out)
-    return bytes(out)
+    chunks: List[Any] = []
+    _pack_chunks(tree, chunks)
+    return b"".join(chunks)
 
 
 # -- checkpoints --------------------------------------------------------------
@@ -235,8 +263,11 @@ def read_config(model_dir: Union[str, Path]) -> Dict[str, Any]:
 
 def load_checkpoint(model_dir: Union[str, Path]) -> Tuple[Dict[str, Any], Dict[str, Any]]:
     """``(config, params)``: ``config.json`` and the Flax parameter tree of
-    ``flax_model.msgpack`` (NumPy arrays; a ``bert`` wrapper, as a head
-    model saves it, is unwrapped)."""
+    ``flax_model.msgpack`` (NumPy arrays).  A head model's checkpoint holds
+    the base model under its family's ``base_model_prefix`` (``bert``,
+    ``roberta``, ``xlm-roberta``, ``distilbert``, ``electra``), and that
+    wrapper is unwrapped as ``FlaxAutoModel.from_pretrained`` unwraps it:
+    only when the tree has no ``embeddings`` of its own."""
     config = read_config(model_dir)
     weights = Path(model_dir) / FLAX_WEIGHTS
     if not weights.is_file():
@@ -245,9 +276,28 @@ def load_checkpoint(model_dir: Union[str, Path]) -> Tuple[Dict[str, Any], Dict[s
             "loads Flax checkpoints, and so does the port)"
         )
     params = unpackb(weights.read_bytes())
-    if "embeddings" not in params and isinstance(params.get("bert"), dict):
-        params = params["bert"]
-    return config, params
+    return config, unwrap_head(config, params)
+
+
+def unwrap_head(config: Dict[str, Any], params: Dict[str, Any]) -> Dict[str, Any]:
+    """The base model's tree of ``params``: itself, or the subtree under
+    ``config``'s ``base_model_prefix``.  An XLM-R tree wrapped under
+    ``roberta`` (the attribute name of ``transformers``' XLM-R heads) is
+    refused: ``FlaxAutoModel`` looks for ``xlm-roberta`` there, finds no
+    weights and initialises the model at random, which the port cannot
+    reproduce."""
+    from .encoders import BASE_MODEL_PREFIX
+
+    if "embeddings" in params:
+        return params
+    prefix = BASE_MODEL_PREFIX.get(str(config.get("model_type")))
+    if prefix is not None and isinstance(params.get(prefix), dict):
+        return params[prefix]
+    raise ValueError(
+        f"{FLAX_WEIGHTS} holds no base-model weights for model_type "
+        f"{config.get('model_type')!r} (top-level keys {sorted(params)}); "
+        f"FlaxAutoModel would initialise them at random"
+    )
 
 
 def write_checkpoint(
@@ -258,4 +308,8 @@ def write_checkpoint(
     model_dir = Path(model_dir)
     model_dir.mkdir(parents=True, exist_ok=True)
     (model_dir / CONFIG).write_text(json.dumps(config, indent=2), encoding="utf-8")
-    (model_dir / FLAX_WEIGHTS).write_bytes(packb(params))
+    chunks: List[Any] = []
+    _pack_chunks(params, chunks)
+    with open(model_dir / FLAX_WEIGHTS, "wb") as f:
+        for chunk in chunks:
+            f.write(chunk)

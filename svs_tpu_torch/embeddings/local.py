@@ -1,14 +1,25 @@
-"""Local embedding provider: run a BERT encoder on this machine's card
-(port of ``svs_tpu.embeddings.local``).
+"""Local embedding provider: run an encoder on this machine's card (port
+of ``svs_tpu.embeddings.local``).
 
-``svs_tpu`` loads a Flax checkpoint through ``transformers`` and runs it
-under ``jax.jit``.  The port reads the same files with no ``transformers``
-or ``flax`` (the machine with the card has neither): the tokenizer is
-:mod:`.wordpiece` (``vocab.txt``, ``tokenizer_config.json``), the weights
-come from ``flax_model.msgpack`` through :mod:`.checkpoint` and
-``convert.bert_state_dict_from_flax``, and the encoder is :mod:`.bert`
-(``model_type: "bert"``: ``bge-*-en-v1.5``, ``all-MiniLM-L6-v2``, every
-``BertModel``; other model types raise ``NotImplementedError``).
+``svs_tpu`` loads a Flax checkpoint through ``transformers``
+(``AutoTokenizer``, ``FlaxAutoModel``) and runs it under ``jax.jit``.  The
+port reads the same files with no ``transformers``, ``tokenizers`` or
+``flax`` (the machine with the card has none of them):
+
+- the tokenizer, in the order ``AutoTokenizer`` finds one
+  (:func:`.tokenizer_json.load_tokenizer`): ``tokenizer.json`` through
+  :mod:`.tokenizer_json` (WordPiece, byte-level BPE or Unigram, with the
+  ``Precompiled`` normalizer), else ``vocab.txt`` through
+  :mod:`.wordpiece`, else ``vocab.json`` + ``merges.txt`` through
+  :mod:`.bpe`; a SentencePiece model alone is refused;
+- the weights from ``flax_model.msgpack`` through :mod:`.checkpoint` and
+  ``convert.encoder_state_dict_from_flax``;
+- the encoder by ``model_type`` (:func:`.encoders.build_encoder`):
+  ``bert`` (``bge-*-en-v1.5``, ``all-MiniLM-L6-v2``), ``xlm-roberta``
+  (``bge-m3``, ``multilingual-e5-*``), ``roberta``
+  (``all-distilroberta-v1``), ``distilbert`` (``msmarco-distilbert-*``)
+  and ``electra``; any other type raises ``NotImplementedError`` naming
+  it, before the weights are read.
 
 Kept from the reference: the factory's signature and validation, the
 persisted params (``provider``, ``model``, ``pooling``, ``max_length``,
@@ -88,10 +99,10 @@ class _LocalEncoder:
     def _load(self) -> Tuple[Any, torch.nn.Module]:
         if self._loaded is not None:
             return self._loaded
-        from ..convert import bert_state_dict_from_flax
-        from .bert import BertEncoder, check_config
+        from ..convert import encoder_state_dict_from_flax
         from .checkpoint import load_checkpoint, read_config, resolve_model_dir
-        from .wordpiece import WordPieceTokenizer
+        from .encoders import check_config, load_encoder
+        from .tokenizer_json import load_tokenizer
 
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -99,11 +110,11 @@ class _LocalEncoder:
                 "is available; pass device='cpu' explicitly for a CPU run"
             )
         model_dir = resolve_model_dir(self.model_name)
-        check_config(read_config(model_dir))  # before reading the weights
-        tokenizer = WordPieceTokenizer.from_dir(model_dir)
+        config = read_config(model_dir)
+        check_config(config)  # before reading the weights
+        tokenizer = load_tokenizer(model_dir, config.get("model_type"))
         config, params = load_checkpoint(model_dir)
-        encoder = BertEncoder(config)
-        encoder.load_state_dict(bert_state_dict_from_flax(params))
+        encoder = load_encoder(config, encoder_state_dict_from_flax(config, params))
         del params
         self._loaded = (tokenizer, encoder.to(self.device).eval())
         return self._loaded
@@ -181,11 +192,15 @@ def make_local_embeddings_func(
     *,
     device: Union[str, torch.device] = "cuda",
 ) -> EmbeddingFunc:
-    """Build an on-device embedding function from a BERT checkpoint.
+    """Build an on-device embedding function from a Flax encoder
+    checkpoint (see the module docstring for the model types and
+    tokenizer files).
 
     ``model`` is a local directory holding ``config.json``,
-    ``flax_model.msgpack``, ``vocab.txt`` (and ``tokenizer_config.json``),
-    or a hub name already in the local Hugging Face cache.  ``pooling`` is
+    ``flax_model.msgpack`` and a tokenizer (``tokenizer.json``, or
+    ``vocab.txt``, or ``vocab.json`` + ``merges.txt``, with
+    ``tokenizer_config.json``), or a hub name already in the local Hugging
+    Face cache.  ``pooling`` is
     ``'mean'`` (mask-weighted token mean) or ``'cls'``.  ``compute_dtype``
     selects the forward pass's precision (``'bfloat16'`` for the tensor
     cores' rate, ``'float32'`` for exactness) and is part of the provider

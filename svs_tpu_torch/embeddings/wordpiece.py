@@ -1,6 +1,9 @@
 """BERT's WordPiece tokenizer, from ``vocab.txt`` and
-``tokenizer_config.json``: the ids ``transformers.BertTokenizer`` gives,
-with no ``transformers`` (the machine with the card has none).
+``tokenizer_config.json``: the ids ``transformers.BertTokenizer`` gives
+(and ``DistilBertTokenizer`` and ``ElectraTokenizer``, which read the same
+files the same way), with no ``transformers`` (the machine with the card
+has none).  :class:`WordPieceModel` is also the ``WordPiece`` model of a
+``tokenizer.json`` (:mod:`.tokenizer_json`).
 
 The steps are that tokenizer's, in its order:
 
@@ -122,6 +125,59 @@ def _token_text(value: object, default: str) -> str:
     return default if value is None else str(value)
 
 
+class WordPieceModel:
+    """Greedy longest-match WordPiece over one pre-tokenized piece: the
+    first sub-word as is, the others with ``continuing_subword_prefix``;
+    the whole piece is ``unk_token`` past ``max_input_chars_per_word``
+    characters or when a position has no match."""
+
+    def __init__(
+        self,
+        vocab: Dict[str, int],
+        unk_token: str = "[UNK]",
+        continuing_subword_prefix: str = "##",
+        max_input_chars_per_word: int = MAX_INPUT_CHARS_PER_WORD,
+    ) -> None:
+        self.vocab = vocab
+        self.unk_token = unk_token
+        self.unk_id = vocab.get(unk_token)
+        self.prefix = continuing_subword_prefix
+        self.max_chars = max_input_chars_per_word
+
+    def token_to_id(self, token: str) -> Optional[int]:
+        return self.vocab.get(token)
+
+    def _unk(self) -> List[int]:
+        if self.unk_id is None:
+            raise ValueError(f"unk_token {self.unk_token!r} is not in the vocabulary")
+        return [self.unk_id]
+
+    def tokenize(self, word: str) -> List[int]:
+        vocab = self.vocab
+        if len(word) > self.max_chars:
+            return self._unk()
+        ids: List[int] = []
+        start, n = 0, len(word)
+        while start < n:
+            end = n
+            found = None
+            while start < end:
+                sub = word[start:end] if start == 0 else self.prefix + word[start:end]
+                found = vocab.get(sub)
+                if found is not None:
+                    break
+                end -= 1
+            if found is None:
+                return self._unk()
+            ids.append(found)
+            start = end
+        return ids
+
+
+#: The slow tokenizer classes that read ``vocab.txt`` as ``BertTokenizer``.
+WORDPIECE_CLASSES = ("BertTokenizer", "DistilBertTokenizer", "ElectraTokenizer")
+
+
 class WordPieceTokenizer:
     """``transformers.BertTokenizer``'s ids from a vocabulary.  Thread-safe
     for concurrent reads; the word cache is best-effort shared state."""
@@ -156,6 +212,7 @@ class WordPieceTokenizer:
         )
         self._special_re = re.compile(f"({alternation})") if alternation else None
         self._word_cache: Dict[str, Tuple[int, ...]] = {}
+        self._model = WordPieceModel(vocab, unk_token)
 
     def _id(self, token: str) -> Optional[int]:
         return self.vocab.get(token, self.unk_id)
@@ -173,10 +230,10 @@ class WordPieceTokenizer:
         if cfg_file.is_file():
             config = json.loads(cfg_file.read_text(encoding="utf-8"))
         tok_class = str(config.get("tokenizer_class") or "BertTokenizer")
-        if not tok_class.startswith("BertTokenizer"):
+        if tok_class.removesuffix("Fast") not in WORDPIECE_CLASSES:
             raise NotImplementedError(
-                f"tokenizer_class {tok_class!r} is not a WordPiece "
-                "BertTokenizer; svs_tpu_torch reads BERT vocabularies only"
+                f"tokenizer_class {tok_class!r} is not a WordPiece tokenizer "
+                f"that reads vocab.txt ({WORDPIECE_CLASSES})"
             )
         if not config.get("do_basic_tokenize", True):
             raise NotImplementedError(
@@ -220,29 +277,6 @@ class WordPieceTokenizer:
                 out.append(ch)
         return unicodedata.normalize("NFC", "".join(out))
 
-    def _wordpiece(self, word: str) -> List[int]:
-        """Step 4 on one piece: greedy longest match, ``##`` after the
-        first sub-word; ``[UNK]`` past 100 characters or without a match."""
-        vocab = self.vocab
-        if len(word) > MAX_INPUT_CHARS_PER_WORD:
-            return [self.unk_id]
-        ids: List[int] = []
-        start, n = 0, len(word)
-        while start < n:
-            end = n
-            found = None
-            while start < end:
-                sub = word[start:end] if start == 0 else "##" + word[start:end]
-                found = vocab.get(sub)
-                if found is not None:
-                    break
-                end -= 1
-            if found is None:
-                return [self.unk_id]
-            ids.append(found)
-            start = end
-        return ids
-
     def _word_ids(self, word: str) -> Tuple[int, ...]:
         """Steps 3-4 on one whitespace-separated word, cached."""
         hit = self._word_cache.get(word)
@@ -256,7 +290,7 @@ class WordPieceTokenizer:
         elif self.strip_accents:
             w = _strip_accents(w)
         pieces = " ".join(_split_punctuation(w)).split()
-        ids = tuple(i for p in pieces for i in self._wordpiece(p))
+        ids = tuple(i for p in pieces for i in self._model.tokenize(p))  # step 4
         if len(self._word_cache) >= _WORD_CACHE_MAX:
             self._word_cache = {}
         self._word_cache[word] = ids

@@ -5,8 +5,9 @@ deferred upload, the host route and the native library, the HTTP server,
 the CLI and the tools; the embedding providers, the dispatch calibration
 and the trace export, with ``transformers``, ``flax``, ``msgpack`` and
 ``aiohttp`` blocked too; meshes and replicas, with ``svs_tpu`` itself
-blocked), never imports ``svs_tpu``, and refuses to fall back to the CPU
-when no device was named."""
+blocked; the local provider past BERT, with ``tokenizers``,
+``sentencepiece`` and ``regex`` blocked too), never imports ``svs_tpu``,
+and refuses to fall back to the CPU when no device was named."""
 
 import subprocess
 import sys
@@ -387,6 +388,53 @@ _BLOCKED_PROVIDERS = textwrap.dedent(
 )
 
 
+_BLOCKED_XLMR = textwrap.dedent(
+    """
+    import asyncio, os, sys
+
+    BLOCKED = ("jax", "jaxlib", "networkx", "ml_dtypes", "aiohttp", "dotenv", "svs_tpu",
+               "transformers", "flax", "msgpack", "tokenizers", "sentencepiece", "regex",
+               "safetensors")
+
+    class Blocker:
+        def find_spec(self, name, path=None, target=None):
+            if name.split(".")[0] in BLOCKED:
+                raise ImportError(f"{name} is blocked in this test")
+            return None
+
+    sys.meta_path.insert(0, Blocker())
+
+    import numpy as np
+    from svs_tpu_torch import KB, make_local_embeddings_func
+    from svs_tpu_torch.embeddings import (bpe, distilbert, encoders, graphemes, precompiled,
+                                          tokenizer_json, unigram)
+
+    path = sys.argv[1]
+    ck = os.path.join(os.path.dirname(path), "xlmr")
+    f = make_local_embeddings_func(ck, max_length=16, compute_dtype="float32", pooling="cls",
+                                   device="cpu")
+    texts = ["the cat sat", "héllo мир", "ﬁ <mask> 中文", "a dog ran"]
+    vecs = np.asarray(asyncio.run(f(texts)))
+    assert vecs.shape == (4, 32) and np.allclose(np.linalg.norm(vecs, axis=1), 1, atol=1e-5)
+    tok = f.encoder._load()[0]
+    assert isinstance(tok, tokenizer_json.JsonTokenizer), tok
+    assert isinstance(tok.model, unigram.UnigramModel), tok.model
+    kb = KB(path, f, force_fresh_db=True, device="cpu")
+    with kb.bulk_add_docs() as add:
+        ids = [add(t) for t in texts]
+    first = kb.retrieve("héllo мир", 2)
+    assert first[0]["doc"]["id"] == ids[1], first
+    kb.close()
+    kb = KB(path, device="cpu")  # rebuilt from the stored params
+    assert kb.retrieve("héllo мир", 2) == first
+    kb.close()
+    loaded = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
+    assert not loaded, loaded
+    print("ROUND_TRIP_OK")
+    """
+)
+
+
 _BLOCKED_PARALLEL = textwrap.dedent(
     """
     import sys
@@ -490,6 +538,28 @@ def test_providers_calibration_trace_without_jax_transformers_flax_msgpack_aioht
     ``svs_tpu``, ``transformers``, ``flax``, ``msgpack`` and ``aiohttp``
     blocked; the calibration and trace modules import."""
     _run_blocked(_BLOCKED_PROVIDERS, tmp_path)
+
+
+def test_xlmr_provider_without_transformers_tokenizers_sentencepiece_regex(tmp_path):
+    """The local provider on an XLM-R checkpoint (a Unigram ``tokenizer.json``
+    with XLM-R's ``Precompiled`` normalizer, weights written by the smoke's
+    writer) embeds on the CPU, and a store written with it reopens with no
+    function, with ``transformers``, ``tokenizers``, ``sentencepiece``,
+    ``regex``, ``flax``, JAX and ``svs_tpu`` blocked."""
+    pytest.importorskip("tokenizers")
+    pytest.importorskip("transformers")
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    import chip_smoke
+    from torch_tokenizer_helpers import write_unigram_tokenizer
+
+    ck = tmp_path / "xlmr"
+    vocab = write_unigram_tokenizer(ck, seed=9)
+    chip_smoke.write_random_encoder(ck, {
+        "model_type": "xlm-roberta", "vocab_size": vocab, "hidden_size": 32,
+        "num_hidden_layers": 2, "num_attention_heads": 2, "intermediate_size": 64,
+        "max_position_embeddings": 64, "type_vocab_size": 1, "hidden_act": "gelu",
+        "layer_norm_eps": 1e-5, "pad_token_id": 1}, seed=3)
+    _run_blocked(_BLOCKED_XLMR, tmp_path)
 
 
 def test_parallel_modules_without_jax_or_svs_tpu(tmp_path):

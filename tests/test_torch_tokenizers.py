@@ -1,0 +1,312 @@
+"""The port's tokenizers (``svs_tpu_torch.embeddings``: ``tokenizer_json``,
+``bpe``, ``unigram``, ``precompiled``, ``graphemes``, ``wordpiece``)
+against ``transformers.AutoTokenizer`` and ``tokenizers`` on the CPU.
+
+Token ids and attention masks equal ``AutoTokenizer``'s (what ``svs_tpu``'s
+local provider calls, ``padding="max_length", truncation=True``) at
+``max_length`` 16 and 512 on 200 seeded strings for: XLM-R's Unigram with
+Metaspace (``Precompiled`` and NFKC normalizers), byte-level BPE from
+``tokenizer.json`` and from ``vocab.json`` + ``merges.txt``, and WordPiece
+from ``tokenizer.json``.  Then each component against its ``tokenizers``
+counterpart (the ``Precompiled`` normalizer on a charsmap that
+:func:`torch_tokenizer_helpers.build_charsmap` writes, the pre-tokenizers
+and normalizers, GPT-2's split, the grapheme clusters against ``regex``'s
+``\\X``), and the refusals by name."""
+
+import json
+import shutil
+
+import numpy as np
+import pytest
+
+pytest.importorskip("transformers")
+pytest.importorskip("tokenizers")
+
+from tokenizers import Regex
+from tokenizers import normalizers as N
+from tokenizers import pre_tokenizers as P
+
+from svs_tpu_torch.embeddings import bpe, graphemes
+from svs_tpu_torch.embeddings.precompiled import PrecompiledCharsMap
+from svs_tpu_torch.embeddings.tokenizer_json import (
+    JsonTokenizer,
+    build_normalizer,
+    build_pre_tokenizer,
+    load_tokenizer,
+)
+from svs_tpu_torch.embeddings.unigram import UnigramModel
+from svs_tpu_torch.embeddings.wordpiece import WordPieceTokenizer
+
+from torch_tokenizer_helpers import (
+    CHARSMAP,
+    build_charsmap,
+    seeded_strings,
+    strings,
+    write_bpe_tokenizer,
+    write_unigram_tokenizer,
+    write_wordpiece_tokenizer,
+)
+
+
+def _auto(path):
+    import transformers
+    from transformers import AutoTokenizer
+
+    transformers.logging.set_verbosity_error()
+    return AutoTokenizer.from_pretrained(str(path))
+
+
+def _same_as_auto(path, mine, seed):
+    ref = _auto(path)
+    texts = strings(seed)
+    for max_length in (16, 512):
+        want = ref(texts, padding="max_length", truncation=True, max_length=max_length,
+                   return_tensors="np")
+        ids, mask = mine.batch(texts, max_length)
+        for i, text in enumerate(texts):
+            assert list(ids[i]) == list(want["input_ids"][i]), (text, max_length)
+            assert list(mask[i]) == list(want["attention_mask"][i]), (text, max_length)
+
+
+@pytest.mark.parametrize("normalizer", ["precompiled", "nfkc"])
+@pytest.mark.parametrize("scheme", ["always", "first"])
+def test_unigram_metaspace_equals_auto_tokenizer(tmp_path, normalizer, scheme):
+    write_unigram_tokenizer(tmp_path, seed=3, normalizer=normalizer, prepend_scheme=scheme)
+    mine = load_tokenizer(tmp_path, "xlm-roberta")
+    assert isinstance(mine, JsonTokenizer) and isinstance(mine.model, UnigramModel)
+    assert mine.pad_id == 1 and mine.head == [0] and mine.tail == [2]
+    _same_as_auto(tmp_path, mine, seed=21)
+
+
+def test_byte_level_bpe_tokenizer_json_equals_auto_tokenizer(tmp_path):
+    write_bpe_tokenizer(tmp_path, seed=4)
+    mine = load_tokenizer(tmp_path, "roberta")
+    assert isinstance(mine.model, bpe.BPEModel) and mine.pad_id == 1
+    _same_as_auto(tmp_path, mine, seed=22)
+
+
+def test_byte_level_bpe_vocab_and_merges_equal_auto_tokenizer(tmp_path):
+    """Without ``tokenizer.json``: ``vocab.json`` + ``merges.txt`` read as
+    ``RobertaTokenizer`` (``<s> ... </s>``, pad id 1)."""
+    write_bpe_tokenizer(tmp_path, seed=5)
+    (tmp_path / "tokenizer.json").unlink()
+    mine = load_tokenizer(tmp_path, "roberta")
+    assert isinstance(mine, JsonTokenizer) and mine.pad_id == 1
+    assert (mine.head, mine.tail) == ([0], [2])
+    _same_as_auto(tmp_path, mine, seed=23)
+
+
+@pytest.mark.parametrize("cls_name", ["BertTokenizerFast", "DistilBertTokenizerFast",
+                                      "ElectraTokenizerFast"])
+@pytest.mark.parametrize("lower", [True, False], ids=["lower", "cased"])
+def test_wordpiece_tokenizer_json_equals_auto_tokenizer(tmp_path, cls_name, lower):
+    write_wordpiece_tokenizer(tmp_path, cls_name, lower)
+    mine = load_tokenizer(tmp_path, "bert")
+    assert isinstance(mine, JsonTokenizer)  # tokenizer.json first, as AutoTokenizer
+    _same_as_auto(tmp_path, mine, seed=24)
+
+
+@pytest.mark.parametrize("cls_name", ["DistilBertTokenizer", "ElectraTokenizer"])
+def test_slow_wordpiece_classes_read_vocab_txt(tmp_path, cls_name):
+    write_wordpiece_tokenizer(tmp_path, cls_name)
+    mine = load_tokenizer(tmp_path, "distilbert")
+    assert isinstance(mine, WordPieceTokenizer)
+    _same_as_auto(tmp_path, mine, seed=25)
+
+
+def test_tokenizer_config_options_written_over_the_file(tmp_path):
+    """``BertTokenizerFast`` writes ``do_lower_case`` over the file's
+    ``BertNormalizer``, ``RobertaTokenizerFast`` ``add_prefix_space`` over
+    its ``ByteLevel``; left padding and truncation come from the config."""
+    bert_dir, bpe_dir = tmp_path / "bert", tmp_path / "bpe"
+    write_wordpiece_tokenizer(bert_dir, "BertTokenizerFast", lower=True)
+    cfg = json.loads((bert_dir / "tokenizer_config.json").read_text())
+    cfg.update(do_lower_case=False, padding_side="left", truncation_side="left")
+    (bert_dir / "tokenizer_config.json").write_text(json.dumps(cfg))
+    mine = load_tokenizer(bert_dir)
+    assert mine.padding_side == "left" and mine.truncation_side == "left"
+    _same_as_auto(bert_dir, mine, seed=26)
+    write_bpe_tokenizer(bpe_dir, seed=6)
+    cfg = json.loads((bpe_dir / "tokenizer_config.json").read_text())
+    cfg["add_prefix_space"] = True
+    (bpe_dir / "tokenizer_config.json").write_text(json.dumps(cfg))
+    _same_as_auto(bpe_dir, load_tokenizer(bpe_dir), seed=27)
+
+
+# -- the components -------------------------------------------------------------
+
+_PRECOMPILED_POOL = list(CHARSMAP) + [
+    "abc", "Hello", "é", "é́", "ｅ́", "\U0001F468‍\U0001F469‍\U0001F467",
+    "\U0001F1EB\U0001F1F7", "한국어", "각", "각", "नमस्ते", "x‍", "́",
+    "\U0001F600́", "ﬁ́", "中文", "<mask>", " x", "\r\n", " ", " ",
+    "Å", "\U0001F44D\U0001F3FD", "\U000E0041", "͸", "\U0010FFFD", "�",
+]
+
+
+def test_precompiled_charsmap_equals_tokenizers():
+    """Full-width forms, NBSP and other spaces, ligatures, combining marks
+    (a cluster whose first character alone is a key), ZWJ emoji, flags,
+    Hangul (syllables and jamo), ``<mask>`` inside text and unknown or
+    unassigned characters."""
+    blob = build_charsmap(CHARSMAP)
+    ref = N.Precompiled(blob)
+    mine = PrecompiledCharsMap(blob)
+    assert mine.transform("ﬁ") == "fi" and mine.transform("q") is None
+    texts = _PRECOMPILED_POOL + seeded_strings(31, 600, _PRECOMPILED_POOL)
+    for text in texts:
+        assert mine.normalize(text) == ref.normalize_str(text), text
+    # the base64 form that tokenizer.json carries
+    spec = json.loads(N.Sequence([N.Precompiled(blob)]).__getstate__())["normalizers"][0]
+    fn = build_normalizer(spec)
+    for text in texts[:200]:
+        assert fn(text) == ref.normalize_str(text)
+
+
+def test_grapheme_clusters_equal_regex_x():
+    regex = pytest.importorskip("regex")
+    pool = [chr(c) for c in list(range(0x20, 0x7F)) + list(range(0x300, 0x370))
+            + list(range(0x900, 0x980)) + list(range(0x1100, 0x1200)) + list(range(0xAC00, 0xAC40))
+            + list(range(0x1F1E6, 0x1F200)) + list(range(0x1F300, 0x1F320))
+            + [0x200D, 0xFE0F, 0x1F3FB, 0x0D, 0x0A, 0x600, 0x0E33, 0x0E01, 0x0E31, 0x200C]]
+    rng = np.random.default_rng(32)
+    for _ in range(3000):
+        text = "".join(rng.choice(pool, int(rng.integers(0, 12))))
+        assert graphemes.clusters(text) == regex.findall(r"\X", text), [hex(ord(c)) for c in text]
+
+
+_PRE_POOL = ["a", "b", "hello", " ", "  ", "▁", "▁▁", "\t", "\n", "!", "?", ",", "don't", "中",
+             "é", "é", "x1", "12", "_", "-", "ﬁ", "İ", "ΟΔΟΣ", "ß", "　", "\xa0",
+             "\x1c", "Ⓐ", "٣", "'s", "'ll", "\U0001F600"]
+_PRE_TOKENIZERS = {
+    "metaspace": P.Metaspace(), "metaspace_first": P.Metaspace(prepend_scheme="first"),
+    "metaspace_never": P.Metaspace(prepend_scheme="never"),
+    "metaspace_nosplit": P.Metaspace(split=False), "whitespace": P.Whitespace(),
+    "whitespace_split": P.WhitespaceSplit(), "bert": P.BertPreTokenizer(),
+    "byte_level": P.ByteLevel(add_prefix_space=True),
+    "byte_level_noregex": P.ByteLevel(add_prefix_space=False, use_regex=False),
+    "split_removed": P.Split(" ", "removed"), "split_isolated": P.Split(" ", "isolated"),
+    "split_prev": P.Split(" ", "merged_with_previous"),
+    "split_next": P.Split(" ", "merged_with_next"),
+    "split_contiguous": P.Split(" ", "contiguous"),
+    "split_regex": P.Split(Regex(r"\s+"), "removed"),
+    "split_regex_invert": P.Split(Regex(r"\w+"), "isolated", invert=True),
+    "split_letters": P.Split(Regex(r"[\p{L}]+"), "merged_with_next"),
+    "sequence": P.Sequence([P.WhitespaceSplit(), P.Metaspace()]),
+}
+
+
+@pytest.mark.parametrize("name", sorted(_PRE_TOKENIZERS))
+def test_pre_tokenizer_equals_tokenizers(name):
+    ref = _PRE_TOKENIZERS[name]
+    mine = build_pre_tokenizer(json.loads(ref.__getstate__()))
+    for text in seeded_strings(33, 400, _PRE_POOL):
+        want = [w for w, _ in ref.pre_tokenize_str(text)]
+        assert [w for w, _ in mine([(text, True)])] == want, text
+
+
+_NORMALIZERS = {
+    "nfkc": N.NFKC(), "nfd": N.NFD(), "nfc": N.NFC(), "nfkd": N.NFKD(),
+    "lowercase": N.Lowercase(), "strip": N.Strip(), "strip_left": N.Strip(right=False),
+    "strip_accents": N.StripAccents(), "nfd_strip": N.Sequence([N.NFD(), N.StripAccents()]),
+    "replace": N.Replace(" ", "▁"), "replace_regex": N.Replace(Regex(r"\s+"), " "),
+    "prepend": N.Prepend("▁"), "bert": N.BertNormalizer(),
+    "bert_cased_strip": N.BertNormalizer(lowercase=False, strip_accents=True),
+    "bert_raw": N.BertNormalizer(clean_text=False, handle_chinese_chars=False),
+}
+
+
+@pytest.mark.parametrize("name", sorted(_NORMALIZERS))
+def test_normalizer_equals_tokenizers(name):
+    ref = _NORMALIZERS[name]
+    mine = build_normalizer(json.loads(ref.__getstate__()))
+    for text in seeded_strings(34, 400, _PRE_POOL + ["\x00", "�", " ", "Ǆ"]):
+        assert mine(text) == ref.normalize_str(text), text
+
+
+def test_gpt2_split_equals_byte_level_pre_tokenizer():
+    ref = P.ByteLevel(add_prefix_space=False)
+    for text in seeded_strings(35, 1000, _PRE_POOL + ["'S", "'''", "3.14", "  x"]):
+        want = [w for w, _ in ref.pre_tokenize_str(text)]
+        assert [bpe.byte_level(w) for w in bpe.gpt2_split(text)] == want, text
+
+
+def test_unigram_viterbi_and_fused_unknowns_equal_tokenizers():
+    """Ties, unknown runs fused into one ``<unk>``, a piece that is the
+    unknown piece itself."""
+    from tokenizers import Tokenizer, models
+
+    vocab = [("<unk>", 0.0), ("a", -1.0), ("b", -1.0), ("ab", -2.0), ("abc", -3.0), ("c", -1.5),
+             ("bc", -2.5), ("▁", -1.0), ("▁a", -1.2), ("ca", -2.0), ("aa", -2.0)]
+    ref = Tokenizer(models.Unigram(vocab, unk_id=0, byte_fallback=False))
+    mine = UnigramModel(vocab, 0)
+    for text in seeded_strings(36, 500, ["a", "b", "c", "x", "yz", "abc", "▁", "<unk>", "é"]):
+        text = text.replace(" ", "").replace("\t", "").replace("\n", "")
+        if text:
+            assert list(mine.tokenize(text)) == ref.encode(text).ids, text
+
+
+# -- refusals -------------------------------------------------------------------
+
+
+def _spec(tmp_path, **parts):
+    write_unigram_tokenizer(tmp_path, seed=1)
+    spec = json.loads((tmp_path / "tokenizer.json").read_text())
+    spec.update(parts)
+    return spec
+
+
+@pytest.mark.parametrize("part,value,name", [
+    ("normalizer", {"type": "NmtNormalizer"}, "NmtNormalizer"),
+    ("pre_tokenizer", {"type": "Digits", "individual_digits": True}, "Digits"),
+    ("post_processor", {"type": "SomethingNew"}, "SomethingNew"),
+    ("model", {"type": "WordLevel", "vocab": {}, "unk_token": "x"}, "WordLevel"),
+    ("pre_tokenizer", {"type": "Split", "pattern": {"Regex": r"\p{Han}+"}, "behavior": "Isolated",
+                       "invert": False}, "Han"),
+])
+def test_unported_component_raises_naming_it(tmp_path, part, value, name):
+    spec = _spec(tmp_path, **{part: value})
+    with pytest.raises(NotImplementedError, match=name):
+        JsonTokenizer(spec, model_type="xlm-roberta")
+
+
+def test_unigram_byte_fallback_raises(tmp_path):
+    spec = _spec(tmp_path)
+    spec["model"]["byte_fallback"] = True
+    with pytest.raises(NotImplementedError, match="byte_fallback"):
+        JsonTokenizer(spec, model_type="xlm-roberta")
+
+
+def test_sentencepiece_model_alone_raises_naming_the_file(tmp_path):
+    (tmp_path / "sentencepiece.bpe.model").write_bytes(b"\x00")
+    (tmp_path / "tokenizer_config.json").write_text(
+        json.dumps({"tokenizer_class": "XLMRobertaTokenizer"}))
+    with pytest.raises(NotImplementedError, match="sentencepiece.bpe.model"):
+        load_tokenizer(tmp_path, "xlm-roberta")
+    shutil.rmtree(tmp_path)
+    tmp_path.mkdir()
+    with pytest.raises(FileNotFoundError, match="no tokenizer"):
+        load_tokenizer(tmp_path)
+
+
+def test_added_token_flags_equal_tokenizers():
+    """``single_word``, ``lstrip``, ``rstrip`` and ``normalized`` added
+    tokens (a special and a plain one of each) split out as ``tokenizers``
+    splits them."""
+    from tokenizers import AddedToken, Tokenizer, models
+
+    vocab = {"[UNK]": 0, "[PAD]": 1}
+    for w in ["a", "b", "ab", "hello", "world", "é", "x", "_", "1"]:
+        vocab[w] = len(vocab)
+    tok = Tokenizer(models.WordPiece(vocab, unk_token="[UNK]"))
+    tok.pre_tokenizer = P.WhitespaceSplit()
+    tok.normalizer = N.Lowercase()
+    tok.add_special_tokens([AddedToken("<sw>", single_word=True), AddedToken("<l>", lstrip=True),
+                            AddedToken("<r>", rstrip=True),
+                            AddedToken("<lr>", lstrip=True, rstrip=True)])
+    tok.add_tokens([AddedToken("HeLLo", normalized=True),
+                    AddedToken("wor", single_word=True, normalized=False)])
+    mine = JsonTokenizer(json.loads(tok.to_str()), {"pad_token": "[PAD]"})
+    pool = ["<sw>", "<l>", "<r>", "<lr>", "HeLLo", "hello", "wor", "world", "a", "ab", "x<sw>",
+            "<sw>x", "_<sw>", "é<sw>", " ", "  ", "\t", "é", "\xa0", "1<sw>"]
+    for text in seeded_strings(37, 1000, pool):
+        assert mine.token_ids(text) == tok.encode(text, add_special_tokens=False).ids, text

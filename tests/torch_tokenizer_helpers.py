@@ -1,0 +1,170 @@
+"""Test helpers for the port's tokenizers: a darts-clone double-array
+writer for SentencePiece precompiled charsmaps, and seeded strings."""
+
+import struct
+import unicodedata
+
+import numpy as np
+
+
+def build_charsmap(mapping):
+    """The bytes of a precompiled charsmap (``u32`` trie size, darts-clone
+    units, NUL-terminated replacements) mapping each key string to its
+    replacement.  Every node with a child or a leaf gets a block of 256
+    units of its own: a child by byte ``c`` of a node whose children sit
+    at base ``b`` is unit ``b ^ c`` (= ``b + c``), its leaf unit ``b``."""
+    blob = bytearray()
+    root = {}
+    for key, rep in mapping.items():
+        raw = key.encode("utf-8")
+        if not raw or b"\0" in raw:
+            raise ValueError(f"bad key {key!r}")
+        node = root
+        for byte in raw:
+            node = node.setdefault(byte, {})
+        node[None] = len(blob)
+        blob += rep.encode("utf-8") + b"\0"
+    units = [0] * 256
+    next_block = [256]
+
+    def place(node, index):
+        """Give ``node`` (its own unit at ``index``) a base and fill it."""
+        base = next_block[0]
+        next_block[0] += 256
+        units.extend([0] * 256)
+        offset = index ^ base
+        assert offset < 1 << 21
+        units[index] |= offset << 10
+        if None in node:
+            units[index] |= 1 << 8
+            units[base] = (1 << 31) | node[None]
+        for byte, child in sorted((k, v) for k, v in node.items() if k is not None):
+            units[base ^ byte] = byte
+            place(child, base ^ byte)
+
+    place(root, 0)
+    trie = struct.pack(f"<{len(units)}I", *units)
+    return struct.pack("<I", len(trie)) + trie + bytes(blob)
+
+
+#: A charsmap in the spirit of XLM-R's (NFKC-like folds, whitespace to a
+#: space, a multi-character key, composed accents, a deleted character):
+#: held against ``tokenizers.normalizers.Precompiled``.
+CHARSMAP = {
+    **{chr(0xFF01 + i): chr(0x21 + i) for i in range(94)},  # full-width ASCII
+    " ": " ", "　": " ", " ": " ", "\t": " ", "\n": " ",
+    "ﬁ": "fi", "ﬂ": "fl", "ﬀ": "ff", "Ⅻ": "XII", "①": "1", "²": "2",
+    "é": "é", "ä": "ä", "ô": "ô", "ｅ": "e",
+    "​": "", "­": "", "…": "...", "™": "TM", "Å": "Å",
+    "각": "각", "가": "가", "é": "é",
+}
+
+
+def seeded_strings(seed, n, pool):
+    """``n`` strings of 0-40 draws from ``pool`` joined by seeded
+    separators."""
+    rng = np.random.default_rng(seed)
+    seps = [" ", "", "  ", "\t", "\n", " "]
+    out = []
+    for _ in range(n):
+        k = int(rng.integers(0, 40))
+        out.append("".join(str(rng.choice(pool)) + str(rng.choice(seps)) for _ in range(k)))
+    return out
+
+
+def nfkc(text):
+    return unicodedata.normalize("NFKC", text)
+
+
+# -- tokenizers of each family, written by transformers / tokenizers --------
+
+#: Words the tiny tokenizers know (several scripts, accents, CJK).
+WORDS = ["the", "cat", "sat", "on", "mat", "a", "dog", "ran", "fast", "hello", "world",
+         "red", "blue", "big", "small", "happy", "sad", "héllo", "café", "naïve", "мир",
+         "привет", "κόσμε", "中文", "字", "مرحبا", "über", "straße"]
+
+
+def _texts_pool():
+    return WORDS + ["Hello", "CAT", "don't", "it's", "x1", "123", "3.14", "!", "?", ",", "...",
+                    "ﬁ", "Ｈｅｌｌｏ", " ", " ", "é", "👨‍👩‍👧", "🇫🇷", "한국어",
+                    "<mask>", "<s>", "[MASK]", "ΟΔΟΣ", "\t", "unknownword", "zz​zz", "Å"]
+
+
+def strings(seed, n=200):
+    """``n`` seeded strings over :data:`WORDS`, punctuation, white space,
+    composed and decomposed accents, emoji, Hangul and special tokens."""
+    base = ["", " ", "the cat sat on the mat", "a <mask> b", "x<mask>y", "hello world " * 80]
+    return base + seeded_strings(seed, n - len(base), _texts_pool())
+
+
+def write_unigram_tokenizer(path, seed=0, normalizer="precompiled", prepend_scheme="always"):
+    """An XLM-R-layout Unigram tokenizer (``<s>`` 0, ``<pad>`` 1, ``</s>``
+    2, ``<unk>`` 3, ``<mask>`` last; Metaspace; ``<s> $A </s>``) saved by
+    ``XLMRobertaTokenizerFast``; its normalizer is XLM-R's (``Precompiled``
+    on :data:`CHARSMAP`, then ``Replace(" {2,}", " ")``) or NFKC and the
+    same ``Replace``.  Returns the vocabulary size."""
+    from tokenizers import Regex, Tokenizer, models, normalizers, pre_tokenizers, processors
+    from transformers import XLMRobertaTokenizerFast
+
+    rng = np.random.default_rng(seed)
+    pieces = []
+    for w in WORDS:
+        pieces += ["▁" + w, w]
+        if len(w) > 3:
+            pieces += ["▁" + w[:2], w[2:]]
+    chars = sorted(set("".join(WORDS)) | set("abcdefghijklmnopqrstuvwxyz0123456789!?,.'"))
+    pieces += chars + ["▁" + c for c in chars] + ["▁"]
+    pieces = list(dict.fromkeys(pieces))
+    vocab = [("<s>", 0.0), ("<pad>", 0.0), ("</s>", 0.0), ("<unk>", 0.0)]
+    vocab += [(p, float(-rng.uniform(1.0, 12.0))) for p in pieces] + [("<mask>", 0.0)]
+    tok = Tokenizer(models.Unigram(vocab, unk_id=3, byte_fallback=False))
+    first = (normalizers.Precompiled(build_charsmap(CHARSMAP)) if normalizer == "precompiled"
+             else normalizers.NFKC())
+    tok.normalizer = normalizers.Sequence([first, normalizers.Replace(Regex(" {2,}"), " ")])
+    tok.pre_tokenizer = pre_tokenizers.Metaspace(prepend_scheme=prepend_scheme)
+    tok.post_processor = processors.TemplateProcessing(
+        single="<s> $A </s>", pair="<s> $A </s> </s> $B </s>",
+        special_tokens=[("<s>", 0), ("</s>", 2)])
+    XLMRobertaTokenizerFast(tokenizer_object=tok, bos_token="<s>", eos_token="</s>",
+                            unk_token="<unk>", pad_token="<pad>", mask_token="<mask>",
+                            cls_token="<s>", sep_token="</s>").save_pretrained(str(path))
+    return len(vocab)
+
+
+def write_bpe_tokenizer(path, seed=0):
+    """A RoBERTa byte-level BPE tokenizer trained on seeded strings, saved
+    by ``RobertaTokenizerFast`` (``tokenizer.json``, ``vocab.json``,
+    ``merges.txt``).  Returns the vocabulary size."""
+    from tokenizers import ByteLevelBPETokenizer
+    from transformers import RobertaTokenizerFast
+
+    bt = ByteLevelBPETokenizer()
+    bt.train_from_iterator(strings(seed, 400), vocab_size=600, min_frequency=1,
+                           special_tokens=["<s>", "<pad>", "</s>", "<unk>", "<mask>"],
+                           show_progress=False)
+    path.mkdir(parents=True, exist_ok=True)
+    bt.save_model(str(path))
+    tok = RobertaTokenizerFast(str(path / "vocab.json"), str(path / "merges.txt"))
+    tok.save_pretrained(str(path))
+    return len(tok)
+
+
+def wordpiece_vocab():
+    tokens = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]"] + WORDS
+    tokens += list("!\"#$%&'()*+,-./:;<=>?@[\\]^_`{|}~") + ["##s", "##ing", "##ed"]
+    tokens += [chr(c) for c in range(ord("a"), ord("z") + 1)]
+    tokens += ["##" + chr(c) for c in range(ord("a"), ord("z") + 1)] + list("0123456789")
+    return list(dict.fromkeys(tokens))
+
+
+def write_wordpiece_tokenizer(path, cls_name="BertTokenizerFast", lower=True):
+    """A WordPiece tokenizer of the named ``transformers`` class (fast:
+    ``tokenizer.json`` and ``vocab.txt``; slow: ``vocab.txt``).  Returns
+    the vocabulary size."""
+    import transformers
+
+    path.mkdir(parents=True, exist_ok=True)
+    vocab = wordpiece_vocab()
+    (path / "vocab.txt").write_text("\n".join(vocab) + "\n", encoding="utf-8")
+    getattr(transformers, cls_name)(str(path / "vocab.txt"), do_lower_case=lower).save_pretrained(str(path))
+    return len(vocab)
