@@ -107,7 +107,8 @@ from a seed:
    the 1M store at B = 1-256, the winners against the kernel phase's
    crossover, the first engine sticky, a new ``KB`` following the
    persisted winners), ``trace`` (``trace_phase``: ``SVS_TPU_PROFILE_DIR``
-   writes a ``torch.profiler`` trace of a B=64 call naming #2 and #1/#3),
+   writes ``torch.profiler`` traces of five B=64 calls, each trace file
+   holding the port's kernels and each call's naming #2 and #1/#3),
    ``providers`` (``providers_phase``: 10,000-doc stores through the
    openai and ollama factories against a loopback stub, reopened with no
    function), ``local`` (``local_phase``: a BERT encoder at
@@ -116,11 +117,18 @@ from a seed:
    ``local_xlmr`` (``local_xlmr_phase``: an XLM-RoBERTa at
    ``BAAI/bge-m3``'s widths with a synthetic 250,002-piece Unigram
    ``tokenizer.json``, 20,000 multilingual docs at ``max_length`` 512
-   embedded in bf16 and searched, 16 texts against the port's f32 run on
-   the CPU, a reopen with no function) and ``local_families``
-   (``local_families_phase``: RoBERTa, DistilBERT and ELECTRA at published
-   widths cut to 2 layers, 64 texts each in f32 and bf16 against the
-   CPU).  Every other
+   embedded in bf16 and searched, 4 texts against the port's f32 run on
+   the CPU, a reopen with no function), ``local_bigbird``
+   (``local_bigbird_phase``: a block-sparse BigBird at
+   ``google/bigbird-roberta-base``'s widths and depth with a synthetic
+   50,358-piece Unigram ``tokenizer.json`` in BigBird's layout, 20,000
+   docs of 8-1,000 words at ``max_length`` 1,024 embedded in bf16 and
+   searched, f32 on the card against the CPU at 512 and 4,096 tokens (2
+   layers), a reopen with no function) and ``local_families``
+   (``local_families_phase``: RoBERTa, DistilBERT, ELECTRA and
+   RoBERTa-PreLayerNorm at published widths cut to 2 layers, ALBERT at
+   ``albert-base-v2``'s widths and depth, 64 texts each in f32 and bf16
+   against the CPU).  Every other
    phase runs with ``SVS_TPU_AUTOCALIB=0`` and a calibration cache of the
    run's own, so no probe adds launches to it.
 
@@ -1293,6 +1301,7 @@ def e2e_phase(n_docs: int, reps: int, work: Path, cross: dict) -> dict:
     providers_phase(work, out)
     local_phase(work, out)
     local_xlmr_phase(work, out)
+    local_bigbird_phase(work, out)
     local_families_phase(work, out)
     return out
 
@@ -3441,6 +3450,7 @@ def device_idle_share(fn) -> dict:
     torch.cuda.synchronize()
     out: dict = {"unprofiled_wall_ms": (time.perf_counter() - t) * 1e3}
     for window in ("first_profile", "second_profile"):
+        torch.cuda.synchronize()  # completes the CUPTI teardown of the window before
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t = time.perf_counter()
             fn()
@@ -3869,15 +3879,28 @@ def calibration_phase(store: Path, ref_matrix, work: Path, cross: dict, out: dic
     torch.cuda.empty_cache()
 
 
+#: Traced calls of the trace phase, each with its own trace directory.
+TRACE_CALLS = 5
+#: The port's kernels by the symbols their kernel events carry.
+TRACE_SYMBOLS = ("fused3_mma_kernel", "fused3_f32_kernel", "fused_int8_kernel",
+                 "fused_float_kernel", "staged_finish_kernel", "extract_kernel",
+                 "pair_keys_kernel")
+
+
 def trace_phase(store: Path, ref_matrix, work: Path, out: dict) -> None:
-    """Trace export: with ``SVS_TPU_PROFILE_DIR`` set, one int8 B=64, n=100
-    retrieve on the 1M store (a ``KB`` from its sidecar, settled) writes a
-    ``torch.profiler`` trace under ``<dir>/retrieve/`` whose kernel events
-    name the staged finish (#2) and a prescore kernel (#1 or #3); the
+    """Trace export: with ``SVS_TPU_PROFILE_DIR`` set, ``TRACE_CALLS``
+    int8 B=64, n=100 retrieves on the 1M store (a ``KB`` from its sidecar,
+    settled; each first try on v3, the width hint cleared) each write
+    ``torch.profiler`` traces under ``<dir>/call<i>/retrieve/``, one per
+    attempt of the widen loop.  Every trace file must hold a kernel event
+    of the port's kernels, each call's traces one kernel event for each
+    launch its wrappers counted (each wrapper launches one kernel), among
+    them the staged finish (#2) and a prescore kernel (#1 or #3); the
     call's wall with and without the trace."""
     import torch
 
     import svs_tpu_torch
+    from svs_tpu_torch.ops import pallas_extract as P
 
     qvec = {}
 
@@ -3899,47 +3922,74 @@ def trace_phase(store: Path, ref_matrix, work: Path, out: dict) -> None:
         check_results(*hits_to_arrays(hits), v, ref_matrix, 100)
         return (time.perf_counter() - t) * 1e3
 
+    def read_traces(root: Path) -> list:
+        """Per trace file under ``root/retrieve``: the kernel events of the
+        port's kernels and the count of all kernel events."""
+        files = sorted((root / "retrieve").glob("*.pt.trace.json"))
+        if not files or any(f.parent != root / "retrieve" for f in files):
+            raise AssertionError(f"trace: no trace under {root / 'retrieve'}: {files}")
+        per_file = []
+        for f in files:  # one trace per attempt of the widen loop
+            kernels = 0
+            ours: dict = {}
+            for e in json.loads(f.read_text())["traceEvents"]:
+                if e.get("cat") != "kernel":
+                    continue
+                kernels += 1
+                for sym in TRACE_SYMBOLS:
+                    if sym in str(e.get("name", "")):
+                        ours[sym] = ours.get(sym, 0) + 1
+            per_file.append({"file": f.name, "bytes": f.stat().st_size,
+                             "port_kernel_events": ours, "kernel_events": kernels})
+        return per_file
+
     def run():
         kb = svs_tpu_torch.KB(store, embed, device="cuda")
+        traces, launched = [], []
         try:
             call(kb, "trace-open")
             settle(kb.engine, res, "trace")
             res["untraced_ms"] = call(kb, "trace-off")
-            kb.engine._cand_hint.clear()  # the traced call's first try on v3 (C=400)
-            os.environ["SVS_TPU_PROFILE_DIR"] = str(prof_dir)
-            try:
-                res["traced_ms"] = call(kb, "trace-on")
-            finally:
-                del os.environ["SVS_TPU_PROFILE_DIR"]
+            res["traced_ms"] = []
+            for i in range(TRACE_CALLS):
+                kb.engine._cand_hint.clear()  # each traced call's first try on v3 (C=400)
+                before = P.launch_counts()
+                os.environ["SVS_TPU_PROFILE_DIR"] = str(prof_dir / f"call{i}")
+                try:
+                    res["traced_ms"].append(call(kb, f"trace-on-{i}"))
+                finally:
+                    del os.environ["SVS_TPU_PROFILE_DIR"]
+                launched.append({k: v - before[k] for k, v in P.launch_counts().items()
+                                 if v > before[k]})
+                traces.append(read_traces(prof_dir / f"call{i}"))
         finally:
             kb.close()
-        files = sorted((prof_dir / "retrieve").glob("*.pt.trace.json"))
-        if not files or any(f.parent != prof_dir / "retrieve" for f in files):
-            raise AssertionError(f"trace: no trace under {prof_dir / 'retrieve'}: {files}")
-        kernels: dict = {}
-        ours: dict = {}  # the port's kernels: name -> the categories they appear under
-        for f in files:  # one trace per attempt of the widen loop
-            for e in json.loads(f.read_text())["traceEvents"]:
-                name = str(e.get("name", ""))
-                if e.get("cat") == "kernel":
-                    kernels[name] = kernels.get(name, 0) + 1
-                for sym in ("fused3_mma_kernel", "fused_int8_kernel", "staged_finish_kernel"):
-                    if sym in name:
-                        ours.setdefault(sym, set()).add(str(e.get("cat")))
-        res["trace_files"] = len(files)
-        res["trace_bytes"] = sum(f.stat().st_size for f in files)
-        res["kernels"] = {k[:80]: n for k, n in kernels.items()}
-        res["port_kernels"] = {k: sorted(v) for k, v in ours.items()}
-        finish = "staged_finish_kernel" in ours
-        prescore = "fused3_mma_kernel" in ours or "fused_int8_kernel" in ours
-        log(f"e2e trace: {len(files)} file(s) ({res['trace_bytes']} bytes), the port's "
-            f"kernels {res['port_kernels']} (event categories), "
-            f"{sum(kernels.values())} kernel events; the call {res['untraced_ms']:.2f} ms untraced, "
-            f"{res['traced_ms']:.2f} ms traced")
-        if not (finish and prescore):
-            raise AssertionError(
-                f"trace: #2 and #1/#3 not both in the trace: {res['port_kernels']}; "
-                f"kernel events {sorted(k[:60] for k in kernels)}")
+        res["calls"] = [{"launched": n, "files": t} for n, t in zip(launched, traces)]
+        res["trace_files"] = sum(len(t) for t in traces)
+        res["trace_bytes"] = sum(f["bytes"] for t in traces for f in t)
+        res["launches"] = sum(sum(n.values()) for n in launched)
+        res["kernel_events_kept"] = sum(sum(f["port_kernel_events"].values())
+                                        for t in traces for f in t)
+        log(f"e2e trace: {TRACE_CALLS} traced calls, {res['trace_files']} file(s) "
+            f"({res['trace_bytes']} bytes); launches counted per call {launched}; the port's "
+            f"kernel events per file {[[f['port_kernel_events'] for f in t] for t in traces]} "
+            f"({res['kernel_events_kept']} for {res['launches']} launches); all kernel events per "
+            f"file {[[f['kernel_events'] for f in t] for t in traces]}; the call "
+            f"{res['untraced_ms']:.2f} ms untraced, {[round(x, 2) for x in res['traced_ms']]} ms traced")
+        for i, (n, t) in enumerate(zip(launched, traces)):
+            held: dict = {}
+            for f in t:
+                if not f["port_kernel_events"]:
+                    raise AssertionError(f"trace: call {i}: {f['file']} holds no kernel event of "
+                                         f"the port's kernels: {t}")
+                for k, v in f["port_kernel_events"].items():
+                    held[k] = held.get(k, 0) + v
+            if sum(held.values()) != sum(n.values()):
+                raise AssertionError(f"trace: call {i}: its traces hold kernel events {held}, "
+                                     f"its wrappers launched {n}")
+            if not ("staged_finish_kernel" in held
+                    and ("fused3_mma_kernel" in held or "fused_int8_kernel" in held)):
+                raise AssertionError(f"trace: call {i}: #2 and #1/#3 not both in its traces: {held}")
 
     drive_path("trace", ["_staged_finish"], run, out)
     torch.cuda.empty_cache()
@@ -4415,7 +4465,8 @@ BGE_M3 = {
 }
 #: One published checkpoint of each other family the port runs, at its
 #: widths, its depth cut to ``FAMILY_LAYERS`` layers (the checks hold
-#: precision, not throughput).
+#: precision, not throughput) but ALBERT's: its one shared layer makes
+#: depth cost time, not memory, so it runs its published 12.
 FAMILY_CONFIGS = {
     "roberta": ("sentence-transformers/all-distilroberta-v1", {
         "model_type": "roberta", "architectures": ["RobertaModel"], "vocab_size": 50265,
@@ -4434,7 +4485,23 @@ FAMILY_CONFIGS = {
         "num_hidden_layers": 12, "num_attention_heads": 12, "intermediate_size": 3072,
         "max_position_embeddings": 512, "type_vocab_size": 2, "hidden_act": "gelu",
         "layer_norm_eps": 1e-12, "position_embedding_type": "absolute", "pad_token_id": 0}),
+    "albert": ("albert/albert-base-v2", {
+        "model_type": "albert", "architectures": ["AlbertForMaskedLM"], "vocab_size": 30000,
+        "embedding_size": 128, "hidden_size": 768, "num_hidden_layers": 12,
+        "num_attention_heads": 12, "intermediate_size": 3072, "max_position_embeddings": 512,
+        "type_vocab_size": 2, "hidden_act": "gelu_new", "layer_norm_eps": 1e-12,
+        "num_hidden_groups": 1, "inner_group_num": 1, "position_embedding_type": "absolute",
+        "pad_token_id": 0, "bos_token_id": 2, "eos_token_id": 3}),
+    "roberta-prelayernorm": ("andreasmadsen/efficient_mlm_m0.40", {
+        "model_type": "roberta-prelayernorm", "architectures": ["RobertaPreLayerNormForMaskedLM"],
+        "vocab_size": 50265, "hidden_size": 1024, "num_hidden_layers": 24,
+        "num_attention_heads": 16, "intermediate_size": 4096, "max_position_embeddings": 514,
+        "type_vocab_size": 1, "hidden_act": "gelu", "layer_norm_eps": 1e-05,
+        "position_embedding_type": "absolute", "pad_token_id": 1, "bos_token_id": 0,
+        "eos_token_id": 2}),
 }
+#: The families that run their published depth.
+FAMILY_FULL_DEPTH = ("albert",)
 FAMILY_LAYERS = 2
 FAMILY_TEXTS = 64
 FAMILY_MAX_LENGTH = 128
@@ -4444,7 +4511,7 @@ LOCAL_XLMR_DOCS = 20_000
 LOCAL_XLMR_MAX_LENGTH = 512
 LOCAL_XLMR_BATCH = 64
 #: Texts held against the port's own f32 run on the CPU.
-LOCAL_XLMR_PARITY_TEXTS = 16
+LOCAL_XLMR_PARITY_TEXTS = 4
 #: bf16 (autocast, f32 parameters) against f32 on unit vectors of 1024
 #: after 24 layers at 512 tokens.  Set before the first run on the card at
 #: about 5x the error of bf16 autocast against f32 on the CPU, measured at
@@ -4499,24 +4566,49 @@ def random_encoder_params(config: dict, seed: int, qk: float = LOCAL_QK) -> dict
             "output_layer_norm": norm(h),
         } for i in range(c["n_layers"])}
         return {"embeddings": emb, "transformer": {"layer": layers}}
+    kind = c["model_type"]
     h, inter = c["hidden_size"], c["intermediate_size"]
-    e = c.get("embedding_size", h) if c["model_type"] == "electra" else h
+    e = c.get("embedding_size", h) if kind in ("electra", "albert") else h
     params = {"embeddings": {
         "word_embeddings": {"embedding": normal(0.02, c["vocab_size"], e)},
         "position_embeddings": {"embedding": normal(0.02, c["max_position_embeddings"], e)},
         "token_type_embeddings": {"embedding": normal(0.02, c.get("type_vocab_size", 2), e)},
         "LayerNorm": norm(e),
     }}
+    if kind == "albert":  # the layer groups, shared across the depth
+        params["encoder"] = {"embedding_hidden_mapping_in": dense(e, h), "albert_layer_groups": {
+            str(g): {"albert_layers": {str(i): {
+                "attention": {"query": dense(h, h, qk), "key": dense(h, h, qk),
+                              "value": dense(h, h), "dense": dense(h, h), "LayerNorm": norm(h)},
+                "ffn": dense(h, inter), "ffn_output": dense(inter, h),
+                "full_layer_layer_norm": norm(h),
+            } for i in range(c.get("inner_group_num", 1))}}
+            for g in range(c.get("num_hidden_groups", 1))}}
+        params["pooler"] = dense(h, h)
+        return params
     if e != h:
         params["embeddings_project"] = dense(e, h)
-    params["encoder"] = {"layer": {str(i): {
+    pre_ln = kind == "roberta-prelayernorm"
+
+    def out_norm():  # post-LN layers normalise after each residual
+        return {} if pre_ln else {"LayerNorm": norm(h)}
+
+    layers = {str(i): {
         "attention": {"self": {"query": dense(h, h, qk), "key": dense(h, h, qk),
                                "value": dense(h, h)},
-                      "output": {"dense": dense(h, h), "LayerNorm": norm(h)}},
+                      "output": {"dense": dense(h, h), **out_norm()}},
         "intermediate": {"dense": dense(h, inter)},
-        "output": {"dense": dense(inter, h), "LayerNorm": norm(h)},
-    } for i in range(c["num_hidden_layers"])}}
-    if c["model_type"] != "electra":
+        "output": {"dense": dense(inter, h), **out_norm()},
+    } for i in range(c["num_hidden_layers"])}
+    if pre_ln:
+        for layer in layers.values():
+            layer["attention"]["LayerNorm"] = norm(h)
+            layer["intermediate"]["LayerNorm"] = norm(h)
+        params["LayerNorm"] = norm(h)
+    params["encoder"] = {"layer": layers}
+    if kind == "big_bird":
+        params["pooler"] = dense(h, h)
+    elif kind != "electra":
         params["pooler"] = {"dense": dense(h, h)}
     return params
 
@@ -4649,6 +4741,110 @@ def multilingual_texts(by_script: dict, n: int, seed: int) -> list:
     return texts
 
 
+def write_provider_store(path: Path, fn, texts: list, res: dict, label: str) -> tuple:
+    """Embed ``texts`` with the local provider ``fn`` (on the card) through
+    ``KB.bulk_add_docs`` into a new store at ``path``; into ``res`` the
+    encoder's load seconds, the write's seconds, the peak device memory and
+    the encoder's counters as texts/s.  Returns the stored rows (f32, as
+    the provider returned them), the docs' ids and the device memory
+    allocated before the load."""
+    import torch
+
+    import svs_tpu_torch
+
+    stored: list = []
+
+    async def capture(batch):
+        vecs = await fn(batch)
+        stored.extend(vecs)
+        return vecs
+
+    capture.__embedding_func_params__ = fn.__embedding_func_params__
+    enc = fn.encoder
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t = time.perf_counter()
+    enc._load()
+    res["load_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    kb = svs_tpu_torch.KB(path, capture, force_fresh_db=True, device="cuda")
+    try:
+        with kb.bulk_add_docs() as add:
+            ids = [add(x) for x in texts]
+    finally:
+        kb.close()
+    res["write_s"] = time.perf_counter() - t
+    res["encoder_peak_mb"] = (torch.cuda.max_memory_allocated() - base) / 1e6
+    res["device_peak_mb"] = torch.cuda.max_memory_allocated() / 1e6
+    st = dict(enc.stats)
+    res["encoder_stats"] = st
+    res["tokenizer_texts_per_s"] = st["texts"] / st["tokenize_s"]
+    res["encoder_texts_per_s"] = st["texts"] / st["forward_s"]
+    res["write_docs_per_s"] = len(texts) / res["write_s"]
+    if len(stored) != len(texts):
+        raise AssertionError(f"{label}: {len(stored)} vectors for {len(texts)} docs")
+    return np.asarray(stored, dtype=np.float32), ids, base
+
+
+def query_provider_store(path: Path, fn, rows, ids: list, shapes, query_texts, res: dict,
+                         label: str) -> dict:
+    """``retrieve_batch`` at each ``(B, n)`` of ``shapes`` on the store that
+    :func:`write_provider_store` wrote, first with ``fn``, then on a ``KB``
+    reopened with no function (the provider rebuilt on the card from the
+    stored params): ``query_texts(B, n)`` gives the texts and the rows whose
+    own text is among them (each its own top hit); every answer exact
+    against a scan of ``rows``, the reopened KB's the same as the first.
+    Returns the first KB's latencies (ms)."""
+    import torch
+
+    import svs_tpu_torch
+
+    ref = torch.from_numpy(rows).cuda()
+    row_of_id = {d: i for i, d in enumerate(ids)}
+    answers: dict = {}
+
+    def queries(kb, qfn, which):
+        lat = {}
+        for b, n in shapes:
+            qs, own = query_texts(b, n)
+            qv = np.asarray(asyncio.run(qfn(list(qs))), np.float32)  # the LRU: the KB's vectors
+            t = time.perf_counter()
+            hits = kb.retrieve_batch(qs, n)
+            lat[f"B{b}_n{n}"] = (time.perf_counter() - t) * 1e3
+            got_rows, scores = _rows_of(hits, row_of_id)
+            check_results(got_rows, scores, qv, ref, n)
+            for j, doc in enumerate(own):
+                if got_rows[j][0] != doc:
+                    raise AssertionError(f"{label} {which} B={b}: a doc's text is not its top hit")
+            answers.setdefault(which, {})[(b, n)] = (got_rows, scores)
+            if which == "first" and (b, n) == shapes[0]:
+                settle(kb.engine, res, label)
+        res[f"{which}_query_ms"] = lat
+        return lat
+
+    kb = svs_tpu_torch.KB(path, fn, device="cuda")
+    try:
+        lat = queries(kb, fn, "first")
+    finally:
+        kb.close()
+    kb = svs_tpu_torch.KB(path, device="cuda")  # no function: rebuilt on the card
+    try:
+        if kb.embedding_func.encoder.device != kb.engine.device:
+            raise AssertionError(f"{label}: the rebuilt provider is not on the KB's device")
+        queries(kb, kb.embedding_func, "reopened")
+    finally:
+        kb.close()
+    for key, (r1, s1) in answers["first"].items():
+        r2, s2 = answers["reopened"][key]
+        if not np.array_equal(r1, r2) or np.abs(s1 - s2).max() > SCORE_TOL:
+            raise AssertionError(f"{label}: the reopened KB answers {key} otherwise")
+    log(f"e2e {label}: retrieve {({k: round(v, 1) for k, v in lat.items()})} ms; exact vs "
+        f"scan, each doc's own text its top hit; the reopened KB (no function) answers the same")
+    return lat
+
+
 def local_xlmr_phase(work: Path, out: dict) -> None:
     """The local provider on the card at ``BAAI/bge-m3``'s widths (an
     XLM-RoBERTa, random weights from the seed; a synthetic 250,002-piece
@@ -4715,38 +4911,9 @@ def local_xlmr_phase(work: Path, out: dict) -> None:
         cpu_thread = threading.Thread(target=cpu_reference, name="local_xlmr_cpu", daemon=True)
         cpu_thread.start()
         fn = provider("bfloat16", "cuda")
-        stored: list = []
-
-        async def capture(batch):
-            vecs = await fn(batch)
-            stored.extend(vecs)
-            return vecs
-
-        capture.__embedding_func_params__ = fn.__embedding_func_params__
-        enc = fn.encoder
-        torch.cuda.synchronize()
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        base = torch.cuda.memory_allocated()
-        t = time.perf_counter()
-        enc._load()
-        res["load_s"] = time.perf_counter() - t
-        t = time.perf_counter()
-        kb = svs_tpu_torch.KB(path, capture, force_fresh_db=True, device="cuda")
-        try:
-            with kb.bulk_add_docs() as add:
-                ids = [add(x) for x in texts]
-        finally:
-            kb.close()
-        res["write_s"] = time.perf_counter() - t
-        res["encoder_peak_mb"] = (torch.cuda.max_memory_allocated() - base) / 1e6
-        res["device_peak_mb"] = torch.cuda.max_memory_allocated() / 1e6
-        st = dict(enc.stats)
-        res["encoder_stats"] = st
-        res["tokenizer_texts_per_s"] = st["texts"] / st["tokenize_s"]
-        res["encoder_texts_per_s"] = st["texts"] / st["forward_s"]
-        res["write_docs_per_s"] = LOCAL_XLMR_DOCS / res["write_s"]
-        tok, _ = enc._load()
+        rows, ids, base = write_provider_store(path, fn, texts, res, "local_xlmr")
+        st = res["encoder_stats"]
+        tok, _ = fn.encoder._load()
         lens = [len(tok.token_ids(x)) + 2 for x in texts[:2000]]
         res["tokens_p50_p99_max"] = [float(np.percentile(lens, 50)), float(np.percentile(lens, 99)),
                                      max(lens)]
@@ -4758,13 +4925,8 @@ def local_xlmr_phase(work: Path, out: dict) -> None:
             f"texts/s); tokens p50/p99/max {res['tokens_p50_p99_max']}, "
             f"{100 * res['past_max_length']:.1f}% past {LOCAL_XLMR_MAX_LENGTH}; encoder peak "
             f"{res['encoder_peak_mb']:.1f} MB above {base / 1e6:.1f} MB")
-        if len(stored) != LOCAL_XLMR_DOCS:
-            raise AssertionError(f"local_xlmr: {len(stored)} vectors for {LOCAL_XLMR_DOCS} docs")
         if res["past_max_length"] <= 0:
             raise AssertionError("local_xlmr: no text passes max_length (the truncation is not driven)")
-        rows = np.asarray(stored, dtype=np.float32)
-        del stored
-        row_of_id = {d: i for i, d in enumerate(ids)}
         t = time.perf_counter()
         cpu_thread.join()
         res["cpu_wait_s"] = time.perf_counter() - t
@@ -4787,51 +4949,360 @@ def local_xlmr_phase(work: Path, out: dict) -> None:
         if (res["bf16_max_abs_err"] > LOCAL_XLMR_BF16_ATOL
                 or res["bf16_min_cos"] < LOCAL_XLMR_BF16_MIN_COS):
             raise AssertionError("local_xlmr: bf16 on the card disagrees with the CPU f32 run")
-        ref = torch.from_numpy(rows).cuda()
-        answers: dict = {}
-
-        def queries(kb, qfn, label):
-            lat = {}
-            for b, n in shapes:
-                qs, own = query_texts(b, n)
-                qv = np.asarray(asyncio.run(qfn(list(qs))), np.float32)  # the LRU: the KB's vectors
-                t = time.perf_counter()
-                hits = kb.retrieve_batch(qs, n)
-                lat[f"B{b}_n{n}"] = (time.perf_counter() - t) * 1e3
-                got_rows, scores = _rows_of(hits, row_of_id)
-                check_results(got_rows, scores, qv, ref, n)
-                for j, doc in enumerate(own):
-                    if got_rows[j][0] != doc:
-                        raise AssertionError(f"local_xlmr {label} B={b}: a doc's text is not its top hit")
-                answers.setdefault(label, {})[(b, n)] = (got_rows, scores)
-                if label == "first" and (b, n) == shapes[0]:
-                    settle(kb.engine, res, "local_xlmr")
-            res[f"{label}_query_ms"] = lat
-            return lat
-
-        kb = svs_tpu_torch.KB(path, fn, device="cuda")
-        try:
-            lat = queries(kb, fn, "first")
-        finally:
-            kb.close()
-        kb = svs_tpu_torch.KB(path, device="cuda")  # no function: rebuilt on the card
-        try:
-            if kb.embedding_func.encoder.device != kb.engine.device:
-                raise AssertionError("local_xlmr: the rebuilt provider is not on the KB's device")
-            queries(kb, kb.embedding_func, "reopened")
-        finally:
-            kb.close()
-        for key, (r1, s1) in answers["first"].items():
-            r2, s2 = answers["reopened"][key]
-            if not np.array_equal(r1, r2) or np.abs(s1 - s2).max() > SCORE_TOL:
-                raise AssertionError(f"local_xlmr: the reopened KB answers {key} otherwise")
-        log(f"e2e local_xlmr: retrieve {({k: round(v, 1) for k, v in lat.items()})} ms; exact vs "
-            f"scan, each doc's own text its top hit; the reopened KB (no function) answers the same")
+        query_provider_store(path, fn, rows, ids, shapes, query_texts, res, "local_xlmr")
 
     # the 3-block store is below v3's 16: the keyed v2 prescore (#3) and
     # the staged finish (#2), and v1 (#4) once the margin widens past v2
     drive_path("local_xlmr", ["_fused2_extract_int8", "_fused_extract_int8", "_staged_finish"],
                run, out)
+    torch.cuda.empty_cache()
+
+
+def spm_tokenizer_json(path: Path, vocab: list, unk_id: int, specials: dict, normalizer: dict,
+                       tokenizer_config: dict) -> None:
+    """Write a SentencePiece-style Unigram ``tokenizer.json`` (what
+    ``transformers``' ``SpmConverter`` writes: Metaspace, ``[CLS] $A
+    [SEP]``, the special pieces as added tokens, the mask stripping the
+    space to its left) and ``tokenizer_config.json``.  ``vocab`` is the
+    ``[piece, score]`` list, ``specials`` maps each special piece to its
+    id."""
+    def added(content):
+        return {"id": specials[content], "content": content, "single_word": False,
+                "lstrip": content == "[MASK]", "rstrip": False, "normalized": False,
+                "special": True}
+
+    def special(name):
+        return {"SpecialToken": {"id": name, "type_id": 0}}
+
+    spec = {
+        "version": "1.0", "truncation": None, "padding": None,
+        "added_tokens": [added(t) for t in sorted(specials, key=specials.get)],
+        "normalizer": normalizer,
+        "pre_tokenizer": {"type": "Metaspace", "replacement": "▁", "prepend_scheme": "always",
+                          "split": True},
+        "post_processor": {"type": "TemplateProcessing",
+                           "single": [special("[CLS]"), {"Sequence": {"id": "A", "type_id": 0}},
+                                      special("[SEP]")],
+                           "pair": [], "special_tokens": {
+                               t: {"id": t, "ids": [specials[t]], "tokens": [t]}
+                               for t in ("[CLS]", "[SEP]")}},
+        "decoder": {"type": "Metaspace", "replacement": "▁", "prepend_scheme": "always",
+                    "split": True},
+        "model": {"type": "Unigram", "unk_id": unk_id, "vocab": vocab, "byte_fallback": False},
+    }
+    path.mkdir(parents=True, exist_ok=True)
+    (path / "tokenizer.json").write_text(json.dumps(spec, ensure_ascii=False), encoding="utf-8")
+    (path / "tokenizer_config.json").write_text(json.dumps(tokenizer_config))
+
+
+def write_albert_tokenizer(path: Path, words: list, size: int, seed: int) -> None:
+    """A SentencePiece Unigram ``tokenizer.json`` in ALBERT's layout
+    (``<pad>`` 0, ``<unk>`` 1, ``[CLS]`` 2, ``[SEP]`` 3, ``[MASK]`` 4, as
+    ``albert-base-v2``'s first pieces; ``AlbertConverter``'s normalizer:
+    the two quote ``Replace``s, NFKD, StripAccents, Lowercase,
+    ``Replace(" {2,}", " ")``, with no ``Precompiled`` charsmap, which the
+    smoke cannot build) over the pieces of ``words`` (a WordPiece
+    vocabulary: ``▁word``, and ``##piece`` as ``piece``), ``size`` ids."""
+    rng = np.random.default_rng(seed)
+    names = ["<pad>", "<unk>", "[CLS]", "[SEP]", "[MASK]"]
+    pieces = []
+    for w in words:
+        if w.startswith("[") and w.endswith("]"):
+            continue
+        pieces.append(w[2:] if w.startswith("##") else "▁" + w)
+    pieces = [p for p in dict.fromkeys(pieces + ["▁"]) if p and p not in names][: size - len(names)]
+    vocab = [[t, 0.0] for t in names] + [[p, float(x)] for p, x in
+                                          zip(pieces, rng.uniform(-14.0, -6.0, len(pieces)))]
+    norm = {"type": "Sequence", "normalizers": [
+        {"type": "Replace", "pattern": {"String": "``"}, "content": '"'},
+        {"type": "Replace", "pattern": {"String": "''"}, "content": '"'},
+        {"type": "NFKD"}, {"type": "StripAccents"}, {"type": "Lowercase"},
+        {"type": "Replace", "pattern": {"Regex": " {2,}"}, "content": " "}]}
+    spm_tokenizer_json(path, vocab, 1, {t: i for i, t in enumerate(names)}, norm, {
+        "tokenizer_class": "AlbertTokenizer", "do_lower_case": True, "keep_accents": False,
+        "remove_space": True, "bos_token": "[CLS]", "eos_token": "[SEP]", "unk_token": "<unk>",
+        "sep_token": "[SEP]", "pad_token": "<pad>", "cls_token": "[CLS]", "mask_token": "[MASK]"})
+
+
+# -- a long-document store: BigBird ------------------------------------------------
+
+#: ``google/bigbird-roberta-base``'s published ``config.json`` (a
+#: BigBirdForPreTraining): block-sparse attention, blocks of 64 tokens.
+BIGBIRD_ROBERTA = {
+    "model_type": "big_bird", "architectures": ["BigBirdForPreTraining"], "vocab_size": 50358,
+    "hidden_size": 768, "num_hidden_layers": 12, "num_attention_heads": 12,
+    "intermediate_size": 3072, "max_position_embeddings": 4096, "type_vocab_size": 2,
+    "hidden_act": "gelu_new", "layer_norm_eps": 1e-12, "attention_type": "block_sparse",
+    "block_size": 64, "num_random_blocks": 3, "use_bias": True, "rescale_embeddings": False,
+    "position_embedding_type": "absolute", "pad_token_id": 0, "bos_token_id": 1,
+    "eos_token_id": 2, "sep_token_id": 66, "hidden_dropout_prob": 0.1,
+    "attention_probs_dropout_prob": 0.1, "initializer_range": 0.02,
+}
+#: Three 8,192-row blocks, as ``local_xlmr``'s store: retrieval through
+#: the keyed v2 kernel (#3), v1 (#4) after a widen and the staged finish
+#: (#2).
+LOCAL_BIGBIRD_DOCS = 20_000
+#: 16 blocks of 64 tokens: the paper's plan (``L`` in 1,024 / 3,072 / 4,096).
+LOCAL_BIGBIRD_MAX_LENGTH = 1024
+#: The provider's batch; a reopened store's provider (``batch_size`` is
+#: not persisted) runs the default 128, so B <= 64 queries take the same
+#: power-of-two bucket, and the same bits, in both.
+LOCAL_BIGBIRD_BATCH = 64
+#: Words a document: 8 + 992 u^3 for u uniform on [0, 1) (mean 256).
+LOCAL_BIGBIRD_WORDS = (8, 1000)
+#: Texts held against f32 on the CPU; the 2-layer model's lengths (the
+#: planned branch at 512, the paper's length at 4,096).
+LOCAL_BIGBIRD_PARITY_TEXTS = 4
+LOCAL_BIGBIRD_CPU_LAYERS = 2
+LOCAL_BIGBIRD_PARITY_LENGTHS = (512, 4096)
+#: bf16 (autocast) against f32 on the CPU, full depth at 1,024 tokens,
+#: mean pooling: set before the first run on the card at about 5x the
+#: error measured on the CPU at these widths (bf16 autocast against f32).
+LOCAL_BIGBIRD_BF16_ATOL = 1e-2
+LOCAL_BIGBIRD_BF16_MIN_COS = 0.999
+
+
+def write_bigbird_tokenizer(path: Path, seed: int) -> list:
+    """A synthetic 50,358-piece Unigram ``tokenizer.json`` in BigBird's
+    layout (``SpmConverter``'s: NFKC in place of the ``Precompiled``
+    charsmap, a right ``Strip``, ``Replace(" {2,}", "▁")``; Metaspace;
+    ``[CLS] $A [SEP]``), the specials at the published config's ids
+    (``<pad>`` 0, ``<s>`` 1, ``</s>`` 2, ``[SEP]`` 66) with ``[CLS]`` 65,
+    ``[MASK]`` 67 and ``<unk>`` 100 beside them; the pieces every Latin
+    letter alone and after ``▁``, then seeded 2-7 letter pieces, half after
+    ``▁``.  Returns the multi-letter pieces (without ``▁``)."""
+    rng = np.random.default_rng(seed)
+    size = BIGBIRD_ROBERTA["vocab_size"]
+    specials = {"<pad>": 0, "<s>": 1, "</s>": 2, "[CLS]": 65, "[SEP]": 66, "[MASK]": 67,
+                "<unk>": 100}
+    letters = XLMR_SCRIPTS["latin"]
+    singles = [x for ch in letters for x in (ch, "▁" + ch)]
+    singles += ["▁", ",", ".", "▁,", "▁."] + [str(d) for d in range(10)]
+    seen = set(specials) | set(singles)
+    bodies: list = []
+    pieces: list = []
+    want = size - len(specials) - len(singles)
+    while len(pieces) < want:
+        lens = rng.integers(2, 8, 4096)
+        idx = rng.integers(0, len(letters), (4096, 7))
+        marks = rng.random(4096) < 0.5
+        for j in range(4096):
+            body = "".join(letters[i] for i in idx[j, : lens[j]])
+            piece = ("▁" + body) if marks[j] else body
+            if piece in seen:
+                continue
+            seen.add(piece)
+            pieces.append(piece)
+            bodies.append(body)
+            if len(pieces) == want:
+                break
+    scores = iter(list(rng.uniform(-16.0, -12.0, len(singles))) + list(rng.uniform(-12.0, -6.0, want)))
+    rest = iter(singles + pieces)
+    by_id = {i: t for t, i in specials.items()}
+    vocab = [[by_id[i], 0.0] if i in by_id else [next(rest), float(next(scores))]
+             for i in range(size)]
+    norm = {"type": "Sequence", "normalizers": [
+        {"type": "NFKC"}, {"type": "Strip", "strip_left": False, "strip_right": True},
+        {"type": "Replace", "pattern": {"Regex": " {2,}"}, "content": "▁"}]}
+    spm_tokenizer_json(path, vocab, specials["<unk>"], specials, norm, {
+        "tokenizer_class": "BigBirdTokenizer", "model_max_length": 4096, "unk_token": "<unk>",
+        "bos_token": "<s>", "eos_token": "</s>", "pad_token": "<pad>", "sep_token": "[SEP]",
+        "mask_token": "[MASK]", "cls_token": "[CLS]"})
+    return bodies
+
+
+def long_texts(bodies: list, n: int, seed: int) -> list:
+    """``n`` distinct English-like documents of ``LOCAL_BIGBIRD_WORDS``
+    words (8 + 992 u^3: a quarter and more pass 512 tokens), words drawn by
+    a Zipf law from a lexicon of ``XLMR_LEXICON`` words (a word: 1-3 of
+    ``bodies`` joined), 5% followed by a comma, 2% capitalised."""
+    rng = np.random.default_rng(seed)
+    pool = np.asarray(bodies, dtype=object)
+    parts = rng.integers(0, len(pool), (XLMR_LEXICON, 3))
+    k = rng.integers(1, 4, XLMR_LEXICON)
+    lexicon = np.asarray(["".join(pool[parts[i, : k[i]]]) for i in range(XLMR_LEXICON)],
+                         dtype=object)
+    lo, hi = LOCAL_BIGBIRD_WORDS
+    lens = lo + ((hi - lo) * rng.random(n) ** 3).astype(np.int64)
+    total = int(lens.sum())
+    words = lexicon[(rng.zipf(1.2, total) - 1) % XLMR_LEXICON]
+    r = rng.random(total)
+    words[r < 0.05] = [w + "," for w in words[r < 0.05]]
+    caps = (r >= 0.05) & (r < 0.07)
+    words[caps] = [str(w).capitalize() for w in words[caps]]
+    bounds = np.concatenate([[0], np.cumsum(lens)])
+    texts = [" ".join(words[bounds[i]:bounds[i + 1]]) for i in range(n)]
+    seen: set = set()
+    for i, t in enumerate(texts):
+        while texts[i] in seen:
+            texts[i] = f"{texts[i]} {lexicon[i % XLMR_LEXICON]}"
+        seen.add(texts[i])
+    return texts
+
+
+def bigbird_flops_per_text(config: dict, seq_len: int) -> dict:
+    """The multiply-adds x 2 of one text through a block-sparse BigBird at
+    ``seq_len`` tokens: the projections (query, key, value, output, the two
+    feed-forward layers) over every token, and the attention's two
+    products over each query block's keys: the first and last blocks every
+    key, the second and second last 4 + r blocks, each middle block 5 + r
+    (r = ``num_random_blocks``; the random blocks are computed although
+    they repeat block 0)."""
+    h, inter = config["hidden_size"], config["intermediate_size"]
+    layers, bs, r = config["num_hidden_layers"], config["block_size"], config["num_random_blocks"]
+    nb = seq_len // bs
+    proj = 2 * seq_len * (4 * h * h + 2 * h * inter) * layers
+    pairs = bs * (2 * seq_len + 2 * (4 + r) * bs + (nb - 4) * (5 + r) * bs)
+    attn = 2 * 2 * pairs * h * layers  # QK^T and PV over all heads (head dim x heads = h)
+    return {"projections": float(proj), "attention": float(attn), "total": float(proj + attn)}
+
+
+def local_bigbird_phase(work: Path, out: dict) -> None:
+    """A long-document store on the card at ``google/bigbird-roberta-base``'s
+    widths and depth (``BIGBIRD_ROBERTA``: block-sparse attention, random
+    weights from the seed; a synthetic 50,358-piece Unigram
+    ``tokenizer.json``; mean pooling, ``max_length`` 1,024, batch 64,
+    bf16): ``LOCAL_BIGBIRD_DOCS`` documents of 8-1,000 words (a quarter
+    and more past 512 tokens) embedded and written through
+    ``KB.bulk_add_docs``; f32 on the card against f32 on the CPU for
+    ``LOCAL_BIGBIRD_PARITY_TEXTS`` texts at 512 and 4,096 tokens with the
+    depth cut to ``LOCAL_BIGBIRD_CPU_LAYERS`` (within ``LOCAL_F32_ATOL``);
+    the stored bf16 rows of the same texts against a full-depth CPU f32 run
+    at 1,024 (within ``LOCAL_BIGBIRD_BF16_ATOL``, cosine at least
+    ``LOCAL_BIGBIRD_BF16_MIN_COS``); ``retrieve_batch`` at B = 1, 8 and 64,
+    n = 10 and 100, half the queries docs' own texts (each its own top
+    hit), exact against a scan of the stored rows; a reopen with no
+    function: the same answers.  Reports the tokenizer's and the encoder's
+    texts/s, the write's seconds, the peak device memory, the encoder's
+    share of its bound (:func:`bigbird_flops_per_text` at the bf16 peak),
+    and fails if none of #2, #3 and #4 launched."""
+    import torch
+
+    import svs_tpu_torch
+
+    res = out["paths_detail_local_bigbird"] = {}
+    ck = work / "bigbird-synthetic"
+    ck_cut = work / "bigbird-synthetic-2l"
+    cut = {**BIGBIRD_ROBERTA, "num_hidden_layers": LOCAL_BIGBIRD_CPU_LAYERS}
+    t = time.perf_counter()
+    write_random_encoder(ck, BIGBIRD_ROBERTA, SEED + 67)
+    write_random_encoder(ck_cut, cut, SEED + 67)
+    res["checkpoint_s"] = time.perf_counter() - t
+    res["checkpoint_gb"] = (ck / "flax_model.msgpack").stat().st_size / 1e9
+    t = time.perf_counter()
+    bodies = write_bigbird_tokenizer(ck, SEED + 71)
+    for name in ("tokenizer.json", "tokenizer_config.json"):
+        shutil.copy(ck / name, ck_cut / name)
+    res["tokenizer_write_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    texts = long_texts(bodies, LOCAL_BIGBIRD_DOCS, SEED + 73)
+    res["texts_s"] = time.perf_counter() - t
+    log(f"e2e local_bigbird: checkpoint {res['checkpoint_gb']:.2f} GB (and a "
+        f"{LOCAL_BIGBIRD_CPU_LAYERS}-layer cut) in {res['checkpoint_s']:.1f} s; tokenizer.json in "
+        f"{res['tokenizer_write_s']:.1f} s; {LOCAL_BIGBIRD_DOCS} texts in {res['texts_s']:.1f} s")
+    path = work / "local_bigbird.sqlite"
+    shapes = ((64, 10), (64, 100), (8, 10), (8, 100), (1, 10), (1, 100))
+    flops = bigbird_flops_per_text(BIGBIRD_ROBERTA, LOCAL_BIGBIRD_MAX_LENGTH)
+    res["gflop_per_text"] = {k: v / 1e9 for k, v in flops.items()}
+    res["bound_texts_per_s"] = PEAK_OPS_PER_S["bf16"] / flops["total"]
+
+    def query_texts(b, n):
+        rng = np.random.default_rng(SEED + 79 + b * 1000 + n)
+        own = rng.choice(LOCAL_BIGBIRD_DOCS, b // 2 + 1 if b > 1 else 1, replace=False)
+        fresh = long_texts(bodies, b - len(own), SEED + 83 + b * 1000 + n)
+        return [texts[i] for i in own] + fresh, [int(i) for i in own]
+
+    def provider(model, dtype, device, max_length=LOCAL_BIGBIRD_MAX_LENGTH):
+        return svs_tpu_torch.make_local_embeddings_func(
+            str(model), pooling="mean", max_length=max_length, batch_size=LOCAL_BIGBIRD_BATCH,
+            compute_dtype=dtype, device=device)
+
+    def run():
+        # the sample: the two longest of the first 200 docs, two short ones;
+        # the 4,096-token check also gets the first 12 docs joined (past
+        # 4,096 tokens) in place of the shortest
+        head = texts[:200]
+        order = sorted(range(len(head)), key=lambda i: len(head[i]))
+        sample_ids = [order[-1], order[-2], order[0], order[len(order) // 2]]
+        sample = [texts[i] for i in sample_ids]
+        joined = [" ".join(texts[:12])] + sample[:2] + sample[3:]
+        cut_texts = {512: sample, 4096: joined}
+        cpu_run: dict = {}
+
+        def cpu_reference():
+            try:
+                t = time.perf_counter()
+                cpu_run["full"] = np.asarray(asyncio.run(provider(ck, "float32", "cpu")(sample)),
+                                             np.float32)
+                for length in LOCAL_BIGBIRD_PARITY_LENGTHS:
+                    fn = provider(ck_cut, "float32", "cpu", length)
+                    cpu_run[length] = np.asarray(asyncio.run(fn(cut_texts[length])), np.float32)
+                cpu_run["s"] = time.perf_counter() - t
+            except BaseException as exc:  # re-raised by the phase below
+                cpu_run["error"] = exc
+
+        torch.set_num_threads(os.cpu_count() or 1)
+        cpu_thread = threading.Thread(target=cpu_reference, name="local_bigbird_cpu", daemon=True)
+        cpu_thread.start()
+        fn = provider(ck, "bfloat16", "cuda")
+        rows, ids, base = write_provider_store(path, fn, texts, res, "local_bigbird")
+        st = res["encoder_stats"]
+        res["encoder_share_of_bound"] = res["encoder_texts_per_s"] / res["bound_texts_per_s"]
+        tok, _ = fn.encoder._load()
+        lens = [len(tok.token_ids(x)) + 2 for x in texts[:2000]]
+        res["tokens_p50_p99_max"] = [float(np.percentile(lens, 50)), float(np.percentile(lens, 99)),
+                                     max(lens)]
+        res["past_512"] = float(np.mean(np.asarray(lens) > 512))
+        res["past_max_length"] = float(np.mean(np.asarray(lens) > LOCAL_BIGBIRD_MAX_LENGTH))
+        log(f"e2e local_bigbird: load {res['load_s']:.1f} s; {LOCAL_BIGBIRD_DOCS} docs embedded "
+            f"and written in {res['write_s']:.1f} s ({res['write_docs_per_s']:.0f} docs/s); "
+            f"tokenizer {st['tokenize_s']:.1f} s ({res['tokenizer_texts_per_s']:.0f} texts/s), "
+            f"encoder (bf16, host clock to the result) {st['forward_s']:.1f} s "
+            f"({res['encoder_texts_per_s']:.0f} texts/s, {100 * res['encoder_share_of_bound']:.1f}% "
+            f"of the {res['bound_texts_per_s']:.0f} texts/s bound: "
+            f"{res['gflop_per_text']['total']:.1f} GFLOP a text at 989 TFLOP/s); tokens "
+            f"p50/p99/max {res['tokens_p50_p99_max']}, {100 * res['past_512']:.1f}% past 512, "
+            f"{100 * res['past_max_length']:.1f}% past {LOCAL_BIGBIRD_MAX_LENGTH}; encoder peak "
+            f"{res['encoder_peak_mb']:.1f} MB above {base / 1e6:.1f} MB")
+        if res["past_512"] < 0.25 or res["past_max_length"] <= 0:
+            raise AssertionError("local_bigbird: too few texts past 512 / max_length tokens")
+        t = time.perf_counter()
+        cpu_thread.join()
+        res["cpu_wait_s"] = time.perf_counter() - t
+        if "error" in cpu_run:
+            raise cpu_run["error"]
+        res["cpu_f32_s"] = cpu_run["s"]
+        for length in LOCAL_BIGBIRD_PARITY_LENGTHS:
+            f32 = np.asarray(asyncio.run(provider(ck_cut, "float32", "cuda", length)(
+                cut_texts[length])), np.float32)
+            res[f"f32_max_abs_err_{length}"] = float(np.abs(f32 - cpu_run[length]).max())
+        bf = rows[sample_ids]
+        cpu = cpu_run["full"]
+        res["bf16_max_abs_err"] = float(np.abs(bf - cpu).max())
+        res["bf16_min_cos"] = float((bf * cpu).sum(axis=1).min())
+        log(f"e2e local_bigbird: {LOCAL_BIGBIRD_PARITY_TEXTS} texts vs the CPU f32 runs "
+            f"({res['cpu_f32_s']:.1f} s beside the write, {res['cpu_wait_s']:.1f} s waited for "
+            f"after it): f32 on the card ({LOCAL_BIGBIRD_CPU_LAYERS} layers) max |err| "
+            f"{res['f32_max_abs_err_512']:.3g} at 512, {res['f32_max_abs_err_4096']:.3g} at 4096 "
+            f"(tolerance {LOCAL_F32_ATOL}); the stored bf16 rows "
+            f"({BIGBIRD_ROBERTA['num_hidden_layers']} layers, {LOCAL_BIGBIRD_MAX_LENGTH}) "
+            f"{res['bf16_max_abs_err']:.3g} (tolerance {LOCAL_BIGBIRD_BF16_ATOL}), min cosine "
+            f"{res['bf16_min_cos']:.6f} (at least {LOCAL_BIGBIRD_BF16_MIN_COS})")
+        for length in LOCAL_BIGBIRD_PARITY_LENGTHS:
+            if res[f"f32_max_abs_err_{length}"] > LOCAL_F32_ATOL:
+                raise AssertionError(f"local_bigbird: f32 on the card disagrees with the CPU at {length}")
+        if (res["bf16_max_abs_err"] > LOCAL_BIGBIRD_BF16_ATOL
+                or res["bf16_min_cos"] < LOCAL_BIGBIRD_BF16_MIN_COS):
+            raise AssertionError("local_bigbird: bf16 on the card disagrees with the CPU f32 run")
+        query_provider_store(path, fn, rows, ids, shapes, query_texts, res, "local_bigbird")
+
+    drive_path("local_bigbird", [], run, out)
+    counts = out["paths"]["local_bigbird"]["launches"]
+    launched = {k: counts[k] for k in ("_staged_finish", "_fused2_extract_int8", "_fused_extract_int8")}
+    res["hand_kernel_launches"] = launched
+    if not any(launched.values()):
+        raise AssertionError(f"local_bigbird: none of #2, #3, #4 launched: {launched}")
+    shutil.rmtree(ck_cut, ignore_errors=True)
     torch.cuda.empty_cache()
 
 
@@ -4871,9 +5342,11 @@ def write_roberta_bpe(path: Path, size: int, seed: int) -> None:
 def local_families_phase(work: Path, out: dict) -> None:
     """The other encoder families on the card, each at a published
     checkpoint's widths (``FAMILY_CONFIGS``) cut to ``FAMILY_LAYERS``
-    layers, random weights from the seed: RoBERTa (byte-level BPE from
-    ``vocab.json`` + ``merges.txt``), DistilBERT (``vocab.txt`` read as
-    ``DistilBertTokenizer``) and ELECTRA (``ElectraTokenizer``).  Each
+    layers (ALBERT at its 12), random weights from the seed: RoBERTa and
+    RoBERTa-PreLayerNorm (byte-level BPE from ``vocab.json`` +
+    ``merges.txt``), DistilBERT (``vocab.txt`` read as
+    ``DistilBertTokenizer``), ELECTRA (``ElectraTokenizer``) and ALBERT (a
+    SentencePiece Unigram ``tokenizer.json``, :func:`write_albert_tokenizer`).  Each
     embeds ``FAMILY_TEXTS`` texts (``max_length`` ``FAMILY_MAX_LENGTH``,
     mean pooling) on the card in f32 (within ``LOCAL_F32_ATOL``) and bf16
     (within ``LOCAL_BF16_ATOL``, cosine at least ``LOCAL_BF16_MIN_COS``)
@@ -4888,11 +5361,15 @@ def local_families_phase(work: Path, out: dict) -> None:
         for i, (family, (source, published)) in enumerate(FAMILY_CONFIGS.items()):
             t = time.perf_counter()
             cfg = dict(published)
-            cfg["n_layers" if family == "distilbert" else "num_hidden_layers"] = FAMILY_LAYERS
+            if family not in FAMILY_FULL_DEPTH:
+                cfg["n_layers" if family == "distilbert" else "num_hidden_layers"] = FAMILY_LAYERS
+            layers = cfg.get("num_hidden_layers", cfg.get("n_layers"))
             ck = work / f"{family}-synthetic"
             write_random_encoder(ck, cfg, SEED + 53 + i)
-            if family == "roberta":
+            if family in ("roberta", "roberta-prelayernorm"):
                 write_roberta_bpe(ck, cfg["vocab_size"], SEED + 59)
+            elif family == "albert":
+                write_albert_tokenizer(ck, vocab, cfg["vocab_size"], SEED + 61)
             else:
                 (ck / "vocab.txt").write_text("\n".join(vocab) + "\n", encoding="utf-8")
                 cls = "DistilBertTokenizer" if family == "distilbert" else "ElectraTokenizer"
@@ -4908,7 +5385,7 @@ def local_families_phase(work: Path, out: dict) -> None:
             f32, bf = embed("float32", "cuda"), embed("bfloat16", "cuda")
             r = res[family] = {
                 "source": source, "cut": f"{published.get('num_hidden_layers', published.get('n_layers'))}"
-                f" -> {FAMILY_LAYERS} layers", "seconds": time.perf_counter() - t,
+                f" -> {layers} layers", "seconds": time.perf_counter() - t,
                 "f32_max_abs_err": float(np.abs(f32 - cpu).max()),
                 "bf16_max_abs_err": float(np.abs(bf - cpu).max()),
                 "bf16_min_cos": float((bf * cpu).sum(axis=1).min()),

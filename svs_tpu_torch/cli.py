@@ -430,9 +430,9 @@ def main(argv: "Optional[List[str]]" = None) -> int:
     try:
         return args.fn(args)
     except NotImplementedError as exc:
-        # a part of svs_tpu the port does not carry yet (a local model
-        # type such as albert, a tokenizer file or component): the
-        # message names it
+        # a part of svs_tpu the port does not carry (a local model type
+        # such as roformer, a tokenizer file or component): the message
+        # names it
         print(f"error: {exc}", file=sys.stderr)
         return 2
 

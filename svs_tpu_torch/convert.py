@@ -186,6 +186,9 @@ _FLAX_TOP = {
     "xlm-roberta": ("embeddings", "encoder"),
     "electra": ("embeddings", "embeddings_project", "encoder"),
     "distilbert": ("embeddings", "transformer"),
+    "albert": ("embeddings", "encoder"),
+    "roberta-prelayernorm": ("embeddings", "encoder", "LayerNorm"),
+    "big_bird": ("embeddings", "encoder"),
 }
 
 
@@ -199,8 +202,13 @@ def encoder_state_dict_from_flax(
     ELECTRA's adds ``embeddings_project`` (when ``embedding_size`` differs
     from ``hidden_size``); DistilBERT's is ``embeddings`` +
     ``transformer.layer.N.{attention.{q,k,v,out}_lin, sa_layer_norm,
-    ffn.lin1, ffn.lin2, output_layer_norm}``.  A subtree the family does
-    not have raises ``ValueError``."""
+    ffn.lin1, ffn.lin2, output_layer_norm}``; ALBERT's ``embeddings`` +
+    ``encoder.{embedding_hidden_mapping_in, albert_layer_groups.G.
+    albert_layers.I.{attention.{query,key,value,dense,LayerNorm}, ffn,
+    ffn_output, full_layer_layer_norm}}``; RoBERTa-PreLayerNorm's adds the
+    final ``LayerNorm``; BigBird's is BERT's.  The pooler (a subtree, or
+    ALBERT's and BigBird's flat Dense) is dropped.  A subtree the family
+    does not have raises ``ValueError``."""
     model_type = config.get("model_type")
     if model_type not in _FLAX_TOP:
         raise NotImplementedError(f"model_type {model_type!r} has no weight conversion")

@@ -1,25 +1,33 @@
-"""The post-LayerNorm BERT encoder family in plain PyTorch: the forward
-pass of ``transformers``' ``FlaxBertModel``, ``FlaxRobertaModel``,
-``FlaxXLMRobertaModel`` and ``FlaxElectraModel`` that ``svs_tpu``'s local
-provider runs, up to ``last_hidden_state``.
+"""The BERT encoder family in plain PyTorch: the forward pass of
+``transformers``' ``FlaxBertModel``, ``FlaxRobertaModel``,
+``FlaxXLMRobertaModel``, ``FlaxElectraModel``,
+``FlaxRobertaPreLayerNormModel`` and ``FlaxBigBirdModel`` that
+``svs_tpu``'s local provider runs, up to ``last_hidden_state``.
 
-One stack serves the four ``model_type``s; only the embeddings differ:
+One stack serves the six ``model_type``s; the embeddings differ:
 
 - ``bert``: word + token type (all 0) + absolute position (0, 1, ...);
-- ``roberta`` / ``xlm-roberta``: positions count the real tokens from
-  ``pad_token_id + 1`` and a pad sits at ``pad_token_id``
-  (``cumsum(ids != pad) * (ids != pad) + pad``, as
+- ``roberta`` / ``xlm-roberta`` / ``roberta-prelayernorm``: positions
+  count the real tokens from ``pad_token_id + 1`` and a pad sits at
+  ``pad_token_id`` (``cumsum(ids != pad) * (ids != pad) + pad``, as
   ``create_position_ids_from_input_ids``); ``type_vocab_size`` may be 1;
 - ``electra``: word, position and token type tables of width
   ``embedding_size``, the token types all 1 (``FlaxElectraModel``'s
   default when none are passed), and an ``embeddings_project`` Dense layer
-  to ``hidden_size`` when the two widths differ.
+  to ``hidden_size`` when the two widths differ;
+- ``big_bird``: as ``bert`` (positions 0, 1, ... whatever the pad id),
+  the word embeddings times ``sqrt(hidden_size)`` with
+  ``rescale_embeddings``; its attention is :mod:`.big_bird`'s when
+  ``attention_type`` is ``block_sparse``.
 
 Then LayerNorm with the config's eps, and each layer: self-attention (the
 query scaled by 1/sqrt(head dim), an additive mask of 0 / the f32 minimum
 over padded keys, softmax), the output projection, residual and
 LayerNorm; the intermediate projection with the config's ``hidden_act``
 (:data:`ACTIVATIONS`); the output projection, residual and LayerNorm.
+``roberta-prelayernorm``'s layers are pre-LN instead: LayerNorm before the
+attention and before the intermediate projection, the residuals added
+with no norm after them, and one final ``LayerNorm`` after the stack.
 
 Parameter names are those of the Flax tree (less the pooler, which
 ``last_hidden_state`` does not use), so
@@ -42,7 +50,9 @@ from torch import nn
 from torch.nn import functional as F
 
 #: The ``model_type``s this module's encoder computes.
-MODEL_TYPES = ("bert", "roberta", "xlm-roberta", "electra")
+MODEL_TYPES = ("bert", "roberta", "xlm-roberta", "electra", "roberta-prelayernorm", "big_bird")
+#: The types whose positions count from ``pad_token_id + 1``.
+PAD_OFFSET_TYPES = ("roberta", "xlm-roberta", "roberta-prelayernorm")
 #: ``transformers``' Flax ``ACT2FN`` entries that are ported (``gelu`` is
 #: the exact erf form, ``gelu_new`` / ``gelu_pytorch_tanh`` the tanh one).
 ACTIVATIONS: Dict[str, Callable[[torch.Tensor], torch.Tensor]] = {
@@ -135,19 +145,24 @@ class _Embeddings(nn.Module):
         self.position_embeddings = Embedding(c["max_position_embeddings"], width)
         self.token_type_embeddings = Embedding(c.get("type_vocab_size", 2), width)
         self.LayerNorm = LayerNorm(width, c.get("layer_norm_eps", 1e-12))
-        default_pad = 1 if self.model_type in ("roberta", "xlm-roberta") else 0
+        default_pad = 1 if self.model_type in PAD_OFFSET_TYPES else 0
         self.pad_token_id = int(c.get("pad_token_id", default_pad))
         self.token_type = 1 if self.model_type == "electra" else 0
+        # BigBird's rescale_embeddings: the word embeddings x sqrt(hidden)
+        self.word_scale = float(c["hidden_size"]) ** 0.5 if c.get("rescale_embeddings") else None
 
     def positions(self, ids: torch.Tensor) -> torch.Tensor:
-        if self.model_type in ("roberta", "xlm-roberta"):
+        if self.model_type in PAD_OFFSET_TYPES:
             real = (ids != self.pad_token_id).to(torch.int64)
             return torch.cumsum(real, dim=1) * real + self.pad_token_id
         return torch.arange(ids.shape[1], device=ids.device)[None]
 
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
+        words = self.word_embeddings(ids)
+        if self.word_scale is not None:
+            words = words * self.word_scale
         x = (
-            self.word_embeddings(ids)
+            words
             + self.token_type_embeddings(torch.full_like(ids, self.token_type))
             + self.position_embeddings(self.positions(ids))
         )
@@ -177,62 +192,78 @@ class _SelfAttention(nn.Module):
         return ctx.transpose(1, 2).reshape(b, n, h)
 
 
-class _DenseNorm(nn.Module):
-    """A projection, then LayerNorm of it plus the residual."""
+def _norm(c: Dict[str, Any]) -> LayerNorm:
+    return LayerNorm(c["hidden_size"], c.get("layer_norm_eps", 1e-12))
 
-    def __init__(self, d_in: int, c: Dict[str, Any]) -> None:
+
+class _DenseNorm(nn.Module):
+    """A projection plus the residual, then LayerNorm of the sum (no norm
+    in a pre-LN layer)."""
+
+    def __init__(self, d_in: int, c: Dict[str, Any], pre_ln: bool) -> None:
         super().__init__()
-        h = c["hidden_size"]
-        self.dense = Linear(d_in, h)
-        self.LayerNorm = LayerNorm(h, c.get("layer_norm_eps", 1e-12))
+        self.dense = Linear(d_in, c["hidden_size"])
+        self.LayerNorm = None if pre_ln else _norm(c)
 
     def forward(self, x: torch.Tensor, residual: torch.Tensor) -> torch.Tensor:
-        return self.LayerNorm(self.dense(x) + residual)
+        x = self.dense(x) + residual
+        return x if self.LayerNorm is None else self.LayerNorm(x)
 
 
 class _Attention(nn.Module):
-    def __init__(self, c: Dict[str, Any]) -> None:
+    def __init__(self, c: Dict[str, Any], self_attention: type, pre_ln: bool) -> None:
         super().__init__()
-        self.self = _SelfAttention(c)
-        self.output = _DenseNorm(c["hidden_size"], c)
+        self.LayerNorm = _norm(c) if pre_ln else None
+        self.self = self_attention(c)
+        self.output = _DenseNorm(c["hidden_size"], c, pre_ln)
 
-    def forward(self, x: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
-        return self.output(self.self(x, bias), x)
+    def forward(self, x: torch.Tensor, mask: Any) -> torch.Tensor:
+        a = x if self.LayerNorm is None else self.LayerNorm(x)
+        return self.output(self.self(a, mask), x)
 
 
 class _Intermediate(nn.Module):
-    def __init__(self, c: Dict[str, Any]) -> None:
+    def __init__(self, c: Dict[str, Any], pre_ln: bool) -> None:
         super().__init__()
+        self.LayerNorm = _norm(c) if pre_ln else None
         self.dense = Linear(c["hidden_size"], c["intermediate_size"])
         self.act = activation(c.get("hidden_act", "gelu"))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.LayerNorm is not None:
+            x = self.LayerNorm(x)
         return self.act(self.dense(x))
 
 
 class _Layer(nn.Module):
-    def __init__(self, c: Dict[str, Any]) -> None:
+    def __init__(self, c: Dict[str, Any], self_attention: type, pre_ln: bool) -> None:
         super().__init__()
-        self.attention = _Attention(c)
-        self.intermediate = _Intermediate(c)
-        self.output = _DenseNorm(c["intermediate_size"], c)
+        self.attention = _Attention(c, self_attention, pre_ln)
+        self.intermediate = _Intermediate(c, pre_ln)
+        self.output = _DenseNorm(c["intermediate_size"], c, pre_ln)
 
-    def forward(self, x: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
-        a = self.attention(x, bias)
+    def forward(self, x: torch.Tensor, mask: Any) -> torch.Tensor:
+        a = self.attention(x, mask)
         return self.output(self.intermediate(a), a)
 
 
 class _Encoder(nn.Module):
-    def __init__(self, c: Dict[str, Any]) -> None:
+    def __init__(self, c: Dict[str, Any], self_attention: type, pre_ln: bool) -> None:
         super().__init__()
-        self.layer = nn.ModuleList(_Layer(c) for _ in range(c["num_hidden_layers"]))
+        self.layer = nn.ModuleList(
+            _Layer(c, self_attention, pre_ln) for _ in range(c["num_hidden_layers"])
+        )
 
 
 class BertEncoder(nn.Module):
-    """``last_hidden_state`` of a BERT, RoBERTa, XLM-RoBERTa or ELECTRA
-    ``config.json`` (see the module docstring for how they differ)."""
+    """``last_hidden_state`` of a BERT, RoBERTa, XLM-RoBERTa, ELECTRA,
+    RoBERTa-PreLayerNorm or (full attention) BigBird ``config.json`` (see
+    the module docstring for how they differ).  ``self_attention`` is the
+    class of each layer's ``attention.self`` (:mod:`.big_bird` passes its
+    block-sparse one); it takes the hidden states and what
+    :meth:`attention_mask` makes of the 0/1 mask."""
 
-    def __init__(self, config: Dict[str, Any]) -> None:
+    def __init__(self, config: Dict[str, Any], self_attention: type = _SelfAttention) -> None:
         super().__init__()
         check_config(config)
         self.config = dict(config)
@@ -241,14 +272,22 @@ class BertEncoder(nn.Module):
             self.embeddings_project = Linear(
                 self.embeddings.LayerNorm.width, config["hidden_size"]
             )
-        self.encoder = _Encoder(config)
+        pre_ln = config["model_type"] == "roberta-prelayernorm"
+        self.encoder = _Encoder(config, self_attention, pre_ln)
+        self.LayerNorm = _norm(config) if pre_ln else None
+
+    def attention_mask(self, mask: torch.Tensor) -> Any:
+        """What each layer's attention takes: the additive bias."""
+        return attention_bias(mask)
 
     def forward(self, input_ids: torch.Tensor, attention_mask: torch.Tensor) -> torch.Tensor:
         """``[B, L]`` ids and 0/1 mask -> ``[B, L, hidden]``."""
         x = self.embeddings(input_ids)
         if hasattr(self, "embeddings_project"):
             x = self.embeddings_project(x)
-        bias = attention_bias(attention_mask)
+        mask = self.attention_mask(attention_mask)
         for layer in self.encoder.layer:
-            x = layer(x, bias)
+            x = layer(x, mask)
+        if self.LayerNorm is not None:
+            x = self.LayerNorm(x)
         return x

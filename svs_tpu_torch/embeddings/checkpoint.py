@@ -265,7 +265,8 @@ def load_checkpoint(model_dir: Union[str, Path]) -> Tuple[Dict[str, Any], Dict[s
     """``(config, params)``: ``config.json`` and the Flax parameter tree of
     ``flax_model.msgpack`` (NumPy arrays).  A head model's checkpoint holds
     the base model under its family's ``base_model_prefix`` (``bert``,
-    ``roberta``, ``xlm-roberta``, ``distilbert``, ``electra``), and that
+    ``roberta``, ``xlm-roberta``, ``distilbert``, ``electra``, ``albert``,
+    ``roberta_prelayernorm``; BigBird's is ``bert``), and that
     wrapper is unwrapped as ``FlaxAutoModel.from_pretrained`` unwraps it:
     only when the tree has no ``embeddings`` of its own."""
     config = read_config(model_dir)

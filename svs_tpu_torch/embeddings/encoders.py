@@ -5,14 +5,20 @@ that does, by the ``model_type`` of ``config.json``.
 Ported (``FlaxAutoModel``'s encoder-only types that ``svs_tpu``'s local
 provider runs with ``input_ids`` and ``attention_mask`` alone):
 
-- ``bert``, ``roberta``, ``xlm-roberta``, ``electra``: :mod:`.bert`;
-- ``distilbert``: :mod:`.distilbert`.
+- ``bert``, ``roberta``, ``xlm-roberta``, ``electra`` and
+  ``roberta-prelayernorm`` (pre-LN layers and a final LayerNorm):
+  :mod:`.bert`;
+- ``distilbert``: :mod:`.distilbert`;
+- ``albert`` (factorised embeddings, layer groups shared across the
+  depth): :mod:`.albert`;
+- ``big_bird`` (full or block-sparse attention): :mod:`.big_bird`.
 
-``FlaxAutoModel`` also loads ``albert``, ``roformer``, ``big_bird`` and
-``roberta-prelayernorm``; they are not ported and raise
-``NotImplementedError`` naming the type (:data:`UNPORTED`), as does every
-other type and every ``hidden_act`` / ``activation`` or
-``position_embedding_type`` the encoders do not compute.
+``FlaxAutoModel`` also loads ``roformer``, which is not ported (its
+tokenizer needs ``rjieba``, so ``svs_tpu``'s provider fails before its
+encoder runs): it raises ``NotImplementedError`` naming the type
+(:data:`UNPORTED`), as does every other type and every ``hidden_act`` /
+``activation``, ``position_embedding_type`` or BigBird
+``attention_type`` the encoders do not compute.
 """
 
 from __future__ import annotations
@@ -22,7 +28,7 @@ from typing import Any, Dict
 import torch
 from torch import nn
 
-from . import bert, distilbert
+from . import albert, bert, big_bird, distilbert
 
 #: ``model_type`` -> the key under which a head model's Flax checkpoint
 #: holds the base model (``transformers``' ``base_model_prefix``).
@@ -32,16 +38,26 @@ BASE_MODEL_PREFIX = {
     "xlm-roberta": "xlm-roberta",
     "electra": "electra",
     "distilbert": "distilbert",
+    "albert": "albert",
+    "roberta-prelayernorm": "roberta_prelayernorm",
+    "big_bird": "bert",
 }
 MODEL_TYPES = tuple(BASE_MODEL_PREFIX)
 #: Encoder-only types that ``FlaxAutoModel`` loads and the port does not
 #: run, with what they would need.
 UNPORTED = {
-    "albert": "factorised embeddings and one layer shared across the depth",
-    "roformer": "rotary position embeddings",
-    "big_bird": "block-sparse attention",
-    "roberta-prelayernorm": "pre-LayerNorm layers",
+    "roformer": "rotary position embeddings, and a tokenizer that needs rjieba",
 }
+#: The encoder class and config check of each type (the rest: :mod:`.bert`).
+_ENCODERS = {
+    "distilbert": (distilbert.DistilBertEncoder, distilbert.check_config),
+    "albert": (albert.AlbertEncoder, albert.check_config),
+    "big_bird": (big_bird.BigBirdEncoder, big_bird.check_config),
+}
+
+
+def _entry(model_type: Any) -> tuple:
+    return _ENCODERS.get(model_type, (bert.BertEncoder, bert.check_config))
 
 
 def check_config(config: Dict[str, Any]) -> None:
@@ -58,19 +74,14 @@ def check_config(config: Dict[str, Any]) -> None:
             f"model_type {model_type!r} is not ported: svs_tpu_torch's local "
             f"provider runs {MODEL_TYPES}"
         )
-    if model_type == "distilbert":
-        distilbert.check_config(config)
-    else:
-        bert.check_config(config)
+    _entry(model_type)[1](config)
 
 
 def build_encoder(config: Dict[str, Any]) -> nn.Module:
     """The port's encoder for ``config`` (f32 parameters, uninitialised
     until a state dict is loaded)."""
     check_config(config)
-    if config["model_type"] == "distilbert":
-        return distilbert.DistilBertEncoder(config)
-    return bert.BertEncoder(config)
+    return _entry(config["model_type"])[0](config)
 
 
 def load_encoder(config: Dict[str, Any], state_dict: Dict[str, torch.Tensor]) -> nn.Module:

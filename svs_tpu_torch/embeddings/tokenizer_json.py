@@ -72,19 +72,32 @@ _ROBERTA_SPECIALS = {"bos_token": "<s>", "eos_token": "</s>", "sep_token": "</s>
                      "mask_token": "<mask>"}
 _BERT_SPECIALS = {"unk_token": "[UNK]", "sep_token": "[SEP]", "pad_token": "[PAD]",
                   "cls_token": "[CLS]", "mask_token": "[MASK]"}
+#: ``AlbertTokenizerFast`` / ``BigBirdTokenizerFast`` (SentencePiece
+#: vocabularies with BERT's ``[CLS] $A [SEP]``).
+_ALBERT_SPECIALS = {"bos_token": "[CLS]", "eos_token": "[SEP]", "unk_token": "<unk>",
+                    "sep_token": "[SEP]", "pad_token": "<pad>", "cls_token": "[CLS]",
+                    "mask_token": "[MASK]"}
+_BIG_BIRD_SPECIALS = {"unk_token": "<unk>", "bos_token": "<s>", "eos_token": "</s>",
+                      "pad_token": "<pad>", "sep_token": "[SEP]", "mask_token": "[MASK]",
+                      "cls_token": "[CLS]"}
 _CLASS_SPECIALS = {
     "XLMRobertaTokenizer": _ROBERTA_SPECIALS,
     "RobertaTokenizer": _ROBERTA_SPECIALS,
     "BertTokenizer": _BERT_SPECIALS,
     "DistilBertTokenizer": _BERT_SPECIALS,
     "ElectraTokenizer": _BERT_SPECIALS,
+    "AlbertTokenizer": _ALBERT_SPECIALS,
+    "BigBirdTokenizer": _BIG_BIRD_SPECIALS,
 }
+#: The classes whose default mask token strips the white space to its left.
+_LSTRIP_MASK = ("XLMRobertaTokenizer", "RobertaTokenizer", "AlbertTokenizer", "BigBirdTokenizer")
 #: ``model_type`` -> the tokenizer class ``AutoTokenizer`` picks without a
 #: ``tokenizer_class``.
 _MODEL_TOKENIZER = {
     "xlm-roberta": "XLMRobertaTokenizer", "roberta": "RobertaTokenizer",
     "bert": "BertTokenizer", "distilbert": "DistilBertTokenizer",
-    "electra": "ElectraTokenizer",
+    "electra": "ElectraTokenizer", "albert": "AlbertTokenizer",
+    "big_bird": "BigBirdTokenizer", "roberta-prelayernorm": "RobertaTokenizer",
 }
 _SPECIAL_KEYS = ("bos_token", "eos_token", "unk_token", "sep_token", "pad_token",
                  "cls_token", "mask_token")
@@ -629,7 +642,7 @@ def _added_tokens(
         if content is None or content in known:
             continue
         tok = dict(value) if isinstance(value, dict) else {"content": content}
-        if (tok_class in ("XLMRobertaTokenizer", "RobertaTokenizer")
+        if (tok_class in _LSTRIP_MASK
                 and content == _token_text(specials.get("mask_token"))
                 and not isinstance(value, dict)):
             tok["lstrip"] = True

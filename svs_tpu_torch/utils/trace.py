@@ -11,8 +11,11 @@ The reference's only tracing is log lines bracketing expensive phases
   call time), a ``torch.profiler`` trace of the block (CPU activities, and
   CUDA ones when there is a card) written under ``<dir>/<label>/`` as
   ``svs_tpu``'s ``jax.profiler`` traces are laid out, a Chrome / Perfetto
-  trace file; unset, a ``torch.profiler.record_function`` range, so the
-  block shows up as one named span in any trace taken around it.
+  trace file, the device synchronised before the profile starts and
+  before it stops (a kernel still in flight would be missing from it);
+  unset, a
+  ``torch.profiler.record_function`` range, so the block shows up as one
+  named span in any trace taken around it.
 """
 
 from __future__ import annotations
@@ -28,6 +31,18 @@ from collections import defaultdict, deque
 from typing import Dict, Iterator, Optional
 
 log = logging.getLogger("svs_tpu_torch.trace")
+
+# Kineto (torch.profiler's CUDA tracer) keeps CUPTI attached from one profile
+# to the next unless TEARDOWN_CUPTI=1.  On an H100 (torch 2.11, CUDA 12.8,
+# under a sandboxed kernel) the kept CUPTI loses kernel records: from about
+# a minute after its first use, about every other profile keeps none of its
+# kernels, so a device call's trace can lack the port's kernels.  With
+# TEARDOWN_CUPTI=1 Kineto tears CUPTI down after each profile, and a later
+# CUDA call completes that: a profile started before one loses all its
+# events, so profiler_trace syncs the device first
+# (tools/profiler_kept_kernels.py shows both).  Set at import, before a
+# profile is taken; a value the caller set is kept.
+os.environ.setdefault("TEARDOWN_CUPTI", "1")
 
 
 
@@ -109,15 +124,25 @@ def profiler_trace(label: str) -> Iterator[None]:
         return
     try:
         activities = [torch.profiler.ProfilerActivity.CPU]
-        if torch.cuda.is_available():
+        cuda = torch.cuda.is_available()
+        if cuda:
             activities.append(torch.profiler.ProfilerActivity.CUDA)
         out = os.path.join(profile_dir, label)
+        if cuda:
+            # completes the CUPTI teardown of a profile before (above)
+            torch.cuda.synchronize()
         with torch.profiler.profile(
             activities=activities,
             on_trace_ready=torch.profiler.tensorboard_trace_handler(out),
         ):
-            with torch.profiler.record_function(label):
-                yield
+            try:
+                with torch.profiler.record_function(label):
+                    yield
+            finally:
+                # the block's kernels may still run: the profile keeps only
+                # what finished before it stops
+                if cuda:
+                    torch.cuda.synchronize()
         log.info("profiler trace of %r written under %s", label, out)
     finally:
         _TRACE_LOCK.release()

@@ -268,8 +268,8 @@ def test_replicas_and_unported_provider_exit_2(tmp_path, capsys):
         ref_replicas.ReplicaEngine(n_replicas=n, devices=jax.devices()[: n - 1])
     assert want in err and "Traceback" not in err
     # a store written with a local provider whose model type the port does
-    # not carry (every provider is ported; albert's encoder is not)
-    ck = write_tiny_bert(tmp_path / "albert", model_type="albert")
+    # not carry (every provider is ported; roformer's encoder is not)
+    ck = write_tiny_bert(tmp_path / "roformer", model_type="roformer")
     kb = svs_tpu_torch.KB(tmp_path / "o.sqlite", make_onehot_embedder(), device="cpu")
     with kb.bulk_add_docs() as add:
         add("vec:1")
@@ -284,7 +284,7 @@ def test_replicas_and_unported_provider_exit_2(tmp_path, capsys):
                   "--provider-params", params, "--device", "cpu"]):
         assert port_cli.main(argv) == 2
         err = capsys.readouterr().err
-        assert "not ported" in err and "albert" in err and "Traceback" not in err
+        assert "not ported" in err and "roformer" in err and "Traceback" not in err
 
 
 def _free_port():

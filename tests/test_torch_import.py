@@ -5,8 +5,9 @@ deferred upload, the host route and the native library, the HTTP server,
 the CLI and the tools; the embedding providers, the dispatch calibration
 and the trace export, with ``transformers``, ``flax``, ``msgpack`` and
 ``aiohttp`` blocked too; meshes and replicas, with ``svs_tpu`` itself
-blocked; the local provider past BERT, with ``tokenizers``,
-``sentencepiece`` and ``regex`` blocked too), never imports ``svs_tpu``,
+blocked; the local provider past BERT, ALBERT and BigBird included,
+with ``tokenizers``, ``sentencepiece`` and ``regex`` blocked too), never
+imports ``svs_tpu``,
 and refuses to fall back to the CPU when no device was named."""
 
 import subprocess
@@ -435,6 +436,41 @@ _BLOCKED_XLMR = textwrap.dedent(
 )
 
 
+_BLOCKED_FAMILIES = textwrap.dedent(
+    """
+    import asyncio, os, sys
+
+    BLOCKED = ("jax", "jaxlib", "networkx", "ml_dtypes", "aiohttp", "dotenv", "svs_tpu",
+               "transformers", "flax", "msgpack", "tokenizers", "sentencepiece", "regex",
+               "safetensors")
+
+    class Blocker:
+        def find_spec(self, name, path=None, target=None):
+            if name.split(".")[0] in BLOCKED:
+                raise ImportError(f"{name} is blocked in this test")
+            return None
+
+    sys.meta_path.insert(0, Blocker())
+
+    import numpy as np
+    from svs_tpu_torch import make_local_embeddings_func
+    from svs_tpu_torch.embeddings import albert, big_bird, encoders
+
+    root = os.path.dirname(sys.argv[1])
+    texts = ["the cat sat", "héllo мир", "a [MASK] b", "a dog ran " * 20]
+    for name, max_length, cls in (("albert", 16, albert.AlbertEncoder),
+                                  ("big_bird", 64, big_bird.BigBirdEncoder)):
+        f = make_local_embeddings_func(os.path.join(root, name), max_length=max_length,
+                                       compute_dtype="float32", device="cpu")
+        vecs = np.asarray(asyncio.run(f(texts)))
+        assert vecs.shape == (4, 32) and np.allclose(np.linalg.norm(vecs, axis=1), 1, atol=1e-5)
+        assert isinstance(f.encoder._load()[1], cls)
+    loaded = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
+    assert not loaded, loaded
+    print("ROUND_TRIP_OK")
+    """
+)
+
 _BLOCKED_PARALLEL = textwrap.dedent(
     """
     import sys
@@ -561,6 +597,31 @@ def test_xlmr_provider_without_transformers_tokenizers_sentencepiece_regex(tmp_p
         "layer_norm_eps": 1e-5, "pad_token_id": 1}, seed=3)
     _run_blocked(_BLOCKED_XLMR, tmp_path)
 
+
+def test_albert_and_big_bird_without_transformers_tokenizers_sentencepiece(tmp_path):
+    """The ALBERT and block-sparse BigBird encoders (SentencePiece
+    ``tokenizer.json`` files, weights written by the smoke's writer) embed
+    on the CPU with ``transformers``, ``tokenizers``, ``sentencepiece``,
+    ``regex``, ``flax``, JAX and ``svs_tpu`` blocked."""
+    pytest.importorskip("tokenizers")
+    pytest.importorskip("transformers")
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    import chip_smoke
+    from torch_tokenizer_helpers import write_sentencepiece_tokenizer
+
+    tiny = {"hidden_size": 32, "num_hidden_layers": 2, "num_attention_heads": 2,
+            "intermediate_size": 64, "type_vocab_size": 2, "layer_norm_eps": 1e-12}
+    vocab = write_sentencepiece_tokenizer(tmp_path / "albert", "albert", seed=2)
+    chip_smoke.write_random_encoder(tmp_path / "albert", {
+        **tiny, "model_type": "albert", "vocab_size": vocab, "embedding_size": 16,
+        "max_position_embeddings": 64, "hidden_act": "gelu_new", "num_hidden_groups": 1,
+        "inner_group_num": 1}, seed=3)
+    vocab = write_sentencepiece_tokenizer(tmp_path / "big_bird", "big_bird", seed=2)
+    chip_smoke.write_random_encoder(tmp_path / "big_bird", {
+        **tiny, "model_type": "big_bird", "vocab_size": vocab, "max_position_embeddings": 128,
+        "hidden_act": "gelu_new", "attention_type": "block_sparse", "block_size": 16,
+        "num_random_blocks": 3}, seed=3)
+    _run_blocked(_BLOCKED_FAMILIES, tmp_path)
 
 def test_parallel_modules_without_jax_or_svs_tpu(tmp_path):
     """Every module of ``svs_tpu_torch.parallel`` imports with JAX and

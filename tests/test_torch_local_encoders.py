@@ -1,23 +1,27 @@
 """The port's local provider past BERT (``svs_tpu_torch.embeddings``:
-``encoders``, ``bert`` for RoBERTa / XLM-R / ELECTRA, ``distilbert``, the
-``tokenizer.json`` tokenizers) against ``svs_tpu``'s (``transformers`` +
-Flax) on the CPU.
+``encoders``, ``bert`` for RoBERTa / XLM-R / ELECTRA /
+RoBERTa-PreLayerNorm, ``distilbert``, ``albert``, the ``tokenizer.json``
+tokenizers) against ``svs_tpu``'s (``transformers`` + Flax) on the CPU
+(BigBird has ``tests/test_torch_big_bird.py``).
 
 For XLM-RoBERTa (a Unigram tokenizer in XLM-R's layout, ``Precompiled``
 normaliser), RoBERTa (byte-level BPE), DistilBERT (learned positions with
 a ``tokenizer.json``; sinusoidal ones with ``vocab.txt`` read as
-``DistilBertTokenizer``) and ELECTRA (``embedding_size`` below
-``hidden_size``): a 2-layer, 32-wide Flax checkpoint that ``transformers``
-writes from a seed, read from one directory by both packages.  f32
+``DistilBertTokenizer``), ELECTRA (``embedding_size`` below
+``hidden_size``), RoBERTa-PreLayerNorm (byte-level BPE) and ALBERT (a
+SentencePiece Unigram ``tokenizer.json`` in ``AlbertConverter``'s layout;
+3 layers sharing one group, or 3 groups): a 32-wide Flax checkpoint that
+``transformers`` writes from a seed, read from one directory by both
+packages.  f32
 embeddings agree within 1e-5 (mean and CLS pooling, normalised or not),
 bf16 within ``BF16_ATOL``; the state dict converts from the plain tree and
 from a head model's; a store that ``svs_tpu.KB`` wrote with the XLM-R
 provider reopens in the port with no function and returns the same ids;
 the smoke's random-checkpoint writer gives checkpoints that
-``FlaxAutoModel`` reads the same way; and every encoder-only type the port
-does not run (``albert``, ``roformer``, ``big_bird``,
-``roberta-prelayernorm``) or option it does not compute raises
-``NotImplementedError`` naming it."""
+``FlaxAutoModel`` reads the same way; the encoder-only type the port does
+not run (``roformer``) and every option it does not compute raises
+``NotImplementedError`` naming it, and the types ported since pass the
+check."""
 
 import asyncio
 import json
@@ -39,6 +43,7 @@ from svs_tpu_torch.embeddings.local import make_local_embeddings_func
 from torch_provider_helpers import write_tiny_bert
 from torch_tokenizer_helpers import (
     write_bpe_tokenizer,
+    write_sentencepiece_tokenizer,
     write_unigram_tokenizer,
     write_wordpiece_tokenizer,
 )
@@ -55,7 +60,8 @@ BF16_ATOL = {True: 1e-2, False: 5e-2}
 
 TEXTS = ["the cat sat on the mat", "a dog ran fast", "héllo мир κόσμε 中文", "",
          "unknownword cat", "the " * 40, "a <mask> b", "Red, BLUE! big-small"]
-FAMILIES = ("xlm-roberta", "roberta", "distilbert", "distilbert-sinusoidal", "electra")
+FAMILIES = ("xlm-roberta", "roberta", "distilbert", "distilbert-sinusoidal", "electra",
+            "roberta-prelayernorm", "albert", "albert-3groups")
 _TINY = dict(num_hidden_layers=2, num_attention_heads=2, intermediate_size=64,
              max_position_embeddings=64)
 
@@ -76,6 +82,16 @@ def _config(family, vocab_size):
                                   hidden_dim=64, max_position_embeddings=64,
                                   sinusoidal_pos_embds=family.endswith("sinusoidal"),
                                   ), T.FlaxDistilBertModel
+    if family == "roberta-prelayernorm":
+        return T.RobertaPreLayerNormConfig(
+            vocab_size=vocab_size, hidden_size=32, type_vocab_size=1, layer_norm_eps=1e-5,
+            pad_token_id=1, **_TINY), T.FlaxRobertaPreLayerNormModel
+    if family.startswith("albert"):
+        # 3 layers: one group shared by all three, or a group each
+        return T.AlbertConfig(vocab_size=vocab_size, embedding_size=16, hidden_size=32,
+                              **{**_TINY, "num_hidden_layers": 3},
+                              num_hidden_groups=3 if family.endswith("3groups") else 1,
+                              ), T.FlaxAlbertModel
     return T.ElectraConfig(vocab_size=vocab_size, embedding_size=16, hidden_size=32,
                            **_TINY), T.FlaxElectraModel
 
@@ -83,8 +99,10 @@ def _config(family, vocab_size):
 def _tokenizer(family, path):
     if family == "xlm-roberta":
         return write_unigram_tokenizer(path, seed=1)
-    if family == "roberta":
+    if family in ("roberta", "roberta-prelayernorm"):
         return write_bpe_tokenizer(path, seed=2)
+    if family.startswith("albert"):
+        return write_sentencepiece_tokenizer(path, "albert", seed=4)
     if family == "distilbert":
         return write_wordpiece_tokenizer(path, "DistilBertTokenizerFast")
     if family == "distilbert-sinusoidal":
@@ -145,6 +163,10 @@ def test_state_dict_from_the_flax_tree(checkpoints, family):
     if family.startswith("distilbert"):
         q = params["transformer"]["layer"]["1"]["attention"]["q_lin"]["kernel"]
         name = "transformer.layer.1.attention.q_lin.weight"
+    elif family.startswith("albert"):
+        g = "2" if family.endswith("3groups") else "0"
+        q = params["encoder"]["albert_layer_groups"][g]["albert_layers"]["0"]["attention"]["query"]["kernel"]
+        name = f"encoder.albert_layer_groups.{g}.albert_layers.0.attention.query.weight"
     else:
         q = params["encoder"]["layer"]["1"]["attention"]["self"]["query"]["kernel"]
         name = "encoder.layer.1.attention.self.query.weight"
@@ -152,10 +174,16 @@ def test_state_dict_from_the_flax_tree(checkpoints, family):
     if family == "electra":
         assert sd["embeddings_project.weight"].shape == (32, 16)
         assert sd["embeddings.word_embeddings.weight"].shape[1] == 16
+    if family.startswith("albert"):
+        assert sd["encoder.embedding_hidden_mapping_in.weight"].shape == (32, 16)
+        assert len(enc.encoder.albert_layer_groups) == (3 if family.endswith("3groups") else 1)
+    if family == "roberta-prelayernorm":
+        np.testing.assert_array_equal(sd["LayerNorm.weight"].numpy(), params["LayerNorm"]["scale"])
 
 
 _HEADS = {"roberta": "FlaxRobertaForMaskedLM", "distilbert": "FlaxDistilBertForMaskedLM",
-          "electra": "FlaxElectraForPreTraining"}
+          "electra": "FlaxElectraForPreTraining", "albert": "FlaxAlbertForMaskedLM",
+          "roberta-prelayernorm": "FlaxRobertaPreLayerNormForMaskedLM"}
 
 
 @pytest.mark.parametrize("family", sorted(_HEADS))
@@ -240,6 +268,15 @@ _SMOKE_CONFIGS = {
     "electra": dict(model_type="electra", embedding_size=16, hidden_size=32, num_hidden_layers=2,
                     num_attention_heads=2, intermediate_size=64, max_position_embeddings=64,
                     type_vocab_size=2, hidden_act="gelu", layer_norm_eps=1e-12),
+    "albert-3groups": dict(model_type="albert", embedding_size=16, hidden_size=32,
+                           num_hidden_layers=3, num_hidden_groups=3, inner_group_num=1,
+                           num_attention_heads=2, intermediate_size=64,
+                           max_position_embeddings=64, type_vocab_size=2, hidden_act="gelu_new",
+                           layer_norm_eps=1e-12),
+    "roberta-prelayernorm": dict(model_type="roberta-prelayernorm", hidden_size=32,
+                                 num_hidden_layers=2, num_attention_heads=2, intermediate_size=64,
+                                 max_position_embeddings=64, type_vocab_size=1, hidden_act="gelu",
+                                 layer_norm_eps=1e-5, pad_token_id=1),
 }
 
 
@@ -267,6 +304,23 @@ def test_unported_encoder_types_raise_naming_themselves(tmp_path, model_type):
     f = make_local_embeddings_func(str(path), device="cpu")
     with pytest.raises(NotImplementedError, match=model_type):
         asyncio.run(f(["x"]))
+
+
+_NOW_PORTED = {"albert": "AlbertEncoder", "big_bird": "BigBirdEncoder",
+               "roberta-prelayernorm": "BertEncoder"}
+
+
+@pytest.mark.parametrize("model_type", sorted(_NOW_PORTED))
+def test_formerly_unported_encoder_types_are_accepted(tmp_path, model_type):
+    """The three types that raised until they were ported pass
+    ``check_config`` with a ``config.json`` that ``write_tiny_bert`` writes,
+    and build their encoder."""
+    path = write_tiny_bert(tmp_path / "ck", model_type=model_type)
+    config = checkpoint.read_config(path)
+    assert model_type not in encoders.UNPORTED and model_type in encoders.MODEL_TYPES
+    encoders.check_config(config)
+    with torch.device("meta"):
+        assert type(encoders.build_encoder(config)).__name__ == _NOW_PORTED[model_type]
 
 
 @pytest.mark.parametrize("change,name", [

@@ -307,11 +307,11 @@ def test_resolution_through_a_fake_hf_cache(tiny_checkpoint, tmp_path, monkeypat
 
 
 def test_non_bert_model_type_raises(tmp_path):
-    # the encoders past BERT (roberta, xlm-roberta, distilbert, electra)
-    # are ported; albert is one that is not
-    path = write_tiny_bert(tmp_path / "albert", model_type="albert")
+    # the encoders past BERT (roberta, xlm-roberta, distilbert, electra,
+    # albert, roberta-prelayernorm, big_bird) are ported; roformer is not
+    path = write_tiny_bert(tmp_path / "roformer", model_type="roformer")
     f = make_local_embeddings_func(str(path), device="cpu")
-    with pytest.raises(NotImplementedError, match="albert"):
+    with pytest.raises(NotImplementedError, match="roformer"):
         asyncio.run(f(["x"]))
 
 

@@ -6,8 +6,9 @@ Token ids and attention masks equal ``AutoTokenizer``'s (what ``svs_tpu``'s
 local provider calls, ``padding="max_length", truncation=True``) at
 ``max_length`` 16 and 512 on 200 seeded strings for: XLM-R's Unigram with
 Metaspace (``Precompiled`` and NFKC normalizers), byte-level BPE from
-``tokenizer.json`` and from ``vocab.json`` + ``merges.txt``, and WordPiece
-from ``tokenizer.json``.  Then each component against its ``tokenizers``
+``tokenizer.json`` and from ``vocab.json`` + ``merges.txt``, WordPiece
+from ``tokenizer.json``, and the SentencePiece layouts of ALBERT (Unigram)
+and BigBird (Unigram and SentencePiece-style BPE).  Then each component against its ``tokenizers``
 counterpart (the ``Precompiled`` normalizer on a charsmap that
 :func:`torch_tokenizer_helpers.build_charsmap` writes, the pre-tokenizers
 and normalizers, GPT-2's split, the grapheme clusters against ``regex``'s
@@ -43,6 +44,7 @@ from torch_tokenizer_helpers import (
     seeded_strings,
     strings,
     write_bpe_tokenizer,
+    write_sentencepiece_tokenizer,
     write_unigram_tokenizer,
     write_wordpiece_tokenizer,
 )
@@ -76,6 +78,21 @@ def test_unigram_metaspace_equals_auto_tokenizer(tmp_path, normalizer, scheme):
     assert isinstance(mine, JsonTokenizer) and isinstance(mine.model, UnigramModel)
     assert mine.pad_id == 1 and mine.head == [0] and mine.tail == [2]
     _same_as_auto(tmp_path, mine, seed=21)
+
+
+@pytest.mark.parametrize("layout,model", [("albert", "unigram"), ("big_bird", "unigram"),
+                                          ("big_bird", "bpe")])
+def test_sentencepiece_layouts_equal_auto_tokenizer(tmp_path, layout, model):
+    """ALBERT's ``tokenizer.json`` (``AlbertConverter``: quote
+    ``Replace``s, NFKD, StripAccents, Lowercase, ``Precompiled``) and
+    BigBird's (``SpmConverter``: ``Precompiled``, a right ``Strip``,
+    ``Replace(" {2,}", "▁")``), Metaspace and ``[CLS] $A [SEP]``, read
+    through ``AlbertTokenizerFast`` / ``BigBirdTokenizerFast``'s special
+    tokens."""
+    write_sentencepiece_tokenizer(tmp_path, layout, model, seed=3)
+    mine = load_tokenizer(tmp_path)
+    assert mine.tokenizer_class == {"albert": "AlbertTokenizer", "big_bird": "BigBirdTokenizer"}[layout]
+    _same_as_auto(tmp_path, mine, seed=14)
 
 
 def test_byte_level_bpe_tokenizer_json_equals_auto_tokenizer(tmp_path):

@@ -168,3 +168,67 @@ def write_wordpiece_tokenizer(path, cls_name="BertTokenizerFast", lower=True):
     (path / "vocab.txt").write_text("\n".join(vocab) + "\n", encoding="utf-8")
     getattr(transformers, cls_name)(str(path / "vocab.txt"), do_lower_case=lower).save_pretrained(str(path))
     return len(vocab)
+
+
+#: Leading ids of the SentencePiece vocabularies of ``write_sentencepiece_tokenizer``'s
+#: layouts: ALBERT's (``albert-base-v2``'s first five pieces) and BigBird's.
+SPM_SPECIALS = {
+    "albert": ["<pad>", "<unk>", "[CLS]", "[SEP]", "[MASK]"],
+    "big_bird": ["<pad>", "<s>", "</s>", "<unk>", "[CLS]", "[SEP]", "[MASK]"],
+}
+
+
+def write_sentencepiece_tokenizer(path, layout="albert", model="unigram", seed=0):
+    """A ``tokenizer.json`` in the layout ``transformers``' converter writes
+    for an ALBERT (``AlbertConverter``: ``Replace("``")``, ``Replace("''")``,
+    NFKD, StripAccents, Lowercase, ``Precompiled`` on :data:`CHARSMAP`,
+    ``Replace(" {2,}", " ")``) or a BigBird (``SpmConverter``'s normaliser:
+    ``Precompiled``, a right ``Strip``, ``Replace(" {2,}", "▁")``)
+    SentencePiece vocabulary: Metaspace, ``[CLS] $A [SEP]``, a Unigram
+    model or (``model="bpe"``) a SentencePiece-style BPE (``<unk>``,
+    ``fuse_unk``) trained on seeded strings; saved by
+    ``AlbertTokenizerFast`` / ``BigBirdTokenizerFast``.  Returns the
+    vocabulary size."""
+    import transformers
+    from tokenizers import Regex, Tokenizer, models, normalizers, pre_tokenizers, processors, trainers
+
+    specials = SPM_SPECIALS[layout]
+    unk = specials.index("<unk>")
+    rng = np.random.default_rng(seed)
+    charsmap = normalizers.Precompiled(build_charsmap(CHARSMAP))
+    if layout == "albert":
+        norm = normalizers.Sequence([
+            normalizers.Replace("``", '"'), normalizers.Replace("''", '"'), normalizers.NFKD(),
+            normalizers.StripAccents(), normalizers.Lowercase(), charsmap,
+            normalizers.Replace(Regex(" {2,}"), " ")])
+    else:
+        norm = normalizers.Sequence([charsmap, normalizers.Strip(left=False, right=True),
+                                     normalizers.Replace(Regex(" {2,}"), "▁")])
+    if model == "unigram":
+        pieces = []
+        for w in WORDS + ['"', "don", "'", "t"]:
+            pieces += ["▁" + w, w]
+            if len(w) > 3:
+                pieces += ["▁" + w[:2], w[2:]]
+        chars = sorted(set("".join(WORDS)) | set("abcdefghijklmnopqrstuvwxyz0123456789!?,.'\""))
+        pieces += chars + ["▁" + c for c in chars] + ["▁"]
+        pieces = [p for p in dict.fromkeys(pieces) if p not in specials]
+        vocab = [(t, 0.0) for t in specials]
+        vocab += [(p, float(-rng.uniform(1.0, 12.0))) for p in pieces]
+        tok = Tokenizer(models.Unigram(vocab, unk_id=unk, byte_fallback=False))
+    else:
+        tok = Tokenizer(models.BPE(unk_token="<unk>", fuse_unk=True, byte_fallback=False))
+        tok.normalizer = norm
+        tok.pre_tokenizer = pre_tokenizers.Metaspace()
+        trainer = trainers.BpeTrainer(vocab_size=400, min_frequency=1, special_tokens=specials,
+                                      show_progress=False)
+        tok.train_from_iterator(strings(seed, 400), trainer)
+    tok.normalizer = norm
+    tok.pre_tokenizer = pre_tokenizers.Metaspace(prepend_scheme="always")
+    cls_id, sep_id = specials.index("[CLS]"), specials.index("[SEP]")
+    tok.post_processor = processors.TemplateProcessing(
+        single="[CLS]:0 $A:0 [SEP]:0", pair="[CLS]:0 $A:0 [SEP]:0 $B:1 [SEP]:1",
+        special_tokens=[("[CLS]", cls_id), ("[SEP]", sep_id)])
+    cls = "AlbertTokenizerFast" if layout == "albert" else "BigBirdTokenizerFast"
+    getattr(transformers, cls)(tokenizer_object=tok).save_pretrained(str(path))
+    return tok.get_vocab_size()
