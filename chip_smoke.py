@@ -41,7 +41,11 @@ from a seed:
      second int8 ``KB`` B=256/n=100 (the guarded v3 kernel at its batch
      ceiling);
    - bf16 ``KB``: B=64/n=100, B=8/n=100, B=8/n=1000;
-   - f32 ``KB``: the same three shapes;
+   - f32 ``KB``: the same three shapes (the bf16 and f32 ``KB``s, the
+     ``rescore=False`` one, the bf16 mesh and the calibration's bf16 ``KB``
+     open from sidecars of their precision, packed from the int8
+     sidecar's exact rows by ``write_precision_sidecars``: one measured
+     rescan, the int8 ``KB``'s);
    - int8 ``KB`` with ``device_rescore='host'`` (no device mirror; the
      candidates rescored on the host): B=64, B=8 and B=256 at n=100;
    - ``rescore=False`` ``KB`` (bf16 storage): B=8/n=100;
@@ -92,7 +96,7 @@ from a seed:
    of the pairs on the card (and, on the dupe-planted store, ``/pairwise``
    at n=10,000 through the HTTP server and ``tools.find_near_duplicates``:
    ``serve_pairwise``); on the int8 keyed and ``rescore=False`` exact
-   paths, one more call unprofiled and two under ``torch.profiler``, for
+   paths, one more call unprofiled and one under ``torch.profiler``, for
    the device's idle share and the kernels' device time per launch in the
    call; on the dupe-planted store also the mesh's pairwise ring, its
    post-filtered ``where=`` call and a ``mesh_2d(2, 2)`` bf16 retrieval
@@ -109,26 +113,37 @@ from a seed:
    persisted winners), ``trace`` (``trace_phase``: ``SVS_TPU_PROFILE_DIR``
    writes ``torch.profiler`` traces of five B=64 calls, each trace file
    holding the port's kernels and each call's naming #2 and #1/#3),
-   ``providers`` (``providers_phase``: 10,000-doc stores through the
+   ``providers`` (``providers_phase``: 4,000-doc stores through the
    openai and ollama factories against a loopback stub, reopened with no
    function), ``local`` (``local_phase``: a BERT encoder at
-   ``BAAI/bge-small-en-v1.5``'s widths on the card, 150,000 docs embedded
-   and searched, against the port's own f32 run on the CPU),
+   ``BAAI/bge-small-en-v1.5``'s widths, 4 of its 12 layers, on the card,
+   120,000 docs embedded and searched, against the port's own f32 run on
+   the CPU),
    ``local_xlmr`` (``local_xlmr_phase``: an XLM-RoBERTa at
-   ``BAAI/bge-m3``'s widths with a synthetic 250,002-piece Unigram
-   ``tokenizer.json``, 20,000 multilingual docs at ``max_length`` 512
-   embedded in bf16 and searched, 4 texts against the port's f32 run on
-   the CPU, a reopen with no function), ``local_bigbird``
-   (``local_bigbird_phase``: a block-sparse BigBird at
-   ``google/bigbird-roberta-base``'s widths and depth with a synthetic
-   50,358-piece Unigram ``tokenizer.json`` in BigBird's layout, 20,000
-   docs of 8-1,000 words at ``max_length`` 1,024 embedded in bf16 and
-   searched, f32 on the card against the CPU at 512 and 4,096 tokens (2
-   layers), a reopen with no function) and ``local_families``
+   ``BAAI/bge-m3``'s widths, 2 of its 24 layers, with a synthetic
+   250,002-piece Unigram ``tokenizer.json``, 17,000 multilingual docs at
+   ``max_length`` 512 embedded in bf16 and searched, 4 texts against the
+   port's f32 run on the CPU, a reopen with no function),
+   ``local_bigbird`` (``local_bigbird_phase``: a block-sparse BigBird at
+   ``google/bigbird-roberta-base``'s widths, 2 of its 12 layers, with a
+   synthetic 50,358-piece Unigram ``tokenizer.json`` in BigBird's layout,
+   17,000 docs of 8-1,000 words at ``max_length`` 1,024 embedded in bf16
+   and searched, f32 on the card against the CPU at 512 and 4,096 tokens
+   (2 layers), a reopen with no function), ``local_mistral``
+   (``local_mistral_phase``: a Mistral at
+   ``intfloat/e5-mistral-7b-instruct``'s widths and depth, 7.11B
+   parameters written as a sharded bf16 Flax checkpoint and held in f32 on
+   the card, a synthetic 32,000-piece BPE ``tokenizer.json`` in Llama-2's
+   layout, 17,000 passages at ``max_length`` 128 embedded in bf16 and
+   searched at d = 4,096, f32 on the card against the CPU on a 2-layer
+   cut, the stored bf16 rows against the card's f32 run, a reopen with no
+   function on the 2-layer cut's store; then #3, #2 and #4 on the store's
+   own int8 pack against their plain versions) and ``local_families``
    (``local_families_phase``: RoBERTa, DistilBERT, ELECTRA and
    RoBERTa-PreLayerNorm at published widths cut to 2 layers, ALBERT at
-   ``albert-base-v2``'s widths and depth, 64 texts each in f32 and bf16
-   against the CPU).  Every other
+   ``albert-base-v2``'s widths and depth, Llama-2 and Gemma at
+   ``Llama-2-7b-hf``'s and ``gemma-2b``'s widths cut to 2 layers, 64
+   texts each in f32 and bf16 against the CPU).  Every other
    phase runs with ``SVS_TPU_AUTOCALIB=0`` and a calibration cache of the
    run's own, so no probe adds launches to it.
 
@@ -163,6 +178,8 @@ DIM = 1536
 #: tolerance (f32 dots accumulate in another order than the reference scan),
 #: and the tolerance of a float kernel against its plain version.
 SCORE_TOL = 2e-6
+#: Launches per timed window of a kernel or library call (``--kernel-reps``).
+KERNEL_REPS = 20
 #: One H100 SXM's published peaks (NVIDIA data sheet, dense, 700 W): the
 #: least time a kernel could take is max(bytes / HBM, ops / peak[type]).
 HBM_BYTES_PER_S = 3.35e12
@@ -602,6 +619,74 @@ def finish_checks(compare, src, v3: bool, c: int, n_docs: int, gen) -> None:
         del keys, got, ref
 
 
+def kernel_recorder(records: dict, reps: int) -> tuple:
+    """``(record, compare)`` into ``records`` (``{name: [record, ...]}``):
+    ``record`` times a kernel over ``reps`` launches, its plain version
+    over a quarter as many (at least 3) and a library call, beside the
+    bound; ``compare`` first holds the kernel's outputs bit-identical to
+    the plain version's, then records, and returns the first output."""
+    import torch
+
+    def record(name, what, err, kernel_fn, plain_fn, bnd, library_fn=None):
+        ms = time_ms(kernel_fn, reps)
+        plain_ms = time_ms(plain_fn, max(3, reps // 4))
+        lib_ms = None if library_fn is None else time_ms(library_fn, reps)
+        log(f"  {name} {what}: max |err| {err}; kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, library {lib_ms}, bound {bnd[0]:.4f} ms ({bnd[1]})")
+        records.setdefault(name, []).append({
+            "what": what, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": lib_ms,
+        })
+
+    def compare(name, kernel_fn, plain_fn, what, bnd, library_fn=None):
+        got = kernel_fn()
+        torch.cuda.synchronize()
+        ref = plain_fn()
+        got_t = got if isinstance(got, tuple) else (got,)
+        ref_t = ref if isinstance(ref, tuple) else (ref,)
+        err = check_exact(f"{name} ({what})", got_t, ref_t)
+        record(name, what, err, kernel_fn, plain_fn, bnd, library_fn)
+        return got_t[0]
+
+    return record, compare
+
+
+def pack_kernel_checks(label: str, docs, scales, qv, n_valid: int, c: int, out: dict) -> None:
+    """The int8 retrieval kernels on a store's own device pack (``docs``
+    int8 [n_pad, d], row ``scales``) for the query vectors ``qv`` (f32 [B,
+    d], as the provider gave them), quantized as the engine quantizes them,
+    each against its plain version and outside any path's launch count:
+    the keyed v2 prescore (#3) and v1 (#4) bit-identical, the staged finish
+    (#2) at ``c`` candidates on #3's keys bit-identical (then on lattice
+    and dead-padded keys, :func:`finish_checks`); their times go to
+    ``out["kernel_records"]``, for the ``kernels`` line."""
+    import torch
+
+    from svs_tpu_torch.ops import pallas_extract as P
+    from svs_tpu_torch.ops.quant import quantize_rows_int8
+
+    _, compare = kernel_recorder(out.setdefault("kernel_records", {}), KERNEL_REPS)
+    n_pad, d = docs.shape
+    q8, qs = quantize_rows_int8(P._pad_rows(qv, 0.0))
+    args = (docs, scales, q8.contiguous(), qs.contiguous(), n_valid)
+    b = q8.shape[0]
+
+    def int8_bound(out_cols):
+        return bound(nbytes(docs, scales) + b * (d + 4) + b * out_cols * 4,
+                     2.0 * b * n_pad * d, "int8")
+
+    where = f"on {label}'s pack [{n_pad}, {d}]"
+    keys = compare("_fused2_extract_int8", lambda: P._fused2_extract_int8(*args),
+                   lambda: P._fused2_extract_int8_plain(*args), f"B={b} (v2) {where}",
+                   int8_bound(n_pad // 64))
+    gen = torch.Generator(device=docs.device)
+    gen.manual_seed(SEED + 131)
+    finish_checks(compare, keys, False, c, n_valid, gen)
+    compare("_fused_extract_int8", lambda: P._fused_extract_int8(*args),
+            lambda: P._fused_extract_int8_plain(*args), f"B={b} (v1) {where}",
+            int8_bound(2 * n_pad // 64))
+
+
 def kernel_phase(n_docs: int, reps: int, cross: dict) -> dict:
     """Each kernel against its plain version on synthetic full-size packs,
     at the main paths' shapes; returns per-kernel records, and fills
@@ -624,28 +709,8 @@ def kernel_phase(n_docs: int, reps: int, cross: dict) -> dict:
         q8, qs = quantize_rows_int8(unit_rows_torch(b, DIM, gen, dev))
         return q8.contiguous(), qs.contiguous()
 
-    records = {}
-
-    def record(name, what, err, kernel_fn, plain_fn, bnd, library_fn=None):
-        ms = time_ms(kernel_fn, reps)
-        plain_ms = time_ms(plain_fn, max(3, reps // 4))
-        lib_ms = None if library_fn is None else time_ms(library_fn, reps)
-        log(f"  {name} {what}: max |err| {err}; kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms, library {lib_ms}, bound {bnd[0]:.4f} ms ({bnd[1]})")
-        records.setdefault(name, []).append({
-            "what": what, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": lib_ms,
-        })
-
-    def compare(name, kernel_fn, plain_fn, what, bnd, library_fn=None):
-        got = kernel_fn()
-        torch.cuda.synchronize()
-        ref = plain_fn()
-        got_t = got if isinstance(got, tuple) else (got,)
-        ref_t = ref if isinstance(ref, tuple) else (ref,)
-        err = check_exact(f"{name} ({what})", got_t, ref_t)
-        record(name, what, err, kernel_fn, plain_fn, bnd, library_fn)
-        return got_t[0]
+    records: dict = {}
+    record, compare = kernel_recorder(records, reps)
 
     def fused_int8_bound(b, out_cols):
         return bound(
@@ -1125,6 +1190,60 @@ def kb_shapes(kb, shapes, reps, rng, qvec, scan, out, v3=None) -> None:
             f"launches {({k: v for k, v in launches.items() if v})}")
 
 
+#: The precisions whose ``KB``s on the 1M store open from a sidecar of
+#: their own (:func:`write_precision_sidecars`) instead of a rescan.
+SIDECAR_PRECISIONS = ("bf16", "f32")
+
+
+def precision_store(store: Path, precision: str) -> Path:
+    """``store`` under ``precision``'s name: the hard link beside it (the
+    same SQLite file) that :func:`write_precision_sidecars` makes, whose own
+    sidecar (``sidecar_path_for``) holds that precision's pack."""
+    return store.with_name(f"{store.stem}.{precision}{store.suffix}")
+
+
+def write_precision_sidecars(store: Path) -> dict:
+    """The store's bf16 and f32 sidecars, packed from the exact f32 rows of
+    its live int8 sidecar (scan order, with the ids in the order the scan
+    read them) by the port's ``pack_host`` and written by
+    ``save_sidecar_arrays`` as the sidecar of the store's hard link under
+    that precision's name (:func:`precision_store`): the bytes a rescan
+    would pack (the same seeded row permutation, padding and fingerprint),
+    so a bf16 or f32 ``KB`` on the link opens from its file in a fraction
+    of a second where a rescan of the 1M store takes 23-30 s.  Returns the
+    seconds of each."""
+    from svs_tpu_torch.engine.packing import DIM_MULTIPLE, LARGE_ROW_MULTIPLE, pack_host
+    from svs_tpu_torch.engine.sidecar import load_sidecar, save_sidecar_arrays, sidecar_path_for
+
+    loaded = load_sidecar(sidecar_path_for(store))
+    if loaded is None or loaded[3]["precision"] != "int8":
+        raise AssertionError("write_precision_sidecars: no int8 sidecar of the store")
+    _, _, emb_ids, header = loaded
+    cache, perm = header["_f32_cache"], header.get("_f32_row_map")
+    scan_ids = np.empty_like(emb_ids)
+    if perm is None:
+        scan_ids[:] = emb_ids
+    else:
+        scan_ids[perm] = emb_ids
+    seconds = {}
+    for precision in SIDECAR_PRECISIONS:
+        t = time.perf_counter()
+        data, _, ids, rows, row_map, n, d = pack_host(
+            cache, scan_ids, precision, row_multiple=LARGE_ROW_MULTIPLE, dim_multiple=DIM_MULTIPLE)
+        if not np.array_equal(ids, emb_ids) or data.shape[0] != header["n_padded"]:
+            raise AssertionError(f"write_precision_sidecars: {precision} packs otherwise")
+        exact = precision != "f32"  # an f32 pack is its own exact rows
+        linked = precision_store(store, precision)
+        os.link(store, linked)
+        save_sidecar_arrays(
+            sidecar_path_for(linked), n_valid=n, dim=d, precision=precision,
+            matrix_version=header["matrix_version"], fingerprint=header["fingerprint"],
+            emb_ids=ids, row_scales=None, data=data, f32_cache=rows if exact else None,
+            f32_row_map=row_map if exact else None)
+        seconds[precision] = time.perf_counter() - t
+    return seconds
+
+
 def e2e_phase(n_docs: int, reps: int, work: Path, cross: dict) -> dict:
     import torch
 
@@ -1153,11 +1272,13 @@ def e2e_phase(n_docs: int, reps: int, work: Path, cross: dict) -> dict:
             return v, ref_matrix
 
         def kb_path(label, expected, shapes, scan, check=None, v3=None,
-                    after=None, **options):
+                    after=None, path=store, **options):
             res = out[f"paths_detail_{label}"] = {}
 
             def run():
-                kb = svs_tpu_torch.KB(store, embed, device="cuda", **options)
+                # a KB of another precision opens the store under its own
+                # name, from that name's sidecar (its first call packs from it)
+                kb = svs_tpu_torch.KB(path, embed, device="cuda", **options)
                 try:
                     if check is not None:
                         check(kb)
@@ -1167,6 +1288,8 @@ def e2e_phase(n_docs: int, reps: int, work: Path, cross: dict) -> dict:
                     res["pack_events"] = dict(kb.engine.pack_events)
                 finally:
                     kb.close()
+                if path != store and res["pack_events"]["sidecar"] != 1:
+                    raise AssertionError(f"{label}: not opened from its sidecar: {res['pack_events']}")
 
             drive_path(label, expected, run, out)
             torch.cuda.empty_cache()
@@ -1182,17 +1305,17 @@ def e2e_phase(n_docs: int, reps: int, work: Path, cross: dict) -> dict:
             prof["phases_ms"] = {
                 k: v["last_s"] * 1e3 for k, v in kb._stats.snapshot().items()
             }
-            second = prof["second_profile"]
+            window = prof["profile"]
             log(f"e2e {label}: unprofiled {prof['unprofiled_wall_ms']:.2f} ms "
                 f"(then phases {({k: round(v, 2) for k, v in prof['phases_ms'].items()})} "
-                f"ms); profiled {second['wall_ms']:.2f} ms, kernels "
-                f"{second.get('kernel_ms')} ms in {second.get('kernel_launches')} "
-                f"launches (idle share {second['idle_share']})")
-            for name, k in second.get("top_kernels", {}).items():
+                f"ms); profiled {window['wall_ms']:.2f} ms, kernels "
+                f"{window.get('kernel_ms')} ms in {window.get('kernel_launches')} "
+                f"launches (idle share {window['idle_share']})")
+            for name, k in window.get("top_kernels", {}).items():
                 log(f"  {k['ms']:.3f} ms = {k['launches']} x "
                     f"{k['us_per_launch']:.2f} us  {name}")
-            for name, k in second.get("top_host_ops", {}).items():
-                log(f"  host {k['self_ms']:.3f} ms self over {k['count']}  {name}")
+            for name, k in window.get("top_host_ops", {}).items():
+                log(f"  host {k['total_ms']:.3f} ms in all over {k['count']}  {name}")
 
         def loaded(kb, res):
             """``load()`` (the hydration prewarm), the B=64 shape again
@@ -1227,13 +1350,22 @@ def e2e_phase(n_docs: int, reps: int, work: Path, cross: dict) -> dict:
                 (("B256_n100", 256, 100),), f32_scan, v3="_fused3_extract_int8",
                 after=lambda kb, res: profile_call(kb, res, "profiled_B256_n100",
                                                    256, 100))
+        # one measured rescan (int8_kb's) is enough: the bf16 and f32 KBs
+        # open from sidecars of their own, packed from the int8 sidecar's
+        # exact rows (23-30 s a rescan saved, five times)
+        t = time.perf_counter()
+        native["precision_sidecars_s"] = write_precision_sidecars(store)
+        log(f"e2e: bf16 and f32 sidecars packed from the int8 sidecar's f32 rows in "
+            f"{time.perf_counter() - t:.1f} s ({native['precision_sidecars_s']})")
         bf16_solo: dict = {}
         kb_path("bf16_kb", fused_float + ["_staged_finish"], SHAPES, f32_scan,
                 v3="_fused3_extract", precision="bf16",
+                path=precision_store(store, "bf16"),
                 after=lambda kb, res: mesh_bf16_solo(kb, qvec, ref_matrix, bf16_solo, res))
         # f32 storage: the pack is its own rescore mirror
         kb_path("f32_kb", fused_float + ["_staged_finish"], SHAPES, f32_scan,
-                v3="_fused3_extract", precision="f32")
+                v3="_fused3_extract", precision="f32",
+                path=precision_store(store, "f32"))
 
         # the host-finalised rescore: no device mirror; the prescored
         # candidates are rescored by one BLAS matvec per query over the
@@ -1259,11 +1391,11 @@ def e2e_phase(n_docs: int, reps: int, work: Path, cross: dict) -> dict:
             assert kb.engine.precision == "bf16", kb.engine.precision
 
         kb_path("rescore_off_kb", ["_fused_extract"], (("B8_n100", 8, 100),),
-                bf16_scan, check=is_bf16, rescore=False)
+                bf16_scan, check=is_bf16, path=precision_store(store, "bf16"), rescore=False)
         del ref_bf16
-        # the native phase: every full rescan of the 1M store above
+        # the native phase: the full rescan of the 1M store above
         scans = native["rescans"] = {}
-        for label in ("int8_kb", "bf16_kb", "f32_kb", "rescore_off_kb"):
+        for label in ("int8_kb",):
             detail = out[f"paths_detail_{label}"]
             first_shape = next(iter(v for v in detail.values() if isinstance(v, dict) and "first" in v))
             scans[label] = {
@@ -1295,6 +1427,9 @@ def e2e_phase(n_docs: int, reps: int, work: Path, cross: dict) -> dict:
     finally:
         store.unlink(missing_ok=True)
         sidecar_path_for(store).unlink(missing_ok=True)
+        for precision in SIDECAR_PRECISIONS:
+            precision_store(store, precision).unlink(missing_ok=True)
+            sidecar_path_for(precision_store(store, precision)).unlink(missing_ok=True)
     del ref_matrix
     torch.cuda.empty_cache()
     pairwise_phase(work, out)
@@ -1302,7 +1437,8 @@ def e2e_phase(n_docs: int, reps: int, work: Path, cross: dict) -> dict:
     local_phase(work, out)
     local_xlmr_phase(work, out)
     local_bigbird_phase(work, out)
-    local_families_phase(work, out)
+    families = local_mistral_phase(work, out)
+    local_families_phase(work, out, families)
     return out
 
 
@@ -1759,10 +1895,10 @@ def filters_phase(store: Path, ref_matrix, reps: int, out: dict) -> None:
             prof = res[label]["profiled_call"] = device_idle_share(
                 lambda: kb.retrieve_batch(texts, 100, where=where)
             )
-            second = prof["second_profile"]
+            window = prof["profile"]
             log(f"e2e {label}: unprofiled {prof['unprofiled_wall_ms']:.2f} ms; profiled "
-                f"{second['wall_ms']:.2f} ms, kernels {second.get('kernel_ms')} ms in "
-                f"{second.get('kernel_launches')} launches (idle share {second['idle_share']})")
+                f"{window['wall_ms']:.2f} ms, kernels {window.get('kernel_ms')} ms in "
+                f"{window.get('kernel_launches')} launches (idle share {window['idle_share']})")
         log(f"e2e {label}: first {lat[0]:.3f} s ({first}), warm p50 "
             f"{res[label]['warm_p50_ms']:.2f} ms; phases "
             f"{({k: round(v, 2) for k, v in res[label]['phase_p50_ms'].items()})} ms; "
@@ -1861,7 +1997,7 @@ def filters_phase(store: Path, ref_matrix, reps: int, out: dict) -> None:
 #: The single-host mesh and replica phases: 2 shards (or replicas) of the
 #: 1M store on the one card (a repeated device), ``MESH_REPS`` calls a shape.
 MESH_SHARDS = 2
-MESH_REPS = 4
+MESH_REPS = 2
 MESH_SHAPES = (("B8_n100", 8, 100), ("B64_n100", 64, 100), ("B256_n100", 256, 100),
                ("B512_n100", 512, 100))
 #: Pairs of the mesh's filtered pairwise call: at 10,000 the post-filter
@@ -1979,7 +2115,7 @@ def mesh_and_replica_phases(store: Path, ref_matrix, bf16_solo: dict, out: dict)
       ``where={"tenant": 7}`` batch (the mesh subset route), the sharded
       mirror asserted as two blocks of 507,904 rows, and one B=64 call
       unprofiled and under ``torch.profiler`` (idle share);
-    - ``mesh_bf16``: a bf16 mesh ``KB`` (a rescan) at B=8 and B=64, on
+    - ``mesh_bf16``: a bf16 mesh ``KB`` (from the bf16 sidecar) at B=8 and B=64, on
       the queries that the e2e phase's single-device bf16 ``KB`` answered
       into ``bf16_solo`` (``mesh_bf16_solo``);
     - ``replicas``: ``KB(replicas=[cuda:0, cuda:0])`` from the sidecar at
@@ -2097,12 +2233,12 @@ def mesh_and_replica_phases(store: Path, ref_matrix, bf16_solo: dict, out: dict)
             prof = stats["profiled_B64_n100"] = device_idle_share(
                 lambda: kb.retrieve_batch(texts, 100)
             )
-            second = prof["second_profile"]
-            log(f"e2e mesh int8: profiled B=64 {second['wall_ms']:.2f} ms, kernels "
-                f"{second.get('kernel_ms')} ms in {second.get('kernel_launches')} launches "
-                f"(idle share {second['idle_share']}; unprofiled "
+            window = prof["profile"]
+            log(f"e2e mesh int8: profiled B=64 {window['wall_ms']:.2f} ms, kernels "
+                f"{window.get('kernel_ms')} ms in {window.get('kernel_launches')} launches "
+                f"(idle share {window['idle_share']}; unprofiled "
                 f"{prof['unprofiled_wall_ms']:.2f} ms)")
-            for name, k in second.get("top_kernels", {}).items():
+            for name, k in window.get("top_kernels", {}).items():
                 log(f"  {k['ms']:.3f} ms = {k['launches']} x {k['us_per_launch']:.2f} us  {name}")
         finally:
             kb.close(write_sidecar=False)
@@ -2115,7 +2251,7 @@ def mesh_and_replica_phases(store: Path, ref_matrix, bf16_solo: dict, out: dict)
     def run_mesh_bf16():
         stats = res["bf16"] = {}
         torch.cuda.reset_peak_memory_stats()
-        kb = svs_tpu_torch.KB(store, embed, precision="bf16",
+        kb = svs_tpu_torch.KB(precision_store(store, "bf16"), embed, precision="bf16",
                               mesh=default_mesh(devices=["cuda:0"] * MESH_SHARDS))
         try:
             opened(kb, "mesh_bf16", stats)
@@ -2125,10 +2261,11 @@ def mesh_and_replica_phases(store: Path, ref_matrix, bf16_solo: dict, out: dict)
                                ref_matrix, answers, stats)
             same_as_solo(answers, stats, ["bf16_" + s[0] for s in MESH_SHAPES[:2]],
                          solo=bf16_solo)
+            stats["pack_events"] = dict(kb.engine.pack_events)
         finally:
             kb.close(write_sidecar=False)
         stats["peak_mb"] = torch.cuda.max_memory_allocated() / 1e6
-        log(f"e2e mesh bf16: open (a rescan) {stats['open_s']:.2f} s; bit-identical to one "
+        log(f"e2e mesh bf16: open {stats['open_s']:.2f} s ({stats['pack_events']}); bit-identical to one "
             f"bf16 device {[stats[k]['bit_identical_to_single_device'] for k in bf16_queries]}; "
             f"peak {stats['peak_mb']:.0f} MB")
 
@@ -3417,69 +3554,83 @@ def check_pair_rows(idx, scores, ref, oracle, k: int) -> None:
         raise AssertionError(f"{len(missing)} oracle pairs missing, e.g. {missing[0]}")
 
 
-def kernel_times(prof) -> dict:
-    """``{kernel name: (device ms, launches)}`` of one profiled window."""
+def trace_times(prof) -> tuple:
+    """``({kernel name: (device ms, launches)}, {host op: (total ms,
+    count)})`` of one profiled window, from the profiler's raw events
+    (``prof.events()`` builds a tree of them first, which costs seconds a
+    window for a call of thousands of launches)."""
     import torch
 
-    by_name: dict = {}
-    for e in prof.events():
-        # device activities only; a record_function range also shows up on
-        # the device timeline, as a user annotation spanning kernels
-        if e.device_type == torch.autograd.DeviceType.CUDA and not getattr(
-            e, "is_user_annotation", False
-        ):
-            ms, n = by_name.get(e.name, (0.0, 0))
-            by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
-    return by_name
+    kernels: dict = {}
+    host: dict = {}
+    for e in prof.profiler.kineto_results.events():
+        # a record_function range also shows up on the device timeline, as
+        # a user annotation spanning kernels
+        if e.is_user_annotation():
+            continue
+        into = kernels if e.device_type() == torch.autograd.DeviceType.CUDA else host
+        ms, n = into.get(e.name(), (0.0, 0))
+        into[e.name()] = (ms + e.duration_ns() / 1e6, n + 1)
+    return kernels, host
+
+
+#: Whether :func:`device_idle_share` has opened its empty first window.
+_TRACER_STARTED = False
 
 
 def device_idle_share(fn) -> dict:
-    """``fn`` once unprofiled, then in two ``torch.profiler`` windows: each
-    wall time, the summed CUDA kernel time and the idle share 1 - kernel /
-    wall (None where the profiler saw no device time).  The first window
-    of a process also starts the device tracer; the second reports, beside
-    its numbers, the twelve largest kernels, each with its launch count and
-    device time per launch, and the ten host operations with the most
-    self time (host clock, the profiler's own cost included)."""
+    """``fn`` once unprofiled, then once in a ``torch.profiler`` window
+    (``"profile"``): its wall time, the summed CUDA kernel time, the idle
+    share 1 - kernel / wall (None where the profiler saw no device time),
+    the twelve largest kernels, each with its launch count and device time
+    per launch, the ten host operations with the most total time (host
+    clock, nested operations counted in each that holds them, the
+    profiler's own cost included), and the seconds spent reading the trace
+    (``"read_s"``).  An empty window first, once a process, starts
+    the device tracer outside the measured one; ``utils.trace`` tears CUPTI
+    down after each window, and a device sync before each keeps its kernel
+    events."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    global _TRACER_STARTED
+    if not _TRACER_STARTED:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+            torch.cuda.synchronize()
+        _TRACER_STARTED = True
     torch.cuda.synchronize()
     t = time.perf_counter()
     fn()
     torch.cuda.synchronize()
     out: dict = {"unprofiled_wall_ms": (time.perf_counter() - t) * 1e3}
-    for window in ("first_profile", "second_profile"):
-        torch.cuda.synchronize()  # completes the CUPTI teardown of the window before
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t) * 1e3
-        try:
-            by_name = kernel_times(prof)
-        except Exception as exc:  # a measurement, not a check: record why it is missing
-            out[window] = {"wall_ms": wall_ms, "idle_share": None, "error": repr(exc)}
-            continue
-        busy_ms = sum(ms for ms, _ in by_name.values())
-        top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
-        host = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)[:10]
-        out[window] = {
-            "wall_ms": wall_ms,
-            "kernel_ms": busy_ms,
-            "kernel_launches": sum(n for _, n in by_name.values()),
-            "idle_share": None if busy_ms == 0 else 1.0 - busy_ms / wall_ms,
-            "top_kernels": {
-                name[:80]: {"ms": ms, "launches": n, "us_per_launch": ms * 1e3 / n}
-                for name, (ms, n) in top
-            },
-            "top_host_ops": {
-                e.key[:60]: {"self_ms": e.self_cpu_time_total / 1e3, "count": e.count}
-                for e in host
-            },
-        }
-    out["first_profile"].pop("top_kernels", None)
-    out["first_profile"].pop("top_host_ops", None)
+    torch.cuda.synchronize()  # completes the CUPTI teardown of the window before
+    t_window = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3
+    try:
+        by_name, host_ops = trace_times(prof)
+    except Exception as exc:  # a measurement, not a check: record why it is missing
+        out["profile"] = {"wall_ms": wall_ms, "idle_share": None, "error": repr(exc)}
+        return out
+    busy_ms = sum(ms for ms, _ in by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
+    host = sorted(host_ops.items(), key=lambda kv: -kv[1][0])[:10]
+    out["profile"] = {
+        "wall_ms": wall_ms,
+        "kernel_ms": busy_ms,
+        "kernel_launches": sum(n for _, n in by_name.values()),
+        "idle_share": None if busy_ms == 0 else 1.0 - busy_ms / wall_ms,
+        "top_kernels": {
+            name[:80]: {"ms": ms, "launches": n, "us_per_launch": ms * 1e3 / n}
+            for name, (ms, n) in top
+        },
+        "top_host_ops": {name[:60]: {"total_ms": ms, "count": n} for name, (ms, n) in host},
+        "read_s": time.perf_counter() - t_window - wall_ms / 1e3,
+    }
     return out
 
 
@@ -3682,12 +3833,11 @@ def pairwise_phase(work: Path, out: dict) -> None:
                     prof = res["profiled_call"] = device_idle_share(
                         lambda: kb.document_top_pairwise_scores(PAIR_K)
                     )
-                    first, second = prof["first_profile"], prof["second_profile"]
+                    window = prof["profile"]
                     log(f"e2e {label}: unprofiled {prof['unprofiled_wall_ms']:.2f} ms; "
-                        f"profiled {first['wall_ms']:.2f} ms (idle share "
-                        f"{first['idle_share']}), then {second['wall_ms']:.2f} ms "
-                        f"(idle share {second['idle_share']})")
-                    for name, k in second.get("top_kernels", {}).items():
+                        f"profiled {window['wall_ms']:.2f} ms (idle share "
+                        f"{window['idle_share']}; the trace read in {window.get('read_s', 0):.1f} s)")
+                    for name, k in window.get("top_kernels", {}).items():
                         log(f"  {k['ms']:.3f} ms = {k['launches']} x "
                             f"{k['us_per_launch']:.2f} us  {name}")
             finally:
@@ -3746,7 +3896,7 @@ CAL_C = 400
 def calibration_phase(store: Path, ref_matrix, work: Path, cross: dict, out: dict) -> None:
     """The dispatch calibration (``engine.calibrate``) on the card, with a
     fresh cache and probing on: an int8 ``KB`` on the 1M store (from its
-    sidecar) and a bf16 one (a rescan) each run ``retrieve_batch`` at every
+    sidecar) and a bf16 one (its own sidecar) each run ``retrieve_batch`` at every
     batch of ``CAL_BATCHES`` (n=100; the width hint cleared before each,
     so that each batch's first try dispatches at C=400), joining the
     background probe each call spawns.  Then: every key has a measured
@@ -3804,7 +3954,9 @@ def calibration_phase(store: Path, ref_matrix, work: Path, cross: dict, out: dic
                  else ("_fused3_extract", "_fused2_extract"))
         rec = res[precision] = {}
         t = time.perf_counter()
-        kb = svs_tpu_torch.KB(store, embed, device="cuda", precision=precision)
+        # bf16: the KB opens the store under its own name, from that name's sidecar
+        path = store if precision == "int8" else precision_store(store, precision)
+        kb = svs_tpu_torch.KB(path, embed, device="cuda", precision=precision)
         try:
             retrieve(kb, f"cal-{precision}-open", 1)  # packs; may answer from the host
             settle(kb.engine, rec, f"calibration {precision}")
@@ -3852,9 +4004,11 @@ def calibration_phase(store: Path, ref_matrix, work: Path, cross: dict, out: dic
                     check_dispatch(f"{precision} B={b} (new engine)",
                                    first_dispatch(fresh, corpus, b, names), winners[b] == "v3")
             rec["winners"] = winners
+            rec["pack_events"] = dict(kb.engine.pack_events)
             log(f"e2e calibration {precision}: winners {winners}; the first engine "
                 f"kept its prior; a new {'KB' if precision == 'int8' else 'engine'} "
-                f"follows the winners; exact vs scan")
+                f"follows the winners; exact vs scan; open {rec['open_s']:.1f} s "
+                f"({rec['pack_events']})")
         finally:
             kb.close(write_sidecar=False)
 
@@ -3995,9 +4149,11 @@ def trace_phase(store: Path, ref_matrix, work: Path, out: dict) -> None:
     torch.cuda.empty_cache()
 
 
-#: The providers phase: docs per store, and the width of the stub's vectors
+#: The providers phase: docs per store (20,000, then 10,000, then 4,000 as
+#: the smoke's time filled: a store under 16,384 rows launches no kernel at
+#: any of these), and the width of the stub's vectors
 #: (``text-embedding-3-small``'s).
-PROVIDER_DOCS = 10_000
+PROVIDER_DOCS = 4_000
 PROVIDER_DIM = 1536
 
 
@@ -4176,7 +4332,14 @@ BGE_SMALL = {
     "attention_probs_dropout_prob": 0.1, "initializer_range": 0.02,
     "pad_token_id": 0,
 }
-LOCAL_DOCS = 150_000
+#: 131,072-row pack: 16 blocks, the fewest that the guarded v3 kernel
+#: (#1) takes (at 50,000 docs it did not launch); 150,000 until the
+#: smoke's time had to make room for ``local_mistral``.
+LOCAL_DOCS = 120_000
+#: bge-small's depth (12) cut to this, to make room for ``local_mistral``
+#: in the smoke's time: the widths, the tokenizer and v3 / v1 at d = 384
+#: stay.
+LOCAL_LAYERS = 4
 LOCAL_MAX_LENGTH = 128
 LOCAL_BATCH = 128
 #: Texts held against the port's own f32 run on the CPU.
@@ -4230,7 +4393,7 @@ def write_bge_small(path: Path, seed: int) -> list:
     from svs_tpu_torch.embeddings.checkpoint import write_checkpoint
 
     rng = np.random.default_rng(seed)
-    c = BGE_SMALL
+    c = {**BGE_SMALL, "num_hidden_layers": LOCAL_LAYERS}
     h, inter = c["hidden_size"], c["intermediate_size"]
 
     def normal(scale, *shape):
@@ -4301,7 +4464,7 @@ def synthetic_texts(vocab: list, n: int, seed: int) -> list:
 def local_phase(work: Path, out: dict) -> None:
     """The local provider on the card at ``BAAI/bge-small-en-v1.5``'s widths
     (random weights from the seed; CLS pooling, ``max_length`` 128, batch
-    128, bf16): the checkpoint written with the port's writer; 150,000 docs
+    128, bf16): the checkpoint written with the port's writer; 120,000 docs
     of 8-200 words (OOV words, texts past 128 tokens) embedded and written
     through ``KB.bulk_add_docs`` (tokenizer and encoder seconds from the
     encoder's own counters; its peak device memory); 256 texts held against
@@ -4350,6 +4513,24 @@ def local_phase(work: Path, out: dict) -> None:
 
         capture.__embedding_func_params__ = fn.__embedding_func_params__
         enc = fn.encoder
+        # parity: the CPU f32 run of the parity texts (the port's own) in a
+        # thread beside the write (torch's CPU kernels release the GIL)
+        sample = texts[:LOCAL_PARITY_TEXTS]
+        cpu_run: dict = {}
+
+        def cpu_reference():
+            try:
+                t = time.perf_counter()
+                cpu_run["vecs"] = np.asarray(asyncio.run(svs_tpu_torch.make_local_embeddings_func(
+                    str(ck), pooling="cls", compute_dtype="float32", device="cpu")(sample)),
+                    np.float32)
+                cpu_run["s"] = time.perf_counter() - t
+            except BaseException as exc:  # re-raised below
+                cpu_run["error"] = exc
+
+        torch.set_num_threads(os.cpu_count() or 1)
+        cpu_thread = threading.Thread(target=cpu_reference, name="local_cpu", daemon=True)
+        cpu_thread.start()
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
@@ -4380,21 +4561,22 @@ def local_phase(work: Path, out: dict) -> None:
         rows = np.asarray(stored, dtype=np.float32)
         del stored
         row_of_id = {d: i for i, d in enumerate(ids)}
-        # parity: 256 texts, f32 on the CPU (the port's own) against f32 on
-        # the card and the stored bf16 rows
-        sample = texts[:LOCAL_PARITY_TEXTS]
-        torch.set_num_threads(os.cpu_count() or 1)
+        # parity: the CPU f32 run against f32 on the card and the stored
+        # bf16 rows
         t = time.perf_counter()
-        cpu = np.asarray(asyncio.run(svs_tpu_torch.make_local_embeddings_func(
-            str(ck), pooling="cls", compute_dtype="float32", device="cpu")(sample)), np.float32)
-        res["cpu_f32_s"] = time.perf_counter() - t
+        cpu_thread.join()
+        res["cpu_wait_s"] = time.perf_counter() - t
+        if "error" in cpu_run:
+            raise cpu_run["error"]
+        cpu, res["cpu_f32_s"] = cpu_run["vecs"], cpu_run["s"]
         f32 = np.asarray(asyncio.run(svs_tpu_torch.make_local_embeddings_func(
             str(ck), pooling="cls", compute_dtype="float32", device="cuda")(sample)), np.float32)
         bf = rows[:LOCAL_PARITY_TEXTS]
         res["f32_max_abs_err"] = float(np.abs(f32 - cpu).max())
         res["bf16_max_abs_err"] = float(np.abs(bf - cpu).max())
         res["bf16_min_cos"] = float((bf * cpu).sum(axis=1).min())
-        log(f"e2e local: {LOCAL_PARITY_TEXTS} texts vs the CPU f32 run ({res['cpu_f32_s']:.1f} s): "
+        log(f"e2e local: {LOCAL_PARITY_TEXTS} texts vs the CPU f32 run ({res['cpu_f32_s']:.1f} s "
+            f"beside the write, {res['cpu_wait_s']:.1f} s waited for after it): "
             f"f32 on the card max |err| {res['f32_max_abs_err']:.3g} (tolerance "
             f"{LOCAL_F32_ATOL}), bf16 {res['bf16_max_abs_err']:.3g} (tolerance "
             f"{LOCAL_BF16_ATOL}), min cosine {res['bf16_min_cos']:.6f} (at least "
@@ -4446,7 +4628,7 @@ def local_phase(work: Path, out: dict) -> None:
             f"`embed` phase p50 {res['embed_phase_p50_ms']:.2f} ms; exact vs scan, each "
             f"doc's own text its top hit; the reopened KB (no function) answers the same")
 
-    # 19 blocks: the v3 finish is one top_k below GUARD_STAGE_MIN_BLOCKS (no #2)
+    # 16 blocks: the v3 finish is one top_k below GUARD_STAGE_MIN_BLOCKS (no #2)
     drive_path("local", ["_fused3_extract_int8"], run, out)
     torch.cuda.empty_cache()
 
@@ -4505,15 +4687,21 @@ FAMILY_FULL_DEPTH = ("albert",)
 FAMILY_LAYERS = 2
 FAMILY_TEXTS = 64
 FAMILY_MAX_LENGTH = 128
-#: Three 8,192-row blocks: at two (12,000 docs) the candidate counts pass
-#: what the keyed and v1 kernels take and the exact torch route answers.
-LOCAL_XLMR_DOCS = 20_000
+#: Three 8,192-row blocks of docs (past 16,384 rows the pack is 32,768:
+#: 20,000 docs until the smoke's time had to make room): at two (12,000
+#: docs) the candidate counts pass what the keyed and v1 kernels take and
+#: the exact torch route answers.
+LOCAL_XLMR_DOCS = 17_000
+#: bge-m3's depth (24) cut to this, to make room for ``local_mistral`` in
+#: the smoke's time: the widths, the tokenizer and the retrieval kernels
+#: at d = 1,024 stay.
+LOCAL_XLMR_LAYERS = 2
 LOCAL_XLMR_MAX_LENGTH = 512
 LOCAL_XLMR_BATCH = 64
 #: Texts held against the port's own f32 run on the CPU.
 LOCAL_XLMR_PARITY_TEXTS = 4
 #: bf16 (autocast, f32 parameters) against f32 on unit vectors of 1024
-#: after 24 layers at 512 tokens.  Set before the first run on the card at
+#: after 24 layers (``LOCAL_XLMR_LAYERS`` since the cut) at 512 tokens.  Set before the first run on the card at
 #: about 5x the error of bf16 autocast against f32 on the CPU, measured at
 #: bge-m3's widths with the depth cut to 2, 4 and 8 layers (0.8-1.2e-3,
 #: flat in depth) and extrapolated to 24.
@@ -4789,14 +4977,15 @@ def write_provider_store(path: Path, fn, texts: list, res: dict, label: str) -> 
 
 
 def query_provider_store(path: Path, fn, rows, ids: list, shapes, query_texts, res: dict,
-                         label: str) -> dict:
+                         label: str, reopen: bool = True, after=None) -> dict:
     """``retrieve_batch`` at each ``(B, n)`` of ``shapes`` on the store that
-    :func:`write_provider_store` wrote, first with ``fn``, then on a ``KB``
-    reopened with no function (the provider rebuilt on the card from the
-    stored params): ``query_texts(B, n)`` gives the texts and the rows whose
-    own text is among them (each its own top hit); every answer exact
-    against a scan of ``rows``, the reopened KB's the same as the first.
-    Returns the first KB's latencies (ms)."""
+    :func:`write_provider_store` wrote, first with ``fn``, then (with
+    ``reopen``) on a ``KB`` reopened with no function (the provider rebuilt
+    on the card from the stored params): ``query_texts(B, n)`` gives the
+    texts and the rows whose own text is among them (each its own top
+    hit); every answer exact against a scan of ``rows``, the reopened KB's
+    the same as the first; ``after(kb)`` runs on the first ``KB`` before it
+    closes.  Returns the first KB's latencies (ms)."""
     import torch
 
     import svs_tpu_torch
@@ -4827,8 +5016,14 @@ def query_provider_store(path: Path, fn, rows, ids: list, shapes, query_texts, r
     kb = svs_tpu_torch.KB(path, fn, device="cuda")
     try:
         lat = queries(kb, fn, "first")
+        if after is not None:
+            after(kb)
     finally:
         kb.close()
+    if not reopen:
+        log(f"e2e {label}: retrieve {({k: round(v, 1) for k, v in lat.items()})} ms; exact vs "
+            f"scan, each doc's own text its top hit")
+        return lat
     kb = svs_tpu_torch.KB(path, device="cuda")  # no function: rebuilt on the card
     try:
         if kb.embedding_func.encoder.device != kb.engine.device:
@@ -4866,7 +5061,7 @@ def local_xlmr_phase(work: Path, out: dict) -> None:
     res = out["paths_detail_local_xlmr"] = {}
     ck = work / "bge-m3-synthetic"
     t = time.perf_counter()
-    write_random_encoder(ck, BGE_M3, SEED + 29)
+    write_random_encoder(ck, {**BGE_M3, "num_hidden_layers": LOCAL_XLMR_LAYERS}, SEED + 29)
     res["checkpoint_s"] = time.perf_counter() - t
     res["checkpoint_gb"] = (ck / "flax_model.msgpack").stat().st_size / 1e9
     t = time.perf_counter()
@@ -5038,10 +5233,14 @@ BIGBIRD_ROBERTA = {
     "eos_token_id": 2, "sep_token_id": 66, "hidden_dropout_prob": 0.1,
     "attention_probs_dropout_prob": 0.1, "initializer_range": 0.02,
 }
-#: Three 8,192-row blocks, as ``local_xlmr``'s store: retrieval through
-#: the keyed v2 kernel (#3), v1 (#4) after a widen and the staged finish
-#: (#2).
-LOCAL_BIGBIRD_DOCS = 20_000
+#: Three 8,192-row blocks of docs, as ``local_xlmr``'s store (20,000 until
+#: the smoke's time had to make room): retrieval through the keyed v2
+#: kernel (#3), v1 (#4) after a widen and the staged finish (#2).
+LOCAL_BIGBIRD_DOCS = 17_000
+#: bigbird-roberta-base's depth (12) cut to this, to make room for
+#: ``local_mistral`` in the smoke's time: the widths, block-sparse
+#: attention at 1,024 tokens and the retrieval kernels at d = 768 stay.
+LOCAL_BIGBIRD_LAYERS = 2
 #: 16 blocks of 64 tokens: the paper's plan (``L`` in 1,024 / 3,072 / 4,096).
 LOCAL_BIGBIRD_MAX_LENGTH = 1024
 #: The provider's batch; a reopened store's provider (``batch_size`` is
@@ -5159,7 +5358,8 @@ def bigbird_flops_per_text(config: dict, seq_len: int) -> dict:
 
 def local_bigbird_phase(work: Path, out: dict) -> None:
     """A long-document store on the card at ``google/bigbird-roberta-base``'s
-    widths and depth (``BIGBIRD_ROBERTA``: block-sparse attention, random
+    widths, ``LOCAL_BIGBIRD_LAYERS`` of its 12 layers (``BIGBIRD_ROBERTA``:
+    block-sparse attention, random
     weights from the seed; a synthetic 50,358-piece Unigram
     ``tokenizer.json``; mean pooling, ``max_length`` 1,024, batch 64,
     bf16): ``LOCAL_BIGBIRD_DOCS`` documents of 8-1,000 words (a quarter
@@ -5167,7 +5367,7 @@ def local_bigbird_phase(work: Path, out: dict) -> None:
     ``KB.bulk_add_docs``; f32 on the card against f32 on the CPU for
     ``LOCAL_BIGBIRD_PARITY_TEXTS`` texts at 512 and 4,096 tokens with the
     depth cut to ``LOCAL_BIGBIRD_CPU_LAYERS`` (within ``LOCAL_F32_ATOL``);
-    the stored bf16 rows of the same texts against a full-depth CPU f32 run
+    the stored bf16 rows of the same texts against a CPU f32 run of the model
     at 1,024 (within ``LOCAL_BIGBIRD_BF16_ATOL``, cosine at least
     ``LOCAL_BIGBIRD_BF16_MIN_COS``); ``retrieve_batch`` at B = 1, 8 and 64,
     n = 10 and 100, half the queries docs' own texts (each its own top
@@ -5183,9 +5383,10 @@ def local_bigbird_phase(work: Path, out: dict) -> None:
     res = out["paths_detail_local_bigbird"] = {}
     ck = work / "bigbird-synthetic"
     ck_cut = work / "bigbird-synthetic-2l"
+    model = {**BIGBIRD_ROBERTA, "num_hidden_layers": LOCAL_BIGBIRD_LAYERS}
     cut = {**BIGBIRD_ROBERTA, "num_hidden_layers": LOCAL_BIGBIRD_CPU_LAYERS}
     t = time.perf_counter()
-    write_random_encoder(ck, BIGBIRD_ROBERTA, SEED + 67)
+    write_random_encoder(ck, model, SEED + 67)
     write_random_encoder(ck_cut, cut, SEED + 67)
     res["checkpoint_s"] = time.perf_counter() - t
     res["checkpoint_gb"] = (ck / "flax_model.msgpack").stat().st_size / 1e9
@@ -5202,7 +5403,7 @@ def local_bigbird_phase(work: Path, out: dict) -> None:
         f"{res['tokenizer_write_s']:.1f} s; {LOCAL_BIGBIRD_DOCS} texts in {res['texts_s']:.1f} s")
     path = work / "local_bigbird.sqlite"
     shapes = ((64, 10), (64, 100), (8, 10), (8, 100), (1, 10), (1, 100))
-    flops = bigbird_flops_per_text(BIGBIRD_ROBERTA, LOCAL_BIGBIRD_MAX_LENGTH)
+    flops = bigbird_flops_per_text(model, LOCAL_BIGBIRD_MAX_LENGTH)
     res["gflop_per_text"] = {k: v / 1e9 for k, v in flops.items()}
     res["bound_texts_per_s"] = PEAK_OPS_PER_S["bf16"] / flops["total"]
 
@@ -5285,7 +5486,7 @@ def local_bigbird_phase(work: Path, out: dict) -> None:
             f"after it): f32 on the card ({LOCAL_BIGBIRD_CPU_LAYERS} layers) max |err| "
             f"{res['f32_max_abs_err_512']:.3g} at 512, {res['f32_max_abs_err_4096']:.3g} at 4096 "
             f"(tolerance {LOCAL_F32_ATOL}); the stored bf16 rows "
-            f"({BIGBIRD_ROBERTA['num_hidden_layers']} layers, {LOCAL_BIGBIRD_MAX_LENGTH}) "
+            f"({model['num_hidden_layers']} layers, {LOCAL_BIGBIRD_MAX_LENGTH}) "
             f"{res['bf16_max_abs_err']:.3g} (tolerance {LOCAL_BIGBIRD_BF16_ATOL}), min cosine "
             f"{res['bf16_min_cos']:.6f} (at least {LOCAL_BIGBIRD_BF16_MIN_COS})")
         for length in LOCAL_BIGBIRD_PARITY_LENGTHS:
@@ -5304,6 +5505,121 @@ def local_bigbird_phase(work: Path, out: dict) -> None:
         raise AssertionError(f"local_bigbird: none of #2, #3, #4 launched: {launched}")
     shutil.rmtree(ck_cut, ignore_errors=True)
     torch.cuda.empty_cache()
+
+
+#: The leading pieces of the Llama-2 and Gemma vocabularies (the ids their
+#: ``transformers`` converters give the special tokens), before the 256
+#: ``<0xNN>`` byte pieces.
+DECODER_SPECIALS = {"llama": ["<unk>", "<s>", "</s>"],
+                    "gemma": ["<pad>", "<eos>", "<bos>", "<unk>"]}
+#: Words that no synthetic decoder vocabulary holds: 1% of a passage's
+#: words, tokenized through the byte fallback.
+NON_ASCII_WORDS = ("café", "naïve", "straße", "привет", "мир", "κόσμε", "中文", "字",
+                   "مرحبا", "한국어", "😀")
+
+
+def write_decoder_tokenizer(path: Path, layout: str, size: int, seed: int, **config) -> list:
+    """A synthetic ``size``-piece BPE ``tokenizer.json`` in Llama-2's layout
+    (``LlamaConverter``: ``Prepend("▁")`` + ``Replace(" ", "▁")``, no
+    pre-tokenizer) or Gemma's (``GemmaConverter``: ``Replace(" ", "▁")``,
+    ``Split(" ", merged_with_previous)``): the special tokens
+    (:data:`DECODER_SPECIALS`), the 256 ``<0xNN>`` byte pieces (every
+    character outside the alphabet falls back to them), ``▁`` and the
+    printable ASCII characters, then seeded words of 2-9 Latin letters,
+    half after ``▁``, each built left to right by one merge a letter;
+    ``fuse_unk``, ``byte_fallback``; the post-processor ``bos $A``.
+    ``tokenizer_config.json`` names ``LlamaTokenizer`` / ``GemmaTokenizer``
+    with ``config``'s keys.  Returns the words whose every prefix is a
+    piece (without ``▁``)."""
+    rng = np.random.default_rng(seed)
+    specials = DECODER_SPECIALS[layout]
+    vocab = {t: i for i, t in enumerate(specials)}
+    for b in range(256):
+        vocab[f"<0x{b:02X}>"] = len(vocab)
+    for ch in ["▁"] + [chr(c) for c in range(33, 127)]:
+        vocab.setdefault(ch, len(vocab))
+    letters = "abcdefghijklmnopqrstuvwxyz"
+    merges: list = []
+    words: list = []
+    while len(vocab) < size:
+        lens = rng.integers(2, 10, 4096)
+        idx = rng.integers(0, 26, (4096, 9))
+        marks = rng.random(4096) < 0.5
+        for j in range(4096):
+            body = "".join(letters[i] for i in idx[j, : lens[j]])
+            word = ("▁" + body) if marks[j] else body
+            cur, whole = word[0], True
+            for ch in word[1:]:
+                new = cur + ch
+                if new not in vocab:
+                    if len(vocab) >= size:
+                        whole = False
+                        break
+                    vocab[new] = len(vocab)
+                    merges.append([cur, ch])
+                cur = new
+            if whole:
+                words.append(body)
+            if len(vocab) >= size:
+                break
+    norm = ([{"type": "Prepend", "prepend": "▁"}] if layout == "llama" else [])
+    norm.append({"type": "Replace", "pattern": {"String": " "}, "content": "▁"})
+    bos = specials[1] if layout == "llama" else "<bos>"
+    spec = {
+        "version": "1.0", "truncation": None, "padding": None,
+        "added_tokens": [{"id": vocab[t], "content": t, "single_word": False, "lstrip": False,
+                          "rstrip": False, "normalized": False, "special": True}
+                         for t in specials],
+        "normalizer": {"type": "Sequence", "normalizers": norm},
+        "pre_tokenizer": (None if layout == "llama" else
+                          {"type": "Split", "pattern": {"String": " "},
+                           "behavior": "MergedWithPrevious", "invert": False}),
+        "post_processor": {"type": "TemplateProcessing",
+                           "single": [{"SpecialToken": {"id": bos, "type_id": 0}},
+                                      {"Sequence": {"id": "A", "type_id": 0}}],
+                           "pair": [{"SpecialToken": {"id": bos, "type_id": 0}},
+                                    {"Sequence": {"id": "A", "type_id": 0}},
+                                    {"SpecialToken": {"id": bos, "type_id": 1}},
+                                    {"Sequence": {"id": "B", "type_id": 1}}],
+                           "special_tokens": {bos: {"id": bos, "ids": [vocab[bos]],
+                                                    "tokens": [bos]}}},
+        "decoder": None,
+        "model": {"type": "BPE", "dropout": None, "unk_token": "<unk>",
+                  "continuing_subword_prefix": None, "end_of_word_suffix": None,
+                  "fuse_unk": True, "byte_fallback": True, "ignore_merges": False,
+                  "vocab": vocab, "merges": merges},
+    }
+    path.mkdir(parents=True, exist_ok=True)
+    (path / "tokenizer.json").write_text(json.dumps(spec, ensure_ascii=False), encoding="utf-8")
+    cls = "LlamaTokenizer" if layout == "llama" else "GemmaTokenizer"
+    (path / "tokenizer_config.json").write_text(json.dumps({"tokenizer_class": cls, **config}))
+    return words
+
+
+def passages(words: list, n: int, seed: int, lo: int, hi: int) -> list:
+    """``n`` distinct passages of ``lo``-``hi`` words (uniform), drawn by a
+    Zipf law from ``words``; 5% followed by a comma, 2% capitalised, 1%
+    from :data:`NON_ASCII_WORDS` (the byte fallback)."""
+    rng = np.random.default_rng(seed)
+    pool = np.asarray(words, dtype=object)
+    lens = rng.integers(lo, hi + 1, n)
+    total = int(lens.sum())
+    toks = pool[(rng.zipf(1.2, total) - 1) % len(pool)]
+    r = rng.random(total)
+    toks[r < 0.05] = [w + "," for w in toks[r < 0.05]]
+    caps = (r >= 0.05) & (r < 0.07)
+    toks[caps] = [str(w).capitalize() for w in toks[caps]]
+    odd = (r >= 0.07) & (r < 0.08)
+    toks[odd] = np.asarray(NON_ASCII_WORDS, dtype=object)[rng.integers(0, len(NON_ASCII_WORDS),
+                                                                       int(odd.sum()))]
+    bounds = np.concatenate([[0], np.cumsum(lens)])
+    texts = [" ".join(toks[bounds[i]:bounds[i + 1]]) for i in range(n)]
+    seen: set = set()
+    for i, t in enumerate(texts):  # distinct, so a doc's own text finds it alone
+        while texts[i] in seen:
+            texts[i] = f"{texts[i]} {pool[i % len(pool)]}"
+        seen.add(texts[i])
+    return texts
 
 
 def write_roberta_bpe(path: Path, size: int, seed: int) -> None:
@@ -5339,60 +5655,98 @@ def write_roberta_bpe(path: Path, size: int, seed: int) -> None:
     (path / "tokenizer_config.json").write_text(json.dumps({"tokenizer_class": "RobertaTokenizer"}))
 
 
-def local_families_phase(work: Path, out: dict) -> None:
-    """The other encoder families on the card, each at a published
-    checkpoint's widths (``FAMILY_CONFIGS``) cut to ``FAMILY_LAYERS``
-    layers (ALBERT at its 12), random weights from the seed: RoBERTa and
-    RoBERTa-PreLayerNorm (byte-level BPE from ``vocab.json`` +
-    ``merges.txt``), DistilBERT (``vocab.txt`` read as
-    ``DistilBertTokenizer``), ELECTRA (``ElectraTokenizer``) and ALBERT (a
-    SentencePiece Unigram ``tokenizer.json``, :func:`write_albert_tokenizer`).  Each
-    embeds ``FAMILY_TEXTS`` texts (``max_length`` ``FAMILY_MAX_LENGTH``,
-    mean pooling) on the card in f32 (within ``LOCAL_F32_ATOL``) and bf16
+def write_encoder_family(work: Path, family: str, seed: int) -> tuple:
+    """The ``local_families`` checkpoint of an entry of ``FAMILY_CONFIGS``,
+    cut to ``FAMILY_LAYERS`` layers (ALBERT at its published depth), with
+    its tokenizer's files.  Returns ``(directory, source, config)``."""
+    source, published = FAMILY_CONFIGS[family]
+    cfg = dict(published)
+    if family not in FAMILY_FULL_DEPTH:
+        cfg["n_layers" if family == "distilbert" else "num_hidden_layers"] = FAMILY_LAYERS
+    ck = work / f"{family}-synthetic"
+    write_random_encoder(ck, cfg, seed)
+    vocab = bert_uncased_vocab(SEED)
+    if family in ("roberta", "roberta-prelayernorm"):
+        write_roberta_bpe(ck, cfg["vocab_size"], SEED + 59)
+    elif family == "albert":
+        write_albert_tokenizer(ck, vocab, cfg["vocab_size"], SEED + 61)
+    else:
+        (ck / "vocab.txt").write_text("\n".join(vocab) + "\n", encoding="utf-8")
+        cls = "DistilBertTokenizer" if family == "distilbert" else "ElectraTokenizer"
+        (ck / "tokenizer_config.json").write_text(json.dumps(
+            {"tokenizer_class": cls, "do_lower_case": True}))
+    return ck, source, cfg
+
+
+def write_families(work: Path) -> dict:
+    """Every ``local_families`` checkpoint: ``{family: (directory, source,
+    config)}``, the encoders of ``FAMILY_CONFIGS`` then the decoders of
+    ``DECODER_FAMILY_CONFIGS``."""
+    models = {family: write_encoder_family(work, family, SEED + 53 + i)
+              for i, family in enumerate(FAMILY_CONFIGS)}
+    models.update({family: write_decoder_family(work, family, SEED + 103 + 7 * i)
+                   for i, family in enumerate(DECODER_FAMILY_CONFIGS)})
+    return models
+
+
+def local_families_phase(work: Path, out: dict, families: dict) -> None:
+    """The other families on the card, each at a published checkpoint's
+    widths (``FAMILY_CONFIGS``, ``DECODER_FAMILY_CONFIGS``) cut to
+    ``FAMILY_LAYERS`` layers (ALBERT at its 12), random weights from the
+    seed: RoBERTa and RoBERTa-PreLayerNorm (byte-level BPE from
+    ``vocab.json`` + ``merges.txt``), DistilBERT (``vocab.txt`` read as
+    ``DistilBertTokenizer``), ELECTRA (``ElectraTokenizer``), ALBERT (a
+    SentencePiece Unigram ``tokenizer.json``, :func:`write_albert_tokenizer`),
+    Llama-2 and Gemma (:func:`write_decoder_family`).  Each embeds
+    ``FAMILY_TEXTS`` texts (``max_length`` ``FAMILY_MAX_LENGTH``, mean
+    pooling) on the card in f32 (within ``LOCAL_F32_ATOL``) and bf16
     (within ``LOCAL_BF16_ATOL``, cosine at least ``LOCAL_BF16_MIN_COS``)
-    against the port's f32 run on the CPU."""
+    against the port's f32 run on the CPU.  ``families`` holds the
+    checkpoints (``"models"``, :func:`write_families`) and the CPU vectors
+    (``"cpu"``, :func:`family_cpu_references` of :func:`family_texts`):
+    what ``local_mistral_phase`` returns, its CPU runs taken beside that
+    phase's write."""
     import svs_tpu_torch
 
     res = out["paths_detail_local_families"] = {}
+    published = {**FAMILY_CONFIGS, **DECODER_FAMILY_CONFIGS}
+
+    def layers(cfg):
+        return cfg.get("num_hidden_layers", cfg.get("n_layers"))
+
+    def card_runs(ck, texts):
+        """``texts`` on the card in f32 and in bf16, the two providers on
+        one loaded encoder (the same weights: one load)."""
+        runs = []
+        for dtype in ("float32", "bfloat16"):
+            fn = svs_tpu_torch.make_local_embeddings_func(
+                str(ck), max_length=FAMILY_MAX_LENGTH, compute_dtype=dtype, device="cuda")
+            if runs:
+                fn.encoder._loaded = loaded
+            runs.append(np.asarray(asyncio.run(fn(texts)), np.float32))
+            loaded = fn.encoder._loaded
+        return runs
 
     def run():
-        vocab = bert_uncased_vocab(SEED)
-        texts = synthetic_texts(vocab, FAMILY_TEXTS, SEED + 47)
-        for i, (family, (source, published)) in enumerate(FAMILY_CONFIGS.items()):
+        texts = family_texts()
+        cpu_runs = families["cpu"]
+        res["cpu_f32_s"] = cpu_runs["s"]
+        for family, (ck, source, cfg) in families["models"].items():
             t = time.perf_counter()
-            cfg = dict(published)
-            if family not in FAMILY_FULL_DEPTH:
-                cfg["n_layers" if family == "distilbert" else "num_hidden_layers"] = FAMILY_LAYERS
-            layers = cfg.get("num_hidden_layers", cfg.get("n_layers"))
-            ck = work / f"{family}-synthetic"
-            write_random_encoder(ck, cfg, SEED + 53 + i)
-            if family in ("roberta", "roberta-prelayernorm"):
-                write_roberta_bpe(ck, cfg["vocab_size"], SEED + 59)
-            elif family == "albert":
-                write_albert_tokenizer(ck, vocab, cfg["vocab_size"], SEED + 61)
-            else:
-                (ck / "vocab.txt").write_text("\n".join(vocab) + "\n", encoding="utf-8")
-                cls = "DistilBertTokenizer" if family == "distilbert" else "ElectraTokenizer"
-                (ck / "tokenizer_config.json").write_text(json.dumps(
-                    {"tokenizer_class": cls, "do_lower_case": True}))
-
-            def embed(dtype, device):
-                fn = svs_tpu_torch.make_local_embeddings_func(
-                    str(ck), max_length=FAMILY_MAX_LENGTH, compute_dtype=dtype, device=device)
-                return np.asarray(asyncio.run(fn(texts)), np.float32)
-
-            cpu = embed("float32", "cpu")
-            f32, bf = embed("float32", "cuda"), embed("bfloat16", "cuda")
+            f32, bf = card_runs(ck, texts)
+            cpu = cpu_runs[family]
             r = res[family] = {
-                "source": source, "cut": f"{published.get('num_hidden_layers', published.get('n_layers'))}"
-                f" -> {layers} layers", "seconds": time.perf_counter() - t,
+                "source": source,
+                "cut": f"{layers(published[family][1])} -> {layers(cfg)} layers",
+                "seconds": time.perf_counter() - t,
                 "f32_max_abs_err": float(np.abs(f32 - cpu).max()),
                 "bf16_max_abs_err": float(np.abs(bf - cpu).max()),
                 "bf16_min_cos": float((bf * cpu).sum(axis=1).min()),
             }
             log(f"e2e local_families {family} ({source} widths, {r['cut']}): {FAMILY_TEXTS} "
-                f"texts, f32 max |err| {r['f32_max_abs_err']:.3g}, bf16 {r['bf16_max_abs_err']:.3g}, "
-                f"min cosine {r['bf16_min_cos']:.6f} ({r['seconds']:.1f} s)")
+                f"texts, f32 max |err| {r['f32_max_abs_err']:.3g}, bf16 "
+                f"{r['bf16_max_abs_err']:.3g}, min cosine {r['bf16_min_cos']:.6f} "
+                f"({r['seconds']:.1f} s on the card)")
             if r["f32_max_abs_err"] > LOCAL_F32_ATOL:
                 raise AssertionError(f"local_families {family}: f32 on the card disagrees with the CPU")
             if r["bf16_max_abs_err"] > LOCAL_BF16_ATOL or r["bf16_min_cos"] < LOCAL_BF16_MIN_COS:
@@ -5402,11 +5756,460 @@ def local_families_phase(work: Path, out: dict) -> None:
     drive_path("local_families", [], run, out)
 
 
+#: ``intfloat/e5-mistral-7b-instruct``'s published config (``MistralModel``:
+#: 7.11B parameters, 28.4 GB in f32), at its widths and depth.
+E5_MISTRAL = {
+    "model_type": "mistral", "architectures": ["MistralModel"], "vocab_size": 32000,
+    "hidden_size": 4096, "num_hidden_layers": 32, "num_attention_heads": 32,
+    "num_key_value_heads": 8, "intermediate_size": 14336, "max_position_embeddings": 32768,
+    "rms_norm_eps": 1e-05, "sliding_window": 4096, "hidden_act": "silu", "rope_theta": 10000.0,
+    "bos_token_id": 1, "eos_token_id": 2, "pad_token_id": 2, "tie_word_embeddings": False,
+    "initializer_range": 0.02, "use_cache": False,
+}
+#: The other Llama-family checkpoints of ``local_families``, cut to
+#: ``FAMILY_LAYERS`` layers at their widths: Llama-2 (multi-head, written
+#: as a ``LlamaForCausalLM`` tree) and Gemma (multi-query, ``head_dim`` 256,
+#: no ``hidden_activation``: ``gelu_pytorch_tanh``).
+DECODER_FAMILY_CONFIGS = {
+    "llama": ("meta-llama/Llama-2-7b-hf", {
+        "model_type": "llama", "architectures": ["LlamaForCausalLM"], "vocab_size": 32000,
+        "hidden_size": 4096, "num_hidden_layers": 32, "num_attention_heads": 32,
+        "num_key_value_heads": 32, "intermediate_size": 11008, "max_position_embeddings": 4096,
+        "rms_norm_eps": 1e-05, "hidden_act": "silu", "rope_theta": 10000.0,
+        "attention_bias": False, "bos_token_id": 1, "eos_token_id": 2,
+        "tie_word_embeddings": False, "initializer_range": 0.02}),
+    "gemma": ("google/gemma-2b", {
+        "model_type": "gemma", "architectures": ["GemmaForCausalLM"], "vocab_size": 256000,
+        "hidden_size": 2048, "num_hidden_layers": 18, "num_attention_heads": 8,
+        "num_key_value_heads": 1, "head_dim": 256, "intermediate_size": 16384,
+        "max_position_embeddings": 8192, "rms_norm_eps": 1e-06, "hidden_act": "gelu",
+        "rope_theta": 10000.0, "attention_bias": False, "bos_token_id": 2, "eos_token_id": 1,
+        "pad_token_id": 0, "initializer_range": 0.02}),
+}
+#: Three 8,192-row blocks of 4,096-wide docs (a 32,768 x 4,096 int8 pack,
+#: as 20,000 docs make; 17,000 leave the smoke room): the keyed v2 kernel
+#: (#3), v1 (#4) after a widen and the staged finish (#2); a store of two
+#: blocks launches none of them.
+LOCAL_MISTRAL_DOCS = 17_000
+LOCAL_MISTRAL_MAX_LENGTH = 128
+LOCAL_MISTRAL_BATCH = 128
+LOCAL_MISTRAL_WORDS = (8, 120)
+#: ``save_pretrained``'s default ``max_shard_size="10GB"``: two shards of
+#: the 14.2 GB bf16 checkpoint.
+LOCAL_MISTRAL_SHARD_BYTES = 10 * 10**9
+#: Texts of the f32 card-vs-CPU check, on a cut of the checkpoint to this
+#: depth at full width (the CPU would take minutes at 32 layers).
+LOCAL_MISTRAL_PARITY_TEXTS = 4
+LOCAL_MISTRAL_CPU_LAYERS = 2
+#: The stored bf16 rows of the first texts against the card's own f32 run
+#: at full depth (the same weights, no second load).  Set before the first
+#: run on the card, as the other local stores' bounds.
+LOCAL_MISTRAL_BF16_TEXTS = 64
+LOCAL_MISTRAL_BF16_ATOL = 1e-2
+LOCAL_MISTRAL_BF16_MIN_COS = 0.999
+#: Docs of the small store (the 2-layer cut) that the reopen with no
+#: function runs on: a second 7B load would cost its 28.4 GB upload again.
+LOCAL_MISTRAL_REOPEN_DOCS = 256
+
+
+def random_decoder_params(config: dict, seed: int, device: str, qk: float = 1.0,
+                          dtype: str = "bfloat16") -> dict:
+    """A Flax Llama / Mistral / Gemma base tree at ``config``'s widths with
+    random weights from the seed's generator on ``device``, as
+    :func:`random_encoder_params` makes them: the token embeddings N(0,
+    0.02), the RMSNorm weights 1 (Gemma's 0: its norm scales by ``1 + w``),
+    Dense kernels N(0, 1/fan_in) (the query and key kernels x ``qk``), no
+    biases; torch tensors in ``dtype``, as a bf16 checkpoint holds them.
+    ``qk`` is 1, not the encoders' ``LOCAL_QK``: mean-pooled decoder states
+    are spread without it (texts' cosines about 0.2), and with it the
+    sharper random attention amplifies bf16 rounding into a cosine of
+    0.998 to f32 at 32 layers (0.99997 at 1), in ``svs_tpu``'s provider as
+    in the port (``tests/test_torch_decoders.py``, at 16 layers)."""
+    import torch
+
+    from svs_tpu_torch.embeddings.llama import _cfg
+
+    c = _cfg(config)
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    dt = getattr(torch, dtype)
+
+    def normal(scale, *shape):
+        t = torch.randn(shape, generator=g, device=device, dtype=torch.float32)
+        return t.mul_(scale).to(dt)
+
+    def dense(d_in, d_out, gain=1.0):
+        return {"kernel": normal(gain / np.sqrt(d_in), d_in, d_out)}
+
+    h, inter = c["hidden_size"], c["intermediate_size"]
+    q_w, kv_w = c["num_attention_heads"] * c["head_width"], c["kv_heads"] * c["head_width"]
+    one = 0.0 if c["model_type"] == "gemma" else 1.0
+
+    def norm():
+        return {"weight": torch.full((h,), one, device=device, dtype=dt)}
+
+    layers = {str(i): {
+        "input_layernorm": norm(),
+        "self_attn": {"q_proj": dense(h, q_w, qk), "k_proj": dense(h, kv_w, qk),
+                      "v_proj": dense(h, kv_w), "o_proj": dense(q_w, h)},
+        "post_attention_layernorm": norm(),
+        "mlp": {"gate_proj": dense(h, inter), "up_proj": dense(h, inter),
+                "down_proj": dense(inter, h)},
+    } for i in range(c["num_hidden_layers"])}
+    return {"embed_tokens": {"embedding": normal(0.02, c["vocab_size"], h)}, "layers": layers,
+            "norm": norm()}
+
+
+def decoder_flops_per_text(config: dict, seq_len: int) -> dict:
+    """The multiply-adds x 2 of one text through a Llama-family decoder at
+    ``seq_len`` tokens (``padding="max_length"``: every text is that long):
+    the projections (query, key, value, output, gate, up, down) over every
+    token, and the two attention products over every query-key pair of the
+    eager ``[L, L]`` scores."""
+    from svs_tpu_torch.embeddings.llama import _cfg
+
+    c = _cfg(config)
+    h, inter, layers = c["hidden_size"], c["intermediate_size"], c["num_hidden_layers"]
+    q_w, kv_w = c["num_attention_heads"] * c["head_width"], c["kv_heads"] * c["head_width"]
+    per_layer = h * q_w + 2 * h * kv_w + q_w * h + 3 * h * inter
+    proj = 2 * seq_len * per_layer * layers
+    attn = 2 * 2 * seq_len * seq_len * q_w * layers
+    return {"projections": float(proj), "attention": float(attn), "total": float(proj + attn),
+            "layer_parameters": float(per_layer * layers)}
+
+
+class RssPeak:
+    """The host's resident set peak of this process while the block runs
+    (``VmRSS`` of ``/proc/self/status``, polled every 20 ms), in GB."""
+
+    def __enter__(self) -> "RssPeak":
+        self.peak = self.start = self._rss()
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._poll, name="rss_peak", daemon=True)
+        self._thread.start()
+        return self
+
+    @staticmethod
+    def _rss() -> float:
+        with open("/proc/self/status") as f:
+            for line in f:
+                if line.startswith("VmRSS:"):
+                    return int(line.split()[1]) * 1024 / 1e9
+        return 0.0
+
+    def _poll(self) -> None:
+        while not self._stop.wait(0.02):
+            self.peak = max(self.peak, self._rss())
+
+    def __exit__(self, *exc) -> None:
+        self._stop.set()
+        self._thread.join()
+        self.peak = max(self.peak, self._rss())
+
+
+def write_decoder_family(work: Path, family: str, seed: int) -> tuple:
+    """The ``local_families`` checkpoint of a Llama-family entry of
+    :data:`DECODER_FAMILY_CONFIGS`, cut to ``FAMILY_LAYERS`` layers: random
+    weights from the seed on the card, written in bf16 (Llama-2's as a
+    ``*ForCausalLM`` tree with an ``lm_head``, which the provider
+    unwraps), and a synthetic tokenizer in the family's layout at its
+    vocabulary size.  Returns ``(directory, source, config)``."""
+    import torch
+
+    from svs_tpu_torch.embeddings.checkpoint import write_checkpoint
+
+    source, published = DECODER_FAMILY_CONFIGS[family]
+    cfg = {**published, "num_hidden_layers": FAMILY_LAYERS}
+    ck = work / f"{family}-synthetic"
+    tree = random_decoder_params(cfg, seed, "cuda")
+    if family == "llama":
+        dev = tree["norm"]["weight"].device
+        g = torch.Generator(device=dev)
+        g.manual_seed(seed + 1)
+        head = torch.randn((cfg["hidden_size"], cfg["vocab_size"]), generator=g, device=dev)
+        tree = {"model": tree, "lm_head": {"kernel": head.mul_(0.02).bfloat16()}}
+    write_checkpoint(ck, cfg, tree)
+    del tree
+    torch.cuda.empty_cache()
+    pad = {"pad_token": "</s>"} if family == "llama" else {}
+    write_decoder_tokenizer(ck, family, cfg["vocab_size"], seed + 2, **pad)
+    return ck, source, cfg
+
+
+def family_texts() -> list:
+    """The ``FAMILY_TEXTS`` texts every ``local_families`` entry embeds."""
+    return synthetic_texts(bert_uncased_vocab(SEED), FAMILY_TEXTS, SEED + 47)
+
+
+def family_cpu_references(models: dict, texts: list) -> dict:
+    """The port's f32 run on the CPU of each directory of ``models``
+    (``{family: directory}``): ``{family: vectors}``, and ``"s"``."""
+    import svs_tpu_torch
+
+    t = time.perf_counter()
+    refs: dict = {}
+    for family, ck in models.items():
+        fn = svs_tpu_torch.make_local_embeddings_func(
+            str(ck), max_length=FAMILY_MAX_LENGTH, compute_dtype="float32", device="cpu")
+        refs[family] = np.asarray(asyncio.run(fn(texts)), np.float32)
+    refs["s"] = time.perf_counter() - t
+    return refs
+
+
+def local_mistral_phase(work: Path, out: dict) -> dict:
+    """A store on the card at ``intfloat/e5-mistral-7b-instruct``'s widths
+    and depth (``E5_MISTRAL``: 7.11B parameters, random weights from the
+    seed's generator on the card, written as a sharded bf16 Flax checkpoint
+    of two shards and read back through the provider into f32 on the card;
+    a synthetic 32,000-piece BPE ``tokenizer.json`` in Llama-2's layout;
+    mean pooling, ``max_length`` 128, batch 128, bf16):
+    ``LOCAL_MISTRAL_DOCS`` passages of 8-120 words embedded and written
+    through ``KB.bulk_add_docs``; f32 on the card against f32 on the CPU
+    for ``LOCAL_MISTRAL_PARITY_TEXTS`` texts on a cut of the checkpoint to
+    ``LOCAL_MISTRAL_CPU_LAYERS`` layers (within ``LOCAL_F32_ATOL``); the
+    stored bf16 rows of ``LOCAL_MISTRAL_BF16_TEXTS`` texts against the
+    card's own f32 run at full depth (within ``LOCAL_MISTRAL_BF16_ATOL``,
+    cosine at least ``LOCAL_MISTRAL_BF16_MIN_COS``); ``retrieve_batch`` at
+    B = 1, 8 and 64, n = 10 and 100, half the queries docs' own texts (each
+    its own top hit), exact against a scan of the stored rows; one B=64
+    call profiled (the retrieval kernels' device time per launch at d =
+    4,096); then, the 7B model freed, a store of ``LOCAL_MISTRAL_REOPEN_DOCS``
+    docs through the 2-layer cut and its reopen with no function (the same
+    answers); after the path (outside its launch count), the keyed v2
+    prescore (#3), the staged finish (#2) and v1 (#4) on the store's own
+    int8 pack and the profiled call's 64 queries, each against its plain
+    version (:func:`pack_kernel_checks`).  Reports the checkpoint's write, read and upload seconds
+    and the host's resident peak during the load, the tokenizer's and the
+    encoder's texts/s, the encoder's share of its bound
+    (:func:`decoder_flops_per_text` at the bf16 peak), the write's seconds
+    and the peak device memory; fails if none of #2, #3 and #4 launched.
+    Beside the write, a CPU thread also runs the f32 references of every
+    ``local_families`` entry: returns their checkpoints (``"models"``:
+    :func:`write_families`) and CPU vectors (``"cpu"``) for
+    ``local_families_phase``."""
+    import gc
+
+    import torch
+
+    import svs_tpu_torch
+    from svs_tpu_torch.embeddings.checkpoint import shard_files, write_checkpoint
+
+    res = out["paths_detail_local_mistral"] = {}
+    ck = work / "e5-mistral-synthetic"
+    ck_cut = work / "e5-mistral-synthetic-2l"
+    t = time.perf_counter()
+    tree = random_decoder_params(E5_MISTRAL, SEED + 89, "cuda")
+    torch.cuda.synchronize()
+    res["weights_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    files = write_checkpoint(ck, E5_MISTRAL, tree, max_shard_size=LOCAL_MISTRAL_SHARD_BYTES)
+    res["checkpoint_write_s"] = time.perf_counter() - t
+    cut_layers = {str(i): tree["layers"][str(i)] for i in range(LOCAL_MISTRAL_CPU_LAYERS)}
+    write_checkpoint(ck_cut, {**E5_MISTRAL, "num_hidden_layers": LOCAL_MISTRAL_CPU_LAYERS},
+                     {"embed_tokens": tree["embed_tokens"], "layers": cut_layers,
+                      "norm": tree["norm"]})
+    del tree, cut_layers
+    torch.cuda.empty_cache()
+    res["checkpoint_gb"] = sum(f.stat().st_size for f in files) / 1e9
+    res["shards"] = [f.name for f in shard_files(ck)]
+    if len(res["shards"]) < 2:
+        raise AssertionError(f"local_mistral: the checkpoint is not sharded ({res['shards']})")
+    t = time.perf_counter()
+    words = write_decoder_tokenizer(ck, "llama", E5_MISTRAL["vocab_size"], SEED + 97,
+                                    pad_token="</s>")
+    for name in ("tokenizer.json", "tokenizer_config.json"):
+        shutil.copy(ck / name, ck_cut / name)
+    texts = passages(words, LOCAL_MISTRAL_DOCS, SEED + 101, *LOCAL_MISTRAL_WORDS)
+    res["tokenizer_and_texts_s"] = time.perf_counter() - t
+    # the local_families checkpoints: written now, their CPU runs beside the write
+    fam_texts = family_texts()
+    families = {"models": write_families(work)}
+    log(f"e2e local_mistral: weights on the card in {res['weights_s']:.1f} s; a "
+        f"{res['checkpoint_gb']:.2f} GB bf16 checkpoint in {len(res['shards'])} shards written in "
+        f"{res['checkpoint_write_s']:.1f} s (and a {LOCAL_MISTRAL_CPU_LAYERS}-layer cut); "
+        f"tokenizer.json and {LOCAL_MISTRAL_DOCS} texts in {res['tokenizer_and_texts_s']:.1f} s")
+    path = work / "local_mistral.sqlite"
+    shapes = ((64, 10), (64, 100), (8, 10), (8, 100), (1, 10), (1, 100))
+    flops = decoder_flops_per_text(E5_MISTRAL, LOCAL_MISTRAL_MAX_LENGTH)
+    res["gflop_per_text"] = {k: v / 1e9 for k, v in flops.items()}
+    res["bound_texts_per_s"] = PEAK_OPS_PER_S["bf16"] / flops["total"]
+
+    def query_texts(b, n):
+        rng = np.random.default_rng(SEED + 107 + b * 1000 + n)
+        own = rng.choice(LOCAL_MISTRAL_DOCS, b // 2 + 1 if b > 1 else 1, replace=False)
+        fresh = passages(words, b - len(own), SEED + 109 + b * 1000 + n, *LOCAL_MISTRAL_WORDS)
+        return [texts[i] for i in own] + fresh, [int(i) for i in own]
+
+    def provider(model, dtype, device):
+        return svs_tpu_torch.make_local_embeddings_func(
+            str(model), pooling="mean", max_length=LOCAL_MISTRAL_MAX_LENGTH,
+            batch_size=LOCAL_MISTRAL_BATCH, compute_dtype=dtype, device=device)
+
+    def embed(fn, batch):
+        return np.asarray(asyncio.run(fn(list(batch))), np.float32)
+
+    def run():
+        sample = texts[:LOCAL_MISTRAL_PARITY_TEXTS]
+        cpu_run: dict = {}
+
+        def cpu_reference():
+            try:
+                t = time.perf_counter()
+                cpu_run["cut"] = embed(provider(ck_cut, "float32", "cpu"), sample)
+                cpu_run["s"] = time.perf_counter() - t
+                cpu_run["families"] = family_cpu_references(
+                    {f: v[0] for f, v in families["models"].items()}, fam_texts)
+            except BaseException as exc:  # re-raised below
+                cpu_run["error"] = exc
+
+        torch.set_num_threads(os.cpu_count() or 1)
+        cpu_thread = threading.Thread(target=cpu_reference, name="local_mistral_cpu", daemon=True)
+        cpu_thread.start()
+        fn = provider(ck, "bfloat16", "cuda")
+        with RssPeak() as rss:  # the load: read the shards, upload 28.4 GB
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn.encoder._load()
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - t
+        res["load_host_rss_gb"] = {"before": rss.start, "peak": rss.peak}
+        res["load_read_s"] = fn.encoder.stats["read_s"]
+        res["load_upload_s"] = fn.encoder.stats["upload_s"]
+        rows, ids, base = write_provider_store(path, fn, texts, res, "local_mistral")
+        res["load_s"] = load_s  # write_provider_store timed the loaded encoder again
+        st = res["encoder_stats"]
+        res["encoder_share_of_bound"] = res["encoder_texts_per_s"] / res["bound_texts_per_s"]
+        tok = fn.encoder._load()[0]
+        lens = [len(tok.encode(x, 1 << 20)) for x in texts[:2000]]
+        res["tokens_p50_p99_max"] = [float(np.percentile(lens, 50)), float(np.percentile(lens, 99)),
+                                     max(lens)]
+        res["past_max_length"] = float(np.mean(np.asarray(lens) > LOCAL_MISTRAL_MAX_LENGTH))
+        log(f"e2e local_mistral: load {res['load_s']:.1f} s (read and convert "
+            f"{res['load_read_s']:.1f} s, upload {res['load_upload_s']:.1f} s; host RSS "
+            f"{res['load_host_rss_gb']['before']:.1f} -> peak {res['load_host_rss_gb']['peak']:.1f} "
+            f"GB); {LOCAL_MISTRAL_DOCS} docs embedded and written in "
+            f"{res['write_s']:.1f} s ({res['write_docs_per_s']:.0f} docs/s); tokenizer "
+            f"{st['tokenize_s']:.1f} s ({res['tokenizer_texts_per_s']:.0f} texts/s), encoder "
+            f"(bf16, host clock to the result) {st['forward_s']:.1f} s "
+            f"({res['encoder_texts_per_s']:.1f} texts/s, {100 * res['encoder_share_of_bound']:.1f}% "
+            f"of the {res['bound_texts_per_s']:.1f} texts/s bound: "
+            f"{res['gflop_per_text']['total']:.1f} GFLOP a text at 989 TFLOP/s); tokens "
+            f"p50/p99/max {res['tokens_p50_p99_max']}, {100 * res['past_max_length']:.1f}% past "
+            f"{LOCAL_MISTRAL_MAX_LENGTH}; encoder peak {res['encoder_peak_mb']:.1f} MB above "
+            f"{base / 1e6:.1f} MB, device peak {res['device_peak_mb']:.1f} MB")
+        if res["past_max_length"] <= 0:
+            raise AssertionError("local_mistral: no text passes max_length (the truncation is not driven)")
+        # where the encoder's time goes: one batch of the write profiled
+        ids_b, mask_b = tok.batch(texts[:LOCAL_MISTRAL_BATCH], LOCAL_MISTRAL_MAX_LENGTH)
+        prof = res["encoder_profile"] = device_idle_share(lambda: fn.encoder.forward(ids_b, mask_b))
+        window = prof["profile"]
+        log(f"e2e local_mistral: one batch of {LOCAL_MISTRAL_BATCH} profiled: "
+            f"{window['wall_ms']:.1f} ms, kernels {window.get('kernel_ms')} ms in "
+            f"{window.get('kernel_launches')} launches (unprofiled {prof['unprofiled_wall_ms']:.1f} ms)")
+        for name, k in window.get("top_kernels", {}).items():
+            log(f"  {k['ms']:.3f} ms = {k['launches']} x {k['us_per_launch']:.2f} us  {name}")
+        # the stored bf16 rows against the card's own f32 run: the same
+        # loaded weights under a provider that computes in f32
+        f32fn = provider(ck, "float32", "cuda")
+        f32fn.encoder._loaded = fn.encoder._loaded
+        t = time.perf_counter()
+        f32 = embed(f32fn, texts[:LOCAL_MISTRAL_BF16_TEXTS])
+        res["f32_full_depth_s"] = time.perf_counter() - t
+        bf = rows[:LOCAL_MISTRAL_BF16_TEXTS]
+        res["bf16_max_abs_err"] = float(np.abs(bf - f32).max())
+        res["bf16_min_cos"] = float((bf * f32).sum(axis=1).min())
+        del f32fn
+        t = time.perf_counter()
+        cpu_thread.join()
+        res["cpu_wait_s"] = time.perf_counter() - t
+        if "error" in cpu_run:
+            raise cpu_run["error"]
+        families["cpu"] = cpu_run["families"]
+        res["cpu_f32_s"] = cpu_run["s"]
+        f32_cut = embed(provider(ck_cut, "float32", "cuda"), sample)
+        res["f32_max_abs_err"] = float(np.abs(f32_cut - cpu_run["cut"]).max())
+        log(f"e2e local_mistral: f32 on the card ({LOCAL_MISTRAL_CPU_LAYERS}-layer cut, "
+            f"{LOCAL_MISTRAL_PARITY_TEXTS} texts) vs the CPU ({res['cpu_f32_s']:.1f} s beside the "
+            f"write, {res['cpu_wait_s']:.1f} s waited for after it): max |err| "
+            f"{res['f32_max_abs_err']:.3g} (tolerance {LOCAL_F32_ATOL}); the stored bf16 rows vs the "
+            f"card's f32 run at {E5_MISTRAL['num_hidden_layers']} layers "
+            f"({LOCAL_MISTRAL_BF16_TEXTS} texts, {res['f32_full_depth_s']:.1f} s): max |err| "
+            f"{res['bf16_max_abs_err']:.3g} (tolerance {LOCAL_MISTRAL_BF16_ATOL}), min cosine "
+            f"{res['bf16_min_cos']:.6f} (at least {LOCAL_MISTRAL_BF16_MIN_COS})")
+        if res["f32_max_abs_err"] > LOCAL_F32_ATOL:
+            raise AssertionError("local_mistral: f32 on the card disagrees with the CPU")
+        if (res["bf16_max_abs_err"] > LOCAL_MISTRAL_BF16_ATOL
+                or res["bf16_min_cos"] < LOCAL_MISTRAL_BF16_MIN_COS):
+            raise AssertionError("local_mistral: the stored bf16 rows disagree with f32")
+        # then the retrieval kernels at d = 4,096 in situ: a B=64 call at
+        # n=10 (the keyed v2 prescore #3 and the staged finish #2) and one
+        # at n=100 (v1, #4) profiled together, the width hints cleared
+        qs = passages(words, 64, SEED + 113, *LOCAL_MISTRAL_WORDS)
+
+        def profile(kb):
+            def calls():
+                kb.engine._cand_hint.clear()
+                kb.retrieve_batch(qs, 10)
+                kb.retrieve_batch(qs, 100)
+
+            res["profiled_B64_n100"] = device_idle_share(calls)
+            # the store's device pack and these queries, for the kernels'
+            # checks against their plain versions after the path
+            corpus = kb.engine.corpus
+            held.update(docs=corpus.data, scales=corpus.row_scales, n_valid=corpus.n_valid,
+                        qv=torch.from_numpy(embed(fn, qs)).to(corpus.data.device),
+                        c=kb.engine.candidate_count(10))
+
+        query_provider_store(path, fn, rows, ids, shapes, query_texts, res, "local_mistral",
+                             reopen=False, after=profile)
+        prof = res["profiled_B64_n100"]
+        window = prof["profile"]
+        log(f"e2e local_mistral: profiled B=64 at n=10 and n=100 {window['wall_ms']:.2f} ms, kernels "
+            f"{window.get('kernel_ms')} ms (idle share {window['idle_share']})")
+        for name, k in window.get("top_kernels", {}).items():
+            log(f"  {k['ms']:.3f} ms = {k['launches']} x {k['us_per_launch']:.2f} us  {name}")
+        del fn
+        gc.collect()
+        torch.cuda.empty_cache()
+        # the reopen with no function, on the 2-layer cut's own store
+        small = work / "local_mistral_2l.sqlite"
+        cut_res = res["cut_store"] = {}
+        fn_cut = provider(ck_cut, "bfloat16", "cuda")
+        small_texts = texts[:LOCAL_MISTRAL_REOPEN_DOCS]
+        rows_cut, ids_cut, _ = write_provider_store(small, fn_cut, small_texts, cut_res,
+                                                    "local_mistral_2l")
+
+        def small_queries(b, n):
+            own = list(range(0, 2 * b, 2))[: b // 2 + 1 if b > 1 else 1]
+            fresh = passages(words, b - len(own), SEED + 127 + b, *LOCAL_MISTRAL_WORDS)
+            return [small_texts[i] for i in own] + fresh, own
+
+        query_provider_store(small, fn_cut, rows_cut, ids_cut, ((64, 10), (8, 10), (1, 10)),
+                             small_queries, cut_res, "local_mistral_2l")
+
+    held: dict = {}
+    drive_path("local_mistral", [], run, out)
+    counts = out["paths"]["local_mistral"]["launches"]
+    launched = {k: counts[k] for k in ("_staged_finish", "_fused2_extract_int8", "_fused_extract_int8")}
+    res["hand_kernel_launches"] = launched
+    if not any(launched.values()):
+        raise AssertionError(f"local_mistral: none of #2, #3, #4 launched: {launched}")
+    log(f"e2e local_mistral: #3, #2 and #4 on the store's pack against their plain versions "
+        f"(B={held['qv'].shape[0]}, C={held['c']} at n=10)")
+    pack_kernel_checks("local_mistral", held["docs"], held["scales"], held["qv"],
+                       held["n_valid"], held["c"], out)
+    del held
+    shutil.rmtree(ck, ignore_errors=True)
+    shutil.rmtree(ck_cut, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return families
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--docs", type=int, default=1_000_000)
-    ap.add_argument("--reps", type=int, default=3, help="calls per shape and path")
-    ap.add_argument("--kernel-reps", type=int, default=20,
+    ap.add_argument("--reps", type=int, default=2, help="calls per shape and path")
+    ap.add_argument("--kernel-reps", type=int, default=KERNEL_REPS,
                     help="launches per timed window of a kernel or library "
                     "call (a plain version takes a quarter, at least 3)")
     ap.add_argument("--skip-e2e", action="store_true", help="kernel phase only")
@@ -5465,6 +6268,9 @@ def main() -> int:
         finally:
             shutil.rmtree(work, ignore_errors=True)
 
+    if e2e is not None:  # the kernels' checks on a path's own pack (local_mistral's)
+        for name, recs in e2e.pop("kernel_records", {}).items():
+            records[name].extend(recs)
     kernels_json = []
     for name, recs in records.items():
         for rec in recs:
@@ -5488,7 +6294,7 @@ def main() -> int:
         symbols = {"pair_keys_kernel": "pairwise_keys_extract", "extract_kernel": "_extract"}
         for label, detail in e2e.items():
             prof = detail.get("profiled_call", {}) if isinstance(detail, dict) else {}
-            tops = prof.get("second_profile", {}).get("top_kernels", {})
+            tops = prof.get("profile", {}).get("top_kernels", {})
             for kname, k in tops.items():
                 for sym, rec_name in symbols.items():
                     if f"{sym}(" in kname:

@@ -189,7 +189,48 @@ _FLAX_TOP = {
     "albert": ("embeddings", "encoder"),
     "roberta-prelayernorm": ("embeddings", "encoder", "LayerNorm"),
     "big_bird": ("embeddings", "encoder"),
+    "llama": ("embed_tokens", "layers", "norm"),
+    "mistral": ("embed_tokens", "layers", "norm"),
+    "gemma": ("embed_tokens", "layers", "norm"),
 }
+
+
+def _tensor(arr: Any) -> torch.Tensor:
+    """``arr`` as an f32 tensor sharing its memory when it is a writable
+    f32 array (a checkpoint read into a writable buffer), else a copy."""
+    a = np.asarray(arr)
+    if a.dtype != np.float32 or not a.flags.writeable:
+        a = np.array(a, dtype=np.float32)
+    return torch.from_numpy(a)
+
+
+def decoder_state_dict_from_flax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """A Flax Llama / Mistral / Gemma base tree (``embed_tokens.embedding``,
+    ``layers.N.{input_layernorm, post_attention_layernorm}.weight``,
+    ``layers.N.self_attn.{q,k,v,o}_proj.{kernel, bias}``,
+    ``layers.N.mlp.{gate,up,down}_proj.kernel``, ``norm.weight``) as the
+    state dict of :class:`svs_tpu_torch.embeddings.llama.LlamaEncoder`.
+    Nothing is copied: a Dense ``kernel [in, out]`` becomes the transposed
+    view ``weight [out, in]`` (moved to the card with its strides, one
+    contiguous copy), ``embedding`` and the norms' ``weight`` carry
+    across; at 7.11B parameters a copy costs seconds and 28 GB."""
+    out: Dict[str, torch.Tensor] = {}
+
+    def walk(tree: Dict[str, Any], prefix: str) -> None:
+        for name, value in tree.items():
+            if isinstance(value, dict):
+                walk(value, f"{prefix}{name}.")
+            elif name == "kernel":
+                if np.ndim(value) != 2:
+                    raise ValueError(f"{prefix}kernel: expected a 2-D Dense kernel, got {np.shape(value)}")
+                out[prefix + "weight"] = _tensor(value).T
+            elif name in ("embedding", "weight", "bias"):
+                out[prefix + ("weight" if name == "embedding" else name)] = _tensor(value)
+            else:
+                raise ValueError(f"unexpected Flax parameter {prefix}{name}")
+
+    walk(params, "")
+    return out
 
 
 def encoder_state_dict_from_flax(
@@ -207,12 +248,17 @@ def encoder_state_dict_from_flax(
     albert_layers.I.{attention.{query,key,value,dense,LayerNorm}, ffn,
     ffn_output, full_layer_layer_norm}}``; RoBERTa-PreLayerNorm's adds the
     final ``LayerNorm``; BigBird's is BERT's.  The pooler (a subtree, or
-    ALBERT's and BigBird's flat Dense) is dropped.  A subtree the family
-    does not have raises ``ValueError``."""
+    ALBERT's and BigBird's flat Dense) is dropped.  Llama, Mistral and
+    Gemma trees (``embed_tokens``, ``layers``, ``norm``) go through
+    :func:`decoder_state_dict_from_flax`.  A subtree the family does not
+    have raises ``ValueError``."""
     model_type = config.get("model_type")
     if model_type not in _FLAX_TOP:
         raise NotImplementedError(f"model_type {model_type!r} has no weight conversion")
-    extra = sorted(set(params) - set(_FLAX_TOP[model_type]) - {"pooler"})
+    decoder = _FLAX_TOP[model_type][0] == "embed_tokens"
+    extra = sorted(set(params) - set(_FLAX_TOP[model_type]) - (set() if decoder else {"pooler"}))
     if extra:
         raise ValueError(f"unexpected subtrees {extra} in a {model_type} checkpoint")
+    if decoder:
+        return decoder_state_dict_from_flax(params)
     return bert_state_dict_from_flax(params)

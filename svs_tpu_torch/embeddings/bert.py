@@ -93,10 +93,10 @@ class Linear(nn.Module):
     weights always come from a checkpoint, and an encoder of hundreds of
     millions of parameters builds on the meta device in no time."""
 
-    def __init__(self, d_in: int, d_out: int) -> None:
+    def __init__(self, d_in: int, d_out: int, bias: bool = True) -> None:
         super().__init__()
         self.weight = nn.Parameter(torch.empty(d_out, d_in))
-        self.bias = nn.Parameter(torch.empty(d_out))
+        self.bias = nn.Parameter(torch.empty(d_out)) if bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.linear(x, self.weight, self.bias)

@@ -14,7 +14,11 @@ with no ``tokenizers`` or ``regex``.
   merge_all`` applies them (the lowest-rank pair first, the leftmost of
   equal ranks), with a per-word cache; ``continuing_subword_prefix``,
   ``end_of_word_suffix``, ``unk_token`` with ``fuse_unk``,
-  ``byte_fallback`` and ``ignore_merges``; ``dropout`` is refused;
+  ``byte_fallback`` and ``ignore_merges``; ``dropout`` is refused.  A
+  piece with ``▁`` inside (a SentencePiece-style BPE with no
+  pre-tokenizer, as Llama-2's, runs the whole text as one piece) is cut
+  before each ``▁`` that no merge can join to the character before it,
+  and the parts go through the cache: the same ids;
 - :func:`load_vocab_merges`: ``vocab.json`` + ``merges.txt``, the files a
   RoBERTa checkpoint without a ``tokenizer.json`` ships
   (:func:`svs_tpu_torch.embeddings.tokenizer_json.roberta_spec` makes the
@@ -33,6 +37,9 @@ from . import _unicode_data as D
 from .uniset import char_class
 
 _CACHE_MAX = 1 << 20
+#: SentencePiece's word mark: a piece is cut before it where no merge
+#: crosses (:meth:`BPEModel.tokenize`).
+_MARK = "\u2581"
 
 
 @lru_cache(maxsize=1)
@@ -112,6 +119,21 @@ class BPEModel:
                 raise ValueError(f"merge {a!r} {b!r}: {exc.args[0]!r} is not in the vocabulary") from None
             self.merges[key] = (rank, merged)
         self._cache: Dict[str, Tuple[int, ...]] = {}
+        # The characters that some piece holds right before a ``▁``: a cut
+        # before a ``▁`` is exact when the character left of it is a piece
+        # of its own (not bytes, not unknown) outside this set, since every
+        # token is a piece and a token across the cut would hold both.
+        self._joins_mark: Optional[frozenset] = None
+        unk_merges = unk_token is not None and any(
+            vocab.get(unk_token) in pair for pair in self.merges)
+        if _MARK in vocab and not self.prefix and not self.suffix and not unk_merges:
+            joins = set()
+            for piece in vocab:
+                i = piece.find(_MARK, 1)
+                while i > 0:
+                    joins.add(piece[i - 1])
+                    i = piece.find(_MARK, i + 1)
+            self._joins_mark = frozenset(joins)
 
     def token_to_id(self, token: str) -> Optional[int]:
         return self.vocab.get(token)
@@ -188,6 +210,21 @@ class BPEModel:
                     heapq.heappush(heap, (m[0], pos, m[1]))
         return [s for s, a in zip(sym, alive) if a]
 
+    def _parts(self, word: str) -> List[str]:
+        """``word`` cut before each ``▁`` that no merge joins to the
+        character on its left (see ``__init__``)."""
+        joins, vocab = self._joins_mark, self.vocab
+        parts, start = [], 0
+        i = word.find(_MARK, 1)
+        while i > 0:
+            left = word[i - 1]
+            if left not in joins and left in vocab:
+                parts.append(word[start:i])
+                start = i
+            i = word.find(_MARK, i + 1)
+        parts.append(word[start:])
+        return parts
+
     def tokenize(self, word: str) -> Tuple[int, ...]:
         """The ids of one pre-tokenized piece (cached)."""
         hit = self._cache.get(word)
@@ -195,6 +232,10 @@ class BPEModel:
             return hit
         if not word:
             return ()
+        if self._joins_mark is not None and not self.ignore_merges:
+            parts = self._parts(word)
+            if len(parts) > 1:
+                return tuple(t for part in parts for t in self.tokenize(part))
         whole = self.vocab.get(word) if self.ignore_merges else None
         ids = (whole,) if whole is not None else tuple(self._merge(self._symbols(word)))
         if len(self._cache) >= _CACHE_MAX:

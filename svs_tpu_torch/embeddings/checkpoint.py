@@ -1,4 +1,4 @@
-"""Reading (and writing) a Hugging Face Flax BERT checkpoint with no
+"""Reading (and writing) a Hugging Face Flax checkpoint with no
 ``transformers``, ``flax`` or ``msgpack``: the files ``svs_tpu``'s local
 provider loads through ``FlaxAutoModel.from_pretrained``.
 
@@ -6,27 +6,34 @@ provider loads through ``FlaxAutoModel.from_pretrained``.
   already in the local Hugging Face cache (``$HF_HUB_CACHE``, else
   ``$HF_HOME/hub``, else ``~/.cache/huggingface/hub``:
   ``models--org--name/snapshots/<refs/main>``).  Nothing is downloaded.
-- :func:`load_checkpoint` — ``config.json`` and ``flax_model.msgpack``:
-  the parameter tree as NumPy arrays.
+- :func:`load_checkpoint` — ``config.json`` and ``flax_model.msgpack``,
+  or a sharded checkpoint (``flax_model.msgpack.index.json`` and the
+  ``flax_model-0000k-of-0000n.msgpack`` files it names, read one at a
+  time): the parameter tree as NumPy arrays.
 - :func:`unpackb` / :func:`packb` — the part of MessagePack that Flax's
   ``msgpack_serialize`` writes: maps, arrays, strings, binaries, numbers,
   ext type 1 = an ndarray (``(shape, dtype name, C-order bytes)``, itself
-  MessagePack; bf16 leaves read as f32); an array past 2^30 bytes is
-  stored as a ``{'__msgpack_chunked_array__': True, 'shape', 'chunks'}``
-  dict and is joined back here.
+  MessagePack; bf16 leaves read as f32, converted on torch's threads); an
+  array past 2^30 bytes is stored as a ``{'__msgpack_chunked_array__':
+  True, 'shape', 'chunks'}`` dict and is joined back here.
 """
 
 from __future__ import annotations
 
 import json
+import mmap
 import os
 import struct
+import warnings
 from pathlib import Path
-from typing import Any, Dict, List, Tuple, Union
+from typing import Any, Dict, List, Optional, Tuple, Union
 
 import numpy as np
+import torch
 
 FLAX_WEIGHTS = "flax_model.msgpack"
+#: The index of a sharded checkpoint (``save_pretrained(max_shard_size=)``).
+FLAX_WEIGHTS_INDEX = "flax_model.msgpack.index.json"
 CONFIG = "config.json"
 _EXT_NDARRAY = 1
 _CHUNKED = "__msgpack_chunked_array__"
@@ -36,9 +43,10 @@ _CHUNKED = "__msgpack_chunked_array__"
 
 
 class _Reader:
-    def __init__(self, buf: Union[bytes, memoryview]) -> None:
+    def __init__(self, buf: Union[bytes, bytearray, memoryview], views: bool = False) -> None:
         self.buf = memoryview(buf)
         self.pos = 0
+        self.views = views  # binaries as views of ``buf`` (an ndarray's data)
 
     def take(self, n: int) -> memoryview:
         if self.pos + n > len(self.buf):
@@ -67,7 +75,8 @@ class _Reader:
         if b in simple:
             return simple[b]
         if b in (0xC4, 0xC5, 0xC6):  # bin 8/16/32
-            return bytes(self.take(self.unpack({0xC4: ">B", 0xC5: ">H", 0xC6: ">I"}[b])))
+            data = self.take(self.unpack({0xC4: ">B", 0xC5: ">H", 0xC6: ">I"}[b]))
+            return data if self.views else bytes(data)
         if b in (0xC7, 0xC8, 0xC9):  # ext 8/16/32
             n = self.unpack({0xC7: ">B", 0xC8: ">H", 0xC9: ">I"}[b])
             return self.ext(self.unpack(">b"), self.take(n))
@@ -105,8 +114,10 @@ class _Reader:
     def ext(self, code: int, data: memoryview) -> Any:
         if code != _EXT_NDARRAY:
             raise ValueError(f"unsupported MessagePack ext type {code}")
-        shape, dtype, buffer = _Reader(data).obj(raw=True)
-        name = dtype.decode() if isinstance(dtype, bytes) else dtype
+        # the data stays a view of the buffer: no copy, and writable arrays
+        # when the buffer is (a file's copy-on-write mapping)
+        shape, dtype, buffer = _Reader(data, views=True).obj(raw=True)
+        name = bytes(dtype).decode() if isinstance(dtype, (bytes, memoryview)) else dtype
         if name == "bfloat16":
             arr = _bf16_to_f32(np.frombuffer(buffer, dtype="<u2"))
         else:
@@ -115,7 +126,13 @@ class _Reader:
 
 
 def _bf16_to_f32(words: np.ndarray) -> np.ndarray:
-    return (words.astype(np.uint32) << 16).view(np.float32)
+    """bf16 words as f32 (exact), a new writable array.  torch's
+    conversion runs on all its threads: a 7B checkpoint's 7.1G words take
+    seconds, not the minute of a single-threaded NumPy shift."""
+    with warnings.catch_warnings():  # a read-only buffer, only read here
+        warnings.simplefilter("ignore", UserWarning)
+        src = torch.from_numpy(np.ascontiguousarray(words).view(np.int16))
+    return src.view(torch.bfloat16).float().numpy()
 
 
 def _unchunk(tree: Any) -> Any:
@@ -128,9 +145,10 @@ def _unchunk(tree: Any) -> Any:
     return tree
 
 
-def unpackb(data: Union[bytes, memoryview]) -> Any:
+def unpackb(data: Union[bytes, bytearray, memoryview]) -> Any:
     """Decode a Flax ``msgpack_serialize`` blob: nested dicts of NumPy
-    arrays (read-only views of ``data``), chunked arrays joined."""
+    arrays (views of ``data``, writable when it is; bf16 leaves as new f32
+    arrays), chunked arrays joined."""
     reader = _Reader(data)
     out = reader.obj(raw=False)
     if reader.pos != len(reader.buf):
@@ -175,28 +193,42 @@ def _pack(obj: Any, out: bytearray) -> None:
         raise TypeError(f"cannot pack {type(obj).__name__}")
 
 
+def _leaf(obj: Any) -> Tuple[np.ndarray, str]:
+    """``(the leaf's C-order data as an ndarray, its dtype name)``; a torch
+    tensor's data is viewed (bf16 as its 16-bit words, which NumPy lacks)."""
+    if isinstance(obj, torch.Tensor):
+        t = obj.detach().cpu().contiguous()
+        name = str(t.dtype).removeprefix("torch.")
+        if t.dtype == torch.bfloat16:
+            return t.view(torch.int16).numpy(), name
+        return t.numpy(), name
+    arr = np.ascontiguousarray(obj)
+    return arr, arr.dtype.name
+
+
 def _pack_chunks(obj: Any, chunks: List[Any]) -> None:
-    """:func:`_pack` into a list of byte chunks, an ndarray's data as a
+    """:func:`_pack` into a list of byte chunks, an array's data as a
     view of the array (no copy: a checkpoint of 2 GB is written as it is
-    held)."""
+    held).  Leaves are NumPy arrays or torch tensors (bf16 is written as
+    Flax writes it)."""
     if isinstance(obj, dict):
         head = bytearray(b"\xdf" + struct.pack(">I", len(obj)))
         chunks.append(head)
         for key, value in obj.items():
             _pack(key, head)
-            if isinstance(value, (dict, np.ndarray)):
+            if isinstance(value, (dict, np.ndarray, torch.Tensor)):
                 _pack_chunks(value, chunks)
                 head = bytearray()
                 chunks.append(head)
             else:
                 _pack(value, head)
-    elif isinstance(obj, np.ndarray):
-        arr = np.ascontiguousarray(obj)
+    elif isinstance(obj, (np.ndarray, torch.Tensor)):
+        arr, name = _leaf(obj)
         if arr.nbytes > 1 << 30:
             raise ValueError("arrays past 2^30 bytes are not written here")
         inner = bytearray(b"\xdd" + struct.pack(">I", 3))
         _pack([int(s) for s in arr.shape], inner)
-        _pack(arr.dtype.name, inner)
+        _pack(name, inner)
         inner += b"\xc6" + struct.pack(">I", arr.nbytes)
         chunks.append(b"\xc9" + struct.pack(">I", len(inner) + arr.nbytes)
                       + struct.pack(">b", _EXT_NDARRAY) + bytes(inner))
@@ -261,56 +293,176 @@ def read_config(model_dir: Union[str, Path]) -> Dict[str, Any]:
     return json.loads(path.read_text(encoding="utf-8"))
 
 
+def _read_file(path: Path) -> Union[bytes, mmap.mmap]:
+    """The whole file as a private copy-on-write mapping: the arrays
+    unpacked from it are writable views of the page cache (the encoder
+    takes them with no copy, and a 10 GB shard costs no 10 GB buffer)."""
+    if path.stat().st_size == 0:
+        return b""
+    with open(path, "rb") as f:
+        return mmap.mmap(f.fileno(), 0, access=mmap.ACCESS_COPY)
+
+
+def _flatten(tree: Dict[str, Any], prefix: str, out: Dict[str, Any]) -> None:
+    for key, value in tree.items():
+        if isinstance(value, dict):
+            _flatten(value, f"{prefix}{key}/", out)
+        else:
+            out[prefix + key] = value
+
+
+def _unflatten(flat: Dict[str, Any]) -> Dict[str, Any]:
+    tree: Dict[str, Any] = {}
+    for path, value in flat.items():
+        *parents, leaf = path.split("/")
+        node = tree
+        for key in parents:
+            node = node.setdefault(key, {})
+        node[leaf] = value
+    return tree
+
+
+def shard_files(model_dir: Union[str, Path]) -> List[Path]:
+    """The weight files of a checkpoint, in the order
+    ``FlaxPreTrainedModel.from_pretrained`` reads them: ``flax_model.msgpack``
+    when there is one, else the sorted shard names of
+    ``flax_model.msgpack.index.json``."""
+    model_dir = Path(model_dir)
+    if (model_dir / FLAX_WEIGHTS).is_file():
+        return [model_dir / FLAX_WEIGHTS]
+    index = model_dir / FLAX_WEIGHTS_INDEX
+    if not index.is_file():
+        raise FileNotFoundError(
+            f"no {FLAX_WEIGHTS} or {FLAX_WEIGHTS_INDEX} in {model_dir} "
+            "(svs_tpu's local provider loads Flax checkpoints, and so does the port)"
+        )
+    weight_map = json.loads(index.read_text(encoding="utf-8"))["weight_map"]
+    files = [model_dir / name for name in sorted(set(weight_map.values()))]
+    missing = [str(f) for f in files if not f.is_file()]
+    if missing:
+        raise FileNotFoundError(f"{index} names shards that are missing: {missing}")
+    return files
+
+
 def load_checkpoint(model_dir: Union[str, Path]) -> Tuple[Dict[str, Any], Dict[str, Any]]:
     """``(config, params)``: ``config.json`` and the Flax parameter tree of
-    ``flax_model.msgpack`` (NumPy arrays).  A head model's checkpoint holds
-    the base model under its family's ``base_model_prefix`` (``bert``,
-    ``roberta``, ``xlm-roberta``, ``distilbert``, ``electra``, ``albert``,
-    ``roberta_prelayernorm``; BigBird's is ``bert``), and that
-    wrapper is unwrapped as ``FlaxAutoModel.from_pretrained`` unwraps it:
-    only when the tree has no ``embeddings`` of its own."""
+    ``flax_model.msgpack``, or of the shards a ``flax_model.msgpack.index.json``
+    names (NumPy arrays).  Shards are read one at a time, as
+    ``FlaxPreTrainedModel.load_flax_sharded_weights`` reads them: each
+    flattened with ``/`` and merged, then the whole unflattened; a shard of
+    bf16 leaves is freed once its leaves are f32 arrays.  A head model's
+    checkpoint holds the base model under its family's
+    ``base_model_prefix`` (:data:`.encoders.BASE_MODEL_PREFIX`: ``bert``,
+    ``roberta``, ...; ``model`` for the ``*ForCausalLM`` trees of Llama,
+    Mistral and Gemma), and that wrapper is unwrapped as
+    ``FlaxAutoModel.from_pretrained`` unwraps it (:func:`unwrap_head`)."""
     config = read_config(model_dir)
-    weights = Path(model_dir) / FLAX_WEIGHTS
-    if not weights.is_file():
-        raise FileNotFoundError(
-            f"no {FLAX_WEIGHTS} in {model_dir} (svs_tpu's local provider "
-            "loads Flax checkpoints, and so does the port)"
-        )
-    params = unpackb(weights.read_bytes())
+    files = shard_files(model_dir)
+    if len(files) == 1:
+        params = unpackb(_read_file(files[0]))
+    else:
+        flat: Dict[str, Any] = {}
+        for path in files:
+            _flatten(unpackb(_read_file(path)), "", flat)
+        params = _unflatten(flat)
     return config, unwrap_head(config, params)
 
 
 def unwrap_head(config: Dict[str, Any], params: Dict[str, Any]) -> Dict[str, Any]:
-    """The base model's tree of ``params``: itself, or the subtree under
-    ``config``'s ``base_model_prefix``.  An XLM-R tree wrapped under
-    ``roberta`` (the attribute name of ``transformers``' XLM-R heads) is
-    refused: ``FlaxAutoModel`` looks for ``xlm-roberta`` there, finds no
-    weights and initialises the model at random, which the port cannot
-    reproduce."""
-    from .encoders import BASE_MODEL_PREFIX
+    """The base model's tree of ``params``: itself when it holds the base
+    model's embeddings (``embeddings``; a decoder's ``embed_tokens``), else
+    the subtree under ``config``'s ``base_model_prefix``.  An XLM-R tree
+    wrapped under ``roberta`` (the attribute name of ``transformers``' XLM-R
+    heads) is refused: ``FlaxAutoModel`` looks for ``xlm-roberta`` there,
+    finds no weights and initialises the model at random, which the port
+    cannot reproduce."""
+    from .encoders import BASE_MODEL_PREFIX, DECODER_TYPES
 
-    if "embeddings" in params:
+    model_type = str(config.get("model_type"))
+    if ("embed_tokens" if model_type in DECODER_TYPES else "embeddings") in params:
         return params
-    prefix = BASE_MODEL_PREFIX.get(str(config.get("model_type")))
+    prefix = BASE_MODEL_PREFIX.get(model_type)
     if prefix is not None and isinstance(params.get(prefix), dict):
         return params[prefix]
     raise ValueError(
-        f"{FLAX_WEIGHTS} holds no base-model weights for model_type "
+        f"the checkpoint holds no base-model weights for model_type "
         f"{config.get('model_type')!r} (top-level keys {sorted(params)}); "
         f"FlaxAutoModel would initialise them at random"
     )
 
 
+def _nbytes(leaf: Any) -> int:
+    if isinstance(leaf, torch.Tensor):
+        return leaf.numel() * leaf.element_size()
+    return int(np.asarray(leaf).nbytes)
+
+
+class _FileSink:
+    """The chunk list of :func:`_pack_chunks`, written as it grows: only
+    the last chunk can still change (a map's header takes its keys), so
+    each chunk goes to the file when the next one comes.  A leaf's data
+    (a torch tensor copied off the card) is held one leaf at a time."""
+
+    def __init__(self, f: Any) -> None:
+        self.f, self.last = f, None
+
+    def append(self, chunk: Any) -> None:
+        if self.last is not None:
+            self.f.write(self.last)
+        self.last = chunk
+
+    def close(self) -> None:
+        if self.last is not None:
+            self.f.write(self.last)
+        self.last = None
+
+
+def _write_tree(path: Path, tree: Dict[str, Any]) -> None:
+    with open(path, "wb") as f:
+        sink = _FileSink(f)
+        _pack_chunks(tree, sink)  # type: ignore[arg-type]
+        sink.close()
+
+
 def write_checkpoint(
-    model_dir: Union[str, Path], config: Dict[str, Any], params: Dict[str, Any]
-) -> None:
-    """Write ``config.json`` and ``flax_model.msgpack`` (a checkpoint made
-    from a seed)."""
+    model_dir: Union[str, Path],
+    config: Dict[str, Any],
+    params: Dict[str, Any],
+    max_shard_size: Optional[int] = None,
+) -> List[Path]:
+    """Write ``config.json`` and the weights (a checkpoint made from a
+    seed): ``flax_model.msgpack``, or, with ``max_shard_size`` (bytes) and
+    a tree larger than it, the shards and index that
+    ``save_pretrained(max_shard_size=...)`` writes (``flax_shard_checkpoint``:
+    leaves in the tree's order, a new shard before a leaf that would pass
+    the size).  Leaves are NumPy arrays or torch tensors (bf16 written as
+    Flax writes it).  Returns the weight files written."""
     model_dir = Path(model_dir)
     model_dir.mkdir(parents=True, exist_ok=True)
     (model_dir / CONFIG).write_text(json.dumps(config, indent=2), encoding="utf-8")
-    chunks: List[Any] = []
-    _pack_chunks(params, chunks)
-    with open(model_dir / FLAX_WEIGHTS, "wb") as f:
-        for chunk in chunks:
-            f.write(chunk)
+    flat: Dict[str, Any] = {}
+    _flatten(params, "", flat)
+    shards: List[Dict[str, Any]] = []
+    block: Dict[str, Any] = {}
+    size = total = 0
+    for key, leaf in flat.items():
+        n = _nbytes(leaf)
+        if max_shard_size is not None and size + n > max_shard_size:
+            shards.append(block)  # as Flax, even an empty first block
+            block, size = {}, 0
+        block[key] = leaf
+        size += n
+        total += n
+    shards.append(block)
+    if len(shards) == 1:
+        _write_tree(model_dir / FLAX_WEIGHTS, params)
+        return [model_dir / FLAX_WEIGHTS]
+    names = [FLAX_WEIGHTS.replace(".msgpack", f"-{i + 1:05d}-of-{len(shards):05d}.msgpack")
+             for i in range(len(shards))]
+    index = {"metadata": {"total_size": total},
+             "weight_map": {key: name for name, shard in zip(names, shards) for key in shard}}
+    (model_dir / FLAX_WEIGHTS_INDEX).write_text(json.dumps(index, indent=2, sort_keys=True) + "\n",
+                                                encoding="utf-8")
+    for name, shard in zip(names, shards):
+        _write_tree(model_dir / name, _unflatten(shard))
+    return [model_dir / name for name in names]

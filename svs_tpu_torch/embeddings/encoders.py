@@ -11,14 +11,19 @@ provider runs with ``input_ids`` and ``attention_mask`` alone):
 - ``distilbert``: :mod:`.distilbert`;
 - ``albert`` (factorised embeddings, layer groups shared across the
   depth): :mod:`.albert`;
-- ``big_bird`` (full or block-sparse attention): :mod:`.big_bird`.
+- ``big_bird`` (full or block-sparse attention): :mod:`.big_bird`;
 
-``FlaxAutoModel`` also loads ``roformer``, which is not ported (its
-tokenizer needs ``rjieba``, so ``svs_tpu``'s provider fails before its
-encoder runs): it raises ``NotImplementedError`` naming the type
+and the decoder-only types whose last hidden state it pools:
+
+- ``llama``, ``mistral`` (its sliding window as Flax computes it) and
+  ``gemma``: :mod:`.llama`.
+
+``FlaxAutoModel`` also loads ``roformer`` and the other decoder-only and
+encoder-decoder types, which are not ported: each raises
+``NotImplementedError`` naming the type and what it would need
 (:data:`UNPORTED`), as does every other type and every ``hidden_act`` /
-``activation``, ``position_embedding_type`` or BigBird
-``attention_type`` the encoders do not compute.
+``activation``, ``position_embedding_type``, BigBird ``attention_type``
+or decoder width that the encoders do not compute or on which Flax fails.
 """
 
 from __future__ import annotations
@@ -28,7 +33,7 @@ from typing import Any, Dict
 import torch
 from torch import nn
 
-from . import albert, bert, big_bird, distilbert
+from . import albert, bert, big_bird, distilbert, llama
 
 #: ``model_type`` -> the key under which a head model's Flax checkpoint
 #: holds the base model (``transformers``' ``base_model_prefix``).
@@ -41,18 +46,40 @@ BASE_MODEL_PREFIX = {
     "albert": "albert",
     "roberta-prelayernorm": "roberta_prelayernorm",
     "big_bird": "bert",
+    "llama": "model",
+    "mistral": "model",
+    "gemma": "model",
 }
 MODEL_TYPES = tuple(BASE_MODEL_PREFIX)
-#: Encoder-only types that ``FlaxAutoModel`` loads and the port does not
-#: run, with what they would need.
+#: The decoder-only types: their base tree holds ``embed_tokens``,
+#: ``layers`` and ``norm`` (an encoder's holds ``embeddings``).
+DECODER_TYPES = llama.MODEL_TYPES
+#: Types that ``FlaxAutoModel`` loads and the port does not run, with what
+#: they would need.
 UNPORTED = {
     "roformer": "rotary position embeddings, and a tokenizer that needs rjieba",
+    "gpt2": "a decoder with learned positions",
+    "gpt_neo": "a decoder with learned positions and local-attention layers",
+    "gptj": "a decoder with partial rotary positions and a parallel block",
+    "bloom": "a decoder with ALiBi positions",
+    "xglm": "a decoder with sinusoidal positions",
+    "bart": "an encoder-decoder stack run through its decoder",
+    "mbart": "an encoder-decoder stack run through its decoder",
+    "pegasus": "an encoder-decoder stack run through its decoder",
+    "blenderbot": "an encoder-decoder stack run through its decoder",
+    "blenderbot-small": "an encoder-decoder stack run through its decoder",
+    "opt": "svs_tpu's provider fails on it too: FlaxOPTModel takes no train argument",
+    "t5": "svs_tpu's provider fails on it too: the model needs decoder_input_ids",
+    "mt5": "svs_tpu's provider fails on it too: the model needs decoder_input_ids",
+    "longt5": "svs_tpu's provider fails on it too: the model needs decoder_input_ids",
+    "marian": "its tokenizer is a SentencePiece model alone",
 }
 #: The encoder class and config check of each type (the rest: :mod:`.bert`).
 _ENCODERS = {
     "distilbert": (distilbert.DistilBertEncoder, distilbert.check_config),
     "albert": (albert.AlbertEncoder, albert.check_config),
     "big_bird": (big_bird.BigBirdEncoder, big_bird.check_config),
+    **{t: (llama.LlamaEncoder, llama.check_config) for t in llama.MODEL_TYPES},
 }
 
 
@@ -88,9 +115,11 @@ def load_encoder(config: Dict[str, Any], state_dict: Dict[str, torch.Tensor]) ->
     """:func:`build_encoder` holding ``state_dict``'s tensors (CPU, f32).
     The module is built on the meta device and takes the tensors as its
     parameters (no allocation, no copy: at ``bge-m3``'s 568M parameters a
-    copy takes seconds); every parameter must be in ``state_dict``.  (A
-    buffer made from NumPy, DistilBERT's sinusoidal table, stays on the
-    CPU under the meta device.)"""
+    copy takes seconds, at ``e5-mistral-7b-instruct``'s 7.11B tens of
+    seconds and 28 GB); every parameter must be in ``state_dict``, which
+    may hold views (a decoder's transposed Dense kernels).  (A buffer made
+    from NumPy, DistilBERT's sinusoidal table, stays on the CPU under the
+    meta device.)"""
     with torch.device("meta"):
         encoder = build_encoder(config)
     encoder.load_state_dict(state_dict, strict=True, assign=True)

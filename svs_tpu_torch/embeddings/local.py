@@ -8,18 +8,24 @@ port reads the same files with no ``transformers``, ``tokenizers`` or
 
 - the tokenizer, in the order ``AutoTokenizer`` finds one
   (:func:`.tokenizer_json.load_tokenizer`): ``tokenizer.json`` through
-  :mod:`.tokenizer_json` (WordPiece, byte-level BPE or Unigram, with the
-  ``Precompiled`` normalizer), else ``vocab.txt`` through
-  :mod:`.wordpiece`, else ``vocab.json`` + ``merges.txt`` through
+  :mod:`.tokenizer_json` (WordPiece, byte-level BPE, SentencePiece-style
+  BPE with byte fallback, or Unigram, with the ``Precompiled``
+  normalizer; Llama's and Gemma's left padding), else ``vocab.txt``
+  through :mod:`.wordpiece`, else ``vocab.json`` + ``merges.txt`` through
   :mod:`.bpe`; a SentencePiece model alone is refused;
-- the weights from ``flax_model.msgpack`` through :mod:`.checkpoint` and
-  ``convert.encoder_state_dict_from_flax``;
+- the weights from ``flax_model.msgpack``, or from the shards of a
+  ``flax_model.msgpack.index.json`` read one at a time, through
+  :mod:`.checkpoint` and ``convert.encoder_state_dict_from_flax``;
 - the encoder by ``model_type`` (:func:`.encoders.build_encoder`):
   ``bert`` (``bge-*-en-v1.5``, ``all-MiniLM-L6-v2``), ``xlm-roberta``
   (``bge-m3``, ``multilingual-e5-*``), ``roberta``
-  (``all-distilroberta-v1``), ``distilbert`` (``msmarco-distilbert-*``)
-  and ``electra``; any other type raises ``NotImplementedError`` naming
-  it, before the weights are read.
+  (``all-distilroberta-v1``), ``distilbert`` (``msmarco-distilbert-*``),
+  ``electra``, ``albert``, ``roberta-prelayernorm``, ``big_bird``, and
+  the decoders ``llama``, ``mistral`` (``e5-mistral-7b-instruct``) and
+  ``gemma`` (their last hidden state pooled as an encoder's, CLS being
+  position 0, a pad on a left-padded row, as in the reference); any other
+  type raises ``NotImplementedError`` naming it, before the weights are
+  read.
 
 Kept from the reference: the factory's signature and validation, the
 persisted params (``provider``, ``model``, ``pooling``, ``max_length``,
@@ -93,8 +99,11 @@ class _LocalEncoder:
         self._lock = threading.Lock()
         self._cache: "OrderedDict[Tuple[str, ...], np.ndarray]" = OrderedDict()
         #: Host-clock seconds spent tokenizing and in the forward pass
-        #: (launch to result on the host), and the texts embedded.
-        self.stats: Dict[str, float] = {"tokenize_s": 0.0, "forward_s": 0.0, "texts": 0}
+        #: (launch to result on the host), and the texts embedded; the
+        #: load's reading of the checkpoint (and its conversion to the
+        #: encoder's tensors) and its upload to the device.
+        self.stats: Dict[str, float] = {"tokenize_s": 0.0, "forward_s": 0.0, "texts": 0,
+                                        "read_s": 0.0, "upload_s": 0.0}
 
     def _load(self) -> Tuple[Any, torch.nn.Module]:
         if self._loaded is not None:
@@ -113,10 +122,17 @@ class _LocalEncoder:
         config = read_config(model_dir)
         check_config(config)  # before reading the weights
         tokenizer = load_tokenizer(model_dir, config.get("model_type"))
+        t = time.perf_counter()
         config, params = load_checkpoint(model_dir)
         encoder = load_encoder(config, encoder_state_dict_from_flax(config, params))
         del params
-        self._loaded = (tokenizer, encoder.to(self.device).eval())
+        t1 = time.perf_counter()
+        encoder = encoder.to(self.device).eval()
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.stats["read_s"] = t1 - t
+        self.stats["upload_s"] = time.perf_counter() - t1
+        self._loaded = (tokenizer, encoder)
         return self._loaded
 
     def embed(self, texts: Tuple[str, ...]) -> np.ndarray:
@@ -197,7 +213,8 @@ def make_local_embeddings_func(
     tokenizer files).
 
     ``model`` is a local directory holding ``config.json``,
-    ``flax_model.msgpack`` and a tokenizer (``tokenizer.json``, or
+    ``flax_model.msgpack`` (or ``flax_model.msgpack.index.json`` and its
+    shards) and a tokenizer (``tokenizer.json``, or
     ``vocab.txt``, or ``vocab.json`` + ``merges.txt``, with
     ``tokenizer_config.json``), or a hub name already in the local Hugging
     Face cache.  ``pooling`` is

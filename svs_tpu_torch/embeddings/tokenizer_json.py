@@ -26,11 +26,15 @@ A text goes through the steps of ``tokenizers``' ``encode``:
 ``tokenizer_config.json`` and ``special_tokens_map.json`` add what
 ``transformers`` adds: the pad token (else the tokenizer class's default,
 else the file's ``padding``), special tokens and ``added_tokens_decoder``
-entries that ``tokenizer.json`` lacks, the padding and truncation sides,
-and the options that ``BertTokenizerFast`` (``do_lower_case``,
-``strip_accents``, ``tokenize_chinese_chars``) and ``RobertaTokenizerFast``
-(``add_prefix_space``) write over the file's normalizer and
-pre-tokenizer.
+entries that ``tokenizer.json`` lacks, the padding and truncation sides
+(``LlamaTokenizerFast`` and ``GemmaTokenizerFast`` pad on the left unless
+told otherwise), the options that ``BertTokenizerFast``
+(``do_lower_case``, ``strip_accents``, ``tokenize_chinese_chars``) and
+``RobertaTokenizerFast`` (``add_prefix_space``) write over the file's
+normalizer and pre-tokenizer, and the post-processor that the Llama and
+Gemma classes rebuild from ``add_bos_token`` / ``add_eos_token``.  A
+Llama tokenizer has no pad token by default, so ``padding="max_length"``
+fails there as in ``transformers``.
 
 A component of any other type raises ``NotImplementedError`` naming it;
 nothing falls back to another tokenizer.
@@ -80,7 +84,15 @@ _ALBERT_SPECIALS = {"bos_token": "[CLS]", "eos_token": "[SEP]", "unk_token": "<u
 _BIG_BIRD_SPECIALS = {"unk_token": "<unk>", "bos_token": "<s>", "eos_token": "</s>",
                       "pad_token": "<pad>", "sep_token": "[SEP]", "mask_token": "[MASK]",
                       "cls_token": "[CLS]"}
+#: ``LlamaTokenizerFast`` (no pad token) and ``GemmaTokenizerFast``: a
+#: SentencePiece-style BPE whose post-processor the class rebuilds from
+#: ``add_bos_token`` / ``add_eos_token``.
+_LLAMA_SPECIALS = {"unk_token": "<unk>", "bos_token": "<s>", "eos_token": "</s>"}
+_GEMMA_SPECIALS = {"unk_token": "<unk>", "bos_token": "<bos>", "eos_token": "<eos>",
+                   "pad_token": "<pad>"}
 _CLASS_SPECIALS = {
+    "LlamaTokenizer": _LLAMA_SPECIALS,
+    "GemmaTokenizer": _GEMMA_SPECIALS,
     "XLMRobertaTokenizer": _ROBERTA_SPECIALS,
     "RobertaTokenizer": _ROBERTA_SPECIALS,
     "BertTokenizer": _BERT_SPECIALS,
@@ -98,7 +110,13 @@ _MODEL_TOKENIZER = {
     "bert": "BertTokenizer", "distilbert": "DistilBertTokenizer",
     "electra": "ElectraTokenizer", "albert": "AlbertTokenizer",
     "big_bird": "BigBirdTokenizer", "roberta-prelayernorm": "RobertaTokenizer",
+    "llama": "LlamaTokenizer", "mistral": "LlamaTokenizer", "gemma": "GemmaTokenizer",
 }
+#: The classes whose ``padding_side`` is ``"left"`` unless the config says,
+#: and that rebuild the post-processor (``update_post_processor``): ``bos
+#: $A`` with ``add_bos_token`` (default true), ``$A eos`` with
+#: ``add_eos_token`` (default false).
+_LLAMA_CLASSES = ("LlamaTokenizer", "GemmaTokenizer")
 _SPECIAL_KEYS = ("bos_token", "eos_token", "unk_token", "sep_token", "pad_token",
                  "cls_token", "mask_token")
 
@@ -697,7 +715,8 @@ class JsonTokenizer:
         self.normalize = build_normalizer(spec.get("normalizer"))
         self.pre_tokenize = build_pre_tokenizer(spec.get("pre_tokenizer"))
         self.head, self.tail = build_post_processor(spec.get("post_processor"))
-        self.padding_side = cfg.get("padding_side", "right")
+        default_side = "left" if tok_class in _LLAMA_CLASSES else "right"
+        self.padding_side = cfg.get("padding_side", default_side)
         self.truncation_side = cfg.get("truncation_side", "right")
         for side in (self.padding_side, self.truncation_side):
             if side not in ("right", "left"):
@@ -711,6 +730,8 @@ class JsonTokenizer:
         self._raw = _Added(raw, [t["content"] for t in raw])
         self._norm = _Added(norm, [self.normalize(t["content"]) if self.normalize else t["content"]
                                    for t in norm])
+        if tok_class in _LLAMA_CLASSES:
+            self.head, self.tail = self._bos_eos(cfg, specials)
 
         pad = _token_text(specials.get("pad_token"))
         if pad is None and spec.get("padding"):
@@ -731,6 +752,37 @@ class JsonTokenizer:
     def token_to_id(self, token: str) -> Optional[int]:
         tid = self.added_ids.get(token)
         return tid if tid is not None else self.model.token_to_id(token)
+
+    def _bos_eos(self, cfg: Dict[str, Any], specials: Dict[str, Any]) -> Tuple[List[int], List[int]]:
+        """``LlamaTokenizerFast.update_post_processor``: the file's
+        post-processor is replaced by ``bos $A`` / ``$A eos`` as
+        ``add_bos_token`` (default true) and ``add_eos_token`` (default
+        false) say; a token's id is its vocabulary id, else the unknown
+        token's (``convert_tokens_to_ids``).  ``add_prefix_space`` makes
+        ``transformers`` rebuild the tokenizer from its SentencePiece model,
+        which the port does not read."""
+        if cfg.get("add_prefix_space") is not None:
+            raise NotImplementedError(
+                f"add_prefix_space in {self.tokenizer_class}'s tokenizer_config.json is not "
+                "ported: transformers rebuilds the tokenizer from its SentencePiece model"
+            )
+        ends: List[List[int]] = []
+        for key, flag, default in (("bos_token", "add_bos_token", True),
+                                   ("eos_token", "add_eos_token", False)):
+            if not cfg.get(flag, default):
+                ends.append([])
+                continue
+            token = _token_text(specials.get(key))
+            if token is None:
+                raise ValueError(f"{flag} = True but {key} = None")
+            tid = self.token_to_id(token)
+            if tid is None:
+                unk = _token_text(specials.get("unk_token"))
+                tid = self.token_to_id(unk) if unk is not None else None
+            if tid is None:
+                raise ValueError(f"{key} {token!r} has no id")
+            ends.append([tid])
+        return ends[0], ends[1]
 
     @classmethod
     def from_dir(cls, path: Union[str, Path], model_type: Optional[str] = None) -> "JsonTokenizer":

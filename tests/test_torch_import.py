@@ -471,6 +471,41 @@ _BLOCKED_FAMILIES = textwrap.dedent(
     """
 )
 
+_BLOCKED_DECODERS = textwrap.dedent(
+    """
+    import asyncio, os, sys
+
+    BLOCKED = ("jax", "jaxlib", "networkx", "ml_dtypes", "aiohttp", "dotenv", "svs_tpu",
+               "transformers", "flax", "msgpack", "tokenizers", "sentencepiece", "regex",
+               "safetensors")
+
+    class Blocker:
+        def find_spec(self, name, path=None, target=None):
+            if name.split(".")[0] in BLOCKED:
+                raise ImportError(f"{name} is blocked in this test")
+            return None
+
+    sys.meta_path.insert(0, Blocker())
+
+    import numpy as np
+    from svs_tpu_torch import make_local_embeddings_func
+    from svs_tpu_torch.embeddings import checkpoint, encoders, llama
+
+    root = os.path.dirname(sys.argv[1])
+    texts = ["the cat sat", "héllo мир 中文", "", "a dog ran " * 20]
+    for name in ("mistral", "gemma"):
+        path = os.path.join(root, name)
+        assert len(checkpoint.shard_files(path)) > 1, name
+        f = make_local_embeddings_func(path, max_length=16, compute_dtype="float32", device="cpu")
+        vecs = np.asarray(asyncio.run(f(texts)))
+        assert vecs.shape == (4, 32) and np.allclose(np.linalg.norm(vecs, axis=1), 1, atol=1e-5)
+        assert isinstance(f.encoder._load()[1], llama.LlamaEncoder)
+    loaded = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
+    assert not loaded, loaded
+    print("ROUND_TRIP_OK")
+    """
+)
+
 _BLOCKED_PARALLEL = textwrap.dedent(
     """
     import sys
@@ -622,6 +657,31 @@ def test_albert_and_big_bird_without_transformers_tokenizers_sentencepiece(tmp_p
         "hidden_act": "gelu_new", "attention_type": "block_sparse", "block_size": 16,
         "num_random_blocks": 3}, seed=3)
     _run_blocked(_BLOCKED_FAMILIES, tmp_path)
+
+def test_llama_family_decoders_without_transformers_tokenizers_flax(tmp_path):
+    """The Mistral and Gemma decoders (sharded bf16 checkpoints that the
+    smoke's writer makes from a seed, tokenizers in Llama-2's and Gemma's
+    layouts) embed on the CPU with ``transformers``, ``tokenizers``,
+    ``flax``, JAX and ``svs_tpu`` blocked."""
+    pytest.importorskip("transformers")
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    import chip_smoke
+    from svs_tpu_torch.embeddings.checkpoint import write_checkpoint
+
+    tiny = {"hidden_size": 32, "num_hidden_layers": 2, "num_attention_heads": 4,
+            "intermediate_size": 64, "max_position_embeddings": 64}
+    for name, cfg in (("mistral", {**tiny, "model_type": "mistral", "num_key_value_heads": 2,
+                                   "sliding_window": 4}),
+                      ("gemma", {**tiny, "model_type": "gemma", "num_key_value_heads": 1,
+                                 "head_dim": 8})):
+        layout = "gemma" if name == "gemma" else "llama"
+        pad = {} if name == "gemma" else {"pad_token": "</s>"}
+        chip_smoke.write_decoder_tokenizer(tmp_path / name, layout, 600, 3, **pad)
+        cfg["vocab_size"] = 600
+        write_checkpoint(tmp_path / name, cfg, chip_smoke.random_decoder_params(cfg, 3, "cpu"),
+                         max_shard_size=20_000)
+    _run_blocked(_BLOCKED_DECODERS, tmp_path)
+
 
 def test_parallel_modules_without_jax_or_svs_tpu(tmp_path):
     """Every module of ``svs_tpu_torch.parallel`` imports with JAX and

@@ -8,7 +8,10 @@ local provider calls, ``padding="max_length", truncation=True``) at
 Metaspace (``Precompiled`` and NFKC normalizers), byte-level BPE from
 ``tokenizer.json`` and from ``vocab.json`` + ``merges.txt``, WordPiece
 from ``tokenizer.json``, and the SentencePiece layouts of ALBERT (Unigram)
-and BigBird (Unigram and SentencePiece-style BPE).  Then each component against its ``tokenizers``
+and BigBird (Unigram and SentencePiece-style BPE), and the SentencePiece-style
+BPE with byte fallback of Llama-2 and Gemma read as ``LlamaTokenizerFast`` /
+``GemmaTokenizerFast`` (left padding, their ``add_bos_token`` /
+``add_eos_token`` post-processor).  Then each component against its ``tokenizers``
 counterpart (the ``Precompiled`` normalizer on a charsmap that
 :func:`torch_tokenizer_helpers.build_charsmap` writes, the pre-tokenizers
 and normalizers, GPT-2's split, the grapheme clusters against ``regex``'s
@@ -40,10 +43,13 @@ from svs_tpu_torch.embeddings.wordpiece import WordPieceTokenizer
 
 from torch_tokenizer_helpers import (
     CHARSMAP,
+    DECODER_SPECIALS,
     build_charsmap,
+    decoder_tokenizer_spec,
     seeded_strings,
     strings,
     write_bpe_tokenizer,
+    write_decoder_tokenizer,
     write_sentencepiece_tokenizer,
     write_unigram_tokenizer,
     write_wordpiece_tokenizer,
@@ -327,3 +333,84 @@ def test_added_token_flags_equal_tokenizers():
             "<sw>x", "_<sw>", "é<sw>", " ", "  ", "\t", "é", "\xa0", "1<sw>"]
     for text in seeded_strings(37, 1000, pool):
         assert mine.token_ids(text) == tok.encode(text, add_special_tokens=False).ids, text
+
+
+@pytest.mark.parametrize("layout,config", [
+    ("llama", {"pad_token": "</s>"}),
+    ("llama", {"pad_token": "<unk>", "add_eos_token": True}),
+    ("llama", {"pad_token": "</s>", "add_bos_token": False, "padding_side": "right",
+               "truncation_side": "left"}),
+    ("gemma", {}),
+    ("gemma", {"add_eos_token": True}),
+], ids=["llama", "llama-eos", "llama-no-bos-right", "gemma", "gemma-eos"])
+def test_llama_and_gemma_layouts_equal_auto_tokenizer(tmp_path, layout, config):
+    """Llama-2's ``tokenizer.json`` (``Prepend("▁")`` + ``Replace``, no
+    pre-tokenizer: the whole text is one BPE word) and Gemma's
+    (``Replace``, ``Split(" ")``), a BPE with ``byte_fallback`` and
+    ``fuse_unk`` whose alphabet is ASCII, so every other character of the
+    seeded strings becomes ``<0xNN>`` pieces; ``LlamaTokenizerFast`` /
+    ``GemmaTokenizerFast`` pad on the left and rebuild the post-processor
+    from ``add_bos_token`` / ``add_eos_token`` over the file's ``bos $A``."""
+    write_decoder_tokenizer(tmp_path, layout, seed=6, **config)
+    mine = load_tokenizer(tmp_path)
+    assert mine.tokenizer_class == {"llama": "LlamaTokenizer", "gemma": "GemmaTokenizer"}[layout]
+    assert mine.padding_side == config.get("padding_side", "left")
+    bos, eos = (1, 2) if layout == "llama" else (2, 1)
+    assert mine.head == ([] if config.get("add_bos_token") is False else [bos])
+    assert mine.tail == ([eos] if config.get("add_eos_token") else [])
+    first_byte = len(DECODER_SPECIALS[layout])
+    ids, _ = mine.batch(strings(25), 64)
+    assert ((ids >= first_byte) & (ids < first_byte + 256)).any()  # the byte fallback ran
+    _same_as_auto(tmp_path, mine, seed=25)
+
+
+def test_mistral_model_type_reads_as_llama_tokenizer(tmp_path):
+    """With no ``tokenizer_class``, ``AutoTokenizer`` picks
+    ``LlamaTokenizerFast`` for ``model_type`` ``mistral`` (left padding,
+    ``<s> $A``), and so does the port."""
+    write_decoder_tokenizer(tmp_path, "llama", seed=7, pad_token="</s>")
+    cfg = json.loads((tmp_path / "tokenizer_config.json").read_text())
+    del cfg["tokenizer_class"]
+    (tmp_path / "tokenizer_config.json").write_text(json.dumps(cfg))
+    (tmp_path / "config.json").write_text(json.dumps({"model_type": "mistral"}))
+    mine = load_tokenizer(tmp_path, "mistral")
+    assert mine.tokenizer_class == "LlamaTokenizer" and mine.padding_side == "left"
+    _same_as_auto(tmp_path, mine, seed=26)
+
+
+def test_llama_tokenizer_refusals(tmp_path):
+    """No pad token: ``padding="max_length"`` fails in ``transformers``
+    and the port refuses; ``add_prefix_space`` makes ``transformers``
+    rebuild from the SentencePiece model, which the port does not read."""
+    write_decoder_tokenizer(tmp_path, "llama", seed=8)
+    with pytest.raises(ValueError):
+        _auto(tmp_path)(["a b"], padding="max_length", max_length=8)
+    with pytest.raises(ValueError, match="no pad token"):
+        load_tokenizer(tmp_path)
+    write_decoder_tokenizer(tmp_path, "llama", seed=8, pad_token="</s>", add_prefix_space=True)
+    with pytest.raises(NotImplementedError, match="add_prefix_space"):
+        load_tokenizer(tmp_path)
+
+
+def test_bpe_cut_before_word_marks_is_exact():
+    """``BPEModel.tokenize`` cuts a long piece before each ``▁`` that no
+    piece joins to the character on its left and tokenizes the parts
+    (cached); on a vocabulary trained with merges across ``▁`` (no
+    pre-tokenizer) the ids equal the whole piece's merge, and equal
+    ``tokenizers``' on the same model."""
+    from tokenizers import Tokenizer
+
+    spec = decoder_tokenizer_spec("llama", seed=9, vocab_size=600)
+    model = bpe.BPEModel(spec["model"]["vocab"], bpe.parse_merges(spec["model"]["merges"]),
+                         unk_token="<unk>", fuse_unk=True, byte_fallback=True)
+    assert model._joins_mark, "the vocabulary has no piece with a ▁ inside"
+    ref = Tokenizer.from_str(json.dumps({**spec, "normalizer": None, "post_processor": None,
+                                         "added_tokens": []}))
+    cut = 0
+    for text in strings(27, 300):
+        word = "▁" + text.replace(" ", "▁")
+        whole = tuple(model._merge(model._symbols(word)))
+        assert model.tokenize(word) == whole, word
+        assert list(whole) == ref.encode(word, add_special_tokens=False).ids, word
+        cut += len(model._parts(word)) > 1
+    assert cut > 100

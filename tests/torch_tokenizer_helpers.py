@@ -1,6 +1,7 @@
 """Test helpers for the port's tokenizers: a darts-clone double-array
 writer for SentencePiece precompiled charsmaps, and seeded strings."""
 
+import json
 import struct
 import unicodedata
 
@@ -232,3 +233,66 @@ def write_sentencepiece_tokenizer(path, layout="albert", model="unigram", seed=0
     cls = "AlbertTokenizerFast" if layout == "albert" else "BigBirdTokenizerFast"
     getattr(transformers, cls)(tokenizer_object=tok).save_pretrained(str(path))
     return tok.get_vocab_size()
+
+
+#: Leading pieces of the Llama-2 and Gemma vocabularies (``LlamaConverter``,
+#: ``GemmaConverter``): the special tokens, then the 256 ``<0xNN>`` byte
+#: pieces of the byte fallback.
+DECODER_SPECIALS = {"llama": ["<unk>", "<s>", "</s>"],
+                    "gemma": ["<pad>", "<eos>", "<bos>", "<unk>"]}
+
+
+def decoder_tokenizer_spec(layout="llama", seed=0, vocab_size=400):
+    """A ``tokenizer.json`` (as a dict) in the layout ``transformers``'
+    converter writes for Llama-2 (``Prepend("▁")`` + ``Replace(" ", "▁")``,
+    no pre-tokenizer) or Gemma (``Replace(" ", "▁")``, ``Split(" ",
+    merged_with_previous)``): a SentencePiece-style BPE with ``<unk>``,
+    ``fuse_unk`` and ``byte_fallback``, its alphabet ASCII (every other
+    character falls back to ``<0xNN>`` pieces), trained on seeded strings;
+    post-processor ``bos $A``."""
+    from tokenizers import Tokenizer, models, normalizers, pre_tokenizers, processors, trainers
+
+    specials = DECODER_SPECIALS[layout]
+    norm = ([normalizers.Prepend("▁")] if layout == "llama" else []) + [normalizers.Replace(" ", "▁")]
+    ascii_only = "".join(chr(c) for c in range(32, 127)) + "▁"
+    trainer_tok = Tokenizer(models.BPE(unk_token="<unk>"))
+    trainer_tok.normalizer = normalizers.Sequence(norm)
+    texts = ["".join(ch for ch in t if ch in ascii_only or ch == " ") for t in strings(seed, 400)]
+    trainer = trainers.BpeTrainer(vocab_size=vocab_size, min_frequency=1, show_progress=False,
+                                  initial_alphabet=list(ascii_only), limit_alphabet=len(ascii_only))
+    trainer_tok.train_from_iterator(texts, trainer)
+    trained = json.loads(trainer_tok.to_str())["model"]
+    pieces = specials + [f"<0x{b:02X}>" for b in range(256)]
+    pieces += [p for p, _ in sorted(trained["vocab"].items(), key=lambda kv: kv[1])
+               if p not in pieces]
+    vocab = {p: i for i, p in enumerate(pieces)}
+    merges = [tuple(m.split(" ")) if isinstance(m, str) else tuple(m) for m in trained["merges"]]
+    tok = Tokenizer(models.BPE(vocab, merges, unk_token="<unk>", fuse_unk=True, byte_fallback=True))
+    tok.normalizer = normalizers.Sequence(norm)
+    if layout == "gemma":
+        tok.pre_tokenizer = pre_tokenizers.Split(" ", "merged_with_previous")
+    bos = specials[1] if layout == "llama" else "<bos>"
+    tok.post_processor = processors.TemplateProcessing(
+        single=f"{bos}:0 $A:0", pair=f"{bos}:0 $A:0 {bos}:1 $B:1",
+        special_tokens=[(bos, vocab[bos])])
+    from tokenizers import AddedToken
+
+    tok.add_special_tokens([AddedToken(t, normalized=False, special=True) for t in specials])
+    return json.loads(tok.to_str())
+
+
+def write_decoder_tokenizer(path, layout="llama", seed=0, vocab_size=400, **config):
+    """:func:`decoder_tokenizer_spec` saved with ``tokenizer_config.json``
+    naming ``LlamaTokenizer`` / ``GemmaTokenizer`` (``config`` adds keys:
+    ``pad_token``, ``add_eos_token``, ``padding_side``, ...).  Returns the
+    vocabulary size."""
+    import pathlib
+
+    path = pathlib.Path(path)
+    path.mkdir(parents=True, exist_ok=True)
+    spec = decoder_tokenizer_spec(layout, seed, vocab_size)
+    (path / "tokenizer.json").write_text(json.dumps(spec), encoding="utf-8")
+    cls = {"llama": "LlamaTokenizer", "gemma": "GemmaTokenizer"}[layout]
+    (path / "tokenizer_config.json").write_text(
+        json.dumps({"tokenizer_class": cls, **config}), encoding="utf-8")
+    return len(spec["model"]["vocab"])
