@@ -221,6 +221,21 @@ V3_SMALL_BATCHES = (1, 4, 8)
 V2_BATCHES = (16, 64, 256)
 #: The candidate count of those calls (it does not reach the kernel).
 V2_C = 1600
+#: Batches the v1 kernels are held and timed at (all on the v3 core):
+#: B = 1 and 8, the n = 1,000 calls below v3's floor; 16, the smallest
+#: 16-query tile filled; 64 and 256, the 32- and 64-query tiles after a
+#: widen past v2; 100, a batch that is not a multiple of the tile.
+V1_BATCHES = (1, 8, 16, 64, 100, 256)
+
+
+def v1_edges(n_valid: int) -> tuple:
+    """Live counts below ``n_valid`` that end 3 and 300 docs into a 512-doc
+    subtile: in its first 256-doc chunk and in its second, so that the v1
+    kernel's chunked merge meets the -inf tail in each (every later
+    subtile is wholly padded)."""
+    m = n_valid // 512 - 1
+    return (512 * m + 3, 512 * m + 300)
+
 #: The repo's pairwise benchmark (benchmarks/tpu_pairwise_kb.py): 100k docs
 #: x 1536, the top 10,000 pairs; dupe-planted stores plant 12% of every
 #: 20,000-row insert chunk as perturbed copies (cos ~0.94).
@@ -513,8 +528,8 @@ def check_keys_close(name, got, ref, scores, v3, tol=SCORE_TOL) -> float:
     return need
 
 
-def int8_pack(n_docs: int, gen, dev) -> tuple:
-    """``(docs int8 [n_pad, DIM], row scales f32 [n_pad])``: ``n_docs``
+def int8_pack(n_docs: int, gen, dev, dim: int = DIM) -> tuple:
+    """``(docs int8 [n_pad, dim], row scales f32 [n_pad])``: ``n_docs``
     random unit rows quantized as the engine packs them, padded to a
     multiple of 16,384 rows with zero rows."""
     import torch
@@ -522,13 +537,13 @@ def int8_pack(n_docs: int, gen, dev) -> tuple:
     from svs_tpu_torch.ops.quant import quantize_rows_int8
 
     n_pad = -(-n_docs // 16384) * 16384
-    docs = torch.zeros((n_pad, DIM), dtype=torch.int8, device=dev)
+    docs = torch.zeros((n_pad, dim), dtype=torch.int8, device=dev)
     scales = torch.full(
         (n_pad,), float(np.float32(1e-30) / np.float32(127.0)),
         dtype=torch.float32, device=dev,
     )
     for lo in range(0, n_docs, 1 << 17):
-        rows = unit_rows_torch(min(1 << 17, n_docs - lo), DIM, gen, dev)
+        rows = unit_rows_torch(min(1 << 17, n_docs - lo), dim, gen, dev)
         q8, s = quantize_rows_int8(rows)
         docs[lo : lo + len(rows)] = q8
         scales[lo : lo + len(rows)] = s
@@ -656,9 +671,11 @@ def pack_kernel_checks(label: str, docs, scales, qv, n_valid: int, c: int, out: 
     int8 [n_pad, d], row ``scales``) for the query vectors ``qv`` (f32 [B,
     d], as the provider gave them), quantized as the engine quantizes them,
     each against its plain version and outside any path's launch count:
-    the keyed v2 prescore (#3) and v1 (#4) bit-identical, the staged finish
-    (#2) at ``c`` candidates on #3's keys bit-identical (then on lattice
-    and dead-padded keys, :func:`finish_checks`); their times go to
+    the keyed v2 prescore (#3) and v1 (#4, at B and at 8 of the queries,
+    and checked only with the live rows ending in the first and in the
+    second chunk of a subtile) bit-identical, the staged finish (#2) at
+    ``c`` candidates on #3's keys bit-identical (then on lattice and
+    dead-padded keys, :func:`finish_checks`); their times go to
     ``out["kernel_records"]``, for the ``kernels`` line."""
     import torch
 
@@ -682,6 +699,17 @@ def pack_kernel_checks(label: str, docs, scales, qv, n_valid: int, c: int, out: 
     gen = torch.Generator(device=docs.device)
     gen.manual_seed(SEED + 131)
     finish_checks(compare, keys, False, c, n_valid, gen)
+    compare("_fused_extract_int8", lambda: P._fused_extract_int8(*args),
+            lambda: P._fused_extract_int8_plain(*args), f"B={b} (v1) {where}",
+            int8_bound(2 * n_pad // 64))
+    for edge in v1_edges(n_valid):
+        check_exact(f"_fused_extract_int8 (B={b}, n_valid={edge}) {where}",
+                    P._fused_extract_int8(*args[:-1], edge),
+                    P._fused_extract_int8_plain(*args[:-1], edge))
+    log(f"  _fused_extract_int8 B={b} {where} with n_valid {v1_edges(n_valid)}: "
+        f"bit-identical")
+    b = 8
+    args = (docs, scales, q8[:b].contiguous(), qs[:b].contiguous(), n_valid)
     compare("_fused_extract_int8", lambda: P._fused_extract_int8(*args),
             lambda: P._fused_extract_int8_plain(*args), f"B={b} (v1) {where}",
             int8_bound(2 * n_pad // 64))
@@ -793,14 +821,29 @@ def kernel_phase(n_docs: int, reps: int, cross: dict) -> dict:
         finish_checks(compare, src, False, c, n_big, gen)
         del src
         torch.cuda.empty_cache()
-    # #4 v1 at B = 8, k = 4000
-    compare(
-        "_fused_extract_int8",
-        lambda: P._fused_extract_int8(*args),
-        lambda: P._fused_extract_int8_plain(*args),
-        "B=8 (v1, k=4000)",
-        fused_int8_bound(8, 2 * n_pad // 64),
-    )
+    # #4 v1 at V1_BATCHES, k = 4000 (C does not reach the kernel),
+    # bit-identical; then, checked only, with the live rows ending in the
+    # first and in the second chunk of a subtile
+    for b in V1_BATCHES:
+        q8, qs = queries(b)
+        args = (docs, scales, q8, qs, n_docs)
+        compare(
+            "_fused_extract_int8",
+            lambda: P._fused_extract_int8(*args),
+            lambda: P._fused_extract_int8_plain(*args),
+            f"B={b} (v1, k=4000)",
+            fused_int8_bound(b, 2 * n_pad // 64),
+        )
+    for b in (8, 64):
+        q8, qs = queries(b)
+        for n_valid in v1_edges(n_docs):
+            args = (docs, scales, q8, qs, n_valid)
+            check_exact(f"_fused_extract_int8 (B={b}, n_valid={n_valid})",
+                        P._fused_extract_int8(*args),
+                        P._fused_extract_int8_plain(*args))
+        log(f"  _fused_extract_int8 B={b} with n_valid {v1_edges(n_docs)}: "
+            f"bit-identical")
+    del args
     # #8 on the [512, n_pad] f32 score matrix of the int8 pack at B = 512,
     # as score_topk_int8_extract_packed hands it over; then on the same
     # matrix rounded to a 2^-7 grid (thousands of exact ties)
@@ -850,7 +893,8 @@ def kernel_phase(n_docs: int, reps: int, cross: dict) -> dict:
     del dry, keep
     torch.cuda.empty_cache()
 
-    # #5-#7 on bf16 and f32 packs: lattice data bit-identical, v3 on
+    # #5-#7 on bf16 and f32 packs: lattice data bit-identical (v1 also
+    # with the live rows ending in either chunk of a subtile), v3 on
     # clipped colliding keys bit-identical, then random unit data within
     # tolerance (timed)
     float_cases = tuple(
@@ -860,7 +904,8 @@ def kernel_phase(n_docs: int, reps: int, cross: dict) -> dict:
         ("_fused2_extract", b, f"v2, C={V2_C}", n_pad // 64, 1) for b in V2_BATCHES
     ) + (
         ("_fused2_extract", 8, "v2, k=400", n_pad // 64, 1),
-        ("_fused_extract", 8, "v1, k=4000", n_pad // 64, 2),
+    ) + tuple(
+        ("_fused_extract", b, "v1, k=4000", n_pad // 64, 2) for b in V1_BATCHES
     )
     for dt_name, dt in (("bf16", torch.bfloat16), ("f32", torch.float32)):
         fdocs = torch.zeros((n_pad, DIM), dtype=dt, device=dev)
@@ -874,6 +919,13 @@ def kernel_phase(n_docs: int, reps: int, cross: dict) -> dict:
             ref_t = ref if isinstance(ref, tuple) else (ref,)
             check_exact(f"{name} {dt_name} lattice", got_t, ref_t)
             log(f"  {name} {dt_name} B={b} ({what}) on lattice data: bit-identical")
+        q = lattice_rows_torch(64, DIM, gen, dev).to(dt)
+        for n_valid in v1_edges(n_docs):
+            check_exact(f"_fused_extract {dt_name} lattice n_valid={n_valid}",
+                        P._fused_extract(fdocs, q, n_valid),
+                        P._fused_extract_plain(fdocs, q, n_valid))
+        log(f"  _fused_extract {dt_name} B=64 on lattice data with n_valid "
+            f"{v1_edges(n_docs)}: bit-identical")
         # scores past 3.0 (clipped by v3, not by v2): their keys pass 2^24
         # and collide, and the chunked top-4 (v3) and top-8 (v2) merges
         # must keep clear-every-equal

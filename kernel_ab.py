@@ -34,12 +34,19 @@ Cases (``--only``):
   ``KB`` at C = 1,600; C does not reach the kernel), and at B = 9: 8
   queries and one zero row, the v3 core's cost at B = 8 (the kernel
   sends B <= 8 to the first core).  bf16 and f32 keys
-  are held within ``chip_smoke.SCORE_TOL`` of the plain version's scores.
+  are held within ``chip_smoke.SCORE_TOL`` of the plain version's scores;
+- ``v1``: the v1 kernels (mode 1 of the same files) on the same packs,
+  int8, bf16 and f32 at ``chip_smoke.V1_BATCHES`` (the calls behind v2:
+  C past v2's pass-2 width, the widen retries, ``rescore=False``), and int8
+  at B = 64 on a 32,768 x 4,096 pack of 17,000 docs (an n = 100 call on
+  a 4,096-d store at e5-mistral-7b-instruct's width).  int8 is held bit
+  for bit, bf16 and f32 values and rows within ``chip_smoke.SCORE_TOL``
+  (``chip_smoke.check_v1_close``).
 
 ``--only`` may be given more than once.
 
     git archive <commit> svs_tpu_torch/csrc | tar -x -C build/ab_old
-    python3 kernel_ab.py --old build/ab_old/svs_tpu_torch/csrc --only v2 --only v3
+    python3 kernel_ab.py --old build/ab_old/svs_tpu_torch/csrc --only v1 --only v3
 
 Prints the card's name and power limit, then one JSON line.
 """
@@ -89,9 +96,10 @@ def launching_from(lib, fn):
 
 
 def fused_cases(dev, gen, mode):
-    """``(what, call, plain, check, bound)`` of the guarded v3 (``mode`` 3)
-    or keyed v2 (2) kernels on 1M x 1536 packs of random unit rows;
-    ``check(got, ref)`` raises on a mismatch and returns the error."""
+    """``(what, call, plain, check, bound)`` of the guarded v3 (``mode`` 3),
+    keyed v2 (2) or v1 (1) kernels on 1M x 1536 packs of random unit rows
+    (v1 also on a 32,768 x 4,096 int8 pack); ``check(got, ref)`` raises on
+    a mismatch and returns the error."""
     import torch
 
     from svs_tpu_torch.ops import pallas_extract as P
@@ -103,35 +111,51 @@ def fused_cases(dev, gen, mode):
     n_pad = docs.shape[0]
     if mode == 3:
         name, tag, v3 = "_fused3_extract", "fused3", True
-        out_bytes = (n_pad // P.FUSED_BLOCK_N) * 128 * 4
         int8_batches, float_batches = (64, 256), (64,)
+    elif mode == 1:
+        name, tag, v3 = "_fused_extract", "fused", False
+        int8_batches = float_batches = S.V1_BATCHES
     else:
         name, tag, v3 = "_fused2_extract", "fused2", False
-        out_bytes = (n_pad // P.FUSED_SUBTILE) * P.EXTRACT_H * 4
         # B=9 (8 queries and one zero row) times the v3 core at B=8: the
         # kernel sends B <= 8 to the first core
         int8_batches = float_batches = (8, 9) + S.V2_BATCHES
-    def queries(b):
-        rows = S.unit_rows_torch(b, S.DIM, gen, dev)
+    def queries(b, d=S.DIM):
+        rows = S.unit_rows_torch(b, d, gen, dev)
         if b == 9:
             rows[8] = 0.0
         return rows
 
-    cases = []
-    for b in int8_batches:
-        q8, qs = quantize_rows_int8(queries(b))
-        args = (docs, scales, q8.contiguous(), qs.contiguous(), n_docs)
-        cases.append((
-            f"{tag} int8 B={b}",
-            lambda args=args: (getattr(P, name + "_int8")(*args),),
-            lambda args=args: (getattr(P, name + "_int8_plain")(*args),),
+    def out_bytes(n):  # a query row's outputs over n docs
+        if mode == 3:
+            return (n // P.FUSED_BLOCK_N) * 128 * 4
+        return (2 if mode == 1 else 1) * (n // P.FUSED_SUBTILE) * P.EXTRACT_H * 4
+
+    def outs(x):  # v1 returns (values, rows), the keyed kernels one array
+        return x if mode == 1 else (x,)
+
+    def int8_case(docs, scales, b, n_valid, where=""):
+        n_pad, d = docs.shape
+        q8, qs = quantize_rows_int8(queries(b, d))
+        args = (docs, scales, q8.contiguous(), qs.contiguous(), n_valid)
+        return (
+            f"{tag} int8 B={b}{where}",
+            lambda: outs(getattr(P, name + "_int8")(*args)),
+            lambda: outs(getattr(P, name + "_int8_plain")(*args)),
             lambda got, ref: S.check_exact(f"{tag} int8", got, ref),
-            S.bound(S.nbytes(docs, scales) + b * (S.DIM + 4) + b * out_bytes,
-                    2.0 * b * n_pad * S.DIM, "int8"),
-        ))
+            S.bound(S.nbytes(docs, scales) + b * (d + 4) + b * out_bytes(n_pad),
+                    2.0 * b * n_pad * d, "int8"),
+        )
+
+    cases = [int8_case(docs, scales, b, n_docs) for b in int8_batches]
     yield from cases
     del cases, docs, scales
     torch.cuda.empty_cache()
+    if mode == 1:
+        docs, scales = S.int8_pack(17_000, gen, dev, dim=4096)
+        yield int8_case(docs, scales, 64, 17_000, f" on [{docs.shape[0]}, 4096]")
+        del docs, scales
+        torch.cuda.empty_cache()
     for dt_name, dt in (("bf16", torch.bfloat16), ("f32", torch.float32)):
         fdocs = torch.zeros((n_pad, S.DIM), dtype=dt, device=dev)
         S.fill_rows(fdocs, n_docs, lambda r: S.unit_rows_torch(r, S.DIM, gen, dev))
@@ -140,15 +164,18 @@ def fused_cases(dev, gen, mode):
             scores = scores_matmul(fdocs, q)
 
             def check(got, ref, scores=scores, dt_name=dt_name):
+                if mode == 1:
+                    return S.check_v1_close(f"{tag} {dt_name}", got, ref, scores,
+                                            n_docs)
                 return S.check_keys_close(f"{tag} {dt_name}", got[0], ref[0],
                                           scores, v3=v3)
 
             yield (
                 f"{tag} {dt_name} B={b}",
-                lambda fdocs=fdocs, q=q: (getattr(P, name)(fdocs, q, n_docs),),
-                lambda fdocs=fdocs, q=q: (getattr(P, name + "_plain")(fdocs, q, n_docs),),
+                lambda fdocs=fdocs, q=q: outs(getattr(P, name)(fdocs, q, n_docs)),
+                lambda fdocs=fdocs, q=q: outs(getattr(P, name + "_plain")(fdocs, q, n_docs)),
                 check,
-                S.bound(S.nbytes(fdocs, q) + b * out_bytes,
+                S.bound(S.nbytes(fdocs, q) + b * out_bytes(n_pad),
                         2.0 * b * n_pad * S.DIM, dt_name),
             )
             del q, scores, check
@@ -266,7 +293,7 @@ def main() -> int:
     ap.add_argument("--launches", type=int, default=20)
     ap.add_argument("--turns", type=int, default=4,
                     help="timed windows per build and shape, in turns")
-    ap.add_argument("--only", choices=("all", "selection", "v3", "v2", "finish"),
+    ap.add_argument("--only", choices=("all", "selection", "v3", "v2", "v1", "finish"),
                     action="append", help="the cases to run (default: all)")
     args = ap.parse_args()
 
@@ -295,6 +322,8 @@ def main() -> int:
         groups.append(fused_cases(dev, gen, 3))
     if only & {"all", "v2"}:
         groups.append(fused_cases(dev, gen, 2))
+    if only & {"all", "v1"}:
+        groups.append(fused_cases(dev, gen, 1))
     if only & {"all", "finish"}:
         groups.append(finish_cases(gen))
     result = {"card": card, "shapes": {}}

@@ -1,9 +1,10 @@
-// The core of the guarded v3 prescore kernels (mode 3 of fused_int8.cu and
-// fused_float.cu: _fused3_int8_kernel and _fused3_kernel of
-// svs_tpu/ops/pallas_extract.py) and of the keyed v2 ones at 9 <= B <= 256
-// (mode 2: _fused2_int8_kernel, _fused2_kernel), with the chunked emit of
-// fused_emit.cuh.  The design and its bounds are in the headers of those
-// two files.
+// The core of the fused prescore kernels of fused_int8.cu and fused_float.cu
+// (svs_tpu/ops/pallas_extract.py): the guarded v3 ones (mode 3:
+// _fused3_int8_kernel, _fused3_kernel) and v1 (mode 1: _fused_int8_kernel,
+// _fused_kernel) at every batch, the keyed v2 ones (mode 2:
+// _fused2_int8_kernel, _fused2_kernel) at 9 <= B <= 256, each with its
+// chunked emit of fused_emit.cuh.  The design and its bounds are in the
+// headers of those two files.
 //
 // One CUDA block owns 1024 docs (one v3 subtile, two v2 subtiles) x a tile
 // of QT (16, 32 or 64) queries, query tiles fastest over the grid.  Its
@@ -18,9 +19,11 @@
 // - 16 (int8, bf16: fused3_mma_kernel, four warpgroups on wgmma) or 8
 //   (f32: fused3_f32_kernel) consumer warps that multiply one chunk of 256
 //   docs x QT queries, write the chunk's keys (mode 3: v3 keys, mode 2: v2
-//   keys) to shared memory, and select and merge per query row
-//   (select_chunk: the top-4 of a 1024-doc subtile over 4 chunks, or the
-//   top-8 of a 512-doc subtile over 2), 4 chunks per block.
+//   keys, mode 1: the f32 scores, -inf past the live lanes) to shared
+//   memory, and select and merge per query row (select_chunk: the top-4 of
+//   a 1024-doc subtile over 4 chunks, or the top-8 of a 512-doc subtile
+//   over 2; select_chunk_v1: the top-8 (value, row) of a 512-doc subtile
+//   over 2), 4 chunks per block.
 // The swizzle puts 16-byte column c of tile row r at c ^ (r % 8): the
 // K-major layout wgmma reads through its descriptors, and one in which 8
 // consecutive rows at one column fill all 32 banks, so the f32 kernel's
@@ -55,35 +58,46 @@ __host__ __device__ constexpr int stage_bytes() {
   return kDocStageBytes + QT * kSliceBytes;
 }
 
-// The emit of a mode: what a subtile is, its list length H, its key.
+// The emit of a mode: what a subtile is, its list length H, the words of
+// its running list per query row (kRun), its key and dead-lane marker.
 template <int MODE>
 struct Select;
 template <>
 struct Select<3> {  // v3: top-4 per 1024-doc subtile, one guard lane a block
   static constexpr int kH = fused::kV3H, kSubDocs = fused::kV3SubDocs;
-  static constexpr bool kGuard = true;
+  static constexpr int kRun = kH;
   __device__ __forceinline__ static float key(float s, int lane) {
     return v3_key(s, lane);
   }
+  __device__ __forceinline__ static float dead() { return kKeyDead; }
 };
 template <>
 struct Select<2> {  // v2: top-8 per 512-doc subtile
   static constexpr int kH = fused::kV2H, kSubDocs = fused::kV2SubDocs;
-  static constexpr bool kGuard = false;
+  static constexpr int kRun = kH;
   __device__ __forceinline__ static float key(float s, int lane) {
     return v2_key(s, lane);
   }
+  __device__ __forceinline__ static float dead() { return kKeyDead; }
+};
+template <>
+struct Select<1> {  // v1: top-8 values + rows per 512-doc subtile
+  static constexpr int kH = fused::kV1H, kSubDocs = fused::kV1SubDocs;
+  static constexpr int kRun = 2 * kH;  // values, then rows
+  __device__ __forceinline__ static float key(float s, int) { return s; }
+  __device__ __forceinline__ static float dead() { return -INFINITY; }
 };
 
 // Dynamic shared memory of a block: the ring, the chunk's keys [QT][PITCH]
-// f32, the running top-H lists [QT][H], the mbarriers; plus the slack that
-// aligns the ring to 1024 bytes (the 128-byte swizzle's period).  At QT =
-// 64 and H = 8 that is 188 KB of the 227 KB a block may have.
-template <int QT, int PITCH, int H>
+// f32, the running lists [QT][RUN] (RUN = Select<MODE>::kRun words), the
+// mbarriers; plus the slack that aligns the ring to 1024 bytes (the
+// 128-byte swizzle's period).  At QT = 64 and RUN = 16 (v1) that is 190 KB
+// of the 227 KB a block may have.
+template <int QT, int PITCH, int RUN>
 struct Smem {
   static constexpr int kKeys = kStages * stage_bytes<QT>();
   static constexpr int kRun = kKeys + QT * PITCH * 4;
-  static constexpr int kBars = kRun + QT * H * 4;
+  static constexpr int kBars = kRun + QT * RUN * 4;
   static constexpr int kBytes = kBars + 2 * kStages * 8 + 1024;
   static_assert(kBytes <= 232448, "a block's shared memory");
 };
@@ -153,14 +167,14 @@ inline cudaError_t tile_map(CUtensorMap* map, const void* base,
 struct Block {
   unsigned char* ring;  // kStages stages, 1024-aligned
   float* keys;          // [QT][PITCH]
-  float* run;           // [QT][H]
+  float* run;           // [QT][RUN]
   uint64_t* full;       // [kStages]
   uint64_t* empty;      // [kStages]
 };
 
-template <int QT, int PITCH, int H>
+template <int QT, int PITCH, int RUN>
 __device__ __forceinline__ Block block_smem(unsigned char* raw) {
-  using L = Smem<QT, PITCH, H>;
+  using L = Smem<QT, PITCH, RUN>;
   const uint32_t pad = (1024u - (smem_u32(raw) & 1023u)) & 1023u;
   unsigned char* base = raw + pad;
   Block s;
@@ -246,10 +260,11 @@ struct ChunkPos {
         lane0((chunk % kPer) * kChunkDocs),
         live(min(max(n_valid - doc0 - sub * Select<MODE>::kSubDocs, 0),
                  Select<MODE>::kSubDocs)) {}
-  // the key of score s of chunk doc `doc`, or KEY_DEAD past the live lanes
+  // the key of score s of chunk doc `doc`, or the dead marker past the
+  // live lanes (KEY_DEAD; v1: -inf)
   __device__ __forceinline__ float key(float s, int doc) const {
     const int lane = lane0 + doc;
-    return lane < live ? Select<MODE>::key(s, lane) : kKeyDead;
+    return lane < live ? Select<MODE>::key(s, lane) : Select<MODE>::dead();
   }
 };
 
@@ -257,30 +272,40 @@ struct ChunkPos {
 // warp, warp + WARPS, ... (below b) and merges them into the subtile's
 // lists; the subtile's last chunk writes them out (mode 3: 4 keys at the
 // subtile's place in its block's 128 lanes, and the guard lane; mode 2: 8
-// keys at column (row0 / 512) * 8).
+// keys at column (row0 / 512) * 8; mode 1: 8 values there in out and
+// their rows there in out1).
 template <int MODE, int QT, int PITCH, int WARPS>
 __device__ __forceinline__ void select_rows(const Block& s, int chunk,
                                             int warp, int lane, int q0, int b,
                                             int doc0, int out_cols,
-                                            float* __restrict__ out) {
+                                            float* __restrict__ out,
+                                            float* __restrict__ out1) {
   using Sel = Select<MODE>;
   constexpr int kPer = ChunkPos<MODE>::kPer;
   const int sub = chunk / kPer, part = chunk % kPer;
 #pragma unroll 1
   for (int q = warp; q < QT && q0 + q < b; q += WARPS) {
-    float* row = out + (size_t)(q0 + q) * out_cols;
-    float* dst;
-    float* guard = nullptr;
+    const size_t row = (size_t)(q0 + q) * out_cols;
+    const float* keys = s.keys + q * PITCH;
+    float* run = s.run + q * Sel::kRun;
     if constexpr (MODE == 3) {
-      row += (size_t)(doc0 / kFusedBlockN) * kGuardOutLanes;
-      dst = row + ((doc0 % kFusedBlockN) / kV3SubDocs) * Sel::kH;
-      guard = row + kGuardKeys;
+      float* tile = out + row + (size_t)(doc0 / kFusedBlockN) * kGuardOutLanes;
+      fused::select_chunk<kChunkDocs, Sel::kH, true>(
+          keys, run, part == 0, part == kPer - 1, lane,
+          tile + ((doc0 % kFusedBlockN) / kV3SubDocs) * Sel::kH,
+          tile + kGuardKeys);
     } else {
-      dst = row + (size_t)(doc0 / Sel::kSubDocs + sub) * Sel::kH;
+      const size_t col = row + (size_t)(doc0 / Sel::kSubDocs + sub) * Sel::kH;
+      if constexpr (MODE == 2) {
+        fused::select_chunk<kChunkDocs, Sel::kH, false>(
+            keys, run, part == 0, part == kPer - 1, lane, out + col, nullptr);
+      } else {
+        const int sub_row0 = doc0 + sub * Sel::kSubDocs;
+        fused::select_chunk_v1<kChunkDocs, Sel::kH>(
+            keys, run, part == 0, part == kPer - 1, doc0 + chunk * kChunkDocs,
+            sub_row0 + Sel::kSubDocs - 1, lane, out + col, out1 + col);
+      }
     }
-    fused::select_chunk<kChunkDocs, Sel::kH, Sel::kGuard>(
-        s.keys + q * PITCH, s.run + q * Sel::kH, part == 0, part == kPer - 1,
-        lane, dst, guard);
   }
 }
 
@@ -428,12 +453,13 @@ __global__ void __launch_bounds__((kMmaWarps + 1) * 32, 1)
                       const __grid_constant__ CUtensorMap qmap,
                       const float* __restrict__ rs,
                       const float* __restrict__ qs, int b, int d_bytes,
-                      int n_valid, int out_cols, float* __restrict__ out) {
+                      int n_valid, int out_cols, float* __restrict__ out,
+                      float* __restrict__ out1) {
   constexpr int R = QT / 2;  // accumulator registers per m64 tile
   constexpr int MT = kMmaTiles;
   using Acc = typename std::conditional<kInt8, int, float>::type;
   extern __shared__ unsigned char smem_raw[];
-  const Block s = block_smem<QT, kMmaPitch, Select<MODE>::kH>(smem_raw);
+  const Block s = block_smem<QT, kMmaPitch, Select<MODE>::kRun>(smem_raw);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int q0 = blockIdx.x * QT;
   const int doc0 = blockIdx.y * kV3SubDocs;
@@ -545,7 +571,7 @@ __global__ void __launch_bounds__((kMmaWarps + 1) * 32, 1)
       }
     consumers_sync<kMmaWarps>();
     select_rows<MODE, QT, kMmaPitch, kMmaWarps>(s, chunk, warp, lane, q0, b,
-                                                doc0, out_cols, out);
+                                                doc0, out_cols, out, out1);
   }
 }
 
@@ -575,10 +601,10 @@ __global__ void __launch_bounds__((kFfmaWarps + 1) * 32, 1)
     fused3_f32_kernel(const __grid_constant__ CUtensorMap dmap,
                       const __grid_constant__ CUtensorMap qmap, int b,
                       int d_bytes, int n_valid, int out_cols,
-                      float* __restrict__ out) {
+                      float* __restrict__ out, float* __restrict__ out1) {
   constexpr int TQ = QT / 8;
   extern __shared__ unsigned char smem_raw[];
-  const Block s = block_smem<QT, kFfmaPitch, Select<MODE>::kH>(smem_raw);
+  const Block s = block_smem<QT, kFfmaPitch, Select<MODE>::kRun>(smem_raw);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int q0 = blockIdx.x * QT;
   const int doc0 = blockIdx.y * kV3SubDocs;
@@ -647,7 +673,7 @@ __global__ void __launch_bounds__((kFfmaWarps + 1) * 32, 1)
       }
     consumers_sync<kFfmaWarps>();
     select_rows<MODE, QT, kFfmaPitch, kFfmaWarps>(s, chunk, warp, lane, q0, b,
-                                                  doc0, out_cols, out);
+                                                  doc0, out_cols, out, out1);
   }
 }
 
@@ -657,14 +683,14 @@ template <bool kInt8, int QT, int MODE>
 inline cudaError_t launch_mma_tile(const void* q, const float* qs,
                                    const void* docs, const float* rs, int b,
                                    int n, int d, int n_valid, float* out,
-                                   cudaStream_t stream) {
+                                   float* out1, cudaStream_t stream) {
   const int elem = kInt8 ? 1 : 2;
   const CUtensorMapDataType type =
       kInt8 ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
   CUtensorMap dmap, qmap;
   cudaError_t err = tile_map(&dmap, docs, type, elem, n, d, kChunkDocs);
   if (err == cudaSuccess) err = tile_map(&qmap, q, type, elem, b, d, QT);
-  constexpr int smem = Smem<QT, kMmaPitch, Select<MODE>::kH>::kBytes;
+  constexpr int smem = Smem<QT, kMmaPitch, Select<MODE>::kRun>::kBytes;
   if (err == cudaSuccess) {
     err = cudaFuncSetAttribute(fused3_mma_kernel<kInt8, QT, MODE>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -675,21 +701,21 @@ inline cudaError_t launch_mma_tile(const void* q, const float* qs,
   fused3_mma_kernel<kInt8, QT, MODE>
       <<<grid, (kMmaWarps + 1) * 32, smem, stream>>>(
           dmap, qmap, rs, qs, b, d * elem, n_valid,
-          fused::out_columns(MODE, n), out);
+          fused::out_columns(MODE, n), out, out1);
   return cudaGetLastError();
 }
 
 template <int QT, int MODE>
 inline cudaError_t launch_f32_tile(const void* q, const void* docs, int b,
                                    int n, int d, int n_valid, float* out,
-                                   cudaStream_t stream) {
+                                   float* out1, cudaStream_t stream) {
   CUtensorMap dmap, qmap;
   cudaError_t err = tile_map(&dmap, docs, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4,
                              n, d, kChunkDocs);
   if (err == cudaSuccess) {
     err = tile_map(&qmap, q, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, b, d, QT);
   }
-  constexpr int smem = Smem<QT, kFfmaPitch, Select<MODE>::kH>::kBytes;
+  constexpr int smem = Smem<QT, kFfmaPitch, Select<MODE>::kRun>::kBytes;
   if (err == cudaSuccess) {
     err = cudaFuncSetAttribute(fused3_f32_kernel<QT, MODE>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -698,45 +724,52 @@ inline cudaError_t launch_f32_tile(const void* q, const void* docs, int b,
   if (err != cudaSuccess) return err;
   const dim3 grid((b + QT - 1) / QT, n / kV3SubDocs);
   fused3_f32_kernel<QT, MODE><<<grid, (kFfmaWarps + 1) * 32, smem, stream>>>(
-      dmap, qmap, b, d * 4, n_valid, fused::out_columns(MODE, n), out);
+      dmap, qmap, b, d * 4, n_valid, fused::out_columns(MODE, n), out, out1);
   return cudaGetLastError();
 }
 
 // The query tile: the smallest of 16, 32, 64 that holds the batch, else 64.
 inline int query_tile(int b) { return b <= 16 ? 16 : b <= 32 ? 32 : 64; }
 
-// Mode 3 (v3) or 2 (v2) on int8 (kInt8) or bf16 storage.  Mode 3 needs out
-// pre-filled with KEY_DEAD; mode 2 writes every key of its rows.
+// Mode 3 (v3), 2 (v2) or 1 (v1) on int8 (kInt8) or bf16 storage.  Mode 3
+// needs out pre-filled with KEY_DEAD; modes 2 and 1 write every column of
+// their rows (mode 1: values in out, rows in out1; out1 unused otherwise).
 template <bool kInt8, int MODE>
 inline cudaError_t launch_mma(const void* q, const float* qs, const void* docs,
                               const float* rs, int b, int n, int d,
-                              int n_valid, float* out, cudaStream_t stream) {
+                              int n_valid, float* out, float* out1,
+                              cudaStream_t stream) {
   switch (query_tile(b)) {
     case 16:
       return launch_mma_tile<kInt8, 16, MODE>(q, qs, docs, rs, b, n, d,
-                                              n_valid, out, stream);
+                                              n_valid, out, out1, stream);
     case 32:
       return launch_mma_tile<kInt8, 32, MODE>(q, qs, docs, rs, b, n, d,
-                                              n_valid, out, stream);
+                                              n_valid, out, out1, stream);
     default:
       return launch_mma_tile<kInt8, 64, MODE>(q, qs, docs, rs, b, n, d,
-                                              n_valid, out, stream);
+                                              n_valid, out, out1, stream);
   }
 }
 
-// Mode 3 or 2 on f32 storage, out as for launch_mma.  (A template, so that
-// only the file that launches it compiles the f32 kernels.)
+// Mode 3, 2 or 1 on f32 storage, out and out1 as for launch_mma.  (A
+// template, so that only the file that launches it compiles the f32
+// kernels.)
 template <int MODE, typename T>
 inline cudaError_t launch_f32(const T* q, const T* docs, int b, int n, int d,
-                              int n_valid, float* out, cudaStream_t stream) {
+                              int n_valid, float* out, float* out1,
+                              cudaStream_t stream) {
   static_assert(std::is_same<T, float>::value, "f32 storage only");
   switch (query_tile(b)) {
     case 16:
-      return launch_f32_tile<16, MODE>(q, docs, b, n, d, n_valid, out, stream);
+      return launch_f32_tile<16, MODE>(q, docs, b, n, d, n_valid, out, out1,
+                                       stream);
     case 32:
-      return launch_f32_tile<32, MODE>(q, docs, b, n, d, n_valid, out, stream);
+      return launch_f32_tile<32, MODE>(q, docs, b, n, d, n_valid, out, out1,
+                                       stream);
     default:
-      return launch_f32_tile<64, MODE>(q, docs, b, n, d, n_valid, out, stream);
+      return launch_f32_tile<64, MODE>(q, docs, b, n, d, n_valid, out, out1,
+                                       stream);
   }
 }
 

@@ -11,10 +11,11 @@
 // wrapper casts the queries to the docs' dtype first (round to nearest
 // even), as the reference does.
 //
-// Mode 3 (fused3.cuh; the int8 mode 3's ring, tiles and chunked emit, see
-// fused_int8.cu).  What bounds it on one H100 SXM (published peaks at
-// 700 W: 3.35 TB/s, 989 bf16 TFLOP/s on the tensor cores, 67 f32 TFLOP/s
-// on the CUDA cores), over the 1,015,808 x 1536 pack at B = 16 / 64 / 256:
+// Modes 3 and 1, and mode 2 past B = 8, run on the core of fused3.cuh
+// (the int8 kernels' ring, tiles and chunked emits, see fused_int8.cu).
+// What bounds it on one H100 SXM (published peaks at 700 W: 3.35 TB/s,
+// 989 bf16 TFLOP/s on the tensor cores, 67 f32 TFLOP/s on the CUDA
+// cores), over the 1,015,808 x 1536 pack at B = 16 / 64 / 256:
 // - bf16 reads 3.12 GB, 0.931 ms; its 2 * B * N * d FLOP take 0.05 / 0.20 /
 //   0.81 ms on the tensor cores: bound by the read at every batch;
 // - f32 reads 6.24 GB, 1.86 ms; its FLOP take 0.75 / 2.98 / 11.9 ms on the
@@ -44,19 +45,25 @@
 // bf16 rounding keeps |q|, |d| <= 1 + 2^-8), plus d / 64 = 24 rounded adds
 // of a total below 1, 24 * 2^-25 = 0.7e-6.  That is inside the 3e-5
 // accumulation cushion of the engine's bf16 prescore_eps (engine/index.py,
-// prescore_eps), and a true f32 dot has an error of the same order, so
-// the bound holds against both.  On inputs whose partial sums are all
+// prescore_eps), whose bf16 term holds whichever fused kernel prescored,
+// v1 (mode 1) included, and a true f32 dot has an error of the same order,
+// so the bound holds against both.  On inputs whose partial sums are all
 // exact f32 numbers (the smoke's lattice data) every order gives the same
-// bits.
+// bits.  Under rescore=False the v1 values are the scores a caller
+// receives, held by chip_smoke within 2e-6 of the bf16-rounded scan: the
+// bound above is the worst case; on unit rows each truncation is a unit in
+// the 24th bit of one slice's largest addend (a product or a partial of
+// 64 columns), so the sum of them stays orders of magnitude below it.
 //
-// Mode 2 at 9 <= B <= 256 runs on the same core as mode 3, bf16 on wgmma
-// with the same slice-wise accumulation (so the same error bound), f32 on
-// the FFMA register block; only the emit differs (see fused_int8.cu).
+// Mode 2 at 9 <= B <= 256 and mode 1 at every batch run on the same core
+// as mode 3, bf16 on wgmma with the same slice-wise accumulation (so the
+// same error bound), f32 on the FFMA register block, each dot one fmaf
+// chain in column order; only the emit differs (see fused_int8.cu).
 //
-// Mode 1, and mode 2 at B <= 8, keep the first core (fused_emit.cuh): one
-// block owns 1024 docs x QT = 8 (mode 1 past 8: 16) queries and stages
-// 64-byte slices of its doc rows; each thread widens its 4 docs' 16-byte
-// words to f32 and keeps a QT x 4 f32 accumulator, fmaf on the CUDA cores.
+// Mode 2 at B <= 8 keeps the first core (fused_emit.cuh): one block owns
+// 1024 docs x QT = 8 queries and stages 64-byte slices of its doc rows;
+// each thread widens its 4 docs' 16-byte words to f32 and keeps a QT x 4
+// f32 accumulator, fmaf on the CUDA cores.
 
 #include "fused3.cuh"
 #include "fused_emit.cuh"
@@ -102,11 +109,11 @@ struct Elem<uint16_t> {
   }
 };
 
-template <typename T, int QT, int MODE>
+template <typename T, int QT>
 __global__ void __launch_bounds__(kThreads)
     fused_float_kernel(const T* __restrict__ q, const T* __restrict__ docs,
                        int b, int d, int n_valid, int out_cols,
-                       float* __restrict__ out0, float* __restrict__ out1) {
+                       float* __restrict__ out) {
   constexpr int kE = Elem<T>::kPerWord4;
   constexpr int kChunkElems = kChunk / sizeof(T);  // 16 (f32) or 32 (bf16)
   extern __shared__ int4 smem[];
@@ -158,38 +165,40 @@ __global__ void __launch_bounds__(kThreads)
     }
     __syncthreads();
   }
-  emit<QT, MODE>(acc, sc, tid, q0, doc0, b, n_valid, out_cols, out0, out1);
+  emit<QT>(acc, sc, tid, q0, doc0, b, n_valid, out_cols, out);
 }
 
-template <typename T, int QT, int MODE>
-cudaError_t launch(const T* q, const T* docs, int b, int n, int d,
-                   int n_valid, float* out0, float* out1,
-                   cudaStream_t stream) {
+// Mode 2 at B <= 8 on the first core.
+template <typename T>
+cudaError_t launch_v2_small(const T* q, const T* docs, int b, int n, int d,
+                            int n_valid, float* out, cudaStream_t stream) {
+  constexpr int QT = 8;
   static_assert(QT * kBlockDocs * sizeof(float) <= kStageBytes,
                 "score tile must fit the staging buffer it reuses");
   const size_t smem =
       kStageBytes + (size_t)QT * (kChunk / sizeof(T)) * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      fused_float_kernel<T, QT, MODE>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      fused_float_kernel<T, QT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((b + QT - 1) / QT, n / kBlockDocs);
-  fused_float_kernel<T, QT, MODE><<<grid, kThreads, smem, stream>>>(
-      q, docs, b, d, n_valid, out_columns(MODE, n), out0, out1);
+  fused_float_kernel<T, QT><<<grid, kThreads, smem, stream>>>(
+      q, docs, b, d, n_valid, out_columns(2, n), out);
   return cudaGetLastError();
 }
 
-// Mode 3, or mode 2 past B = 8, on the core of fused3.cuh.
+// Mode 3 or 1, or mode 2 past B = 8, on the core of fused3.cuh.
 template <typename T, int MODE>
 cudaError_t launch_core(const void* q, const void* docs, int b, int n, int d,
-                        int n_valid, float* out, cudaStream_t st) {
+                        int n_valid, float* out0, float* out1,
+                        cudaStream_t st) {
   if constexpr (std::is_same<T, float>::value) {
     return svs::fused3::launch_f32<MODE>(static_cast<const float*>(q),
                                          static_cast<const float*>(docs), b, n,
-                                         d, n_valid, out, st);
+                                         d, n_valid, out0, out1, st);
   } else {
     return svs::fused3::launch_mma<false, MODE>(q, nullptr, docs, nullptr, b,
-                                                n, d, n_valid, out, st);
+                                                n, d, n_valid, out0, out1, st);
   }
 }
 
@@ -197,19 +206,19 @@ template <typename T>
 cudaError_t launch_type(int mode, const void* q, const void* docs, int b,
                         int n, int d, int n_valid, float* out0, float* out1,
                         cudaStream_t st) {
-  const T* qt = static_cast<const T*>(q);
-  const T* dt = static_cast<const T*>(docs);
   if (d % (kChunk / (int)sizeof(T)) != 0) return cudaErrorInvalidValue;
-  const bool small = b <= 8;
   switch (mode) {
     case 1:
-      return small ? launch<T, 8, 1>(qt, dt, b, n, d, n_valid, out0, out1, st)
-                   : launch<T, 16, 1>(qt, dt, b, n, d, n_valid, out0, out1, st);
+      return launch_core<T, 1>(q, docs, b, n, d, n_valid, out0, out1, st);
     case 2:
-      return small ? launch<T, 8, 2>(qt, dt, b, n, d, n_valid, out0, out1, st)
-                   : launch_core<T, 2>(q, docs, b, n, d, n_valid, out0, st);
+      if (b <= 8) {
+        return launch_v2_small<T>(static_cast<const T*>(q),
+                                  static_cast<const T*>(docs), b, n, d,
+                                  n_valid, out0, st);
+      }
+      return launch_core<T, 2>(q, docs, b, n, d, n_valid, out0, nullptr, st);
     case 3:
-      return launch_core<T, 3>(q, docs, b, n, d, n_valid, out0, st);
+      return launch_core<T, 3>(q, docs, b, n, d, n_valid, out0, nullptr, st);
     default:
       return cudaErrorInvalidValue;
   }

@@ -8,8 +8,11 @@
 //   mode 2  _fused2_int8_kernel (keyed v2, :685; wrapper :746): top-8 keys
 //           per 512-doc subtile.  The engine's rung when v3 does not take
 //           the batch (B < 16, or C past GUARD_MAX_C after a widen).
-//   mode 1  _fused_int8_kernel (v1, :399):  top-8 values + f32 indices per
-//           512-doc subtile, ties to the highest index
+//   mode 1  _fused_int8_kernel (v1, :399; wrapper :462): top-8 values + f32
+//           indices per 512-doc subtile, ties to the highest index.  The
+//           rung behind v2 (C past ~2,700 on the 1M pack: n = 1,000 and
+//           the widen retries; every n = 100 call on a small store), and
+//           every call under rescore=False, whose scores it returns.
 //
 // Mode 3 (fused3.cuh).  What bounds it on one H100 SXM (published peaks at
 // 700 W: 3.35 TB/s, 1,979 int8 TOP/s dense): over the 1,015,808 x 1536
@@ -50,11 +53,22 @@
 // where v3 does 4 on its first of four, and the rescale is the same two
 // rounded products.
 //
-// Mode 1, and mode 2 at B <= 8, keep the first core (fused_emit.cuh): one
-// block owns 1024 docs x QT = 8 (mode 1 past 8: 16) queries, stages
-// 64-byte slices of its doc rows in shared memory and multiplies with
-// __dp4a on the CUDA cores.  At B <= 8 it reads the pack once, at 59% of
-// the byte bound.
+// Mode 1 runs on the same core and bound at every batch, 1 to 256: the
+// tensor cores, the 64-query tiles that read the pack once per batch up to
+// B = 64, and the ring that keeps loads in flight through the emit.  Its
+// emit (select_chunk_v1 in fused_emit.cuh) keeps per 512-doc subtile the
+// top-8 (value, row) under (value descending, row descending) merged over
+// its 2 chunks, exact as the reference's 8 rounds of max, highest row,
+// clear that row; the -inf tail of a partial subtile names its last row,
+// as the reference does.  The int32 sums are exact and the rescale is the
+// reference's, so it is bit-identical to its plain version.  It selects
+// more per chunk than mode 2 (two redux.sync a round: the max, then its
+// highest row), so past B = 64 its emit, not the read, sets its time.
+//
+// Mode 2 at B <= 8 keeps the first core (fused_emit.cuh): one block owns
+// 1024 docs x QT = 8 queries, stages 64-byte slices of its doc rows in
+// shared memory and multiplies with __dp4a on the CUDA cores.  It reads
+// the pack once, at 59% of the byte bound.
 
 #include "fused3.cuh"
 #include "fused_emit.cuh"
@@ -63,14 +77,13 @@ namespace {
 
 using namespace svs::fused;
 
-template <int QT, int MODE>
+template <int QT>
 __global__ void __launch_bounds__(kThreads)
     fused_int8_kernel(const int8_t* __restrict__ q,
                       const float* __restrict__ qs,
                       const int8_t* __restrict__ docs,
                       const float* __restrict__ rs, int b, int d,
-                      int n_valid, int out_cols, float* __restrict__ out0,
-                      float* __restrict__ out1) {
+                      int n_valid, int out_cols, float* __restrict__ out) {
   extern __shared__ int4 smem[];
   int* sdocs = reinterpret_cast<int*>(smem);       // [kBlockDocs][kRowWords]
   int* sq = sdocs + kBlockDocs * kRowWords;        // [QT][kChunkWords]
@@ -135,33 +148,26 @@ __global__ void __launch_bounds__(kThreads)
       s[i][m] = __fmul_rn(__fmul_rn(__int2float_rn(acc[i][m]), r), qscale);
     }
   }
-  emit<QT, MODE>(s, sc, tid, q0, doc0, b, n_valid, out_cols, out0, out1);
+  emit<QT>(s, sc, tid, q0, doc0, b, n_valid, out_cols, out);
 }
 
-template <int QT, int MODE>
-cudaError_t launch(const int8_t* q, const float* qs, const int8_t* docs,
-                   const float* rs, int b, int n, int d, int n_valid,
-                   float* out0, float* out1, cudaStream_t stream) {
+// Mode 2 at B <= 8 on the first core.
+cudaError_t launch_v2_small(const int8_t* q, const float* qs,
+                            const int8_t* docs, const float* rs, int b, int n,
+                            int d, int n_valid, float* out,
+                            cudaStream_t stream) {
+  constexpr int QT = 8;
   static_assert(QT * kBlockDocs * sizeof(float) <= kStageBytes,
                 "score tile must fit the staging buffer it reuses");
   const size_t smem = kStageBytes + (size_t)QT * kChunk;
   cudaError_t err = cudaFuncSetAttribute(
-      fused_int8_kernel<QT, MODE>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      fused_int8_kernel<QT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((b + QT - 1) / QT, n / kBlockDocs);
-  fused_int8_kernel<QT, MODE><<<grid, kThreads, smem, stream>>>(
-      q, qs, docs, rs, b, d, n_valid, out_columns(MODE, n), out0, out1);
+  fused_int8_kernel<QT><<<grid, kThreads, smem, stream>>>(
+      q, qs, docs, rs, b, d, n_valid, out_columns(2, n), out);
   return cudaGetLastError();
-}
-
-cudaError_t launch_v1(const int8_t* q, const float* qs, const int8_t* docs,
-                      const float* rs, int b, int n, int d, int n_valid,
-                      float* out0, float* out1, cudaStream_t stream) {
-  if (b <= 8) {
-    return launch<8, 1>(q, qs, docs, rs, b, n, d, n_valid, out0, out1, stream);
-  }
-  return launch<16, 1>(q, qs, docs, rs, b, n, d, n_valid, out0, out1, stream);
 }
 
 }  // namespace
@@ -188,17 +194,18 @@ extern "C" int svs_fused_int8(int mode, const void* q, const void* qs,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (mode) {
     case 1:
-      return (int)launch_v1(q8, qsf, d8, rsf, b, n, d, n_valid, o0, o1, st);
+      return (int)svs::fused3::launch_mma<true, 1>(q8, qsf, d8, rsf, b, n, d,
+                                                   n_valid, o0, o1, st);
     case 2:
       if (b <= 8) {
-        return (int)launch<8, 2>(q8, qsf, d8, rsf, b, n, d, n_valid, o0, o1,
-                                 st);
+        return (int)launch_v2_small(q8, qsf, d8, rsf, b, n, d, n_valid, o0,
+                                    st);
       }
       return (int)svs::fused3::launch_mma<true, 2>(q8, qsf, d8, rsf, b, n, d,
-                                                   n_valid, o0, st);
+                                                   n_valid, o0, nullptr, st);
     case 3:
       return (int)svs::fused3::launch_mma<true, 3>(q8, qsf, d8, rsf, b, n, d,
-                                                   n_valid, o0, st);
+                                                   n_valid, o0, nullptr, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -14,13 +14,26 @@ distinct values of the union of its parts' top-H lists.  This is the CPU
 proof of the kernel's selection argument, on random scores, on lattice
 scores (equal key levels, the lane decides), on scores past 2^24 whose
 keys collide (key + lane rounds to even), and on partial subtiles (dead
-lanes)."""
+lanes).
 
+v1 (``_fused_*``, mode 1, ``select_chunk_v1``) keeps the top-8 (value,
+row) of a 512-doc subtile over its 2 chunks under the order (value
+descending, row descending): the highest row wins a tie inside a chunk,
+the second chunk's entry wins one across chunks, its rounds stop at the
+first max strictly below the running 8th or at the first -inf, and the
+last chunk names the subtile's last row beside every -inf.  Held bit for
+bit against the one-shot emits of ``_fused_extract_int8_plain`` and
+``_fused_extract_plain``, and against ``svs_tpu``'s
+``_fused_extract_int8`` in interpret mode."""
+
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from svs_tpu.ops import pallas_extract as J
 from svs_tpu_torch.ops import pallas_extract as T
+from svs_tpu_torch.ops.quant import quantize_rows_int8
 
 torch.set_num_threads(2)
 
@@ -133,3 +146,150 @@ def test_early_stop_fires():
     second = keys[..., CHUNK:]
     above = (second > first[..., -1:]).sum(dim=-1)
     assert float((above < T.EXTRACT_H).float().mean()) > 0.3
+
+
+# --- v1: values and rows -----------------------------------------------------
+
+NEG_INF = float("-inf")
+
+
+def _pop_v1(v: torch.Tensor, r: torch.Tensor) -> tuple:
+    return (torch.cat([v[..., 1:], torch.full_like(v[..., :1], NEG_INF)], dim=-1),
+            torch.cat([r[..., 1:], r[..., -1:]], dim=-1))
+
+
+def _merge_v1(tv, tr, rv, rr) -> tuple:
+    """The top-H of two descending (value, row) lists, head by head, on
+    equal values the chunk's (``tv``) first (the kernel's merge)."""
+    mv, mr = [], []
+    for _ in range(tv.shape[-1]):
+        from_chunk = tv[..., 0] >= rv[..., 0]
+        mv.append(torch.where(from_chunk, tv[..., 0], rv[..., 0]))
+        mr.append(torch.where(from_chunk, tr[..., 0], rr[..., 0]))
+        ptv, ptr = _pop_v1(tv, tr)
+        prv, prr = _pop_v1(rv, rr)
+        tv = torch.where(from_chunk[..., None], ptv, tv)
+        tr = torch.where(from_chunk[..., None], ptr, tr)
+        rv = torch.where(from_chunk[..., None], rv, prv)
+        rr = torch.where(from_chunk[..., None], rr, prr)
+    return torch.stack(mv, dim=-1), torch.stack(mr, dim=-1)
+
+
+def chunked_select_v1(scores: torch.Tensor, n_valid: int) -> tuple:
+    """``scores [B, N]`` -> ``(values, rows as f32, early)``, each output
+    ``[B, (N/512)*8]``: the top-8 (value, row) of every 512-doc subtile,
+    selected chunk by chunk as the CUDA v3 core's ``select_chunk_v1``
+    selects them; ``early`` counts the (query, subtile) pairs whose second
+    chunk stopped on a max below the running 8th."""
+    b, n = scores.shape
+    t, h = n // T.FUSED_SUBTILE, T.EXTRACT_H
+    rows = torch.arange(n).view(1, t, T.FUSED_SUBTILE).expand(b, t, T.FUSED_SUBTILE)
+    s = torch.where(rows < n_valid, scores.view(b, t, T.FUSED_SUBTILE), NEG_INF)
+    rv = torch.full((b, t, h), NEG_INF)
+    rr = torch.zeros((b, t, h), dtype=torch.int64)
+    early = 0
+    for c0 in range(0, T.FUSED_SUBTILE, CHUNK):
+        v = s[..., c0 : c0 + CHUNK]
+        r = rows[..., c0 : c0 + CHUNK]
+        floor = rv[..., -1]
+        tv, tr = torch.full_like(rv, NEG_INF), torch.zeros_like(rr)
+        done = torch.zeros((b, t), dtype=torch.bool)
+        for k in range(h):
+            m = v.amax(dim=-1)
+            stop = (m < floor) & (m > NEG_INF) & ~done
+            if c0:
+                early += int(stop.sum())
+            done = done | stop | (m == NEG_INF)
+            p = torch.where(v == m[..., None], r, -1).amax(dim=-1)  # highest row
+            tv[..., k] = torch.where(done, NEG_INF, m)
+            tr[..., k] = torch.where(done, 0, p)
+            v = torch.where((r == p[..., None]) & ~done[..., None], NEG_INF, v)
+        # a first chunk's list is the merged one
+        rv, rr = (tv, tr) if c0 == 0 else _merge_v1(tv, tr, rv, rr)
+    last_row = rows[..., -1:]  # named beside every -inf
+    named = torch.where(rv == NEG_INF, last_row, rr).to(torch.float32)
+    return rv.reshape(b, t * h), named.reshape(b, t * h), early
+
+
+V1_B, V1_D = 8, 64
+
+
+def _unit(rng: np.random.Generator, n: int, d: int) -> np.ndarray:
+    m = rng.standard_normal((n, d)).astype(np.float32)
+    return m / np.linalg.norm(m, axis=1, keepdims=True)
+
+
+def _v1_inputs(kind: str, precision: str, rng: np.random.Generator):
+    """``(plain_fn(n_valid) -> (values, rows), scores [B, N])`` of one v1
+    one-shot emit: ``random`` unit rows, or ``four`` distinct scores per
+    subtile (so ties decide most rounds)."""
+    if kind == "random":
+        docs, q = _unit(rng, N, V1_D), _unit(rng, V1_B, V1_D)
+    else:  # column 0 alone scores: c / 4, c in 1..4
+        docs = np.zeros((N, V1_D), dtype=np.float32)
+        docs[:, 0] = rng.integers(1, 5, N)
+        q = np.zeros((V1_B, V1_D), dtype=np.float32)
+        q[:, 0] = 0.25
+    if precision == "int8":
+        if kind == "random":
+            q_docs, rs = quantize_rows_int8(torch.from_numpy(docs))
+            q8, qs = quantize_rows_int8(torch.from_numpy(q))
+        else:  # exact: acc = c, scales 1/4 and 1
+            q_docs = torch.from_numpy(docs).to(torch.int8)
+            rs = torch.full((N,), 0.25)
+            q8 = (torch.from_numpy(q) * 4).to(torch.int8)
+            qs = torch.ones((V1_B,))
+        args = (q_docs, rs, q8, qs)
+        return (lambda nv: T._fused_extract_int8_plain(*args, nv),
+                T._scores_int8(*args))
+    dt = torch.bfloat16 if precision == "bf16" else torch.float32
+    d_t, q_t = torch.from_numpy(docs).to(dt), torch.from_numpy(q).to(dt)
+    return (lambda nv: T._fused_extract_plain(d_t, q_t, nv),
+            T.scores_matmul(d_t, q_t))
+
+
+# the live rows end: nowhere; 3 and 300 docs into subtile 20 (in its first
+# and its second chunk, with 11 wholly padded subtiles after it); 3 docs
+# into subtile 2 (29 wholly padded subtiles)
+V1_N_VALID = [N, 512 * 20 + 3, 512 * 20 + 300, 512 * 2 + 3]
+
+
+@pytest.mark.parametrize("n_valid", V1_N_VALID)
+@pytest.mark.parametrize("precision", ["int8", "bf16", "f32"])
+@pytest.mark.parametrize("kind", ["random", "four"])
+def test_chunked_v1_equals_plain_emit(kind, precision, n_valid):
+    plain, scores = _v1_inputs(kind, precision, np.random.default_rng(len(kind)))
+    if kind == "four":
+        per_sub = scores.view(V1_B, -1, T.FUSED_SUBTILE)
+        assert int(torch.unique(per_sub[0, 0]).numel()) == 4
+    vals, rows, early = chunked_select_v1(scores, n_valid)
+    ref_v, ref_r = plain(n_valid)
+    assert torch.equal(vals.view(torch.int32), ref_v.view(torch.int32))
+    assert torch.equal(rows.view(torch.int32), ref_r.view(torch.int32))
+    if n_valid < N:  # the -inf tail is in the case, named by the last row
+        tail = ref_v == NEG_INF
+        assert bool(tail.any())
+        last = (torch.arange(ref_v.shape[1]) // T.EXTRACT_H) * T.FUSED_SUBTILE + 511
+        assert torch.equal(ref_r[tail], last.expand_as(ref_r)[tail].to(torch.float32))
+    if kind == "random":  # the early stop fires: in about half the pairs
+        live_subtiles = -(-n_valid // T.FUSED_SUBTILE)
+        assert early > 0.3 * V1_B * live_subtiles
+
+
+def test_chunked_v1_equals_reference_kernel():
+    """The chunked model on the port's int8 scores against ``svs_tpu``'s
+    Pallas v1 kernel run in interpret mode, live rows ending in a
+    subtile's second chunk."""
+    rng = np.random.default_rng(7)
+    docs, q = _unit(rng, N, 128), _unit(rng, V1_B, 128)
+    q_docs, rs = quantize_rows_int8(torch.from_numpy(docs))
+    q8, qs = quantize_rows_int8(torch.from_numpy(q))
+    n_valid = 512 * 20 + 300
+    jv, ji = J._fused_extract_int8(
+        jnp.asarray(q_docs.numpy()), jnp.asarray(rs.numpy()),
+        jnp.asarray(q8.numpy()), jnp.asarray(qs.numpy()),
+        jnp.int32(n_valid), interpret=True,
+    )
+    vals, rows, _ = chunked_select_v1(T._scores_int8(q_docs, rs, q8, qs), n_valid)
+    np.testing.assert_array_equal(np.asarray(jv).view(np.int32), vals.numpy().view(np.int32))
+    np.testing.assert_array_equal(np.asarray(ji).view(np.int32), rows.numpy().view(np.int32))
