@@ -131,19 +131,25 @@ from a seed:
    and searched, f32 on the card against the CPU at 512 and 4,096 tokens
    (2 layers), a reopen with no function), ``local_mistral``
    (``local_mistral_phase``: a Mistral at
-   ``intfloat/e5-mistral-7b-instruct``'s widths and depth, 7.11B
-   parameters written as a sharded bf16 Flax checkpoint and held in f32 on
-   the card, a synthetic 32,000-piece BPE ``tokenizer.json`` in Llama-2's
-   layout, 17,000 passages at ``max_length`` 128 embedded in bf16 and
-   searched at d = 4,096, f32 on the card against the CPU on a 2-layer
-   cut, the stored bf16 rows against the card's f32 run, a reopen with no
-   function on the 2-layer cut's store; then #3, #2 and #4 on the store's
-   own int8 pack against their plain versions) and ``local_families``
-   (``local_families_phase``: RoBERTa, DistilBERT, ELECTRA and
-   RoBERTa-PreLayerNorm at published widths cut to 2 layers, ALBERT at
-   ``albert-base-v2``'s widths and depth, Llama-2 and Gemma at
-   ``Llama-2-7b-hf``'s and ``gemma-2b``'s widths cut to 2 layers, 64
-   texts each in f32 and bf16 against the CPU).  Every other
+   ``intfloat/e5-mistral-7b-instruct``'s widths, 2 of its 32 layers,
+   written as a sharded bf16 Flax checkpoint and held in f32 on the card,
+   a synthetic 32,000-piece BPE ``tokenizer.json`` in Llama-2's layout,
+   17,000 passages at ``max_length`` 128 embedded in bf16 and searched at
+   d = 4,096, f32 on the card against the CPU, the stored bf16 rows
+   against the card's f32 run, a reopen with no function on a 256-doc
+   store), ``local_gptj`` (``local_gptj_phase``: the same
+   at ``EleutherAI/gpt-j-6b``'s widths and depth, f32 against the CPU on a
+   2-layer cut, 6.05B parameters written
+   as a ``FlaxGPTJForCausalLM`` tree in two bf16 shards, a synthetic
+   50,400-id byte-level BPE ``tokenizer.json`` in GPT-2's layout; then #3,
+   #2 and #4 on the store's own int8 pack against their plain versions)
+   and ``local_families`` (``local_families_phase``: RoBERTa, DistilBERT,
+   ELECTRA and RoBERTa-PreLayerNorm at published widths cut to 2 layers,
+   ALBERT at ``albert-base-v2``'s widths and depth, Llama-2, Gemma,
+   GPT-2, GPT-Neo, BLOOM and XGLM at ``Llama-2-7b-hf``'s, ``gemma-2b``'s,
+   ``gpt2``'s, ``gpt-neo-1.3B``'s, ``bloom-7b1``'s and ``xglm-564M``'s
+   widths cut to 2 layers, 64 texts each in f32 and bf16 against the CPU,
+   GPT-Neo's at 512 tokens).  Every other
    phase runs with ``SVS_TPU_AUTOCALIB=0`` and a calibration cache of the
    run's own, so no probe adds launches to it.
 
@@ -1489,7 +1495,8 @@ def e2e_phase(n_docs: int, reps: int, work: Path, cross: dict) -> dict:
     local_phase(work, out)
     local_xlmr_phase(work, out)
     local_bigbird_phase(work, out)
-    families = local_mistral_phase(work, out)
+    local_mistral_phase(work, out)
+    families = local_gptj_phase(work, out)
     local_families_phase(work, out, families)
     return out
 
@@ -5206,13 +5213,14 @@ def local_xlmr_phase(work: Path, out: dict) -> None:
 
 
 def spm_tokenizer_json(path: Path, vocab: list, unk_id: int, specials: dict, normalizer: dict,
-                       tokenizer_config: dict) -> None:
+                       tokenizer_config: dict, head: tuple = ("[CLS]",),
+                       tail: tuple = ("[SEP]",)) -> None:
     """Write a SentencePiece-style Unigram ``tokenizer.json`` (what
-    ``transformers``' ``SpmConverter`` writes: Metaspace, ``[CLS] $A
-    [SEP]``, the special pieces as added tokens, the mask stripping the
-    space to its left) and ``tokenizer_config.json``.  ``vocab`` is the
-    ``[piece, score]`` list, ``specials`` maps each special piece to its
-    id."""
+    ``transformers``' ``SpmConverter`` writes: Metaspace, ``head $A tail``
+    (``[CLS] $A [SEP]`` unless told), the special pieces as added tokens,
+    the mask stripping the space to its left) and ``tokenizer_config.json``.
+    ``vocab`` is the ``[piece, score]`` list, ``specials`` maps each special
+    piece to its id."""
     def added(content):
         return {"id": specials[content], "content": content, "single_word": False,
                 "lstrip": content == "[MASK]", "rstrip": False, "normalized": False,
@@ -5228,11 +5236,12 @@ def spm_tokenizer_json(path: Path, vocab: list, unk_id: int, specials: dict, nor
         "pre_tokenizer": {"type": "Metaspace", "replacement": "▁", "prepend_scheme": "always",
                           "split": True},
         "post_processor": {"type": "TemplateProcessing",
-                           "single": [special("[CLS]"), {"Sequence": {"id": "A", "type_id": 0}},
-                                      special("[SEP]")],
+                           "single": ([special(t) for t in head]
+                                      + [{"Sequence": {"id": "A", "type_id": 0}}]
+                                      + [special(t) for t in tail]),
                            "pair": [], "special_tokens": {
                                t: {"id": t, "ids": [specials[t]], "tokens": [t]}
-                               for t in ("[CLS]", "[SEP]")}},
+                               for t in dict.fromkeys(list(head) + list(tail))}},
         "decoder": {"type": "Metaspace", "replacement": "▁", "prepend_scheme": "always",
                     "split": True},
         "model": {"type": "Unigram", "unk_id": unk_id, "vocab": vocab, "byte_fallback": False},
@@ -5570,6 +5579,38 @@ NON_ASCII_WORDS = ("café", "naïve", "straße", "привет", "мир", "κό
                    "مرحبا", "한국어", "😀")
 
 
+def seeded_word_merges(vocab: dict, size: int, mark: str, rng) -> tuple:
+    """Grow ``vocab`` (piece -> id) to ``size`` pieces with seeded words of
+    2-9 Latin letters, half after ``mark`` (a word's leading space), each
+    built left to right by one merge a letter.  Returns ``(merges, the
+    words whose every prefix is a piece, without mark)``."""
+    letters = "abcdefghijklmnopqrstuvwxyz"
+    merges: list = []
+    words: list = []
+    while len(vocab) < size:
+        lens = rng.integers(2, 10, 4096)
+        idx = rng.integers(0, 26, (4096, 9))
+        marks = rng.random(4096) < 0.5
+        for j in range(4096):
+            body = "".join(letters[i] for i in idx[j, : lens[j]])
+            word = (mark + body) if marks[j] else body
+            cur, whole = word[0], True
+            for ch in word[1:]:
+                new = cur + ch
+                if new not in vocab:
+                    if len(vocab) >= size:
+                        whole = False
+                        break
+                    vocab[new] = len(vocab)
+                    merges.append([cur, ch])
+                cur = new
+            if whole:
+                words.append(body)
+            if len(vocab) >= size:
+                break
+    return merges, words
+
+
 def write_decoder_tokenizer(path: Path, layout: str, size: int, seed: int, **config) -> list:
     """A synthetic ``size``-piece BPE ``tokenizer.json`` in Llama-2's layout
     (``LlamaConverter``: ``Prepend("▁")`` + ``Replace(" ", "▁")``, no
@@ -5590,30 +5631,7 @@ def write_decoder_tokenizer(path: Path, layout: str, size: int, seed: int, **con
         vocab[f"<0x{b:02X}>"] = len(vocab)
     for ch in ["▁"] + [chr(c) for c in range(33, 127)]:
         vocab.setdefault(ch, len(vocab))
-    letters = "abcdefghijklmnopqrstuvwxyz"
-    merges: list = []
-    words: list = []
-    while len(vocab) < size:
-        lens = rng.integers(2, 10, 4096)
-        idx = rng.integers(0, 26, (4096, 9))
-        marks = rng.random(4096) < 0.5
-        for j in range(4096):
-            body = "".join(letters[i] for i in idx[j, : lens[j]])
-            word = ("▁" + body) if marks[j] else body
-            cur, whole = word[0], True
-            for ch in word[1:]:
-                new = cur + ch
-                if new not in vocab:
-                    if len(vocab) >= size:
-                        whole = False
-                        break
-                    vocab[new] = len(vocab)
-                    merges.append([cur, ch])
-                cur = new
-            if whole:
-                words.append(body)
-            if len(vocab) >= size:
-                break
+    merges, words = seeded_word_merges(vocab, size, "▁", rng)
     norm = ([{"type": "Prepend", "prepend": "▁"}] if layout == "llama" else [])
     norm.append({"type": "Replace", "pattern": {"String": " "}, "content": "▁"})
     bos = specials[1] if layout == "llama" else "<bos>"
@@ -5646,6 +5664,107 @@ def write_decoder_tokenizer(path: Path, layout: str, size: int, seed: int, **con
     cls = "LlamaTokenizer" if layout == "llama" else "GemmaTokenizer"
     (path / "tokenizer_config.json").write_text(json.dumps({"tokenizer_class": cls, **config}))
     return words
+
+
+#: The special tokens of the byte-level layouts in vocabulary order:
+#: GPT-2's one ``<|endoftext|>`` after its 50,256 pieces, BLOOM's four first.
+BYTE_LEVEL_SPECIALS = {"gpt2": ["<|endoftext|>"], "bloom": ["<unk>", "<s>", "</s>", "<pad>"]}
+#: GPT-2's vocabulary (``vocab.json``): 50,256 pieces and ``<|endoftext|>``;
+#: GPT-J's 50,400 ids add ``<|extratoken_N|>`` tokens after it.
+GPT2_VOCAB = 50257
+
+
+def write_byte_level_bpe(path: Path, layout: str, size: int, seed: int, **config) -> list:
+    """A synthetic ``size``-id byte-level BPE ``tokenizer.json`` in GPT-2's
+    layout (``GPT2Converter``: no normalizer, a ``ByteLevel``
+    pre-tokenizer with GPT-2's split and a ``ByteLevel`` post-processor;
+    the 256 byte characters, then seeded words of 2-9 Latin letters, half
+    after ``Ġ`` (a space), each built left to right by one merge a letter;
+    ``<|endoftext|>`` after the pieces, and past GPT-2's 50,257 ids the
+    ``<|extratoken_N|>`` added tokens of GPT-J's tokenizer) or BLOOM's
+    (``<unk>``, ``<s>``, ``</s>``, ``<pad>`` first, in place of BLOOM's
+    ``Split`` pre-tokenizer GPT-2's).  ``tokenizer_config.json`` names
+    ``GPT2Tokenizer`` / ``BloomTokenizer`` with ``config``'s keys.  Returns
+    the words whose every prefix is a piece (without ``Ġ``)."""
+    from svs_tpu_torch.embeddings.bpe import bytes_to_unicode
+
+    rng = np.random.default_rng(seed)
+    specials = BYTE_LEVEL_SPECIALS[layout]
+    vocab = {t: i for i, t in enumerate(specials)} if layout == "bloom" else {}
+    for ch in bytes_to_unicode().values():
+        vocab.setdefault(ch, len(vocab))
+    pieces = size if layout == "bloom" else min(size, GPT2_VOCAB) - 1
+    merges, words = seeded_word_merges(vocab, pieces, "Ġ", rng)
+
+    def added(i, content, special):
+        return {"id": i, "content": content, "single_word": False, "lstrip": False,
+                "rstrip": False, "normalized": not special or layout == "gpt2", "special": special}
+
+    if layout == "gpt2":
+        vocab["<|endoftext|>"] = len(vocab)
+    tokens = [added(vocab[t], t, True) for t in specials]
+    tokens += [added(len(vocab) + i, f"<|extratoken_{i + 1}|>", False)
+               for i in range(size - len(vocab))]
+    byte_level = {"type": "ByteLevel", "add_prefix_space": False, "trim_offsets": True,
+                  "use_regex": True}
+    spec = {
+        "version": "1.0", "truncation": None, "padding": None, "added_tokens": tokens,
+        "normalizer": None, "pre_tokenizer": byte_level,
+        "post_processor": {**byte_level, "trim_offsets": False}, "decoder": byte_level,
+        "model": {"type": "BPE", "dropout": None, "unk_token": None,
+                  "continuing_subword_prefix": "", "end_of_word_suffix": "", "fuse_unk": False,
+                  "byte_fallback": False, "ignore_merges": False, "vocab": vocab,
+                  "merges": merges},
+    }
+    path.mkdir(parents=True, exist_ok=True)
+    (path / "tokenizer.json").write_text(json.dumps(spec, ensure_ascii=False), encoding="utf-8")
+    cls = "GPT2Tokenizer" if layout == "gpt2" else "BloomTokenizer"
+    (path / "tokenizer_config.json").write_text(json.dumps({"tokenizer_class": cls, **config}))
+    return words
+
+
+def write_xglm_spm(path: Path, size: int, seed: int, **config) -> list:
+    """A synthetic ``size``-piece Unigram ``tokenizer.json`` in XGLM's
+    layout (``XGLMConverter``: ``<s>`` 0, ``<pad>`` 1, ``</s>`` 2,
+    ``<unk>`` 3, the pieces, the seven ``<madeupwordN>`` last; Metaspace;
+    ``</s> $A``; NFKC and ``Replace(" {2,}", " ")`` in place of the
+    ``Precompiled`` charsmap, which the smoke cannot build): every
+    printable ASCII character alone and after ``▁``, the English words of
+    :func:`bert_uncased_vocab` after ``▁`` and alone, then seeded pieces of
+    2-8 Latin letters, half after ``▁``; ``tokenizer_config.json`` names
+    ``XGLMTokenizer`` with ``config``'s keys.  Returns the English words."""
+    rng = np.random.default_rng(seed)
+    names = ["<s>", "<pad>", "</s>", "<unk>"]
+    madeup = [f"<madeupword{i}>" for i in range(7)]
+    english = [w for w in bert_uncased_vocab(SEED) if w.isalpha() and len(w) > 1]
+    chars = [chr(c) for c in range(33, 127)]
+    pieces = list(dict.fromkeys(["▁"] + chars + ["▁" + c for c in chars]
+                                + [v for w in english for v in ("▁" + w, w)]))
+    seen = set(pieces) | set(names) | set(madeup)
+    letters = "abcdefghijklmnopqrstuvwxyz"
+    want = size - len(names) - len(madeup)
+    while len(pieces) < want:
+        lens = rng.integers(2, 9, 4096)
+        idx = rng.integers(0, 26, (4096, 8))
+        marks = rng.random(4096) < 0.5
+        for j in range(4096):
+            body = "".join(letters[i] for i in idx[j, : lens[j]])
+            piece = ("▁" + body) if marks[j] else body
+            if piece not in seen:
+                seen.add(piece)
+                pieces.append(piece)
+                if len(pieces) == want:
+                    break
+    pieces = pieces[:want]
+    vocab = [[t, 0.0] for t in names]
+    vocab += [[p, float(x)] for p, x in zip(pieces, rng.uniform(-14.0, -6.0, len(pieces)))]
+    vocab += [[t, 0.0] for t in madeup]
+    norm = {"type": "Sequence", "normalizers": [
+        {"type": "NFKC"}, {"type": "Replace", "pattern": {"Regex": " {2,}"}, "content": " "}]}
+    ids = {t: i for i, (t, _) in enumerate(vocab) if t in names or t in madeup}
+    spm_tokenizer_json(path, vocab, 3, ids, norm, {"tokenizer_class": "XGLMTokenizer", **config},
+                       head=["</s>"], tail=[])
+    return english
 
 
 def passages(words: list, n: int, seed: int, lo: int, hi: int) -> list:
@@ -5749,35 +5868,40 @@ def local_families_phase(work: Path, out: dict, families: dict) -> None:
     ``vocab.json`` + ``merges.txt``), DistilBERT (``vocab.txt`` read as
     ``DistilBertTokenizer``), ELECTRA (``ElectraTokenizer``), ALBERT (a
     SentencePiece Unigram ``tokenizer.json``, :func:`write_albert_tokenizer`),
-    Llama-2 and Gemma (:func:`write_decoder_family`).  Each embeds
-    ``FAMILY_TEXTS`` texts (``max_length`` ``FAMILY_MAX_LENGTH``, mean
-    pooling) on the card in f32 (within ``LOCAL_F32_ATOL``) and bf16
-    (within ``LOCAL_BF16_ATOL``, cosine at least ``LOCAL_BF16_MIN_COS``)
-    against the port's f32 run on the CPU.  ``families`` holds the
-    checkpoints (``"models"``, :func:`write_families`) and the CPU vectors
-    (``"cpu"``, :func:`family_cpu_references` of :func:`family_texts`):
-    what ``local_mistral_phase`` returns, its CPU runs taken beside that
-    phase's write."""
+    Llama-2, Gemma, GPT-2, GPT-Neo, BLOOM and XGLM
+    (:func:`write_decoder_family`).  Each embeds ``FAMILY_TEXTS`` texts
+    (``max_length`` ``FAMILY_MAX_LENGTH``, GPT-Neo's 512: past its 256-token
+    window, which some text must pass; mean pooling) on the card in f32
+    (within ``LOCAL_F32_ATOL``) and bf16 (within ``LOCAL_BF16_ATOL``,
+    cosine at least ``LOCAL_BF16_MIN_COS``) against the port's f32 run on
+    the CPU.  ``families`` holds the checkpoints (``"models"``,
+    :func:`write_families`) and the CPU vectors (``"cpu"``,
+    :func:`family_cpu_references` of :func:`family_texts`): what
+    ``local_gptj_phase`` returns, its CPU runs taken beside that phase's
+    write."""
     import svs_tpu_torch
 
     res = out["paths_detail_local_families"] = {}
     published = {**FAMILY_CONFIGS, **DECODER_FAMILY_CONFIGS}
 
     def layers(cfg):
-        return cfg.get("num_hidden_layers", cfg.get("n_layers"))
+        for key in ("num_hidden_layers", "n_layers", "n_layer", "num_layers"):
+            if key in cfg:
+                return cfg[key]
+        return None
 
-    def card_runs(ck, texts):
+    def card_runs(ck, texts, max_length):
         """``texts`` on the card in f32 and in bf16, the two providers on
         one loaded encoder (the same weights: one load)."""
         runs = []
         for dtype in ("float32", "bfloat16"):
             fn = svs_tpu_torch.make_local_embeddings_func(
-                str(ck), max_length=FAMILY_MAX_LENGTH, compute_dtype=dtype, device="cuda")
+                str(ck), max_length=max_length, compute_dtype=dtype, device="cuda")
             if runs:
                 fn.encoder._loaded = loaded
             runs.append(np.asarray(asyncio.run(fn(texts)), np.float32))
             loaded = fn.encoder._loaded
-        return runs
+        return runs, loaded[0]
 
     def run():
         texts = family_texts()
@@ -5785,31 +5909,41 @@ def local_families_phase(work: Path, out: dict, families: dict) -> None:
         res["cpu_f32_s"] = cpu_runs["s"]
         for family, (ck, source, cfg) in families["models"].items():
             t = time.perf_counter()
-            f32, bf = card_runs(ck, texts)
+            max_length = family_max_length(family)
+            (f32, bf), tok = card_runs(ck, texts, max_length)
             cpu = cpu_runs[family]
+            longest = max(len(tok.encode(x, 1 << 20)) for x in texts)
             r = res[family] = {
                 "source": source,
                 "cut": f"{layers(published[family][1])} -> {layers(cfg)} layers",
+                "max_length": max_length,
+                "longest_tokens": longest,
                 "seconds": time.perf_counter() - t,
                 "f32_max_abs_err": float(np.abs(f32 - cpu).max()),
                 "bf16_max_abs_err": float(np.abs(bf - cpu).max()),
                 "bf16_min_cos": float((bf * cpu).sum(axis=1).min()),
             }
             log(f"e2e local_families {family} ({source} widths, {r['cut']}): {FAMILY_TEXTS} "
-                f"texts, f32 max |err| {r['f32_max_abs_err']:.3g}, bf16 "
+                f"texts at max_length {max_length} (the longest {longest} tokens), f32 max "
+                f"|err| {r['f32_max_abs_err']:.3g}, bf16 "
                 f"{r['bf16_max_abs_err']:.3g}, min cosine {r['bf16_min_cos']:.6f} "
                 f"({r['seconds']:.1f} s on the card)")
             if r["f32_max_abs_err"] > LOCAL_F32_ATOL:
                 raise AssertionError(f"local_families {family}: f32 on the card disagrees with the CPU")
             if r["bf16_max_abs_err"] > LOCAL_BF16_ATOL or r["bf16_min_cos"] < LOCAL_BF16_MIN_COS:
                 raise AssertionError(f"local_families {family}: bf16 disagrees with the CPU f32 run")
+            window = cfg.get("window_size") if family == "gpt_neo" else None
+            if window is not None and longest <= window:
+                raise AssertionError(f"local_families gpt_neo: no text passes the {window}-token "
+                                     "window (the local layer is not driven)")
             shutil.rmtree(ck, ignore_errors=True)
 
     drive_path("local_families", [], run, out)
 
 
 #: ``intfloat/e5-mistral-7b-instruct``'s published config (``MistralModel``:
-#: 7.11B parameters, 28.4 GB in f32), at its widths and depth.
+#: 7.11B parameters at its 32 layers), at its widths; ``local_mistral``
+#: cuts its depth to ``LOCAL_MISTRAL_LAYERS``.
 E5_MISTRAL = {
     "model_type": "mistral", "architectures": ["MistralModel"], "vocab_size": 32000,
     "hidden_size": 4096, "num_hidden_layers": 32, "num_attention_heads": 32,
@@ -5818,10 +5952,23 @@ E5_MISTRAL = {
     "bos_token_id": 1, "eos_token_id": 2, "pad_token_id": 2, "tie_word_embeddings": False,
     "initializer_range": 0.02, "use_cache": False,
 }
-#: The other Llama-family checkpoints of ``local_families``, cut to
+#: ``EleutherAI/gpt-j-6b``'s published config (``GPTJForCausalLM``: 6.05B
+#: parameters, 24.2 GB in f32, beside a 50,400 x 4,096 ``lm_head`` with a
+#: bias), at its widths and depth.
+GPTJ_6B = {
+    "model_type": "gptj", "architectures": ["GPTJForCausalLM"], "vocab_size": 50400,
+    "n_positions": 2048, "n_embd": 4096, "n_layer": 28, "n_head": 16, "rotary_dim": 64,
+    "n_inner": None, "activation_function": "gelu_new", "layer_norm_epsilon": 1e-05,
+    "resid_pdrop": 0.0, "embd_pdrop": 0.0, "attn_pdrop": 0.0, "initializer_range": 0.02,
+    "bos_token_id": 50256, "eos_token_id": 50256, "tie_word_embeddings": False,
+    "tokenizer_class": "GPT2Tokenizer", "use_cache": True,
+}
+#: The other decoder checkpoints of ``local_families``, cut to
 #: ``FAMILY_LAYERS`` layers at their widths: Llama-2 (multi-head, written
-#: as a ``LlamaForCausalLM`` tree) and Gemma (multi-query, ``head_dim`` 256,
-#: no ``hidden_activation``: ``gelu_pytorch_tanh``).
+#: as a ``LlamaForCausalLM`` tree), Gemma (multi-query, ``head_dim`` 256,
+#: no ``hidden_activation``: ``gelu_pytorch_tanh``), GPT-2, GPT-Neo (a
+#: global and a local layer, the window 256), BLOOM (ALiBi over 32 heads,
+#: written as a ``BloomForCausalLM`` tree) and XGLM (``scale_embedding``).
 DECODER_FAMILY_CONFIGS = {
     "llama": ("meta-llama/Llama-2-7b-hf", {
         "model_type": "llama", "architectures": ["LlamaForCausalLM"], "vocab_size": 32000,
@@ -5837,51 +5984,160 @@ DECODER_FAMILY_CONFIGS = {
         "max_position_embeddings": 8192, "rms_norm_eps": 1e-06, "hidden_act": "gelu",
         "rope_theta": 10000.0, "attention_bias": False, "bos_token_id": 2, "eos_token_id": 1,
         "pad_token_id": 0, "initializer_range": 0.02}),
+    "gpt2": ("openai-community/gpt2", {
+        "model_type": "gpt2", "architectures": ["GPT2LMHeadModel"], "vocab_size": 50257,
+        "n_positions": 1024, "n_ctx": 1024, "n_embd": 768, "n_layer": 12, "n_head": 12,
+        "activation_function": "gelu_new", "layer_norm_epsilon": 1e-05, "resid_pdrop": 0.1,
+        "embd_pdrop": 0.1, "attn_pdrop": 0.1, "initializer_range": 0.02,
+        "bos_token_id": 50256, "eos_token_id": 50256}),
+    "gpt_neo": ("EleutherAI/gpt-neo-1.3B", {
+        "model_type": "gpt_neo", "architectures": ["GPTNeoForCausalLM"], "vocab_size": 50257,
+        "max_position_embeddings": 2048, "hidden_size": 2048, "num_layers": 24,
+        "num_heads": 16, "attention_types": [[["global", "local"], 12]],
+        "attention_layers": ["global", "local"] * 12, "window_size": 256,
+        "intermediate_size": None, "activation_function": "gelu_new",
+        "layer_norm_epsilon": 1e-05, "initializer_range": 0.02, "bos_token_id": 50256,
+        "eos_token_id": 50256}),
+    "bloom": ("bigscience/bloom-7b1", {
+        "model_type": "bloom", "architectures": ["BloomForCausalLM"], "vocab_size": 250880,
+        "hidden_size": 4096, "n_layer": 30, "n_head": 32, "layer_norm_epsilon": 1e-05,
+        "apply_residual_connection_post_layernorm": False, "initializer_range": 0.02,
+        "bos_token_id": 1, "eos_token_id": 2, "pad_token_id": 3}),
+    "xglm": ("facebook/xglm-564M", {
+        "model_type": "xglm", "architectures": ["XGLMForCausalLM"], "vocab_size": 256008,
+        "max_position_embeddings": 2048, "d_model": 1024, "ffn_dim": 4096, "num_layers": 24,
+        "attention_heads": 16, "activation_function": "gelu", "scale_embedding": True,
+        "init_std": 0.02, "pad_token_id": 1, "bos_token_id": 0, "eos_token_id": 2,
+        "decoder_start_token_id": 2}),
+}
+#: The decoder families written as a ``*ForCausalLM`` tree (an ``lm_head``
+#: beside the base model, which the provider unwraps).
+FAMILY_HEADS = ("llama", "bloom")
+#: A family's ``max_length`` where it is not ``FAMILY_MAX_LENGTH``:
+#: GPT-Neo's local window (256 tokens) bites only past 256.
+FAMILY_MAX_LENGTHS = {"gpt_neo": 512}
+#: Each decoder type's synthetic tokenizer: its layout and the keys of
+#: its ``tokenizer_config.json`` (a pad token where the class has none).
+DECODER_TOKENIZERS = {
+    "llama": ("llama", {"pad_token": "</s>"}), "mistral": ("llama", {"pad_token": "</s>"}),
+    "gemma": ("gemma", {}), "gpt2": ("gpt2", {"pad_token": "<|endoftext|>"}),
+    "gpt_neo": ("gpt2", {"pad_token": "<|endoftext|>"}),
+    "gptj": ("gpt2", {"pad_token": "<|endoftext|>"}), "bloom": ("bloom", {}),
+    "xglm": ("xglm", {}),
 }
 #: Three 8,192-row blocks of 4,096-wide docs (a 32,768 x 4,096 int8 pack,
 #: as 20,000 docs make; 17,000 leave the smoke room): the keyed v2 kernel
 #: (#3), v1 (#4) after a widen and the staged finish (#2); a store of two
-#: blocks launches none of them.
-LOCAL_MISTRAL_DOCS = 17_000
-LOCAL_MISTRAL_MAX_LENGTH = 128
-LOCAL_MISTRAL_BATCH = 128
-LOCAL_MISTRAL_WORDS = (8, 120)
-#: ``save_pretrained``'s default ``max_shard_size="10GB"``: two shards of
-#: the 14.2 GB bf16 checkpoint.
-LOCAL_MISTRAL_SHARD_BYTES = 10 * 10**9
+#: blocks launches none of them.  The same for each decoder store.
+LOCAL_DECODER_DOCS = 17_000
+LOCAL_DECODER_MAX_LENGTH = 128
+LOCAL_DECODER_BATCH = 128
+LOCAL_DECODER_WORDS = (8, 120)
 #: Texts of the f32 card-vs-CPU check, on a cut of the checkpoint to this
-#: depth at full width (the CPU would take minutes at 32 layers).
-LOCAL_MISTRAL_PARITY_TEXTS = 4
-LOCAL_MISTRAL_CPU_LAYERS = 2
+#: depth at full width (the CPU would take minutes at 28 or 32 layers).
+LOCAL_DECODER_PARITY_TEXTS = 4
+LOCAL_DECODER_CPU_LAYERS = 2
 #: The stored bf16 rows of the first texts against the card's own f32 run
-#: at full depth (the same weights, no second load).  Set before the first
-#: run on the card, as the other local stores' bounds.
-LOCAL_MISTRAL_BF16_TEXTS = 64
-LOCAL_MISTRAL_BF16_ATOL = 1e-2
-LOCAL_MISTRAL_BF16_MIN_COS = 0.999
+#: at the store's depth (the same weights, no second load).  Set before
+#: the first run on the card, as the other local stores' bounds (GPT-J's
+#: too: its scores and softmax are bf16, as Flax's are, where Mistral's
+#: are f32).
+LOCAL_DECODER_BF16_TEXTS = 64
+LOCAL_DECODER_BF16_ATOL = 1e-2
+LOCAL_DECODER_BF16_MIN_COS = 0.999
 #: Docs of the small store (the 2-layer cut) that the reopen with no
-#: function runs on: a second 7B load would cost its 28.4 GB upload again.
-LOCAL_MISTRAL_REOPEN_DOCS = 256
+#: function runs on: a second load of the full model would cost its upload
+#: again.
+LOCAL_DECODER_REOPEN_DOCS = 256
+#: e5-mistral's depth (32) cut to this, to make room for ``local_gptj`` in
+#: the smoke's time: the widths, the sharded read, the f32 and bf16 checks
+#: (on the store's own depth: no separate cut) and the store at d = 4,096
+#: stay.
+LOCAL_MISTRAL_LAYERS = 2
+#: Two shards of the cut checkpoint's 1.13 GB of bf16 (``save_pretrained``'s
+#: default ``max_shard_size="10GB"`` made two of the 32 layers' 14.2 GB).
+LOCAL_MISTRAL_SHARD_BYTES = 6 * 10**8
+#: ``save_pretrained``'s default ``max_shard_size="10GB"``: two shards of
+#: GPT-J's 12.5 GB of bf16.
+LOCAL_GPTJ_SHARD_BYTES = 10 * 10**9
+#: The decoder stores of the smoke: what :func:`local_decoder_phase` runs
+#: for each (``seed``: every draw of the phase from there; ``head``: written
+#: as a ``*ForCausalLM`` tree; ``pack_checks``: #3 / #2 / #4 on the store's
+#: pack; ``families``: ``local_families``' checkpoints written and their
+#: CPU references run beside this store's write).
+LOCAL_DECODERS = {
+    "local_mistral": {"source": "intfloat/e5-mistral-7b-instruct",
+                      "config": {**E5_MISTRAL, "num_hidden_layers": LOCAL_MISTRAL_LAYERS},
+                      "seed": SEED + 89, "shard_bytes": LOCAL_MISTRAL_SHARD_BYTES,
+                      "head": False, "pack_checks": False, "families": False},
+    "local_gptj": {"source": "EleutherAI/gpt-j-6b", "config": GPTJ_6B, "seed": SEED + 211,
+                   "shard_bytes": LOCAL_GPTJ_SHARD_BYTES, "head": True, "pack_checks": True,
+                   "families": True},
+}
+
+
+def decoder_widths(config: dict) -> dict:
+    """A decoder config's widths as the port reads them: ``hidden``, the
+    query and key/value widths ``q`` and ``kv``, the MLP's multiply-adds a
+    token ``mlp`` (Llama's gated three products, the others' two),
+    ``layers``, the layer container's name ``stack``, the depth key
+    ``depth_key`` and the learned position table's rows ``positions``
+    (GPT-2's, GPT-Neo's)."""
+    from svs_tpu_torch.embeddings import bloom, gpt2, gpt_neo, gptj, llama, xglm
+
+    kind = config["model_type"]
+    if kind in llama.MODEL_TYPES:
+        c = llama._cfg(config)
+        h = c["hidden_size"]
+        return {"hidden": h, "q": c["num_attention_heads"] * c["head_width"],
+                "kv": c["kv_heads"] * c["head_width"], "mlp": 3 * h * c["intermediate_size"],
+                "layers": c["num_hidden_layers"], "stack": "layers",
+                "depth_key": "num_hidden_layers"}
+    keys = {"gpt2": (gpt2, "n_embd", "n_inner", "n_layer", "n_positions"),
+            "gpt_neo": (gpt_neo, "hidden_size", "intermediate_size", "num_layers",
+                        "max_position_embeddings"),
+            "gptj": (gptj, "n_embd", "n_inner", "n_layer", None),
+            "bloom": (bloom, "hidden_size", None, "n_layer", None),
+            "xglm": (xglm, "d_model", "ffn_dim", "num_layers", None)}[kind]
+    module, width, inner, depth, positions = keys
+    c = module._cfg(config)
+    h = int(c[width])
+    inner_w = int((c[inner] if inner else None) or 4 * h)
+    return {"hidden": h, "q": h, "kv": h, "mlp": 2 * h * inner_w, "layers": int(c[depth]),
+            "stack": "layers" if kind == "xglm" else "h", "depth_key": depth,
+            "positions": int(c[positions]) if positions else None}
+
+
+def cut_depth(config: dict, layers: int) -> dict:
+    """``config`` cut to ``layers`` layers (GPT-Neo's attention pattern cut
+    with it, whole repeats of its first kinds)."""
+    cfg = {**config, decoder_widths(config)["depth_key"]: layers}
+    if config["model_type"] == "gpt_neo":
+        kinds = config.get("attention_types", [[["global", "local"], 12]])[0][0]
+        cfg["attention_types"] = [[kinds, layers // len(kinds)]]
+        cfg["attention_layers"] = (kinds * layers)[:layers]
+    return cfg
 
 
 def random_decoder_params(config: dict, seed: int, device: str, qk: float = 1.0,
                           dtype: str = "bfloat16") -> dict:
-    """A Flax Llama / Mistral / Gemma base tree at ``config``'s widths with
-    random weights from the seed's generator on ``device``, as
-    :func:`random_encoder_params` makes them: the token embeddings N(0,
-    0.02), the RMSNorm weights 1 (Gemma's 0: its norm scales by ``1 + w``),
-    Dense kernels N(0, 1/fan_in) (the query and key kernels x ``qk``), no
-    biases; torch tensors in ``dtype``, as a bf16 checkpoint holds them.
-    ``qk`` is 1, not the encoders' ``LOCAL_QK``: mean-pooled decoder states
-    are spread without it (texts' cosines about 0.2), and with it the
-    sharper random attention amplifies bf16 rounding into a cosine of
-    0.998 to f32 at 32 layers (0.99997 at 1), in ``svs_tpu``'s provider as
-    in the port (``tests/test_torch_decoders.py``, at 16 layers)."""
+    """A Flax decoder base tree (Llama / Mistral / Gemma, GPT-2, GPT-Neo,
+    GPT-J, BLOOM, XGLM) at ``config``'s widths with random weights from
+    the seed's generator on ``device``, as :func:`random_encoder_params`
+    makes them: token (and learned position) embeddings N(0, 0.02),
+    LayerNorms 1 and 0, RMSNorm weights 1 (Gemma's 0: its norm scales by
+    ``1 + w``), Dense kernels N(0, 1/fan_in) (GPT-2's ``FlaxConv1D``
+    kernels ``[out, in]``; the query and key kernels of the Llama family x
+    ``qk``), zero biases where the family has them; torch tensors in
+    ``dtype``, as a bf16 checkpoint holds them.  ``qk`` is 1, not the
+    encoders' ``LOCAL_QK``: mean-pooled decoder states are spread without
+    it (texts' cosines about 0.2), and with it the sharper random attention
+    amplifies bf16 rounding into a cosine of 0.998 to f32 at 32 layers
+    (0.99997 at 1), in ``svs_tpu``'s provider as in the port
+    (``tests/test_torch_decoders.py``, at 16 layers)."""
     import torch
 
-    from svs_tpu_torch.embeddings.llama import _cfg
-
-    c = _cfg(config)
+    w = decoder_widths(config)
     g = torch.Generator(device=device)
     g.manual_seed(seed)
     dt = getattr(torch, dtype)
@@ -5890,42 +6146,122 @@ def random_decoder_params(config: dict, seed: int, device: str, qk: float = 1.0,
         t = torch.randn(shape, generator=g, device=device, dtype=torch.float32)
         return t.mul_(scale).to(dt)
 
-    def dense(d_in, d_out, gain=1.0):
-        return {"kernel": normal(gain / np.sqrt(d_in), d_in, d_out)}
+    def zeros(n):
+        return torch.zeros((n,), device=device, dtype=dt)
 
-    h, inter = c["hidden_size"], c["intermediate_size"]
-    q_w, kv_w = c["num_attention_heads"] * c["head_width"], c["kv_heads"] * c["head_width"]
-    one = 0.0 if c["model_type"] == "gemma" else 1.0
+    def dense(d_in, d_out, gain=1.0, bias=True):
+        out = {"kernel": normal(gain / np.sqrt(d_in), d_in, d_out)}
+        return {**out, "bias": zeros(d_out)} if bias else out
 
-    def norm():
-        return {"weight": torch.full((h,), one, device=device, dtype=dt)}
+    def conv(d_in, d_out):  # FlaxConv1D: [features, in]
+        return {"kernel": normal(1.0 / np.sqrt(d_in), d_out, d_in), "bias": zeros(d_out)}
 
-    layers = {str(i): {
-        "input_layernorm": norm(),
-        "self_attn": {"q_proj": dense(h, q_w, qk), "k_proj": dense(h, kv_w, qk),
-                      "v_proj": dense(h, kv_w), "o_proj": dense(q_w, h)},
-        "post_attention_layernorm": norm(),
-        "mlp": {"gate_proj": dense(h, inter), "up_proj": dense(h, inter),
-                "down_proj": dense(inter, h)},
-    } for i in range(c["num_hidden_layers"])}
-    return {"embed_tokens": {"embedding": normal(0.02, c["vocab_size"], h)}, "layers": layers,
-            "norm": norm()}
+    h, n = w["hidden"], w["layers"]
+    inner = w["mlp"] // (2 * h)
+
+    def layer_norm():
+        return {"scale": torch.ones((h,), device=device, dtype=dt), "bias": zeros(h)}
+
+    def embed(rows):
+        return {"embedding": normal(0.02, rows, h)}
+
+    kind = config["model_type"]
+    if kind in ("llama", "mistral", "gemma"):
+        inter = w["mlp"] // (3 * h)
+        one = 0.0 if kind == "gemma" else 1.0
+
+        def norm():
+            return {"weight": torch.full((h,), one, device=device, dtype=dt)}
+
+        layers = {str(i): {
+            "input_layernorm": norm(),
+            "self_attn": {"q_proj": dense(h, w["q"], qk, False), "k_proj": dense(h, w["kv"], qk, False),
+                          "v_proj": dense(h, w["kv"], bias=False), "o_proj": dense(w["q"], h, bias=False)},
+            "post_attention_layernorm": norm(),
+            "mlp": {"gate_proj": dense(h, inter, bias=False), "up_proj": dense(h, inter, bias=False),
+                    "down_proj": dense(inter, h, bias=False)},
+        } for i in range(n)}
+        return {"embed_tokens": embed(config["vocab_size"]), "layers": layers, "norm": norm()}
+    vocab = config["vocab_size"]
+    if kind == "gpt2":
+        blocks = {str(i): {"ln_1": layer_norm(), "attn": {"c_attn": conv(h, 3 * h),
+                                                          "c_proj": conv(h, h)},
+                           "ln_2": layer_norm(), "mlp": {"c_fc": conv(h, inner),
+                                                        "c_proj": conv(inner, h)}}
+                  for i in range(n)}
+        return {"wte": embed(vocab), "wpe": embed(w["positions"]), "h": blocks,
+                "ln_f": layer_norm()}
+    if kind == "gpt_neo":
+        blocks = {str(i): {"ln_1": layer_norm(), "attn": {"attention": {
+            "q_proj": dense(h, h, bias=False), "k_proj": dense(h, h, bias=False),
+            "v_proj": dense(h, h, bias=False), "out_proj": dense(h, h)}},
+            "ln_2": layer_norm(), "mlp": {"c_fc": dense(h, inner), "c_proj": dense(inner, h)}}
+            for i in range(n)}
+        return {"wte": embed(vocab), "wpe": embed(w["positions"]), "h": blocks,
+                "ln_f": layer_norm()}
+    if kind == "gptj":
+        blocks = {str(i): {"ln_1": layer_norm(), "attn": {
+            p: dense(h, h, bias=False) for p in ("q_proj", "k_proj", "v_proj", "out_proj")},
+            "mlp": {"fc_in": dense(h, inner), "fc_out": dense(inner, h)}} for i in range(n)}
+        return {"wte": embed(vocab), "h": blocks, "ln_f": layer_norm()}
+    if kind == "bloom":
+        blocks = {str(i): {"input_layernorm": layer_norm(),
+                           "self_attention": {"query_key_value": dense(h, 3 * h),
+                                              "dense": dense(h, h)},
+                           "post_attention_layernorm": layer_norm(),
+                           "mlp": {"dense_h_to_4h": dense(h, 4 * h),
+                                   "dense_4h_to_h": dense(4 * h, h)}} for i in range(n)}
+        return {"word_embeddings": embed(vocab), "word_embeddings_layernorm": layer_norm(),
+                "h": blocks, "ln_f": layer_norm()}
+    layers = {str(i): {"self_attn": {p: dense(h, h) for p in
+                                     ("q_proj", "k_proj", "v_proj", "out_proj")},
+                       "self_attn_layer_norm": layer_norm(), "fc1": dense(h, inner),
+                       "fc2": dense(inner, h), "final_layer_norm": layer_norm()}
+              for i in range(n)}
+    return {"embed_tokens": embed(vocab), "layers": layers, "layer_norm": layer_norm()}
+
+
+def with_head(config: dict, tree: dict, seed: int) -> dict:
+    """``tree`` as a ``*ForCausalLM`` checkpoint holds it: under the type's
+    ``base_model_prefix``, beside an ``lm_head`` ``[hidden, vocab]``
+    N(0, 0.02) in the tree's dtype (GPT-J's with a zero bias), drawn on the
+    tree's device from ``seed``."""
+    import torch
+
+    from svs_tpu_torch.embeddings.encoders import BASE_MODEL_PREFIX
+
+    leaf = next(iter(next(iter(tree.values())).values()))
+    g = torch.Generator(device=leaf.device)
+    g.manual_seed(seed)
+    shape = (decoder_widths(config)["hidden"], config["vocab_size"])
+    head = {"kernel": torch.randn(shape, generator=g, device=leaf.device).mul_(0.02).to(leaf.dtype)}
+    if config["model_type"] == "gptj":
+        head["bias"] = torch.zeros((config["vocab_size"],), device=leaf.device, dtype=leaf.dtype)
+    return {BASE_MODEL_PREFIX[config["model_type"]]: tree, "lm_head": head}
+
+
+def cut_tree(config: dict, tree: dict, layers: int) -> dict:
+    """A base tree's first ``layers`` layers beside its embeddings and final
+    norm (no copy)."""
+    stack = decoder_widths(config)["stack"]
+    return {k: ({str(i): v[str(i)] for i in range(layers)} if k == stack else v)
+            for k, v in tree.items()}
 
 
 def decoder_flops_per_text(config: dict, seq_len: int) -> dict:
-    """The multiply-adds x 2 of one text through a Llama-family decoder at
-    ``seq_len`` tokens (``padding="max_length"``: every text is that long):
-    the projections (query, key, value, output, gate, up, down) over every
-    token, and the two attention products over every query-key pair of the
-    eager ``[L, L]`` scores."""
-    from svs_tpu_torch.embeddings.llama import _cfg
-
-    c = _cfg(config)
-    h, inter, layers = c["hidden_size"], c["intermediate_size"], c["num_hidden_layers"]
-    q_w, kv_w = c["num_attention_heads"] * c["head_width"], c["kv_heads"] * c["head_width"]
-    per_layer = h * q_w + 2 * h * kv_w + q_w * h + 3 * h * inter
+    """The multiply-adds x 2 of one text through a decoder at ``seq_len``
+    tokens (``padding="max_length"``: every text is that long): the
+    projections (query, key, value, output and the MLP's: Llama's gate, up,
+    down; the others' two) over every token, and the two attention
+    products over every query-key pair of the eager ``[L, L]`` scores
+    (GPT-Neo's local layers too: they mask, they do not skip).  GPT-J: ``4
+    h^2 + 2 h inner`` multiply-adds a token and layer, ``4 L^2 h`` FLOPs
+    of attention."""
+    w = decoder_widths(config)
+    h, layers = w["hidden"], w["layers"]
+    per_layer = 2 * h * w["q"] + 2 * h * w["kv"] + w["mlp"]
     proj = 2 * seq_len * per_layer * layers
-    attn = 2 * 2 * seq_len * seq_len * q_w * layers
+    attn = 2 * 2 * seq_len * seq_len * w["q"] * layers
     return {"projections": float(proj), "attention": float(attn), "total": float(proj + attn),
             "layer_parameters": float(per_layer * layers)}
 
@@ -5959,32 +6295,41 @@ class RssPeak:
         self.peak = max(self.peak, self._rss())
 
 
+def write_decoder_tokenizer_of(path: Path, model_type: str, size: int, seed: int) -> list:
+    """The synthetic tokenizer of a decoder type (:data:`DECODER_TOKENIZERS`)
+    at ``size`` ids: Llama-2's or Gemma's SentencePiece-style BPE
+    (:func:`write_decoder_tokenizer`), GPT-2's or BLOOM's byte-level BPE
+    (:func:`write_byte_level_bpe`), XGLM's Unigram (:func:`write_xglm_spm`).
+    Returns the words its passages draw from."""
+    layout, config = DECODER_TOKENIZERS[model_type]
+    if layout in ("llama", "gemma"):
+        return write_decoder_tokenizer(path, layout, size, seed, **config)
+    if layout == "xglm":
+        return write_xglm_spm(path, size, seed, **config)
+    return write_byte_level_bpe(path, layout, size, seed, **config)
+
+
 def write_decoder_family(work: Path, family: str, seed: int) -> tuple:
-    """The ``local_families`` checkpoint of a Llama-family entry of
+    """The ``local_families`` checkpoint of a decoder entry of
     :data:`DECODER_FAMILY_CONFIGS`, cut to ``FAMILY_LAYERS`` layers: random
-    weights from the seed on the card, written in bf16 (Llama-2's as a
-    ``*ForCausalLM`` tree with an ``lm_head``, which the provider
-    unwraps), and a synthetic tokenizer in the family's layout at its
-    vocabulary size.  Returns ``(directory, source, config)``."""
+    weights from the seed on the card, written in bf16 (Llama-2's and
+    BLOOM's as a ``*ForCausalLM`` tree with an ``lm_head``, which the
+    provider unwraps), and a synthetic tokenizer of the family's layout at
+    its vocabulary size.  Returns ``(directory, source, config)``."""
     import torch
 
     from svs_tpu_torch.embeddings.checkpoint import write_checkpoint
 
     source, published = DECODER_FAMILY_CONFIGS[family]
-    cfg = {**published, "num_hidden_layers": FAMILY_LAYERS}
+    cfg = cut_depth(published, FAMILY_LAYERS)
     ck = work / f"{family}-synthetic"
     tree = random_decoder_params(cfg, seed, "cuda")
-    if family == "llama":
-        dev = tree["norm"]["weight"].device
-        g = torch.Generator(device=dev)
-        g.manual_seed(seed + 1)
-        head = torch.randn((cfg["hidden_size"], cfg["vocab_size"]), generator=g, device=dev)
-        tree = {"model": tree, "lm_head": {"kernel": head.mul_(0.02).bfloat16()}}
+    if family in FAMILY_HEADS:
+        tree = with_head(cfg, tree, seed + 1)
     write_checkpoint(ck, cfg, tree)
     del tree
     torch.cuda.empty_cache()
-    pad = {"pad_token": "</s>"} if family == "llama" else {}
-    write_decoder_tokenizer(ck, family, cfg["vocab_size"], seed + 2, **pad)
+    write_decoder_tokenizer_of(ck, family, cfg["vocab_size"], seed + 2)
     return ck, source, cfg
 
 
@@ -5993,52 +6338,73 @@ def family_texts() -> list:
     return synthetic_texts(bert_uncased_vocab(SEED), FAMILY_TEXTS, SEED + 47)
 
 
+def family_max_length(family: str) -> int:
+    return FAMILY_MAX_LENGTHS.get(family, FAMILY_MAX_LENGTH)
+
+
 def family_cpu_references(models: dict, texts: list) -> dict:
     """The port's f32 run on the CPU of each directory of ``models``
-    (``{family: directory}``): ``{family: vectors}``, and ``"s"``."""
+    (``{family: directory}``, each at its ``max_length``): ``{family:
+    vectors}``, and ``"s"``."""
     import svs_tpu_torch
 
     t = time.perf_counter()
     refs: dict = {}
     for family, ck in models.items():
         fn = svs_tpu_torch.make_local_embeddings_func(
-            str(ck), max_length=FAMILY_MAX_LENGTH, compute_dtype="float32", device="cpu")
+            str(ck), max_length=family_max_length(family), compute_dtype="float32",
+            device="cpu")
         refs[family] = np.asarray(asyncio.run(fn(texts)), np.float32)
     refs["s"] = time.perf_counter() - t
     return refs
 
 
-def local_mistral_phase(work: Path, out: dict) -> dict:
-    """A store on the card at ``intfloat/e5-mistral-7b-instruct``'s widths
-    and depth (``E5_MISTRAL``: 7.11B parameters, random weights from the
+def local_mistral_phase(work: Path, out: dict) -> None:
+    """The e5-mistral-7b-instruct store (:func:`local_decoder_phase`)."""
+    local_decoder_phase(work, out, "local_mistral")
+
+
+def local_gptj_phase(work: Path, out: dict) -> dict:
+    """The GPT-J-6B store (:func:`local_decoder_phase`); returns
+    ``local_families``' checkpoints and CPU vectors."""
+    return local_decoder_phase(work, out, "local_gptj")
+
+
+def local_decoder_phase(work: Path, out: dict, label: str) -> dict:
+    """A store on the card through a decoder (:data:`LOCAL_DECODERS`:
+    ``local_mistral`` at ``intfloat/e5-mistral-7b-instruct``'s widths, its
+    depth cut to ``LOCAL_MISTRAL_LAYERS``; ``local_gptj`` at
+    ``EleutherAI/gpt-j-6b``'s widths and depth): random weights from the
     seed's generator on the card, written as a sharded bf16 Flax checkpoint
-    of two shards and read back through the provider into f32 on the card;
-    a synthetic 32,000-piece BPE ``tokenizer.json`` in Llama-2's layout;
-    mean pooling, ``max_length`` 128, batch 128, bf16):
-    ``LOCAL_MISTRAL_DOCS`` passages of 8-120 words embedded and written
-    through ``KB.bulk_add_docs``; f32 on the card against f32 on the CPU
-    for ``LOCAL_MISTRAL_PARITY_TEXTS`` texts on a cut of the checkpoint to
-    ``LOCAL_MISTRAL_CPU_LAYERS`` layers (within ``LOCAL_F32_ATOL``); the
-    stored bf16 rows of ``LOCAL_MISTRAL_BF16_TEXTS`` texts against the
-    card's own f32 run at full depth (within ``LOCAL_MISTRAL_BF16_ATOL``,
-    cosine at least ``LOCAL_MISTRAL_BF16_MIN_COS``); ``retrieve_batch`` at
-    B = 1, 8 and 64, n = 10 and 100, half the queries docs' own texts (each
-    its own top hit), exact against a scan of the stored rows; one B=64
-    call profiled (the retrieval kernels' device time per launch at d =
-    4,096); then, the 7B model freed, a store of ``LOCAL_MISTRAL_REOPEN_DOCS``
-    docs through the 2-layer cut and its reopen with no function (the same
-    answers); after the path (outside its launch count), the keyed v2
-    prescore (#3), the staged finish (#2) and v1 (#4) on the store's own
+    of two shards (GPT-J's as a ``FlaxGPTJForCausalLM`` tree) and read back
+    through the provider into f32 on the card; a synthetic tokenizer of the
+    type's layout at its vocabulary size (Llama-2's 32,000-piece BPE,
+    GPT-2's 50,400-id byte-level BPE with ``pad_token`` set); mean pooling,
+    ``max_length`` 128, batch 128, bf16: ``LOCAL_DECODER_DOCS`` passages of
+    8-120 words embedded and written through ``KB.bulk_add_docs``; f32 on
+    the card against f32 on the CPU for ``LOCAL_DECODER_PARITY_TEXTS``
+    texts on a cut of the checkpoint to ``LOCAL_DECODER_CPU_LAYERS`` layers
+    (within ``LOCAL_F32_ATOL``); the stored bf16 rows of
+    ``LOCAL_DECODER_BF16_TEXTS`` texts against the card's own f32 run at
+    the store's depth (within ``LOCAL_DECODER_BF16_ATOL``, cosine at least
+    ``LOCAL_DECODER_BF16_MIN_COS``); ``retrieve_batch`` at B = 1, 8 and 64,
+    n = 10 and 100, half the queries docs' own texts (each its own top
+    hit), exact against a scan of the stored rows; one B=64 call profiled
+    (the retrieval kernels' device time per launch at d = 4,096); then, the
+    model freed, a store of ``LOCAL_DECODER_REOPEN_DOCS`` docs through the
+    2-layer cut and its reopen with no function (the same answers); with
+    ``pack_checks``, after the path (outside its launch count), the keyed
+    v2 prescore (#3), the staged finish (#2) and v1 (#4) on the store's own
     int8 pack and the profiled call's 64 queries, each against its plain
-    version (:func:`pack_kernel_checks`).  Reports the checkpoint's write, read and upload seconds
-    and the host's resident peak during the load, the tokenizer's and the
-    encoder's texts/s, the encoder's share of its bound
-    (:func:`decoder_flops_per_text` at the bf16 peak), the write's seconds
-    and the peak device memory; fails if none of #2, #3 and #4 launched.
-    Beside the write, a CPU thread also runs the f32 references of every
-    ``local_families`` entry: returns their checkpoints (``"models"``:
-    :func:`write_families`) and CPU vectors (``"cpu"``) for
-    ``local_families_phase``."""
+    version (:func:`pack_kernel_checks`).  Reports the checkpoint's write,
+    read and upload seconds and the host's resident peak during the load,
+    the tokenizer's and the encoder's texts/s, the encoder's share of its
+    bound (:func:`decoder_flops_per_text` at the bf16 peak), the write's
+    seconds and the peak device memory; fails if none of #2, #3 and #4
+    launched.  With ``families``, a CPU thread beside the write also runs
+    the f32 references of every ``local_families`` entry: returns their
+    checkpoints (``"models"``: :func:`write_families`) and CPU vectors
+    (``"cpu"``) for ``local_families_phase``."""
     import gc
 
     import torch
@@ -6046,62 +6412,68 @@ def local_mistral_phase(work: Path, out: dict) -> dict:
     import svs_tpu_torch
     from svs_tpu_torch.embeddings.checkpoint import shard_files, write_checkpoint
 
-    res = out["paths_detail_local_mistral"] = {}
-    ck = work / "e5-mistral-synthetic"
-    ck_cut = work / "e5-mistral-synthetic-2l"
+    spec = LOCAL_DECODERS[label]
+    cfg, seed = spec["config"], spec["seed"]
+    depth = decoder_widths(cfg)["layers"]
+    res = out[f"paths_detail_{label}"] = {"source": spec["source"], "layers": depth}
+    ck = work / f"{label}-synthetic"
+    cut = depth > LOCAL_DECODER_CPU_LAYERS
+    ck_cut = work / f"{label}-synthetic-2l" if cut else ck
     t = time.perf_counter()
-    tree = random_decoder_params(E5_MISTRAL, SEED + 89, "cuda")
+    tree = random_decoder_params(cfg, seed, "cuda")
     torch.cuda.synchronize()
     res["weights_s"] = time.perf_counter() - t
     t = time.perf_counter()
-    files = write_checkpoint(ck, E5_MISTRAL, tree, max_shard_size=LOCAL_MISTRAL_SHARD_BYTES)
+    files = write_checkpoint(ck, cfg, with_head(cfg, tree, seed + 1) if spec["head"] else tree,
+                             max_shard_size=spec["shard_bytes"])
     res["checkpoint_write_s"] = time.perf_counter() - t
-    cut_layers = {str(i): tree["layers"][str(i)] for i in range(LOCAL_MISTRAL_CPU_LAYERS)}
-    write_checkpoint(ck_cut, {**E5_MISTRAL, "num_hidden_layers": LOCAL_MISTRAL_CPU_LAYERS},
-                     {"embed_tokens": tree["embed_tokens"], "layers": cut_layers,
-                      "norm": tree["norm"]})
-    del tree, cut_layers
+    if cut:
+        write_checkpoint(ck_cut, cut_depth(cfg, LOCAL_DECODER_CPU_LAYERS),
+                         cut_tree(cfg, tree, LOCAL_DECODER_CPU_LAYERS))
+    del tree
     torch.cuda.empty_cache()
     res["checkpoint_gb"] = sum(f.stat().st_size for f in files) / 1e9
     res["shards"] = [f.name for f in shard_files(ck)]
     if len(res["shards"]) < 2:
-        raise AssertionError(f"local_mistral: the checkpoint is not sharded ({res['shards']})")
+        raise AssertionError(f"{label}: the checkpoint is not sharded ({res['shards']})")
     t = time.perf_counter()
-    words = write_decoder_tokenizer(ck, "llama", E5_MISTRAL["vocab_size"], SEED + 97,
-                                    pad_token="</s>")
-    for name in ("tokenizer.json", "tokenizer_config.json"):
-        shutil.copy(ck / name, ck_cut / name)
-    texts = passages(words, LOCAL_MISTRAL_DOCS, SEED + 101, *LOCAL_MISTRAL_WORDS)
+    words = write_decoder_tokenizer_of(ck, cfg["model_type"], cfg["vocab_size"], seed + 8)
+    if cut:
+        for name in ("tokenizer.json", "tokenizer_config.json"):
+            shutil.copy(ck / name, ck_cut / name)
+    texts = passages(words, LOCAL_DECODER_DOCS, seed + 12, *LOCAL_DECODER_WORDS)
     res["tokenizer_and_texts_s"] = time.perf_counter() - t
-    # the local_families checkpoints: written now, their CPU runs beside the write
-    fam_texts = family_texts()
-    families = {"models": write_families(work)}
-    log(f"e2e local_mistral: weights on the card in {res['weights_s']:.1f} s; a "
-        f"{res['checkpoint_gb']:.2f} GB bf16 checkpoint in {len(res['shards'])} shards written in "
-        f"{res['checkpoint_write_s']:.1f} s (and a {LOCAL_MISTRAL_CPU_LAYERS}-layer cut); "
-        f"tokenizer.json and {LOCAL_MISTRAL_DOCS} texts in {res['tokenizer_and_texts_s']:.1f} s")
-    path = work / "local_mistral.sqlite"
+    families = None
+    if spec["families"]:  # the local_families checkpoints: their CPU runs beside the write
+        fam_texts = family_texts()
+        families = {"models": write_families(work)}
+    log(f"e2e {label}: weights on the card in {res['weights_s']:.1f} s; a "
+        f"{res['checkpoint_gb']:.2f} GB bf16 checkpoint of {depth} layers in "
+        f"{len(res['shards'])} shards written in {res['checkpoint_write_s']:.1f} s"
+        f"{f' (and a {LOCAL_DECODER_CPU_LAYERS}-layer cut)' if cut else ''}; tokenizer and "
+        f"{LOCAL_DECODER_DOCS} texts in {res['tokenizer_and_texts_s']:.1f} s")
+    path = work / f"{label}.sqlite"
     shapes = ((64, 10), (64, 100), (8, 10), (8, 100), (1, 10), (1, 100))
-    flops = decoder_flops_per_text(E5_MISTRAL, LOCAL_MISTRAL_MAX_LENGTH)
+    flops = decoder_flops_per_text(cfg, LOCAL_DECODER_MAX_LENGTH)
     res["gflop_per_text"] = {k: v / 1e9 for k, v in flops.items()}
     res["bound_texts_per_s"] = PEAK_OPS_PER_S["bf16"] / flops["total"]
 
     def query_texts(b, n):
-        rng = np.random.default_rng(SEED + 107 + b * 1000 + n)
-        own = rng.choice(LOCAL_MISTRAL_DOCS, b // 2 + 1 if b > 1 else 1, replace=False)
-        fresh = passages(words, b - len(own), SEED + 109 + b * 1000 + n, *LOCAL_MISTRAL_WORDS)
+        rng = np.random.default_rng(seed + 18 + b * 1000 + n)
+        own = rng.choice(LOCAL_DECODER_DOCS, b // 2 + 1 if b > 1 else 1, replace=False)
+        fresh = passages(words, b - len(own), seed + 20 + b * 1000 + n, *LOCAL_DECODER_WORDS)
         return [texts[i] for i in own] + fresh, [int(i) for i in own]
 
     def provider(model, dtype, device):
         return svs_tpu_torch.make_local_embeddings_func(
-            str(model), pooling="mean", max_length=LOCAL_MISTRAL_MAX_LENGTH,
-            batch_size=LOCAL_MISTRAL_BATCH, compute_dtype=dtype, device=device)
+            str(model), pooling="mean", max_length=LOCAL_DECODER_MAX_LENGTH,
+            batch_size=LOCAL_DECODER_BATCH, compute_dtype=dtype, device=device)
 
     def embed(fn, batch):
         return np.asarray(asyncio.run(fn(list(batch))), np.float32)
 
     def run():
-        sample = texts[:LOCAL_MISTRAL_PARITY_TEXTS]
+        sample = texts[:LOCAL_DECODER_PARITY_TEXTS]
         cpu_run: dict = {}
 
         def cpu_reference():
@@ -6109,16 +6481,19 @@ def local_mistral_phase(work: Path, out: dict) -> dict:
                 t = time.perf_counter()
                 cpu_run["cut"] = embed(provider(ck_cut, "float32", "cpu"), sample)
                 cpu_run["s"] = time.perf_counter() - t
-                cpu_run["families"] = family_cpu_references(
-                    {f: v[0] for f, v in families["models"].items()}, fam_texts)
+                if families is not None:
+                    cpu_run["families"] = family_cpu_references(
+                        {f: v[0] for f, v in families["models"].items()}, fam_texts)
             except BaseException as exc:  # re-raised below
                 cpu_run["error"] = exc
 
-        torch.set_num_threads(os.cpu_count() or 1)
-        cpu_thread = threading.Thread(target=cpu_reference, name="local_mistral_cpu", daemon=True)
+        # two cores left to this thread's host work (the tokenizer, the
+        # store's writes) beside the CPU references
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) - 2))
+        cpu_thread = threading.Thread(target=cpu_reference, name=f"{label}_cpu", daemon=True)
         cpu_thread.start()
         fn = provider(ck, "bfloat16", "cuda")
-        with RssPeak() as rss:  # the load: read the shards, upload 28.4 GB
+        with RssPeak() as rss:  # the load: read the shards, upload in f32
             torch.cuda.synchronize()
             t = time.perf_counter()
             fn.encoder._load()
@@ -6127,7 +6502,7 @@ def local_mistral_phase(work: Path, out: dict) -> dict:
         res["load_host_rss_gb"] = {"before": rss.start, "peak": rss.peak}
         res["load_read_s"] = fn.encoder.stats["read_s"]
         res["load_upload_s"] = fn.encoder.stats["upload_s"]
-        rows, ids, base = write_provider_store(path, fn, texts, res, "local_mistral")
+        rows, ids, base = write_provider_store(path, fn, texts, res, label)
         res["load_s"] = load_s  # write_provider_store timed the loaded encoder again
         st = res["encoder_stats"]
         res["encoder_share_of_bound"] = res["encoder_texts_per_s"] / res["bound_texts_per_s"]
@@ -6135,11 +6510,11 @@ def local_mistral_phase(work: Path, out: dict) -> dict:
         lens = [len(tok.encode(x, 1 << 20)) for x in texts[:2000]]
         res["tokens_p50_p99_max"] = [float(np.percentile(lens, 50)), float(np.percentile(lens, 99)),
                                      max(lens)]
-        res["past_max_length"] = float(np.mean(np.asarray(lens) > LOCAL_MISTRAL_MAX_LENGTH))
-        log(f"e2e local_mistral: load {res['load_s']:.1f} s (read and convert "
+        res["past_max_length"] = float(np.mean(np.asarray(lens) > LOCAL_DECODER_MAX_LENGTH))
+        log(f"e2e {label}: load {res['load_s']:.1f} s (read and convert "
             f"{res['load_read_s']:.1f} s, upload {res['load_upload_s']:.1f} s; host RSS "
             f"{res['load_host_rss_gb']['before']:.1f} -> peak {res['load_host_rss_gb']['peak']:.1f} "
-            f"GB); {LOCAL_MISTRAL_DOCS} docs embedded and written in "
+            f"GB); {LOCAL_DECODER_DOCS} docs embedded and written in "
             f"{res['write_s']:.1f} s ({res['write_docs_per_s']:.0f} docs/s); tokenizer "
             f"{st['tokenize_s']:.1f} s ({res['tokenizer_texts_per_s']:.0f} texts/s), encoder "
             f"(bf16, host clock to the result) {st['forward_s']:.1f} s "
@@ -6147,15 +6522,15 @@ def local_mistral_phase(work: Path, out: dict) -> dict:
             f"of the {res['bound_texts_per_s']:.1f} texts/s bound: "
             f"{res['gflop_per_text']['total']:.1f} GFLOP a text at 989 TFLOP/s); tokens "
             f"p50/p99/max {res['tokens_p50_p99_max']}, {100 * res['past_max_length']:.1f}% past "
-            f"{LOCAL_MISTRAL_MAX_LENGTH}; encoder peak {res['encoder_peak_mb']:.1f} MB above "
+            f"{LOCAL_DECODER_MAX_LENGTH}; encoder peak {res['encoder_peak_mb']:.1f} MB above "
             f"{base / 1e6:.1f} MB, device peak {res['device_peak_mb']:.1f} MB")
         if res["past_max_length"] <= 0:
-            raise AssertionError("local_mistral: no text passes max_length (the truncation is not driven)")
+            raise AssertionError(f"{label}: no text passes max_length (the truncation is not driven)")
         # where the encoder's time goes: one batch of the write profiled
-        ids_b, mask_b = tok.batch(texts[:LOCAL_MISTRAL_BATCH], LOCAL_MISTRAL_MAX_LENGTH)
+        ids_b, mask_b = tok.batch(texts[:LOCAL_DECODER_BATCH], LOCAL_DECODER_MAX_LENGTH)
         prof = res["encoder_profile"] = device_idle_share(lambda: fn.encoder.forward(ids_b, mask_b))
         window = prof["profile"]
-        log(f"e2e local_mistral: one batch of {LOCAL_MISTRAL_BATCH} profiled: "
+        log(f"e2e {label}: one batch of {LOCAL_DECODER_BATCH} profiled: "
             f"{window['wall_ms']:.1f} ms, kernels {window.get('kernel_ms')} ms in "
             f"{window.get('kernel_launches')} launches (unprofiled {prof['unprofiled_wall_ms']:.1f} ms)")
         for name, k in window.get("top_kernels", {}).items():
@@ -6165,9 +6540,9 @@ def local_mistral_phase(work: Path, out: dict) -> dict:
         f32fn = provider(ck, "float32", "cuda")
         f32fn.encoder._loaded = fn.encoder._loaded
         t = time.perf_counter()
-        f32 = embed(f32fn, texts[:LOCAL_MISTRAL_BF16_TEXTS])
+        f32 = embed(f32fn, texts[:LOCAL_DECODER_BF16_TEXTS])
         res["f32_full_depth_s"] = time.perf_counter() - t
-        bf = rows[:LOCAL_MISTRAL_BF16_TEXTS]
+        bf = rows[:LOCAL_DECODER_BF16_TEXTS]
         res["bf16_max_abs_err"] = float(np.abs(bf - f32).max())
         res["bf16_min_cos"] = float((bf * f32).sum(axis=1).min())
         del f32fn
@@ -6176,27 +6551,28 @@ def local_mistral_phase(work: Path, out: dict) -> dict:
         res["cpu_wait_s"] = time.perf_counter() - t
         if "error" in cpu_run:
             raise cpu_run["error"]
-        families["cpu"] = cpu_run["families"]
+        if families is not None:
+            families["cpu"] = cpu_run["families"]
         res["cpu_f32_s"] = cpu_run["s"]
         f32_cut = embed(provider(ck_cut, "float32", "cuda"), sample)
         res["f32_max_abs_err"] = float(np.abs(f32_cut - cpu_run["cut"]).max())
-        log(f"e2e local_mistral: f32 on the card ({LOCAL_MISTRAL_CPU_LAYERS}-layer cut, "
-            f"{LOCAL_MISTRAL_PARITY_TEXTS} texts) vs the CPU ({res['cpu_f32_s']:.1f} s beside the "
+        log(f"e2e {label}: f32 on the card ({LOCAL_DECODER_CPU_LAYERS}-layer cut, "
+            f"{LOCAL_DECODER_PARITY_TEXTS} texts) vs the CPU ({res['cpu_f32_s']:.1f} s beside the "
             f"write, {res['cpu_wait_s']:.1f} s waited for after it): max |err| "
             f"{res['f32_max_abs_err']:.3g} (tolerance {LOCAL_F32_ATOL}); the stored bf16 rows vs the "
-            f"card's f32 run at {E5_MISTRAL['num_hidden_layers']} layers "
-            f"({LOCAL_MISTRAL_BF16_TEXTS} texts, {res['f32_full_depth_s']:.1f} s): max |err| "
-            f"{res['bf16_max_abs_err']:.3g} (tolerance {LOCAL_MISTRAL_BF16_ATOL}), min cosine "
-            f"{res['bf16_min_cos']:.6f} (at least {LOCAL_MISTRAL_BF16_MIN_COS})")
+            f"card's f32 run at {depth} layers ({LOCAL_DECODER_BF16_TEXTS} texts, "
+            f"{res['f32_full_depth_s']:.1f} s): max |err| {res['bf16_max_abs_err']:.3g} (tolerance "
+            f"{LOCAL_DECODER_BF16_ATOL}), min cosine {res['bf16_min_cos']:.6f} (at least "
+            f"{LOCAL_DECODER_BF16_MIN_COS})")
         if res["f32_max_abs_err"] > LOCAL_F32_ATOL:
-            raise AssertionError("local_mistral: f32 on the card disagrees with the CPU")
-        if (res["bf16_max_abs_err"] > LOCAL_MISTRAL_BF16_ATOL
-                or res["bf16_min_cos"] < LOCAL_MISTRAL_BF16_MIN_COS):
-            raise AssertionError("local_mistral: the stored bf16 rows disagree with f32")
+            raise AssertionError(f"{label}: f32 on the card disagrees with the CPU")
+        if (res["bf16_max_abs_err"] > LOCAL_DECODER_BF16_ATOL
+                or res["bf16_min_cos"] < LOCAL_DECODER_BF16_MIN_COS):
+            raise AssertionError(f"{label}: the stored bf16 rows disagree with f32")
         # then the retrieval kernels at d = 4,096 in situ: a B=64 call at
         # n=10 (the keyed v2 prescore #3 and the staged finish #2) and one
         # at n=100 (v1, #4) profiled together, the width hints cleared
-        qs = passages(words, 64, SEED + 113, *LOCAL_MISTRAL_WORDS)
+        qs = passages(words, 64, seed + 24, *LOCAL_DECODER_WORDS)
 
         def profile(kb):
             def calls():
@@ -6212,11 +6588,11 @@ def local_mistral_phase(work: Path, out: dict) -> dict:
                         qv=torch.from_numpy(embed(fn, qs)).to(corpus.data.device),
                         c=kb.engine.candidate_count(10))
 
-        query_provider_store(path, fn, rows, ids, shapes, query_texts, res, "local_mistral",
+        query_provider_store(path, fn, rows, ids, shapes, query_texts, res, label,
                              reopen=False, after=profile)
         prof = res["profiled_B64_n100"]
         window = prof["profile"]
-        log(f"e2e local_mistral: profiled B=64 at n=10 and n=100 {window['wall_ms']:.2f} ms, kernels "
+        log(f"e2e {label}: profiled B=64 at n=10 and n=100 {window['wall_ms']:.2f} ms, kernels "
             f"{window.get('kernel_ms')} ms (idle share {window['idle_share']})")
         for name, k in window.get("top_kernels", {}).items():
             log(f"  {k['ms']:.3f} ms = {k['launches']} x {k['us_per_launch']:.2f} us  {name}")
@@ -6224,32 +6600,33 @@ def local_mistral_phase(work: Path, out: dict) -> dict:
         gc.collect()
         torch.cuda.empty_cache()
         # the reopen with no function, on the 2-layer cut's own store
-        small = work / "local_mistral_2l.sqlite"
+        small = work / f"{label}_2l.sqlite"
         cut_res = res["cut_store"] = {}
         fn_cut = provider(ck_cut, "bfloat16", "cuda")
-        small_texts = texts[:LOCAL_MISTRAL_REOPEN_DOCS]
+        small_texts = texts[:LOCAL_DECODER_REOPEN_DOCS]
         rows_cut, ids_cut, _ = write_provider_store(small, fn_cut, small_texts, cut_res,
-                                                    "local_mistral_2l")
+                                                    f"{label}_2l")
 
         def small_queries(b, n):
             own = list(range(0, 2 * b, 2))[: b // 2 + 1 if b > 1 else 1]
-            fresh = passages(words, b - len(own), SEED + 127 + b, *LOCAL_MISTRAL_WORDS)
+            fresh = passages(words, b - len(own), seed + 38 + b, *LOCAL_DECODER_WORDS)
             return [small_texts[i] for i in own] + fresh, own
 
         query_provider_store(small, fn_cut, rows_cut, ids_cut, ((64, 10), (8, 10), (1, 10)),
-                             small_queries, cut_res, "local_mistral_2l")
+                             small_queries, cut_res, f"{label}_2l")
 
     held: dict = {}
-    drive_path("local_mistral", [], run, out)
-    counts = out["paths"]["local_mistral"]["launches"]
+    drive_path(label, [], run, out)
+    counts = out["paths"][label]["launches"]
     launched = {k: counts[k] for k in ("_staged_finish", "_fused2_extract_int8", "_fused_extract_int8")}
     res["hand_kernel_launches"] = launched
     if not any(launched.values()):
-        raise AssertionError(f"local_mistral: none of #2, #3, #4 launched: {launched}")
-    log(f"e2e local_mistral: #3, #2 and #4 on the store's pack against their plain versions "
-        f"(B={held['qv'].shape[0]}, C={held['c']} at n=10)")
-    pack_kernel_checks("local_mistral", held["docs"], held["scales"], held["qv"],
-                       held["n_valid"], held["c"], out)
+        raise AssertionError(f"{label}: none of #2, #3, #4 launched: {launched}")
+    if spec["pack_checks"]:
+        log(f"e2e {label}: #3, #2 and #4 on the store's pack against their plain versions "
+            f"(B={held['qv'].shape[0]}, C={held['c']} at n=10)")
+        pack_kernel_checks(label, held["docs"], held["scales"], held["qv"],
+                           held["n_valid"], held["c"], out)
     del held
     shutil.rmtree(ck, ignore_errors=True)
     shutil.rmtree(ck_cut, ignore_errors=True)
@@ -6320,7 +6697,7 @@ def main() -> int:
         finally:
             shutil.rmtree(work, ignore_errors=True)
 
-    if e2e is not None:  # the kernels' checks on a path's own pack (local_mistral's)
+    if e2e is not None:  # the kernels' checks on a path's own pack (local_gptj's)
         for name, recs in e2e.pop("kernel_records", {}).items():
             records[name].extend(recs)
     kernels_json = []

@@ -192,7 +192,15 @@ _FLAX_TOP = {
     "llama": ("embed_tokens", "layers", "norm"),
     "mistral": ("embed_tokens", "layers", "norm"),
     "gemma": ("embed_tokens", "layers", "norm"),
+    "gpt2": ("wte", "wpe", "h", "ln_f"),
+    "gpt_neo": ("wte", "wpe", "h", "ln_f"),
+    "gptj": ("wte", "h", "ln_f"),
+    "bloom": ("word_embeddings", "word_embeddings_layernorm", "h", "ln_f"),
+    "xglm": ("embed_tokens", "layers", "layer_norm"),
 }
+#: The families whose kernels are ``FlaxConv1D``'s ``[out, in]`` (GPT-2's),
+#: taken as they are.
+_CONV1D = ("gpt2",)
 
 
 def _tensor(arr: Any) -> torch.Tensor:
@@ -204,16 +212,18 @@ def _tensor(arr: Any) -> torch.Tensor:
     return torch.from_numpy(a)
 
 
-def decoder_state_dict_from_flax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-    """A Flax Llama / Mistral / Gemma base tree (``embed_tokens.embedding``,
-    ``layers.N.{input_layernorm, post_attention_layernorm}.weight``,
-    ``layers.N.self_attn.{q,k,v,o}_proj.{kernel, bias}``,
-    ``layers.N.mlp.{gate,up,down}_proj.kernel``, ``norm.weight``) as the
-    state dict of :class:`svs_tpu_torch.embeddings.llama.LlamaEncoder`.
+def decoder_state_dict_from_flax(params: Dict[str, Any], conv1d: bool = False
+                                  ) -> Dict[str, torch.Tensor]:
+    """A Flax decoder's base tree as the state dict of the port's decoder
+    (:mod:`svs_tpu_torch.embeddings.llama`, ``gpt2``, ``gpt_neo``,
+    ``gptj``, ``bloom``, ``xglm``), leaf by leaf under the same names.
     Nothing is copied: a Dense ``kernel [in, out]`` becomes the transposed
     view ``weight [out, in]`` (moved to the card with its strides, one
-    contiguous copy), ``embedding`` and the norms' ``weight`` carry
-    across; at 7.11B parameters a copy costs seconds and 28 GB."""
+    contiguous copy); with ``conv1d`` (GPT-2's ``FlaxConv1D``, whose kernel
+    is ``[out, in]`` already) a kernel is taken as it is; ``embedding``,
+    a LayerNorm's ``scale`` and a norm's ``weight`` become ``weight``,
+    ``bias`` stays.  BLOOM's fused ``query_key_value`` keeps its per-head
+    layout.  At 7.11B parameters a copy costs seconds and 28 GB."""
     out: Dict[str, torch.Tensor] = {}
 
     def walk(tree: Dict[str, Any], prefix: str) -> None:
@@ -223,9 +233,9 @@ def decoder_state_dict_from_flax(params: Dict[str, Any]) -> Dict[str, torch.Tens
             elif name == "kernel":
                 if np.ndim(value) != 2:
                     raise ValueError(f"{prefix}kernel: expected a 2-D Dense kernel, got {np.shape(value)}")
-                out[prefix + "weight"] = _tensor(value).T
-            elif name in ("embedding", "weight", "bias"):
-                out[prefix + ("weight" if name == "embedding" else name)] = _tensor(value)
+                out[prefix + "weight"] = _tensor(value) if conv1d else _tensor(value).T
+            elif name in ("embedding", "scale", "weight", "bias"):
+                out[prefix + ("bias" if name == "bias" else "weight")] = _tensor(value)
             else:
                 raise ValueError(f"unexpected Flax parameter {prefix}{name}")
 
@@ -248,17 +258,22 @@ def encoder_state_dict_from_flax(
     albert_layers.I.{attention.{query,key,value,dense,LayerNorm}, ffn,
     ffn_output, full_layer_layer_norm}}``; RoBERTa-PreLayerNorm's adds the
     final ``LayerNorm``; BigBird's is BERT's.  The pooler (a subtree, or
-    ALBERT's and BigBird's flat Dense) is dropped.  Llama, Mistral and
-    Gemma trees (``embed_tokens``, ``layers``, ``norm``) go through
-    :func:`decoder_state_dict_from_flax`.  A subtree the family does not
-    have raises ``ValueError``."""
+    ALBERT's and BigBird's flat Dense) is dropped.  The decoders' trees
+    (Llama / Mistral / Gemma ``embed_tokens``, ``layers``, ``norm``;
+    GPT-2 / GPT-Neo ``wte``, ``wpe``, ``h``, ``ln_f``; GPT-J's without
+    ``wpe``; BLOOM ``word_embeddings``, ``word_embeddings_layernorm``,
+    ``h``, ``ln_f``; XGLM ``embed_tokens``, ``layers``, ``layer_norm``) go
+    through :func:`decoder_state_dict_from_flax`.  A subtree the family
+    does not have raises ``ValueError``."""
     model_type = config.get("model_type")
     if model_type not in _FLAX_TOP:
         raise NotImplementedError(f"model_type {model_type!r} has no weight conversion")
-    decoder = _FLAX_TOP[model_type][0] == "embed_tokens"
+    from .embeddings.encoders import DECODER_TYPES
+
+    decoder = model_type in DECODER_TYPES
     extra = sorted(set(params) - set(_FLAX_TOP[model_type]) - (set() if decoder else {"pooler"}))
     if extra:
         raise ValueError(f"unexpected subtrees {extra} in a {model_type} checkpoint")
     if decoder:
-        return decoder_state_dict_from_flax(params)
+        return decoder_state_dict_from_flax(params, conv1d=model_type in _CONV1D)
     return bert_state_dict_from_flax(params)

@@ -4,7 +4,8 @@ the params a database stores (``svs_tpu.embeddings.make_embeddings_func``).
 The four providers of ``svs_tpu``: ``mock``, ``openai`` and ``ollama``
 (through a standard-library HTTP transport) and ``local`` (an encoder on
 the card: the BERT family, DistilBERT, ALBERT, BigBird, or a Llama /
-Mistral / Gemma decoder, from a single-file or sharded Flax checkpoint).
+Mistral / Gemma, GPT-2 / GPT-Neo / GPT-J, BLOOM or XGLM decoder, from a
+single-file or sharded Flax checkpoint).
 Each factory returns an async ``List[str] ->
 List[List[float]]`` tagged with ``__embedding_func_params__``, so a
 database written by either package reopens in the other with no function

@@ -15,7 +15,8 @@ provider loads through ``FlaxAutoModel.from_pretrained``.
   ext type 1 = an ndarray (``(shape, dtype name, C-order bytes)``, itself
   MessagePack; bf16 leaves read as f32, converted on torch's threads); an
   array past 2^30 bytes is stored as a ``{'__msgpack_chunked_array__':
-  True, 'shape', 'chunks'}`` dict and is joined back here.
+  True, 'shape', 'chunks'}`` dict of 1-D chunks of at most 2^30 bytes
+  (``flax.serialization._chunk``), joined back on reading and written so.
 """
 
 from __future__ import annotations
@@ -37,6 +38,8 @@ FLAX_WEIGHTS_INDEX = "flax_model.msgpack.index.json"
 CONFIG = "config.json"
 _EXT_NDARRAY = 1
 _CHUNKED = "__msgpack_chunked_array__"
+#: ``flax.serialization.MAX_CHUNK_SIZE``: a larger leaf is written in chunks.
+MAX_CHUNK_BYTES = 1 << 30
 
 
 # -- MessagePack ----------------------------------------------------------------
@@ -224,19 +227,39 @@ def _pack_chunks(obj: Any, chunks: List[Any]) -> None:
                 _pack(value, head)
     elif isinstance(obj, (np.ndarray, torch.Tensor)):
         arr, name = _leaf(obj)
-        if arr.nbytes > 1 << 30:
-            raise ValueError("arrays past 2^30 bytes are not written here")
-        inner = bytearray(b"\xdd" + struct.pack(">I", 3))
-        _pack([int(s) for s in arr.shape], inner)
-        _pack(name, inner)
-        inner += b"\xc6" + struct.pack(">I", arr.nbytes)
-        chunks.append(b"\xc9" + struct.pack(">I", len(inner) + arr.nbytes)
-                      + struct.pack(">b", _EXT_NDARRAY) + bytes(inner))
-        chunks.append(memoryview(arr.reshape(-1)).cast("B"))
+        if arr.nbytes <= MAX_CHUNK_BYTES:
+            _pack_array(arr, name, chunks)
+            return
+        # Flax's _chunk: the flat array's slices of at most MAX_CHUNK_BYTES
+        flat, step = arr.reshape(-1), max(1, MAX_CHUNK_BYTES // arr.itemsize)
+        parts = [flat[i:i + step] for i in range(0, flat.size, step)]
+        head = bytearray(b"\xdf" + struct.pack(">I", 3))
+        for item in (_CHUNKED, True, "shape", {str(i): int(d) for i, d in enumerate(arr.shape)},
+                     "chunks"):
+            _pack(item, head)
+        head += b"\xdf" + struct.pack(">I", len(parts))
+        chunks.append(head)
+        for i, part in enumerate(parts):
+            key = bytearray()
+            _pack(str(i), key)
+            chunks.append(key)
+            _pack_array(part, name, chunks)
     else:
         head = bytearray()
         _pack(obj, head)
         chunks.append(head)
+
+
+def _pack_array(arr: np.ndarray, name: str, chunks: List[Any]) -> None:
+    """One ext-1 ndarray (``arr``'s C-order data, its dtype ``name``), the
+    data as a view."""
+    inner = bytearray(b"\xdd" + struct.pack(">I", 3))
+    _pack([int(s) for s in arr.shape], inner)
+    _pack(name, inner)
+    inner += b"\xc6" + struct.pack(">I", arr.nbytes)
+    chunks.append(b"\xc9" + struct.pack(">I", len(inner) + arr.nbytes)
+                  + struct.pack(">b", _EXT_NDARRAY) + bytes(inner))
+    chunks.append(memoryview(arr.reshape(-1)).cast("B"))
 
 
 def packb(tree: Any) -> bytes:
@@ -354,7 +377,8 @@ def load_checkpoint(model_dir: Union[str, Path]) -> Tuple[Dict[str, Any], Dict[s
     checkpoint holds the base model under its family's
     ``base_model_prefix`` (:data:`.encoders.BASE_MODEL_PREFIX`: ``bert``,
     ``roberta``, ...; ``model`` for the ``*ForCausalLM`` trees of Llama,
-    Mistral and Gemma), and that wrapper is unwrapped as
+    Mistral, Gemma and XGLM, ``transformer`` for GPT-2's, GPT-Neo's,
+    GPT-J's and BLOOM's), and that wrapper is unwrapped as
     ``FlaxAutoModel.from_pretrained`` unwraps it (:func:`unwrap_head`)."""
     config = read_config(model_dir)
     files = shard_files(model_dir)
@@ -370,16 +394,19 @@ def load_checkpoint(model_dir: Union[str, Path]) -> Tuple[Dict[str, Any], Dict[s
 
 def unwrap_head(config: Dict[str, Any], params: Dict[str, Any]) -> Dict[str, Any]:
     """The base model's tree of ``params``: itself when it holds the base
-    model's embeddings (``embeddings``; a decoder's ``embed_tokens``), else
-    the subtree under ``config``'s ``base_model_prefix``.  An XLM-R tree
+    model's embeddings at its top (``embeddings``; a decoder's
+    ``embed_tokens``, ``wte`` or ``word_embeddings``:
+    :data:`.encoders.BASE_TREE_KEY`), else the subtree under ``config``'s
+    ``base_model_prefix`` (a ``*ForCausalLM`` / ``*LMHeadModel`` tree's
+    ``model`` or ``transformer``, its ``lm_head`` left out).  An XLM-R tree
     wrapped under ``roberta`` (the attribute name of ``transformers``' XLM-R
     heads) is refused: ``FlaxAutoModel`` looks for ``xlm-roberta`` there,
     finds no weights and initialises the model at random, which the port
     cannot reproduce."""
-    from .encoders import BASE_MODEL_PREFIX, DECODER_TYPES
+    from .encoders import BASE_MODEL_PREFIX, BASE_TREE_KEY
 
     model_type = str(config.get("model_type"))
-    if ("embed_tokens" if model_type in DECODER_TYPES else "embeddings") in params:
+    if BASE_TREE_KEY.get(model_type, "embeddings") in params:
         return params
     prefix = BASE_MODEL_PREFIX.get(model_type)
     if prefix is not None and isinstance(params.get(prefix), dict):

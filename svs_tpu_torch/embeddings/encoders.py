@@ -16,14 +16,19 @@ provider runs with ``input_ids`` and ``attention_mask`` alone):
 and the decoder-only types whose last hidden state it pools:
 
 - ``llama``, ``mistral`` (its sliding window as Flax computes it) and
-  ``gemma``: :mod:`.llama`.
+  ``gemma``: :mod:`.llama`;
+- ``gpt2``: :mod:`.gpt2`; ``gpt_neo`` (local-attention layers):
+  :mod:`.gpt_neo`; ``gptj`` (partial rotary positions, the parallel
+  block): :mod:`.gptj`; ``bloom`` (ALiBi): :mod:`.bloom`; ``xglm``
+  (sinusoidal positions): :mod:`.xglm`.
 
-``FlaxAutoModel`` also loads ``roformer`` and the other decoder-only and
-encoder-decoder types, which are not ported: each raises
+``FlaxAutoModel`` also loads ``roformer`` and the encoder-decoder types,
+which are not ported: each raises
 ``NotImplementedError`` naming the type and what it would need
 (:data:`UNPORTED`), as does every other type and every ``hidden_act`` /
-``activation``, ``position_embedding_type``, BigBird ``attention_type``
-or decoder width that the encoders do not compute or on which Flax fails.
+``activation``, ``position_embedding_type``, BigBird ``attention_type``,
+decoder width, head count or rotary width that the encoders do not
+compute or on which Flax fails.
 """
 
 from __future__ import annotations
@@ -33,7 +38,7 @@ from typing import Any, Dict
 import torch
 from torch import nn
 
-from . import albert, bert, big_bird, distilbert, llama
+from . import albert, bert, big_bird, bloom, distilbert, gpt2, gpt_neo, gptj, llama, xglm
 
 #: ``model_type`` -> the key under which a head model's Flax checkpoint
 #: holds the base model (``transformers``' ``base_model_prefix``).
@@ -49,20 +54,28 @@ BASE_MODEL_PREFIX = {
     "llama": "model",
     "mistral": "model",
     "gemma": "model",
+    "gpt2": "transformer",
+    "gpt_neo": "transformer",
+    "gptj": "transformer",
+    "bloom": "transformer",
+    "xglm": "model",
 }
 MODEL_TYPES = tuple(BASE_MODEL_PREFIX)
-#: The decoder-only types: their base tree holds ``embed_tokens``,
-#: ``layers`` and ``norm`` (an encoder's holds ``embeddings``).
-DECODER_TYPES = llama.MODEL_TYPES
+#: The decoder-only types (no pooler, no token types).
+DECODER_TYPES = (llama.MODEL_TYPES + gpt2.MODEL_TYPES + gpt_neo.MODEL_TYPES + gptj.MODEL_TYPES
+                 + bloom.MODEL_TYPES + xglm.MODEL_TYPES)
+#: The key that a base model's tree holds at its top and a head model's
+#: does not (``embeddings`` for the encoders): how
+#: :func:`.checkpoint.unwrap_head` tells the two apart.
+BASE_TREE_KEY = {
+    **{t: "embed_tokens" for t in llama.MODEL_TYPES + xglm.MODEL_TYPES},
+    **{t: "wte" for t in gpt2.MODEL_TYPES + gpt_neo.MODEL_TYPES + gptj.MODEL_TYPES},
+    "bloom": "word_embeddings",
+}
 #: Types that ``FlaxAutoModel`` loads and the port does not run, with what
 #: they would need.
 UNPORTED = {
     "roformer": "rotary position embeddings, and a tokenizer that needs rjieba",
-    "gpt2": "a decoder with learned positions",
-    "gpt_neo": "a decoder with learned positions and local-attention layers",
-    "gptj": "a decoder with partial rotary positions and a parallel block",
-    "bloom": "a decoder with ALiBi positions",
-    "xglm": "a decoder with sinusoidal positions",
     "bart": "an encoder-decoder stack run through its decoder",
     "mbart": "an encoder-decoder stack run through its decoder",
     "pegasus": "an encoder-decoder stack run through its decoder",
@@ -80,6 +93,11 @@ _ENCODERS = {
     "albert": (albert.AlbertEncoder, albert.check_config),
     "big_bird": (big_bird.BigBirdEncoder, big_bird.check_config),
     **{t: (llama.LlamaEncoder, llama.check_config) for t in llama.MODEL_TYPES},
+    "gpt2": (gpt2.GPT2Encoder, gpt2.check_config),
+    "gpt_neo": (gpt_neo.GPTNeoEncoder, gpt_neo.check_config),
+    "gptj": (gptj.GPTJEncoder, gptj.check_config),
+    "bloom": (bloom.BloomEncoder, bloom.check_config),
+    "xglm": (xglm.XGLMEncoder, xglm.check_config),
 }
 
 

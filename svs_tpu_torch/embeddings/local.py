@@ -10,7 +10,8 @@ port reads the same files with no ``transformers``, ``tokenizers`` or
   (:func:`.tokenizer_json.load_tokenizer`): ``tokenizer.json`` through
   :mod:`.tokenizer_json` (WordPiece, byte-level BPE, SentencePiece-style
   BPE with byte fallback, or Unigram, with the ``Precompiled``
-  normalizer; Llama's and Gemma's left padding), else ``vocab.txt``
+  normalizer; Llama's and Gemma's left padding; the GPT-2, BLOOM and XGLM
+  classes' special tokens), else ``vocab.txt``
   through :mod:`.wordpiece`, else ``vocab.json`` + ``merges.txt`` through
   :mod:`.bpe`; a SentencePiece model alone is refused;
 - the weights from ``flax_model.msgpack``, or from the shards of a
@@ -21,11 +22,12 @@ port reads the same files with no ``transformers``, ``tokenizers`` or
   (``bge-m3``, ``multilingual-e5-*``), ``roberta``
   (``all-distilroberta-v1``), ``distilbert`` (``msmarco-distilbert-*``),
   ``electra``, ``albert``, ``roberta-prelayernorm``, ``big_bird``, and
-  the decoders ``llama``, ``mistral`` (``e5-mistral-7b-instruct``) and
-  ``gemma`` (their last hidden state pooled as an encoder's, CLS being
-  position 0, a pad on a left-padded row, as in the reference); any other
-  type raises ``NotImplementedError`` naming it, before the weights are
-  read.
+  the decoders ``llama``, ``mistral`` (``e5-mistral-7b-instruct``),
+  ``gemma``, ``gpt2``, ``gpt_neo`` (SGPT-1.3B / 2.7B), ``gptj``
+  (SGPT-5.8B), ``bloom`` (``sgpt-bloom-7b1-msmarco``) and ``xglm`` (their
+  last hidden state pooled as an encoder's, CLS being position 0, a pad on
+  a left-padded row, as in the reference); any other type raises
+  ``NotImplementedError`` naming it, before the weights are read.
 
 Kept from the reference: the factory's signature and validation, the
 persisted params (``provider``, ``model``, ``pooling``, ``max_length``,

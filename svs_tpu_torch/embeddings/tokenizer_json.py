@@ -27,14 +27,17 @@ A text goes through the steps of ``tokenizers``' ``encode``:
 ``transformers`` adds: the pad token (else the tokenizer class's default,
 else the file's ``padding``), special tokens and ``added_tokens_decoder``
 entries that ``tokenizer.json`` lacks, the padding and truncation sides
-(``LlamaTokenizerFast`` and ``GemmaTokenizerFast`` pad on the left unless
+(the config's, else the file's ``padding`` / ``truncation`` direction;
+``LlamaTokenizerFast`` and ``GemmaTokenizerFast`` pad on the left unless
 told otherwise), the options that ``BertTokenizerFast``
-(``do_lower_case``, ``strip_accents``, ``tokenize_chinese_chars``) and
-``RobertaTokenizerFast`` (``add_prefix_space``) write over the file's
-normalizer and pre-tokenizer, and the post-processor that the Llama and
-Gemma classes rebuild from ``add_bos_token`` / ``add_eos_token``.  A
-Llama tokenizer has no pad token by default, so ``padding="max_length"``
-fails there as in ``transformers``.
+(``do_lower_case``, ``strip_accents``, ``tokenize_chinese_chars``) writes
+over the file's normalizer and every fast class (``add_prefix_space``,
+default false) over a ``ByteLevel`` pre-tokenizer, ``XGLMTokenizerFast``'s
+``<madeupwordN>`` special tokens, and the post-processor that the Llama
+and Gemma classes rebuild from ``add_bos_token`` / ``add_eos_token``.  A
+Llama tokenizer has no pad token by default, and neither has GPT-2's
+(GPT-Neo's, GPT-J's), so ``padding="max_length"`` fails there as in
+``transformers``.
 
 A component of any other type raises ``NotImplementedError`` naming it;
 nothing falls back to another tokenizer.
@@ -90,7 +93,18 @@ _BIG_BIRD_SPECIALS = {"unk_token": "<unk>", "bos_token": "<s>", "eos_token": "</
 _LLAMA_SPECIALS = {"unk_token": "<unk>", "bos_token": "<s>", "eos_token": "</s>"}
 _GEMMA_SPECIALS = {"unk_token": "<unk>", "bos_token": "<bos>", "eos_token": "<eos>",
                    "pad_token": "<pad>"}
+#: ``GPT2TokenizerFast`` (GPT-2, GPT-Neo, GPT-J: no pad token),
+#: ``BloomTokenizerFast`` and ``XGLMTokenizerFast``.
+_GPT2_SPECIALS = {"unk_token": "<|endoftext|>", "bos_token": "<|endoftext|>",
+                  "eos_token": "<|endoftext|>"}
+_BLOOM_SPECIALS = {"unk_token": "<unk>", "bos_token": "<s>", "eos_token": "</s>",
+                   "pad_token": "<pad>"}
+_XGLM_SPECIALS = {"bos_token": "<s>", "eos_token": "</s>", "sep_token": "</s>",
+                  "cls_token": "<s>", "unk_token": "<unk>", "pad_token": "<pad>"}
 _CLASS_SPECIALS = {
+    "GPT2Tokenizer": _GPT2_SPECIALS,
+    "BloomTokenizer": _BLOOM_SPECIALS,
+    "XGLMTokenizer": _XGLM_SPECIALS,
     "LlamaTokenizer": _LLAMA_SPECIALS,
     "GemmaTokenizer": _GEMMA_SPECIALS,
     "XLMRobertaTokenizer": _ROBERTA_SPECIALS,
@@ -101,6 +115,9 @@ _CLASS_SPECIALS = {
     "AlbertTokenizer": _ALBERT_SPECIALS,
     "BigBirdTokenizer": _BIG_BIRD_SPECIALS,
 }
+#: The additional special tokens a class appends to the config's
+#: (``XGLMTokenizerFast``'s seven ``<madeupwordN>``).
+_CLASS_ADDITIONAL = {"XGLMTokenizer": [f"<madeupword{i}>" for i in range(7)]}
 #: The classes whose default mask token strips the white space to its left.
 _LSTRIP_MASK = ("XLMRobertaTokenizer", "RobertaTokenizer", "AlbertTokenizer", "BigBirdTokenizer")
 #: ``model_type`` -> the tokenizer class ``AutoTokenizer`` picks without a
@@ -111,6 +128,8 @@ _MODEL_TOKENIZER = {
     "electra": "ElectraTokenizer", "albert": "AlbertTokenizer",
     "big_bird": "BigBirdTokenizer", "roberta-prelayernorm": "RobertaTokenizer",
     "llama": "LlamaTokenizer", "mistral": "LlamaTokenizer", "gemma": "GemmaTokenizer",
+    "gpt2": "GPT2Tokenizer", "gpt_neo": "GPT2Tokenizer", "gptj": "GPT2Tokenizer",
+    "bloom": "BloomTokenizer", "xglm": "XGLMTokenizer",
 }
 #: The classes whose ``padding_side`` is ``"left"`` unless the config says,
 #: and that rebuild the post-processor (``update_post_processor``): ``bos
@@ -654,7 +673,9 @@ def _added_tokens(
         value = cfg.get(key, smap.get(key, defaults.get(key)))
         if value is not None:
             specials[key] = value
-    more = cfg.get("additional_special_tokens", smap.get("additional_special_tokens")) or []
+    more = list(cfg.get("additional_special_tokens", smap.get("additional_special_tokens")) or [])
+    listed = {_token_text(t) for t in more}
+    more += [t for t in _CLASS_ADDITIONAL.get(tok_class, []) if t not in listed]
     for value in list(specials.values()) + list(more):
         content = _token_text(value)
         if content is None or content in known:
@@ -678,9 +699,11 @@ def _added_tokens(
 
 
 def _class_options(spec: Dict[str, Any], cfg: Dict[str, Any], tok_class: str) -> Dict[str, Any]:
-    """``spec`` with the options ``BertTokenizerFast`` /
-    ``RobertaTokenizerFast`` write over the file's normalizer and
-    pre-tokenizer (a new dict; ``spec`` is not changed)."""
+    """``spec`` with the options ``BertTokenizerFast`` writes over the
+    file's normalizer, and the ``add_prefix_space`` (default false) that
+    every fast tokenizer writes over a ``ByteLevel`` pre-tokenizer
+    (``PreTrainedTokenizerFast.__init__``: RoBERTa's, GPT-2's, BLOOM's) (a
+    new dict; ``spec`` is not changed)."""
     spec = dict(spec)
     norm = spec.get("normalizer")
     if (tok_class in ("BertTokenizer", "DistilBertTokenizer", "ElectraTokenizer")
@@ -689,7 +712,7 @@ def _class_options(spec: Dict[str, Any], cfg: Dict[str, Any], tok_class: str) ->
                               "strip_accents": cfg.get("strip_accents"),
                               "handle_chinese_chars": bool(cfg.get("tokenize_chinese_chars", True))}
     pre = spec.get("pre_tokenizer")
-    if tok_class == "RobertaTokenizer" and isinstance(pre, dict) and "add_prefix_space" in pre:
+    if isinstance(pre, dict) and pre.get("type") == "ByteLevel":
         spec["pre_tokenizer"] = {**pre, "add_prefix_space": bool(cfg.get("add_prefix_space", False))}
     return spec
 
@@ -715,9 +738,13 @@ class JsonTokenizer:
         self.normalize = build_normalizer(spec.get("normalizer"))
         self.pre_tokenize = build_pre_tokenizer(spec.get("pre_tokenizer"))
         self.head, self.tail = build_post_processor(spec.get("post_processor"))
+        # the config's side, else the file's padding / truncation, else the class's
+        padding, truncation = spec.get("padding") or {}, spec.get("truncation") or {}
         default_side = "left" if tok_class in _LLAMA_CLASSES else "right"
-        self.padding_side = cfg.get("padding_side", default_side)
-        self.truncation_side = cfg.get("truncation_side", "right")
+        self.padding_side = cfg.get("padding_side",
+                                    str(padding.get("direction", default_side)).lower())
+        self.truncation_side = cfg.get("truncation_side",
+                                       str(truncation.get("direction", "right")).lower())
         for side in (self.padding_side, self.truncation_side):
             if side not in ("right", "left"):
                 raise NotImplementedError(f"padding / truncation side {side!r} is not ported")

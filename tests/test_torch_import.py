@@ -5,7 +5,8 @@ deferred upload, the host route and the native library, the HTTP server,
 the CLI and the tools; the embedding providers, the dispatch calibration
 and the trace export, with ``transformers``, ``flax``, ``msgpack`` and
 ``aiohttp`` blocked too; meshes and replicas, with ``svs_tpu`` itself
-blocked; the local provider past BERT, ALBERT and BigBird included,
+blocked; the local provider past BERT, ALBERT, BigBird and the decoders
+(Llama / Mistral / Gemma, GPT-2, GPT-Neo, GPT-J, BLOOM, XGLM) included,
 with ``tokenizers``, ``sentencepiece`` and ``regex`` blocked too), never
 imports ``svs_tpu``,
 and refuses to fall back to the CPU when no device was named."""
@@ -506,6 +507,44 @@ _BLOCKED_DECODERS = textwrap.dedent(
     """
 )
 
+_BLOCKED_GPT_DECODERS = textwrap.dedent(
+    """
+    import asyncio, os, sys
+
+    BLOCKED = ("jax", "jaxlib", "networkx", "ml_dtypes", "aiohttp", "dotenv", "svs_tpu",
+               "transformers", "flax", "msgpack", "tokenizers", "sentencepiece", "regex",
+               "safetensors")
+
+    class Blocker:
+        def find_spec(self, name, path=None, target=None):
+            if name.split(".")[0] in BLOCKED:
+                raise ImportError(f"{name} is blocked in this test")
+            return None
+
+    sys.meta_path.insert(0, Blocker())
+
+    import numpy as np
+    from svs_tpu_torch import make_local_embeddings_func
+    from svs_tpu_torch.embeddings import bloom, checkpoint, gpt2, gpt_neo, gptj, xglm
+
+    root = os.path.dirname(sys.argv[1])
+    texts = ["the cat sat", "héllo мир 中文", "x", "a dog ran " * 20]
+    classes = {"gpt2": gpt2.GPT2Encoder, "gpt_neo": gpt_neo.GPTNeoEncoder,
+               "gptj": gptj.GPTJEncoder, "bloom": bloom.BloomEncoder, "xglm": xglm.XGLMEncoder}
+    for name, cls in classes.items():
+        path = os.path.join(root, name)
+        assert len(checkpoint.shard_files(path)) > 1, name
+        for dtype in ("float32", "bfloat16"):
+            f = make_local_embeddings_func(path, max_length=16, compute_dtype=dtype, device="cpu")
+            vecs = np.asarray(asyncio.run(f(texts)))
+            assert vecs.shape == (4, 32) and np.allclose(np.linalg.norm(vecs, axis=1), 1, atol=1e-5)
+        assert isinstance(f.encoder._load()[1], cls)
+    loaded = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
+    assert not loaded, loaded
+    print("ROUND_TRIP_OK")
+    """
+)
+
 _BLOCKED_PARALLEL = textwrap.dedent(
     """
     import sys
@@ -681,6 +720,36 @@ def test_llama_family_decoders_without_transformers_tokenizers_flax(tmp_path):
         write_checkpoint(tmp_path / name, cfg, chip_smoke.random_decoder_params(cfg, 3, "cpu"),
                          max_shard_size=20_000)
     _run_blocked(_BLOCKED_DECODERS, tmp_path)
+
+
+def test_gpt_bloom_xglm_decoders_without_transformers_tokenizers_flax(tmp_path):
+    """The GPT-2, GPT-Neo, GPT-J, BLOOM and XGLM decoders (sharded bf16
+    checkpoints that the smoke's writer makes from a seed, GPT-J's and
+    BLOOM's as ``*ForCausalLM`` trees; byte-level BPE and XGLM Unigram
+    tokenizers) embed on the CPU in f32 and bf16 with ``transformers``,
+    ``tokenizers``, ``flax``, JAX and ``svs_tpu`` blocked."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    import chip_smoke
+    from svs_tpu_torch.embeddings.checkpoint import write_checkpoint
+
+    configs = {
+        "gpt2": {"n_embd": 32, "n_layer": 2, "n_head": 4, "n_positions": 64},
+        "gpt_neo": {"hidden_size": 32, "num_layers": 2, "num_heads": 4, "window_size": 4,
+                    "attention_types": [[["global", "local"], 1]], "max_position_embeddings": 64},
+        "gptj": {"n_embd": 32, "n_layer": 2, "n_head": 2, "rotary_dim": 8, "n_positions": 64},
+        "bloom": {"hidden_size": 32, "n_layer": 2, "n_head": 4},
+        "xglm": {"d_model": 32, "num_layers": 2, "attention_heads": 4, "ffn_dim": 64,
+                 "max_position_embeddings": 64},
+    }
+    for name, keys in configs.items():
+        size = 5000 if name == "xglm" else 600
+        cfg = {"model_type": name, "vocab_size": size, **keys}
+        chip_smoke.write_decoder_tokenizer_of(tmp_path / name, name, size, 3)
+        tree = chip_smoke.random_decoder_params(cfg, 3, "cpu")
+        if name in ("gptj", "bloom"):
+            tree = chip_smoke.with_head(cfg, tree, 4)
+        write_checkpoint(tmp_path / name, cfg, tree, max_shard_size=20_000)
+    _run_blocked(_BLOCKED_GPT_DECODERS, tmp_path)
 
 
 def test_parallel_modules_without_jax_or_svs_tpu(tmp_path):

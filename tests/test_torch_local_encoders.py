@@ -326,7 +326,7 @@ def test_formerly_unported_encoder_types_are_accepted(tmp_path, model_type):
 @pytest.mark.parametrize("change,name", [
     ({"hidden_act": "gelu_fast"}, "gelu_fast"),
     ({"position_embedding_type": "relative_key"}, "relative_key"),
-    ({"model_type": "gpt2"}, "gpt2"),
+    ({"model_type": "bart"}, "bart"),
     ({"model_type": "distilbert", "activation": "mish"}, "mish"),
 ])
 def test_unported_options_raise_naming_them(change, name):

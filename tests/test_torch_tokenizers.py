@@ -11,7 +11,9 @@ from ``tokenizer.json``, and the SentencePiece layouts of ALBERT (Unigram)
 and BigBird (Unigram and SentencePiece-style BPE), and the SentencePiece-style
 BPE with byte fallback of Llama-2 and Gemma read as ``LlamaTokenizerFast`` /
 ``GemmaTokenizerFast`` (left padding, their ``add_bos_token`` /
-``add_eos_token`` post-processor).  Then each component against its ``tokenizers``
+``add_eos_token`` post-processor), and the byte-level BPE of
+``GPT2TokenizerFast`` / ``BloomTokenizerFast`` and XGLM's Unigram read as
+``XGLMTokenizerFast`` (each class's specials and padding side).  Then each component against its ``tokenizers``
 counterpart (the ``Precompiled`` normalizer on a charsmap that
 :func:`torch_tokenizer_helpers.build_charsmap` writes, the pre-tokenizers
 and normalizers, GPT-2's split, the grapheme clusters against ``regex``'s
@@ -49,10 +51,12 @@ from torch_tokenizer_helpers import (
     seeded_strings,
     strings,
     write_bpe_tokenizer,
+    write_byte_level_tokenizer,
     write_decoder_tokenizer,
     write_sentencepiece_tokenizer,
     write_unigram_tokenizer,
     write_wordpiece_tokenizer,
+    write_xglm_tokenizer,
 )
 
 
@@ -414,3 +418,65 @@ def test_bpe_cut_before_word_marks_is_exact():
         assert list(whole) == ref.encode(word, add_special_tokens=False).ids, word
         cut += len(model._parts(word)) > 1
     assert cut > 100
+
+
+@pytest.mark.parametrize("layout,config", [
+    ("gpt2", {"pad_token": "<|endoftext|>"}),
+    ("gpt2", {"pad_token": "<|endoftext|>", "padding_side": "left", "add_prefix_space": True}),
+    ("bloom", {}),
+    ("bloom", {"padding_side": "left", "truncation_side": "left"}),
+    ("xglm", {}),
+    ("xglm", {"additional_special_tokens": ["<madeupword2>"]}),
+], ids=["gpt2", "gpt2-left-prefix", "bloom", "bloom-left", "xglm", "xglm-class-madeupwords"])
+def test_gpt2_bloom_xglm_classes_equal_auto_tokenizer(tmp_path, layout, config):
+    """``GPT2TokenizerFast`` (GPT-2, GPT-Neo, GPT-J: ``<|endoftext|>`` for
+    bos / eos / unk, a pad token only if the config names one, the config's
+    ``add_prefix_space`` written over the file's ``ByteLevel``),
+    ``BloomTokenizerFast`` (``<unk>``, ``<s>``, ``</s>``, ``<pad>``) and
+    ``XGLMTokenizerFast`` (``</s> $A``, its seven ``<madeupwordN>`` special
+    tokens appended to the config's): ids and masks as ``AutoTokenizer``'s,
+    with each class's padding side (right) unless the config says."""
+    if layout == "xglm":
+        write_xglm_tokenizer(tmp_path, seed=8, **config)
+    else:
+        write_byte_level_tokenizer(tmp_path, layout, seed=8, **config)
+    model_type = {"gpt2": "gptj", "bloom": "bloom", "xglm": "xglm"}[layout]
+    mine = load_tokenizer(tmp_path, model_type)
+    assert mine.tokenizer_class == {"gpt2": "GPT2Tokenizer", "bloom": "BloomTokenizer",
+                                    "xglm": "XGLMTokenizer"}[layout]
+    assert mine.padding_side == config.get("padding_side", "right")
+    ref = _auto(tmp_path)
+    assert mine.pad_id == ref.pad_token_id
+    odd = ["a <madeupword3> b<madeupword2>", "<|endoftext|>x", " <pad> </s>"]
+    want = ref(odd, padding="max_length", truncation=True, max_length=24, return_tensors="np")
+    ids, mask = mine.batch(odd, 24)
+    assert ids.tolist() == want["input_ids"].tolist() and mask.tolist() == want["attention_mask"].tolist()
+    _same_as_auto(tmp_path, mine, seed=28)
+
+
+def test_tokenizer_json_padding_direction_is_the_default_side(tmp_path):
+    """A ``tokenizer.json`` whose ``padding`` pads on the left and a config
+    that names no side: ``PreTrainedTokenizerFast`` takes the file's
+    direction, and so does the port; the config's side still wins."""
+    write_byte_level_tokenizer(tmp_path, "bloom", seed=9)
+    spec = json.loads((tmp_path / "tokenizer.json").read_text())
+    spec["padding"] = {"strategy": "BatchLongest", "direction": "Left", "pad_to_multiple_of": None,
+                       "pad_id": 3, "pad_type_id": 0, "pad_token": "<pad>"}
+    (tmp_path / "tokenizer.json").write_text(json.dumps(spec))
+    mine = load_tokenizer(tmp_path, "bloom")
+    assert mine.padding_side == "left" == _auto(tmp_path).padding_side
+    _same_as_auto(tmp_path, mine, seed=29)
+    cfg = json.loads((tmp_path / "tokenizer_config.json").read_text())
+    cfg["padding_side"] = "right"
+    (tmp_path / "tokenizer_config.json").write_text(json.dumps(cfg))
+    assert load_tokenizer(tmp_path, "bloom").padding_side == "right" == _auto(tmp_path).padding_side
+
+
+def test_gpt2_tokenizer_without_pad_token_is_refused(tmp_path):
+    """``GPT2TokenizerFast`` names no pad token: ``padding="max_length"``
+    fails in ``transformers``, and the port refuses the directory."""
+    write_byte_level_tokenizer(tmp_path, "gpt2", seed=10)
+    with pytest.raises(ValueError):
+        _auto(tmp_path)(["a b"], padding="max_length", max_length=8)
+    with pytest.raises(ValueError, match="no pad token"):
+        load_tokenizer(tmp_path, "gpt2")

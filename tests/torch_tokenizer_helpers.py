@@ -296,3 +296,70 @@ def write_decoder_tokenizer(path, layout="llama", seed=0, vocab_size=400, **conf
     (path / "tokenizer_config.json").write_text(
         json.dumps({"tokenizer_class": cls, **config}), encoding="utf-8")
     return len(spec["model"]["vocab"])
+
+
+#: The special tokens of the byte-level BPE layouts, in vocabulary order:
+#: GPT-2's one ``<|endoftext|>`` (GPT-Neo's and GPT-J's too) and BLOOM's
+#: first four pieces.
+BYTE_LEVEL_SPECIALS = {"gpt2": ["<|endoftext|>"], "bloom": ["<unk>", "<s>", "</s>", "<pad>"]}
+
+
+def write_byte_level_tokenizer(path, layout="gpt2", seed=0, vocab_size=600, **config):
+    """A byte-level BPE (``ByteLevel`` pre-tokenizer with GPT-2's split,
+    ``ByteLevel`` post-processor) trained on seeded strings, saved by
+    ``GPT2TokenizerFast`` (``layout`` ``gpt2``: no pad token unless
+    ``config`` names one) or ``BloomTokenizerFast`` (``bloom``); ``config``
+    adds keys to ``tokenizer_config.json`` (``pad_token``,
+    ``padding_side``, ``add_prefix_space``, ...).  Returns the vocabulary
+    size."""
+    import pathlib
+
+    from tokenizers import ByteLevelBPETokenizer
+    from transformers import BloomTokenizerFast, GPT2TokenizerFast
+
+    path = pathlib.Path(path)
+    bt = ByteLevelBPETokenizer()
+    bt.train_from_iterator(strings(seed, 400), vocab_size=vocab_size, min_frequency=1,
+                           special_tokens=BYTE_LEVEL_SPECIALS[layout], show_progress=False)
+    cls = GPT2TokenizerFast if layout == "gpt2" else BloomTokenizerFast
+    tok = cls(tokenizer_object=bt._tokenizer)
+    tok.save_pretrained(str(path))
+    cfg = json.loads((path / "tokenizer_config.json").read_text(encoding="utf-8"))
+    cfg.update(config)
+    (path / "tokenizer_config.json").write_text(json.dumps(cfg), encoding="utf-8")
+    return len(tok)
+
+
+def write_xglm_tokenizer(path, seed=0, **config):
+    """A Unigram tokenizer in XGLM's layout (``<s>`` 0, ``<pad>`` 1,
+    ``</s>`` 2, ``<unk>`` 3, the pieces, then the seven ``<madeupwordN>``;
+    NFKC and ``Replace(" {2,}", " ")`` in place of the ``Precompiled``
+    charsmap, Metaspace, ``</s> $A``) saved by ``XGLMTokenizerFast``;
+    ``config`` adds keys to ``tokenizer_config.json``.  Returns the
+    vocabulary size."""
+    import pathlib
+
+    from tokenizers import Regex, Tokenizer, models, normalizers, pre_tokenizers, processors
+    from transformers import XGLMTokenizerFast
+
+    path = pathlib.Path(path)
+    rng = np.random.default_rng(seed)
+    pieces = []
+    for w in WORDS:
+        pieces += ["▁" + w, w]
+    chars = sorted(set("".join(WORDS)) | set("abcdefghijklmnopqrstuvwxyz0123456789!?,.'"))
+    pieces = list(dict.fromkeys(pieces + chars + ["▁" + c for c in chars] + ["▁"]))
+    vocab = [("<s>", 0.0), ("<pad>", 0.0), ("</s>", 0.0), ("<unk>", 0.0)]
+    vocab += [(p, float(-rng.uniform(1.0, 12.0))) for p in pieces]
+    vocab += [(f"<madeupword{i}>", 0.0) for i in range(7)]
+    tok = Tokenizer(models.Unigram(vocab, unk_id=3, byte_fallback=False))
+    tok.normalizer = normalizers.Sequence([normalizers.NFKC(),
+                                           normalizers.Replace(Regex(" {2,}"), " ")])
+    tok.pre_tokenizer = pre_tokenizers.Metaspace()
+    tok.post_processor = processors.TemplateProcessing(
+        single="</s> $A", pair="</s> $A </s> </s> $B", special_tokens=[("<s>", 0), ("</s>", 2)])
+    XGLMTokenizerFast(tokenizer_object=tok).save_pretrained(str(path))
+    cfg = json.loads((path / "tokenizer_config.json").read_text(encoding="utf-8"))
+    cfg.update(config)
+    (path / "tokenizer_config.json").write_text(json.dumps(cfg), encoding="utf-8")
+    return len(vocab)

@@ -1,17 +1,17 @@
 """Runs named phases of ``chip_smoke.py`` alone on a CUDA card.
 
 Each phase that takes only a work directory (the local provider's:
-``local``, ``local_xlmr``, ``local_bigbird``, ``local_mistral``;
-``providers``, ``pairwise``) runs as the smoke runs it, with its launch
-counts set to 0 before it and read after; ``local_families`` runs on the
-checkpoints and CPU vectors that ``local_mistral`` returned, or on ones
-made here as that phase makes them.  The kernels are built from the
+``local``, ``local_xlmr``, ``local_bigbird``, ``local_mistral``,
+``local_gptj``; ``providers``, ``pairwise``) runs as the smoke runs it,
+with its launch counts set to 0 before it and read after;
+``local_families`` runs on the checkpoints and CPU vectors that
+``local_gptj`` returned, or on ones made here as that phase makes them.  The kernels are built from the
 checkout first.  Prints the card's name and power
 limit, each phase's seconds and the total, and writes the phases' records
 to ``--json`` (default ``build/smoke_phases.json``).  A failing
 phase raises (exit code 1); no CUDA device: exit code 2.
 
-    python3 tools/smoke_phases.py local_mistral local_families
+    python3 tools/smoke_phases.py local_mistral local_gptj local_families
 """
 
 import argparse
@@ -56,10 +56,10 @@ def main() -> int:
             t = time.perf_counter()
             if name != "local_families":
                 ret = getattr(chip_smoke, f"{name}_phase")(work, out)
-                if name == "local_mistral":
+                if name == "local_gptj":
                     families = ret
             else:
-                if families is None:  # as local_mistral_phase makes them
+                if families is None:  # as local_gptj_phase makes them
                     models = chip_smoke.write_families(work)
                     families = {"models": models, "cpu": chip_smoke.family_cpu_references(
                         {f: v[0] for f, v in models.items()}, chip_smoke.family_texts())}
