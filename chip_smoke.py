@@ -138,18 +138,27 @@ from a seed:
    d = 4,096, f32 on the card against the CPU, the stored bf16 rows
    against the card's f32 run, a reopen with no function on a 256-doc
    store), ``local_gptj`` (``local_gptj_phase``: the same
-   at ``EleutherAI/gpt-j-6b``'s widths and depth, f32 against the CPU on a
-   2-layer cut, 6.05B parameters written
+   at ``EleutherAI/gpt-j-6b``'s widths, 2 of its 28 layers (0.82B
+   parameters with its embeddings and head), written
    as a ``FlaxGPTJForCausalLM`` tree in two bf16 shards, a synthetic
    50,400-id byte-level BPE ``tokenizer.json`` in GPT-2's layout; then #3,
-   #2 and #4 on the store's own int8 pack against their plain versions)
-   and ``local_families`` (``local_families_phase``: RoBERTa, DistilBERT,
+   #2 and #4 on the store's own int8 pack against their plain versions),
+   ``local_families`` (``local_families_phase``: RoBERTa, DistilBERT,
    ELECTRA and RoBERTa-PreLayerNorm at published widths cut to 2 layers,
    ALBERT at ``albert-base-v2``'s widths and depth, Llama-2, Gemma,
    GPT-2, GPT-Neo, BLOOM and XGLM at ``Llama-2-7b-hf``'s, ``gemma-2b``'s,
    ``gpt2``'s, ``gpt-neo-1.3B``'s, ``bloom-7b1``'s and ``xglm-564M``'s
-   widths cut to 2 layers, 64 texts each in f32 and bf16 against the CPU,
-   GPT-Neo's at 512 tokens).  Every other
+   widths cut to 2 layers, BART, mBART-50 and Pegasus at ``bart-large``'s,
+   ``mbart-large-50``'s and ``pegasus-large``'s widths cut to 2 + 2
+   layers and Blenderbot-small at ``blenderbot_small-90M``'s widths and
+   depth, 64 texts each in f32 and bf16 against the CPU, GPT-Neo's at 512
+   tokens) and ``local_blenderbot`` (``local_blenderbot_phase``: the
+   decoder stores' path at ``facebook/blenderbot-3B``'s widths and depth,
+   2 + 24 layers, 2.70B parameters written as a
+   ``FlaxBlenderbotForConditionalGeneration`` tree in one bf16 file, a
+   synthetic 8,008-id byte-level BPE ``tokenizer.json`` in Blenderbot's
+   layout, f32 against the CPU on a 2 + 2 cut; then #3, #2 and #4 on its
+   store's int8 [32,768, 2,560] pack).  Every other
    phase runs with ``SVS_TPU_AUTOCALIB=0`` and a calibration cache of the
    run's own, so no probe adds launches to it.
 
@@ -175,6 +184,7 @@ import threading
 import time
 import zlib
 from pathlib import Path
+from typing import Optional
 
 import numpy as np
 
@@ -1495,8 +1505,10 @@ def e2e_phase(n_docs: int, reps: int, work: Path, cross: dict) -> dict:
     local_phase(work, out)
     local_xlmr_phase(work, out)
     local_bigbird_phase(work, out)
+    families = start_families(work)  # their CPU references run beside the next three
     local_mistral_phase(work, out)
-    families = local_gptj_phase(work, out)
+    local_gptj_phase(work, out)
+    local_blenderbot_phase(work, out)
     local_families_phase(work, out, families)
     return out
 
@@ -4742,7 +4754,7 @@ FAMILY_CONFIGS = {
         "eos_token_id": 2}),
 }
 #: The families that run their published depth.
-FAMILY_FULL_DEPTH = ("albert",)
+FAMILY_FULL_DEPTH = ("albert", "blenderbot-small")
 FAMILY_LAYERS = 2
 FAMILY_TEXTS = 64
 FAMILY_MAX_LENGTH = 128
@@ -5214,16 +5226,18 @@ def local_xlmr_phase(work: Path, out: dict) -> None:
 
 def spm_tokenizer_json(path: Path, vocab: list, unk_id: int, specials: dict, normalizer: dict,
                        tokenizer_config: dict, head: tuple = ("[CLS]",),
-                       tail: tuple = ("[SEP]",)) -> None:
+                       tail: tuple = ("[SEP]",), lstrip: tuple = ("[MASK]",),
+                       pre_tokenizer: Optional[dict] = None) -> None:
     """Write a SentencePiece-style Unigram ``tokenizer.json`` (what
-    ``transformers``' ``SpmConverter`` writes: Metaspace, ``head $A tail``
-    (``[CLS] $A [SEP]`` unless told), the special pieces as added tokens,
-    the mask stripping the space to its left) and ``tokenizer_config.json``.
+    ``transformers``' ``SpmConverter`` writes: Metaspace unless
+    ``pre_tokenizer`` says, ``head $A tail`` (``[CLS] $A [SEP]`` unless
+    told), the special pieces as added tokens, those of ``lstrip`` (the
+    mask) stripping the space to their left) and ``tokenizer_config.json``.
     ``vocab`` is the ``[piece, score]`` list, ``specials`` maps each special
     piece to its id."""
     def added(content):
         return {"id": specials[content], "content": content, "single_word": False,
-                "lstrip": content == "[MASK]", "rstrip": False, "normalized": False,
+                "lstrip": content in lstrip, "rstrip": False, "normalized": False,
                 "special": True}
 
     def special(name):
@@ -5233,8 +5247,8 @@ def spm_tokenizer_json(path: Path, vocab: list, unk_id: int, specials: dict, nor
         "version": "1.0", "truncation": None, "padding": None,
         "added_tokens": [added(t) for t in sorted(specials, key=specials.get)],
         "normalizer": normalizer,
-        "pre_tokenizer": {"type": "Metaspace", "replacement": "▁", "prepend_scheme": "always",
-                          "split": True},
+        "pre_tokenizer": pre_tokenizer or {"type": "Metaspace", "replacement": "▁",
+                                           "prepend_scheme": "always", "split": True},
         "post_processor": {"type": "TemplateProcessing",
                            "single": ([special(t) for t in head]
                                       + [{"Sequence": {"id": "A", "type_id": 0}}]
@@ -5667,8 +5681,23 @@ def write_decoder_tokenizer(path: Path, layout: str, size: int, seed: int, **con
 
 
 #: The special tokens of the byte-level layouts in vocabulary order:
-#: GPT-2's one ``<|endoftext|>`` after its 50,256 pieces, BLOOM's four first.
-BYTE_LEVEL_SPECIALS = {"gpt2": ["<|endoftext|>"], "bloom": ["<unk>", "<s>", "</s>", "<pad>"]}
+#: GPT-2's one ``<|endoftext|>`` after its 50,256 pieces; the other
+#: layouts' specials first: BLOOM's four, BART's (RoBERTa's), Blenderbot-3B's
+#: (``<pad>`` 0, ``<s>`` 1, ``</s>`` 2) and Blenderbot-90M's.
+BYTE_LEVEL_SPECIALS = {"gpt2": ["<|endoftext|>"], "bloom": ["<unk>", "<s>", "</s>", "<pad>"],
+                       "bart": ["<s>", "<pad>", "</s>", "<unk>"],
+                       "blenderbot": ["<pad>", "<s>", "</s>", "<unk>"],
+                       "blenderbot-small": ["__null__", "__start__", "__end__", "__unk__"]}
+#: Each byte-level layout's ``tokenizer_class`` and the keys its
+#: ``tokenizer_config.json`` names beside it (Blenderbot-small's fast
+#: class defaults to ``<|endoftext|>`` and no pad token).
+BYTE_LEVEL_CLASSES = {
+    "gpt2": ("GPT2Tokenizer", {}), "bloom": ("BloomTokenizer", {}),
+    "bart": ("BartTokenizer", {}), "blenderbot": ("BlenderbotTokenizer", {}),
+    "blenderbot-small": ("BlenderbotSmallTokenizer", {
+        "bos_token": "__start__", "eos_token": "__end__", "unk_token": "__unk__",
+        "pad_token": "__null__"}),
+}
 #: GPT-2's vocabulary (``vocab.json``): 50,256 pieces and ``<|endoftext|>``;
 #: GPT-J's 50,400 ids add ``<|extratoken_N|>`` tokens after it.
 GPT2_VOCAB = 50257
@@ -5681,36 +5710,54 @@ def write_byte_level_bpe(path: Path, layout: str, size: int, seed: int, **config
     the 256 byte characters, then seeded words of 2-9 Latin letters, half
     after ``Ġ`` (a space), each built left to right by one merge a letter;
     ``<|endoftext|>`` after the pieces, and past GPT-2's 50,257 ids the
-    ``<|extratoken_N|>`` added tokens of GPT-J's tokenizer) or BLOOM's
-    (``<unk>``, ``<s>``, ``</s>``, ``<pad>`` first, in place of BLOOM's
-    ``Split`` pre-tokenizer GPT-2's).  ``tokenizer_config.json`` names
-    ``GPT2Tokenizer`` / ``BloomTokenizer`` with ``config``'s keys.  Returns
-    the words whose every prefix is a piece (without ``Ġ``)."""
+    ``<|extratoken_N|>`` added tokens of GPT-J's tokenizer) or, with the
+    layout's specials first (:data:`BYTE_LEVEL_SPECIALS`), BLOOM's (in
+    place of BLOOM's ``Split`` pre-tokenizer GPT-2's), BART's
+    (``RobertaProcessing``, ``<mask>`` last), Blenderbot's (``$A </s>``,
+    ``<mask>`` last) or Blenderbot-small's (as its fast class saves it).
+    ``tokenizer_config.json`` names the layout's class
+    (:data:`BYTE_LEVEL_CLASSES`) with ``config``'s keys.  Returns the words
+    whose every prefix is a piece (without ``Ġ``)."""
     from svs_tpu_torch.embeddings.bpe import bytes_to_unicode
 
     rng = np.random.default_rng(seed)
     specials = BYTE_LEVEL_SPECIALS[layout]
-    vocab = {t: i for i, t in enumerate(specials)} if layout == "bloom" else {}
+    vocab = {t: i for i, t in enumerate(specials)} if layout != "gpt2" else {}
     for ch in bytes_to_unicode().values():
         vocab.setdefault(ch, len(vocab))
-    pieces = size if layout == "bloom" else min(size, GPT2_VOCAB) - 1
+    mask = layout in ("bart", "blenderbot")
+    pieces = min(size, GPT2_VOCAB) - 1 if layout == "gpt2" else size - mask
     merges, words = seeded_word_merges(vocab, pieces, "Ġ", rng)
 
-    def added(i, content, special):
-        return {"id": i, "content": content, "single_word": False, "lstrip": False,
-                "rstrip": False, "normalized": not special or layout == "gpt2", "special": special}
+    def added(i, content, special, lstrip=False):
+        return {"id": i, "content": content, "single_word": False, "lstrip": lstrip,
+                "rstrip": False, "normalized": not special or layout in ("gpt2", "bart"),
+                "special": special}
 
     if layout == "gpt2":
         vocab["<|endoftext|>"] = len(vocab)
     tokens = [added(vocab[t], t, True) for t in specials]
+    if mask:  # BartTokenizerFast's and BlenderbotTokenizerFast's mask
+        vocab["<mask>"] = len(vocab)
+        tokens.append(added(vocab["<mask>"], "<mask>", True, lstrip=True))
     tokens += [added(len(vocab) + i, f"<|extratoken_{i + 1}|>", False)
                for i in range(size - len(vocab))]
     byte_level = {"type": "ByteLevel", "add_prefix_space": False, "trim_offsets": True,
                   "use_regex": True}
+    post = {**byte_level, "trim_offsets": False}
+    if layout == "bart":
+        post = {"type": "RobertaProcessing", "sep": ["</s>", vocab["</s>"]],
+                "cls": ["<s>", vocab["<s>"]], "trim_offsets": True, "add_prefix_space": False}
+    elif layout == "blenderbot":
+        post = {"type": "TemplateProcessing",
+                "single": [{"Sequence": {"id": "A", "type_id": 0}},
+                           {"SpecialToken": {"id": "</s>", "type_id": 0}}],
+                "pair": [], "special_tokens": {
+                    "</s>": {"id": "</s>", "ids": [vocab["</s>"]], "tokens": ["</s>"]}}}
     spec = {
         "version": "1.0", "truncation": None, "padding": None, "added_tokens": tokens,
         "normalizer": None, "pre_tokenizer": byte_level,
-        "post_processor": {**byte_level, "trim_offsets": False}, "decoder": byte_level,
+        "post_processor": post, "decoder": byte_level,
         "model": {"type": "BPE", "dropout": None, "unk_token": None,
                   "continuing_subword_prefix": "", "end_of_word_suffix": "", "fuse_unk": False,
                   "byte_fallback": False, "ignore_merges": False, "vocab": vocab,
@@ -5718,8 +5765,9 @@ def write_byte_level_bpe(path: Path, layout: str, size: int, seed: int, **config
     }
     path.mkdir(parents=True, exist_ok=True)
     (path / "tokenizer.json").write_text(json.dumps(spec, ensure_ascii=False), encoding="utf-8")
-    cls = "GPT2Tokenizer" if layout == "gpt2" else "BloomTokenizer"
-    (path / "tokenizer_config.json").write_text(json.dumps({"tokenizer_class": cls, **config}))
+    cls, keys = BYTE_LEVEL_CLASSES[layout]
+    (path / "tokenizer_config.json").write_text(json.dumps({"tokenizer_class": cls, **keys,
+                                                            **config}))
     return words
 
 
@@ -5736,13 +5784,36 @@ def write_xglm_spm(path: Path, size: int, seed: int, **config) -> list:
     rng = np.random.default_rng(seed)
     names = ["<s>", "<pad>", "</s>", "<unk>"]
     madeup = [f"<madeupword{i}>" for i in range(7)]
+    pieces, english = english_unigram_pieces(size - len(names) - len(madeup), rng,
+                                             names + madeup)
+    vocab = [[t, 0.0] for t in names]
+    vocab += [[p, float(x)] for p, x in zip(pieces, rng.uniform(-14.0, -6.0, len(pieces)))]
+    vocab += [[t, 0.0] for t in madeup]
+    ids = {t: i for i, (t, _) in enumerate(vocab) if t in names or t in madeup}
+    spm_tokenizer_json(path, vocab, 3, ids, NFKC_SPACES,
+                       {"tokenizer_class": "XGLMTokenizer", **config}, head=["</s>"], tail=[])
+    return english
+
+
+#: The normalizer of the synthetic SentencePiece layouts in place of their
+#: ``Precompiled`` charsmap, which the smoke cannot build: NFKC, then
+#: ``Replace(" {2,}", " ")``.
+NFKC_SPACES = {"type": "Sequence", "normalizers": [
+    {"type": "NFKC"}, {"type": "Replace", "pattern": {"Regex": " {2,}"}, "content": " "}]}
+
+
+def english_unigram_pieces(want: int, rng, reserved: list) -> tuple:
+    """``want`` Unigram pieces: every printable ASCII character alone and
+    after ``▁``, the English words of :func:`bert_uncased_vocab` after
+    ``▁`` and alone, then seeded pieces of 2-8 Latin letters, half after
+    ``▁`` (none of ``reserved``).  Returns ``(pieces, the English
+    words)``."""
     english = [w for w in bert_uncased_vocab(SEED) if w.isalpha() and len(w) > 1]
     chars = [chr(c) for c in range(33, 127)]
     pieces = list(dict.fromkeys(["▁"] + chars + ["▁" + c for c in chars]
                                 + [v for w in english for v in ("▁" + w, w)]))
-    seen = set(pieces) | set(names) | set(madeup)
+    seen = set(pieces) | set(reserved)
     letters = "abcdefghijklmnopqrstuvwxyz"
-    want = size - len(names) - len(madeup)
     while len(pieces) < want:
         lens = rng.integers(2, 9, 4096)
         idx = rng.integers(0, 26, (4096, 8))
@@ -5755,15 +5826,54 @@ def write_xglm_spm(path: Path, size: int, seed: int, **config) -> list:
                 pieces.append(piece)
                 if len(pieces) == want:
                     break
-    pieces = pieces[:want]
+    return pieces[:want], english
+
+
+def write_mbart50_spm(path: Path, size: int, seed: int, **config) -> list:
+    """A synthetic ``size``-piece Unigram ``tokenizer.json`` in
+    mBART-50's layout (``MBart50Converter``: XLM-R's ``<s>`` 0, ``<pad>`` 1,
+    ``</s>`` 2, ``<unk>`` 3, the pieces of :func:`english_unigram_pieces`,
+    the 52 language codes, ``<mask>`` last stripping the space to its
+    left, as ``MBart50Converter`` puts them; Metaspace; the language-code
+    post-processor ``en_XX $A </s>``;
+    :data:`NFKC_SPACES`); ``tokenizer_config.json`` names
+    ``MBart50Tokenizer`` and ``src_lang`` ``en_XX``.  Returns the English
+    words."""
+    from svs_tpu_torch.embeddings.tokenizer_json import MBART50_LANGUAGE_CODES
+
+    rng = np.random.default_rng(seed)
+    names = ["<s>", "<pad>", "</s>", "<unk>"]
+    tail = MBART50_LANGUAGE_CODES + ["<mask>"]
+    pieces, english = english_unigram_pieces(size - len(names) - len(tail), rng, names + tail)
     vocab = [[t, 0.0] for t in names]
     vocab += [[p, float(x)] for p, x in zip(pieces, rng.uniform(-14.0, -6.0, len(pieces)))]
-    vocab += [[t, 0.0] for t in madeup]
-    norm = {"type": "Sequence", "normalizers": [
-        {"type": "NFKC"}, {"type": "Replace", "pattern": {"Regex": " {2,}"}, "content": " "}]}
-    ids = {t: i for i, (t, _) in enumerate(vocab) if t in names or t in madeup}
-    spm_tokenizer_json(path, vocab, 3, ids, norm, {"tokenizer_class": "XGLMTokenizer", **config},
-                       head=["</s>"], tail=[])
+    vocab += [[t, 0.0] for t in tail]
+    ids = {t: i for i, (t, _) in enumerate(vocab) if t in names or t in tail}
+    spm_tokenizer_json(path, vocab, 3, ids, NFKC_SPACES,
+                       {"tokenizer_class": "MBart50Tokenizer", "src_lang": "en_XX", **config},
+                       head=["en_XX"], tail=["</s>"], lstrip=("<mask>",))
+    return english
+
+
+def write_pegasus_spm(path: Path, size: int, seed: int, **config) -> list:
+    """A synthetic ``size``-piece Unigram ``tokenizer.json`` in Pegasus's
+    layout (``PegasusConverter``: ``<pad>`` 0, ``</s>`` 1, ``<mask_1>`` 2,
+    ``<mask_2>`` 3, ``<unk_2>`` .. ``<unk_102>``, ``<unk>`` 105, the
+    pieces of :func:`english_unigram_pieces`; WhitespaceSplit then
+    Metaspace; ``$A </s>``; :data:`NFKC_SPACES`); ``tokenizer_config.json``
+    names ``PegasusTokenizer``.  Returns the English words."""
+    rng = np.random.default_rng(seed)
+    names = ["<pad>", "</s>", "<mask_1>", "<mask_2>"] + [f"<unk_{i}>" for i in range(2, 103)]
+    names.append("<unk>")
+    pieces, english = english_unigram_pieces(size - len(names), rng, names)
+    vocab = [[t, 0.0 if i < 4 or t == "<unk>" else -100.0] for i, t in enumerate(names)]
+    vocab += [[p, float(x)] for p, x in zip(pieces, rng.uniform(-14.0, -6.0, len(pieces)))]
+    pre = {"type": "Sequence", "pretokenizers": [
+        {"type": "WhitespaceSplit"},
+        {"type": "Metaspace", "replacement": "▁", "prepend_scheme": "always", "split": True}]}
+    spm_tokenizer_json(path, vocab, len(names) - 1, {t: i for i, t in enumerate(names)},
+                       NFKC_SPACES, {"tokenizer_class": "PegasusTokenizer", **config},
+                       head=(), tail=("</s>",), pre_tokenizer=pre)
     return english
 
 
@@ -5849,14 +5959,42 @@ def write_encoder_family(work: Path, family: str, seed: int) -> tuple:
     return ck, source, cfg
 
 
+def write_seq2seq_family(work: Path, family: str, seed: int) -> tuple:
+    """The ``local_families`` checkpoint of an entry of
+    :data:`SEQ2SEQ_FAMILY_CONFIGS`, cut to ``FAMILY_LAYERS`` layers a stack
+    (Blenderbot-small at its published 8 + 8): random weights from the seed
+    on the card, written in bf16 (mBART-50's, Pegasus's and
+    Blenderbot-small's as a ``*ForConditionalGeneration`` tree), and a
+    synthetic tokenizer of the type's layout at its vocabulary size.
+    Returns ``(directory, source, config)``."""
+    import torch
+
+    from svs_tpu_torch.embeddings.checkpoint import write_checkpoint
+
+    source, published = SEQ2SEQ_FAMILY_CONFIGS[family]
+    cfg = published if family in FAMILY_FULL_DEPTH else cut_depth(published, FAMILY_LAYERS)
+    ck = work / f"{family}-synthetic"
+    tree = random_seq2seq_params(cfg, seed, "cuda")
+    if family in SEQ2SEQ_FAMILY_HEADS:
+        tree = with_head(cfg, tree, seed + 1)
+    write_checkpoint(ck, cfg, tree)
+    del tree
+    torch.cuda.empty_cache()
+    write_decoder_tokenizer_of(ck, family, cfg["vocab_size"], seed + 2)
+    return ck, source, cfg
+
+
 def write_families(work: Path) -> dict:
     """Every ``local_families`` checkpoint: ``{family: (directory, source,
-    config)}``, the encoders of ``FAMILY_CONFIGS`` then the decoders of
-    ``DECODER_FAMILY_CONFIGS``."""
+    config)}``, the encoders of ``FAMILY_CONFIGS``, the decoders of
+    ``DECODER_FAMILY_CONFIGS``, then the encoder-decoders of
+    ``SEQ2SEQ_FAMILY_CONFIGS``."""
     models = {family: write_encoder_family(work, family, SEED + 53 + i)
               for i, family in enumerate(FAMILY_CONFIGS)}
     models.update({family: write_decoder_family(work, family, SEED + 103 + 7 * i)
                    for i, family in enumerate(DECODER_FAMILY_CONFIGS)})
+    models.update({family: write_seq2seq_family(work, family, SEED + 163 + 7 * i)
+                   for i, family in enumerate(SEQ2SEQ_FAMILY_CONFIGS)})
     return models
 
 
@@ -5869,22 +6007,29 @@ def local_families_phase(work: Path, out: dict, families: dict) -> None:
     ``DistilBertTokenizer``), ELECTRA (``ElectraTokenizer``), ALBERT (a
     SentencePiece Unigram ``tokenizer.json``, :func:`write_albert_tokenizer`),
     Llama-2, Gemma, GPT-2, GPT-Neo, BLOOM and XGLM
-    (:func:`write_decoder_family`).  Each embeds ``FAMILY_TEXTS`` texts
+    (:func:`write_decoder_family`), BART, mBART-50, Pegasus (2 + 2 layers)
+    and Blenderbot-small (its 8 + 8, :func:`write_seq2seq_family`).  Each
+    embeds ``FAMILY_TEXTS`` texts
     (``max_length`` ``FAMILY_MAX_LENGTH``, GPT-Neo's 512: past its 256-token
     window, which some text must pass; mean pooling) on the card in f32
     (within ``LOCAL_F32_ATOL``) and bf16 (within ``LOCAL_BF16_ATOL``,
     cosine at least ``LOCAL_BF16_MIN_COS``) against the port's f32 run on
-    the CPU.  ``families`` holds the checkpoints (``"models"``,
-    :func:`write_families`) and the CPU vectors (``"cpu"``,
-    :func:`family_cpu_references` of :func:`family_texts`): what
-    ``local_gptj_phase`` returns, its CPU runs taken beside that phase's
-    write."""
+    the CPU.  ``families`` is what :func:`start_families` returned: the
+    checkpoints and the thread of their CPU runs, taken beside the decoder
+    phases and joined here."""
     import svs_tpu_torch
 
     res = out["paths_detail_local_families"] = {}
-    published = {**FAMILY_CONFIGS, **DECODER_FAMILY_CONFIGS}
+    t = time.perf_counter()
+    families["thread"].join()
+    res["cpu_wait_s"] = time.perf_counter() - t
+    if "error" in families:
+        raise families["error"]
+    published = {**FAMILY_CONFIGS, **DECODER_FAMILY_CONFIGS, **SEQ2SEQ_FAMILY_CONFIGS}
 
     def layers(cfg):
+        if "encoder_layers" in cfg:
+            return f"{cfg['encoder_layers']} + {cfg['decoder_layers']}"
         for key in ("num_hidden_layers", "n_layers", "n_layer", "num_layers"):
             if key in cfg:
                 return cfg[key]
@@ -5907,6 +6052,8 @@ def local_families_phase(work: Path, out: dict, families: dict) -> None:
         texts = family_texts()
         cpu_runs = families["cpu"]
         res["cpu_f32_s"] = cpu_runs["s"]
+        log(f"e2e local_families: the CPU runs took {res['cpu_f32_s']:.1f} s beside the decoder "
+            f"phases, {res['cpu_wait_s']:.1f} s waited for after them")
         for family, (ck, source, cfg) in families["models"].items():
             t = time.perf_counter()
             max_length = family_max_length(family)
@@ -5954,7 +6101,8 @@ E5_MISTRAL = {
 }
 #: ``EleutherAI/gpt-j-6b``'s published config (``GPTJForCausalLM``: 6.05B
 #: parameters, 24.2 GB in f32, beside a 50,400 x 4,096 ``lm_head`` with a
-#: bias), at its widths and depth.
+#: bias), at its widths and depth; ``local_gptj`` cuts its depth to
+#: ``LOCAL_GPTJ_LAYERS``.
 GPTJ_6B = {
     "model_type": "gptj", "architectures": ["GPTJForCausalLM"], "vocab_size": 50400,
     "n_positions": 2048, "n_embd": 4096, "n_layer": 28, "n_head": 16, "rotary_dim": 64,
@@ -5963,6 +6111,59 @@ GPTJ_6B = {
     "bos_token_id": 50256, "eos_token_id": 50256, "tie_word_embeddings": False,
     "tokenizer_class": "GPT2Tokenizer", "use_cache": True,
 }
+#: ``facebook/blenderbot-3B``'s published config
+#: (``BlenderbotForConditionalGeneration``: 2.70B parameters, 10.8 GB in f32,
+#: the LM head tied to ``shared``), at its widths and depth: pre-LN, 2
+#: encoder and 24 decoder layers, learned positions for 128 tokens.
+BLENDERBOT_3B = {
+    "model_type": "blenderbot", "architectures": ["BlenderbotForConditionalGeneration"],
+    "vocab_size": 8008, "max_position_embeddings": 128, "d_model": 2560, "encoder_layers": 2,
+    "decoder_layers": 24, "encoder_attention_heads": 32, "decoder_attention_heads": 32,
+    "encoder_ffn_dim": 10240, "decoder_ffn_dim": 10240, "activation_function": "gelu",
+    "scale_embedding": True, "normalize_before": True, "layernorm_variant": "prelayernorm",
+    "pad_token_id": 0, "bos_token_id": 1, "eos_token_id": 2, "unk_token_id": 3,
+    "decoder_start_token_id": 1, "forced_eos_token_id": 2, "init_std": 0.02,
+    "tie_word_embeddings": True, "is_encoder_decoder": True,
+}
+_SEQ2SEQ_LARGE = {"d_model": 1024, "encoder_attention_heads": 16, "decoder_attention_heads": 16,
+                  "encoder_ffn_dim": 4096, "decoder_ffn_dim": 4096, "max_position_embeddings": 1024,
+                  "init_std": 0.02, "is_encoder_decoder": True}
+#: The encoder-decoder checkpoints of ``local_families``: BART (post-LN,
+#: positions at + 2), mBART-50 (pre-LN, the language code wrapped to the
+#: decoder's first place, ``scale_embedding``; its 250,054-id Unigram
+#: tokenizer with the language-code post-processor), Pegasus (``relu``,
+#: sinusoidal positions, the pad id as the decoder's start) at their
+#: published widths cut to 2 + 2 layers, and Blenderbot-small (post-LN, the
+#: decoder's ``layernorm_embedding`` before the positions) at its 8 + 8.
+SEQ2SEQ_FAMILY_CONFIGS = {
+    "bart": ("facebook/bart-large", {
+        "model_type": "bart", "architectures": ["BartModel"], "vocab_size": 50265,
+        **_SEQ2SEQ_LARGE, "encoder_layers": 12, "decoder_layers": 12,
+        "activation_function": "gelu", "scale_embedding": False, "pad_token_id": 1,
+        "bos_token_id": 0, "eos_token_id": 2, "decoder_start_token_id": 2}),
+    "mbart": ("facebook/mbart-large-50", {
+        "model_type": "mbart", "architectures": ["MBartForConditionalGeneration"],
+        "vocab_size": 250054, **_SEQ2SEQ_LARGE, "encoder_layers": 12, "decoder_layers": 12,
+        "activation_function": "gelu", "scale_embedding": True, "pad_token_id": 1,
+        "bos_token_id": 0, "eos_token_id": 2, "decoder_start_token_id": 2,
+        "tokenizer_class": "MBart50Tokenizer"}),
+    "pegasus": ("google/pegasus-large", {
+        "model_type": "pegasus", "architectures": ["PegasusForConditionalGeneration"],
+        "vocab_size": 96103, **_SEQ2SEQ_LARGE, "encoder_layers": 16, "decoder_layers": 16,
+        "activation_function": "relu", "scale_embedding": True, "pad_token_id": 0,
+        "eos_token_id": 1, "decoder_start_token_id": 0}),
+    "blenderbot-small": ("facebook/blenderbot_small-90M", {
+        "model_type": "blenderbot-small", "architectures": ["BlenderbotSmallForConditionalGeneration"],
+        "vocab_size": 54944, "d_model": 512, "encoder_layers": 8, "decoder_layers": 8,
+        "encoder_attention_heads": 16, "decoder_attention_heads": 16, "encoder_ffn_dim": 2048,
+        "decoder_ffn_dim": 2048, "max_position_embeddings": 512, "activation_function": "gelu",
+        "scale_embedding": True, "pad_token_id": 0, "bos_token_id": 1, "eos_token_id": 2,
+        "decoder_start_token_id": 1, "init_std": 0.02, "is_encoder_decoder": True}),
+}
+#: The encoder-decoder families written as a ``*ForConditionalGeneration``
+#: tree (a ``final_logits_bias`` beside the base model, which the provider
+#: unwraps).
+SEQ2SEQ_FAMILY_HEADS = ("mbart", "pegasus", "blenderbot-small")
 #: The other decoder checkpoints of ``local_families``, cut to
 #: ``FAMILY_LAYERS`` layers at their widths: Llama-2 (multi-head, written
 #: as a ``LlamaForCausalLM`` tree), Gemma (multi-query, ``head_dim`` 256,
@@ -6023,7 +6224,9 @@ DECODER_TOKENIZERS = {
     "gemma": ("gemma", {}), "gpt2": ("gpt2", {"pad_token": "<|endoftext|>"}),
     "gpt_neo": ("gpt2", {"pad_token": "<|endoftext|>"}),
     "gptj": ("gpt2", {"pad_token": "<|endoftext|>"}), "bloom": ("bloom", {}),
-    "xglm": ("xglm", {}),
+    "xglm": ("xglm", {}), "bart": ("bart", {}), "mbart": ("mbart50", {}),
+    "pegasus": ("pegasus", {}), "blenderbot": ("blenderbot", {}),
+    "blenderbot-small": ("blenderbot-small", {}),
 }
 #: Three 8,192-row blocks of 4,096-wide docs (a 32,768 x 4,096 int8 pack,
 #: as 20,000 docs make; 17,000 leave the smoke room): the keyed v2 kernel
@@ -6057,23 +6260,43 @@ LOCAL_MISTRAL_LAYERS = 2
 #: Two shards of the cut checkpoint's 1.13 GB of bf16 (``save_pretrained``'s
 #: default ``max_shard_size="10GB"`` made two of the 32 layers' 14.2 GB).
 LOCAL_MISTRAL_SHARD_BYTES = 6 * 10**8
-#: ``save_pretrained``'s default ``max_shard_size="10GB"``: two shards of
-#: GPT-J's 12.5 GB of bf16.
-LOCAL_GPTJ_SHARD_BYTES = 10 * 10**9
+#: GPT-J-6B's depth (28) cut to this, to make room for ``local_blenderbot``
+#: in the smoke's time: the widths, the two-shard read, the head tree, the
+#: f32 and bf16 checks (the bf16 one on the store's own depth) and the
+#: d = 4,096 pack checks stay.
+LOCAL_GPTJ_LAYERS = 2
+#: Two shards of the cut checkpoint's 1.63 GB of bf16 (``save_pretrained``'s
+#: default ``max_shard_size="10GB"`` made two of the 28 layers' 12.1 GB).
+LOCAL_GPTJ_SHARD_BYTES = 10**9
 #: The decoder stores of the smoke: what :func:`local_decoder_phase` runs
 #: for each (``seed``: every draw of the phase from there; ``head``: written
 #: as a ``*ForCausalLM`` tree; ``pack_checks``: #3 / #2 / #4 on the store's
-#: pack; ``families``: ``local_families``' checkpoints written and their
-#: CPU references run beside this store's write).
+#: pack).
 LOCAL_DECODERS = {
     "local_mistral": {"source": "intfloat/e5-mistral-7b-instruct",
                       "config": {**E5_MISTRAL, "num_hidden_layers": LOCAL_MISTRAL_LAYERS},
                       "seed": SEED + 89, "shard_bytes": LOCAL_MISTRAL_SHARD_BYTES,
-                      "head": False, "pack_checks": False, "families": False},
-    "local_gptj": {"source": "EleutherAI/gpt-j-6b", "config": GPTJ_6B, "seed": SEED + 211,
-                   "shard_bytes": LOCAL_GPTJ_SHARD_BYTES, "head": True, "pack_checks": True,
-                   "families": True},
+                      "head": False, "pack_checks": False},
+    "local_gptj": {"source": "EleutherAI/gpt-j-6b",
+                   "config": {**GPTJ_6B, "n_layer": LOCAL_GPTJ_LAYERS}, "seed": SEED + 211,
+                   "shard_bytes": LOCAL_GPTJ_SHARD_BYTES, "head": True, "pack_checks": True},
+    "local_blenderbot": {"source": "facebook/blenderbot-3B", "config": BLENDERBOT_3B,
+                         "seed": SEED + 307, "shard_bytes": None, "head": True,
+                         "pack_checks": True},
 }
+
+
+def is_seq2seq(config: dict) -> bool:
+    from svs_tpu_torch.embeddings.encoders import SEQ2SEQ_TYPES
+
+    return config["model_type"] in SEQ2SEQ_TYPES
+
+
+def model_depth(config: dict) -> str:
+    """A decoder's layers, or an encoder-decoder's ``encoder + decoder``."""
+    if is_seq2seq(config):
+        return f"{config['encoder_layers']} + {config['decoder_layers']}"
+    return str(decoder_widths(config)["layers"])
 
 
 def decoder_widths(config: dict) -> dict:
@@ -6110,13 +6333,69 @@ def decoder_widths(config: dict) -> dict:
 
 def cut_depth(config: dict, layers: int) -> dict:
     """``config`` cut to ``layers`` layers (GPT-Neo's attention pattern cut
-    with it, whole repeats of its first kinds)."""
+    with it, whole repeats of its first kinds; an encoder-decoder's two
+    stacks each to ``layers``)."""
+    if is_seq2seq(config):
+        return {**config, "encoder_layers": min(layers, config["encoder_layers"]),
+                "decoder_layers": min(layers, config["decoder_layers"])}
     cfg = {**config, decoder_widths(config)["depth_key"]: layers}
     if config["model_type"] == "gpt_neo":
         kinds = config.get("attention_types", [[["global", "local"], 12]])[0][0]
         cfg["attention_types"] = [[kinds, layers // len(kinds)]]
         cfg["attention_layers"] = (kinds * layers)[:layers]
     return cfg
+
+
+def random_seq2seq_params(config: dict, seed: int, device: str,
+                          dtype: str = "bfloat16") -> dict:
+    """A Flax encoder-decoder base tree (BART, mBART, Pegasus, Blenderbot,
+    Blenderbot-small: ``shared``, ``encoder``, ``decoder``) at ``config``'s
+    widths, its leaves those of the port's module for the type (built on the
+    meta device, walked in its order) with random values from the seed's
+    generator on ``device``, as :func:`random_decoder_params` draws them:
+    embeddings and learned positions N(0, 0.02), LayerNorms 1 and 0, Dense
+    kernels ``[in, out]`` N(0, 1/fan_in), zero biases; torch tensors in
+    ``dtype``."""
+    import torch
+
+    from svs_tpu_torch.embeddings.bert import Embedding, LayerNorm, Linear
+    from svs_tpu_torch.embeddings.encoders import build_encoder
+
+    with torch.device("meta"):
+        model = build_encoder(config)
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    dt = getattr(torch, dtype)
+
+    def normal(scale, *shape):
+        return torch.randn(shape, generator=g, device=device).mul_(scale).to(dt)
+
+    def full(value, n):
+        return torch.full((n,), value, device=device, dtype=dt)
+
+    tree: dict = {}
+    for name, mod in model.named_modules():
+        if isinstance(mod, Linear):
+            d_out, d_in = mod.weight.shape
+            leaf = {"kernel": normal(1.0 / np.sqrt(d_in), d_in, d_out), "bias": full(0.0, d_out)}
+        elif isinstance(mod, LayerNorm):
+            leaf = {"scale": full(1.0, mod.width), "bias": full(0.0, mod.width)}
+        elif isinstance(mod, Embedding):
+            leaf = {"embedding": normal(0.02, *mod.weight.shape)}
+        else:
+            continue
+        node = tree
+        for part in name.split("."):
+            node = node.setdefault(part, {})
+        node.update(leaf)
+    return tree
+
+
+def random_model_params(config: dict, seed: int, device: str) -> dict:
+    """:func:`random_seq2seq_params` or :func:`random_decoder_params`."""
+    if is_seq2seq(config):
+        return random_seq2seq_params(config, seed, device)
+    return random_decoder_params(config, seed, device)
 
 
 def random_decoder_params(config: dict, seed: int, device: str, qk: float = 1.0,
@@ -6225,12 +6504,17 @@ def with_head(config: dict, tree: dict, seed: int) -> dict:
     """``tree`` as a ``*ForCausalLM`` checkpoint holds it: under the type's
     ``base_model_prefix``, beside an ``lm_head`` ``[hidden, vocab]``
     N(0, 0.02) in the tree's dtype (GPT-J's with a zero bias), drawn on the
-    tree's device from ``seed``."""
+    tree's device from ``seed``; an encoder-decoder's as a
+    ``*ForConditionalGeneration`` tree with tied embeddings: under
+    ``model``, beside a zero ``final_logits_bias`` ``[1, vocab]``."""
     import torch
 
     from svs_tpu_torch.embeddings.encoders import BASE_MODEL_PREFIX
 
     leaf = next(iter(next(iter(tree.values())).values()))
+    if is_seq2seq(config):
+        bias = torch.zeros((1, config["vocab_size"]), device=leaf.device, dtype=leaf.dtype)
+        return {"model": tree, "final_logits_bias": bias}
     g = torch.Generator(device=leaf.device)
     g.manual_seed(seed)
     shape = (decoder_widths(config)["hidden"], config["vocab_size"])
@@ -6242,10 +6526,42 @@ def with_head(config: dict, tree: dict, seed: int) -> dict:
 
 def cut_tree(config: dict, tree: dict, layers: int) -> dict:
     """A base tree's first ``layers`` layers beside its embeddings and final
-    norm (no copy)."""
+    norm (no copy); an encoder-decoder's in each stack."""
+    if is_seq2seq(config):
+        return {k: ({**v, "layers": {str(i): v["layers"][str(i)]
+                                     for i in range(min(layers, len(v["layers"])))}}
+                    if k in ("encoder", "decoder") else v) for k, v in tree.items()}
     stack = decoder_widths(config)["stack"]
     return {k: ({str(i): v[str(i)] for i in range(layers)} if k == stack else v)
             for k, v in tree.items()}
+
+
+def seq2seq_flops_per_text(config: dict, seq_len: int) -> dict:
+    """The multiply-adds x 2 of one text through an encoder-decoder at
+    ``seq_len`` tokens (every text is that long) up to the decoder's last
+    hidden state (no LM head): per token, the encoder layers' ``4 d^2``
+    projections and ``2 d ffn`` FFN, the decoder layers' ``4 d^2`` of
+    self-attention, ``4 d^2`` of cross-attention (its query and output on
+    the decoder's tokens, its key and value on the encoder's ``seq_len``)
+    and ``2 d ffn``; and the two attention products over every query-key
+    pair, the encoder's self-attention and the decoder's self- and
+    cross-attention (``[L, L]`` each, masks included)."""
+    from svs_tpu_torch.embeddings import seq2seq
+
+    c = seq2seq.cfg_of(config, {})
+    d, n = int(c["d_model"]), seq_len
+    enc, dec = int(c["encoder_layers"]), int(c["decoder_layers"])
+    proj = 2 * n * (enc * (4 * d * d + 2 * d * int(c["encoder_ffn_dim"]))
+                    + dec * (8 * d * d + 2 * d * int(c["decoder_ffn_dim"])))
+    attn = 2 * 2 * n * n * d * (enc + 2 * dec)
+    return {"projections": float(proj), "attention": float(attn), "total": float(proj + attn),
+            "layer_parameters": float(proj / (2 * n))}
+
+
+def model_flops_per_text(config: dict, seq_len: int) -> dict:
+    if is_seq2seq(config):
+        return seq2seq_flops_per_text(config, seq_len)
+    return decoder_flops_per_text(config, seq_len)
 
 
 def decoder_flops_per_text(config: dict, seq_len: int) -> dict:
@@ -6296,16 +6612,20 @@ class RssPeak:
 
 
 def write_decoder_tokenizer_of(path: Path, model_type: str, size: int, seed: int) -> list:
-    """The synthetic tokenizer of a decoder type (:data:`DECODER_TOKENIZERS`)
-    at ``size`` ids: Llama-2's or Gemma's SentencePiece-style BPE
-    (:func:`write_decoder_tokenizer`), GPT-2's or BLOOM's byte-level BPE
-    (:func:`write_byte_level_bpe`), XGLM's Unigram (:func:`write_xglm_spm`).
-    Returns the words its passages draw from."""
+    """The synthetic tokenizer of a decoder or encoder-decoder type
+    (:data:`DECODER_TOKENIZERS`) at ``size`` ids: Llama-2's or Gemma's
+    SentencePiece-style BPE (:func:`write_decoder_tokenizer`), the
+    byte-level BPE of GPT-2, BLOOM, BART, Blenderbot or Blenderbot-small
+    (:func:`write_byte_level_bpe`), the Unigram of XGLM
+    (:func:`write_xglm_spm`), mBART-50 (:func:`write_mbart50_spm`) or
+    Pegasus (:func:`write_pegasus_spm`).  Returns the words its passages
+    draw from."""
     layout, config = DECODER_TOKENIZERS[model_type]
     if layout in ("llama", "gemma"):
         return write_decoder_tokenizer(path, layout, size, seed, **config)
-    if layout == "xglm":
-        return write_xglm_spm(path, size, seed, **config)
+    spm = {"xglm": write_xglm_spm, "mbart50": write_mbart50_spm, "pegasus": write_pegasus_spm}
+    if layout in spm:
+        return spm[layout](path, size, seed, **config)
     return write_byte_level_bpe(path, layout, size, seed, **config)
 
 
@@ -6359,32 +6679,62 @@ def family_cpu_references(models: dict, texts: list) -> dict:
     return refs
 
 
+def start_families(work: Path) -> dict:
+    """Write every ``local_families`` checkpoint (:func:`write_families`)
+    and start the port's f32 CPU runs of :func:`family_texts` through them
+    in a thread, beside the card's phases that follow; returns ``{"models":
+    ..., "thread": ...}``, to which the thread adds ``"cpu"``
+    (:func:`family_cpu_references`) or ``"error"``."""
+    families: dict = {"models": write_families(work)}
+    models = {f: v[0] for f, v in families["models"].items()}
+
+    def run():
+        try:
+            families["cpu"] = family_cpu_references(models, family_texts())
+        except BaseException as exc:  # re-raised by local_families_phase
+            families["error"] = exc
+
+    families["thread"] = threading.Thread(target=run, name="families_cpu", daemon=True)
+    families["thread"].start()
+    return families
+
+
 def local_mistral_phase(work: Path, out: dict) -> None:
     """The e5-mistral-7b-instruct store (:func:`local_decoder_phase`)."""
     local_decoder_phase(work, out, "local_mistral")
 
 
-def local_gptj_phase(work: Path, out: dict) -> dict:
-    """The GPT-J-6B store (:func:`local_decoder_phase`); returns
-    ``local_families``' checkpoints and CPU vectors."""
-    return local_decoder_phase(work, out, "local_gptj")
+def local_gptj_phase(work: Path, out: dict) -> None:
+    """The GPT-J-6B store (:func:`local_decoder_phase`)."""
+    local_decoder_phase(work, out, "local_gptj")
 
 
-def local_decoder_phase(work: Path, out: dict, label: str) -> dict:
-    """A store on the card through a decoder (:data:`LOCAL_DECODERS`:
-    ``local_mistral`` at ``intfloat/e5-mistral-7b-instruct``'s widths, its
-    depth cut to ``LOCAL_MISTRAL_LAYERS``; ``local_gptj`` at
-    ``EleutherAI/gpt-j-6b``'s widths and depth): random weights from the
-    seed's generator on the card, written as a sharded bf16 Flax checkpoint
-    of two shards (GPT-J's as a ``FlaxGPTJForCausalLM`` tree) and read back
-    through the provider into f32 on the card; a synthetic tokenizer of the
-    type's layout at its vocabulary size (Llama-2's 32,000-piece BPE,
-    GPT-2's 50,400-id byte-level BPE with ``pad_token`` set); mean pooling,
+def local_blenderbot_phase(work: Path, out: dict) -> None:
+    """The facebook/blenderbot-3B store (:func:`local_decoder_phase`)."""
+    local_decoder_phase(work, out, "local_blenderbot")
+
+
+def local_decoder_phase(work: Path, out: dict, label: str) -> None:
+    """A store on the card through a decoder or an encoder-decoder
+    (:data:`LOCAL_DECODERS`: ``local_mistral`` at
+    ``intfloat/e5-mistral-7b-instruct``'s widths, its depth cut to
+    ``LOCAL_MISTRAL_LAYERS``; ``local_gptj`` at ``EleutherAI/gpt-j-6b``'s
+    widths, its depth cut to ``LOCAL_GPTJ_LAYERS``; ``local_blenderbot`` at
+    ``facebook/blenderbot-3B``'s
+    widths and depth, 2 + 24 layers): random weights from the seed's
+    generator on the card, written as a bf16 Flax checkpoint (Mistral's and
+    GPT-J's sharded in two, GPT-J's as a ``FlaxGPTJForCausalLM`` tree,
+    Blenderbot's one file holding a ``FlaxBlenderbotForConditionalGeneration``
+    tree) and read back through the provider into f32 on the card; a
+    synthetic tokenizer of the type's layout at its vocabulary size
+    (Llama-2's 32,000-piece BPE, GPT-2's 50,400-id byte-level BPE with
+    ``pad_token`` set, Blenderbot's 8,008-id byte-level BPE); mean pooling,
     ``max_length`` 128, batch 128, bf16: ``LOCAL_DECODER_DOCS`` passages of
     8-120 words embedded and written through ``KB.bulk_add_docs``; f32 on
     the card against f32 on the CPU for ``LOCAL_DECODER_PARITY_TEXTS``
     texts on a cut of the checkpoint to ``LOCAL_DECODER_CPU_LAYERS`` layers
-    (within ``LOCAL_F32_ATOL``); the stored bf16 rows of
+    (each stack of an encoder-decoder; within ``LOCAL_F32_ATOL``); the
+    stored bf16 rows of
     ``LOCAL_DECODER_BF16_TEXTS`` texts against the card's own f32 run at
     the store's depth (within ``LOCAL_DECODER_BF16_ATOL``, cosine at least
     ``LOCAL_DECODER_BF16_MIN_COS``); ``retrieve_batch`` at B = 1, 8 and 64,
@@ -6399,12 +6749,10 @@ def local_decoder_phase(work: Path, out: dict, label: str) -> dict:
     version (:func:`pack_kernel_checks`).  Reports the checkpoint's write,
     read and upload seconds and the host's resident peak during the load,
     the tokenizer's and the encoder's texts/s, the encoder's share of its
-    bound (:func:`decoder_flops_per_text` at the bf16 peak), the write's
+    bound (:func:`decoder_flops_per_text` or :func:`seq2seq_flops_per_text`
+    at the bf16 peak), the write's
     seconds and the peak device memory; fails if none of #2, #3 and #4
-    launched.  With ``families``, a CPU thread beside the write also runs
-    the f32 references of every ``local_families`` entry: returns their
-    checkpoints (``"models"``: :func:`write_families`) and CPU vectors
-    (``"cpu"``) for ``local_families_phase``."""
+    launched."""
     import gc
 
     import torch
@@ -6414,13 +6762,13 @@ def local_decoder_phase(work: Path, out: dict, label: str) -> dict:
 
     spec = LOCAL_DECODERS[label]
     cfg, seed = spec["config"], spec["seed"]
-    depth = decoder_widths(cfg)["layers"]
+    depth = model_depth(cfg)
     res = out[f"paths_detail_{label}"] = {"source": spec["source"], "layers": depth}
     ck = work / f"{label}-synthetic"
-    cut = depth > LOCAL_DECODER_CPU_LAYERS
+    cut = cut_depth(cfg, LOCAL_DECODER_CPU_LAYERS) != cfg
     ck_cut = work / f"{label}-synthetic-2l" if cut else ck
     t = time.perf_counter()
-    tree = random_decoder_params(cfg, seed, "cuda")
+    tree = random_model_params(cfg, seed, "cuda")
     torch.cuda.synchronize()
     res["weights_s"] = time.perf_counter() - t
     t = time.perf_counter()
@@ -6434,7 +6782,7 @@ def local_decoder_phase(work: Path, out: dict, label: str) -> dict:
     torch.cuda.empty_cache()
     res["checkpoint_gb"] = sum(f.stat().st_size for f in files) / 1e9
     res["shards"] = [f.name for f in shard_files(ck)]
-    if len(res["shards"]) < 2:
+    if spec["shard_bytes"] is not None and len(res["shards"]) < 2:
         raise AssertionError(f"{label}: the checkpoint is not sharded ({res['shards']})")
     t = time.perf_counter()
     words = write_decoder_tokenizer_of(ck, cfg["model_type"], cfg["vocab_size"], seed + 8)
@@ -6443,10 +6791,6 @@ def local_decoder_phase(work: Path, out: dict, label: str) -> dict:
             shutil.copy(ck / name, ck_cut / name)
     texts = passages(words, LOCAL_DECODER_DOCS, seed + 12, *LOCAL_DECODER_WORDS)
     res["tokenizer_and_texts_s"] = time.perf_counter() - t
-    families = None
-    if spec["families"]:  # the local_families checkpoints: their CPU runs beside the write
-        fam_texts = family_texts()
-        families = {"models": write_families(work)}
     log(f"e2e {label}: weights on the card in {res['weights_s']:.1f} s; a "
         f"{res['checkpoint_gb']:.2f} GB bf16 checkpoint of {depth} layers in "
         f"{len(res['shards'])} shards written in {res['checkpoint_write_s']:.1f} s"
@@ -6454,7 +6798,7 @@ def local_decoder_phase(work: Path, out: dict, label: str) -> dict:
         f"{LOCAL_DECODER_DOCS} texts in {res['tokenizer_and_texts_s']:.1f} s")
     path = work / f"{label}.sqlite"
     shapes = ((64, 10), (64, 100), (8, 10), (8, 100), (1, 10), (1, 100))
-    flops = decoder_flops_per_text(cfg, LOCAL_DECODER_MAX_LENGTH)
+    flops = model_flops_per_text(cfg, LOCAL_DECODER_MAX_LENGTH)
     res["gflop_per_text"] = {k: v / 1e9 for k, v in flops.items()}
     res["bound_texts_per_s"] = PEAK_OPS_PER_S["bf16"] / flops["total"]
 
@@ -6481,9 +6825,6 @@ def local_decoder_phase(work: Path, out: dict, label: str) -> dict:
                 t = time.perf_counter()
                 cpu_run["cut"] = embed(provider(ck_cut, "float32", "cpu"), sample)
                 cpu_run["s"] = time.perf_counter() - t
-                if families is not None:
-                    cpu_run["families"] = family_cpu_references(
-                        {f: v[0] for f, v in families["models"].items()}, fam_texts)
             except BaseException as exc:  # re-raised below
                 cpu_run["error"] = exc
 
@@ -6551,8 +6892,6 @@ def local_decoder_phase(work: Path, out: dict, label: str) -> dict:
         res["cpu_wait_s"] = time.perf_counter() - t
         if "error" in cpu_run:
             raise cpu_run["error"]
-        if families is not None:
-            families["cpu"] = cpu_run["families"]
         res["cpu_f32_s"] = cpu_run["s"]
         f32_cut = embed(provider(ck_cut, "float32", "cuda"), sample)
         res["f32_max_abs_err"] = float(np.abs(f32_cut - cpu_run["cut"]).max())
@@ -6631,7 +6970,6 @@ def local_decoder_phase(work: Path, out: dict, label: str) -> dict:
     shutil.rmtree(ck, ignore_errors=True)
     shutil.rmtree(ck_cut, ignore_errors=True)
     torch.cuda.empty_cache()
-    return families
 
 
 def main() -> int:

@@ -197,6 +197,8 @@ _FLAX_TOP = {
     "gptj": ("wte", "h", "ln_f"),
     "bloom": ("word_embeddings", "word_embeddings_layernorm", "h", "ln_f"),
     "xglm": ("embed_tokens", "layers", "layer_norm"),
+    **{t: ("shared", "encoder", "decoder")
+       for t in ("bart", "mbart", "pegasus", "blenderbot", "blenderbot-small")},
 }
 #: The families whose kernels are ``FlaxConv1D``'s ``[out, in]`` (GPT-2's),
 #: taken as they are.
@@ -216,7 +218,9 @@ def decoder_state_dict_from_flax(params: Dict[str, Any], conv1d: bool = False
                                   ) -> Dict[str, torch.Tensor]:
     """A Flax decoder's base tree as the state dict of the port's decoder
     (:mod:`svs_tpu_torch.embeddings.llama`, ``gpt2``, ``gpt_neo``,
-    ``gptj``, ``bloom``, ``xglm``), leaf by leaf under the same names.
+    ``gptj``, ``bloom``, ``xglm``) or encoder-decoder
+    (:mod:`svs_tpu_torch.embeddings.seq2seq`: ``shared`` read once, the one
+    table both stacks look up), leaf by leaf under the same names.
     Nothing is copied: a Dense ``kernel [in, out]`` becomes the transposed
     view ``weight [out, in]`` (moved to the card with its strides, one
     contiguous copy); with ``conv1d`` (GPT-2's ``FlaxConv1D``, whose kernel
@@ -262,15 +266,19 @@ def encoder_state_dict_from_flax(
     (Llama / Mistral / Gemma ``embed_tokens``, ``layers``, ``norm``;
     GPT-2 / GPT-Neo ``wte``, ``wpe``, ``h``, ``ln_f``; GPT-J's without
     ``wpe``; BLOOM ``word_embeddings``, ``word_embeddings_layernorm``,
-    ``h``, ``ln_f``; XGLM ``embed_tokens``, ``layers``, ``layer_norm``) go
-    through :func:`decoder_state_dict_from_flax`.  A subtree the family
-    does not have raises ``ValueError``."""
+    ``h``, ``ln_f``; XGLM ``embed_tokens``, ``layers``, ``layer_norm``) and
+    the encoder-decoders' (``shared``, ``encoder``, ``decoder``: each
+    stack's ``embed_positions``, BART's and mBART's of
+    ``max_position_embeddings + 2`` rows, none in Pegasus's; its
+    ``layers``, ``layernorm_embedding`` and ``layer_norm`` where the family
+    has them) go through :func:`decoder_state_dict_from_flax`.  A subtree
+    the family does not have raises ``ValueError``."""
     model_type = config.get("model_type")
     if model_type not in _FLAX_TOP:
         raise NotImplementedError(f"model_type {model_type!r} has no weight conversion")
-    from .embeddings.encoders import DECODER_TYPES
+    from .embeddings.encoders import DECODER_TYPES, SEQ2SEQ_TYPES
 
-    decoder = model_type in DECODER_TYPES
+    decoder = model_type in DECODER_TYPES + SEQ2SEQ_TYPES
     extra = sorted(set(params) - set(_FLAX_TOP[model_type]) - (set() if decoder else {"pooler"}))
     if extra:
         raise ValueError(f"unexpected subtrees {extra} in a {model_type} checkpoint")

@@ -377,8 +377,10 @@ def load_checkpoint(model_dir: Union[str, Path]) -> Tuple[Dict[str, Any], Dict[s
     checkpoint holds the base model under its family's
     ``base_model_prefix`` (:data:`.encoders.BASE_MODEL_PREFIX`: ``bert``,
     ``roberta``, ...; ``model`` for the ``*ForCausalLM`` trees of Llama,
-    Mistral, Gemma and XGLM, ``transformer`` for GPT-2's, GPT-Neo's,
-    GPT-J's and BLOOM's), and that wrapper is unwrapped as
+    Mistral, Gemma and XGLM and for the ``*ForConditionalGeneration`` trees
+    of BART, mBART, Pegasus, Blenderbot and Blenderbot-small,
+    ``transformer`` for GPT-2's, GPT-Neo's, GPT-J's and BLOOM's), and that
+    wrapper is unwrapped as
     ``FlaxAutoModel.from_pretrained`` unwraps it (:func:`unwrap_head`)."""
     config = read_config(model_dir)
     files = shard_files(model_dir)
@@ -395,10 +397,12 @@ def load_checkpoint(model_dir: Union[str, Path]) -> Tuple[Dict[str, Any], Dict[s
 def unwrap_head(config: Dict[str, Any], params: Dict[str, Any]) -> Dict[str, Any]:
     """The base model's tree of ``params``: itself when it holds the base
     model's embeddings at its top (``embeddings``; a decoder's
-    ``embed_tokens``, ``wte`` or ``word_embeddings``:
-    :data:`.encoders.BASE_TREE_KEY`), else the subtree under ``config``'s
-    ``base_model_prefix`` (a ``*ForCausalLM`` / ``*LMHeadModel`` tree's
-    ``model`` or ``transformer``, its ``lm_head`` left out).  An XLM-R tree
+    ``embed_tokens``, ``wte`` or ``word_embeddings``; an encoder-decoder's
+    ``shared``: :data:`.encoders.BASE_TREE_KEY`), else the subtree under
+    ``config``'s ``base_model_prefix`` (a ``*ForCausalLM`` /
+    ``*LMHeadModel`` tree's ``model`` or ``transformer``, its ``lm_head``
+    left out; a ``*ForConditionalGeneration`` tree's ``model``, its
+    ``final_logits_bias`` and untied ``lm_head`` left out).  An XLM-R tree
     wrapped under ``roberta`` (the attribute name of ``transformers``' XLM-R
     heads) is refused: ``FlaxAutoModel`` looks for ``xlm-roberta`` there,
     finds no weights and initialises the model at random, which the port

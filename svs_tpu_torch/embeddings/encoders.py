@@ -20,10 +20,21 @@ and the decoder-only types whose last hidden state it pools:
 - ``gpt2``: :mod:`.gpt2`; ``gpt_neo`` (local-attention layers):
   :mod:`.gpt_neo`; ``gptj`` (partial rotary positions, the parallel
   block): :mod:`.gptj`; ``bloom`` (ALiBi): :mod:`.bloom`; ``xglm``
-  (sinusoidal positions): :mod:`.xglm`.
+  (sinusoidal positions): :mod:`.xglm`;
 
-``FlaxAutoModel`` also loads ``roformer`` and the encoder-decoder types,
-which are not ported: each raises
+and the encoder-decoder types, whose decoder's last hidden state it pools
+(the decoder's inputs are the ids shifted right, its cross-attention over
+the encoder's states under the encoder's mask: :mod:`.seq2seq`):
+
+- ``bart`` (post-LN, positions at ``+ 2``) and ``mbart`` (pre-LN, the
+  language code wrapped to the decoder's first place): :mod:`.bart`;
+- ``pegasus`` (Marian's sinusoidal positions): :mod:`.pegasus`;
+- ``blenderbot`` (pre-LN) and ``blenderbot-small`` (post-LN, the
+  decoder's ``layernorm_embedding`` before the positions):
+  :mod:`.blenderbot`.
+
+``FlaxAutoModel`` also loads ``roformer``, ``opt``, the T5 types and
+``marian``, which are not ported: each raises
 ``NotImplementedError`` naming the type and what it would need
 (:data:`UNPORTED`), as does every other type and every ``hidden_act`` /
 ``activation``, ``position_embedding_type``, BigBird ``attention_type``,
@@ -38,7 +49,8 @@ from typing import Any, Dict
 import torch
 from torch import nn
 
-from . import albert, bert, big_bird, bloom, distilbert, gpt2, gpt_neo, gptj, llama, xglm
+from . import (albert, bart, bert, big_bird, blenderbot, bloom, distilbert, gpt2, gpt_neo, gptj,
+               llama, pegasus, xglm)
 
 #: ``model_type`` -> the key under which a head model's Flax checkpoint
 #: holds the base model (``transformers``' ``base_model_prefix``).
@@ -59,11 +71,15 @@ BASE_MODEL_PREFIX = {
     "gptj": "transformer",
     "bloom": "transformer",
     "xglm": "model",
+    **{t: "model" for t in bart.MODEL_TYPES + pegasus.MODEL_TYPES + blenderbot.MODEL_TYPES},
 }
 MODEL_TYPES = tuple(BASE_MODEL_PREFIX)
 #: The decoder-only types (no pooler, no token types).
 DECODER_TYPES = (llama.MODEL_TYPES + gpt2.MODEL_TYPES + gpt_neo.MODEL_TYPES + gptj.MODEL_TYPES
                  + bloom.MODEL_TYPES + xglm.MODEL_TYPES)
+#: The encoder-decoder types (the decoder's states pooled under the
+#: encoder's mask; no pooler, no token types).
+SEQ2SEQ_TYPES = bart.MODEL_TYPES + pegasus.MODEL_TYPES + blenderbot.MODEL_TYPES
 #: The key that a base model's tree holds at its top and a head model's
 #: does not (``embeddings`` for the encoders): how
 #: :func:`.checkpoint.unwrap_head` tells the two apart.
@@ -71,16 +87,12 @@ BASE_TREE_KEY = {
     **{t: "embed_tokens" for t in llama.MODEL_TYPES + xglm.MODEL_TYPES},
     **{t: "wte" for t in gpt2.MODEL_TYPES + gpt_neo.MODEL_TYPES + gptj.MODEL_TYPES},
     "bloom": "word_embeddings",
+    **{t: "shared" for t in SEQ2SEQ_TYPES},
 }
 #: Types that ``FlaxAutoModel`` loads and the port does not run, with what
 #: they would need.
 UNPORTED = {
     "roformer": "rotary position embeddings, and a tokenizer that needs rjieba",
-    "bart": "an encoder-decoder stack run through its decoder",
-    "mbart": "an encoder-decoder stack run through its decoder",
-    "pegasus": "an encoder-decoder stack run through its decoder",
-    "blenderbot": "an encoder-decoder stack run through its decoder",
-    "blenderbot-small": "an encoder-decoder stack run through its decoder",
     "opt": "svs_tpu's provider fails on it too: FlaxOPTModel takes no train argument",
     "t5": "svs_tpu's provider fails on it too: the model needs decoder_input_ids",
     "mt5": "svs_tpu's provider fails on it too: the model needs decoder_input_ids",
@@ -98,6 +110,9 @@ _ENCODERS = {
     "gptj": (gptj.GPTJEncoder, gptj.check_config),
     "bloom": (bloom.BloomEncoder, bloom.check_config),
     "xglm": (xglm.XGLMEncoder, xglm.check_config),
+    **{t: (bart.BartEncoder, bart.check_config) for t in bart.MODEL_TYPES},
+    "pegasus": (pegasus.PegasusEncoder, pegasus.check_config),
+    **{t: (blenderbot.BlenderbotEncoder, blenderbot.check_config) for t in blenderbot.MODEL_TYPES},
 }
 
 

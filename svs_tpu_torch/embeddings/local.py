@@ -10,10 +10,11 @@ port reads the same files with no ``transformers``, ``tokenizers`` or
   (:func:`.tokenizer_json.load_tokenizer`): ``tokenizer.json`` through
   :mod:`.tokenizer_json` (WordPiece, byte-level BPE, SentencePiece-style
   BPE with byte fallback, or Unigram, with the ``Precompiled``
-  normalizer; Llama's and Gemma's left padding; the GPT-2, BLOOM and XGLM
-  classes' special tokens), else ``vocab.txt``
-  through :mod:`.wordpiece`, else ``vocab.json`` + ``merges.txt`` through
-  :mod:`.bpe`; a SentencePiece model alone is refused;
+  normalizer; Llama's and Gemma's left padding; the GPT-2, BLOOM, XGLM,
+  BART, mBART, Pegasus and Blenderbot classes' special tokens), else
+  ``vocab.txt`` through :mod:`.wordpiece`, else ``vocab.json`` +
+  ``merges.txt`` through :mod:`.bpe` (RoBERTa's, BART's, Blenderbot's); a
+  SentencePiece model alone is refused;
 - the weights from ``flax_model.msgpack``, or from the shards of a
   ``flax_model.msgpack.index.json`` read one at a time, through
   :mod:`.checkpoint` and ``convert.encoder_state_dict_from_flax``;
@@ -26,7 +27,10 @@ port reads the same files with no ``transformers``, ``tokenizers`` or
   ``gemma``, ``gpt2``, ``gpt_neo`` (SGPT-1.3B / 2.7B), ``gptj``
   (SGPT-5.8B), ``bloom`` (``sgpt-bloom-7b1-msmarco``) and ``xglm`` (their
   last hidden state pooled as an encoder's, CLS being position 0, a pad on
-  a left-padded row, as in the reference); any other type raises
+  a left-padded row, as in the reference), and the encoder-decoders
+  ``bart``, ``mbart``, ``pegasus``, ``blenderbot`` and ``blenderbot-small``
+  (the decoder's last hidden state, its inputs the ids shifted right,
+  pooled under the encoder's mask); any other type raises
   ``NotImplementedError`` naming it, before the weights are read.
 
 Kept from the reference: the factory's signature and validation, the

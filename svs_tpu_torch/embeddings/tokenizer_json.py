@@ -33,11 +33,17 @@ told otherwise), the options that ``BertTokenizerFast``
 (``do_lower_case``, ``strip_accents``, ``tokenize_chinese_chars``) writes
 over the file's normalizer and every fast class (``add_prefix_space``,
 default false) over a ``ByteLevel`` pre-tokenizer, ``XGLMTokenizerFast``'s
-``<madeupwordN>`` special tokens, and the post-processor that the Llama
-and Gemma classes rebuild from ``add_bos_token`` / ``add_eos_token``.  A
-Llama tokenizer has no pad token by default, and neither has GPT-2's
-(GPT-Neo's, GPT-J's), so ``padding="max_length"`` fails there as in
-``transformers``.
+``<madeupwordN>`` special tokens, the post-processor that the Llama
+and Gemma classes rebuild from ``add_bos_token`` / ``add_eos_token``, and
+the encoder-decoders' classes: BART's and Blenderbot's RoBERTa specials
+(BART's ``<mask>`` normalized), mBART's 25 and mBART-50's 52 language
+codes as special tokens and the post-processor they rebuild around
+``src_lang`` (``$A </s> en_XX``, ``en_XX $A </s>``), Pegasus's
+``<mask_1>`` / ``<mask_2>`` and ``<unk_2>`` .. ``<unk_102>`` (the config's
+``added_tokens_decoder`` dropped, as its class drops it).  A Llama
+tokenizer has no pad token by default, and neither have GPT-2's (GPT-Neo's,
+GPT-J's) and Blenderbot-small's fast class, so ``padding="max_length"``
+fails there as in ``transformers``.
 
 A component of any other type raises ``NotImplementedError`` naming it;
 nothing falls back to another tokenizer.
@@ -50,7 +56,7 @@ import re
 import unicodedata
 from functools import lru_cache
 from pathlib import Path
-from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
+from typing import TYPE_CHECKING, Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
@@ -60,6 +66,9 @@ from .precompiled import PrecompiledCharsMap
 from .uniset import char_class, is_white_space
 from .unigram import UnigramModel
 from .wordpiece import WordPieceModel, WordPieceTokenizer, _is_cjk
+
+if TYPE_CHECKING:
+    from .blenderbot_small_bpe import BlenderbotSmallTokenizer
 
 TOKENIZER_JSON = "tokenizer.json"
 #: What each part of the interpreter reads.
@@ -101,6 +110,25 @@ _BLOOM_SPECIALS = {"unk_token": "<unk>", "bos_token": "<s>", "eos_token": "</s>"
                    "pad_token": "<pad>"}
 _XGLM_SPECIALS = {"bos_token": "<s>", "eos_token": "</s>", "sep_token": "</s>",
                   "cls_token": "<s>", "unk_token": "<unk>", "pad_token": "<pad>"}
+#: The encoder-decoders' classes: ``BartTokenizerFast`` and
+#: ``BlenderbotTokenizerFast`` (RoBERTa's), ``MBartTokenizerFast``,
+#: ``MBart50TokenizerFast`` (no ``bos_token``), ``PegasusTokenizerFast``
+#: (``<mask_2>``) and ``BlenderbotSmallTokenizerFast`` (no pad token).
+_MBART50_SPECIALS = {k: v for k, v in _ROBERTA_SPECIALS.items() if k != "bos_token"}
+_PEGASUS_SPECIALS = {"pad_token": "<pad>", "eos_token": "</s>", "unk_token": "<unk>",
+                     "mask_token": "<mask_2>"}
+_BLENDERBOT_SMALL_SPECIALS = {"unk_token": "<|endoftext|>", "bos_token": "<|endoftext|>",
+                              "eos_token": "<|endoftext|>"}
+#: ``FAIRSEQ_LANGUAGE_CODES`` of ``tokenization_mbart_fast.py`` (25) and,
+#: extended to 52, of ``tokenization_mbart50_fast.py``.
+MBART_LANGUAGE_CODES = [
+    "ar_AR", "cs_CZ", "de_DE", "en_XX", "es_XX", "et_EE", "fi_FI", "fr_XX", "gu_IN", "hi_IN",
+    "it_IT", "ja_XX", "kk_KZ", "ko_KR", "lt_LT", "lv_LV", "my_MM", "ne_NP", "nl_XX", "ro_RO",
+    "ru_RU", "si_LK", "tr_TR", "vi_VN", "zh_CN"]
+MBART50_LANGUAGE_CODES = MBART_LANGUAGE_CODES + [
+    "af_ZA", "az_AZ", "bn_IN", "fa_IR", "he_IL", "hr_HR", "id_ID", "ka_GE", "km_KH", "mk_MK",
+    "ml_IN", "mn_MN", "mr_IN", "pl_PL", "ps_AF", "pt_XX", "sv_SE", "sw_KE", "ta_IN", "te_IN",
+    "th_TH", "tl_XX", "uk_UA", "ur_PK", "xh_ZA", "gl_ES", "sl_SI"]
 _CLASS_SPECIALS = {
     "GPT2Tokenizer": _GPT2_SPECIALS,
     "BloomTokenizer": _BLOOM_SPECIALS,
@@ -114,12 +142,26 @@ _CLASS_SPECIALS = {
     "ElectraTokenizer": _BERT_SPECIALS,
     "AlbertTokenizer": _ALBERT_SPECIALS,
     "BigBirdTokenizer": _BIG_BIRD_SPECIALS,
+    "BartTokenizer": _ROBERTA_SPECIALS,
+    "BlenderbotTokenizer": _ROBERTA_SPECIALS,
+    "MBartTokenizer": _ROBERTA_SPECIALS,
+    "MBart50Tokenizer": _MBART50_SPECIALS,
+    "PegasusTokenizer": _PEGASUS_SPECIALS,
+    "BlenderbotSmallTokenizer": _BLENDERBOT_SMALL_SPECIALS,
 }
-#: The additional special tokens a class appends to the config's
-#: (``XGLMTokenizerFast``'s seven ``<madeupwordN>``).
-_CLASS_ADDITIONAL = {"XGLMTokenizer": [f"<madeupword{i}>" for i in range(7)]}
-#: The classes whose default mask token strips the white space to its left.
-_LSTRIP_MASK = ("XLMRobertaTokenizer", "RobertaTokenizer", "AlbertTokenizer", "BigBirdTokenizer")
+#: The flags of a class's default mask token (a string in the config):
+#: it strips the white space to its left; BART's is also normalized.
+_MASK_FLAGS = {
+    **{c: {"lstrip": True} for c in ("XLMRobertaTokenizer", "RobertaTokenizer", "AlbertTokenizer",
+                                     "BigBirdTokenizer", "BlenderbotTokenizer", "MBartTokenizer",
+                                     "MBart50Tokenizer")},
+    "BartTokenizer": {"lstrip": True, "normalized": True},
+}
+#: The classes that rebuild the post-processor around the ``src_lang``
+#: code (default ``en_XX``): mBART ``$A </s> code``, mBART-50 ``code $A
+#: </s>`` (``set_src_lang_special_tokens``).
+_LANGUAGE_CODE_CLASSES = {"MBartTokenizer": MBART_LANGUAGE_CODES,
+                          "MBart50Tokenizer": MBART50_LANGUAGE_CODES}
 #: ``model_type`` -> the tokenizer class ``AutoTokenizer`` picks without a
 #: ``tokenizer_class``.
 _MODEL_TOKENIZER = {
@@ -130,6 +172,8 @@ _MODEL_TOKENIZER = {
     "llama": "LlamaTokenizer", "mistral": "LlamaTokenizer", "gemma": "GemmaTokenizer",
     "gpt2": "GPT2Tokenizer", "gpt_neo": "GPT2Tokenizer", "gptj": "GPT2Tokenizer",
     "bloom": "BloomTokenizer", "xglm": "XGLMTokenizer",
+    "bart": "BartTokenizer", "mbart": "MBartTokenizer", "pegasus": "PegasusTokenizer",
+    "blenderbot": "BlenderbotTokenizer", "blenderbot-small": "BlenderbotSmallTokenizer",
 }
 #: The classes whose ``padding_side`` is ``"left"`` unless the config says,
 #: and that rebuild the post-processor (``update_post_processor``): ``bos
@@ -650,6 +694,29 @@ def _model_size(model: Model) -> int:
     return max(model.vocab.values(), default=-1) + 1
 
 
+def _class_additional(tok_class: str, cfg: Dict[str, Any], given: List[Any]) -> List[Any]:
+    """The additional special tokens the class passes on: the config's
+    (``given``) and what the class's ``__init__`` adds to them:
+    ``XGLMTokenizerFast``'s seven ``<madeupwordN>`` after them, mBART's 25
+    language codes before them, mBART-50's 52 after them, and Pegasus's
+    ``mask_token_sent`` (``<mask_1>``) first and ``<unk_N>`` up to its
+    ``offset`` (103) after them."""
+    listed = {_token_text(t) for t in given}
+    if tok_class == "XGLMTokenizer":
+        return given + [f"<madeupword{i}>" for i in range(7) if f"<madeupword{i}>" not in listed]
+    if tok_class == "MBartTokenizer":
+        return MBART_LANGUAGE_CODES + [t for t in given if _token_text(t) not in MBART_LANGUAGE_CODES]
+    if tok_class == "MBart50Tokenizer":
+        return given + [t for t in MBART50_LANGUAGE_CODES if t not in listed]
+    if tok_class == "PegasusTokenizer":
+        offset, sent = int(cfg.get("offset", 103)), cfg.get("mask_token_sent", "<mask_1>")
+        if not cfg.get("additional_special_tokens"):
+            return ([sent] if sent is not None else []) + [f"<unk_{i}>" for i in range(2, offset)]
+        out = [sent] + given if sent is not None and sent not in listed else list(given)
+        return out + [f"<unk_{i}>" for i in range(len(out), offset - 1)]
+    return given
+
+
 def _added_tokens(
     spec: Dict[str, Any], cfg: Dict[str, Any], smap: Dict[str, Any], tok_class: str, model: Model
 ) -> Tuple[List[Dict[str, Any]], Dict[str, Any]]:
@@ -661,7 +728,8 @@ def _added_tokens(
     added = [dict(t) for t in spec.get("added_tokens", [])]
     known = {t["content"] for t in added}
     extra = []
-    decoder = cfg.get("added_tokens_decoder") or {}
+    # PegasusTokenizerFast drops the config's added_tokens_decoder
+    decoder = {} if tok_class == "PegasusTokenizer" else cfg.get("added_tokens_decoder") or {}
     for key in sorted(decoder, key=int):
         tok = decoder[key]
         if isinstance(tok, dict) and tok.get("content") not in known:
@@ -674,17 +742,14 @@ def _added_tokens(
         if value is not None:
             specials[key] = value
     more = list(cfg.get("additional_special_tokens", smap.get("additional_special_tokens")) or [])
-    listed = {_token_text(t) for t in more}
-    more += [t for t in _CLASS_ADDITIONAL.get(tok_class, []) if t not in listed]
+    more = _class_additional(tok_class, cfg, more)
     for value in list(specials.values()) + list(more):
         content = _token_text(value)
         if content is None or content in known:
             continue
         tok = dict(value) if isinstance(value, dict) else {"content": content}
-        if (tok_class in _LSTRIP_MASK
-                and content == _token_text(specials.get("mask_token"))
-                and not isinstance(value, dict)):
-            tok["lstrip"] = True
+        if content == _token_text(specials.get("mask_token")) and not isinstance(value, dict):
+            tok.update(_MASK_FLAGS.get(tok_class, {}))
         tok.setdefault("normalized", False)
         tok["special"] = True
         extra.append(tok)
@@ -733,6 +798,13 @@ class JsonTokenizer:
         tok_class = str(cfg.get("tokenizer_class") or _MODEL_TOKENIZER.get(str(model_type), "")
                         or "PreTrainedTokenizerFast").removesuffix("Fast")
         self.tokenizer_class = tok_class
+        if tok_class == "PegasusTokenizer":
+            for key, default in (("pad_token", "<pad>"), ("eos_token", "</s>"), ("unk_token", "<unk>")):
+                if key in cfg and _token_text(cfg[key]) != default:
+                    raise NotImplementedError(
+                        f"{key} {_token_text(cfg[key])!r} in PegasusTokenizer's "
+                        "tokenizer_config.json is not ported: transformers rebuilds the "
+                        "tokenizer from its SentencePiece model")
         spec = _class_options(spec, cfg, tok_class)
         self.model = build_model(spec["model"])
         self.normalize = build_normalizer(spec.get("normalizer"))
@@ -759,6 +831,8 @@ class JsonTokenizer:
                                    for t in norm])
         if tok_class in _LLAMA_CLASSES:
             self.head, self.tail = self._bos_eos(cfg, specials)
+        if tok_class in _LANGUAGE_CODE_CLASSES:
+            self.head, self.tail = self._language_code(cfg, specials)
 
         pad = _token_text(specials.get("pad_token"))
         if pad is None and spec.get("padding"):
@@ -810,6 +884,31 @@ class JsonTokenizer:
                 raise ValueError(f"{key} {token!r} has no id")
             ends.append([tid])
         return ends[0], ends[1]
+
+    def _language_code(self, cfg: Dict[str, Any], specials: Dict[str, Any]
+                       ) -> Tuple[List[int], List[int]]:
+        """``set_src_lang_special_tokens`` of ``MBartTokenizerFast`` (``$A
+        </s> code``) and ``MBart50TokenizerFast`` (``code $A </s>``): the
+        file's post-processor is replaced around the config's ``src_lang``
+        (default ``en_XX``), a token's id its vocabulary id, else the unknown
+        token's; mBART-50 takes only its own 52 codes."""
+        code = cfg.get("src_lang") or "en_XX"
+        if (self.tokenizer_class == "MBart50Tokenizer"
+                and code not in _LANGUAGE_CODE_CLASSES["MBart50Tokenizer"]):
+            raise ValueError(f"src_lang {code!r} is not a language code of MBart50Tokenizer")
+        unk = _token_text(specials.get("unk_token"))
+        ids = []
+        for token in (code, _token_text(specials.get("eos_token"))):
+            tid = None if token is None else self.token_to_id(token)
+            if tid is None and unk is not None:
+                tid = self.token_to_id(unk)
+            if tid is None:
+                raise ValueError(f"{token!r} has no id in {self.tokenizer_class}")
+            ids.append(tid)
+        lid, eos = ids
+        if self.tokenizer_class == "MBartTokenizer":
+            return [], [eos, lid]
+        return [lid], [eos]
 
     @classmethod
     def from_dir(cls, path: Union[str, Path], model_type: Optional[str] = None) -> "JsonTokenizer":
@@ -887,28 +986,45 @@ def _read_json(path: Path) -> Optional[Dict[str, Any]]:
     return json.loads(path.read_text(encoding="utf-8")) if path.is_file() else None
 
 
-def roberta_spec(path: Union[str, Path], tokenizer_config: Optional[Dict[str, Any]]) -> Dict[str, Any]:
+#: The classes whose ``vocab.json`` + ``merges.txt`` the port reads, as
+#: their converters build a ``tokenizer.json`` from them:
+#: ``RobertaConverter`` (RoBERTa's, BART's) and ``BlenderbotConverter``.
+BYTE_LEVEL_FILE_CLASSES = ("RobertaTokenizer", "BartTokenizer", "BlenderbotTokenizer")
+
+
+def roberta_spec(path: Union[str, Path], tokenizer_config: Optional[Dict[str, Any]],
+                 tok_class: str = "RobertaTokenizer") -> Dict[str, Any]:
     """The ``tokenizer.json`` that ``transformers``' ``RobertaConverter``
-    builds from ``vocab.json`` + ``merges.txt``: byte-level BPE (no unknown
-    token), the ``ByteLevel`` pre-tokenizer with the config's
-    ``add_prefix_space`` and ``<s> ... </s>`` around the ids."""
+    (``RobertaTokenizer``, ``BartTokenizer``) or ``BlenderbotConverter``
+    (``BlenderbotTokenizer``) builds from ``vocab.json`` + ``merges.txt``:
+    byte-level BPE (no unknown token), the ``ByteLevel`` pre-tokenizer with
+    the config's ``add_prefix_space``, and ``<s> ... </s>`` around the ids
+    (Blenderbot: ``... </s>``)."""
     cfg = tokenizer_config or {}
     vocab, merges = load_vocab_merges(path)
     ends = {}
-    for key in ("cls_token", "sep_token"):
+    for key in ("eos_token",) if tok_class == "BlenderbotTokenizer" else ("cls_token", "sep_token"):
         token = _token_text(cfg.get(key)) or _ROBERTA_SPECIALS[key]
         if token not in vocab:
             raise ValueError(f"{key} {token!r} is not in vocab.json")
         ends[key] = [token, vocab[token]]
     prefix = bool(cfg.get("add_prefix_space", False))
+    if tok_class == "BlenderbotTokenizer":
+        eos, eos_id = ends["eos_token"]
+        post: Dict[str, Any] = {
+            "type": "TemplateProcessing",
+            "single": [{"Sequence": {"id": "A", "type_id": 0}},
+                       {"SpecialToken": {"id": eos, "type_id": 0}}],
+            "special_tokens": {eos: {"id": eos, "ids": [eos_id], "tokens": [eos]}}}
+    else:
+        post = {"type": "RobertaProcessing", "sep": ends["sep_token"], "cls": ends["cls_token"],
+                "trim_offsets": True, "add_prefix_space": prefix}
     return {
         "added_tokens": [],
         "normalizer": None,
         "pre_tokenizer": {"type": "ByteLevel", "add_prefix_space": prefix,
                           "trim_offsets": True, "use_regex": True},
-        "post_processor": {"type": "RobertaProcessing", "sep": ends["sep_token"],
-                           "cls": ends["cls_token"], "trim_offsets": True,
-                           "add_prefix_space": prefix},
+        "post_processor": post,
         "model": {"type": "BPE", "vocab": vocab, "merges": [list(m) for m in merges],
                   "dropout": None, "unk_token": None, "continuing_subword_prefix": "",
                   "end_of_word_suffix": "", "fuse_unk": False},
@@ -917,11 +1033,16 @@ def roberta_spec(path: Union[str, Path], tokenizer_config: Optional[Dict[str, An
 
 def load_tokenizer(
     path: Union[str, Path], model_type: Optional[str] = None
-) -> Union[JsonTokenizer, WordPieceTokenizer]:
+) -> Union[JsonTokenizer, WordPieceTokenizer, "BlenderbotSmallTokenizer"]:
     """The tokenizer of a checkpoint directory, in the order
     ``AutoTokenizer`` finds one: ``tokenizer.json``; else ``vocab.txt``
-    (WordPiece); else ``vocab.json`` + ``merges.txt`` (RoBERTa's byte-level
-    BPE).  A directory with only a SentencePiece model raises
+    (WordPiece); else ``vocab.json`` + ``merges.txt``: the byte-level BPE
+    of RoBERTa, BART and Blenderbot (:func:`roberta_spec`), or, for a
+    ``blenderbot-small`` config whose ``tokenizer_config.json`` names no
+    class, the slow ``BlenderbotSmallTokenizer`` that ``AutoTokenizer``
+    picks there (:mod:`.blenderbot_small_bpe`; named, ``transformers`` fails
+    to build its fast class from these files, and the port refuses).  A
+    directory with only a SentencePiece model raises
     ``NotImplementedError`` naming the file."""
     path = Path(path)
     if (path / TOKENIZER_JSON).is_file():
@@ -930,14 +1051,18 @@ def load_tokenizer(
         return WordPieceTokenizer.from_dir(path)
     cfg = _read_json(path / "tokenizer_config.json")
     if (path / "vocab.json").is_file() and (path / "merges.txt").is_file():
-        tok_class = str((cfg or {}).get("tokenizer_class")
-                        or _MODEL_TOKENIZER.get(str(model_type), "")).removesuffix("Fast")
-        if tok_class != "RobertaTokenizer":
+        named = (cfg or {}).get("tokenizer_class")
+        tok_class = str(named or _MODEL_TOKENIZER.get(str(model_type), "")).removesuffix("Fast")
+        if tok_class == "BlenderbotSmallTokenizer" and not named:
+            from .blenderbot_small_bpe import BlenderbotSmallTokenizer
+
+            return BlenderbotSmallTokenizer.from_dir(path)
+        if tok_class not in BYTE_LEVEL_FILE_CLASSES:
             raise NotImplementedError(
                 f"vocab.json + merges.txt for tokenizer_class {tok_class or None!r} "
-                "is not ported (the port reads them as RobertaTokenizer)"
+                f"is not ported (the port reads them as {BYTE_LEVEL_FILE_CLASSES})"
             )
-        return JsonTokenizer(roberta_spec(path, cfg), cfg,
+        return JsonTokenizer(roberta_spec(path, cfg, tok_class), cfg,
                              _read_json(path / "special_tokens_map.json"), model_type)
     for name in SENTENCEPIECE_FILES:
         if (path / name).is_file():

@@ -5,8 +5,9 @@ deferred upload, the host route and the native library, the HTTP server,
 the CLI and the tools; the embedding providers, the dispatch calibration
 and the trace export, with ``transformers``, ``flax``, ``msgpack`` and
 ``aiohttp`` blocked too; meshes and replicas, with ``svs_tpu`` itself
-blocked; the local provider past BERT, ALBERT, BigBird and the decoders
-(Llama / Mistral / Gemma, GPT-2, GPT-Neo, GPT-J, BLOOM, XGLM) included,
+blocked; the local provider past BERT, ALBERT, BigBird, the decoders
+(Llama / Mistral / Gemma, GPT-2, GPT-Neo, GPT-J, BLOOM, XGLM) and the
+encoder-decoders (BART, mBART, Pegasus, Blenderbot, Blenderbot-small) included,
 with ``tokenizers``, ``sentencepiece`` and ``regex`` blocked too), never
 imports ``svs_tpu``,
 and refuses to fall back to the CPU when no device was named."""
@@ -545,6 +546,45 @@ _BLOCKED_GPT_DECODERS = textwrap.dedent(
     """
 )
 
+_BLOCKED_SEQ2SEQ = textwrap.dedent(
+    """
+    import asyncio, os, sys
+
+    BLOCKED = ("jax", "jaxlib", "networkx", "ml_dtypes", "aiohttp", "dotenv", "svs_tpu",
+               "transformers", "flax", "msgpack", "tokenizers", "sentencepiece", "regex",
+               "safetensors")
+
+    class Blocker:
+        def find_spec(self, name, path=None, target=None):
+            if name.split(".")[0] in BLOCKED:
+                raise ImportError(f"{name} is blocked in this test")
+            return None
+
+    sys.meta_path.insert(0, Blocker())
+
+    import numpy as np
+    from svs_tpu_torch import make_local_embeddings_func
+    from svs_tpu_torch.embeddings import bart, blenderbot, checkpoint, pegasus, seq2seq
+
+    root = os.path.dirname(sys.argv[1])
+    texts = ["the cat sat", "héllo мир 中文", "x", "a dog ran " * 20]
+    classes = {"bart": bart.BartEncoder, "mbart": bart.BartEncoder,
+               "pegasus": pegasus.PegasusEncoder, "blenderbot": blenderbot.BlenderbotEncoder,
+               "blenderbot-small": blenderbot.BlenderbotEncoder}
+    for name, cls in classes.items():
+        path = os.path.join(root, name)
+        assert len(checkpoint.shard_files(path)) > 1, name
+        for dtype in ("float32", "bfloat16"):
+            f = make_local_embeddings_func(path, max_length=16, compute_dtype=dtype, device="cpu")
+            vecs = np.asarray(asyncio.run(f(texts)))
+            assert vecs.shape == (4, 32) and np.allclose(np.linalg.norm(vecs, axis=1), 1, atol=1e-5)
+        assert isinstance(f.encoder._load()[1], cls)
+    loaded = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
+    assert not loaded, loaded
+    print("ROUND_TRIP_OK")
+    """
+)
+
 _BLOCKED_PARALLEL = textwrap.dedent(
     """
     import sys
@@ -750,6 +790,32 @@ def test_gpt_bloom_xglm_decoders_without_transformers_tokenizers_flax(tmp_path):
             tree = chip_smoke.with_head(cfg, tree, 4)
         write_checkpoint(tmp_path / name, cfg, tree, max_shard_size=20_000)
     _run_blocked(_BLOCKED_GPT_DECODERS, tmp_path)
+
+
+def test_seq2seq_types_without_transformers_tokenizers_flax(tmp_path):
+    """The BART, mBART, Pegasus, Blenderbot and Blenderbot-small stacks
+    (sharded bf16 checkpoints that the smoke's writer makes from a seed,
+    mBART's, Pegasus's and Blenderbot's as ``*ForConditionalGeneration``
+    trees; the byte-level BPE of BART and the Blenderbots, the Unigram of
+    mBART-50 and Pegasus) embed on the CPU in f32 and bf16 with
+    ``transformers``, ``tokenizers``, ``flax``, JAX and ``svs_tpu``
+    blocked."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    import chip_smoke
+    from svs_tpu_torch.embeddings.checkpoint import write_checkpoint
+
+    tiny = {"d_model": 32, "encoder_layers": 2, "decoder_layers": 2,
+            "encoder_attention_heads": 4, "decoder_attention_heads": 4,
+            "encoder_ffn_dim": 48, "decoder_ffn_dim": 48, "max_position_embeddings": 64}
+    for name in ("bart", "mbart", "pegasus", "blenderbot", "blenderbot-small"):
+        size = 3000 if name in ("mbart", "pegasus") else 600
+        cfg = {"model_type": name, "vocab_size": size, "scale_embedding": name != "bart", **tiny}
+        chip_smoke.write_decoder_tokenizer_of(tmp_path / name, name, size, 3)
+        tree = chip_smoke.random_seq2seq_params(cfg, 3, "cpu")
+        if name in ("mbart", "pegasus", "blenderbot"):
+            tree = chip_smoke.with_head(cfg, tree, 4)
+        write_checkpoint(tmp_path / name, cfg, tree, max_shard_size=20_000)
+    _run_blocked(_BLOCKED_SEQ2SEQ, tmp_path)
 
 
 def test_parallel_modules_without_jax_or_svs_tpu(tmp_path):

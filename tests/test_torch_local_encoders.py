@@ -307,14 +307,17 @@ def test_unported_encoder_types_raise_naming_themselves(tmp_path, model_type):
 
 
 _NOW_PORTED = {"albert": "AlbertEncoder", "big_bird": "BigBirdEncoder",
-               "roberta-prelayernorm": "BertEncoder"}
+               "roberta-prelayernorm": "BertEncoder", "bart": "BartEncoder",
+               "mbart": "BartEncoder", "pegasus": "PegasusEncoder",
+               "blenderbot": "BlenderbotEncoder", "blenderbot-small": "BlenderbotEncoder"}
 
 
 @pytest.mark.parametrize("model_type", sorted(_NOW_PORTED))
 def test_formerly_unported_encoder_types_are_accepted(tmp_path, model_type):
-    """The three types that raised until they were ported pass
-    ``check_config`` with a ``config.json`` that ``write_tiny_bert`` writes,
-    and build their encoder."""
+    """The types that raised until they were ported pass ``check_config``
+    with a ``config.json`` that ``write_tiny_bert`` writes (the
+    encoder-decoders read its ``hidden_size`` and ``num_attention_heads``
+    through their ``attribute_map``), and build their encoder."""
     path = write_tiny_bert(tmp_path / "ck", model_type=model_type)
     config = checkpoint.read_config(path)
     assert model_type not in encoders.UNPORTED and model_type in encoders.MODEL_TYPES
@@ -326,7 +329,7 @@ def test_formerly_unported_encoder_types_are_accepted(tmp_path, model_type):
 @pytest.mark.parametrize("change,name", [
     ({"hidden_act": "gelu_fast"}, "gelu_fast"),
     ({"position_embedding_type": "relative_key"}, "relative_key"),
-    ({"model_type": "bart"}, "bart"),
+    ({"model_type": "marian"}, "marian"),
     ({"model_type": "distilbert", "activation": "mish"}, "mish"),
 ])
 def test_unported_options_raise_naming_them(change, name):

@@ -13,7 +13,14 @@ BPE with byte fallback of Llama-2 and Gemma read as ``LlamaTokenizerFast`` /
 ``GemmaTokenizerFast`` (left padding, their ``add_bos_token`` /
 ``add_eos_token`` post-processor), and the byte-level BPE of
 ``GPT2TokenizerFast`` / ``BloomTokenizerFast`` and XGLM's Unigram read as
-``XGLMTokenizerFast`` (each class's specials and padding side).  Then each component against its ``tokenizers``
+``XGLMTokenizerFast`` (each class's specials and padding side), and the
+encoder-decoders' classes: ``BartTokenizerFast`` and
+``BlenderbotTokenizerFast`` (from ``tokenizer.json`` and from
+``vocab.json`` + ``merges.txt``), ``MBartTokenizerFast`` and
+``MBart50TokenizerFast`` (their language codes and the ``src_lang``
+post-processor), ``PegasusTokenizerFast``, ``BlenderbotSmallTokenizerFast``
+(with a pad token and without) and the slow ``BlenderbotSmallTokenizer``
+that reads ``blenderbot_small-90M``'s ``vocab.json`` + ``merges.txt``.  Then each component against its ``tokenizers``
 counterpart (the ``Precompiled`` normalizer on a charsmap that
 :func:`torch_tokenizer_helpers.build_charsmap` writes, the pre-tokenizers
 and normalizers, GPT-2's split, the grapheme clusters against ``regex``'s
@@ -54,6 +61,7 @@ from torch_tokenizer_helpers import (
     write_byte_level_tokenizer,
     write_decoder_tokenizer,
     write_sentencepiece_tokenizer,
+    write_seq2seq_tokenizer,
     write_unigram_tokenizer,
     write_wordpiece_tokenizer,
     write_xglm_tokenizer,
@@ -480,3 +488,165 @@ def test_gpt2_tokenizer_without_pad_token_is_refused(tmp_path):
         _auto(tmp_path)(["a b"], padding="max_length", max_length=8)
     with pytest.raises(ValueError, match="no pad token"):
         load_tokenizer(tmp_path, "gpt2")
+
+
+_SEQ2SEQ_CASES = {
+    "bart": ("bart", "json", {}),
+    "bart-prefix": ("bart", "json", {"add_prefix_space": True}),
+    "bart-vocab": ("bart", "vocab", {}),
+    "blenderbot": ("blenderbot", "json", {}),
+    "blenderbot-vocab-prefix": ("blenderbot", "vocab", {"add_prefix_space": True}),
+    "blenderbot-small-pad": ("blenderbot-small", "json", {"pad_token": "__null__"}),
+    "mbart": ("mbart", "json", {}),
+    "mbart-ro": ("mbart", "json", {"src_lang": "ro_RO"}),
+    "mbart50": ("mbart50", "json", {}),
+    "mbart50-ro": ("mbart50", "json", {"src_lang": "ro_RO"}),
+    "pegasus": ("pegasus", "json", {}),
+}
+_SEQ2SEQ_CLASS = {"bart": "BartTokenizer", "blenderbot": "BlenderbotTokenizer",
+                  "blenderbot-small": "BlenderbotSmallTokenizer", "mbart": "MBartTokenizer",
+                  "mbart50": "MBart50Tokenizer", "pegasus": "PegasusTokenizer"}
+_SEQ2SEQ_ODD = ["a <mask> b", "x<mask>y", "en_XX hi ro_RO", "<mask_1> x <unk_7> <mask_2>",
+                " <pad> </s> __null__", ""]
+
+
+def _same_ids(ref, mine, texts, max_length):
+    want = ref(texts, padding="max_length", truncation=True, max_length=max_length,
+               return_tensors="np")
+    ids, mask = mine.batch(texts, max_length)
+    assert ids.tolist() == want["input_ids"].tolist() and mask.tolist() == want["attention_mask"].tolist()
+
+
+@pytest.mark.parametrize("case", sorted(_SEQ2SEQ_CASES))
+def test_seq2seq_classes_equal_auto_tokenizer(tmp_path, case):
+    """The encoder-decoders' tokenizers as their fast classes save them:
+    BART's byte-level BPE with ``RobertaProcessing`` and Blenderbot's with
+    ``$A </s>`` (also built from ``vocab.json`` + ``merges.txt`` as their
+    converters build them, the config's ``add_prefix_space`` written into
+    the ``ByteLevel`` pre-tokenizer), Blenderbot-small's (a pad token set),
+    mBART's and mBART-50's Unigram with their language codes
+    (``$A </s> src_lang``, ``src_lang $A </s>``) and Pegasus's
+    (``<mask_1>``, ``<mask_2>``, ``<unk_2>`` .. ``<unk_102>``): ids and masks
+    as ``AutoTokenizer``'s."""
+    layout, files, config = _SEQ2SEQ_CASES[case]
+    write_seq2seq_tokenizer(tmp_path, layout, seed=31, files=files, **config)
+    model_type = "mbart" if layout == "mbart50" else layout
+    mine = load_tokenizer(tmp_path, model_type)
+    assert mine.tokenizer_class == _SEQ2SEQ_CLASS[layout]
+    if files == "vocab":
+        assert not (tmp_path / "tokenizer.json").exists()
+    ref = _auto(tmp_path)
+    assert mine.pad_id == ref.pad_token_id
+    _same_ids(ref, mine, _SEQ2SEQ_ODD, 24)
+    _same_as_auto(tmp_path, mine, seed=32)
+
+
+@pytest.mark.parametrize("layout,config", [
+    ("bart", {}), ("blenderbot", {}), ("mbart", {"src_lang": "ro_RO"}),
+    ("mbart50", {"src_lang": "de_DE"}), ("pegasus", {}),
+])
+def test_seq2seq_class_rules_apply_over_a_bare_file(tmp_path, layout, config):
+    """A ``tokenizer.json`` with only the first four special tokens and a
+    bare ``$A`` post-processor, and a config naming only the class (and
+    ``src_lang``): what each class's ``__init__`` adds comes from the class
+    (BART's normalized ``<mask>`` stripping to its left, mBART's 25 and
+    mBART-50's 52 language codes as special tokens and the post-processor
+    rebuilt around ``src_lang``, Pegasus's ``<mask_1>`` and ``<unk_N>``),
+    as ``AutoTokenizer`` adds it."""
+    write_seq2seq_tokenizer(tmp_path, layout, seed=33, **config)
+    spec = json.loads((tmp_path / "tokenizer.json").read_text())
+    spec["added_tokens"] = [t for t in spec["added_tokens"]
+                            if t["content"] in ("<s>", "</s>", "<pad>", "<unk>")]
+    spec["post_processor"] = {
+        "type": "TemplateProcessing", "single": [{"Sequence": {"id": "A", "type_id": 0}}],
+        "pair": [{"Sequence": {"id": "A", "type_id": 0}}], "special_tokens": {}}
+    (tmp_path / "tokenizer.json").write_text(json.dumps(spec))
+    cfg = json.loads((tmp_path / "tokenizer_config.json").read_text())
+    cfg = {k: v for k, v in cfg.items() if k in ("tokenizer_class", "src_lang")}
+    (tmp_path / "tokenizer_config.json").write_text(json.dumps(cfg))
+    (tmp_path / "special_tokens_map.json").unlink()
+    mine = load_tokenizer(tmp_path, "mbart" if layout == "mbart50" else layout)
+    ref = _auto(tmp_path)
+    if layout.startswith("mbart"):
+        code = ref.convert_tokens_to_ids(config["src_lang"])
+        assert (mine.head, mine.tail) == (([], [2, code]) if layout == "mbart" else ([code], [2]))
+    _same_ids(ref, mine, _SEQ2SEQ_ODD, 24)
+    _same_as_auto(tmp_path, mine, seed=34)
+
+
+def test_blenderbot_small_without_pad_token_is_refused(tmp_path):
+    """``BlenderbotSmallTokenizerFast`` names no pad token:
+    ``padding="max_length"`` fails in ``transformers`` and the port
+    refuses."""
+    write_seq2seq_tokenizer(tmp_path, "blenderbot-small", seed=35)
+    with pytest.raises(ValueError):
+        _auto(tmp_path)(["a b"], padding="max_length", max_length=8)
+    with pytest.raises(ValueError, match="no pad token"):
+        load_tokenizer(tmp_path, "blenderbot-small")
+
+
+@pytest.mark.parametrize("config", [{}, {"truncation_side": "left", "padding_side": "left"},
+                                    {"pad_token": "__end__", "added_tokens_decoder": {
+                                        "3": {"content": "__unk__", "lstrip": True,
+                                              "rstrip": True, "single_word": False,
+                                              "normalized": False, "special": True}}}],
+                         ids=["defaults", "left", "flags"])
+def test_blenderbot_small_slow_files_equal_auto_tokenizer(tmp_path, config):
+    """``facebook/blenderbot_small-90M``'s layout: ``vocab.json`` +
+    ``merges.txt`` of ``@@`` pieces and no class named, which
+    ``AutoTokenizer`` reads with the slow ``BlenderbotSmallTokenizer``
+    (white-space words, punctuation split off, lower-cased, ``@@`` BPE; the
+    added tokens split out first with their flags; no special tokens
+    around the ids): the port's :mod:`blenderbot_small_bpe` gives its ids
+    and masks, on either side."""
+    from svs_tpu_torch.embeddings.blenderbot_small_bpe import BlenderbotSmallTokenizer
+
+    write_seq2seq_tokenizer(tmp_path, "blenderbot-small", seed=37, files="slow", **config)
+    (tmp_path / "config.json").write_text(json.dumps({"model_type": "blenderbot-small"}))
+    ref = _auto(tmp_path)
+    assert type(ref).__name__ == "BlenderbotSmallTokenizer"
+    mine = load_tokenizer(tmp_path, "blenderbot-small")
+    assert isinstance(mine, BlenderbotSmallTokenizer) and mine.pad_id == ref.pad_token_id
+    odd = ["Hello, World! it's (me)", "line\nbreak  __start__x", "a __unk__ b", "CAT Dog's", ""]
+    _same_ids(ref, mine, odd, 24)
+    _same_as_auto(tmp_path, mine, seed=38)
+
+
+def test_blenderbot_small_files_with_the_class_named_are_refused(tmp_path):
+    """The same files with ``tokenizer_class`` named: ``AutoTokenizer``
+    builds the fast class, which cannot read them, and fails; the port
+    refuses, naming the class."""
+    write_seq2seq_tokenizer(tmp_path, "blenderbot-small", seed=37, files="slow",
+                            tokenizer_class="BlenderbotSmallTokenizer")
+    with pytest.raises(Exception):
+        _auto(tmp_path)
+    with pytest.raises(NotImplementedError, match="BlenderbotSmallTokenizer"):
+        load_tokenizer(tmp_path, "blenderbot-small")
+
+
+def test_pegasus_specials_that_rebuild_the_vocabulary_are_refused(tmp_path):
+    """``PegasusTokenizerFast`` rebuilds its vocabulary from the
+    SentencePiece model when the pad, eos or unk token is not its default;
+    with no model beside the ``tokenizer.json`` ``transformers`` fails, and
+    the port refuses by name."""
+    write_seq2seq_tokenizer(tmp_path, "pegasus", seed=36)
+    cfg = json.loads((tmp_path / "tokenizer_config.json").read_text())
+    cfg["pad_token"] = "<unk_5>"
+    (tmp_path / "tokenizer_config.json").write_text(json.dumps(cfg))
+    with pytest.raises(Exception):
+        _auto(tmp_path)
+    with pytest.raises(NotImplementedError, match="pad_token"):
+        load_tokenizer(tmp_path, "pegasus")
+
+
+def test_mbart50_src_lang_outside_its_codes_is_refused(tmp_path):
+    """``MBart50TokenizerFast`` looks ``src_lang`` up among its 52 codes and
+    fails on another; the port refuses it by name."""
+    write_seq2seq_tokenizer(tmp_path, "mbart50", seed=39)
+    cfg = json.loads((tmp_path / "tokenizer_config.json").read_text())
+    cfg["src_lang"] = "xx_XX"
+    (tmp_path / "tokenizer_config.json").write_text(json.dumps(cfg))
+    with pytest.raises(Exception):
+        _auto(tmp_path)
+    with pytest.raises(ValueError, match="xx_XX"):
+        load_tokenizer(tmp_path, "mbart")

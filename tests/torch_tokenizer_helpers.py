@@ -363,3 +363,149 @@ def write_xglm_tokenizer(path, seed=0, **config):
     cfg.update(config)
     (path / "tokenizer_config.json").write_text(json.dumps(cfg), encoding="utf-8")
     return len(vocab)
+
+
+#: The special tokens of the encoder-decoders' byte-level layouts, in
+#: vocabulary order: RoBERTa's (BART), Blenderbot-3B's (``<pad>`` 0,
+#: ``<s>`` 1, ``</s>`` 2) and Blenderbot-90M's (``__null__`` 0,
+#: ``__start__`` 1, ``__end__`` 2, ``__unk__`` 3).
+SEQ2SEQ_BYTE_LEVEL = {
+    "bart": ("BartTokenizerFast", ["<s>", "<pad>", "</s>", "<unk>", "<mask>"]),
+    "blenderbot": ("BlenderbotTokenizerFast", ["<pad>", "<s>", "</s>", "<unk>", "<mask>"]),
+    "blenderbot-small": ("BlenderbotSmallTokenizerFast",
+                         ["__null__", "__start__", "__end__", "__unk__"]),
+}
+
+
+def _save_with_config(tok, path, config, **save):
+    tok.save_pretrained(str(path), **save)
+    cfg = json.loads((path / "tokenizer_config.json").read_text(encoding="utf-8"))
+    cfg.update(config)
+    (path / "tokenizer_config.json").write_text(json.dumps(cfg), encoding="utf-8")
+
+
+def write_seq2seq_tokenizer(path, layout, seed=0, files="json", **config):
+    """An encoder-decoder type's tokenizer, saved by its fast class
+    (``config`` adds keys to ``tokenizer_config.json``).  Returns the
+    vocabulary size (added tokens included).
+
+    - ``bart``, ``blenderbot``, ``blenderbot-small``: byte-level BPE trained
+      on seeded strings with :data:`SEQ2SEQ_BYTE_LEVEL`'s specials and the
+      converter's post-processor (``RobertaProcessing``; ``$A </s>``; none);
+      with ``files="vocab"`` only ``vocab.json`` + ``merges.txt`` and a
+      ``tokenizer_config.json`` naming the class (``BartTokenizer``,
+      ``BlenderbotTokenizer``; Blenderbot-small's ``tokenizer_class`` only
+      if ``config`` names it); Blenderbot-small with ``files="slow"``:
+      :func:`write_blenderbot_small_slow`;
+    - ``mbart`` / ``mbart50``: an XLM-R-layout Unigram (NFKC, Metaspace) with
+      the converter's language codes and ``<mask>`` after the pieces and its
+      post-processor (``$A </s> en_XX`` / ``en_XX $A </s>``);
+    - ``pegasus``: Pegasus's Unigram layout (``<pad>``, ``</s>``,
+      ``<mask_1>``, ``<mask_2>``, ``<unk_2>`` .. ``<unk_102>``, ``<unk>``
+      105, the pieces; NFKC, WhitespaceSplit + Metaspace, ``$A </s>``)."""
+    import pathlib
+
+    import transformers as T
+    from tokenizers import (ByteLevelBPETokenizer, Regex, Tokenizer, models, normalizers,
+                            pre_tokenizers, processors)
+
+    path = pathlib.Path(path)
+    path.mkdir(parents=True, exist_ok=True)
+    if files == "slow":
+        return write_blenderbot_small_slow(path, seed, **config)
+    if layout in SEQ2SEQ_BYTE_LEVEL:
+        cls, specials = SEQ2SEQ_BYTE_LEVEL[layout]
+        bt = ByteLevelBPETokenizer()
+        bt.train_from_iterator(strings(seed, 400), vocab_size=600, min_frequency=1,
+                               special_tokens=specials, show_progress=False)
+        vocab = bt.get_vocab()
+        if files == "vocab":
+            bt.save_model(str(path))
+            cfg = {} if layout == "blenderbot-small" else {"tokenizer_class": cls[:-4]}
+            (path / "tokenizer_config.json").write_text(json.dumps({**cfg, **config}),
+                                                        encoding="utf-8")
+            return len(vocab)
+        if layout == "bart":
+            bt._tokenizer.post_processor = processors.RobertaProcessing(
+                ("</s>", vocab["</s>"]), ("<s>", vocab["<s>"]))
+        elif layout == "blenderbot":
+            bt._tokenizer.post_processor = processors.TemplateProcessing(
+                single="$A:0 </s>:0", special_tokens=[("</s>", vocab["</s>"])])
+        tok = getattr(T, cls)(tokenizer_object=bt._tokenizer)
+        _save_with_config(tok, path, config, legacy_format=False)
+        return len(tok)
+    rng = np.random.default_rng(seed)
+    pieces = []
+    for w in WORDS:
+        pieces += ["▁" + w, w]
+        if len(w) > 3:
+            pieces += ["▁" + w[:2], w[2:]]
+    chars = sorted(set("".join(WORDS)) | set("abcdefghijklmnopqrstuvwxyz0123456789!?,.'<>_"))
+    pieces += chars + ["▁" + c for c in chars] + ["▁"]
+    pieces = [(p, float(-rng.uniform(1.0, 12.0))) for p in dict.fromkeys(pieces)]
+    norm = normalizers.Sequence([normalizers.NFKC(), normalizers.Replace(Regex(" {2,}"), " ")])
+    if layout == "pegasus":
+        vocab = [("<pad>", 0.0), ("</s>", 0.0), ("<mask_1>", 0.0), ("<mask_2>", 0.0)]
+        vocab += [(f"<unk_{i}>", -100.0) for i in range(2, 103)] + [("<unk>", 0.0)] + pieces
+        tok = Tokenizer(models.Unigram(vocab, unk_id=105, byte_fallback=False))
+        tok.pre_tokenizer = pre_tokenizers.Sequence([pre_tokenizers.WhitespaceSplit(),
+                                                     pre_tokenizers.Metaspace()])
+        tok.post_processor = processors.TemplateProcessing(
+            single=["$A", "</s>"], pair=["$A", "$B", "</s>"], special_tokens=[("</s>", 1)])
+        cls = T.PegasusTokenizerFast
+    else:
+        from transformers.models.mbart.tokenization_mbart_fast import FAIRSEQ_LANGUAGE_CODES
+        from transformers.models.mbart50.tokenization_mbart50_fast import (
+            FAIRSEQ_LANGUAGE_CODES as FAIRSEQ_LANGUAGE_CODES_50,
+        )
+
+        codes = FAIRSEQ_LANGUAGE_CODES if layout == "mbart" else FAIRSEQ_LANGUAGE_CODES_50
+        vocab = [("<s>", 0.0), ("<pad>", 0.0), ("</s>", 0.0), ("<unk>", 0.0)] + pieces
+        vocab += [(c, 0.0) for c in codes] + [("<mask>", 0.0)]
+        ids = {p: i for i, (p, _) in enumerate(vocab)}
+        tok = Tokenizer(models.Unigram(vocab, unk_id=3, byte_fallback=False))
+        tok.pre_tokenizer = pre_tokenizers.Metaspace()
+        single = "$A </s> en_XX" if layout == "mbart" else "en_XX $A </s>"
+        tok.post_processor = processors.TemplateProcessing(
+            single=single, special_tokens=[("en_XX", ids["en_XX"]), ("</s>", 2)])
+        cls = T.MBartTokenizerFast if layout == "mbart" else T.MBart50TokenizerFast
+    tok.normalizer = norm
+    fast = cls(tokenizer_object=tok, **{k: v for k, v in config.items() if k == "src_lang"})
+    _save_with_config(fast, path, config)
+    return len(fast)
+
+
+def write_blenderbot_small_slow(path, seed=0, **config):
+    """``vocab.json`` + ``merges.txt`` in the slow ``BlenderbotSmallTokenizer``'s
+    layout (``facebook/blenderbot_small-90M``'s files): a BPE trained with the
+    ``</w>`` end-of-word suffix on seeded strings split and lower-cased as
+    its ``bpe`` splits them, each piece stored as it is read back (a final
+    piece without ``</w>``, an inner one with ``@@``), ``__null__``,
+    ``__start__``, ``__end__``, ``__unk__`` first; ``tokenizer_config.json``
+    holds ``config`` alone.  Returns the vocabulary size."""
+    import pathlib
+    import re
+
+    from tokenizers import Tokenizer, models, pre_tokenizers, trainers
+
+    path = pathlib.Path(path)
+    path.mkdir(parents=True, exist_ok=True)
+    words = []
+    for text in strings(seed, 400):
+        for word in re.findall(r"\S+", text):
+            word = re.sub("([.,!?()])", r" \1", word)
+            words.append(re.sub("(')", r" \1 ", word).lower())
+    tok = Tokenizer(models.BPE(end_of_word_suffix="</w>"))
+    tok.pre_tokenizer = pre_tokenizers.WhitespaceSplit()
+    tok.train_from_iterator(words, trainers.BpeTrainer(
+        vocab_size=700, min_frequency=1, end_of_word_suffix="</w>", show_progress=False))
+    model = json.loads(tok.to_str())["model"]
+    vocab = {t: i for i, t in enumerate(["__null__", "__start__", "__end__", "__unk__"])}
+    for piece, _ in sorted(model["vocab"].items(), key=lambda kv: kv[1]):
+        vocab.setdefault(piece[:-4] if piece.endswith("</w>") else piece + "@@", len(vocab))
+    merges = [" ".join(m) if not isinstance(m, str) else m for m in model["merges"]]
+    (path / "vocab.json").write_text(json.dumps(vocab, ensure_ascii=False), encoding="utf-8")
+    (path / "merges.txt").write_text("#version: 0.2\n" + "\n".join(merges) + "\n",
+                                     encoding="utf-8")
+    (path / "tokenizer_config.json").write_text(json.dumps(config), encoding="utf-8")
+    return len(vocab)

@@ -2,16 +2,18 @@
 
 Each phase that takes only a work directory (the local provider's:
 ``local``, ``local_xlmr``, ``local_bigbird``, ``local_mistral``,
-``local_gptj``; ``providers``, ``pairwise``) runs as the smoke runs it,
+``local_gptj``, ``local_blenderbot``; ``providers``, ``pairwise``) runs as
+the smoke runs it,
 with its launch counts set to 0 before it and read after;
-``local_families`` runs on the checkpoints and CPU vectors that
-``local_gptj`` returned, or on ones made here as that phase makes them.  The kernels are built from the
-checkout first.  Prints the card's name and power
+``local_families`` runs on checkpoints written first
+(``chip_smoke.start_families``), their CPU runs beside the phases named
+before it.  The kernels are built from the checkout first.  Prints the card's name and power
 limit, each phase's seconds and the total, and writes the phases' records
 to ``--json`` (default ``build/smoke_phases.json``).  A failing
 phase raises (exit code 1); no CUDA device: exit code 2.
 
     python3 tools/smoke_phases.py local_mistral local_gptj local_families
+    python3 tools/smoke_phases.py local_blenderbot
 """
 
 import argparse
@@ -50,19 +52,13 @@ def main() -> int:
     print(f"kernels built in {time.perf_counter() - t:.1f} s", flush=True)
     out: dict = {"paths": {}, "launches": {}}
     t0 = time.perf_counter()
-    families = None  # local_families' checkpoints and CPU vectors
     try:  # a failing phase raises: exit code 1, its traceback, the records so far
+        families = chip_smoke.start_families(work) if "local_families" in args.phases else None
         for name in args.phases:
             t = time.perf_counter()
             if name != "local_families":
-                ret = getattr(chip_smoke, f"{name}_phase")(work, out)
-                if name == "local_gptj":
-                    families = ret
+                getattr(chip_smoke, f"{name}_phase")(work, out)
             else:
-                if families is None:  # as local_gptj_phase makes them
-                    models = chip_smoke.write_families(work)
-                    families = {"models": models, "cpu": chip_smoke.family_cpu_references(
-                        {f: v[0] for f, v in models.items()}, chip_smoke.family_texts())}
                 chip_smoke.local_families_phase(work, out, families)
             print(f"phase {name}: {time.perf_counter() - t:.1f} s", flush=True)
     finally:
