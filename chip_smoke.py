@@ -28,7 +28,13 @@ from a seed:
    masked rows and subtiles, keys past the key horizon);
 3. end-to-end phase: loads the native host library (``native_phase``:
    it must load; its build time, path and the host's thread counts),
-   writes a 1M-doc SQLite store through the port's ``Tx`` and drives six
+   writes a 1M-doc SQLite store through the port's ``Tx``, runs the
+   ``probes`` phase (``probes_phase``: the benchmark probes P9, P8 and P7
+   of ``svs_tpu_torch.probes``, their library built beside the kernel
+   phase; every probe kernel against its plain version at a check shape,
+   then the three probes' cases at their own shapes, 1,015,808 x 1536,
+   as one path, the deferred tiles bitwise the same-step ones and P7's
+   candidates sound against a scan) and drives six
    retrieval paths, each with the launch counts set to 0 just before it
    and read just after (a pack of 64 MB and more uploads in the
    background, so a ``KB``'s first call may take the host route; after it
@@ -153,11 +159,12 @@ from a seed:
    layers and Blenderbot-small at ``blenderbot_small-90M``'s widths and
    depth, 64 texts each in f32 and bf16 against the CPU, GPT-Neo's at 512
    tokens) and ``local_blenderbot`` (``local_blenderbot_phase``: the
-   decoder stores' path at ``facebook/blenderbot-3B``'s widths and depth,
-   2 + 24 layers, 2.70B parameters written as a
+   decoder stores' path at ``facebook/blenderbot-3B``'s widths, its 2
+   encoder layers and 2 of its 24 decoder layers
+   (``LOCAL_BLENDERBOT_DECODER_LAYERS``), written as a
    ``FlaxBlenderbotForConditionalGeneration`` tree in one bf16 file, a
    synthetic 8,008-id byte-level BPE ``tokenizer.json`` in Blenderbot's
-   layout, f32 against the CPU on a 2 + 2 cut; then #3, #2 and #4 on its
+   layout, f32 against the CPU; then #3, #2 and #4 on its
    store's int8 [32,768, 2,560] pack).  Every other
    phase runs with ``SVS_TPU_AUTOCALIB=0`` and a calibration cache of the
    run's own, so no probe adds launches to it.
@@ -268,51 +275,6 @@ DUPE_FRAC = 0.12
 
 def log(msg: str) -> None:
     print(msg, file=sys.stderr, flush=True)
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    )
-    return out.stdout.strip().splitlines()[0]
-
-
-#: Cycles per second that ``torch.cuda._sleep`` spins at, rounded up from
-#: an H100's top SM clock (1.98 GHz), so a hold is never shorter than asked.
-SPIN_HZ = 2.0e9
-
-
-def time_ms(fn, launches: int) -> float:
-    """Device time per call of ``fn``: one CUDA event pair around
-    ``launches`` calls, after a warm-up call, divided by the count.  A spin
-    kernel queued first (``torch.cuda._sleep``) holds the device while the
-    host enqueues the calls, so the window holds them back to back on the
-    device and not the host's launch gaps.  ``fn`` must not synchronise."""
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    t = time.perf_counter()
-    fn()
-    host_s = time.perf_counter() - t  # enqueue time of one call
-    torch.cuda.synchronize()
-    hold_s = min(1.0, 3.0 * launches * host_s + 1e-3)
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(int(hold_s * SPIN_HZ))
-    t = time.perf_counter()
-    start.record()
-    for _ in range(launches):
-        fn()
-    end.record()
-    enqueue_s = time.perf_counter() - t
-    end.synchronize()
-    if enqueue_s > hold_s:
-        log(f"  time_ms: the host took {enqueue_s * 1e3:.2f} ms to enqueue "
-            f"{launches} calls, past the {hold_s * 1e3:.2f} ms hold: the "
-            f"window may hold launch gaps")
-    return start.elapsed_time(end) / launches
 
 
 def wall_ms(fn, calls: int) -> float:
@@ -657,6 +619,8 @@ def kernel_recorder(records: dict, reps: int) -> tuple:
     bound; ``compare`` first holds the kernel's outputs bit-identical to
     the plain version's, then records, and returns the first output."""
     import torch
+
+    from svs_tpu_torch.probes.common import time_ms
 
     def record(name, what, err, kernel_fn, plain_fn, bnd, library_fn=None):
         ms = time_ms(kernel_fn, reps)
@@ -1312,7 +1276,8 @@ def write_precision_sidecars(store: Path) -> dict:
     return seconds
 
 
-def e2e_phase(n_docs: int, reps: int, work: Path, cross: dict) -> dict:
+def e2e_phase(n_docs: int, reps: int, work: Path, cross: dict,
+              probe_build: Optional[dict] = None) -> dict:
     import torch
 
     import svs_tpu_torch
@@ -1333,6 +1298,7 @@ def e2e_phase(n_docs: int, reps: int, work: Path, cross: dict) -> dict:
     rng = np.random.default_rng(SEED + 1)
     out = {"store_write_s": t_write, "docs": n_docs, "paths": {}, "launches": {},
            "native": native}
+    probes_phase(out, probe_build)
     fused_int8 = ["_fused3_extract_int8", "_fused2_extract_int8", "_fused_extract_int8"]
     fused_float = ["_fused3_extract", "_fused2_extract", "_fused_extract"]
     try:
@@ -6268,6 +6234,11 @@ LOCAL_GPTJ_LAYERS = 2
 #: Two shards of the cut checkpoint's 1.63 GB of bf16 (``save_pretrained``'s
 #: default ``max_shard_size="10GB"`` made two of the 28 layers' 12.1 GB).
 LOCAL_GPTJ_SHARD_BYTES = 10**9
+#: blenderbot-3B's decoder depth (24) cut to this, to make room for the
+#: probes phase in the smoke's time: the widths, the encoder's 2 layers,
+#: the one-file checkpoint, the head tree, the f32 and bf16 checks and the
+#: d = 2,560 pack checks stay.
+LOCAL_BLENDERBOT_DECODER_LAYERS = 2
 #: The decoder stores of the smoke: what :func:`local_decoder_phase` runs
 #: for each (``seed``: every draw of the phase from there; ``head``: written
 #: as a ``*ForCausalLM`` tree; ``pack_checks``: #3 / #2 / #4 on the store's
@@ -6280,7 +6251,9 @@ LOCAL_DECODERS = {
     "local_gptj": {"source": "EleutherAI/gpt-j-6b",
                    "config": {**GPTJ_6B, "n_layer": LOCAL_GPTJ_LAYERS}, "seed": SEED + 211,
                    "shard_bytes": LOCAL_GPTJ_SHARD_BYTES, "head": True, "pack_checks": True},
-    "local_blenderbot": {"source": "facebook/blenderbot-3B", "config": BLENDERBOT_3B,
+    "local_blenderbot": {"source": "facebook/blenderbot-3B",
+                         "config": {**BLENDERBOT_3B,
+                                    "decoder_layers": LOCAL_BLENDERBOT_DECODER_LAYERS},
                          "seed": SEED + 307, "shard_bytes": None, "head": True,
                          "pack_checks": True},
 }
@@ -6721,7 +6694,7 @@ def local_decoder_phase(work: Path, out: dict, label: str) -> None:
     ``LOCAL_MISTRAL_LAYERS``; ``local_gptj`` at ``EleutherAI/gpt-j-6b``'s
     widths, its depth cut to ``LOCAL_GPTJ_LAYERS``; ``local_blenderbot`` at
     ``facebook/blenderbot-3B``'s
-    widths and depth, 2 + 24 layers): random weights from the seed's
+    widths, its decoder cut to ``LOCAL_BLENDERBOT_DECODER_LAYERS``): random weights from the seed's
     generator on the card, written as a bf16 Flax checkpoint (Mistral's and
     GPT-J's sharded in two, GPT-J's as a ``FlaxGPTJForCausalLM`` tree,
     Blenderbot's one file holding a ``FlaxBlenderbotForConditionalGeneration``
@@ -6972,6 +6945,276 @@ def local_decoder_phase(work: Path, out: dict, label: str) -> None:
     torch.cuda.empty_cache()
 
 
+#: The probes phase: where each probe kernel is held against its plain
+#: version (16 blocks of 8,192 docs, the last 100 rows dead: a partial
+#: block), at B = 16, 32 and 256: each of the query tiles (16, 32, 64)
+#: that the path's batches (32 to 256) give the kernels.
+PROBE_CHECK_N = 16 * 8192
+PROBE_CHECK_BATCHES = (16, 32, 256)
+PROBE_SOURCES = {
+    "int8_opt.extract": "svs_tpu_torch/csrc/probes/int8_opt.cu",
+    "bf16_opt.extract": "svs_tpu_torch/csrc/probes/bf16_opt.cu",
+    "select11.same_step": "svs_tpu_torch/csrc/probes/select11_steps.cu",
+    "select11.deferred": "svs_tpu_torch/csrc/probes/select11_deferred.cu",
+    "select11.floor": "svs_tpu_torch/csrc/probes/select11_steps.cu",
+}
+SOURCES.update(PROBE_SOURCES)
+REPLACES.update({
+    "int8_opt.extract": "benchmarks/tpu_int8_opt.py:48",
+    "bf16_opt.extract": "benchmarks/tpu_bf16_opt.py:42",
+    "select11.same_step": "benchmarks/tpu_select11.py:105",
+    "select11.deferred": "benchmarks/tpu_select11.py:145",
+    "select11.floor": "benchmarks/tpu_select11.py:332",
+})
+
+
+def start_probe_build() -> dict:
+    """Build the probes' library (``csrc/probes``: one ``nvcc`` per source,
+    all at once) in a thread, beside the kernel phase, which keeps the
+    card and a core busy; :func:`probes_phase` joins it."""
+    from svs_tpu_torch.probes import common as PC
+
+    state: dict = {}
+
+    def run():
+        t = time.perf_counter()
+        try:
+            state["path"] = PC.build_library()
+        except BaseException as exc:  # re-raised by probes_phase
+            state["error"] = exc
+        state["seconds"] = time.perf_counter() - t
+
+    state["thread"] = threading.Thread(target=run, name="probe-build", daemon=True)
+    state["thread"].start()
+    return state
+
+
+def probe_checks(dev) -> dict:
+    """Every probe kernel against its plain version at the check shape
+    (``PROBE_CHECK_N`` x 1536, n_valid 100 short, B = 16, 32 and 256), outside
+    any launch count: P9 bit for bit on random unit rows quantised as P9
+    quantises them; P8 and P7 bit for bit on lattice rows, and on random
+    unit rows each key within one grid step of the plain key at a grid edge
+    (the floors' sums within ``SCORE_TOL``); the deferred tiles bit for bit
+    the same-step tiles on both.  Returns ``{case: {"err", "check_ms",
+    "plain_ms"}}``, the times at B = 256 (``PC.time_ms``)."""
+    import torch
+
+    from svs_tpu_torch.probes import bf16_opt, int8_opt, select11
+    from svs_tpu_torch.probes import common as PC
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 401)
+    n, d = PROBE_CHECK_N, DIM
+    nv = n - 100
+    docs8, rs = PC.quantize_docs(unit_rows_torch(n, d, gen, dev))
+    qf = PC.unit_queries(max(PROBE_CHECK_BATCHES), d, seed=SEED + 402)
+    q8 = int8_opt.queries(qf, dev)
+    lat = {"docs": lattice_rows_torch(n, d, gen, dev).to(torch.bfloat16),
+           "q": lattice_rows_torch(len(qf), d, gen, dev).to(torch.bfloat16)}
+    rnd = {"docs": unit_rows_torch(n, d, gen, dev).to(torch.bfloat16),
+           "q": torch.from_numpy(qf).to(dev).to(torch.bfloat16)}
+    res: dict = {}
+
+    def note(case, b, err, kernel_fn, plain_fn):
+        rec = res.setdefault(case, {"err": 0.0})
+        rec["err"] = max(rec["err"], err)
+        if b == max(PROBE_CHECK_BATCHES):
+            rec["check_ms"] = PC.time_ms(kernel_fn, KERNEL_REPS)
+            rec["plain_ms"] = PC.time_ms(plain_fn, max(3, KERNEL_REPS // 4))
+
+    for b in PROBE_CHECK_BATCHES:
+        for variant in int8_opt.VARIANTS:
+            for chunk in int8_opt.CHUNKS:
+                args = (docs8, q8["q"][:b].contiguous(), q8["qs"][:b].contiguous(),
+                        q8["qb"][:b].contiguous(), q8["qq"][:b].contiguous(), rs, nv,
+                        variant, chunk)
+                got = int8_opt.extract(*args)
+                torch.cuda.synchronize()
+                PC.check_same_bits(f"P9 {variant} chunk {chunk} B={b}", got, int8_opt.extract_plain(*args))
+                note(("int8_opt.extract", variant, chunk, 8192), b, 0.0,
+                     lambda a=args: int8_opt.extract(*a), lambda a=args: int8_opt.extract_plain(*a))
+        log(f"  probes: P9 mm / v3 / v3dq at chunk 128 and 256, B={b}: bit-identical")
+        for variant in bf16_opt.VARIANTS:
+            for chunk in bf16_opt.CHUNKS:
+                for block in bf16_opt.BLOCKS:
+                    case = ("bf16_opt.extract", variant, chunk, block)
+                    for data in (lat, rnd):
+                        args = (data["docs"], data["q"][:b].contiguous(), nv, variant, chunk, block)
+                        got = bf16_opt.extract(*args)
+                        torch.cuda.synchronize()
+                        ref = bf16_opt.extract_plain(*args)
+                        name = f"P8 {variant} chunk {chunk} block {block} B={b}"
+                        if data is lat:
+                            PC.check_same_bits(name + " lattice", got, ref)
+                            continue
+                        if variant == "mm":
+                            err = PC.check_close(name, got, ref)
+                        else:
+                            scores = PC.chunked_scores(data["docs"], args[1], chunk)
+                            err = PC.check_keys_close(name, got, ref, scores, block, clip=False)
+                        note(case, b, err, lambda a=args: bf16_opt.extract(*a),
+                             lambda a=args: bf16_opt.extract_plain(*a))
+        log(f"  probes: P8 mm / v3 at chunk 128 and 256, block 8192 and 4096, B={b}: "
+            f"bit-identical on lattice rows, within a grid step at an edge on random rows")
+        for data in (lat, rnd):
+            args = (data["docs"], data["q"][:b].contiguous(), nv)
+            same = select11.same_step(*args)
+            defer = select11.deferred(*args)
+            torch.cuda.synchronize()
+            ref = select11.same_step_plain(*args)
+            PC.check_same_bits(f"P7 deferred vs same-step B={b}", defer, same)
+            floors = {blk: (select11.floor(data["docs"], args[1], blk),
+                            select11.floor_plain(data["docs"], args[1], blk)) for blk in (8192, 4096)}
+            if data is lat:
+                PC.check_same_bits(f"P7 same-step B={b} lattice", same, ref)
+                for blk, (got, fref) in floors.items():
+                    PC.check_same_bits(f"P7 floor {blk} B={b} lattice", got, fref)
+                continue
+            scores = PC.chunked_scores(data["docs"], args[1], select11.DIM_CHUNK)
+            err = PC.check_keys_close(f"P7 same-step B={b}", same, ref, scores, select11.BLK, clip=True)
+            for kind, fn in (("same_step", select11.same_step), ("deferred", select11.deferred)):
+                note((f"select11.{kind}", "v3", 128, 4096), b, err,
+                     lambda a=args, f=fn: f(*a), lambda a=args: select11.same_step_plain(*a))
+            for blk, (got, fref) in floors.items():
+                ferr = PC.check_close(f"P7 floor {blk} B={b}", got, fref)
+                note(("select11.floor", "floor", 128, blk), b, ferr,
+                     lambda a=(data["docs"], args[1], blk): select11.floor(*a),
+                     lambda a=(data["docs"], args[1], blk): select11.floor_plain(*a))
+        log(f"  probes: P7 same-step, deferred (bitwise the same-step tiles) and the floors "
+            f"at 8192 and 4096, B={b}: bit-identical on lattice rows, within a grid step "
+            f"at an edge on random rows")
+    return res
+
+
+def probes_phase(out: dict, build: Optional[dict] = None) -> None:
+    """The benchmark probes P9, P8 and P7 (``svs_tpu_torch.probes``): each
+    kernel held against its plain version at the check shape
+    (:func:`probe_checks`), then the path: the three probes' cases at
+    their own shapes (1,015,808 x 1536, B = 256; P7 also B = 32, 64, 128)
+    through the modules' entry points, the launch counts set to 0 just
+    before and read just after, P7's checks (deferred tiles equal to the
+    same-step ones, the candidates sound against an f32 scan) among them;
+    cuBLAS's product of the same operands beside the floors.  Every case
+    goes to ``out["kernel_records"]`` for the ``kernels`` line: ``ms`` at
+    the probe's shape, ``plain_ms`` (and the kernel's own ``check_ms``) at
+    the check shape, B = 256.  ``build``: the library's build, started by
+    :func:`start_probe_build` (else it builds here, at first use)."""
+    import torch
+
+    from svs_tpu_torch import probes
+    from svs_tpu_torch.probes import bf16_opt, int8_opt, select11
+    from svs_tpu_torch.probes import common as PC
+
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    res = out["paths_detail_probes"] = {}
+    if build is not None:
+        build["thread"].join()
+        if "error" in build:
+            raise build["error"]
+        res["build_s"] = build["seconds"]
+        res["build_wait_s"] = time.perf_counter() - t0
+        log(f"probes: library built in {build['seconds']:.1f} s beside the kernel phase "
+            f"(waited {res['build_wait_s']:.1f} s) -> {build['path']}")
+    PC.library()
+    t = time.perf_counter()
+    checks = probe_checks(dev)
+    torch.cuda.empty_cache()
+    res["check_s"] = time.perf_counter() - t
+    n, d, b = PC.N, PC.D, PC.B
+    nv = n - 100
+
+    def run():
+        docs8, rs = PC.synth_int8(n, d, dev)
+        qv = int8_opt.queries(PC.unit_queries(b, d), dev)
+        res["v3_v3dq_agreement"] = int8_opt.agreement(docs8, rs, qv, nv)
+        res["p9"] = int8_opt.time_cases(docs8, rs, qv, nv)
+        qi = qv["q"]
+        res["library_int8_ms"] = PC.time_ms(lambda: torch._int_mm(qi, docs8.t()), KERNEL_REPS)
+        del docs8, rs
+        docs16 = PC.synth_bf16(n, d, dev)
+        q16 = torch.from_numpy(PC.unit_queries(b, d)).to(dev).to(torch.bfloat16)
+        res["p8"] = bf16_opt.time_cases(docs16, q16, nv)
+        select11.check_tiles(docs16, q16[:8], nv)
+        select11.check_sound(docs16, q16[:8], nv, select11.K)
+        res["p7"] = select11.time_cases(docs16, q16, nv)
+        res["p7_kernels"] = {}  # the two emit kernels alone, no candidate path
+        for bb in (b, *select11.SMALL_BATCHES):
+            qb = q16[:bb]
+            for kind, fn in (("same-step", select11.same_step), ("deferred", select11.deferred)):
+                res["p7_kernels"][f"{kind} b={bb}"] = PC.time_case(
+                    lambda qb=qb, fn=fn: fn(docs16, qb, nv))
+        res["library_bf16_ms"] = PC.time_ms(lambda: torch.matmul(q16, docs16.t()), KERNEL_REPS)
+
+    probes.reset_launch_counts()
+    t = time.perf_counter()
+    run()
+    seconds = time.perf_counter() - t
+    counts = probes.launch_counts()
+    torch.cuda.empty_cache()
+    out["paths"]["probes"] = {"launches": counts, "seconds": seconds}
+    out["launches"].update(counts)
+    missing = [k for k, v in counts.items() if v <= 0]
+    log(f"e2e probes launches {counts} ({seconds:.1f} s)")
+    if missing:
+        raise AssertionError(f"probes: kernels not launched: {missing}")
+    res["v3_v3dq_agreement_pct"] = res["v3_v3dq_agreement"] * 100
+    log(f"  P9 v3 vs v3dq key agreement: {res['v3_v3dq_agreement_pct']:.4f}%")
+    log("  P7: deferred tiles == same-step tiles (bitwise); candidates sound vs the f32 scan")
+
+    def int8_bound(cols):
+        return bound(n * d + 4 * n + b * d + 12 * b + b * cols * 4, 2.0 * b * n * d, "int8")
+
+    def bf16_bound(bb, cols):
+        return bound(2 * n * d + 2 * bb * d + bb * cols * 4, 2.0 * bb * n * d, "bf16")
+
+    where = f"[{n:,} x {d}]"
+    timed = []  # (name, label, case key, times, bound, library, batch)
+    for label, variant, chunk in int8_opt.CASES:
+        timed.append(("int8_opt.extract", f"P9 {label}: int8 {where}, B={b}",
+                      ("int8_opt.extract", variant, chunk, 8192), res["p9"][label],
+                      int8_bound((n // 8192) * 128),
+                      res["library_int8_ms"] if variant == "mm" else None,
+                      PROBE_SOURCES["int8_opt.extract"]))
+    for label, variant, chunk, block in bf16_opt.CASES:
+        timed.append(("bf16_opt.extract", f"P8 {label}: bf16 {where}, B={b}",
+                      ("bf16_opt.extract", variant, chunk, block), res["p8"][label],
+                      bf16_bound(b, (n // block) * 128),
+                      res["library_bf16_ms"] if variant == "mm" else None,
+                      PROBE_SOURCES["bf16_opt.extract"]))
+    for blk, label in ((8192, f"A bf16 b={b} floor 8192"), (4096, f"E bf16 b={b} floor 4096")):
+        timed.append(("select11.floor", f"P7 {label}: bf16 {where}",
+                      ("select11.floor", "floor", 128, blk), res["p7"][label],
+                      bf16_bound(b, (n // blk) * 128), res["library_bf16_ms"],
+                      PROBE_SOURCES["select11.floor"]))
+    for kind, name in (("same-step", "select11.same_step"), ("deferred", "select11.deferred")):
+        timed.append((name, f"P7 {kind} kernel alone: bf16 {where}, B={b}",
+                      (name, "v3", 128, 4096), res["p7_kernels"][f"{kind} b={b}"],
+                      bf16_bound(b, (n // 4096) * 128), None, PROBE_SOURCES[name]))
+    recs = out.setdefault("kernel_records", {})
+    for name, what, key, t, bnd, lib, source in timed:
+        chk = checks[key]
+        recs.setdefault(name, []).append({
+            "what": (f"{what}; device time, median of 5 windows of 20 launches "
+                     f"(spread {t['lo']:.4f}-{t['hi']:.4f} ms); plain_ms and check_ms "
+                     f"(the kernel) at the check shape [{PROBE_CHECK_N:,} x {d}], B=256"
+                     + ("; library: cuBLAS's product of the same operands (it writes "
+                        "the scores: a reference, not the same function)" if lib else "")),
+            "max_abs_err": chk["err"], "ms": t["ms"], "plain_ms": chk["plain_ms"],
+            "check_ms": chk["check_ms"], "bound_ms": bnd[0], "bound_by": bnd[1],
+            "library_ms": lib, "source": source,
+        })
+    for probe, key in (("P9", "p9"), ("P8", "p8"), ("P7", "p7"), ("P7 kernel alone", "p7_kernels")):
+        for label, t in res[key].items():
+            log(f"  {probe} {label.strip()}: device {t['ms']:.4f} ms "
+                f"(spread {t['lo']:.4f}-{t['hi']:.4f})")
+    log(f"  library: int8 {res['library_int8_ms']:.4f} ms, bf16 {res['library_bf16_ms']:.4f} ms")
+    res["phase_s"] = time.perf_counter() - t0
+    log(f"probes phase: {res['phase_s']:.1f} s (checks {res['check_s']:.1f} s, path "
+        f"{seconds:.1f} s)")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--docs", type=int, default=1_000_000)
@@ -7000,6 +7243,7 @@ def main() -> int:
         return 2
     try:
         from svs_tpu_torch.ops import kernels
+        from svs_tpu_torch.probes.common import card_line
     except ImportError as exc:
         log(f"chip_smoke: the svs_tpu_torch package is not importable here ({exc})")
         return 2
@@ -7019,6 +7263,7 @@ def main() -> int:
     kernels.library()
     log(f"kernels: built in {kernels.build_seconds:.1f} s "
         f"(load {time.perf_counter() - t0:.1f} s) -> {kernels.library_path()}")
+    probe_build = None if args.skip_e2e else start_probe_build()
 
     t0 = time.perf_counter()
     cross: dict = {}
@@ -7031,25 +7276,26 @@ def main() -> int:
         work.mkdir(parents=True)
         log(f"e2e: {shutil.disk_usage(work).free / 1e9:.1f} GB free on the work disk")
         try:
-            e2e = e2e_phase(args.docs, args.reps, work, cross)
+            e2e = e2e_phase(args.docs, args.reps, work, cross, probe_build)
         finally:
             shutil.rmtree(work, ignore_errors=True)
 
     if e2e is not None:  # the kernels' checks on a path's own pack (local_gptj's)
         for name, recs in e2e.pop("kernel_records", {}).items():
-            records[name].extend(recs)
+            records.setdefault(name, []).extend(recs)
     kernels_json = []
     for name, recs in records.items():
         for rec in recs:
             kernels_json.append({
                 "name": name,
                 "route": "cuda",
-                "source": SOURCES[name],
+                "source": rec.get("source", SOURCES[name]),
                 "replaces": REPLACES[name],
                 "launches": None if e2e is None else e2e["launches"][name],
                 "max_abs_err": rec["max_abs_err"],
                 "ms": rec["ms"],
                 "plain_ms": rec["plain_ms"],
+                **({"check_ms": rec["check_ms"]} if "check_ms" in rec else {}),
                 "bound_ms": rec["bound_ms"],
                 "bound_by": rec["bound_by"],
                 "library_ms": rec["library_ms"],

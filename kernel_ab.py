@@ -8,7 +8,7 @@ through the port's own wrappers (the other tree's launchers bound here, by
 this tree's signatures and its own pass-2 kernel's).  Each is first held against the plain
 PyTorch version (bit for bit; the float v3 kernels on random unit data
 within ``chip_smoke.SCORE_TOL`` at a key-grid edge), then timed in turns
-(old, new, new, old, ...) with ``chip_smoke.time_ms``: device time per
+(old, new, new, old, ...) with ``svs_tpu_torch.probes.common.time_ms``: device time per
 launch over a run of launches between one CUDA event pair.
 
 Cases (``--only``):
@@ -43,6 +43,13 @@ Cases (``--only``):
   for bit, bf16 and f32 values and rows within ``chip_smoke.SCORE_TOL``
   (``chip_smoke.check_v1_close``).
 
+- ``sass``: no timing: the machine code of the production v3-core
+  kernels (``fused3_mma_kernel`` under ``fused3::Production``, or the
+  tree's one instance before the variants) of both libraries, paired by
+  (int8, query tile, mode), each pair's registers and instruction count
+  (``cuobjdump -res-usage`` / ``-sass``) and whether the instructions
+  are the same, addresses and encodings aside.
+
 ``--only`` may be given more than once.
 
     git archive <commit> svs_tpu_torch/csrc | tar -x -C build/ab_old
@@ -56,7 +63,9 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
+import re
 import statistics
+import subprocess
 import sys
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -79,6 +88,73 @@ def load_other(csrc):
             fn.argtypes = argtypes
             fn.restype = restype
     return lib
+
+
+#: A production v3-core kernel's mangled name: its (int8, query tile,
+#: mode), then its variant's arguments where the tree has variants
+#: (``fused3::Production`` is ``Variant<0, true, false, 8192, 1>``).
+_MMA_NAME = re.compile(
+    r"fused3_mma_kernelILb([01])ELi(\d+)ELi(\d+)E"
+    r"(?:N\w*?7VariantILi(\d+)ELb([01])ELb([01])ELi(\d+)ELi(\d+)EEE)?E"
+)
+_PRODUCTION = ("0", "1", "0", "8192", "1")
+_SASS_LINE = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(.*?)\s*;")
+
+
+def _cuobjdump(so: Path, flag: str) -> str:
+    from svs_tpu_torch.ops import kernels
+
+    tool = Path(kernels._nvcc()).with_name("cuobjdump")
+    return subprocess.run([str(tool), flag, str(so)], capture_output=True,
+                          text=True, check=True).stdout
+
+
+def production_sass(so: Path) -> dict:
+    """``{(int8, QT, mode): {"regs", "sass"}}`` of the production
+    v3-core kernels in library ``so``: the register count of each and its
+    instructions, without addresses or encodings."""
+    out: dict = {}
+    name = None
+    for line in _cuobjdump(so, "-res-usage").splitlines():
+        m = re.search(r"Function (\S+?):?$", line.strip())
+        if m:
+            name = m.group(1)
+            continue
+        reg = re.search(r"REG:(\d+)", line)
+        k = _MMA_NAME.search(name or "")
+        if reg and k and (k.group(4) is None or k.groups()[3:] == _PRODUCTION):
+            out.setdefault(k.groups()[:3], {"regs": int(reg.group(1)), "sass": []})
+    key = None
+    for line in _cuobjdump(so, "-sass").splitlines():
+        if "Function :" in line:
+            k = _MMA_NAME.search(line)
+            key = k.groups()[:3] if k and (k.group(4) is None or k.groups()[3:] == _PRODUCTION) else None
+            if key is not None and out.get(key, {}).get("sass"):
+                key = None  # a second copy (another unit): the first stands
+            continue
+        m = _SASS_LINE.search(line)
+        if key is not None and key in out and m:
+            out[key]["sass"].append(m.group(1))
+    return out
+
+
+def sass_report(old_so: Path, new_so: Path) -> dict:
+    """The production v3-core kernels of two libraries side by side."""
+    old, new = production_sass(old_so), production_sass(new_so)
+    rep = {}
+    for key in sorted(set(old) | set(new), key=lambda k: (k[0], int(k[1]), k[2])):
+        a, b = old.get(key), new.get(key)
+        what = f"fused3_mma_kernel<{'int8' if key[0] == '1' else 'bf16'}, QT={key[1]}, mode {key[2]}>"
+        rec = {
+            "old_regs": a and a["regs"], "new_regs": b and b["regs"],
+            "old_instructions": a and len(a["sass"]), "new_instructions": b and len(b["sass"]),
+            "same_instructions": bool(a and b and a["sass"] == b["sass"]),
+        }
+        rep[what] = rec
+        S.log(f"sass {what}: registers {rec['old_regs']} -> {rec['new_regs']}, "
+              f"instructions {rec['old_instructions']} -> {rec['new_instructions']}, "
+              f"{'the same' if rec['same_instructions'] else 'different'}")
+    return rep
 
 
 def launching_from(lib, fn):
@@ -293,7 +369,7 @@ def main() -> int:
     ap.add_argument("--launches", type=int, default=20)
     ap.add_argument("--turns", type=int, default=4,
                     help="timed windows per build and shape, in turns")
-    ap.add_argument("--only", choices=("all", "selection", "v3", "v2", "v1", "finish"),
+    ap.add_argument("--only", choices=("all", "selection", "v3", "v2", "v1", "finish", "sass"),
                     action="append", help="the cases to run (default: all)")
     args = ap.parse_args()
 
@@ -303,8 +379,9 @@ def main() -> int:
         S.log("kernel_ab: CUDA is not available; this needs a GPU")
         return 2
     from svs_tpu_torch.ops import kernels
+    from svs_tpu_torch.probes.common import card_line, time_ms
 
-    card = S.card_line()
+    card = card_line()
     S.log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     with ThreadPoolExecutor(2) as pool:
         old = pool.submit(load_other, args.old.resolve())
@@ -327,6 +404,8 @@ def main() -> int:
     if only & {"all", "finish"}:
         groups.append(finish_cases(gen))
     result = {"card": card, "shapes": {}}
+    if only & {"all", "sass"}:
+        result["sass"] = sass_report(kernels.build(args.old.resolve()), kernels.build())
     for cases in groups:
         for what, call, plain, check, (bound_ms, bound_by), *library in cases:
             ref = plain()
@@ -343,10 +422,10 @@ def main() -> int:
             times = {name: [] for name in names}
             for turn in range(args.turns):
                 for name in names if turn % 2 == 0 else names[::-1]:
-                    times[name].append(S.time_ms(fns[name], args.launches))
+                    times[name].append(time_ms(fns[name], args.launches))
             rec = {"bound_ms": bound_ms, "bound_by": bound_by}
             if library:
-                rec["library_ms"] = [S.time_ms(library[0], args.launches)
+                rec["library_ms"] = [time_ms(library[0], args.launches)
                                      for _ in range(args.turns // 2)]
                 S.log(f"{what}: library {[round(t * 1e3, 2) for t in rec['library_ms']]} us")
             for name in names:

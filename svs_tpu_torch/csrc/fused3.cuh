@@ -28,6 +28,12 @@
 // K-major layout wgmma reads through its descriptors, and one in which 8
 // consecutive rows at one column fill all 32 banks, so the f32 kernel's
 // 16-byte loads read conflict-free.
+//
+// The tensor-core kernel takes compile-time switches (Variant below): the
+// production kernels instantiate Production; the benchmark probes of
+// svs_tpu_torch/probes (csrc/probes) instantiate the others, so that a
+// probe's floor or emit variant runs in the very ring, tiles and product of
+// the kernel it is compared with.
 #pragma once
 
 #include <cuda.h>
@@ -57,6 +63,50 @@ template <int QT>
 __host__ __device__ constexpr int stage_bytes() {
   return kDocStageBytes + QT * kSliceBytes;
 }
+
+// The switches of the tensor-core consumer path.
+// - kEmit: kEmitSelect, the keys and the selection of the mode (production);
+//   or a floor with no keys, the product alone: kEmitFirstSums writes the
+//   f32 sums of the first 128 docs of every kBlockN-doc block to that
+//   block's 128 output lanes (tpu_int8_opt.py / tpu_bf16_opt.py "mm"),
+//   kEmitBlockMax the max score over each kBlockN-doc block to its lane 0
+//   (tpu_select11.py's blocked floor; the wrapper pre-fills lane 0 with
+//   -inf and the others with 0).
+// - kClip: the v3 key clips the score to [-3, 3] first (production,
+//   tpu_select11.py) or not (tpu_int8_opt.py, tpu_bf16_opt.py).
+// - kFoldQs (int8): the v3dq key floor((acc * rs + qb) * qq) * 1024 + lane,
+//   the query scale folded into per-query grid constants qb = KEY_BIAS / qs
+//   and qq = 4096 * qs, which the launch passes in place of qs ([2, b]: qb,
+//   then qq).
+// - kBlockN: the docs of one output tile of 128 lanes (8192 in production:
+//   8 subtiles' top-4 keys, the guard lane at 32; 4096: 4 subtiles, the
+//   guard at 16).  One CUDA block still owns one 1024-doc subtile: only
+//   where its keys and guard land changes.
+// - kGroup: the 128-byte ring stages a consumer multiplies between two
+//   drains of the tensor cores (wgmma.wait_group 0).  On the TPU a grid
+//   step multiplies a "contraction chunk" of the query and doc columns and
+//   adds it to the accumulator in VMEM; here the accumulator is in
+//   registers, so the chunk is the k-span of one run of asynchronous
+//   wgmma: kGroup stages of 128 bytes (int8: chunk 128 = 1 stage, 256 = 2;
+//   bf16: chunk 128 = 2 stages, 256 = 4), the stages released one by one
+//   as their wgmma complete (wait_group 1), so a group never holds more of
+//   the 3-stage ring than the production path.  bf16 sums a group's
+//   products from zero on the tensor cores and adds that partial to the
+//   f32 total with one round-to-nearest add, as the TPU adds a chunk's dot
+//   to its accumulator (production: one stage, 64 columns); int8 sums are
+//   exact int32 in any grouping.
+enum Emit { kEmitSelect = 0, kEmitFirstSums = 1, kEmitBlockMax = 2 };
+
+template <int EMIT, bool CLIP, bool FOLD_QS, int BLOCK_N, int GROUP>
+struct Variant {
+  static constexpr int kEmit = EMIT;
+  static constexpr bool kClip = CLIP;
+  static constexpr bool kFoldQs = FOLD_QS;
+  static constexpr int kBlockN = BLOCK_N;
+  static constexpr int kGroup = GROUP;
+  static_assert(BLOCK_N % 1024 == 0 && GROUP >= 1, "a variant's geometry");
+};
+using Production = Variant<kEmitSelect, true, false, 8192, 1>;
 
 // The emit of a mode: what a subtile is, its list length H, the words of
 // its running list per query row (kRun), its key and dead-lane marker.
@@ -242,6 +292,9 @@ struct Ring {
   __device__ __forceinline__ void release(const Block& s, int lane) {
     __syncwarp();
     if (lane == 0) mbar_arrive(s.empty + st);
+    advance();
+  }
+  __device__ __forceinline__ void advance() {
     if (++st == kStages) {
       st = 0;
       phase ^= 1u;
@@ -274,7 +327,7 @@ struct ChunkPos {
 // subtile's place in its block's 128 lanes, and the guard lane; mode 2: 8
 // keys at column (row0 / 512) * 8; mode 1: 8 values there in out and
 // their rows there in out1).
-template <int MODE, int QT, int PITCH, int WARPS>
+template <int MODE, int QT, int PITCH, int WARPS, int BLOCK_N = kFusedBlockN>
 __device__ __forceinline__ void select_rows(const Block& s, int chunk,
                                             int warp, int lane, int q0, int b,
                                             int doc0, int out_cols,
@@ -289,11 +342,11 @@ __device__ __forceinline__ void select_rows(const Block& s, int chunk,
     const float* keys = s.keys + q * PITCH;
     float* run = s.run + q * Sel::kRun;
     if constexpr (MODE == 3) {
-      float* tile = out + row + (size_t)(doc0 / kFusedBlockN) * kGuardOutLanes;
+      float* tile = out + row + (size_t)(doc0 / BLOCK_N) * kGuardOutLanes;
       fused::select_chunk<kChunkDocs, Sel::kH, true>(
           keys, run, part == 0, part == kPer - 1, lane,
-          tile + ((doc0 % kFusedBlockN) / kV3SubDocs) * Sel::kH,
-          tile + kGuardKeys);
+          tile + ((doc0 % BLOCK_N) / kV3SubDocs) * Sel::kH,
+          tile + (BLOCK_N / kV3SubDocs) * Sel::kH);
     } else {
       const size_t col = row + (size_t)(doc0 / Sel::kSubDocs + sub) * Sel::kH;
       if constexpr (MODE == 2) {
@@ -409,9 +462,32 @@ __device__ __forceinline__ void wgmma_fence() {
 __device__ __forceinline__ void wgmma_commit() {
   asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
 }
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+// Wait until at most N committed groups of this warpgroup are pending.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
+
+// The v3 key without the clip (tpu_int8_opt.py, tpu_bf16_opt.py):
+// floor((s + KEY_BIAS) * 4096) * 1024 + lane, every step rounded as written.
+__device__ __forceinline__ float v3_key_unclipped(float s, int lane) {
+  return __fadd_rn(
+      __fmul_rn(floorf(__fmul_rn(__fadd_rn(s, 1.0625f), 4096.0f)), 1024.0f),
+      (float)lane);
+}
+
+// The v3dq key of y = acc * rs (tpu_int8_opt.py): floor((y + qb) * qq) *
+// 1024 + lane, qb and qq the query's grid constants.
+__device__ __forceinline__ float v3dq_key(float y, float qb, float qq,
+                                          int lane) {
+  return __fadd_rn(__fmul_rn(floorf(__fmul_rn(__fadd_rn(y, qb), qq)), 1024.0f),
+                   (float)lane);
+}
+
+// An accumulator as f32: an int32 sum converted (round to nearest), an f32
+// sum as it is.
+__device__ __forceinline__ float acc_f32(int a) { return __int2float_rn(a); }
+__device__ __forceinline__ float acc_f32(float a) { return a; }
 
 // Pins accumulator registers in place around the asynchronous wgmma, so
 // the compiler moves no read or write of them across it.
@@ -444,10 +520,11 @@ constexpr int kMmaPitch = kChunkDocs + 4;
 // owns docs 64 T g + [0, 64 T) of the chunk as T = kMmaTiles m64 tiles;
 // per 128-byte slice it issues 4 k steps x T tiles of m64nQTk32 (bytes),
 // reading both operands straight from the swizzled stage, then waits for
-// them and releases the stage.  Accumulator register 4j + r of m-tile mt
+// them and releases the stage (a variant's kGroup > 1: once per run of
+// kGroup slices, see Variant).  Accumulator register 4j + r of m-tile mt
 // holds doc 64 (T g + mt) + 16w + lane/4 + 8(r/2) and query 8j + 2(lane%4)
 // + r%2, w the warp in its group.
-template <bool kInt8, int QT, int MODE>
+template <bool kInt8, int QT, int MODE, class V = Production>
 __global__ void __launch_bounds__((kMmaWarps + 1) * 32, 1)
     fused3_mma_kernel(const __grid_constant__ CUtensorMap dmap,
                       const __grid_constant__ CUtensorMap qmap,
@@ -457,6 +534,9 @@ __global__ void __launch_bounds__((kMmaWarps + 1) * 32, 1)
                       float* __restrict__ out1) {
   constexpr int R = QT / 2;  // accumulator registers per m64 tile
   constexpr int MT = kMmaTiles;
+  constexpr int G = V::kGroup;
+  static_assert(std::is_same<V, Production>::value || MODE == 3,
+                "the variants are v3's");
   using Acc = typename std::conditional<kInt8, int, float>::type;
   extern __shared__ unsigned char smem_raw[];
   const Block s = block_smem<QT, kMmaPitch, Select<MODE>::kRun>(smem_raw);
@@ -464,7 +544,13 @@ __global__ void __launch_bounds__((kMmaWarps + 1) * 32, 1)
   const int q0 = blockIdx.x * QT;
   const int doc0 = blockIdx.y * kV3SubDocs;
   const int nslices = (d_bytes + kSliceBytes - 1) / kSliceBytes;
+  // kEmitBlockMax: the block's per-query maxima (order keys) in the key
+  // buffer, which that floor does not otherwise use
+  int* const qmax = reinterpret_cast<int*>(s.keys);
   if (tid == 0) init_ring<kMmaWarps>(s);
+  if constexpr (V::kEmit == kEmitBlockMax) {
+    if (tid < QT) qmax[tid] = kNegInfKey;
+  }
   __syncthreads();
   if (warp == kMmaWarps) {
     if (lane == 0) {
@@ -476,8 +562,14 @@ __global__ void __launch_bounds__((kMmaWarps + 1) * 32, 1)
   const int group = warp >> 2;
   const int doc_w = group * MT * 64 + (warp & 3) * 16 + (lane >> 2);
 
-  Ring<QT> ring;
+  Ring<QT> ring;  // the stage to acquire next
+  Ring<QT> tail;  // kGroup > 1: the stage to release next, behind ring's
   Acc acc[MT][R];
+  float bmax[QT / 8][2];  // kEmitBlockMax: this thread's running maxima
+  if constexpr (V::kEmit == kEmitBlockMax) {
+#pragma unroll
+    for (int j = 0; j < QT / 8; ++j) bmax[j][0] = bmax[j][1] = -INFINITY;
+  }
   for (int chunk = 0; chunk < kChunks; ++chunk) {
     if constexpr (!kInt8) {
 #pragma unroll
@@ -485,43 +577,64 @@ __global__ void __launch_bounds__((kMmaWarps + 1) * 32, 1)
 #pragma unroll
         for (int i = 0; i < R; ++i) acc[mt][i] = 0.0f;
     }
-    for (int k = 0; k < nslices; ++k) {
-      const uint32_t stage = smem_u32(ring.acquire(s));
-      const uint32_t a0 = stage + group * MT * 64 * kSliceBytes;
-      const uint32_t b0 = stage + kDocStageBytes;
-      if constexpr (kInt8) {
-        // exact int32 sums over the whole chunk (zeroed by its first step)
+    // G slices (1 in production) a run of wgmma, each slice's committed
+    // as a group of its own.  G == 1 (production): wait for the slice, then
+    // release its stage.  G > 1: ring runs ahead of tail; once the next
+    // slice's are issued, wait_group 1 says the slice before has been read
+    // and tail's stage goes back to the producer; the run's last waits for
+    // all
+    for (int k = 0; k < nslices; k += G) {
+      Acc part[MT][R];  // bf16: the run's products, summed from zero
 #pragma unroll
-        for (int mt = 0; mt < MT; ++mt) fence_regs(acc[mt]);
-        wgmma_fence();
+      for (int i = 0; i < G; ++i) {
+        const uint32_t stage = smem_u32(ring.acquire(s));
+        if constexpr (G > 1) ring.advance();
+        const uint32_t a0 = stage + group * MT * 64 * kSliceBytes;
+        const uint32_t b0 = stage + kDocStageBytes;
+        if constexpr (kInt8) {
+          // exact int32 sums over the whole chunk (zeroed by its first step)
 #pragma unroll
-        for (int kk = 0; kk < kSliceBytes / 32; ++kk)
+          for (int mt = 0; mt < MT; ++mt) fence_regs(acc[mt]);
+          wgmma_fence();
 #pragma unroll
-          for (int mt = 0; mt < MT; ++mt) {
-            wgmma_s8<QT>(acc[mt],
-                         sw128_desc(a0 + mt * 64 * kSliceBytes + kk * 32),
-                         sw128_desc(b0 + kk * 32), (k | kk) != 0);
+          for (int kk = 0; kk < kSliceBytes / 32; ++kk)
+#pragma unroll
+            for (int mt = 0; mt < MT; ++mt) {
+              wgmma_s8<QT>(acc[mt],
+                           sw128_desc(a0 + mt * 64 * kSliceBytes + kk * 32),
+                           sw128_desc(b0 + kk * 32), ((k + i) | kk) != 0);
+            }
+        } else {
+          // the run's products are summed on the tensor cores from zero,
+          // then added to the total with one round-to-nearest add (see
+          // fused_float.cu: what this does to the error)
+          if (i > 0) {
+#pragma unroll
+            for (int mt = 0; mt < MT; ++mt) fence_regs(part[mt]);
           }
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < kSliceBytes / 32; ++kk)
+#pragma unroll
+            for (int mt = 0; mt < MT; ++mt) {
+              wgmma_bf16<QT>(part[mt],
+                             sw128_desc(a0 + mt * 64 * kSliceBytes + kk * 32),
+                             sw128_desc(b0 + kk * 32), (i | kk) != 0);
+            }
+        }
         wgmma_commit();
-        wgmma_wait_all();
+        if constexpr (G > 1) {
+          if (i > 0) {
+            wgmma_wait<1>();
+            tail.release(s, lane);
+          }
+        }
+      }
+      wgmma_wait<0>();
+      if constexpr (kInt8) {
 #pragma unroll
         for (int mt = 0; mt < MT; ++mt) fence_regs(acc[mt]);
       } else {
-        // the slice's 64 products are summed on the tensor cores from
-        // zero, then added to the total with one round-to-nearest add (see
-        // fused_float.cu: what this does to the error)
-        Acc part[MT][R];
-        wgmma_fence();
-#pragma unroll
-        for (int kk = 0; kk < kSliceBytes / 32; ++kk)
-#pragma unroll
-          for (int mt = 0; mt < MT; ++mt) {
-            wgmma_bf16<QT>(part[mt],
-                           sw128_desc(a0 + mt * 64 * kSliceBytes + kk * 32),
-                           sw128_desc(b0 + kk * 32), kk != 0);
-          }
-        wgmma_commit();
-        wgmma_wait_all();
 #pragma unroll
         for (int mt = 0; mt < MT; ++mt) fence_regs(part[mt]);
 #pragma unroll
@@ -529,49 +642,126 @@ __global__ void __launch_bounds__((kMmaWarps + 1) * 32, 1)
 #pragma unroll
           for (int i = 0; i < R; ++i) acc[mt][i] = __fadd_rn(acc[mt][i], part[mt][i]);
       }
-      ring.release(s, lane);
+      if constexpr (G > 1) {
+        tail.release(s, lane);
+      } else {
+        ring.release(s, lane);
+      }
     }
 
-    // keys of the chunk -> shared memory (after every warp's last read of
-    // the previous chunk's keys)
-    const ChunkPos<MODE> pos(chunk, doc0, n_valid);
-    consumers_sync<kMmaWarps>();
-    float qscale[QT / 8][2];
-    if constexpr (kInt8) {
+    if constexpr (V::kEmit == kEmitFirstSums) {
+      // the floor "mm": the sums of the block's first 128 docs, as f32
+      if (chunk == 0 && doc0 % V::kBlockN == 0) {
 #pragma unroll
-      for (int j = 0; j < QT / 8; ++j)
+        for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-        for (int c = 0; c < 2; ++c) {
-          const int q = q0 + 8 * j + 2 * (lane & 3) + c;
-          qscale[j][c] = q < b ? qs[q] : 0.0f;
-        }
-    }
+          for (int h = 0; h < 2; ++h) {
+            const int doc = doc_w + 64 * mt + 8 * h;
+            if (doc >= kGuardOutLanes) continue;
 #pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
+            for (int j = 0; j < QT / 8; ++j)
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int doc = doc_w + 64 * mt + 8 * h;
-        const float r_scale = kInt8 ? rs[doc0 + chunk * kChunkDocs + doc] : 0.0f;
+              for (int c = 0; c < 2; ++c) {
+                const int q = q0 + 8 * j + 2 * (lane & 3) + c;
+                const Acc a = acc[mt][4 * j + 2 * h + c];
+                if (q < b) {
+                  out[(size_t)q * out_cols +
+                      (size_t)(doc0 / V::kBlockN) * kGuardOutLanes + doc] =
+                      acc_f32(a);
+                }
+              }
+          }
+      }
+      continue;
+    } else if constexpr (V::kEmit == kEmitBlockMax) {
+      // the blocked floor: every doc's score, live or not
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int j = 0; j < QT / 8; ++j)
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            const Acc a = acc[mt][4 * j + r];
+            bmax[j][r & 1] = fmaxf(bmax[j][r & 1], acc_f32(a));
+          }
+      continue;
+    } else {
+      // keys of the chunk -> shared memory (after every warp's last read of
+      // the previous chunk's keys)
+      const ChunkPos<MODE> pos(chunk, doc0, n_valid);
+      consumers_sync<kMmaWarps>();
+      float qscale[QT / 8][2];
+      float qgrid[QT / 8][2];  // v3dq: qq (qscale then holds qb)
+      if constexpr (kInt8) {
 #pragma unroll
         for (int j = 0; j < QT / 8; ++j)
 #pragma unroll
           for (int c = 0; c < 2; ++c) {
-            const Acc a = acc[mt][4 * j + 2 * h + c];
-            float sc;
-            if constexpr (kInt8) {
-              // acc.astype(f32) * rs * qs, each product rounded on its own
-              sc = __fmul_rn(__fmul_rn(__int2float_rn(a), r_scale),
-                             qscale[j][c]);
-            } else {
-              sc = a;
-            }
-            s.keys[(8 * j + 2 * (lane & 3) + c) * kMmaPitch + doc] =
-                pos.key(sc, doc);
+            const int q = q0 + 8 * j + 2 * (lane & 3) + c;
+            qscale[j][c] = q < b ? qs[q] : 0.0f;
+            if constexpr (V::kFoldQs) qgrid[j][c] = q < b ? qs[b + q] : 0.0f;
           }
       }
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int doc = doc_w + 64 * mt + 8 * h;
+          const float r_scale = kInt8 ? rs[doc0 + chunk * kChunkDocs + doc] : 0.0f;
+#pragma unroll
+          for (int j = 0; j < QT / 8; ++j)
+#pragma unroll
+            for (int c = 0; c < 2; ++c) {
+              const Acc a = acc[mt][4 * j + 2 * h + c];
+              float sc;
+              if constexpr (kInt8 && V::kFoldQs) {
+                // y = acc.astype(f32) * rs; the query's scale is in the grid
+                sc = __fmul_rn(__int2float_rn(a), r_scale);
+              } else if constexpr (kInt8) {
+                // acc.astype(f32) * rs * qs, each product rounded on its own
+                sc = __fmul_rn(__fmul_rn(__int2float_rn(a), r_scale),
+                               qscale[j][c]);
+              } else {
+                sc = a;
+              }
+              float key;
+              if constexpr (V::kFoldQs) {
+                const int l = pos.lane0 + doc;
+                key = l < pos.live ? v3dq_key(sc, qscale[j][c], qgrid[j][c], l)
+                                   : kKeyDead;
+              } else if constexpr (MODE == 3 && !V::kClip) {
+                const int l = pos.lane0 + doc;
+                key = l < pos.live ? v3_key_unclipped(sc, l) : kKeyDead;
+              } else {
+                key = pos.key(sc, doc);
+              }
+              s.keys[(8 * j + 2 * (lane & 3) + c) * kMmaPitch + doc] = key;
+            }
+        }
+      consumers_sync<kMmaWarps>();
+      select_rows<MODE, QT, kMmaPitch, kMmaWarps, V::kBlockN>(
+          s, chunk, warp, lane, q0, b, doc0, out_cols, out, out1);
+    }
+  }
+
+  if constexpr (V::kEmit == kEmitBlockMax) {
+    // the 8 lanes of one query column (lane / 4 apart) hold other docs
+#pragma unroll
+    for (int j = 0; j < QT / 8; ++j)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        float v = bmax[j][c];
+        v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 4));
+        v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 8));
+        v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 16));
+        if (lane < 4) atomicMax(qmax + 8 * j + 2 * lane + c, order_key(v));
+      }
     consumers_sync<kMmaWarps>();
-    select_rows<MODE, QT, kMmaPitch, kMmaWarps>(s, chunk, warp, lane, q0, b,
-                                                doc0, out_cols, out, out1);
+    if (tid < QT && q0 + tid < b) {
+      atomic_max_float(out + (size_t)(q0 + tid) * out_cols +
+                           (size_t)(doc0 / V::kBlockN) * kGuardOutLanes,
+                       order_key_value(qmax[tid]));
+    }
   }
 }
 
@@ -679,12 +869,17 @@ __global__ void __launch_bounds__((kFfmaWarps + 1) * 32, 1)
 
 // --- host side --------------------------------------------------------------
 
-template <bool kInt8, int QT, int MODE>
+template <bool kInt8, int QT, int MODE, class V = Production>
 inline cudaError_t launch_mma_tile(const void* q, const float* qs,
                                    const void* docs, const float* rs, int b,
                                    int n, int d, int n_valid, float* out,
                                    float* out1, cudaStream_t stream) {
   const int elem = kInt8 ? 1 : 2;
+  if constexpr (!std::is_same<V, Production>::value) {
+    if (n % V::kBlockN != 0 || (d * elem) % (V::kGroup * kSliceBytes) != 0) {
+      return cudaErrorInvalidValue;
+    }
+  }
   const CUtensorMapDataType type =
       kInt8 ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
   CUtensorMap dmap, qmap;
@@ -692,16 +887,19 @@ inline cudaError_t launch_mma_tile(const void* q, const float* qs,
   if (err == cudaSuccess) err = tile_map(&qmap, q, type, elem, b, d, QT);
   constexpr int smem = Smem<QT, kMmaPitch, Select<MODE>::kRun>::kBytes;
   if (err == cudaSuccess) {
-    err = cudaFuncSetAttribute(fused3_mma_kernel<kInt8, QT, MODE>,
+    err = cudaFuncSetAttribute(fused3_mma_kernel<kInt8, QT, MODE, V>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                smem);
   }
   if (err != cudaSuccess) return err;
   const dim3 grid((b + QT - 1) / QT, n / kV3SubDocs);
-  fused3_mma_kernel<kInt8, QT, MODE>
+  // a v3 row holds 128 lanes per output tile of kBlockN docs (production:
+  // fused::out_columns)
+  const int out_cols =
+      MODE == 3 ? (n / V::kBlockN) * kGuardOutLanes : fused::out_columns(MODE, n);
+  fused3_mma_kernel<kInt8, QT, MODE, V>
       <<<grid, (kMmaWarps + 1) * 32, smem, stream>>>(
-          dmap, qmap, rs, qs, b, d * elem, n_valid,
-          fused::out_columns(MODE, n), out, out1);
+          dmap, qmap, rs, qs, b, d * elem, n_valid, out_cols, out, out1);
   return cudaGetLastError();
 }
 

@@ -21,7 +21,7 @@ import tempfile
 import threading
 import time
 from pathlib import Path
-from typing import Iterator, Optional, Tuple
+from typing import Iterator, Mapping, Optional, Tuple
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD_ROOT = Path(__file__).resolve().parent.parent.parent / "build" / "svs_tpu_torch"
@@ -35,6 +35,9 @@ build_seconds = 0.0
 
 
 def _sources(csrc: Path) -> list[Path]:
+    """The sources of one library: the top level of ``csrc`` only (the
+    benchmark probes' sources in ``csrc/probes`` build a library of their
+    own, ``svs_tpu_torch.probes.common.library``)."""
     return sorted(
         p for p in csrc.iterdir() if p.suffix in (".cu", ".cuh")
     )
@@ -53,39 +56,68 @@ def _nvcc() -> str:
     )
 
 
-def library_path(csrc: Path = _CSRC) -> Path:
-    """Where the library of the sources in ``csrc`` lives (built or not)."""
+def _headers(include: Tuple[Path, ...]) -> list[Path]:
+    return [p for inc in include for p in _sources(inc) if p.suffix == ".cuh"]
+
+
+#: Per source file name, the ``-D`` flags of each of its translation units
+#: (a source absent from the mapping is one unit with none).
+Defines = Mapping[str, Tuple[Tuple[str, ...], ...]]
+
+
+def library_path(
+    csrc: Path = _CSRC, include: Tuple[Path, ...] = (), defines: Defines = {}
+) -> Path:
+    """Where the library of the sources in ``csrc`` lives (built or not);
+    the headers of the ``include`` directories count as its sources, the
+    ``defines`` of a source as part of it."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources(csrc):
+    for src in _sources(csrc) + _headers(include):
         h.update(src.name.encode())
         h.update(src.read_bytes())
+        for flags in defines.get(src.name, ()):
+            h.update(" ".join(flags).encode())
     return _BUILD_ROOT / h.hexdigest()[:16] / "libsvs_kernels.so"
 
 
-def _build(target: Path, csrc: Path) -> None:
+def _units(csrc: Path, defines: Defines) -> list[tuple[Path, Tuple[str, ...], str]]:
+    """``(source, -D flags, object stem)`` of each translation unit: one per
+    ``.cu`` file, or one per entry of its ``defines``."""
+    units = []
+    for src in _sources(csrc):
+        if src.suffix != ".cu":
+            continue
+        sets = defines.get(src.name, ((),))
+        for i, flags in enumerate(sets):
+            units.append((src, flags, src.stem if len(sets) == 1 else f"{src.stem}.{i}"))
+    return units
+
+
+def _build(target: Path, csrc: Path, *include: Path, defines: Defines = {}) -> None:
     global build_seconds
     target.parent.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
-    cu = [p for p in _sources(csrc) if p.suffix == ".cu"]
+    units = _units(csrc, defines)
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(
         prefix=".build-", dir=str(target.parent)
     ) as tmp:
-        objs = [str(Path(tmp) / f"{p.stem}.o") for p in cu]
+        objs = [str(Path(tmp) / f"{stem}.o") for _, _, stem in units]
         procs = [
             subprocess.Popen(
-                [nvcc, *NVCC_FLAGS, "-I", str(csrc), "-c", "-o", obj, str(src)],
+                [nvcc, *NVCC_FLAGS, *(f"-I{d}" for d in (csrc, *include)),
+                 *flags, "-c", "-o", obj, str(src)],
                 stdout=subprocess.PIPE,
                 stderr=subprocess.PIPE,
                 text=True,
             )
-            for src, obj in zip(cu, objs)
+            for (src, flags, _), obj in zip(units, objs)
         ]
         failed = []
-        for src, proc in zip(cu, procs):
+        for (src, flags, _), proc in zip(units, procs):
             out, err = proc.communicate()
             if proc.returncode != 0:
-                failed.append(f"== {src.name} ({proc.returncode})\n{out}{err}")
+                failed.append(f"== {src.name} {' '.join(flags)} ({proc.returncode})\n{out}{err}")
         if failed:
             raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
         so = str(Path(tmp) / "libsvs_kernels.so")
@@ -115,15 +147,20 @@ SIGNATURES = {
 }
 
 
-def build(csrc: Path = _CSRC) -> Path:
+def build(
+    csrc: Path = _CSRC, include: Tuple[Path, ...] = (), defines: Defines = {}
+) -> Path:
     """The library of the sources in ``csrc`` (the package's own, or the
-    same files from another tree), built first if needed: under an
-    exclusive ``fcntl`` lock on its build directory, re-checked once the
-    lock is held, so that processes starting together (the forked workers
-    of ``serve --workers``) share one build and the others wait for it."""
+    same files from another tree, or a subdirectory such as
+    ``csrc/probes`` whose sources include headers of ``include``; a source
+    named in ``defines`` compiles once per set of ``-D`` flags), built
+    first if needed: under an exclusive ``fcntl`` lock on its build
+    directory, re-checked once the lock is held, so that processes
+    starting together (the forked workers of ``serve --workers``) share
+    one build and the others wait for it."""
     import fcntl
 
-    path = library_path(csrc)
+    path = library_path(csrc, include, defines)
     if path.exists():
         return path
     path.parent.mkdir(parents=True, exist_ok=True)
@@ -131,17 +168,23 @@ def build(csrc: Path = _CSRC) -> Path:
         fcntl.flock(lock, fcntl.LOCK_EX)
         try:
             if not path.exists():
-                _build(path, csrc)
+                _build(path, csrc, *include, **({"defines": defines} if defines else {}))
         finally:
             fcntl.flock(lock, fcntl.LOCK_UN)
     return path
 
 
-def load(csrc: Path = _CSRC) -> ctypes.CDLL:
-    """The library of the sources in ``csrc``, built first if needed, with
-    every launcher of :data:`SIGNATURES` bound (a missing one raises)."""
-    lib = ctypes.CDLL(str(build(csrc)))
-    for name, (argtypes, restype) in SIGNATURES.items():
+def load(
+    csrc: Path = _CSRC,
+    include: Tuple[Path, ...] = (),
+    signatures: Optional[dict] = None,
+    defines: Defines = {},
+) -> ctypes.CDLL:
+    """The library of the sources in ``csrc`` (see :func:`build`), built
+    first if needed, with every launcher of ``signatures`` (default
+    :data:`SIGNATURES`) bound (a missing one raises)."""
+    lib = ctypes.CDLL(str(build(csrc, include, defines)))
+    for name, (argtypes, restype) in (SIGNATURES if signatures is None else signatures).items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = restype

@@ -8,9 +8,10 @@ and the trace export, with ``transformers``, ``flax``, ``msgpack`` and
 blocked; the local provider past BERT, ALBERT, BigBird, the decoders
 (Llama / Mistral / Gemma, GPT-2, GPT-Neo, GPT-J, BLOOM, XGLM) and the
 encoder-decoders (BART, mBART, Pegasus, Blenderbot, Blenderbot-small) included,
-with ``tokenizers``, ``sentencepiece`` and ``regex`` blocked too), never
-imports ``svs_tpu``,
-and refuses to fall back to the CPU when no device was named."""
+with ``tokenizers``, ``sentencepiece`` and ``regex`` blocked too; the
+benchmark probes, with ``benchmarks`` blocked too), never imports
+``svs_tpu``, and refuses to fall back to the CPU when no device was
+named (the ``KB`` and the probes' entry points)."""
 
 import subprocess
 import sys
@@ -640,6 +641,50 @@ _BLOCKED_PARALLEL = textwrap.dedent(
 )
 
 
+_BLOCKED_PROBES = textwrap.dedent(
+    """
+    import sys
+
+    BLOCKED = ("jax", "jaxlib", "networkx", "ml_dtypes", "aiohttp", "dotenv", "svs_tpu",
+               "benchmarks")
+
+    class Blocker:
+        def find_spec(self, name, path=None, target=None):
+            if name.split(".")[0] in BLOCKED:
+                raise ImportError(f"{name} is blocked in this test")
+            return None
+
+    sys.meta_path.insert(0, Blocker())
+
+    import numpy as np
+    import torch
+
+    import svs_tpu_torch.probes as probes
+    from svs_tpu_torch.probes import bf16_opt, common, int8_opt, select11
+
+    assert set(probes.launch_counts()) == {
+        "int8_opt.extract", "bf16_opt.extract", "select11.same_step",
+        "select11.deferred", "select11.floor"}
+    n, d = 2 * 8192, 128
+    docs, rs = common.synth_int8(n, d, "cpu")
+    qv = int8_opt.queries(common.unit_queries(16, d), "cpu")
+    tiles = int8_opt.extract(docs, qv["q"], qv["qs"], qv["qb"], qv["qq"], rs, n - 100, "v3", 128)
+    assert tiles.shape == (16, 2 * 128)
+    assert int8_opt.agreement(docs, rs, qv, n - 100) > 0.99
+    d16 = common.synth_bf16(n, 256, "cpu")
+    q16 = torch.from_numpy(common.unit_queries(16, 256)).to(torch.bfloat16)
+    assert bf16_opt.extract(d16, q16, n - 100, "v3", 128, 4096).shape == (16, 4 * 128)
+    both = select11.packed4096(d16, q16, n - 100, 40, True)
+    assert both.shape == (16, 2, 40) and torch.isfinite(both).all()
+    assert select11.floor(d16, q16, 8192).shape == (16, 2 * 128)
+    assert probes.launch_counts() == dict.fromkeys(probes.launch_counts(), 0)  # the CPU launches nothing
+    loaded = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
+    assert not loaded, loaded
+    print("ROUND_TRIP_OK")
+    """
+)
+
+
 def _run_blocked(script: str, tmp_path: Path) -> None:
     repo = Path(svs_tpu_torch.__file__).resolve().parent.parent
     proc = subprocess.run(
@@ -837,3 +882,24 @@ def test_kb_without_device_refuses_cpu(tmp_path):
             force_fresh_db=True,
         )
     assert not (tmp_path / "kb.sqlite").exists()
+
+
+def test_probes_without_jax_svs_tpu_or_benchmarks(tmp_path):
+    """Every module of ``svs_tpu_torch.probes`` imports with JAX,
+    ``svs_tpu`` and ``benchmarks`` blocked, and their plain versions run on
+    CPU tensors (no kernel launch counted)."""
+    _run_blocked(_BLOCKED_PROBES, tmp_path)
+
+
+def test_probe_entry_points_without_device_refuse_cpu():
+    """A probe's main and its data makers, with no card and no
+    ``device="cpu"``, raise instead of running on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the probes legitimately use it")
+    from svs_tpu_torch.probes import bf16_opt, common, int8_opt, select11
+
+    for main in (int8_opt.main, bf16_opt.main, select11.main):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            main([])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        common.synth_int8(8192, 128)

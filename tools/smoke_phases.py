@@ -7,13 +7,15 @@ the smoke runs it,
 with its launch counts set to 0 before it and read after;
 ``local_families`` runs on checkpoints written first
 (``chip_smoke.start_families``), their CPU runs beside the phases named
-before it.  The kernels are built from the checkout first.  Prints the card's name and power
+before it; ``probes`` runs the benchmark probes' phase (its library built
+at first use).  The kernels are built from the checkout first.  Prints the card's name and power
 limit, each phase's seconds and the total, and writes the phases' records
 to ``--json`` (default ``build/smoke_phases.json``).  A failing
 phase raises (exit code 1); no CUDA device: exit code 2.
 
     python3 tools/smoke_phases.py local_mistral local_gptj local_families
     python3 tools/smoke_phases.py local_blenderbot
+    python3 tools/smoke_phases.py probes
 """
 
 import argparse
@@ -40,13 +42,14 @@ def main() -> int:
         return 2
     import chip_smoke
     from svs_tpu_torch.ops import kernels
+    from svs_tpu_torch.probes.common import card_line
 
     work = ROOT / "build" / "smoke_phases"
     shutil.rmtree(work, ignore_errors=True)
     work.mkdir(parents=True)
     os.environ["SVS_TPU_AUTOCALIB"] = "0"
     os.environ["SVS_TPU_CALIB_CACHE"] = str(work / "dispatch.json")
-    print(chip_smoke.card_line(), flush=True)
+    print(card_line(), flush=True)
     t = time.perf_counter()
     kernels.library()
     print(f"kernels built in {time.perf_counter() - t:.1f} s", flush=True)
@@ -56,7 +59,9 @@ def main() -> int:
         families = chip_smoke.start_families(work) if "local_families" in args.phases else None
         for name in args.phases:
             t = time.perf_counter()
-            if name != "local_families":
+            if name == "probes":  # the benchmark probes: no work directory
+                chip_smoke.probes_phase(out)
+            elif name != "local_families":
                 getattr(chip_smoke, f"{name}_phase")(work, out)
             else:
                 chip_smoke.local_families_phase(work, out, families)
