@@ -29,12 +29,13 @@ from a seed:
 3. end-to-end phase: loads the native host library (``native_phase``:
    it must load; its build time, path and the host's thread counts),
    writes a 1M-doc SQLite store through the port's ``Tx``, runs the
-   ``probes`` phase (``probes_phase``: the benchmark probes P9, P8 and P7
-   of ``svs_tpu_torch.probes``, their library built beside the kernel
-   phase; every probe kernel against its plain version at a check shape,
-   then the three probes' cases at their own shapes, 1,015,808 x 1536,
-   as one path, the deferred tiles bitwise the same-step ones and P7's
-   candidates sound against a scan) and drives six
+   ``probes`` phase (``probes_phase``: the benchmark probes P9, P8, P7,
+   P6, P5 and P4 of ``svs_tpu_torch.probes``, their library built beside
+   the kernel phase; every probe kernel against its plain version at a
+   check shape, then the six probes' cases at their own shapes, 1,015,808
+   x 1536, as one path, the deferred tiles bitwise the same-step ones,
+   P4's ``hier`` bitwise ``current``, P7's and P6's candidates sound
+   against a scan, P6's also on a planted hot span) and drives six
    retrieval paths, each with the launch counts set to 0 just before it
    and read just after (a pack of 64 MB and more uploads in the
    background, so a ``KB``'s first call may take the host route; after it
@@ -6957,6 +6958,9 @@ PROBE_SOURCES = {
     "select11.same_step": "svs_tpu_torch/csrc/probes/select11_steps.cu",
     "select11.deferred": "svs_tpu_torch/csrc/probes/select11_deferred.cu",
     "select11.floor": "svs_tpu_torch/csrc/probes/select11_steps.cu",
+    "select10.extract": "svs_tpu_torch/csrc/probes/select10.cu",
+    "select9.extract": "svs_tpu_torch/csrc/probes/select9.cu",
+    "select8.extract": "svs_tpu_torch/csrc/probes/select8.cu",
 }
 SOURCES.update(PROBE_SOURCES)
 REPLACES.update({
@@ -6965,7 +6969,19 @@ REPLACES.update({
     "select11.same_step": "benchmarks/tpu_select11.py:105",
     "select11.deferred": "benchmarks/tpu_select11.py:145",
     "select11.floor": "benchmarks/tpu_select11.py:332",
+    "select10.extract": "benchmarks/tpu_select10.py:106",
+    "select9.extract": "benchmarks/tpu_select9.py:97",
+    "select8.extract": "benchmarks/tpu_select8.py:120",
 })
+#: The kernel body each case of P5 and P4 replaces, where it is not the
+#: wrapper's (``REPLACES``), and its source: P5's ``kern_v3`` / ``kern_mm``
+#: and P4's ``matmul`` run P8's instances, P4's ``current`` P5's ``v2``.
+PROBE_CASE_BODIES = {
+    ("select9.extract", "v3"): ("benchmarks/tpu_select9.py:56", "svs_tpu_torch/csrc/probes/bf16_opt.cu"),
+    ("select9.extract", "mm"): ("benchmarks/tpu_select9.py:135", "svs_tpu_torch/csrc/probes/bf16_opt.cu"),
+    ("select8.extract", "matmul"): ("benchmarks/tpu_select8.py:120", "svs_tpu_torch/csrc/probes/bf16_opt.cu"),
+    ("select8.extract", "current"): ("benchmarks/tpu_select8.py:120", "svs_tpu_torch/csrc/probes/select9.cu"),
+}
 
 
 def start_probe_build() -> dict:
@@ -6996,11 +7012,13 @@ def probe_checks(dev) -> dict:
     quantises them; P8 and P7 bit for bit on lattice rows, and on random
     unit rows each key within one grid step of the plain key at a grid edge
     (the floors' sums within ``SCORE_TOL``); the deferred tiles bit for bit
-    the same-step tiles on both.  Returns ``{case: {"err", "check_ms",
+    the same-step tiles on both; P5's, P4's and P6's keyed emits the same
+    way at their own grid, field and layout, P4's ``hier`` bit for bit
+    ``current``'s on both.  Returns ``{case: {"err", "check_ms",
     "plain_ms"}}``, the times at B = 256 (``PC.time_ms``)."""
     import torch
 
-    from svs_tpu_torch.probes import bf16_opt, int8_opt, select11
+    from svs_tpu_torch.probes import bf16_opt, int8_opt, select8, select9, select10, select11
     from svs_tpu_torch.probes import common as PC
 
     gen = torch.Generator(device=dev)
@@ -7084,18 +7102,54 @@ def probe_checks(dev) -> dict:
         log(f"  probes: P7 same-step, deferred (bitwise the same-step tiles) and the floors "
             f"at 8192 and 4096, B={b}: bit-identical on lattice rows, within a grid step "
             f"at an edge on random rows")
+        # P5, P4, P6: every wrapper's every variant, keyed at its own grid
+        keyed = [("select9.extract", v, select9.extract, select9.extract_plain,
+                  select9.V2 if v == "v2" else None) for v in select9.VARIANTS]
+        keyed += [("select8.extract", e, select8.extract, select8.extract_plain,
+                   select8.EMITS.get(e)) for e, _ in select8.CASES]
+        keyed += [("select10.extract", h, select10.extract, select10.extract_plain,
+                   select10.EMITS[h]) for h in select10.EMITS]
+        for data in (lat, rnd):
+            q = data["q"][:b].contiguous()
+            scores = None if data is lat else PC.chunked_scores(data["docs"], q, 128)
+            tiles = {}
+            for name, variant, fn, plain, emit in keyed:
+                args = (data["docs"], q, nv, variant)
+                got = fn(*args)
+                torch.cuda.synchronize()
+                ref = plain(*args)
+                what = f"{name.split('.')[0]} {variant} B={b}"
+                tiles[name, variant] = got
+                if data is lat:
+                    PC.check_same_bits(what + " lattice", got, ref)
+                    continue
+                if emit is None and variant == "v3":
+                    err = PC.check_keys_close(what, got, ref, scores, 8192, clip=False)
+                elif emit is None:  # the floors
+                    err = PC.check_close(what, got, ref)
+                else:
+                    err = emit.check_close(what, got, ref, scores)
+                note((name, variant), b, err, lambda a=args, f=fn: f(*a), lambda a=args, f=plain: f(*a))
+            PC.check_same_bits(f"P4 hier vs current B={b}", tiles["select8.extract", "hier"],
+                               tiles["select8.extract", "current"])
+        log(f"  probes: P5 v3 / v2 / mm, P4's six emits (hier bitwise current), P6 512/2 "
+            f"and 512/3, B={b}: bit-identical on lattice rows, within a grid step at an "
+            f"edge on random rows")
     return res
 
 
 def probes_phase(out: dict, build: Optional[dict] = None) -> None:
-    """The benchmark probes P9, P8 and P7 (``svs_tpu_torch.probes``): each
-    kernel held against its plain version at the check shape
-    (:func:`probe_checks`), then the path: the three probes' cases at
-    their own shapes (1,015,808 x 1536, B = 256; P7 also B = 32, 64, 128)
-    through the modules' entry points, the launch counts set to 0 just
-    before and read just after, P7's checks (deferred tiles equal to the
-    same-step ones, the candidates sound against an f32 scan) among them;
-    cuBLAS's product of the same operands beside the floors.  Every case
+    """The benchmark probes P9, P8, P7, P6, P5 and P4
+    (``svs_tpu_torch.probes``): each kernel held against its plain version
+    at the check shape (:func:`probe_checks`), then the path: the probes'
+    cases at their own shapes (1,015,808 x 1536, B = 256; P7 and P6 also B
+    = 32, 64, 128; P6's kernels also alone) through the modules' entry
+    points, the launch counts set to 0 just before and read just after,
+    the probes' checks (P7's deferred tiles equal to the same-step ones,
+    P4's hier keys equal to current's, P7's and P6's candidates sound
+    against an f32 scan, P6's on the random corpus and on a hot span
+    planted in place) among them; cuBLAS's product of the same operands
+    beside the floors.  Every case
     goes to ``out["kernel_records"]`` for the ``kernels`` line: ``ms`` at
     the probe's shape, ``plain_ms`` (and the kernel's own ``check_ms``) at
     the check shape, B = 256.  ``build``: the library's build, started by
@@ -7103,7 +7157,7 @@ def probes_phase(out: dict, build: Optional[dict] = None) -> None:
     import torch
 
     from svs_tpu_torch import probes
-    from svs_tpu_torch.probes import bf16_opt, int8_opt, select11
+    from svs_tpu_torch.probes import bf16_opt, int8_opt, select8, select9, select10, select11
     from svs_tpu_torch.probes import common as PC
 
     dev = torch.device("cuda")
@@ -7125,6 +7179,8 @@ def probes_phase(out: dict, build: Optional[dict] = None) -> None:
     n, d, b = PC.N, PC.D, PC.B
     nv = n - 100
 
+    p6_batches = (b, *select10.SMALL_BATCHES)
+
     def run():
         docs8, rs = PC.synth_int8(n, d, dev)
         qv = int8_opt.queries(PC.unit_queries(b, d), dev)
@@ -7145,6 +7201,21 @@ def probes_phase(out: dict, build: Optional[dict] = None) -> None:
             for kind, fn in (("same-step", select11.same_step), ("deferred", select11.deferred)):
                 res["p7_kernels"][f"{kind} b={bb}"] = PC.time_case(
                     lambda qb=qb, fn=fn: fn(docs16, qb, nv))
+        res["p5"] = select9.time_cases(docs16, q16, nv)
+        res["p4"] = select8.time_cases(docs16, q16, nv)
+        res["p4_hier_is_current"] = PC.same_bits(select8.extract(docs16, q16, nv, "hier"),
+                                                 select8.extract(docs16, q16, nv, "current"))
+        if not res["p4_hier_is_current"]:
+            raise AssertionError("P4: hier's keys differ from current's at the probe's shape")
+        qf, rng = select10.queries(b, d, dev)
+        res["p6_soundness"] = select10.check_soundness(docs16, qf, rng, nv, select10.K)
+        res["p6"] = select10.time_cases(docs16, qf, nv)
+        res["p6_kernels"] = {}  # the prototypes' kernels alone, no finish
+        for bb in p6_batches:
+            qb = q16[:bb].contiguous()
+            for h in select10.EMITS:
+                res["p6_kernels"][f"512/{h} b={bb}"] = PC.time_case(
+                    lambda qb=qb, h=h: select10.extract(docs16, qb, nv, h))
         res["library_bf16_ms"] = PC.time_ms(lambda: torch.matmul(q16, docs16.t()), KERNEL_REPS)
 
     probes.reset_launch_counts()
@@ -7162,6 +7233,9 @@ def probes_phase(out: dict, build: Optional[dict] = None) -> None:
     res["v3_v3dq_agreement_pct"] = res["v3_v3dq_agreement"] * 100
     log(f"  P9 v3 vs v3dq key agreement: {res['v3_v3dq_agreement_pct']:.4f}%")
     log("  P7: deferred tiles == same-step tiles (bitwise); candidates sound vs the f32 scan")
+    log("  P4: hier == current (bitwise) at the probe's shape")
+    for label, r in res["p6_soundness"].items():
+        log(f"  P6 {select10.sound_line(label, r)}")
 
     def int8_bound(cols):
         return bound(n * d + 4 * n + b * d + 12 * b + b * cols * 4, 2.0 * b * n * d, "int8")
@@ -7192,8 +7266,29 @@ def probes_phase(out: dict, build: Optional[dict] = None) -> None:
         timed.append((name, f"P7 {kind} kernel alone: bf16 {where}, B={b}",
                       (name, "v3", 128, 4096), res["p7_kernels"][f"{kind} b={b}"],
                       bf16_bound(b, (n // 4096) * 128), None, PROBE_SOURCES[name]))
+    for label, variant in select9.CASES:
+        if variant == "full":  # the kernel and a torch merge: logged, not a kernel's record
+            continue
+        replaces, source = PROBE_CASE_BODIES.get(("select9.extract", variant),
+                                                 (REPLACES["select9.extract"], PROBE_SOURCES["select9.extract"]))
+        timed.append(("select9.extract", f"P5 {label}: bf16 {where}, B={b}",
+                      ("select9.extract", variant), res["p5"][label], bf16_bound(b, (n // 8192) * 128),
+                      res["library_bf16_ms"] if variant == "mm" else None, source, replaces))
+    for label, emit in select8.CASES:
+        replaces, source = PROBE_CASE_BODIES.get(("select8.extract", emit),
+                                                 (REPLACES["select8.extract"], PROBE_SOURCES["select8.extract"]))
+        timed.append(("select8.extract", f"P4 {label}: bf16 {where}, B={b}",
+                      ("select8.extract", emit), res["p4"][label],
+                      bf16_bound(b, (n // 8192) * select8.out_lanes(emit)),
+                      res["library_bf16_ms"] if emit == "matmul" else None, source, replaces))
+    for bb in p6_batches:
+        for h in select10.EMITS:
+            timed.append(("select10.extract", f"P6 512/{h} kernel alone: bf16 {where}, B={bb}",
+                          ("select10.extract", h), res["p6_kernels"][f"512/{h} b={bb}"],
+                          bf16_bound(bb, (n // 8192) * 128), None,
+                          PROBE_SOURCES["select10.extract"], REPLACES["select10.extract"]))
     recs = out.setdefault("kernel_records", {})
-    for name, what, key, t, bnd, lib, source in timed:
+    for name, what, key, t, bnd, lib, source, *replaces in timed:
         chk = checks[key]
         recs.setdefault(name, []).append({
             "what": (f"{what}; device time, median of 5 windows of 20 launches "
@@ -7204,8 +7299,10 @@ def probes_phase(out: dict, build: Optional[dict] = None) -> None:
             "max_abs_err": chk["err"], "ms": t["ms"], "plain_ms": chk["plain_ms"],
             "check_ms": chk["check_ms"], "bound_ms": bnd[0], "bound_by": bnd[1],
             "library_ms": lib, "source": source,
+            **({"replaces": replaces[0]} if replaces else {}),
         })
-    for probe, key in (("P9", "p9"), ("P8", "p8"), ("P7", "p7"), ("P7 kernel alone", "p7_kernels")):
+    for probe, key in (("P9", "p9"), ("P8", "p8"), ("P7", "p7"), ("P7 kernel alone", "p7_kernels"),
+                       ("P5", "p5"), ("P4", "p4"), ("P6", "p6"), ("P6 kernel alone", "p6_kernels")):
         for label, t in res[key].items():
             log(f"  {probe} {label.strip()}: device {t['ms']:.4f} ms "
                 f"(spread {t['lo']:.4f}-{t['hi']:.4f})")
@@ -7290,7 +7387,7 @@ def main() -> int:
                 "name": name,
                 "route": "cuda",
                 "source": rec.get("source", SOURCES[name]),
-                "replaces": REPLACES[name],
+                "replaces": rec.get("replaces", REPLACES[name]),
                 "launches": None if e2e is None else e2e["launches"][name],
                 "max_abs_err": rec["max_abs_err"],
                 "ms": rec["ms"],

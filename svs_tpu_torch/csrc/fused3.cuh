@@ -72,8 +72,10 @@ __host__ __device__ constexpr int stage_bytes() {
 //   kEmitBlockMax the max score over each kBlockN-doc block to its lane 0
 //   (tpu_select11.py's blocked floor; the wrapper pre-fills lane 0 with
 //   -inf and the others with 0).
-// - kClip: the v3 key clips the score to [-3, 3] first (production,
-//   tpu_select11.py) or not (tpu_int8_opt.py, tpu_bf16_opt.py).
+// - kClip: the keyed emit (KeyedVariant) clips the score to [-3, 3] first
+//   (tpu_select11.py, tpu_select10.py) or not (tpu_int8_opt.py,
+//   tpu_bf16_opt.py, tpu_select9.py, tpu_select8.py); kEmitSelect's v3 key
+//   always clips (production), so a select variant sets it but for v3dq.
 // - kFoldQs (int8): the v3dq key floor((acc * rs + qb) * qq) * 1024 + lane,
 //   the query scale folded into per-query grid constants qb = KEY_BIAS / qs
 //   and qq = 4096 * qs, which the launch passes in place of qs ([2, b]: qb,
@@ -95,7 +97,8 @@ __host__ __device__ constexpr int stage_bytes() {
 //   f32 total with one round-to-nearest add, as the TPU adds a chunk's dot
 //   to its accumulator (production: one stage, 64 columns); int8 sums are
 //   exact int32 in any grouping.
-enum Emit { kEmitSelect = 0, kEmitFirstSums = 1, kEmitBlockMax = 2 };
+// kEmitKeys is the generalised keyed emit of KeyedVariant below.
+enum Emit { kEmitSelect = 0, kEmitFirstSums = 1, kEmitBlockMax = 2, kEmitKeys = 3 };
 
 template <int EMIT, bool CLIP, bool FOLD_QS, int BLOCK_N, int GROUP>
 struct Variant {
@@ -105,8 +108,59 @@ struct Variant {
   static constexpr int kBlockN = BLOCK_N;
   static constexpr int kGroup = GROUP;
   static_assert(BLOCK_N % 1024 == 0 && GROUP >= 1, "a variant's geometry");
+  // Lanes of one kBlockN-doc output tile; running-list words a query row
+  // (0: the mode's, Select<MODE>::kRun); whether the emit holds a whole
+  // 512-doc subtile (KeyedVariant's FOLD).
+  static constexpr int kTileLanes = kGuardOutLanes;
+  static constexpr int kRunWords = 0;
+  static constexpr bool kFold = false;
 };
 using Production = Variant<kEmitSelect, true, false, 8192, 1>;
+
+// The generalised keyed emit of the probes' key variants (tpu_select8.py,
+// tpu_select9.py, tpu_select10.py; the v3 emit of tpu_int8_opt.py,
+// tpu_bf16_opt.py and tpu_select11.py's same-step kernel, the only int8
+// one the first; bf16 otherwise): per SUB-doc subtile (128,
+// 256, 512 or 1024) the top H distinct keys floor((s' + KEY_BIAS) *
+// 2^QS_LOG2) * SUB + lane, s' the score clipped to [-3, 3] when CLIP,
+// KEY_DEAD past n_valid.  Subtile t of a BLOCK_N-doc block writes its keys
+// at lanes t * (H + PAD) + [0, H) of the block's tile; PAD lanes after
+// each subtile's keys stay KEY_DEAD (tpu_select8.py h8g1024's padding);
+// with GUARD, lane (BLOCK_N / SUB) * (H + PAD) (the guard lane) is the max
+// of the block's H-th keys; the tile is that many lanes rounded up to 128,
+// and the wrapper pre-fills it with KEY_DEAD.  A subtile within one
+// 256-doc chunk (SUB <= 256) is selected whole from the chunk's keys;
+// a wider one chunk by chunk, merged into its running list (select_chunk,
+// as the production v2 and v3).  FOLD (SUB = 512, tpu_select8.py's
+// "hier"): no chunked merge; the subtile's first chunk's keys wait in
+// shared memory, and after its second, one warp holds all 512 keys of a
+// query row and runs H passes of a fold of the four 128-lane quarters by
+// max, a max over the 128 folded lanes and a clear over the 512
+// (select_fold), half the query rows at a time (the second chunk's keys of
+// QT / 2 rows in KeyedVariant's extra shared memory).
+template <int SUB, int H, int QS_LOG2, bool CLIP, bool GUARD, int PAD,
+          bool FOLD, int BLOCK_N, int GROUP>
+struct KeyedVariant : Variant<kEmitKeys, CLIP, false, BLOCK_N, GROUP> {
+  static constexpr int kSub = SUB;
+  static constexpr int kH = H;
+  static constexpr float kQs = (float)(1 << QS_LOG2);
+  static constexpr bool kGuard = GUARD;
+  static constexpr int kStride = H + PAD;  // lanes of a subtile's keys
+  static constexpr int kKeysPb = BLOCK_N / SUB * kStride;  // the guard lane
+  static constexpr int kTileLanes =
+      (kKeysPb + (GUARD ? 1 : 0) + kGuardOutLanes - 1) / kGuardOutLanes *
+      kGuardOutLanes;
+  static constexpr int kPer = SUB > kChunkDocs ? SUB / kChunkDocs : 1;
+  static constexpr int kRunWords = H;
+  static constexpr bool kFold = FOLD;
+  static_assert(SUB == 128 || SUB == 256 || SUB == 512 || SUB == 1024,
+                "a subtile lines up with the 256-doc chunks");
+  static_assert(H >= 1 && H <= 8 && PAD >= 0, "a keyed emit's list");
+  static_assert(!FOLD || (SUB == 512 && H % 4 == 0),
+                "the fold holds one 512-doc subtile");
+  static_assert((H % 4 != 0) || (kStride % 4 == 0),
+                "16-byte stores of a subtile's keys");
+};
 
 // The emit of a mode: what a subtile is, its list length H, the words of
 // its running list per query row (kRun), its key and dead-lane marker.
@@ -142,13 +196,15 @@ struct Select<1> {  // v1: top-8 values + rows per 512-doc subtile
 // f32, the running lists [QT][RUN] (RUN = Select<MODE>::kRun words), the
 // mbarriers; plus the slack that aligns the ring to 1024 bytes (the
 // 128-byte swizzle's period).  At QT = 64 and RUN = 16 (v1) that is 190 KB
-// of the 227 KB a block may have.
-template <int QT, int PITCH, int RUN>
+// of the 227 KB a block may have.  EXTRA bytes after the mbarriers: a
+// KeyedVariant's with FOLD (QT / 2 more rows of keys; at QT = 64, 221 KB).
+template <int QT, int PITCH, int RUN, int EXTRA = 0>
 struct Smem {
   static constexpr int kKeys = kStages * stage_bytes<QT>();
   static constexpr int kRun = kKeys + QT * PITCH * 4;
   static constexpr int kBars = kRun + QT * RUN * 4;
-  static constexpr int kBytes = kBars + 2 * kStages * 8 + 1024;
+  static constexpr int kExtra = kBars + 2 * kStages * 8;
+  static constexpr int kBytes = kExtra + EXTRA + 1024;
   static_assert(kBytes <= 232448, "a block's shared memory");
 };
 
@@ -468,14 +524,6 @@ __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
-// The v3 key without the clip (tpu_int8_opt.py, tpu_bf16_opt.py):
-// floor((s + KEY_BIAS) * 4096) * 1024 + lane, every step rounded as written.
-__device__ __forceinline__ float v3_key_unclipped(float s, int lane) {
-  return __fadd_rn(
-      __fmul_rn(floorf(__fmul_rn(__fadd_rn(s, 1.0625f), 4096.0f)), 1024.0f),
-      (float)lane);
-}
-
 // The v3dq key of y = acc * rs (tpu_int8_opt.py): floor((y + qb) * qq) *
 // 1024 + lane, qb and qq the query's grid constants.
 __device__ __forceinline__ float v3dq_key(float y, float qb, float qq,
@@ -515,6 +563,157 @@ constexpr int kMmaTiles = kChunkDocs / 64 / (kMmaWarps / 4);
 // do not conflict.
 constexpr int kMmaPitch = kChunkDocs + 4;
 
+// The shared memory of a tensor-core block of mode MODE under variant V.
+template <int QT, int MODE, class V>
+using MmaSmem =
+    Smem<QT, kMmaPitch, V::kRunWords ? V::kRunWords : Select<MODE>::kRun,
+         V::kFold ? QT / 2 * kMmaPitch * 4 : 0>;
+
+// --- the generalised keyed emit (KeyedVariant) ------------------------------
+
+// floor((s' + KEY_BIAS) * 2^QS_LOG2) * SUB + lane, s' = clip(s, -3, 3)
+// under kClip, every step rounded as written (as v3_key).
+template <class V>
+__device__ __forceinline__ float keyed_key(float s, int lane) {
+  if constexpr (V::kClip) s = fminf(fmaxf(s, -3.0f), 3.0f);
+  return __fadd_rn(
+      __fmul_rn(floorf(__fmul_rn(__fadd_rn(s, 1.0625f), V::kQs)), (float)V::kSub),
+      (float)lane);
+}
+
+// The keys of the chunk's accumulators for query rows [QA, QB) of the tile
+// -> dst, row q at dst + (q - QA) * kMmaPitch (the accumulator layout of
+// fused3_mma_kernel; KEY_DEAD at and past n_valid).  The score: a bf16
+// sum as it is; an int8 one acc.astype(f32) * rs * qs, each product
+// rounded on its own (the rows' scales rs, the queries' qs).
+template <class V, int QA, int QB, int MT, int R, class Acc>
+__device__ __forceinline__ void keyed_store(float* dst,
+                                            const Acc (&acc)[MT][R],
+                                            const float* __restrict__ rs,
+                                            const float* __restrict__ qs,
+                                            int q0, int b, int chunk,
+                                            int doc_w, int lane, int doc0,
+                                            int n_valid) {
+  constexpr bool kInt8 = std::is_same<Acc, int>::value;
+  [[maybe_unused]] float qscale[(QB - QA) / 8][2];
+  if constexpr (kInt8) {
+#pragma unroll
+    for (int j = QA / 8; j < QB / 8; ++j)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int q = q0 + 8 * j + 2 * (lane & 3) + c;
+        qscale[j - QA / 8][c] = q < b ? qs[q] : 0.0f;
+      }
+  }
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int doc = doc_w + 64 * mt + 8 * h;
+      const int in_block = chunk * kChunkDocs + doc;  // in the 1024 docs
+      const bool live = doc0 + in_block < n_valid;
+      const int l = in_block & (V::kSub - 1);
+      const float r_scale = kInt8 ? rs[doc0 + in_block] : 0.0f;
+#pragma unroll
+      for (int j = QA / 8; j < QB / 8; ++j)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int q = 8 * j + 2 * (lane & 3) + c;
+          const Acc a = acc[mt][4 * j + 2 * h + c];
+          float sc;
+          if constexpr (kInt8) {
+            sc = __fmul_rn(__fmul_rn(__int2float_rn(a), r_scale),
+                           qscale[j - QA / 8][c]);
+          } else {
+            sc = a;
+          }
+          dst[(q - QA) * kMmaPitch + doc] = live ? keyed_key<V>(sc, l) : kKeyDead;
+        }
+    }
+}
+
+// tpu_select8.py's "hier" for one query row and one 512-doc subtile: lo
+// its first 256 keys, hi the rest.  Lane l holds positions l + 32 e, so
+// registers 4k..4k+3 are the subtile's 128-lane quarter k.  Each of H
+// passes folds the four quarters into 128 lanes by elementwise max,
+// reduces them to their max (the thread's 4, then one redux.sync across
+// the warp) and clears every one of the 512 keys equal to it: the H
+// largest distinct keys, current's keys bit for bit.  Lane 0 writes them
+// to out (16-byte aligned).
+template <int H>
+__device__ __forceinline__ void select_fold(const float* lo, const float* hi,
+                                            int lane, float* out) {
+  float v[16];
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    v[e] = lo[lane + 32 * e];
+    v[8 + e] = hi[lane + 32 * e];
+  }
+  float top[H];
+#pragma unroll
+  for (int h = 0; h < H; ++h) {
+    float f[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      f[i] = fmaxf(fmaxf(v[i], v[4 + i]), fmaxf(v[8 + i], v[12 + i]));
+    }
+    const float m =
+        fused::warp_max_redux(fmaxf(fmaxf(f[0], f[1]), fmaxf(f[2], f[3])));
+    top[h] = m;
+#pragma unroll
+    for (int e = 0; e < 16; ++e) {
+      if (v[e] == m) v[e] = kKeyDead;
+    }
+  }
+  if (lane == 0) {
+#pragma unroll
+    for (int h = 0; h < H; h += 4) {
+      reinterpret_cast<float4*>(out)[h / 4] =
+          make_float4(top[h], top[h + 1], top[h + 2], top[h + 3]);
+    }
+  }
+}
+
+// After the keys of query rows [QA, QB) are in shared memory: each warp
+// selects rows QA + warp, QA + warp + kMmaWarps, ... (below b) and writes
+// or merges their subtiles' keys (see KeyedVariant).  keys2: FOLD's second
+// chunk of rows [QA, QB).
+template <class V, int QA, int QB>
+__device__ __forceinline__ void keyed_select(const Block& s,
+                                             const float* keys2, int chunk,
+                                             int warp, int lane, int q0,
+                                             int b, int doc0, int out_cols,
+                                             float* __restrict__ out) {
+  constexpr int kPer = V::kPer;
+  const int in_block = doc0 % V::kBlockN;
+#pragma unroll 1
+  for (int q = QA + warp; q < QB && q0 + q < b; q += kMmaWarps) {
+    float* tile = out + (size_t)(q0 + q) * out_cols +
+                  (size_t)(doc0 / V::kBlockN) * V::kTileLanes;
+    float* guard = V::kGuard ? tile + V::kKeysPb : nullptr;
+    const float* keys = s.keys + q * kMmaPitch;
+    if constexpr (V::kFold) {
+      const int t = (in_block + chunk / 2 * V::kSub) / V::kSub;
+      select_fold<V::kH>(keys, keys2 + (q - QA) * kMmaPitch, lane,
+                         tile + t * V::kStride);
+    } else if constexpr (V::kSub <= kChunkDocs) {
+#pragma unroll
+      for (int u = 0; u < kChunkDocs / V::kSub; ++u) {
+        const int t = (in_block + chunk * kChunkDocs + u * V::kSub) / V::kSub;
+        fused::select_chunk<V::kSub, V::kH, V::kGuard>(
+            keys + u * V::kSub, s.run + q * V::kH, true, true, lane,
+            tile + t * V::kStride, guard);
+      }
+    } else {
+      const int part = chunk % kPer;
+      const int t = (in_block + chunk / kPer * V::kSub) / V::kSub;
+      fused::select_chunk<kChunkDocs, V::kH, V::kGuard>(
+          keys, s.run + q * V::kH, part == 0, part == kPer - 1, lane,
+          tile + t * V::kStride, guard);
+    }
+  }
+}
+
 // One block: kInt8 -> int8 docs and queries (s8 wgmma, exact int32 sums,
 // rescaled at the emit); else bf16 (bf16 wgmma, f32 sums).  Warpgroup g
 // owns docs 64 T g + [0, 64 T) of the chunk as T = kMmaTiles m64 tiles;
@@ -537,9 +736,12 @@ __global__ void __launch_bounds__((kMmaWarps + 1) * 32, 1)
   constexpr int G = V::kGroup;
   static_assert(std::is_same<V, Production>::value || MODE == 3,
                 "the variants are v3's");
+  static_assert(V::kEmit != kEmitSelect || V::kClip || V::kFoldQs,
+                "the mode's v3 key clips (the keyed emit may not)");
   using Acc = typename std::conditional<kInt8, int, float>::type;
   extern __shared__ unsigned char smem_raw[];
-  const Block s = block_smem<QT, kMmaPitch, Select<MODE>::kRun>(smem_raw);
+  const Block s = block_smem<QT, kMmaPitch,
+                             V::kRunWords ? V::kRunWords : Select<MODE>::kRun>(smem_raw);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int q0 = blockIdx.x * QT;
   const int doc0 = blockIdx.y * kV3SubDocs;
@@ -685,6 +887,36 @@ __global__ void __launch_bounds__((kMmaWarps + 1) * 32, 1)
             bmax[j][r & 1] = fmaxf(bmax[j][r & 1], acc_f32(a));
           }
       continue;
+    } else if constexpr (V::kEmit == kEmitKeys) {
+      // the keys of the chunk -> shared memory (after every warp's last
+      // read of the previous chunk's), then the selection (KeyedVariant)
+      consumers_sync<kMmaWarps>();
+      if constexpr (!V::kFold) {
+        keyed_store<V, 0, QT>(s.keys, acc, rs, qs, q0, b, chunk, doc_w, lane,
+                              doc0, n_valid);
+        consumers_sync<kMmaWarps>();
+        keyed_select<V, 0, QT>(s, nullptr, chunk, warp, lane, q0, b, doc0,
+                               out_cols, out);
+      } else if (chunk % 2 == 0) {
+        // the subtile's first 256 keys wait in s.keys for its second chunk
+        keyed_store<V, 0, QT>(s.keys, acc, rs, qs, q0, b, chunk, doc_w, lane,
+                              doc0, n_valid);
+      } else {
+        // its last 256, QT / 2 query rows at a time in the extra memory
+        // after the mbarriers
+        float* keys2 = reinterpret_cast<float*>(s.empty + kStages);
+        keyed_store<V, 0, QT / 2>(keys2, acc, rs, qs, q0, b, chunk, doc_w, lane,
+                                  doc0, n_valid);
+        consumers_sync<kMmaWarps>();
+        keyed_select<V, 0, QT / 2>(s, keys2, chunk, warp, lane, q0, b, doc0,
+                                   out_cols, out);
+        consumers_sync<kMmaWarps>();
+        keyed_store<V, QT / 2, QT>(keys2, acc, rs, qs, q0, b, chunk, doc_w,
+                                   lane, doc0, n_valid);
+        consumers_sync<kMmaWarps>();
+        keyed_select<V, QT / 2, QT>(s, keys2, chunk, warp, lane, q0, b, doc0,
+                                    out_cols, out);
+      }
     } else {
       // keys of the chunk -> shared memory (after every warp's last read of
       // the previous chunk's keys)
@@ -729,9 +961,6 @@ __global__ void __launch_bounds__((kMmaWarps + 1) * 32, 1)
                 const int l = pos.lane0 + doc;
                 key = l < pos.live ? v3dq_key(sc, qscale[j][c], qgrid[j][c], l)
                                    : kKeyDead;
-              } else if constexpr (MODE == 3 && !V::kClip) {
-                const int l = pos.lane0 + doc;
-                key = l < pos.live ? v3_key_unclipped(sc, l) : kKeyDead;
               } else {
                 key = pos.key(sc, doc);
               }
@@ -885,7 +1114,7 @@ inline cudaError_t launch_mma_tile(const void* q, const float* qs,
   CUtensorMap dmap, qmap;
   cudaError_t err = tile_map(&dmap, docs, type, elem, n, d, kChunkDocs);
   if (err == cudaSuccess) err = tile_map(&qmap, q, type, elem, b, d, QT);
-  constexpr int smem = Smem<QT, kMmaPitch, Select<MODE>::kRun>::kBytes;
+  constexpr int smem = MmaSmem<QT, MODE, V>::kBytes;
   if (err == cudaSuccess) {
     err = cudaFuncSetAttribute(fused3_mma_kernel<kInt8, QT, MODE, V>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -893,10 +1122,10 @@ inline cudaError_t launch_mma_tile(const void* q, const float* qs,
   }
   if (err != cudaSuccess) return err;
   const dim3 grid((b + QT - 1) / QT, n / kV3SubDocs);
-  // a v3 row holds 128 lanes per output tile of kBlockN docs (production:
-  // fused::out_columns)
+  // a v3 row holds kTileLanes (production: 128) lanes per output tile of
+  // kBlockN docs (production: fused::out_columns)
   const int out_cols =
-      MODE == 3 ? (n / V::kBlockN) * kGuardOutLanes : fused::out_columns(MODE, n);
+      MODE == 3 ? (n / V::kBlockN) * V::kTileLanes : fused::out_columns(MODE, n);
   fused3_mma_kernel<kInt8, QT, MODE, V>
       <<<grid, (kMmaWarps + 1) * 32, smem, stream>>>(
           dmap, qmap, rs, qs, b, d * elem, n_valid, out_cols, out, out1);

@@ -165,7 +165,8 @@ __device__ __forceinline__ void pop_head(float (&l)[H]) {
 // One warp, one query row: the top-H distinct keys of a chunk of kDocs keys
 // (sc, contiguous), merged with the running top-H of the subtile's earlier
 // chunks (run, shared memory; not read for the first chunk).  The last
-// chunk of the subtile writes its H keys to out (16-byte aligned) and,
+// chunk of the subtile writes its H keys to out (16-byte aligned when H is
+// a multiple of 4) and,
 // with kGuard (v3), folds its tail into the block's guard lane with an
 // atomic max (order-independent, so deterministic; the wrapper pre-fills
 // the output with KEY_DEAD); the others leave the merged list in run.
@@ -220,10 +221,15 @@ __device__ __forceinline__ void select_chunk(const float* sc, float* run,
   __syncwarp();  // every lane has read run before lane 0 rewrites it
   if (lane != 0) return;
   if (last) {
+    if constexpr (H % 4 == 0) {
 #pragma unroll
-    for (int h = 0; h < H; h += 4) {
-      reinterpret_cast<float4*>(out)[h / 4] =
-          make_float4(merged[h], merged[h + 1], merged[h + 2], merged[h + 3]);
+      for (int h = 0; h < H; h += 4) {
+        reinterpret_cast<float4*>(out)[h / 4] =
+            make_float4(merged[h], merged[h + 1], merged[h + 2], merged[h + 3]);
+      }
+    } else {  // the probes' H of 2, 3 and 6 (any alignment)
+#pragma unroll
+      for (int h = 0; h < H; ++h) out[h] = merged[h];
     }
     if constexpr (kGuard) atomic_max_float(guard, merged[H - 1]);
   } else {

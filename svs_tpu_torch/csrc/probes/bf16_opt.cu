@@ -1,7 +1,7 @@
 // P8 (benchmarks/tpu_bf16_opt.py, make_kern's kern :42) at the output
-// block PROBE_BLOCK_N (8192 or 4096 docs): mm and v3 without the clip,
-// contraction chunk 128 (2 stages of 64 columns per wgmma run) or 256 (4
-// stages).  Compiled once per block (probes.cuh).
+// block PROBE_BLOCK_N (8192 or 4096 docs): mm and v3 without the clip (the
+// keyed v3 emit, V3Keys), contraction chunk 128 (2 stages of 64 columns
+// per wgmma run) or 256 (4 stages).  Compiled once per block (probes.cuh).
 #include "probes.cuh"
 
 #ifndef PROBE_BLOCK_N
@@ -22,7 +22,7 @@ cudaError_t bf16_variant(int variant, const void* q, const void* docs, int b,
       return launch_tile<false, Variant<kEmitFirstSums, false, false, BLOCK_N, GROUP>>(
           q, nullptr, docs, nullptr, b, n, d, n_valid, out, st);
     case 1:
-      return launch_tile<false, Variant<kEmitSelect, false, false, BLOCK_N, GROUP>>(
+      return launch_tile<false, V3Keys<false, BLOCK_N, GROUP>>(
           q, nullptr, docs, nullptr, b, n, d, n_valid, out, st);
     default:
       return cudaErrorInvalidValue;

@@ -1,7 +1,8 @@
 // P9 (benchmarks/tpu_int8_opt.py, make_kern's kern :48): mm, v3 without
-// the clip and v3dq, at the contraction chunk PROBE_GROUP gives (128-byte
-// stages per wgmma run: 1 = chunk 128, the production grouping; 2 = chunk
-// 256).  Compiled once per group (probes.cuh).
+// the clip (the keyed v3 emit, V3Keys) and v3dq, at the contraction chunk
+// PROBE_GROUP gives (128-byte stages per wgmma run: 1 = chunk 128, the
+// production grouping; 2 = chunk 256).  Compiled once per group
+// (probes.cuh).
 #include "probes.cuh"
 
 #ifndef PROBE_GROUP
@@ -20,7 +21,7 @@ cudaError_t int8_opt(int variant, const void* q, const float* qs,
       return launch_tile<true, Variant<kEmitFirstSums, false, false, 8192, GROUP>>(
           q, qs, docs, rs, b, n, d, n_valid, out, st);
     case 1:
-      return launch_tile<true, Variant<kEmitSelect, false, false, 8192, GROUP>>(
+      return launch_tile<true, V3Keys<false, 8192, GROUP>>(
           q, qs, docs, rs, b, n, d, n_valid, out, st);
     case 2:
       return launch_tile<true, Variant<kEmitSelect, false, true, 8192, GROUP>>(

@@ -1,9 +1,11 @@
 // The C interface of the probes' library (svs_tpu_torch/probes/common.py
 // binds it).  Each launcher returns a cudaError_t as int.  Outputs are
-// [b, (n / block_n) * 128] f32 tiles; the caller pre-fills them: KEY_DEAD
-// for the keyed variants (each subtile's 4 keys are written, its tail
-// folded into the guard lane with an atomic max), 0 with -inf in lane 0 of
-// every tile for the blocked floor, nothing for mm (every lane written).
+// [b, (n / block_n) * lanes] f32 tiles (lanes 128 but for svs_probe_keyed's
+// h6g128 and h8g256, 384 and 256); the caller pre-fills them: KEY_DEAD for
+// the keyed variants (each subtile's keys are written, a guarded one's
+// tail folded into the guard lane with an atomic max, padding and the
+// lanes past the guard left), 0 with -inf in lane 0 of every tile for the
+// blocked floor, nothing for mm (every lane written).
 // Requires 0 < b <= 256, n a multiple of the block, d a multiple of the
 // contraction chunk, 16-byte aligned operands.
 #include "probes.cuh"
@@ -87,6 +89,35 @@ extern "C" int svs_probe_select11(int kind, int block_n, const void* q,
                                                  st);
     case 2:
       return (int)svs::probes::select11_floor(blk, q, docs, b, n, d, o, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// P5, P4, P6: the keyed emits at 8192-doc blocks, bf16, d a multiple of 128
+// columns.  variant 0 = P5's v2 / P4's current, 1-4 = P4's hier, h6g128,
+// h8g256, h8g1024, 5 / 6 = P6's 512-doc guarded prototypes at H = 2 / 3.
+extern "C" int svs_probe_keyed(int variant, const void* q, const void* docs,
+                               int b, int n, int d, int n_valid, void* out,
+                               void* stream) {
+  if (!shape_ok(b, n, d, 8192) || d % 128 != 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  float* o = static_cast<float*>(out);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (variant) {
+    case 0:
+      return (int)svs::probes::select9_v2(q, docs, b, n, d, n_valid, o, st);
+    case 1:
+    case 2:
+    case 3:
+    case 4:
+      return (int)svs::probes::select8_emit(variant, q, docs, b, n, d, n_valid,
+                                            o, st);
+    case 5:
+    case 6:
+      return (int)svs::probes::select10_guarded(variant - 3, q, docs, b, n, d,
+                                                n_valid, o, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -1,16 +1,19 @@
 // The benchmark probes' kernels (svs_tpu_torch/probes): the port of the
 // Pallas probe bodies of benchmarks/tpu_int8_opt.py (P9), tpu_bf16_opt.py
-// (P8) and tpu_select11.py (P7).  They build into a library of their own
+// (P8), tpu_select11.py (P7), tpu_select10.py (P6), tpu_select9.py (P5)
+// and tpu_select8.py (P4).  They build into a library of their own
 // (svs_tpu_torch.probes.common.library), never into the production one.
 //
 // Every probe but the deferred emit is an instance of the production v3
 // core (../fused3.cuh, fused3_mma_kernel) under a Variant: the same TMA
 // ring, the same wgmma product, the same 1024-doc x QT-query blocks.  What a
-// variant switches is the emit (the v3 keys with or without the clip, v3dq,
-// or a floor with no keys), the docs of an output tile (kBlockN) and the
-// k-span of one run of asynchronous wgmma (kGroup, the TPU's contraction
-// chunk).  Each file instantiates a few of them, so that the nvcc runs of
-// the library's build share the work.
+// variant switches is the emit (v3dq, a floor with no keys, or the
+// generalised keyed emit of KeyedVariant: subtile width, list length, key
+// grid, clip, guard, padding, the "hier" fold; v3's keys among them),
+// the docs of an output tile (kBlockN) and the k-span of one run of
+// asynchronous wgmma (kGroup, the TPU's contraction chunk).  Each file
+// instantiates a few of them, so that the nvcc runs of the library's build
+// share the work.
 #pragma once
 
 #include "fused3.cuh"
@@ -22,6 +25,12 @@ using fused3::kEmitBlockMax;
 using fused3::kEmitFirstSums;
 using fused3::kEmitSelect;
 using fused3::Variant;
+
+// The v3 emit as a keyed one: the top 4 keys per 1024-doc subtile at 2^12,
+// the guard after the block's keys; without the clip (P9, P8) or with it
+// (P7's same-step kernel, as production).
+template <bool CLIP, int BLOCK_N, int GROUP>
+using V3Keys = fused3::KeyedVariant<1024, 4, 12, CLIP, true, 0, false, BLOCK_N, GROUP>;
 
 // The stages of one wgmma run for a contraction chunk of `chunk` elements
 // of `elem` bytes (128-byte stages).
@@ -71,6 +80,20 @@ cudaError_t select11_floor(int block_n, const void* q, const void* docs, int b,
                            int n, int d, float* out, cudaStream_t st);
 cudaError_t select11_deferred(const void* q, const void* docs, int b, int n,
                               int d, int n_valid, float* out, cudaStream_t st);
+// The keyed emits (KeyedVariant), bf16 at the scripts' contraction chunk of
+// 128 columns (2 stages a wgmma run) and 8192-doc blocks.  P5's v2 (top-8
+// per 512 docs at 2^13, no guard), which is also P4's "current":
+cudaError_t select9_v2(const void* q, const void* docs, int b, int n, int d,
+                       int n_valid, float* out, cudaStream_t st);
+// P4's other keyed emits: 1 = hier, 2 = h6g128, 3 = h8g256, 4 = h8g1024.
+cudaError_t select8_emit(int emit, const void* q, const void* docs, int b,
+                         int n, int d, int n_valid, float* out,
+                         cudaStream_t st);
+// P6's guarded prototypes: top-h (2 or 3) per 512 docs at 2^13, the score
+// clipped, the guard after the block's keys.
+cudaError_t select10_guarded(int h, const void* q, const void* docs, int b,
+                             int n, int d, int n_valid, float* out,
+                             cudaStream_t st);
 
 }  // namespace probes
 }  // namespace svs

@@ -65,6 +65,18 @@ def extract(docs, q, n_valid: int, variant: str, chunk: int, block_n: int) -> to
         raise ValueError(f"{variant!r}, chunk {chunk}, block {block_n}: not a case of the probe")
     if not docs.is_cuda:
         return extract_plain(docs, q, n_valid, variant, chunk, block_n)
+    out = launch(docs, q, n_valid, variant, chunk, block_n)
+    extract.launches += 1  # type: ignore[attr-defined]
+    return out
+
+
+extract.launches = 0  # type: ignore[attr-defined]
+
+
+def launch(docs, q, n_valid: int, variant: str, chunk: int, block_n: int) -> torch.Tensor:
+    """The launch of P8's kernel behind :func:`extract` (CUDA tensors; no
+    count): also P5's ``kern_v3`` / ``kern_mm`` and P4's ``matmul``, which
+    compute P8's ``v3`` and ``mm128`` (their wrappers count their own)."""
     n, d = docs.shape
     b = q.shape[0]
     C.check_operand(docs, torch.bfloat16, (n, d), "docs")
@@ -81,11 +93,7 @@ def extract(docs, q, n_valid: int, variant: str, chunk: int, block_n: int) -> to
         VARIANTS[variant], chunk, block_n, q.data_ptr(), docs.data_ptr(), b, n, d,
         int(n_valid), out.data_ptr(),
     )
-    extract.launches += 1  # type: ignore[attr-defined]
     return out
-
-
-extract.launches = 0  # type: ignore[attr-defined]
 
 
 def time_cases(docs, q, n_valid: int, windows: int = 5, launches: int = 20) -> dict:

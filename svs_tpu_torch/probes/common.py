@@ -1,8 +1,9 @@
 """What the probes share: the constants of the Pallas probes (copied here:
 the package imports nothing of ``benchmarks/`` or ``svs_tpu``), their
-sin-hash corpus and query quantisation, the v3 tile layout and its plain
-emit, the probes' kernel library, a device timer and the checks of a
-kernel against its plain version."""
+sin-hash corpus and query quantisation, the keyed tile layout (v3's by
+default; any subtile width, list length, key grid, padding and guard) with
+its plain emit, key decode and merge, the probes' kernel library, a device
+timer and the checks of a kernel against its plain version."""
 
 from __future__ import annotations
 
@@ -12,6 +13,7 @@ import subprocess
 import sys
 import threading
 import time
+from dataclasses import dataclass
 from pathlib import Path
 from typing import Callable, Optional
 
@@ -25,12 +27,21 @@ from ..ops.pallas_extract import _extract_keys, _live_lanes
 KEY_BIAS = 1.0625
 #: Dead-lane marker, below every live key (``KEY_DEAD``).
 KEY_DEAD = -float(1 << 24)
-#: v3: 1024-doc subtiles, 4 keys each, a 2^12 score grid.
+#: v3: 1024-doc subtiles, 4 keys each, a 2^12 score grid (the defaults of
+#: the keyed helpers below).
 SUBTILE = 1024
 H = 4
 QS3 = float(1 << 12)
-#: Lanes of one output tile: the keys, the guard lane, then dead padding.
+#: v2's (and the other probes'): a 2^13 score grid.
+QS2 = float(1 << 13)
+#: Lanes of a v3 output tile: the keys, the guard lane, then dead padding
+#: (a keyed tile is its keys and guard rounded up to a multiple of this).
 OUT_LANES = 128
+#: The output block and contraction chunk of every keyed emit of
+#: ``svs_probe_keyed`` (the ``KeyedVariant`` instances of
+#: ``csrc/probes/select8.cu``, ``select9.cu``, ``select10.cu``).
+KEYED_BLOCK_N = 8192
+KEYED_CHUNK = 128
 #: The probes' corpus and batch (``N, D, B`` of the three scripts).
 N, D, B = 1_015_808, 1536, 256
 #: A float kernel's keys may sit one grid step from the plain version's
@@ -52,6 +63,7 @@ SIGNATURES = {
     "svs_probe_int8": ([_i, _i, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _vp, _vp], _i),
     "svs_probe_bf16": ([_i, _i, _i, _vp, _vp, _i, _i, _i, _i, _vp, _vp], _i),
     "svs_probe_select11": ([_i, _i, _vp, _vp, _i, _i, _i, _i, _vp, _vp], _i),
+    "svs_probe_keyed": ([_i, _vp, _vp, _i, _i, _i, _i, _vp, _vp], _i),
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -175,47 +187,159 @@ def quantize_queries(qf: np.ndarray) -> dict:
     }
 
 
-# --- the v3 tile layout and its plain emit --------------------------------
+# --- the keyed tile layout and its plain emit ------------------------------
 
 
-def tile_cols(n: int, block_n: int) -> int:
-    return (n // block_n) * OUT_LANES
+def tile_lanes(block_n: int = 8192, sub: int = SUBTILE, h: int = H, guard: bool = True,
+               pad: int = 0) -> int:
+    """Lanes of one ``block_n``-doc output tile of a keyed emit: ``h`` keys
+    and ``pad`` dead lanes per ``sub``-doc subtile, then the guard lane,
+    rounded up to a multiple of 128 (v3: 128)."""
+    keyed = (block_n // sub) * (h + pad) + int(guard)
+    return -(-keyed // OUT_LANES) * OUT_LANES
 
 
-def v3_tiles(keys: torch.Tensor, n_valid: int, block_n: int) -> torch.Tensor:
-    """The v3 emit of a probe on keys ``[B, N]`` (``floor(...) * 1024 +
+def tile_cols(n: int, block_n: int, lanes: int = OUT_LANES) -> int:
+    return (n // block_n) * lanes
+
+
+def fold_keys(keys: torch.Tensor, h: int, dead: float = KEY_DEAD) -> torch.Tensor:
+    """``tpu_select8.py``'s "hier" over the last axis (512 keys): ``h``
+    passes of a fold of the 128-lane quarters by elementwise max, a max
+    over the 128 folded lanes and a clear of every key equal to it (the
+    keys of :func:`_extract_keys`, by another road)."""
+    out = []
+    for _ in range(h):
+        folded = keys.unflatten(-1, (-1, OUT_LANES)).amax(dim=-2)
+        mkey = folded.amax(dim=-1, keepdim=True)
+        out.append(mkey)
+        keys = torch.where(keys == mkey, dead, keys)
+    return torch.cat(out, dim=-1)
+
+
+def v3_tiles(keys: torch.Tensor, n_valid: int, block_n: int, sub: int = SUBTILE,
+             h: int = H, guard: bool = True, pad: int = 0, fold: bool = False) -> torch.Tensor:
+    """The keyed emit of a probe on keys ``[B, N]`` (``floor(...) * sub +
     lane``, computed as the probe computes them): lanes at or past
-    ``n_valid`` dead, then per 1024-doc subtile ``H`` rounds of max and
-    clear every equal key, at lanes ``s * 4 + h`` of the subtile's
-    ``block_n``-doc tile; the guard lane (after the keys) the max of the
-    subtiles' 4th keys; the other lanes ``KEY_DEAD`` (the Pallas probes
-    leave them unwritten)."""
+    ``n_valid`` dead, then per ``sub``-doc subtile ``h`` rounds of max and
+    clear every equal key (``fold``: :func:`fold_keys`), at lanes ``s *
+    (h + pad) + i`` of the subtile's ``block_n``-doc tile; with ``guard``
+    the lane after the keys the max of the subtiles' ``h``-th keys; the
+    other lanes ``KEY_DEAD`` (the Pallas probes leave some unwritten).  The
+    defaults: v3's (1024-doc subtiles, 4 keys, a guard)."""
     b, n = keys.shape
-    nb, nsub = n // block_n, block_n // SUBTILE
-    live = _live_lanes(n, SUBTILE, n_valid, keys.device)
-    lane = torch.arange(SUBTILE, device=keys.device).to(torch.float32)
-    k = torch.where(lane < live[:, None], keys.view(b, n // SUBTILE, SUBTILE), KEY_DEAD)
-    ext = _extract_keys(k, H).view(b, nb, nsub, H)
-    out = torch.full((b, nb, OUT_LANES), KEY_DEAD, dtype=torch.float32, device=keys.device)
-    out[:, :, : nsub * H] = ext.reshape(b, nb, nsub * H)
-    out[:, :, nsub * H] = ext[..., H - 1].amax(dim=2)
-    return out.view(b, nb * OUT_LANES)
+    nb, nsub = n // block_n, block_n // sub
+    stride = h + pad
+    live = _live_lanes(n, sub, n_valid, keys.device)
+    lane = torch.arange(sub, device=keys.device).to(torch.float32)
+    k = torch.where(lane < live[:, None], keys.view(b, n // sub, sub), KEY_DEAD)
+    ext = (fold_keys if fold else _extract_keys)(k, h).view(b, nb, nsub, h)
+    keyed = torch.full((b, nb, nsub, stride), KEY_DEAD, dtype=torch.float32, device=keys.device)
+    keyed[..., :h] = ext
+    out = torch.full((b, nb, tile_lanes(block_n, sub, h, guard, pad)), KEY_DEAD,
+                     dtype=torch.float32, device=keys.device)
+    out[:, :, : nsub * stride] = keyed.view(b, nb, nsub * stride)
+    if guard:
+        out[:, :, nsub * stride] = ext[..., h - 1].amax(dim=2)
+    return out.view(b, -1)
 
 
-def grid_keys(x: torch.Tensor) -> torch.Tensor:
-    """``floor(x) * 1024 + lane`` over the subtiles of ``x`` ``[B, N]``
-    (``x`` already on the 2^12 grid's scale)."""
+def grid_keys(x: torch.Tensor, sub: int = SUBTILE) -> torch.Tensor:
+    """``floor(x) * sub + lane`` over the ``sub``-doc subtiles of ``x`` ``[B,
+    N]`` (``x`` already on the grid's scale)."""
     b, n = x.shape
-    lane = torch.arange(SUBTILE, device=x.device).to(torch.float32)
-    return (torch.floor(x).view(b, n // SUBTILE, SUBTILE) * float(SUBTILE) + lane).view(b, n)
+    lane = torch.arange(sub, device=x.device).to(torch.float32)
+    return (torch.floor(x).view(b, n // sub, sub) * float(sub) + lane).view(b, n)
 
 
-def v3_keys(scores: torch.Tensor, clip: bool) -> torch.Tensor:
-    """``floor((s + KEY_BIAS) * QS3) * 1024 + lane``, the score clipped to
-    [-3, 3] first when ``clip`` (``tpu_select11.py:81-85``) and not
-    otherwise (``tpu_int8_opt.py:85-88``, ``tpu_bf16_opt.py:70-74``)."""
+def v3_keys(scores: torch.Tensor, clip: bool, qs: float = QS3, sub: int = SUBTILE) -> torch.Tensor:
+    """``floor((s + KEY_BIAS) * qs) * sub + lane``, the score clipped to
+    [-3, 3] first when ``clip`` (``tpu_select11.py:81-85``,
+    ``tpu_select10.py:92-96``) and not otherwise (``tpu_int8_opt.py:85-88``,
+    ``tpu_bf16_opt.py:70-74``, ``tpu_select9.py``, ``tpu_select8.py``)."""
     s = torch.clamp(scores, -3.0, 3.0) if clip else scores
-    return grid_keys((s + KEY_BIAS) * QS3)
+    return grid_keys((s + KEY_BIAS) * qs, sub)
+
+
+def key_vals(keys: torch.Tensor, sub: int = SUBTILE, qs: float = QS3) -> torch.Tensor:
+    """The score level of packed keys: ``(key // sub) / qs - KEY_BIAS``
+    (``tpu_select10.py:171``, ``tpu_select9.py:183``)."""
+    vq = torch.div(keys.to(torch.int32), sub, rounding_mode="floor")
+    return vq.to(torch.float32) / qs - KEY_BIAS
+
+
+def top_keys(out: torch.Tensor, c: int, block_n: int, sub: int = SUBTILE, h: int = H,
+             qs: float = QS3) -> tuple:
+    """The probes' merge of guarded tiles (``out`` ``[B, nb * lanes]``):
+    the top ``c`` keys of the key lanes in ``lax.top_k``'s order, their
+    levels, their rows (block, subtile, lane), and the level of the
+    tiles' largest guard.  Returns ``(keys, vals, rows, guard)``."""
+    from ..ops.topk import top_k
+
+    b = out.shape[0]
+    keys_pb = (block_n // sub) * h
+    o3 = out.view(b, -1, tile_lanes(block_n, sub, h))
+    sel, cols = top_k(o3[:, :, :keys_pb].reshape(b, -1), c)
+    ki = sel.to(torch.int32)
+    lane = ki - torch.div(ki, sub, rounding_mode="floor") * sub
+    jb = torch.div(cols, keys_pb, rounding_mode="floor")
+    s = torch.div(cols - jb * keys_pb, h, rounding_mode="floor")
+    rows = jb * block_n + s * sub + lane
+    guard = key_vals(o3[:, :, keys_pb].amax(dim=1), sub, qs)
+    return sel, key_vals(sel, sub, qs), rows, guard
+
+
+@dataclass(frozen=True)
+class Keyed:
+    """One keyed emit of ``svs_probe_keyed`` (``csrc/probes/probes.cu``:
+    ``fused3::KeyedVariant``, bf16 at ``KEYED_CHUNK`` and ``KEYED_BLOCK_N``,
+    which the kernel fixes): the launcher's ``variant`` and the tile layout
+    its plain version writes (``v3_tiles``' arguments)."""
+
+    variant: int
+    sub: int
+    h: int
+    qs: float = QS2
+    clip: bool = False
+    guard: bool = False
+    pad: int = 0
+    fold: bool = False
+
+    @property
+    def lanes(self) -> int:
+        return tile_lanes(KEYED_BLOCK_N, self.sub, self.h, self.guard, self.pad)
+
+    def plain(self, docs, q, n_valid: int) -> torch.Tensor:
+        """The plain version: the chunked f32 sum, the keys, the tiles."""
+        acc = chunked_scores(docs, q, KEYED_CHUNK)
+        return v3_tiles(v3_keys(acc, self.clip, self.qs, self.sub), n_valid, KEYED_BLOCK_N,
+                        self.sub, self.h, self.guard, self.pad, self.fold)
+
+    def launch(self, docs, q, n_valid: int, what: str) -> torch.Tensor:
+        """One launch of the kernel on CUDA tensors (the wrapper counts it):
+        tiles ``[B, (N / 8192) * lanes]``, pre-filled with ``KEY_DEAD``
+        where the kernel leaves lanes (guard, padding)."""
+        n, d = docs.shape
+        b = q.shape[0]
+        check_operand(docs, torch.bfloat16, (n, d), "docs")
+        check_operand(q, torch.bfloat16, (b, d), "queries")
+        if not (0 < b <= 256 and n % KEYED_BLOCK_N == 0 and d % KEYED_CHUNK == 0
+                and 0 <= n_valid <= n):
+            raise ValueError(f"{what} needs 0 < b <= 256, n % {KEYED_BLOCK_N} == 0, "
+                             f"d % {KEYED_CHUNK} == 0; got {b}, {n}, {d}")
+        shape = (b, tile_cols(n, KEYED_BLOCK_N, self.lanes))
+        if self.lanes > (KEYED_BLOCK_N // self.sub) * self.h:  # a guard, padding
+            out = torch.full(shape, KEY_DEAD, dtype=torch.float32, device=docs.device)
+        else:  # every lane written
+            out = torch.empty(shape, dtype=torch.float32, device=docs.device)
+        launch("svs_probe_keyed", what, docs.device, self.variant, q.data_ptr(), docs.data_ptr(),
+               b, n, d, int(n_valid), out.data_ptr())
+        return out
+
+    def check_close(self, name: str, got, ref, scores) -> float:
+        """:func:`check_keys_close` at this emit's grid and layout."""
+        return check_keys_close(name, got, ref, scores, KEYED_BLOCK_N, self.clip, sub=self.sub,
+                                h=self.h, qs=self.qs, guard=self.guard, pad=self.pad)
 
 
 def first_sums(acc: torch.Tensor, block_n: int) -> torch.Tensor:
@@ -353,40 +477,52 @@ def check_keys_close(
     block_n: int,
     clip: bool,
     tol: float = SCORE_TOL,
+    sub: int = SUBTILE,
+    h: int = H,
+    qs: float = QS3,
+    guard: bool = True,
+    pad: int = 0,
 ) -> float:
-    """v3 tiles of a float kernel on random data against the plain
-    version's: the dead lanes equal, the guard lane the max of the
-    kernel's own subtile tails, and every key within one grid step of the
-    plain key, its level within ``tol`` of the plain score of the doc it
-    names (so a key moves only at a grid edge).  Returns the largest gap
-    between a plain score and its key level's interval."""
+    """Keyed tiles of a float kernel on random data against the plain
+    version's (v3's by default): the dead and padding lanes equal, the
+    guard lane the max of the kernel's own subtile tails, and every key
+    within one grid step of the plain key, its level within ``tol`` of the
+    plain score of the doc it names (so a key moves only at a grid edge).
+    Returns the largest gap between a plain score and its key level's
+    interval."""
     b = got.shape[0]
-    nsub = block_n // SUBTILE
-    nk = nsub * H
-    nb = got.shape[1] // OUT_LANES
-    g3, r3 = got.view(b, nb, OUT_LANES), ref.view(b, nb, OUT_LANES)
-    if not torch.equal(g3[:, :, nk + 1 :], r3[:, :, nk + 1 :]):
+    nsub = block_n // sub
+    nk = nsub * (h + pad)
+    lanes = tile_lanes(block_n, sub, h, guard, pad)
+    nb = got.shape[1] // lanes
+    g3, r3 = got.view(b, nb, lanes), ref.view(b, nb, lanes)
+    if not torch.equal(g3[:, :, nk + int(guard):], r3[:, :, nk + int(guard):]):
         raise AssertionError(f"{name}: dead lanes differ")
-    if not torch.equal(g3[:, :, nk], g3[:, :, H - 1 : nk : H].amax(dim=2)):
+    g4 = g3[:, :, :nk].reshape(b, nb, nsub, h + pad)
+    r4 = r3[:, :, :nk].reshape(b, nb, nsub, h + pad)
+    if not torch.equal(g4[..., h:], r4[..., h:]):
+        raise AssertionError(f"{name}: padding lanes differ")
+    if guard and not torch.equal(g3[:, :, nk], g4[..., h - 1].amax(dim=2)):
         raise AssertionError(f"{name}: the guard lane is not the max of its tails")
-    gk, rk = g3[:, :, :nk].reshape(b, -1), r3[:, :, :nk].reshape(b, -1)
+    gk, rk = g4[..., :h].reshape(b, -1), r4[..., :h].reshape(b, -1)
     dead = gk == KEY_DEAD
     if not torch.equal(dead, rk == KEY_DEAD):
         raise AssertionError(f"{name}: dead keys differ")
-    col = torch.arange(nb * nk, device=got.device)
-    base = (col // nk) * block_n + ((col % nk) // H) * SUBTILE
+    nkh = nsub * h
+    col = torch.arange(nb * nkh, device=got.device)
+    base = (col // nkh) * block_n + ((col % nkh) // h) * sub
     gi, ri = gk.long(), rk.long()
-    lg = torch.div(gi, SUBTILE, rounding_mode="floor")
-    lr = torch.div(ri, SUBTILE, rounding_mode="floor")
-    doc = (base[None, :] + gi - lg * SUBTILE).clamp(0, scores.shape[1] - 1)
+    lg = torch.div(gi, sub, rounding_mode="floor")
+    lr = torch.div(ri, sub, rounding_mode="floor")
+    doc = (base[None, :] + gi - lg * sub).clamp(0, scores.shape[1] - 1)
     s = scores.gather(1, doc).double()
     if clip:
         s = s.clamp(-3.0, 3.0)
-    x = (s + KEY_BIAS) * QS3
-    lo, hi = torch.floor(x - tol * QS3), torch.floor(x + tol * QS3)
+    x = (s + KEY_BIAS) * qs
+    lo, hi = torch.floor(x - tol * qs), torch.floor(x + tol * qs)
     ok = ((lg - lr).abs() <= 1) & (lg.double() >= lo) & (lg.double() <= hi)
-    level = lg.double() / QS3 - KEY_BIAS
-    gap = torch.clamp(torch.maximum(level - s, s - (level + 1.0 / QS3)), min=0.0)
+    level = lg.double() / qs - KEY_BIAS
+    gap = torch.clamp(torch.maximum(level - s, s - (level + 1.0 / qs)), min=0.0)
     need = float(gap[~dead].max()) if bool((~dead).any()) else 0.0
     if not bool(ok[~dead].all()):
         raise AssertionError(

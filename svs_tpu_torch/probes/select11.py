@@ -40,7 +40,7 @@ import sys
 import torch
 
 from ..ops.pallas_extract import score_topk_fused3_packed
-from ..ops.topk import scores_matmul, top_k
+from ..ops.topk import scores_matmul
 from . import common as C
 
 BLK = 4096
@@ -138,11 +138,6 @@ def extract4096(docs, q, n_valid: int, deferred_emit: bool) -> torch.Tensor:
     return (deferred if deferred_emit else same_step)(docs, q, n_valid)
 
 
-def _key_vals(keys: torch.Tensor) -> torch.Tensor:
-    vq = torch.div(keys.to(torch.int32), C.SUBTILE, rounding_mode="floor")
-    return vq.to(torch.float32) / C.QS3 - C.KEY_BIAS
-
-
 def packed4096(docs, q, n_valid: int, c: int, deferred_emit: bool) -> torch.Tensor:
     """The probe's candidate path on the 4096-block tiles
     (``tpu_select11.py:280-301``): the top ``c`` keys, their values and
@@ -150,19 +145,8 @@ def packed4096(docs, q, n_valid: int, c: int, deferred_emit: bool) -> torch.Tens
     once the keys run dead) folded into the last value.  Returns ``[B, 2,
     c]``: values, then rows as f32."""
     out = extract4096(docs, q, n_valid, deferred_emit)
-    b = out.shape[0]
-    nb = out.shape[1] // C.OUT_LANES
-    o3 = out.view(b, nb, C.OUT_LANES)
-    keys = o3[:, :, :KEYS_PB].reshape(b, nb * KEYS_PB)
-    sel, cols = top_k(keys, c)
-    ki = sel.to(torch.int32)
-    lane = ki - torch.div(ki, C.SUBTILE, rounding_mode="floor") * C.SUBTILE
-    vals = _key_vals(sel)
-    jb = torch.div(cols, KEYS_PB, rounding_mode="floor")
-    s = torch.div(cols - jb * KEYS_PB, C.H, rounding_mode="floor")
-    rows = jb * BLK + s * C.SUBTILE + lane
-    guard = o3[:, :, KEYS_PB].amax(dim=1)
-    bound = torch.maximum(_key_vals(guard), vals[:, -1])
+    sel, vals, rows, guard = C.top_keys(out, c, BLK)
+    bound = torch.maximum(guard, vals[:, -1])
     bound = torch.where(sel[:, -1] <= C.KEY_DEAD, float("inf"), bound)
     vals = torch.cat([vals[:, :-1], torch.maximum(vals[:, -1:], bound[:, None])], dim=1)
     return torch.stack([vals, rows.to(torch.float32)], dim=1)

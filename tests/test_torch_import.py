@@ -660,11 +660,12 @@ _BLOCKED_PROBES = textwrap.dedent(
     import torch
 
     import svs_tpu_torch.probes as probes
-    from svs_tpu_torch.probes import bf16_opt, common, int8_opt, select11
+    from svs_tpu_torch.probes import bf16_opt, common, int8_opt, select8, select9, select10, select11
 
     assert set(probes.launch_counts()) == {
         "int8_opt.extract", "bf16_opt.extract", "select11.same_step",
-        "select11.deferred", "select11.floor"}
+        "select11.deferred", "select11.floor", "select10.extract", "select9.extract",
+        "select8.extract"}
     n, d = 2 * 8192, 128
     docs, rs = common.synth_int8(n, d, "cpu")
     qv = int8_opt.queries(common.unit_queries(16, d), "cpu")
@@ -677,6 +678,13 @@ _BLOCKED_PROBES = textwrap.dedent(
     both = select11.packed4096(d16, q16, n - 100, 40, True)
     assert both.shape == (16, 2, 40) and torch.isfinite(both).all()
     assert select11.floor(d16, q16, 8192).shape == (16, 2 * 128)
+    assert select9.extract(d16, q16, n - 100, "v2").shape == (16, 2 * 128)
+    assert torch.isfinite(select9.full_v3(d16, q16, n - 100, 40)[2]).all()
+    assert select8.extract(d16, q16, n - 100, "h6g128").shape == (16, 2 * 384)
+    assert torch.equal(select8.extract(d16, q16, n - 100, "hier"),
+                       select8.extract(d16, q16, n - 100, "current"))
+    both = select10.packed(d16, q16[:5].float(), n - 100, 40, 3)
+    assert both.shape == (5, 2, 40) and torch.isfinite(both).all()
     assert probes.launch_counts() == dict.fromkeys(probes.launch_counts(), 0)  # the CPU launches nothing
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
     assert not loaded, loaded
@@ -896,9 +904,10 @@ def test_probe_entry_points_without_device_refuse_cpu():
     ``device="cpu"``, raise instead of running on the CPU."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the probes legitimately use it")
-    from svs_tpu_torch.probes import bf16_opt, common, int8_opt, select11
+    from svs_tpu_torch.probes import bf16_opt, common, int8_opt, select8, select9, select10, select11
 
-    for main in (int8_opt.main, bf16_opt.main, select11.main):
+    for main in (int8_opt.main, bf16_opt.main, select11.main, select10.main, select9.main,
+                 select8.main):
         with pytest.raises(RuntimeError, match="CUDA"):
             main([])
     with pytest.raises(RuntimeError, match="CUDA"):

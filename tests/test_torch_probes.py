@@ -20,10 +20,6 @@ partial sum is exact, and within one grid step at a grid edge on random
 unit rows.
 """
 
-import importlib.util
-import os
-from pathlib import Path
-
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -34,10 +30,10 @@ from jax.experimental.pallas import tpu as pltpu
 
 from svs_tpu_torch.probes import bf16_opt, int8_opt, select11
 from svs_tpu_torch.probes import common as C
+from torch_probe_helpers import bits, lattice_rows, load_script, unit_rows, written
 
 torch.set_num_threads(2)
 
-ROOT = Path(__file__).resolve().parent.parent
 N = 3 * 8192  # three 8,192-doc blocks, six of 4,096
 D = 256
 B = 16
@@ -50,60 +46,19 @@ D7 = 640
 N7_VALID = N7 - 100
 
 
-def _load(name: str, **env):
-    saved = {k: os.environ.get(k) for k in env}
-    os.environ.update(env)
-    try:
-        spec = importlib.util.spec_from_file_location(f"probe_{name}", ROOT / "benchmarks" / f"{name}.py")
-        mod = importlib.util.module_from_spec(spec)
-        spec.loader.exec_module(mod)
-    finally:
-        for k, v in saved.items():
-            if v is None:
-                os.environ.pop(k, None)
-            else:
-                os.environ[k] = v
-    return mod
-
-
 @pytest.fixture(scope="module")
 def p9():
-    return _load("tpu_int8_opt")
+    return load_script("tpu_int8_opt")
 
 
 @pytest.fixture(scope="module")
 def p8():
-    return _load("tpu_bf16_opt")
+    return load_script("tpu_bf16_opt")
 
 
 @pytest.fixture(scope="module")
 def p7():
-    return _load("tpu_select11", SVS_SELECT11_SMOKE="1")
-
-
-def _bits(a) -> np.ndarray:
-    return np.ascontiguousarray(np.asarray(a, dtype=np.float32)).view(np.int32)
-
-
-def _unit_rows(rng, n: int, d: int) -> np.ndarray:
-    m = rng.standard_normal((n, d)).astype(np.float32)
-    return m / np.linalg.norm(m, axis=1, keepdims=True)
-
-
-def _lattice_rows(rng, n: int, d: int) -> np.ndarray:
-    """Entries m * 2^-7, m in [-4, 4]: exact in bf16, every partial sum of a
-    dot an exact f32 number, so every order of summation agrees."""
-    return rng.integers(-4, 5, (n, d)).astype(np.float32) / 128.0
-
-
-def _written(tiles: np.ndarray, nk: int) -> np.ndarray:
-    """The lanes a v3 probe writes (``nk`` keys and the guard), the others
-    KEY_DEAD as the port fills them."""
-    b = tiles.shape[0]
-    t3 = np.asarray(tiles, dtype=np.float32).reshape(b, -1, C.OUT_LANES)
-    out = np.full_like(t3, C.KEY_DEAD)
-    out[:, :, : nk + 1] = t3[:, :, : nk + 1]
-    return out.reshape(b, -1)
+    return load_script("tpu_select11", SVS_SELECT11_SMOKE="1")
 
 
 # --- P9: int8 -------------------------------------------------------------
@@ -112,8 +67,8 @@ def _written(tiles: np.ndarray, nk: int) -> np.ndarray:
 @pytest.fixture(scope="module")
 def int8_data():
     rng = np.random.default_rng(2109)
-    docs, rs = C.quantize_docs(torch.from_numpy(_unit_rows(rng, N, D)))
-    qz = C.quantize_queries(_unit_rows(rng, B, D))
+    docs, rs = C.quantize_docs(torch.from_numpy(unit_rows(rng, N, D)))
+    qz = C.quantize_queries(unit_rows(rng, B, D))
     return {"docs": docs.numpy(), "rs": rs.numpy(), **qz}
 
 
@@ -189,11 +144,11 @@ def test_p9_plain_matches_pallas(p9, int8_data, variant, chunk):
     got = _p9_port(int8_data, variant, chunk)
     assert got.shape == ref.shape
     if variant == "mm":
-        np.testing.assert_array_equal(_bits(got), _bits(ref))
+        np.testing.assert_array_equal(bits(got), bits(ref))
         return
     nk = 8 * C.H
-    ref = _written(ref, nk)
-    diff = np.argwhere(_bits(ref) != _bits(got))
+    ref = written(ref, nk)
+    diff = np.argwhere(bits(ref) != bits(got))
     subtiles = sorted({(r, (c // C.OUT_LANES) * 8 + (c % C.OUT_LANES) // C.H)
                        for r, c in diff if c % C.OUT_LANES < nk})
     assert len(subtiles) <= 4, f"{len(subtiles)} subtiles differ"
@@ -222,8 +177,8 @@ def test_p9_v3dq_agreement_as_the_probe_reports_it(p9, int8_data):
     qv = {"q": t["qi"], "qs": t["qs"], "qb": t["qb"], "qq": t["qq"]}
     got = int8_opt.agreement(t["docs"], t["rs"], qv, N_VALID)
     nk = 8 * C.H
-    a = _written(_p9_pallas(p9, int8_data, "v3", 128), nk).reshape(B, -1, C.OUT_LANES)[:, :, : nk + 1]
-    bq = _written(_p9_pallas(p9, int8_data, "v3dq", 128), nk).reshape(B, -1, C.OUT_LANES)[:, :, : nk + 1]
+    a = written(_p9_pallas(p9, int8_data, "v3", 128), nk).reshape(B, -1, C.OUT_LANES)[:, :, : nk + 1]
+    bq = written(_p9_pallas(p9, int8_data, "v3dq", 128), nk).reshape(B, -1, C.OUT_LANES)[:, :, : nk + 1]
     ref = float(np.mean(a == bq))
     assert 0.99 <= got <= 1.0
     assert abs(got - ref) <= 8 / a.size
@@ -236,7 +191,7 @@ def test_p9_v3dq_agreement_as_the_probe_reports_it(p9, int8_data):
 def bf16_data():
     rng = np.random.default_rng(2108)
     out = {}
-    for kind, make in (("lattice", _lattice_rows), ("random", _unit_rows)):
+    for kind, make in (("lattice", lattice_rows), ("random", unit_rows)):
         docs = jnp.asarray(make(rng, N, D)).astype(jnp.bfloat16)
         q = jnp.asarray(make(rng, B, D)).astype(jnp.bfloat16)
         out[kind] = {
@@ -277,9 +232,9 @@ def test_p8_plain_matches_pallas(p8, bf16_data, variant, chunk, block_n, data):
     assert got.shape == ref.shape
     nk = (block_n // C.SUBTILE) * C.H
     if variant == "v3":
-        ref = _written(ref, nk)
+        ref = written(ref, nk)
     if data == "lattice":
-        np.testing.assert_array_equal(_bits(got), _bits(ref))
+        np.testing.assert_array_equal(bits(got), bits(ref))
     elif variant == "mm":
         np.testing.assert_allclose(got, ref, rtol=0, atol=C.SCORE_TOL)
     else:
@@ -294,7 +249,7 @@ def test_p8_plain_matches_pallas(p8, bf16_data, variant, chunk, block_n, data):
 def p7_data():
     rng = np.random.default_rng(2107)
     out = {}
-    for kind, make in (("lattice", _lattice_rows), ("random", _unit_rows)):
+    for kind, make in (("lattice", lattice_rows), ("random", unit_rows)):
         docs = jnp.asarray(make(rng, N7, D7)).astype(jnp.bfloat16)
         q = jnp.asarray(make(rng, B, D7)).astype(jnp.bfloat16)
         out[kind] = {
@@ -316,9 +271,9 @@ def test_p7_emit_matches_pallas(p7, p7_data, deferred_emit, data):
     docs_t, q_t = p7_data[data]["torch"]
     ref = np.asarray(p7.extract4096(docs_j, q_j, jnp.int32(N7_VALID), deferred_emit))
     got = select11.extract4096(docs_t, q_t, N7_VALID, deferred_emit)
-    np.testing.assert_array_equal(_bits(got.numpy()), _bits(select11.extract4096(docs_t, q_t, N7_VALID, not deferred_emit).numpy()))
+    np.testing.assert_array_equal(bits(got.numpy()), bits(select11.extract4096(docs_t, q_t, N7_VALID, not deferred_emit).numpy()))
     if data == "lattice":
-        np.testing.assert_array_equal(_bits(got.numpy()), _bits(ref))
+        np.testing.assert_array_equal(bits(got.numpy()), bits(ref))
     else:
         scores = C.chunked_scores(docs_t, q_t, select11.DIM_CHUNK)
         C.check_keys_close("P7", torch.from_numpy(ref), got, scores, select11.BLK, clip=True)
@@ -333,7 +288,7 @@ def test_p7_floor_matches_pallas(p7, p7_data, block_n, data):
     got = select11.floor(docs_t, q_t, block_n).numpy()
     assert got.shape == ref.shape
     if data == "lattice":
-        np.testing.assert_array_equal(_bits(got), _bits(ref))
+        np.testing.assert_array_equal(bits(got), bits(ref))
     else:
         np.testing.assert_allclose(got, ref, rtol=0, atol=C.SCORE_TOL)
 
@@ -347,7 +302,7 @@ def test_p7_packed4096_decode_and_bound_match(p7, p7_data, deferred_emit):
     c = 50
     ref = np.asarray(p7.packed4096(docs_j, q_j, jnp.int32(N7_VALID), c, deferred_emit))
     got = select11.packed4096(docs_t, q_t, N7_VALID, c, deferred_emit).numpy()
-    np.testing.assert_array_equal(_bits(got), _bits(ref))
+    np.testing.assert_array_equal(bits(got), bits(ref))
 
 
 def test_p7_candidates_sound_against_the_scan(p7_data):
